@@ -1,0 +1,236 @@
+"""ctypes binding for the native host front end and stitch.
+
+The C++ sources are the JAX package's ``subword_tokenizers_tpu/_native/
+{pretok,chunker,stitch,encode_prep}.cpp``, read by path (that package is
+never imported). They are compiled with g++ once per source change into
+this package's ``_native/build/``. Without g++ the first call raises:
+the port has no slower host path to fall back to.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import platform
+import subprocess
+import sysconfig
+import tempfile
+from typing import Optional
+
+import numpy as np
+
+_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+SRC_DIR = os.path.join(_ROOT, "subword_tokenizers_tpu", "_native")
+_SRCS = [os.path.join(SRC_DIR, name) for name in
+         ("pretok.cpp", "chunker.cpp", "stitch.cpp", "encode_prep.cpp")]
+BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+_FLAGS = ["-O3", "-march=native", "-pthread", "-shared", "-fPIC",
+          "-std=c++17"]
+
+_lib: Optional[ctypes.CDLL] = None
+_tables = {}
+_stitch_fn = None
+_stitch_flat_fn = None
+_prep_fn = None
+
+
+def _so_path() -> str:
+    digest = hashlib.sha256()
+    for src in _SRCS:
+        with open(src, "rb") as f:
+            digest.update(f.read())
+    # -march=native bakes in the host's ISA: key on the host too.
+    digest.update(platform.machine().encode())
+    digest.update(platform.processor().encode())
+    digest.update(" ".join(_FLAGS).encode())
+    return os.path.join(BUILD_DIR, f"native-{digest.hexdigest()[:16]}.so")
+
+
+def _build(so_path: str) -> None:
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    # Build into a temp file, then rename: concurrent builds are safe.
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        cmd = ["g++", *_FLAGS, f"-I{sysconfig.get_paths()['include']}",
+               *_SRCS, "-o", tmp]
+        try:
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+        except FileNotFoundError as e:
+            raise RuntimeError(
+                "g++ is needed to build the native front end") from e
+        if proc.returncode != 0:
+            raise RuntimeError(f"g++ failed ({proc.returncode}):\n"
+                               f"{proc.stderr[-4000:]}")
+        os.replace(tmp, so_path)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+
+
+def load() -> ctypes.CDLL:
+    """Build (once) and load the native library; raises if it cannot."""
+    global _lib, _stitch_fn, _stitch_flat_fn, _prep_fn
+    if _lib is not None:
+        return _lib
+    so_path = _so_path()
+    if not os.path.exists(so_path):
+        _build(so_path)
+    lib = ctypes.CDLL(so_path)
+    i64 = ctypes.c_int64
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    u32p = ctypes.POINTER(ctypes.c_uint32)
+    i64p = ctypes.POINTER(ctypes.c_int64)
+    i32p = ctypes.POINTER(ctypes.c_int32)
+    lib.swt_chunk_unique.restype = i64
+    lib.swt_chunk_unique.argtypes = [u32p, i64, u8p, i32p, i64p, i64p,
+                                     i32p, i64p]
+    lib.swt_pack_u16.restype = None
+    lib.swt_pack_u16.argtypes = [u32p, i64p, i32p, i64, i64, i32p, u8p,
+                                 u8p, ctypes.POINTER(ctypes.c_uint16)]
+    # These build or read Python objects: PYFUNCTYPE keeps the GIL held.
+    _stitch_fn = ctypes.PYFUNCTYPE(
+        ctypes.py_object, ctypes.py_object, ctypes.py_object, i32p, i32p,
+        i64, i64, i32p, i64p, i64)(("swt_stitch", lib))
+    _stitch_flat_fn = ctypes.PYFUNCTYPE(
+        ctypes.py_object, ctypes.py_object, ctypes.py_object, i32p, i64p,
+        i32p, i64, i32p, i64p, i64)(("swt_stitch_flat", lib))
+    _prep_fn = ctypes.PYFUNCTYPE(
+        i64, ctypes.py_object, u32p, u8p, u8p, i64, i32p, i64p, u32p,
+        i32p, i64p)(("swt_encode_prep_mt", lib))
+    from ..frontend.charclass import LOWER, LOWER_SPECIAL, PUNC_PY, WS_PY
+    _tables.update(
+        ws_py=np.ascontiguousarray(np.packbits(WS_PY)),
+        punc_py=np.ascontiguousarray(np.packbits(PUNC_PY)),
+        lower_special=np.ascontiguousarray(np.packbits(LOWER_SPECIAL)),
+        lower=np.ascontiguousarray(LOWER, dtype=np.uint32))
+    _lib = lib
+    return lib
+
+
+def _ptr(a: np.ndarray, ctype):
+    return a.ctypes.data_as(ctypes.POINTER(ctype))
+
+
+def chunk_unique(cps: np.ndarray):
+    """Whitespace-chunk split + content dedup in one native pass.
+
+    Returns (inverse i32[C], chunk_start i64[C], uniq_start i64[U],
+    uniq_len i32[U]) over the Python-isspace class.
+    """
+    lib = load()
+    cps = np.ascontiguousarray(cps, dtype=np.uint32)
+    n = cps.shape[0]
+    cap = max(n // 2 + 2, 4)
+    inverse = np.empty(cap, dtype=np.int32)
+    chunk_start = np.empty(cap, dtype=np.int64)
+    uniq_start = np.empty(cap, dtype=np.int64)
+    uniq_len = np.empty(cap, dtype=np.int32)
+    n_chunks = np.zeros(1, dtype=np.int64)
+    n_uniq = lib.swt_chunk_unique(
+        _ptr(cps, ctypes.c_uint32), n, _ptr(_tables["ws_py"], ctypes.c_uint8),
+        _ptr(inverse, ctypes.c_int32), _ptr(chunk_start, ctypes.c_int64),
+        _ptr(uniq_start, ctypes.c_int64), _ptr(uniq_len, ctypes.c_int32),
+        _ptr(n_chunks, ctypes.c_int64))
+    c = int(n_chunks[0])
+    return (inverse[:c], chunk_start[:c], uniq_start[:n_uniq],
+            uniq_len[:n_uniq])
+
+
+def stitch(strings: list, out_ids: np.ndarray, out_n: np.ndarray,
+           inverse: np.ndarray, bounds: np.ndarray) -> list:
+    """Token-id matrix -> list-of-list-of-str in one native pass.
+
+    ``strings``: id -> token string; ``out_ids`` i32[U, W] with
+    ``out_n`` i32[U] valid counts; ``inverse`` i32[C] chunk -> unique row;
+    ``bounds`` i64[S+1] chunk ranges per sentence.
+    """
+    load()
+    out_ids = np.ascontiguousarray(out_ids, dtype=np.int32)
+    out_n = np.ascontiguousarray(out_n, dtype=np.int32)
+    inverse = np.ascontiguousarray(inverse, dtype=np.int32)
+    bounds = np.ascontiguousarray(bounds, dtype=np.int64)
+    U, W = out_ids.shape
+    return _stitch_fn(strings, None, _ptr(out_ids, ctypes.c_int32),
+                      _ptr(out_n, ctypes.c_int32), U, W,
+                      _ptr(inverse, ctypes.c_int32),
+                      _ptr(bounds, ctypes.c_int64), bounds.shape[0] - 1)
+
+
+def stitch_flat(strings: list, ids: np.ndarray, starts: np.ndarray,
+                counts: np.ndarray, inverse: np.ndarray,
+                bounds: np.ndarray) -> list:
+    """Dense token-id stream -> list-of-list-of-str.
+
+    ``ids`` i32[n]; ``starts`` i64[U] / ``counts`` i32[U] are each unique
+    row's span in it; ``inverse``/``bounds`` as in :func:`stitch`.
+    """
+    load()
+    ids = np.ascontiguousarray(ids, dtype=np.int32)
+    starts = np.ascontiguousarray(starts, dtype=np.int64)
+    counts = np.ascontiguousarray(counts, dtype=np.int32)
+    inverse = np.ascontiguousarray(inverse, dtype=np.int32)
+    bounds = np.ascontiguousarray(bounds, dtype=np.int64)
+    return _stitch_flat_fn(strings, None, _ptr(ids, ctypes.c_int32),
+                           _ptr(starts, ctypes.c_int64),
+                           _ptr(counts, ctypes.c_int32), ids.shape[0],
+                           _ptr(inverse, ctypes.c_int32),
+                           _ptr(bounds, ctypes.c_int64),
+                           bounds.shape[0] - 1)
+
+
+def encode_prep(sents: list):
+    """Fused front end: str list -> lowered unique chunks + stitch metadata.
+
+    One native pass that lowers, splits on whitespace and dedups.
+    Returns (inverse i32[C], bounds i64[S+1], uniq_buf u32[total],
+    uniq_off i64[U+1], uniq_len i32[U]), or None when a LOWER_SPECIAL
+    codepoint (U+0130 / U+03A3) needs Python's own ``str.lower()``.
+    """
+    load()
+    total = sum(map(len, sents))
+    S = len(sents)
+    cap_chunks = (total + S) // 2 + 2
+    inverse = np.empty(cap_chunks, dtype=np.int32)
+    bounds = np.empty(S + 1, dtype=np.int64)
+    uniq_buf = np.empty(max(total, 1), dtype=np.uint32)
+    uniq_len = np.empty(cap_chunks, dtype=np.int32)
+    n_chunks = np.zeros(1, dtype=np.int64)
+    u = _prep_fn(sents, _ptr(_tables["lower"], ctypes.c_uint32),
+                 _ptr(_tables["lower_special"], ctypes.c_uint8),
+                 _ptr(_tables["ws_py"], ctypes.c_uint8),
+                 os.cpu_count() or 1,
+                 _ptr(inverse, ctypes.c_int32),
+                 _ptr(bounds, ctypes.c_int64),
+                 _ptr(uniq_buf, ctypes.c_uint32),
+                 _ptr(uniq_len, ctypes.c_int32),
+                 _ptr(n_chunks, ctypes.c_int64))
+    if u == -1:
+        return None
+    if u == -2:
+        raise TypeError("encode_prep expects a list of str")
+    c = int(n_chunks[0])
+    uniq_len = uniq_len[:u]
+    uniq_off = np.zeros(u + 1, dtype=np.int64)
+    np.cumsum(uniq_len, out=uniq_off[1:])
+    return inverse[:c], bounds, uniq_buf, uniq_off, uniq_len
+
+
+def pack_u16_rows(uniq_buf: np.ndarray, uniq_off: np.ndarray,
+                  uniq_len: np.ndarray, Lc: int,
+                  alpha: np.ndarray) -> np.ndarray:
+    """Pack unique chunks into u16 char words (see
+    ops/wp_encode_e2e.pack_u16), padded with spaces to ``Lc`` columns.
+    The caller guarantees the alphabet fits 13 bits."""
+    lib = load()
+    alpha = np.ascontiguousarray(alpha, dtype=np.int32)
+    u = uniq_len.shape[0]
+    mat = np.empty((u, Lc), dtype=np.uint16)
+    lib.swt_pack_u16(
+        _ptr(uniq_buf, ctypes.c_uint32), _ptr(uniq_off, ctypes.c_int64),
+        _ptr(uniq_len, ctypes.c_int32), u, Lc,
+        _ptr(alpha, ctypes.c_int32), _ptr(_tables["ws_py"], ctypes.c_uint8),
+        _ptr(_tables["punc_py"], ctypes.c_uint8),
+        mat.ctypes.data_as(ctypes.POINTER(ctypes.c_uint16)))
+    return mat

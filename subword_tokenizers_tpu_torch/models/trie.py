@@ -1,0 +1,157 @@
+"""The LinMaxMatch end-to-end trie of FastWP, as flat integer arrays.
+
+Built on the host exactly as the JAX package builds it
+(``subword_tokenizers_tpu/models/trie.py``, ``E2ETrie.build``):
+level-order processing; is_end nodes fail to the "##" node with a single
+pop; other nodes accumulate pops along the parent's failure chain; and
+any node whose character is not Python-alphanumeric has its failure
+link overridden to a dedicated punctuation root ``root_p``.
+
+Transitions are kept twice: as a dense ``goto[node, alpha[cp]]`` table
+(the device scan's one gather per step; column ``A`` is the all -1 OOV
+class) and as a sorted i64 key array ``(node << 21) | cp`` for the host
+scan of single sentences. Failure pops are CSR: ``pops_flat[
+pops_off[n]:pops_off[n+1]]``.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, Iterable, List, Tuple
+
+import numpy as np
+
+from ..frontend.charclass import ALNUM_PY, WS_PY
+
+CP_BITS = 21
+NO_NODE = -1
+MAX_CP = 0x110000
+
+
+def _dense_tables(children: List[Dict[int, int]]
+                  ) -> Tuple[np.ndarray, np.ndarray, int]:
+    """(goto i32[n_nodes, A+1], alpha i32[MAX_CP], A) over the sorted
+    edge alphabet; out-of-alphabet codepoints map to A."""
+    alphabet = sorted({cp for ch in children for cp in ch})
+    A = len(alphabet)
+    alpha = np.full(MAX_CP, A, dtype=np.int32)
+    alpha[alphabet] = np.arange(A, dtype=np.int32)
+    goto = np.full((len(children), A + 1), NO_NODE, dtype=np.int32)
+    for node, ch in enumerate(children):
+        for cp, child in ch.items():
+            goto[node, alpha[cp]] = child
+    return goto, alpha, A
+
+
+def _pack_edges(children: List[Dict[int, int]]
+                ) -> Tuple[np.ndarray, np.ndarray]:
+    keys, vals = [], []
+    for node, ch in enumerate(children):
+        for cp, child in ch.items():
+            keys.append((node << CP_BITS) | cp)
+            vals.append(child)
+    keys = np.asarray(keys, dtype=np.int64)
+    vals = np.asarray(vals, dtype=np.int32)
+    order = np.argsort(keys, kind="stable")
+    return keys[order], vals[order]
+
+
+@dataclass
+class E2ETrie:
+    """LinMaxMatch trie with failure links and pops."""
+
+    edge_keys: np.ndarray    # i64[n_edges], sorted (node<<21)|cp
+    edge_vals: np.ndarray    # i32[n_edges]
+    fail: np.ndarray         # i32[n_nodes], NO_NODE = no failure link
+    pops_off: np.ndarray     # i32[n_nodes+1] CSR offsets into pops_flat
+    pops_flat: np.ndarray    # i32[total_pops] output token ids
+    root: int                # = 0
+    root_p: int
+    root_sharp: int
+    n_nodes: int
+    goto: np.ndarray         # i32[n_nodes, n_alpha+1] dense transitions
+    alpha: np.ndarray        # i32[MAX_CP] codepoint -> alphabet id (OOV=A)
+    n_alpha: int
+    has_ws_token: bool       # a vocab token holds a whitespace char
+
+    @classmethod
+    def build(cls, vocab: Iterable[str], out_table) -> "E2ETrie":
+        """``out_table``: SymbolTable interning the output tokens."""
+        # Node 0 = root. root_p is a standalone node with no edges.
+        children: List[Dict[int, int]] = [{}]
+        char: List[int] = [NO_NODE]
+        is_end: List[bool] = [False]
+        strings: List[str] = [""]
+
+        def insert(word: str) -> int:
+            node = 0
+            for c in word:
+                cp = ord(c)
+                nxt = children[node].get(cp)
+                if nxt is None:
+                    nxt = len(children)
+                    children[node][cp] = nxt
+                    children.append({})
+                    char.append(cp)
+                    is_end.append(False)
+                    strings.append(strings[node] + c)
+                node = nxt
+            is_end[node] = True
+            return node
+
+        root_sharp = insert("##")
+        for tok in vocab:
+            insert(tok)
+        root_p = len(children)
+        children.append({})
+        char.append(NO_NODE)
+        is_end.append(False)
+        strings.append("")
+
+        n = len(children)
+        fail = np.full(n, NO_NODE, dtype=np.int32)
+        pops: List[List[int]] = [[] for _ in range(n)]
+
+        # Level order: parents strictly before children.
+        queue = [0, root_sharp]
+        head = 0
+        while head < len(queue):
+            cur = queue[head]
+            head += 1
+            for cp, child in children[cur].items():
+                if child == root_sharp:
+                    continue
+                if is_end[child]:
+                    fail[child] = root_sharp
+                    pops[child] = [out_table.intern(strings[child])]
+                else:
+                    f = fail[cur]
+                    acc: List[int] = []
+                    while f != NO_NODE and cp not in children[f]:
+                        acc.extend(pops[f])
+                        f = fail[f]
+                    if f != NO_NODE:
+                        fail[child] = children[f][cp]
+                        pops[child] = list(pops[cur]) + acc
+                # Punctuation-char nodes fail to root_p; pops are kept.
+                if not ALNUM_PY[char[child]]:
+                    fail[child] = root_p
+                queue.append(child)
+
+        keys, vals = _pack_edges(children)
+        goto, alpha, n_alpha = _dense_tables(children)
+        pops_off = np.zeros(n + 1, dtype=np.int32)
+        flat: List[int] = []
+        for i in range(n):
+            flat.extend(pops[i])
+            pops_off[i + 1] = len(flat)
+        has_ws = any(WS_PY[cp] for ch in children for cp in ch)
+        return cls(edge_keys=keys, edge_vals=vals, fail=fail,
+                   pops_off=pops_off,
+                   pops_flat=np.asarray(flat, dtype=np.int32),
+                   root=0, root_p=root_p, root_sharp=root_sharp, n_nodes=n,
+                   goto=goto, alpha=alpha, n_alpha=n_alpha,
+                   has_ws_token=has_ws)
+
+    @property
+    def max_pops(self) -> int:
+        return int(np.max(np.diff(self.pops_off)))

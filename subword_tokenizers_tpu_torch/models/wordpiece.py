@@ -1,0 +1,432 @@
+"""WordPiece tokenizers of the port: NaiveWP (the vocabulary and its
+greedy longest-match word encoder) and FastWP (batched end-to-end
+LinMaxMatch encode on the device).
+
+Outputs equal the JAX package's ``subword_tokenizers_tpu/models/
+wordpiece.py`` token for token, and its errors are raised with the same
+type, order and text. FastWP's batched encode:
+
+1. the C++ front end lowers, splits on whitespace and dedups the
+   sentences, and packs the unique chunks into u16 char words
+   (``encode.native_prep``, ``encode.pack_u16``);
+2. one host-to-device copy (``encode.h2d``);
+3. kernel 1 scans every unique chunk (``encode.scan``,
+   ops/wp_encode_e2e.wp_e2e_scan);
+4. kernel 2 writes each row's flags byte and the dense token stream
+   (``encode.compact``, ops/fetch.compact_ids);
+5. two device-to-host copies, of (offsets, total, flags) and then of the
+   stream (``encode.d2h``); a set flag raises here;
+6. the C++ stitch builds the token lists (``encode.stitch``).
+
+Every batch goes to the kernels, whatever its size. ``device="cpu"``
+runs the kernels' plain PyTorch versions.
+"""
+from __future__ import annotations
+
+import json
+import os
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from .._native import binding
+from ..benchmarks import profiling
+from ..core.symbols import SymbolTable
+from ..frontend.charclass import PUNC_PY, WS_PY, codepoints, \
+    lower_codepoints
+from ..ops.fetch import compact_ids
+from ..ops.wp_encode import wp_e2e_encode
+from ..ops.wp_encode_e2e import pack_chars, route_params, wp_e2e_scan
+from .base import SubwordTokenizer
+from .state import E2EState, e2e_state_from_numpy
+from .trie import E2ETrie
+
+UNK = "[UNK]"
+UNK_E2E = "['UNK']"  # FastWP's literal quirk, unlike NaiveWP's "[UNK]"
+
+# Pops wider than this take the general route's output width and step
+# cap, as the JAX package's routing does.
+PACKED_MAX_POPS = 8
+
+
+class NaiveWP(SubwordTokenizer):
+    """The WordPiece vocabulary with greedy longest-match word encoding."""
+
+    def __init__(self) -> None:
+        self.vocab: set = set()
+
+    def encode_word(self, word: str) -> List[str]:
+        """Greedy longest-prefix encoding with '##' continuations and
+        whole-word "[UNK]". Raises where the remainder would grow one
+        '#' per step forever ('#' in the vocab, '##' not)."""
+        tokens: List[str] = []
+        limit = 4 * len(word) + 64
+        steps = 0
+        while len(word) > 0:
+            steps += 1
+            if steps > limit:
+                raise RuntimeError(
+                    "greedy WordPiece encoding does not terminate on "
+                    f"{word[:16]!r}... with this vocabulary (the reference "
+                    "implementation would hang here)")
+            i = len(word)
+            while i > 0 and word[:i] not in self.vocab:
+                i -= 1
+            if i == 0:
+                return [UNK]
+            tokens.append(word[:i])
+            word = word[i:]
+            if len(word) > 0:
+                word = f"##{word}"
+        return tokens
+
+    def save_resources(self, path: str) -> None:
+        """Write ``vocab.json``, a JSON list of the vocabulary, atomically."""
+        os.makedirs(path, exist_ok=True)
+        target = os.path.join(path, "vocab.json")
+        tmp = target + ".tmp"
+        with open(tmp, "w", encoding="utf-8") as f:
+            json.dump(list(self.vocab), f, ensure_ascii=False)
+        os.replace(tmp, target)
+
+    def load_resources(self, path: str, strict: bool = False) -> None:
+        """Load ``vocab.json``. A missing file is a silent no-op, as in
+        the reference; ``strict=True`` raises FileNotFoundError instead."""
+        vocab_file = os.path.join(path, "vocab.json")
+        if os.path.isfile(vocab_file):
+            with open(vocab_file, "r", encoding="utf-8") as f:
+                self.vocab = set(json.load(f))
+        elif strict:
+            raise FileNotFoundError(vocab_file)
+
+
+class FastWP(NaiveWP):
+    """End-to-end WordPiece: linear-time trie scan with punctuation-aware
+    boundaries, batched on ``device``."""
+
+    def __init__(self, device="cuda") -> None:
+        super().__init__()
+        self.device = torch.device(device)
+        if self.device.type == "cuda":
+            if not torch.cuda.is_available():
+                raise RuntimeError("FastWP(device='cuda'): CUDA is not "
+                                   "available")
+            if self.device.index is None:
+                self.device = torch.device("cuda",
+                                           torch.cuda.current_device())
+        elif self.device.type != "cpu":
+            raise ValueError(f"FastWP: unsupported device {self.device}")
+        self._e2e_trie: Optional[E2ETrie] = None
+        self._e2e_out: Optional[SymbolTable] = None
+        self._sharp_seq: Optional[Tuple[int, ...]] = None
+        self._unk_id: Optional[int] = None
+        self._state: Optional[Tuple[E2ETrie, E2EState]] = None
+
+    def _build_e2e(self):
+        out = SymbolTable()
+        self._unk_id = out.intern(UNK_E2E)
+        trie = E2ETrie.build(self.vocab, out)
+        # NaiveWP's encoding of "##", emitted for a bare "##" segment.
+        # None marks a vocab on which it would not terminate: the error
+        # then fires only if a scan reaches that case.
+        try:
+            self._sharp_seq = tuple(out.intern(t)
+                                    for t in NaiveWP.encode_word(self, "##"))
+        except RuntimeError:
+            self._sharp_seq = None
+        self._e2e_trie = trie
+        self._e2e_out = out
+        return trie, out
+
+    def _trie(self):
+        if self._e2e_trie is None:
+            self._build_e2e()
+        return self._e2e_trie, self._e2e_out
+
+    def _device_state(self) -> E2EState:
+        """The trie's tables on ``self.device``, moved once per trie."""
+        trie, _ = self._trie()
+        if self._state is None or self._state[0] is not trie:
+            self._state = (trie, e2e_state_from_numpy(
+                trie.goto, trie.alpha, trie.fail, trie.pops_off,
+                trie.pops_flat, trie.root_p, trie.root_sharp, self._unk_id,
+                self._sharp_seq, self.device))
+        return self._state[1]
+
+    # ------------------------------------------------------------ encoding
+
+    def tokenize(self, text: str) -> List[str]:
+        """Single-sentence end-to-end scan on the host."""
+        if not isinstance(text, str):
+            raise TypeError("Text to tokenize must be a string.")
+        trie, out_table = self._trie()
+        s = text.lower() + " "
+        cps = codepoints(s)
+        n = len(cps)
+        is_sp = WS_PY[cps]
+        is_pc = PUNC_PY[cps]
+        keys, vals = trie.edge_keys, trie.edge_vals
+        fail, pops_off, pops_flat = trie.fail, trie.pops_off, trie.pops_flat
+        roots = {0, trie.root_sharp, trie.root_p}
+
+        def goto(node: int, cp: int) -> int:
+            key = (node << 21) | cp
+            j = np.searchsorted(keys, key)
+            if j < len(keys) and keys[j] == key:
+                return int(vals[j])
+            return -1
+
+        def boundary(i: int) -> bool:
+            if i > 0 and is_pc[i - 1]:
+                return True
+            if i >= n:
+                # Reachable only when a whitespace-bearing token lets the
+                # match loop consume the trailing space.
+                raise RuntimeError(
+                    "word-boundary check at end of input (the reference "
+                    "implementation would crash with IndexError here)")
+            return bool(is_sp[i] or is_pc[i])
+
+        result: List[str] = []
+        i = 0
+        while i < n:
+            iter_start = i
+            node = 0
+            seg: List[int] = []
+            while i < n:
+                child = goto(node, int(cps[i]))
+                while child < 0:
+                    f = int(fail[node])
+                    if f < 0:
+                        break
+                    seg.extend(int(t) for t in
+                               pops_flat[pops_off[node]:pops_off[node + 1]])
+                    node = f
+                    child = goto(node, int(cps[i]))
+                if child < 0:
+                    break
+                node = child
+                i += 1
+            if not boundary(i) or node not in roots:
+                seg = [self._unk_id]
+            elif node == trie.root_sharp and not seg:
+                if self._sharp_seq is None:
+                    raise RuntimeError(
+                        "encode_word('##') does not terminate with this "
+                        "vocabulary (reference would hang on this input)")
+                seg = list(self._sharp_seq)
+            result.extend(out_table.string(t) for t in seg)
+            while i < n and not boundary(i):
+                i += 1
+            while i < n and is_sp[i]:
+                i += 1
+            if i == iter_start:
+                # A punctuation-class char absent from the trie re-enters
+                # the same state forever: the reference hangs here.
+                raise RuntimeError(
+                    "end-to-end scan makes no progress at "
+                    f"{s[i]!r} (position {i}); the reference "
+                    "implementation would hang on this input")
+        return result
+
+    def tokenize_batch(self, corpus: List[str]) -> List[List[str]]:
+        """Batched end-to-end scan on the device.
+
+        No vocab token holds whitespace in real vocabularies, so the
+        automaton never crosses a whitespace character: sentences split
+        into independent chunks, and only the unique chunks are scanned.
+        A vocab with a whitespace-bearing token scans whole sentences.
+        """
+        trie, _ = self._trie()
+        if trie.has_ws_token:
+            return self._tokenize_batch_sentences(corpus)
+        return self._tokenize_batch_chunked(corpus)
+
+    def _finish_e2e(self, flags: np.ndarray) -> None:
+        """Raise the error of the first flag set, over all rows, in the
+        order crash, stuck, overflow, '##'; row indices are unique-row
+        order."""
+        if (flags & 4).any():
+            idx = np.flatnonzero(flags & 4)[:5].tolist()
+            raise RuntimeError(
+                "word-boundary check at end of input on row(s) "
+                f"{idx} (the reference implementation would crash with "
+                "IndexError here)")
+        if (flags & 2).any():
+            idx = np.flatnonzero(flags & 2)[:5].tolist()
+            raise RuntimeError(
+                "end-to-end scan makes no progress on input row(s) "
+                f"{idx} — a punctuation-class character absent from the "
+                "vocabulary; the reference implementation would hang on "
+                "these inputs")
+        if (flags & 1).any():
+            raise RuntimeError("wp_e2e_encode output buffer overflow")
+        if (flags & 8).any():
+            raise RuntimeError(
+                "encode_word('##') does not terminate with this vocabulary "
+                "(reference would hang on this input)")
+
+    def _compact(self, out, out_n, ovf, stuck, crash):
+        """Kernel 2 and the copies back: (ids int32[total], starts
+        int64[R], counts int32[R]) of the scanned rows, or the scan's
+        error."""
+        dev = self.device
+        R = out.shape[0]
+        with profiling.phase("encode.compact", dev):
+            ids_d, head_d = compact_ids(out, out_n, ovf, stuck, crash)
+        with profiling.phase("encode.d2h", dev):
+            head = head_d.cpu().numpy()
+            self._finish_e2e(head[R + 1:])
+            offs = head[:R + 1].astype(np.int64)
+            ids = ids_d[:int(offs[R])].cpu().numpy()
+        return ids, offs[:R], np.diff(offs).astype(np.int32)
+
+    def _run_e2e_packed(self, chars: np.ndarray, slen: np.ndarray):
+        """Scan rows of packed char words (u16 or i32 [R, Lc]) and
+        compact them; see :meth:`_compact`. Pops wider than 8 take the
+        general route's parameters."""
+        st = self._device_state()
+        dev = self.device
+        cap, max_steps, unk_ovf = route_params(
+            chars.shape[1], general=st.max_pops > PACKED_MAX_POPS)
+        if chars.dtype == np.uint16:
+            chars = chars.view(np.int16)
+        with profiling.phase("encode.h2d", dev):
+            chars_d = torch.from_numpy(chars).to(dev)
+            slen_d = torch.from_numpy(slen.astype(np.int32)).to(dev)
+        with profiling.phase("encode.scan", dev):
+            res = wp_e2e_scan(chars_d, slen_d, st.goto, st.fail, st.pops_off,
+                              st.pops_flat, st.root_p, st.root_sharp,
+                              st.unk_id, st.sharp, cap=cap,
+                              max_steps=max_steps, unk_ovf=unk_ovf)
+        return self._compact(*res)
+
+    def _run_e2e(self, cps: np.ndarray, slen: np.ndarray):
+        """General route over padded codepoint rows [S, T]; see
+        :meth:`_compact`."""
+        st = self._device_state()
+        dev = self.device
+        with profiling.phase("encode.h2d", dev):
+            acp, is_sp, is_pc, slen_d = (
+                torch.from_numpy(a).to(dev) for a in
+                (st.alpha[cps], WS_PY[cps], PUNC_PY[cps],
+                 slen.astype(np.int32)))
+        with profiling.phase("encode.scan", dev):
+            res = wp_e2e_encode(acp, is_sp, is_pc, slen_d, st.goto, st.fail,
+                                st.pops_off, st.pops_flat, st.root_p,
+                                st.root_sharp, st.unk_id, st.sharp)
+        return self._compact(*res)
+
+    def _tokenize_batch_chunked(self, corpus: List[str]) -> List[List[str]]:
+        if len(corpus) == 0:
+            return []
+        fused = self._try_fused_chunked(corpus)
+        if fused is not None:
+            return fused
+        # Sentence-level dedup: repeated sentences tokenize once, and
+        # each duplicate gets its own list (callers may mutate rows).
+        seen: Dict[str, int] = {}
+        order: List[str] = []
+        backmap = np.empty(len(corpus), dtype=np.int64)
+        for i, s in enumerate(corpus):
+            j = seen.get(s)
+            if j is None:
+                j = len(order)
+                seen[s] = j
+                order.append(s)
+            backmap[i] = j
+        if len(order) < len(corpus):
+            uniq = self._tokenize_batch_chunked(order)
+            used = np.zeros(len(order), dtype=bool)
+            out: List[List[str]] = []
+            for j in backmap:
+                out.append(list(uniq[j]) if used[j] else uniq[j])
+                used[j] = True
+            return out
+
+        S = len(corpus)
+        flat = lower_codepoints(" ".join(corpus))
+        if flat is not None:
+            lens = np.fromiter((len(s) for s in corpus), dtype=np.int64,
+                               count=S)
+        else:
+            # U+0130 / U+03A3: Python's own str.lower().
+            lowered = [s.lower() for s in corpus]
+            flat = codepoints(" ".join(lowered))
+            lens = np.fromiter((len(s) for s in lowered), dtype=np.int64,
+                               count=S)
+        if flat.size == 0:
+            return [[] for _ in range(S)]
+        sent_start = np.zeros(S, dtype=np.int64)
+        np.cumsum(lens[:-1] + 1, out=sent_start[1:])
+
+        inverse, chunk_start, uniq_start, uniq_len = \
+            binding.chunk_unique(flat)
+        if chunk_start.size == 0:
+            return [[] for _ in range(S)]
+        sid = np.searchsorted(sent_start, chunk_start, side="right") - 1
+        # +2 for the trailing space and the boundary lookback; a multiple
+        # of 8, as the JAX package pads (the step cap depends on it).
+        Lc = -(-(int(uniq_len.max()) + 2) // 8) * 8
+        flatp = np.concatenate([flat, np.full(Lc, 32, np.uint32)])
+        take = uniq_start[:, None] + np.arange(Lc, dtype=np.int64)[None, :]
+        umask = np.arange(Lc, dtype=np.int32)[None, :] < uniq_len[:, None]
+        umat = np.where(umask, flatp[take], np.uint32(32))
+        trie, out_table = self._trie()
+        pchar = pack_chars(trie.alpha[umat], WS_PY[umat], PUNC_PY[umat])
+        ids, starts, counts = self._run_e2e_packed(pchar, uniq_len + 1)
+        bounds = np.searchsorted(sid, np.arange(S + 1, dtype=sid.dtype))
+        with profiling.phase("encode.stitch"):
+            return binding.stitch_flat(out_table.strings(), ids, starts,
+                                       counts, inverse, bounds)
+
+    def _try_fused_chunked(self, corpus: List[str]):
+        """Fused native chunked encode; None when a precondition fails (an
+        alphabet too wide for u16 words, input that is not a list of str,
+        or a case-special codepoint that needs Python's ``str.lower()``)."""
+        trie, out_table = self._trie()
+        if (trie.n_alpha >= (1 << 13)
+                or not isinstance(corpus, list)
+                or not all(isinstance(s, str) for s in corpus)):
+            return None
+        with profiling.phase("encode.native_prep"):
+            prep = binding.encode_prep(corpus)
+        if prep is None:
+            return None
+        inverse, bounds, uniq_buf, uniq_off, uniq_len = prep
+        if uniq_len.size == 0:
+            return [[] for _ in range(len(corpus))]
+        Lc = -(-(int(uniq_len.max()) + 2) // 8) * 8
+        with profiling.phase("encode.pack_u16"):
+            mat16 = binding.pack_u16_rows(uniq_buf, uniq_off, uniq_len, Lc,
+                                          trie.alpha)
+        ids, starts, counts = self._run_e2e_packed(mat16, uniq_len + 1)
+        with profiling.phase("encode.stitch"):
+            return binding.stitch_flat(out_table.strings(), ids, starts,
+                                       counts, inverse, bounds)
+
+    def _tokenize_batch_sentences(self, corpus: List[str]
+                                  ) -> List[List[str]]:
+        S = len(corpus)
+        if S == 0:
+            return []
+        lowered = [s.lower() + " " for s in corpus]
+        flat = codepoints("".join(lowered))
+        slen = np.fromiter((len(s) for s in lowered), dtype=np.int32,
+                           count=S)
+        T = int(slen.max())
+        cps = np.full((S, T), 32, dtype=np.uint32)
+        cps[np.arange(T, dtype=np.int32)[None, :] < slen[:, None]] = flat
+        ids, starts, counts = self._run_e2e(cps, slen)
+        _, out_table = self._trie()
+        return binding.stitch_flat(out_table.strings(), ids, starts, counts,
+                                   np.arange(S, dtype=np.int32),
+                                   np.arange(S + 1, dtype=np.int64))
+
+    # ------------------------------------------------------------- state io
+
+    def load_resources(self, path: str, strict: bool = False) -> None:
+        """Load the vocab and rebuild the trie."""
+        super().load_resources(path, strict=strict)
+        self._build_e2e()

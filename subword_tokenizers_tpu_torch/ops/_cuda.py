@@ -1,0 +1,112 @@
+"""Build and load the port's CUDA kernels.
+
+``csrc/*.cu`` are compiled by hand with nvcc for ``sm_90a`` into one
+shared library with a plain C interface, loaded with ctypes. The library
+goes to ``csrc/build/``, named by a hash of the sources and flags, on
+first use. Nothing here runs at import: the CPU tests import every
+module of the port, and this machine may have no nvcc.
+
+Each C entry point returns the ``cudaError_t`` of its launch;
+:func:`launch` raises unless it is 0.
+"""
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from typing import Optional
+
+CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "csrc")
+BUILD_DIR = os.path.join(CSRC, "build")
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+         "-Xptxas", "-v"]
+
+_P = ctypes.c_void_p
+_I64 = ctypes.c_int64
+_I = ctypes.c_int
+_SCAN_ARGS = [_P, _I64, _I64, _P, _P, _I64, _P, _P, _P, _P, _I, _I, _I, _I,
+              _I, _I, _I, _P, _P, _P, _P, _P, _P]
+SIGNATURES = {
+    "swt_wp_e2e_scan_u16": _SCAN_ARGS,
+    "swt_wp_e2e_scan_i32": _SCAN_ARGS,
+    "swt_compact": [_P, _I64, _I, _P, _P, _P, _P, _P, _P, _P],
+}
+
+_lib: Optional[ctypes.CDLL] = None
+build_log = ""  # nvcc's output (ptxas register and spill report)
+
+
+def _sources():
+    return sorted(glob.glob(os.path.join(CSRC, "*.cu")))
+
+
+def nvcc() -> str:
+    path = shutil.which("nvcc")
+    home_nvcc = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                             "bin", "nvcc")
+    if path is None and os.path.exists(home_nvcc):
+        path = home_nvcc
+    if path is None:
+        raise RuntimeError("nvcc is needed to build the CUDA kernels")
+    return path
+
+
+def _so_path() -> str:
+    digest = hashlib.sha256(" ".join(FLAGS).encode())
+    for src in _sources():
+        with open(src, "rb") as f:
+            digest.update(os.path.basename(src).encode() + f.read())
+    return os.path.join(BUILD_DIR, f"kernels-{digest.hexdigest()[:16]}.so")
+
+
+def build() -> str:
+    """Compile the kernels if their library is not built yet; return its
+    path. Raises with nvcc's output when the build fails."""
+    global build_log
+    so_path = _so_path()
+    if os.path.exists(so_path):
+        return so_path
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        proc = subprocess.run([nvcc(), *FLAGS, "-o", tmp, *_sources()],
+                              capture_output=True, text=True)
+        build_log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{build_log[-6000:]}")
+        os.replace(tmp, so_path)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    return so_path
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use."""
+    global _lib
+    if _lib is None:
+        cdll = ctypes.CDLL(build())
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(cdll, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _lib = cdll
+    return _lib
+
+
+def launch(name: str, *args) -> None:
+    """Call a C entry point on the current CUDA stream (appended as the
+    last argument); raise if the launch was refused."""
+    import torch
+    stream = torch.cuda.current_stream().cuda_stream
+    err = getattr(lib(), name)(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err} at launch")
