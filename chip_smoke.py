@@ -19,7 +19,20 @@ WordPiece vocab ``tests/golden/port_t85k_fastwp_vocab.json``:
    package gave (``tests/golden/port_t85k_fastwp_expect.json``) and both
    kernels must have been launched; then ``tokenize_stream`` and small
    batches against the host ``tokenize``;
-4. an input on which the reference would hang raises on the card.
+4. an input on which the reference would hang raises on the card;
+5. holds the three BPE training kernels (pair counts, selection with
+   hash unification, merge with compaction) against their plain
+   versions, exactly, on seeded random flat states, on the corpus's
+   initial state (187,885 slots) and on its state after 1,000 merges;
+   times both at the initial state;
+6. trains ``NaiveBPE(device="cuda")`` on the whole corpus to an
+   8,000-symbol vocab: every merge must equal the JAX package's
+   (``tests/golden/port_t85k_v8000_bpe_merges.json``, whose first 500
+   are the reference trainer's ``t85k_v578_merges.json``) and every
+   kernel must have been launched; cold and warm times, the phase split
+   and the device's idle share under ``torch.profiler``;
+6b. the other training routes: a checkpoint at 1,400 resumed to 8,000,
+   the exact per-step path to 578, and a forced hash collision.
 
 Each phase prints one line; any failure raises. The line before the last
 is the kernels' JSON record, the last ``{"ok": true, "device": ...}``.
@@ -149,6 +162,29 @@ def random_case(rng, S, W, n_nodes, A, max_pops, hang_sharp):
     return (np.asarray(words, dtype=np.int32),
             np.asarray(slen, dtype=np.int32), tables,
             dict(root_p=n_nodes - 1, root_sharp=2, unk_id=1000))
+
+
+def bpe_random_state(rng, n_words, max_len, n_sym, wscale, unit, holes):
+    """A seeded flat BPE state (numpy fs, wid, wgt) with word boundaries,
+    tail padding, runs of equal symbols, and optionally equal weights
+    (ties decided by first position) or dead slots inside."""
+    import numpy as np
+    from subword_tokenizers_tpu_torch.ops.flat import WID_PAD, build_flat
+    sym = np.full((n_words, max_len), -1, dtype=np.int32)
+    for w in range(n_words):
+        n = int(rng.integers(1, max_len + 1))
+        s = int(rng.integers(0, n_sym))
+        for j in range(n):
+            if rng.random() > 0.45:
+                s = int(rng.integers(0, n_sym))
+            sym[w, j] = s
+    freq = (np.ones(n_words, np.int64) if unit
+            else rng.integers(1, 50, size=n_words)) * wscale
+    fs, wid, wgt = build_flat(sym, freq, pad_to=64)
+    if holes:
+        dead = (rng.random(fs.shape[0]) < 0.08) & (fs >= 0)
+        fs[dead], wid[dead], wgt[dead] = -1, WID_PAD, 0
+    return fs, wid, wgt
 
 
 def main() -> int:
@@ -378,6 +414,243 @@ def main() -> int:
     else:
         raise AssertionError("the hang input did not raise")
 
+    # ---- phase 5: the BPE training kernels against their plain versions
+    from subword_tokenizers_tpu_torch import NaiveBPE
+    from subword_tokenizers_tpu_torch.core.corpus import (build_bpe_corpus,
+                                                          unique_words)
+    from subword_tokenizers_tpu_torch.core.symbols import SymbolTable
+    from subword_tokenizers_tpu_torch.frontend.pretokenize import \
+        pretokenize_batch
+    from subword_tokenizers_tpu_torch.ops import train_loop
+    from subword_tokenizers_tpu_torch.ops.flat import (build_flat,
+                                                       merge_apply,
+                                                       merge_apply_ref)
+    from subword_tokenizers_tpu_torch.ops.pairstats import (alloc_table,
+                                                            canonical,
+                                                            pair_stats,
+                                                            pair_stats_ref)
+    from subword_tokenizers_tpu_torch.ops.train_loop import (
+        init_tables, select_unify, select_unify_ref, str_hashes)
+    bpe_kernels = ("pair_stats", "select_unify", "merge_apply")
+    errs.update({k: 0 for k in bpe_kernels})
+
+    def err_all(got, want):
+        return max(max_err(g, w) for g, w in zip(got, want))
+
+    def hash_tables(strings, sym_cap, max_len):
+        """(h1, h2, slen, pw1, pw2) on the card for a list of symbol
+        strings (repeats allowed: several ids with one hash)."""
+        h = np.zeros((3, sym_cap), dtype=np.int64)
+        for i, s in enumerate(strings):
+            h[0, i], h[1, i] = str_hashes(s)
+            h[2, i] = len(s)
+        pw = train_loop.pow_tables(max_len + 4)
+        return [torch.from_numpy(x).to(dev) for x in (*h, *pw)]
+
+    def check_bpe(fs, wid, wgt, strings, max_vocab, max_len):
+        """K1, K2 (both modes) and K3 (the winner, a self-merge, an
+        inactive step) against their plain versions on one state."""
+        tab = pair_stats(fs, wid, wgt)
+        errs["pair_stats"] = max(errs["pair_stats"], err_all(
+            canonical(*tab), pair_stats_ref(fs, wid, wgt)))
+        n = len(strings)
+        h1, h2, sl, pw1, pw2 = hash_tables(strings, max_vocab + 8, max_len)
+        recs = []
+        for host_ids in (False, True):
+            st = [h1.clone(), h2.clone(), sl.clone(),
+                  torch.tensor([n, n, 1], dtype=torch.int32, device=dev)]
+            st_r = [x.clone() for x in st]
+            rec = torch.zeros(6, dtype=torch.int32, device=dev)
+            rec_r = rec.clone()
+            select_unify(*tab, *st, pw1, pw2, max_vocab, rec, host_ids)
+            select_unify_ref(*tab, *st_r, pw1, pw2, max_vocab, rec_r,
+                             host_ids)
+            errs["select_unify"] = max(errs["select_unify"],
+                                       err_all([*st, rec], [*st_r, rec_r]))
+            recs.append(rec)
+        a, b = recs[0].tolist()[:2]
+        self_pair = int(fs[(fs >= 0)].mode().values)
+        for row in (recs[0].tolist(), [self_pair, self_pair, n, 0, 1, 0],
+                    [a, b, n, 0, 0, 0]):
+            rec = torch.tensor(row, dtype=torch.int32, device=dev)
+            rec_r = rec.clone()
+            got = merge_apply(fs, wid, wgt, rec)
+            want = merge_apply_ref(fs, wid, wgt, rec_r)
+            errs["merge_apply"] = max(errs["merge_apply"],
+                                      err_all([*got, rec], [*want, rec_r]))
+        return recs[0]
+
+    n_bpe_cases = 0
+    for k, (unit, holes, wscale, n_sym) in enumerate(
+            [(False, False, 1, 6), (True, False, 1, 6),
+             (False, True, 1, 6), (False, False, (1 << 28) + 9871, 6),
+             (False, False, 1, 2), (True, False, 1 << 42, 3)]):
+        fs, wid, wgt = (torch.from_numpy(x).to(dev) for x in
+                        bpe_random_state(rng, 4000, 12, n_sym, wscale,
+                                         unit, holes))
+        strings = [chr(ord("a") + i) for i in range(n_sym)]
+        rec = check_bpe(fs, wid, wgt, strings, 100, 12)
+        # forced hits: the winner's string present at two ids
+        a, b = rec.tolist()[:2]
+        merged = strings[a] + strings[b]
+        check_bpe(fs, wid, wgt, strings + [merged, "zz", merged], 100, 12)
+        n_bpe_cases += 2
+
+    words, freq, _ = unique_words(pretokenize_batch(corpus))
+    table = SymbolTable()
+    arrays = build_bpe_corpus(words, freq, table)
+    max_len = arrays.sym.shape[1]
+    flat0 = build_flat(arrays.sym, arrays.freq)
+    F0 = flat0[0].shape[0]
+    n_slots = int((flat0[0] >= 0).sum())
+    fs, wid, wgt = (torch.from_numpy(x).to(dev) for x in flat0)
+    check_bpe(fs, wid, wgt, table.strings(), 8000, max_len)
+    # the state after 1,000 merges, from the kernel path
+    state = train_loop.FlatState(*flat0, dev)
+    t1000 = SymbolTable(table.strings())
+    train_loop.run_fused(state, t1000, len(table) + 1000, max_len,
+                         lambda *m: None)
+    assert len(t1000) == len(table) + 1000, len(t1000)
+    check_bpe(*state.arrays(), t1000.strings(), 8000, max_len)
+    n_bpe_cases += 2
+    if any(errs[k] for k in bpe_kernels):
+        raise AssertionError(f"a BPE kernel differs: {errs}")
+
+    # times at the initial state
+    tab = alloc_table(F0, dev)
+    h1, h2, sl, ctrl, pw1, pw2 = init_tables(table, 8000, max_len, dev)
+    rec = torch.zeros(6, dtype=torch.int32, device=dev)
+    pair_stats(fs, wid, wgt, tab)
+    tab_ref = pair_stats_ref(fs, wid, wgt)
+    select_unify(*tab, h1, h2, sl, ctrl, pw1, pw2, 8000, rec)
+    out = tuple(torch.empty_like(x) for x in (fs, wid, wgt))
+    timing["pair_stats"] = (
+        cuda_ms(lambda: pair_stats(fs, wid, wgt, tab), 200, True),
+        cuda_ms(lambda: pair_stats_ref(fs, wid, wgt), 10))
+    timing["select_unify"] = (
+        cuda_ms(lambda: select_unify(*tab, h1, h2, sl, ctrl, pw1, pw2,
+                                     8000, rec), 200, True),
+        cuda_ms(lambda: select_unify_ref(*tab_ref, h1, h2, sl, ctrl, pw1,
+                                         pw2, 8000, rec), 10))
+    timing["merge_apply"] = (
+        cuda_ms(lambda: merge_apply(fs, wid, wgt, rec, out=out), 200, True),
+        cuda_ms(lambda: merge_apply_ref(fs, wid, wgt, rec), 10))
+    torch.cuda.synchronize()
+    print(f"phase 5: BPE kernels equal their plain versions exactly on "
+          f"{n_bpe_cases} states (6 random x 2 symbol tables, the 85k "
+          f"initial state, after 1,000 merges); at {n_slots} slots "
+          f"(F = {F0}): " + ", ".join(
+              f"{k} {timing[k][0]:.3f} ms (plain {timing[k][1]:.3f} ms)"
+              for k in bpe_kernels) + f"; {smi}")
+
+    # ---- phase 6: the BPE training path, the whole corpus to 8,000
+    golden_dir = os.path.join(ROOT, "tests", "golden")
+    with open(os.path.join(golden_dir, "port_t85k_v8000_bpe_merges.json"),
+              encoding="utf-8") as f:
+        golden = [tuple(p) for p in json.load(f)]
+    with open(os.path.join(golden_dir, "t85k_v578_merges.json"),
+              encoding="utf-8") as f:
+        anchor = [tuple(p) for p in json.load(f)]
+    assert golden[:len(anchor)] == anchor
+
+    def check_train(tok, what):
+        if tok.merges_list != golden or len(tok.vocab) != 8000:
+            bad = next((i for i, (g, w) in enumerate(
+                zip(tok.merges_list, golden)) if g != w),
+                min(len(tok.merges_list), len(golden)))
+            raise AssertionError(
+                f"{what}: {len(tok.merges_list)} merges, first difference "
+                f"from the JAX golden at merge {bad}")
+        rebuilt = ["".join(syms) for syms, _ in tok.corpus_as_symbols]
+        if rebuilt != words or [f for _, f in tok.corpus_as_symbols] != \
+                freq.tolist():
+            raise AssertionError(f"{what}: corpus_as_symbols is wrong")
+
+    pair_stats.launches = select_unify.launches = merge_apply.launches = 0
+    # run 0 is cold (the process's first training), runs 1-2 warm, run 3
+    # warm with the phase profiler on (it synchronises after each device
+    # phase)
+    train_walls = []
+    for run in range(4):
+        profiling.enable(run == 3)
+        profiling.reset()
+        tok = NaiveBPE(device=dev)
+        t0 = time.perf_counter()
+        tok.train(corpus, 8000)
+        torch.cuda.synchronize()
+        train_walls.append(time.perf_counter() - t0)
+        check_train(tok, f"run {run}")
+    train_phase_ms = {name: round(v["total_s"] * 1e3, 3)
+                      for name, v in profiling.report().items()}
+    profiling.enable(False)
+    launches.update(pair_stats=pair_stats.launches,
+                    select_unify=select_unify.launches,
+                    merge_apply=merge_apply.launches)
+    if not all(launches[k] for k in bpe_kernels):
+        raise AssertionError(f"a BPE kernel was not launched: {launches}")
+    print(f"phase 6: NaiveBPE(device='cuda').train of all {len(corpus)} "
+          f"sentences ({len(words)} word types, {n_slots} slots) to 8000: "
+          f"{len(golden)} merges equal the JAX golden (first "
+          f"{len(anchor)} = the reference anchor); launches "
+          f"{ {k: launches[k] for k in bpe_kernels} }; cold "
+          f"{train_walls[0]:.3f} s, warm {train_walls[1]:.3f} / "
+          f"{train_walls[2]:.3f} s; profiled {train_walls[3]:.3f} s, phases "
+          f"(ms) {json.dumps(train_phase_ms)}; {smi}")
+
+    with tempfile.TemporaryDirectory() as d:
+        wall, busy, by_name = device_trace(
+            lambda: NaiveBPE(device=dev).train(corpus, 8000),
+            os.path.join(d, "train_trace.json"))
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
+    dev_line = ("not measured (the trace holds no device events)"
+                if not by_name else
+                f"device busy {busy:.3f} ms of {wall:.1f} ms "
+                f"(idle share {1 - busy / wall:.4f}); "
+                + "; ".join(f"{n} x{c} {ms:.3f} ms" for n, (c, ms) in top))
+    print(f"phase 6c: one warm train under torch.profiler: {dev_line}; "
+          f"{smi}")
+
+    # ---- phase 6b: the other training routes
+    with tempfile.TemporaryDirectory() as d:
+        part = NaiveBPE(device=dev)
+        part.train(corpus, 1400, checkpoint_dir=d, checkpoint_every=500)
+        assert part.merges_list == golden[:len(part.merges_list)]
+        resumed = NaiveBPE(device=dev)
+        resumed.train(corpus, 8000, checkpoint_dir=d, resume=True)
+        check_train(resumed, "resumed run")
+    per_step = NaiveBPE(device=dev)
+    per_step._force_per_step = True
+    per_step.train(corpus, 578)
+    assert per_step.merges_list == anchor, "per-step path left the anchor"
+    small = corpus[:500]
+    plain = NaiveBPE(device=dev)
+    plain.train(small, 300)
+    real_hashes, real_run = train_loop.str_hashes, train_loop.run_fused
+    raised = []
+
+    def spy(*args, **kwargs):
+        try:
+            return real_run(*args, **kwargs)
+        except train_loop.HashCollision as e:
+            raised.append(e)
+            raise
+
+    try:
+        train_loop.str_hashes = lambda s: (0, 0)
+        train_loop.run_fused = spy
+        forced = NaiveBPE(device=dev)
+        forced.train(small, 300)
+    finally:
+        train_loop.str_hashes, train_loop.run_fused = real_hashes, real_run
+    assert len(raised) == 1, "the forced collision did not fall back"
+    assert (forced.merges_list, forced.corpus_as_symbols) == \
+        (plain.merges_list, plain.corpus_as_symbols)
+    print(f"phase 6b: a checkpoint at {len(part.merges_list)} merges "
+          f"resumed to 8000 equals the golden; the per-step path to 578 "
+          f"equals the reference anchor; a forced hash collision on 500 "
+          f"sentences fell back and equals the fused run "
+          f"({len(plain.merges_list)} merges)")
+
     record = {"kernels": [
         {"name": "wp_e2e_scan", "route": "cuda",
          "source": "subword_tokenizers_tpu_torch/csrc/wp_e2e_scan.cu",
@@ -393,7 +666,16 @@ def main() -> int:
          "max_abs_err": errs["compact_ids"],
          "ms": timing["compact_ids"][0],
          "plain_ms": timing["compact_ids"][1]},
-    ]}
+    ] + [
+        {"name": k, "route": "cuda",
+         "source": f"subword_tokenizers_tpu_torch/csrc/{k}.cu",
+         "replaces": replaces, "launches": launches[k],
+         "max_abs_err": errs[k], "ms": timing[k][0],
+         "plain_ms": timing[k][1]}
+        for k, replaces in (
+            ("pair_stats", "subword_tokenizers_tpu/ops/flat.py:65"),
+            ("select_unify", "subword_tokenizers_tpu/ops/train_loop.py:68"),
+            ("merge_apply", "subword_tokenizers_tpu/ops/flat.py:204"))]}
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,5 +1,9 @@
 """ctypes binding for the native host front end and stitch.
 
+It serves FastWP's encode (``encode_prep``, ``pack_u16_rows``,
+``chunk_unique``, the stitches) and the trainers' front end
+(``split_bounds``, ``split_corpus``, ``unique_spans``).
+
 The C++ sources are the JAX package's ``subword_tokenizers_tpu/_native/
 {pretok,chunker,stitch,encode_prep}.cpp``, read by path (that package is
 never imported). They are compiled with g++ once per source change into
@@ -15,7 +19,7 @@ import platform
 import subprocess
 import sysconfig
 import tempfile
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -83,6 +87,13 @@ def load() -> ctypes.CDLL:
     u32p = ctypes.POINTER(ctypes.c_uint32)
     i64p = ctypes.POINTER(ctypes.c_int64)
     i32p = ctypes.POINTER(ctypes.c_int32)
+    lib.swt_split_bounds.restype = i64
+    lib.swt_split_bounds.argtypes = [u32p, i64, u8p, u8p, i64p, i64p]
+    lib.swt_split_corpus.restype = i64
+    lib.swt_split_corpus.argtypes = [u32p, i64p, i64, u8p, u8p, i64p, i64p,
+                                     i32p]
+    lib.swt_unique_spans.restype = i64
+    lib.swt_unique_spans.argtypes = [u32p, i64p, i64p, i64, i32p, i64p]
     lib.swt_chunk_unique.restype = i64
     lib.swt_chunk_unique.argtypes = [u32p, i64, u8p, i32p, i64p, i64p,
                                      i32p, i64p]
@@ -99,8 +110,11 @@ def load() -> ctypes.CDLL:
     _prep_fn = ctypes.PYFUNCTYPE(
         i64, ctypes.py_object, u32p, u8p, u8p, i64, i32p, i64p, u32p,
         i32p, i64p)(("swt_encode_prep_mt", lib))
-    from ..frontend.charclass import LOWER, LOWER_SPECIAL, PUNC_PY, WS_PY
+    from ..frontend.charclass import (LOWER, LOWER_SPECIAL, PUNC_PY,
+                                      PUNCT_HF, WS_HF, WS_PY)
     _tables.update(
+        ws_hf=np.ascontiguousarray(np.packbits(WS_HF)),
+        punct_hf=np.ascontiguousarray(np.packbits(PUNCT_HF)),
         ws_py=np.ascontiguousarray(np.packbits(WS_PY)),
         punc_py=np.ascontiguousarray(np.packbits(PUNC_PY)),
         lower_special=np.ascontiguousarray(np.packbits(LOWER_SPECIAL)),
@@ -111,6 +125,63 @@ def load() -> ctypes.CDLL:
 
 def _ptr(a: np.ndarray, ctype):
     return a.ctypes.data_as(ctypes.POINTER(ctype))
+
+
+def split_bounds(cps: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """Word (start, end) offsets of one lowered sentence: a word is a
+    maximal run of codepoints that are neither White_Space nor
+    punctuation, or one punctuation codepoint."""
+    lib = load()
+    cps = np.ascontiguousarray(cps, dtype=np.uint32)
+    n = cps.shape[0]
+    starts = np.empty(n, dtype=np.int64)
+    ends = np.empty(n, dtype=np.int64)
+    count = lib.swt_split_bounds(
+        _ptr(cps, ctypes.c_uint32), n, _ptr(_tables["ws_hf"], ctypes.c_uint8),
+        _ptr(_tables["punct_hf"], ctypes.c_uint8),
+        _ptr(starts, ctypes.c_int64), _ptr(ends, ctypes.c_int64))
+    return starts[:count], ends[:count]
+
+
+def split_corpus(cps: np.ndarray, sent_cp_off: np.ndarray
+                 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """:func:`split_bounds` over a sentence-concatenated codepoint array.
+
+    Returns (word_start i64, word_end i64, sent_id i32) with offsets into
+    ``cps``."""
+    lib = load()
+    cps = np.ascontiguousarray(cps, dtype=np.uint32)
+    sent_cp_off = np.ascontiguousarray(sent_cp_off, dtype=np.int64)
+    n_sent = sent_cp_off.shape[0] - 1
+    cap = int(sent_cp_off[-1])
+    starts = np.empty(cap, dtype=np.int64)
+    ends = np.empty(cap, dtype=np.int64)
+    sids = np.empty(cap, dtype=np.int32)
+    count = lib.swt_split_corpus(
+        _ptr(cps, ctypes.c_uint32), _ptr(sent_cp_off, ctypes.c_int64),
+        n_sent, _ptr(_tables["ws_hf"], ctypes.c_uint8),
+        _ptr(_tables["punct_hf"], ctypes.c_uint8),
+        _ptr(starts, ctypes.c_int64), _ptr(ends, ctypes.c_int64),
+        _ptr(sids, ctypes.c_int32))
+    return starts[:count], ends[:count], sids[:count]
+
+
+def unique_spans(cps: np.ndarray, starts: np.ndarray, ends: np.ndarray):
+    """Spans of ``cps`` deduplicated by content, in first-occurrence
+    order. Returns (inverse i32[n], uniq_idx i64[u]): ``uniq_idx[k]`` is
+    the first span with the k-th distinct content."""
+    lib = load()
+    cps = np.ascontiguousarray(cps, dtype=np.uint32)
+    starts = np.ascontiguousarray(starts, dtype=np.int64)
+    ends = np.ascontiguousarray(ends, dtype=np.int64)
+    n = starts.shape[0]
+    inverse = np.empty(n, dtype=np.int32)
+    uniq_idx = np.empty(max(n, 1), dtype=np.int64)
+    n_uniq = lib.swt_unique_spans(
+        _ptr(cps, ctypes.c_uint32), _ptr(starts, ctypes.c_int64),
+        _ptr(ends, ctypes.c_int64), n, _ptr(inverse, ctypes.c_int32),
+        _ptr(uniq_idx, ctypes.c_int64))
+    return inverse, uniq_idx[:n_uniq]
 
 
 def chunk_unique(cps: np.ndarray):

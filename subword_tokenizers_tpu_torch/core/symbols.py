@@ -1,6 +1,8 @@
 """Deterministic string <-> id interning: ids are assigned in
 first-intern order, so the trie's output ids follow the order in which
-its build meets the tokens."""
+its build meets the tokens, and the BPE trainer's ids follow its merges.
+Interning by string is what makes two merges that spell the same string
+one symbol, as the reference's set-of-strings vocabulary does."""
 from __future__ import annotations
 
 from typing import Dict, Iterable, List, Optional
@@ -25,6 +27,15 @@ class SymbolTable:
             self._ids[s] = sid
             self._strings.append(s)
         return sid
+
+    def get(self, s: str) -> Optional[int]:
+        return self._ids.get(s)
+
+    def __contains__(self, s: str) -> bool:
+        return s in self._ids
+
+    def __len__(self) -> int:
+        return len(self._strings)
 
     def string(self, sid: int) -> str:
         return self._strings[sid]

@@ -1,0 +1,103 @@
+// K1: weighted pair counts and first positions of the flat BPE state.
+//
+// Replaces the pair aggregation of the JAX package's jitted XLA programs
+//   subword_tokenizers_tpu/ops/flat.py: flat_pairs, flat_aggregate, and
+//   subword_tokenizers_tpu/ops/pairstats.py: pack_pairs, _run_aggregate
+//   (inside bpe_select and flat_train_steps),
+// which sort (key, position, weight) over all F-1 slots and aggregate
+// runs with a cumsum. Here there is no sort: one thread per slot i
+// inserts the pair (fs[i], fs[i+1]) -- valid when both are >= 0 and
+// wid[i] == wid[i+1] -- into an open-addressing table in device memory:
+//   keys   u64[T]  a << 32 | b, all ones when empty,
+//   counts u64[T]  sum of wgt[i] (atomicAdd),
+//   pos    u32[T]  least i (atomicMin).
+// T is a power of two >= 2(F-1), so the table is at most half full and a
+// linear probe always ends. Integer atomics give the same table in any
+// order, so the result is exact and deterministic; only where a pair
+// lands depends on the race for its first free entry, and the caller's
+// selection (select_unify.cu) is order-free. The table is cleared with
+// cudaMemsetAsync on every call.
+//
+// Bound on this card: at F = 187,885 (train-85k) it is a few MB of
+// table traffic and some hundred thousand atomics; frequent pairs make
+// many threads add to one entry, which L2 serialises. A thread reads an
+// entry before it tries a compare-and-swap, so threads of an existing
+// pair add without one.
+
+#include <cstdint>
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr unsigned long long kEmpty = ~0ULL;
+
+__device__ __forceinline__ unsigned long long mix64(unsigned long long x) {
+  // splitmix64's finaliser: spreads neighbouring ids over the table.
+  x ^= x >> 33;
+  x *= 0xff51afd7ed558ccdULL;
+  x ^= x >> 33;
+  x *= 0xc4ceb9fe1a85ec53ULL;
+  x ^= x >> 33;
+  return x;
+}
+
+__global__ void pair_insert_kernel(const int32_t* __restrict__ fs,
+                                   const int32_t* __restrict__ wid,
+                                   const int64_t* __restrict__ wgt, int64_t F,
+                                   unsigned long long* keys,
+                                   unsigned long long* counts,
+                                   unsigned int* pos, unsigned long long mask) {
+  const int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) +
+                    threadIdx.x;
+  if (i + 1 >= F) return;
+  const int32_t a = fs[i];
+  const int32_t b = fs[i + 1];
+  if (a < 0 || b < 0 || wid[i] != wid[i + 1]) return;
+  const unsigned long long key =
+      (static_cast<unsigned long long>(static_cast<uint32_t>(a)) << 32) |
+      static_cast<uint32_t>(b);
+  unsigned long long h = mix64(key) & mask;
+  while (true) {
+    unsigned long long cur =
+        *reinterpret_cast<volatile unsigned long long*>(&keys[h]);
+    if (cur == kEmpty) {
+      cur = atomicCAS(&keys[h], kEmpty, key);
+      if (cur == kEmpty) cur = key;
+    }
+    if (cur == key) break;
+    h = (h + 1) & mask;
+  }
+  atomicAdd(&counts[h], static_cast<unsigned long long>(wgt[i]));
+  atomicMin(&pos[h], static_cast<unsigned int>(i));
+}
+
+}  // namespace
+
+extern "C" {
+
+// fs i32[F], wid i32[F], wgt i64[F] -> keys/counts i64[T], pos i32[T].
+// T a power of two >= 2(F-1); 2 <= F < 2^31. Returns the cudaError_t.
+int swt_pair_stats(const void* fs, const void* wid, const void* wgt,
+                   int64_t F, void* keys, void* counts, void* pos, int64_t T,
+                   void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaMemsetAsync(keys, 0xFF, T * sizeof(uint64_t), s);
+  if (err == cudaSuccess)
+    err = cudaMemsetAsync(counts, 0, T * sizeof(uint64_t), s);
+  if (err == cudaSuccess)
+    err = cudaMemsetAsync(pos, 0xFF, T * sizeof(uint32_t), s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int64_t blocks = (F - 1 + kThreads - 1) / kThreads;
+  pair_insert_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
+      static_cast<const int32_t*>(fs), static_cast<const int32_t*>(wid),
+      static_cast<const int64_t*>(wgt), F,
+      static_cast<unsigned long long*>(keys),
+      static_cast<unsigned long long*>(counts),
+      static_cast<unsigned int*>(pos),
+      static_cast<unsigned long long>(T - 1));
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // extern "C"

@@ -1,10 +1,14 @@
-"""Unicode character classes of the FastWP end-to-end scanner.
+"""Unicode character classes of the front end and the FastWP scanner.
 
 The tables are read by path from the JAX package's data file
 ``subword_tokenizers_tpu/frontend/unicode_tables.npz`` (made by
 ``tools/gen_unicode_tables.py``); nothing of that package is imported.
 Each is a flat array indexed by codepoint:
 
+- ``WS_HF``         — Rust ``char::is_whitespace`` (Unicode White_Space),
+                      the whitespace of the BERT pre-tokenizer.
+- ``PUNCT_HF``      — the BERT pre-tokenizer's punctuation: ASCII
+                      punctuation or Unicode general category P*.
 - ``WS_PY``         — Python ``str.isspace``.
 - ``ALNUM_PY``      — Python ``str.isalnum``.
 - ``PUNC_PY``       — FastWP's ``ispunc``: neither alnum nor space.
@@ -30,21 +34,28 @@ def _load():
     with np.load(TABLE_PATH) as z:
         n = int(z["n_codepoints"])
         assert n == _N, f"table codepoint space {n} != {_N}"
+        ws_hf = np.unpackbits(z["ws_hf"])[:n].astype(bool)
+        punct_hf = np.unpackbits(z["punct_hf"])[:n].astype(bool)
         ws_py = np.unpackbits(z["ws_py"])[:n].astype(bool)
         alnum_py = np.unpackbits(z["alnum_py"])[:n].astype(bool)
         lower = (z["lower_delta"].astype(np.int32)
                  + np.arange(n, dtype=np.int32)).astype(np.uint32)
         lower_special = np.unpackbits(z["lower_special"])[:n].astype(bool)
-    return ws_py, alnum_py, lower, lower_special
+    return ws_hf, punct_hf, ws_py, alnum_py, lower, lower_special
 
 
-WS_PY, ALNUM_PY, LOWER, LOWER_SPECIAL = _load()
+WS_HF, PUNCT_HF, WS_PY, ALNUM_PY, LOWER, LOWER_SPECIAL = _load()
 PUNC_PY = ~(ALNUM_PY | WS_PY)
 
 
 def codepoints(text: str) -> np.ndarray:
     """Codepoint array (uint32) of ``text``."""
     return np.frombuffer(text.encode("utf-32-le"), dtype=np.uint32)
+
+
+def to_text(cps: np.ndarray) -> str:
+    """The string of a codepoint array."""
+    return cps.astype("<u4").tobytes().decode("utf-32-le")
 
 
 def lower_codepoints(text: str):

@@ -1,11 +1,28 @@
-"""Model base class: what every tokenizer of the port shares."""
+"""Model base class: what every tokenizer of the port shares, including
+the built-in BERT-style front end (frontend/pretokenize.py)."""
 from __future__ import annotations
 
 from typing import List
 
+from ..frontend.pretokenize import (Token, WordBatch, pre_tokenize_str,
+                                    pretokenize_batch)
+
 
 class SubwordTokenizer:
     """Parent class for the port's tokenizers."""
+
+    def preprocessing(self, corpus: List[str]) -> List[List[Token]]:
+        """Lower and pre-split each sentence: per sentence,
+        ``[(word, (start, end)), ...]`` (the reference's schema)."""
+        return [pre_tokenize_str(example) for example in corpus]
+
+    def preprocessing_batch(self, corpus: List[str]) -> WordBatch:
+        """The front end's output as flat arrays (the trainers' input)."""
+        return pretokenize_batch(corpus)
+
+    def vocab_length(self, corpus: List[str]) -> int:
+        """Number of distinct characters in the corpus."""
+        return len({symbol for example in corpus for symbol in example})
 
     def tokenize_batch(self, corpus: List[str]) -> List[List[str]]:
         raise NotImplementedError

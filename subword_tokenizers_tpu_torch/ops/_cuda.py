@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels.
 
-``csrc/*.cu`` are compiled by hand with nvcc for ``sm_90a`` into one
-shared library with a plain C interface, loaded with ctypes. The library
-goes to ``csrc/build/``, named by a hash of the sources and flags, on
-first use. Nothing here runs at import: the CPU tests import every
-module of the port, and this machine may have no nvcc.
+``csrc/*.cu`` are compiled by hand with nvcc for ``sm_90a``, one nvcc
+per source and all at once, then linked into one shared library with a
+plain C interface, loaded with ctypes. The library goes to
+``csrc/build/``, named by a hash of the sources and flags, on first use.
+Nothing here runs at import: the CPU tests import every module of the
+port, and this machine may have no nvcc.
 
 Each C entry point returns the ``cudaError_t`` of its launch;
 :func:`launch` raises unless it is 0.
@@ -24,7 +25,7 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "csrc")
 BUILD_DIR = os.path.join(CSRC, "build")
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
-FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
          "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
@@ -36,6 +37,10 @@ SIGNATURES = {
     "swt_wp_e2e_scan_u16": _SCAN_ARGS,
     "swt_wp_e2e_scan_i32": _SCAN_ARGS,
     "swt_compact": [_P, _I64, _I, _P, _P, _P, _P, _P, _P, _P],
+    "swt_pair_stats": [_P, _P, _P, _I64, _P, _P, _P, _I64, _P],
+    "swt_select_unify": [_P, _P, _P, _I64, _P, _I, _P, _P, _P, _I64, _P, _P,
+                         _P, _I64, _I64, _P, _I, _P],
+    "swt_merge_apply": [_P, _P, _P, _I64, _P, _P, _P, _P, _P, _P, _P, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -73,19 +78,30 @@ def build() -> str:
     if os.path.exists(so_path):
         return so_path
     os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
+    tmpdir = tempfile.mkdtemp(dir=BUILD_DIR)
     try:
-        proc = subprocess.run([nvcc(), *FLAGS, "-o", tmp, *_sources()],
-                              capture_output=True, text=True)
-        build_log = proc.stdout + proc.stderr
+        objs, procs = [], []
+        for src in _sources():
+            obj = os.path.join(tmpdir, os.path.basename(src) + ".o")
+            objs.append(obj)
+            procs.append(subprocess.Popen(
+                [nvcc(), *FLAGS, "-c", "-o", obj, src],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        logs = [p.communicate()[0] for p in procs]
+        build_log = "".join(logs)
+        for src, p, log in zip(_sources(), procs, logs):
+            if p.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {os.path.basename(src)} "
+                                   f"({p.returncode}):\n{log[-6000:]}")
+        tmp = os.path.join(tmpdir, "kernels.so")
+        proc = subprocess.run([nvcc(), *ARCH_FLAGS, "-shared", "-o", tmp,
+                               *objs], capture_output=True, text=True)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{build_log[-6000:]}")
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               f"{(proc.stdout + proc.stderr)[-6000:]}")
         os.replace(tmp, so_path)
     finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+        shutil.rmtree(tmpdir, ignore_errors=True)
     return so_path
 
 

@@ -1,0 +1,120 @@
+"""Weighted pair counts of the flat training state (kernel K1).
+
+For every distinct valid pair (a, b) of adjacent slots, ``fs[i] = a``
+and ``fs[i+1] = b`` within one word, its count is the sum of ``wgt[i]``
+over its occurrences and its first position the least such ``i``: the
+reference's ``Counter`` of pairs with its first-insertion order. The JAX
+package gets them by sorting (key, position) and aggregating runs
+(``ops/pairstats.py`` ``_run_aggregate``, ``ops/flat.py``
+``flat_aggregate``); the kernel inserts into a hash table instead.
+
+A pair's key is ``a << 32 | b`` in int64; the kernel's table marks empty
+entries with ``EMPTY_KEY``. Its layout has no counterpart in the plain
+version, so the two are compared in :func:`canonical` form: the pairs
+sorted by key, with counts and first positions.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from . import check_tensor
+
+EMPTY_KEY = -1
+
+
+def table_size(F: int) -> int:
+    """Entries of the kernel's table for a state of width ``F``: the
+    next power of two at or above 2(F-1), so it is at most half full."""
+    T = 2
+    while T < 2 * (F - 1):
+        T <<= 1
+    return T
+
+
+def alloc_table(F: int, device) -> Tuple[torch.Tensor, ...]:
+    """(keys int64[T], counts int64[T], pos int32[T]) for
+    :func:`pair_stats` on a state of width up to ``F``."""
+    T = table_size(F)
+    return (torch.empty(T, dtype=torch.int64, device=device),
+            torch.empty(T, dtype=torch.int64, device=device),
+            torch.empty(T, dtype=torch.int32, device=device))
+
+
+def pair_stats_ref(fs, wid, wgt):
+    """Plain PyTorch version: (keys, counts, first) int64, one entry per
+    distinct pair, sorted by key."""
+    dev = fs.device
+    a = fs[:-1].to(torch.int64)
+    b = fs[1:].to(torch.int64)
+    valid = (a >= 0) & (b >= 0) & (wid[:-1] == wid[1:])
+    pos = torch.nonzero(valid).flatten()
+    keys, inv = torch.unique((a[valid] << 32) | b[valid], sorted=True,
+                             return_inverse=True)
+    counts = torch.zeros(keys.shape[0], dtype=torch.int64, device=dev)
+    counts.scatter_add_(0, inv, wgt[:-1][valid])
+    first = torch.full((keys.shape[0],), 2 ** 62, dtype=torch.int64,
+                       device=dev)
+    first.scatter_reduce_(0, inv, pos, "amin")
+    return keys, counts, first
+
+
+def canonical(keys, counts, pos):
+    """A pair table in the plain version's form: the non-empty entries
+    sorted by key, as (keys, counts, first) int64."""
+    live = keys != EMPTY_KEY
+    order = torch.argsort(keys[live])
+    return (keys[live][order], counts[live][order],
+            pos[live][order].to(torch.int64))
+
+
+def pair_stats(fs, wid, wgt, table: Optional[tuple] = None):
+    """Pair counts and first positions of a flat state (fs int32[F], wid
+    int32[F], wgt int64[F]).
+
+    For CUDA tensors, launches the kernel into ``table`` (from
+    :func:`alloc_table`, allocated when None) and returns it as (keys,
+    counts, pos), empty entries keyed ``EMPTY_KEY``. For CPU tensors,
+    runs the PyTorch version and returns its sorted (keys, counts,
+    first). Both forms feed ops/train_loop.select_unify. Raises for any
+    other device.
+    """
+    dev = fs.device
+    check_tensor("fs", fs, (torch.int32,), 1, dev)
+    check_tensor("wid", wid, (torch.int32,), 1, dev)
+    check_tensor("wgt", wgt, (torch.int64,), 1, dev)
+    F = fs.shape[0]
+    if wid.shape[0] != F or wgt.shape[0] != F:
+        raise ValueError("pair_stats: inconsistent shapes")
+    if F < 2 or F >= 2 ** 31:
+        raise ValueError(f"pair_stats: width {F} outside [2, 2**31)")
+    if dev.type == "cpu":
+        return pair_stats_ref(fs, wid, wgt)
+    if dev.type != "cuda":
+        raise ValueError(f"pair_stats: no kernel for device {dev}")
+    if table is None:
+        table = alloc_table(F, dev)
+    keys, counts, pos = table
+    T = keys.shape[0]
+    for name, t, dt in (("keys", keys, torch.int64),
+                        ("counts", counts, torch.int64),
+                        ("pos", pos, torch.int32)):
+        check_tensor(name, t, (dt,), 1, dev)
+        if t.shape[0] != T:
+            raise ValueError("pair_stats: inconsistent table")
+    if T < table_size(F):
+        raise ValueError(f"pair_stats: table of {T} < {table_size(F)}")
+    # The kernel probes with a power-of-two mask.
+    if T & (T - 1):
+        raise ValueError(f"pair_stats: table size {T} is not a power of 2")
+    from . import _cuda
+    with torch.cuda.device(dev):
+        _cuda.launch("swt_pair_stats", fs.data_ptr(), wid.data_ptr(),
+                     wgt.data_ptr(), F, keys.data_ptr(), counts.data_ptr(),
+                     pos.data_ptr(), T)
+    pair_stats.launches += 1
+    return table
+
+
+pair_stats.launches = 0

@@ -1,0 +1,324 @@
+"""BPE's merge loop on the device: selection and string unification
+(kernel K2), and the host loop that queues K steps of K1 -> K2 -> K3
+with no host sync between them.
+
+The only host dependency of a merge step is interning the merged string
+(two merges that spell the same string are one symbol). As in the JAX
+package's ``ops/train_loop.py``, it is resolved on the device: every
+symbol carries two rolling hashes mod the Mersenne prime 2^31 - 1 and
+its length; the merged symbol's are computed from its parts, and an
+exact (h1, h2, len) match over the live ids reuses an id, a miss
+appends one. After each block the host checks every record against real
+interning and raises :class:`HashCollision` on any disagreement; the
+model then redoes the run on the exact per-step path.
+
+Each step writes one int32 record ``(a, b, new_id, matched, active,
+n_live)`` (column names in ops/flat.py).
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..benchmarks import profiling
+from . import check_tensor
+from .flat import ACTIVE, NEW_ID, merge_apply
+from .pairstats import EMPTY_KEY, alloc_table, pair_stats, table_size
+
+MOD = (1 << 31) - 1  # Mersenne prime; products of residues fit in int64
+HASH_B1 = 1_000_003
+HASH_B2 = 805_306_457
+
+
+def str_hashes(s: str) -> Tuple[int, int]:
+    """The two rolling hashes of a string, on the host."""
+    h1 = h2 = 0
+    for c in s:
+        v = (ord(c) + 1) % MOD
+        h1 = (h1 * HASH_B1 + v) % MOD
+        h2 = (h2 * HASH_B2 + v) % MOD
+    return h1, h2
+
+
+def pow_tables(max_len: int):
+    """B^l mod M for l in [0, max_len], both bases (numpy int64)."""
+    p1 = np.ones(max_len + 1, dtype=np.int64)
+    p2 = np.ones(max_len + 1, dtype=np.int64)
+    for l in range(1, max_len + 1):
+        p1[l] = (p1[l - 1] * HASH_B1) % MOD
+        p2[l] = (p2[l - 1] * HASH_B2) % MOD
+    return p1, p2
+
+
+def select_unify_ref(keys, counts, pos, h1, h2, slen, ctrl, pw1, pw2,
+                     max_vocab: int, rec, host_ids: bool = False) -> None:
+    """Plain PyTorch version of :func:`select_unify` (same writes)."""
+    live = keys != EMPTY_KEY
+    best = int(torch.where(live, counts, -1).max()) if keys.numel() else -1
+    key = 0
+    if best >= 0:
+        at = live & (counts == best)
+        first = int(pos.to(torch.int64)[at].min())
+        key = int(keys[at & (pos.to(torch.int64) == first)].max())
+    n_sym, vocab, alive = ctrl.tolist()
+    if host_ids:
+        active = best > 0
+        a, b = (key >> 32, key & 0xFFFFFFFF) if active else (0, 0)
+        rec[:ACTIVE + 1] = torch.tensor([a, b, -1, 0, int(active)])
+        return
+    active = bool(alive) and best > 0 and vocab < max_vocab
+    a, b = (key >> 32, key & 0xFFFFFFFF) if active else (0, 0)
+    top = pw1.shape[0] - 1
+    lb = min(int(slen[b]), top)
+    m1 = (int(h1[a]) * int(pw1[lb]) % MOD + int(h1[b])) % MOD
+    m2 = (int(h2[a]) * int(pw2[lb]) % MOD + int(h2[b])) % MOD
+    lm = int(slen[a]) + int(slen[b])
+    ids = torch.arange(h1.shape[0], device=h1.device)
+    hit = (ids < n_sym) & (h1 == m1) & (h2 == m2) & (slen == lm)
+    matched = bool(hit.any())
+    new_id = int(ids[hit].max()) if matched else n_sym
+    if active and not matched:
+        h1[n_sym], h2[n_sym], slen[n_sym] = m1, m2, lm
+        n_sym += 1
+        vocab += 1
+    ctrl.copy_(torch.tensor([n_sym, vocab, int(alive and active)]))
+    rec[:ACTIVE + 1] = torch.tensor([a, b, new_id, int(matched),
+                                     int(active)])
+
+
+def select_unify(keys, counts, pos, h1, h2, slen, ctrl, pw1, pw2,
+                 max_vocab: int, rec, host_ids: bool = False) -> None:
+    """One step's winner and merged symbol, written into ``rec`` (int32[6]).
+
+    The pair table (keys, counts, pos) is either layout of
+    ops/pairstats.pair_stats. The winner is the pair of largest count,
+    then least first position (the reference's ``most_common(1)``). The
+    step is active while ``ctrl`` = int32 (n_sym, vocab_size, alive) is
+    alive, the count is positive and vocab_size < max_vocab; an inactive
+    step records a = b = 0.
+
+    Unless ``host_ids``, the merged symbol's hashes (``h1``, ``h2`` int64
+    and ``slen`` int64 over [sym_cap] ids; ``pw1``/``pw2`` the powers of
+    :func:`pow_tables`) are matched against every id below n_sym: a hit
+    takes the largest matching id, a miss appends the symbol at n_sym
+    and counts it in n_sym and vocab_size. ``ctrl`` stops being alive
+    after an inactive step. With ``host_ids`` only the
+    selection runs (active = count > 0), ``new_id`` is left to the host
+    and the hash tables and ``ctrl`` are not touched.
+
+    Launches the CUDA kernel for CUDA tensors, runs the PyTorch version
+    for CPU tensors, and raises for any other device.
+    """
+    dev = keys.device
+    check_tensor("keys", keys, (torch.int64,), 1, dev)
+    check_tensor("counts", counts, (torch.int64,), 1, dev)
+    check_tensor("pos", pos, (torch.int32, torch.int64), 1, dev)
+    for name, t in (("h1", h1), ("h2", h2), ("slen", slen), ("pw1", pw1),
+                    ("pw2", pw2)):
+        check_tensor(name, t, (torch.int64,), 1, dev)
+    check_tensor("ctrl", ctrl, (torch.int32,), 1, dev)
+    check_tensor("rec", rec, (torch.int32,), 1, dev)
+    T = keys.shape[0]
+    if (counts.shape[0] != T or pos.shape[0] != T or ctrl.shape[0] != 3
+            or rec.shape[0] != 6 or h2.shape[0] != h1.shape[0]
+            or slen.shape[0] != h1.shape[0]
+            or pw2.shape[0] != pw1.shape[0] or pw1.shape[0] == 0):
+        raise ValueError("select_unify: inconsistent shapes")
+    if dev.type == "cpu":
+        return select_unify_ref(keys, counts, pos, h1, h2, slen, ctrl, pw1,
+                                pw2, max_vocab, rec, host_ids)
+    if dev.type != "cuda":
+        raise ValueError(f"select_unify: no kernel for device {dev}")
+    if pos.dtype != torch.int32:
+        raise TypeError("select_unify: the kernel takes int32 positions")
+    n_part = max(1, min(264, -(-T // 256)))
+    part = torch.empty(3 * n_part, dtype=torch.int64, device=dev)
+    from . import _cuda
+    with torch.cuda.device(dev):
+        _cuda.launch("swt_select_unify", keys.data_ptr(), counts.data_ptr(),
+                     pos.data_ptr(), T, part.data_ptr(), n_part,
+                     h1.data_ptr(), h2.data_ptr(), slen.data_ptr(),
+                     h1.shape[0], ctrl.data_ptr(), pw1.data_ptr(),
+                     pw2.data_ptr(), pw1.shape[0], max_vocab,
+                     rec.data_ptr(), int(host_ids))
+    select_unify.launches += 1
+
+
+select_unify.launches = 0
+
+
+class HashCollision(Exception):
+    """Device hash unification disagreed with real string interning."""
+
+
+class FlatState:
+    """The flat training state on ``device`` (ops/flat.py layout) with a
+    second buffer of each array for K3 to write into, and K1's table.
+
+    ``F`` is the width the kernels see; the caller may lower it to cut a
+    dead tail off (merges only consume slots, and K3 compacts to the
+    front).
+    """
+
+    def __init__(self, fs: np.ndarray, wid: np.ndarray, wgt: np.ndarray,
+                 device) -> None:
+        self.device = torch.device(device)
+        self.F = int(fs.shape[0])
+        cur = tuple(torch.from_numpy(np.ascontiguousarray(x)).to(
+            self.device) for x in (fs, wid, wgt))
+        self._bufs = [cur, tuple(torch.empty_like(x) for x in cur)]
+        self._cur = 0
+        self._table = alloc_table(self.F, self.device) \
+            if self.device.type == "cuda" else None
+
+    def arrays(self):
+        """(fs, wid, wgt) views of the current state."""
+        return tuple(x[:self.F] for x in self._bufs[self._cur])
+
+    def pairs(self):
+        """K1 over the current state."""
+        table = None
+        if self._table is not None:
+            T = table_size(self.F)
+            table = tuple(x[:T] for x in self._table)
+        return pair_stats(*self.arrays(), table=table)
+
+    def merge(self, rec) -> None:
+        """K3 with the step record ``rec`` (on the device); the state
+        becomes the result."""
+        nxt = 1 - self._cur
+        out = tuple(x[:self.F] for x in self._bufs[nxt])
+        merge_apply(*self.arrays(), rec, out=out)
+        self._cur = nxt
+
+    def host(self) -> Tuple[np.ndarray, np.ndarray]:
+        """(fs, wid) on the host, in one copy."""
+        fs, wid, _ = self.arrays()
+        both = torch.stack([fs, wid]).cpu().numpy()
+        return both[0], both[1]
+
+
+# Floor of the between-block shrink: below it a step is cheap anyway.
+_FLAT_MIN = 8192
+
+
+def init_tables(table, max_vocab: int, max_len: int, device):
+    """(h1, h2, slen, ctrl, pw1, pw2) on ``device`` for a run from the
+    symbols of ``table`` to ``max_vocab``; words are at most ``max_len``
+    symbols long."""
+    n0 = len(table)
+    sym_cap = max(max_vocab, n0) + 8
+    h1 = np.zeros(sym_cap, dtype=np.int64)
+    h2 = np.zeros(sym_cap, dtype=np.int64)
+    sl = np.zeros(sym_cap, dtype=np.int64)
+    for i, s in enumerate(table.strings()):
+        h1[i], h2[i] = str_hashes(s)
+        sl[i] = len(s)
+    pw1, pw2 = pow_tables(max_len + 4)
+    ctrl = np.array([n0, n0, 1], dtype=np.int32)
+    return tuple(torch.from_numpy(x).to(device)
+                 for x in (h1, h2, sl, ctrl, pw1, pw2))
+
+
+def run_fused(state: FlatState, table, max_vocab: int, max_len: int,
+              on_merge, K: int = 256, checkpoint_cb=None,
+              progress_cb=None) -> None:
+    """Train on ``state`` until ``max_vocab`` symbols or no pair is left.
+
+    Each block queues K steps (K1, K2, K3) with no host sync between
+    them; every stop condition is enforced on the device, so steps past
+    the end are no-ops. The block's [K, 6] records then come back in one
+    copy, and each active record is checked against ``table.intern``
+    (raising :class:`HashCollision` on a disagreement) and reported with
+    ``on_merge(sa, sb, merged)``. ``progress_cb(steps)`` and
+    ``checkpoint_cb(steps)`` run after each block that merged; the
+    caller keeps its own cadence. Between blocks the state shrinks to
+    half its width while its live slots fit.
+    """
+    if len(table) >= max_vocab:
+        return
+    dev = state.device
+    h1, h2, sl, ctrl, pw1, pw2 = init_tables(table, max_vocab, max_len, dev)
+    recs = torch.zeros((K, 6), dtype=torch.int32, device=dev)
+    done = False
+    while not done:
+        with profiling.phase("train.device_block", dev):
+            for k in range(K):
+                rec = recs[k]
+                keys, counts, pos = state.pairs()
+                select_unify(keys, counts, pos, h1, h2, sl, ctrl, pw1, pw2,
+                             max_vocab, rec)
+                state.merge(rec)
+        with profiling.phase("train.fetch_records"):
+            recs_np = recs.cpu().numpy()
+        with profiling.phase("train.verify"):
+            steps = 0
+            for a, b, new_id, _, active, _ in recs_np.tolist():
+                if not active:
+                    done = True
+                    break
+                sa, sb = table.string(a), table.string(b)
+                merged = sa + sb
+                nid = table.intern(merged)
+                if nid != new_id:
+                    raise HashCollision(
+                        f"step {len(table)}: device id {new_id} != host id "
+                        f"{nid} for {merged!r}")
+                on_merge(sa, sb, merged)
+                steps += 1
+        if progress_cb is not None and steps:
+            progress_cb(steps)
+        if checkpoint_cb is not None and steps:
+            checkpoint_cb(steps)
+        if len(table) >= max_vocab:
+            done = True
+        if steps and not done:
+            n_live = int(recs_np[steps - 1, 5])
+            if state.F >= 2 * _FLAT_MIN and n_live <= state.F // 2:
+                state.F //= 2
+
+
+def step_host_ids(state: FlatState, table, rec) -> Optional[
+        Tuple[str, str, str]]:
+    """One exact per-step merge: K1, K2 selection only, interning on the
+    host, K3 with the host's id. Returns (sa, sb, merged), or None when
+    no pair is left (nothing is merged then)."""
+    keys, counts, pos = state.pairs()
+    dev = state.device
+    empty = torch.zeros(1, dtype=torch.int64, device=dev)
+    ctrl = torch.zeros(3, dtype=torch.int32, device=dev)
+    select_unify(keys, counts, pos, empty, empty, empty, ctrl, empty, empty,
+                 0, rec, host_ids=True)
+    a, b, _, _, active = rec[:ACTIVE + 1].tolist()
+    if not active:
+        return None
+    sa, sb = table.string(a), table.string(b)
+    merged = sa + sb
+    rec[NEW_ID] = table.intern(merged)
+    state.merge(rec)
+    return sa, sb, merged
+
+
+def merge_host_ids(state: FlatState, a: int, b: int, new_id: int,
+                   rec) -> None:
+    """K3 with ids the host already knows (resume replay)."""
+    rec.copy_(torch.tensor([a, b, new_id, 0, 1, 0], dtype=torch.int32))
+    state.merge(rec)
+
+
+def _flat_to_padded(fs: np.ndarray, wid: np.ndarray, n_words: int):
+    """Rebuild a padded [n_words, max_len] host tensor from flat state."""
+    live = fs >= 0
+    fs = fs[live]
+    wid = wid[live]
+    counts = np.bincount(wid, minlength=n_words)
+    L = max(int(counts.max()) if counts.size else 1, 1)
+    out = np.full((n_words, L), -1, dtype=np.int32)
+    # flat order is word-major: position within word = running index
+    offs = np.zeros(n_words + 1, dtype=np.int64)
+    np.cumsum(counts, out=offs[1:])
+    pos = np.arange(fs.size, dtype=np.int64) - offs[wid]
+    out[wid, pos] = fs
+    return out

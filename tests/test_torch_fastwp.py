@@ -187,6 +187,10 @@ def test_port_imports_no_jax():
         "tok.load_resources('/nonexistent-dir')\n"
         "assert tok.tokenize_batch(['ab c', 'x']) == "
         "[['a', '##b', 'c'], [\"['UNK']\"]]\n"
+        "from subword_tokenizers_tpu_torch import FastBPE\n"
+        "bpe = FastBPE(device='cpu')\n"
+        "bpe.train(['aaa aab abab', 'ab ba'], 8)\n"
+        "assert bpe.merges_list[0] == ('a', 'b'), bpe.merges_list\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
         "('jax.', 'subword_tokenizers_tpu.')) or m == "
         "'subword_tokenizers_tpu']\n"
