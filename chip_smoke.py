@@ -32,7 +32,22 @@ WordPiece vocab ``tests/golden/port_t85k_fastwp_vocab.json``:
    kernel must have been launched; cold and warm times, the phase split
    and the device's idle share under ``torch.profiler``;
 6b. the other training routes: a checkpoint at 1,400 resumed to 8,000,
-   the exact per-step path to 578, and a forced hash collision.
+   the exact per-step path to 578, and a forced hash collision;
+7. holds the WordPiece training kernels against their plain versions,
+   exactly: the exact scorer on about 10^6 seeded cases up to d = 2^104,
+   symbol weights (K4), selection by score with "##"-stripping
+   unification (K2's WordPiece mode) and the merge carrying the weights
+   (K3), on the corpus's initial WordPiece state, after 1,000 merges,
+   with weights scaled into the wide score domain, and on a near tie of
+   relative gap 2^-51; times each at the initial state;
+8. trains ``NaiveWP(device="cuda")`` on the whole corpus to an
+   8,000-token vocab: every merge and the vocab must equal the JAX
+   package's (``tests/golden/port_t85k_v8000_wp_vocab.json``), the
+   carried weights a recount, and every kernel must have been launched;
+   cold and warm times, the phase split, and (8c) the idle share;
+8b. the other WordPiece routes: a checkpoint at 1,400 merges resumed to
+   8,000, the per-step path to 1,000, a forced hash collision, and
+   ``FastWP.train`` then ``tokenize_batch`` against the golden vocab.
 
 Each phase prints one line; any failure raises. The line before the last
 is the kernels' JSON record, the last ``{"ok": true, "device": ...}``.
@@ -518,7 +533,7 @@ def main() -> int:
 
     # times at the initial state
     tab = alloc_table(F0, dev)
-    h1, h2, sl, ctrl, pw1, pw2 = init_tables(table, 8000, max_len, dev)
+    h1, h2, sl, ctrl, pw1, pw2, _ = init_tables(table, 8000, max_len, dev)
     rec = torch.zeros(6, dtype=torch.int32, device=dev)
     pair_stats(fs, wid, wgt, tab)
     tab_ref = pair_stats_ref(fs, wid, wgt)
@@ -651,6 +666,344 @@ def main() -> int:
           f"sentences fell back and equals the fused run "
           f"({len(plain.merges_list)} merges)")
 
+    # ---- phase 7: the WordPiece training kernels against their plain
+    # versions
+    from subword_tokenizers_tpu_torch import NaiveWP
+    from subword_tokenizers_tpu_torch.core.corpus import build_wp_corpus
+    from subword_tokenizers_tpu_torch.ops.bitmath import (score_bits,
+                                                          score_bits_ref)
+    from subword_tokenizers_tpu_torch.ops.pairstats import (
+        EMPTY_KEY, symbol_freqs, symbol_freqs_ref)
+    wp_kernels = ("symbol_freqs", "wp_score", "select_unify_wp",
+                  "merge_apply_wp")
+    errs.update({k: 0 for k in wp_kernels})
+
+    # the scorer: weights of every bit length up to 52 (d up to 2^104),
+    # counts up to the smaller weight, and the edge families
+    n = 1 << 20
+    fa = rng.integers(1, 1 << 52, size=n) >> rng.integers(0, 52, size=n)
+    fb = rng.integers(1, 1 << 52, size=n) >> rng.integers(0, 52, size=n)
+    cs = np.minimum(rng.integers(1, 1 << 53, size=n)
+                    >> rng.integers(0, 53, size=n), np.minimum(fa, fb))
+    top = (1 << 52) - 1
+    edge = [(c, 1 << i, 1 << j) for i in range(52) for j in range(0, 52, 5)
+            for c in (1, 3, (1 << 33) - 1)]
+    edge += [(c, c * (1 << k) + dl, 1 << j) for k in range(2, 40)
+             for c in (3, 5, 101, 2049) for dl in (-1, 0, 1)
+             for j in (0, 13, 51) if c * (1 << k) + dl < (1 << 52)]
+    edge += [((1 << 53) - 1 - i, top - i, top - 2 * i) for i in range(64)]
+    edge += [(0, 0, 0), (1, top, top), (top, 1, 1)]
+    cs, fa, fb = (np.concatenate([x, np.array(e, dtype=np.int64)])
+                  for x, e in zip((cs, fa, fb), zip(*edge)))
+    n_wide = int(sum(int(a) * int(b) >= (1 << 53) for a, b in
+                     zip(fa.tolist(), fb.tolist())))
+    c_d, fa_d, fb_d = (torch.from_numpy(x).to(dev) for x in (cs, fa, fb))
+    errs["wp_score"] = max_err(score_bits(c_d, fa_d, fb_d),
+                               score_bits_ref(c_d, fa_d, fb_d))
+    n_score = int(cs.shape[0])
+
+    def check_wp(fs, wid, wgt, strings, max_len, sf=None):
+        """K4, K1 + K2's WordPiece mode (both modes) and K3 with the
+        weights (the winner, a self-merge, an inactive step) against
+        their plain versions on one state. ``sf``: the weights the run
+        carried, which must equal K4's recount."""
+        cap = 8008 if sf is None else sf.shape[0] - 1
+        sf_k4 = symbol_freqs(fs, wgt, cap)
+        errs["symbol_freqs"] = max(errs["symbol_freqs"], max_err(
+            sf_k4, symbol_freqs_ref(fs, wgt, cap)))
+        if sf is not None:
+            errs["merge_apply_wp"] = max(errs["merge_apply_wp"],
+                                         max_err(sf, sf_k4))
+        tab = pair_stats(fs, wid, wgt)
+        n = len(strings)
+        h1, h2, sl, pw1, pw2 = hash_tables(strings, cap, max_len)
+        sharp = str_hashes("##")
+        recs = []
+        for host_ids in (False, True):
+            st = [h1.clone(), h2.clone(), sl.clone(),
+                  torch.tensor([n, n, 1], dtype=torch.int32, device=dev)]
+            st_r = [x.clone() for x in st]
+            rec = torch.zeros(6, dtype=torch.int32, device=dev)
+            rec_r = rec.clone()
+            select_unify(*tab, *st, pw1, pw2, 8000, rec, host_ids, True,
+                         sf_k4, sharp)
+            select_unify_ref(*tab, *st_r, pw1, pw2, 8000, rec_r, host_ids,
+                             True, sf_k4, sharp)
+            errs["select_unify_wp"] = max(errs["select_unify_wp"], err_all(
+                [*st, rec], [*st_r, rec_r]))
+            recs.append(rec)
+        a, b = recs[0].tolist()[:2]
+        self_pair = int(fs[(fs >= 0)].mode().values)
+        for row in (recs[0].tolist(), [self_pair, self_pair, n, 0, 1, 0],
+                    [a, b, n, 0, 0, 0]):
+            rec = torch.tensor(row, dtype=torch.int32, device=dev)
+            rec_r = rec.clone()
+            s_k, s_r = sf_k4.clone(), sf_k4.clone()
+            got = merge_apply(fs, wid, wgt, rec, sym_freq=s_k)
+            want = merge_apply_ref(fs, wid, wgt, rec_r, sym_freq=s_r)
+            errs["merge_apply_wp"] = max(
+                errs["merge_apply_wp"],
+                err_all([*got, rec, s_k], [*want, rec_r, s_r]),
+                max_err(s_k, symbol_freqs_ref(got[0], got[2], cap)))
+        return recs[0]
+
+    table_wp = SymbolTable()
+    arrays_wp = build_wp_corpus(words, freq, table_wp)
+    flat_wp = build_flat(arrays_wp.sym, arrays_wp.freq)
+    assert flat_wp[0].shape[0] == F0
+    fs, wid, wgt = (torch.from_numpy(x).to(dev) for x in flat_wp)
+    check_wp(fs, wid, wgt, table_wp.strings(), max_len)
+    # weights scaled into the wide score domain (6,006,645 occurrences
+    # times 2^28 + 9871 is about 2^50.5; fa * fb passes 2^53)
+    wide_scale = (1 << 28) + 9871
+    check_wp(fs, wid, wgt * wide_scale, table_wp.strings(), max_len)
+    sf_wide = symbol_freqs(fs, wgt * wide_scale, 8008)
+    assert int(sf_wide.max()) ** 2 >= 1 << 53
+    # the state after 1,000 merges, from the kernel path, with the
+    # weights it carried
+    state = train_loop.FlatState(*flat_wp, dev)
+    t1000 = SymbolTable(table_wp.strings())
+    train_loop.run_fused(state, t1000, len(table_wp) + 1000, max_len,
+                         lambda *m: None, wordpiece=True)
+    assert len(t1000) == len(table_wp) + 1000, len(t1000)
+    check_wp(*state.arrays(), t1000.strings(), max_len, state.sym_freq)
+    n_wp_cases = 3
+    # a near tie: c1/(A q) and c2/(A p) with c1 p - c2 q = 1, a relative
+    # gap of about 2^-51; the larger double wins, and on a tie the first
+    # position
+    q, p = (1 << 26) - 1, (1 << 26) - 3
+    c1 = (1 << 25) - 1
+    c2 = (c1 * p - 1) // q
+    A = (1 << 20) + 7
+    sf_b = torch.tensor([1, A, p, q, 1], dtype=torch.int64, device=dev)
+    s1, s2 = c1 / (A * q), c2 / (A * p)
+    assert s1 != s2
+    for pos1, pos2 in ((5, 9), (9, 5)):
+        tab = (torch.tensor([(1 << 32) | 3, EMPTY_KEY, (1 << 32) | 2,
+                             EMPTY_KEY], dtype=torch.int64, device=dev),
+               torch.tensor([c1, 0, c2, 0], dtype=torch.int64, device=dev),
+               torch.tensor([pos1, 0, pos2, 0], dtype=torch.int32,
+                            device=dev))
+        z = torch.zeros(1, dtype=torch.int64, device=dev)
+        rec = torch.zeros(6, dtype=torch.int32, device=dev)
+        rec_r = rec.clone()
+        args = (z, z, z, torch.zeros(3, dtype=torch.int32, device=dev), z,
+                z, 0)
+        select_unify(*tab, *args, rec, True, True, sf_b)
+        select_unify_ref(*tab, *args, rec_r, True, True, sf_b)
+        errs["select_unify_wp"] = max(errs["select_unify_wp"],
+                                      max_err(rec, rec_r))
+        want_b = 3 if (s1 > s2 or (s1 == s2 and pos1 < pos2)) else 2
+        assert rec.tolist()[:2] == [1, want_b], rec.tolist()
+        n_wp_cases += 1
+    if any(errs[k] for k in wp_kernels):
+        raise AssertionError(f"a WordPiece kernel differs: {errs}")
+
+    # times at the initial state
+    cap = 8008
+    sf0 = symbol_freqs(fs, wgt, cap)
+    tab = pair_stats(fs, wid, wgt, alloc_table(F0, dev))
+    tab_ref = pair_stats_ref(fs, wid, wgt)
+    h1, h2, sl, ctrl, pw1, pw2, sharp = init_tables(table_wp, 8000, max_len,
+                                                    dev)
+    rec = torch.zeros(6, dtype=torch.int32, device=dev)
+    select_unify(*tab, h1, h2, sl, ctrl, pw1, pw2, 8000, rec, False, True,
+                 sf0, sharp)
+    out = tuple(torch.empty_like(x) for x in (fs, wid, wgt))
+    sf_t = sf0.clone()
+    sc = tuple(x[:F0].clone() for x in (c_d, fa_d, fb_d))
+    sc_narrow = tuple(torch.from_numpy(x).to(dev) for x in (
+        rng.integers(1, 1 << 20, size=F0), rng.integers(1, 1 << 26, size=F0),
+        rng.integers(1, 1 << 26, size=F0)))
+    timing["symbol_freqs"] = (
+        cuda_ms(lambda: symbol_freqs(fs, wgt, cap), 200, True),
+        cuda_ms(lambda: symbol_freqs_ref(fs, wgt, cap), 10))
+    timing["wp_score"] = (
+        cuda_ms(lambda: score_bits(*sc_narrow), 200, True),
+        cuda_ms(lambda: score_bits_ref(*sc_narrow), 10))
+    timing["wp_score_mixed"] = (
+        cuda_ms(lambda: score_bits(*sc), 200, True),
+        cuda_ms(lambda: score_bits_ref(*sc), 1))
+    timing["select_unify_wp"] = (
+        cuda_ms(lambda: select_unify(*tab, h1, h2, sl, ctrl, pw1, pw2, 8000,
+                                     rec, False, True, sf0, sharp), 200,
+                True),
+        cuda_ms(lambda: select_unify_ref(*tab_ref, h1, h2, sl, ctrl, pw1,
+                                         pw2, 8000, rec, False, True, sf0,
+                                         sharp), 10))
+    timing["merge_apply_wp"] = (
+        cuda_ms(lambda: merge_apply(fs, wid, wgt, rec, out=out,
+                                    sym_freq=sf_t), 200, True),
+        cuda_ms(lambda: merge_apply_ref(fs, wid, wgt, rec, sym_freq=sf_t),
+                10))
+    torch.cuda.synchronize()
+    print(f"phase 7: WordPiece kernels equal their plain versions exactly: "
+          f"the scorer on {n_score} cases ({n_wide} wide, d up to 2^104), "
+          f"K4, K2's WordPiece mode and K3 with the weights on {n_wp_cases} "
+          f"states (the 85k initial state, its weights times 2^28 + 9871, "
+          f"after 1,000 merges, a near tie of gap 2^-51 in both orders); at "
+          f"{n_slots} slots (F = {F0}): " + ", ".join(
+              f"{k} {timing[k][0]:.3f} ms (plain {timing[k][1]:.3f} ms)"
+              for k in ("symbol_freqs", "select_unify_wp",
+                        "merge_apply_wp"))
+          + f"; scorer on {F0} narrow cases {timing['wp_score'][0]:.3f} ms "
+          f"(plain {timing['wp_score'][1]:.3f} ms), on {F0} of the mixed "
+          f"cases {timing['wp_score_mixed'][0]:.3f} ms (plain "
+          f"{timing['wp_score_mixed'][1]:.3f} ms); {smi}")
+
+    # ---- phase 8: the WordPiece training path, the whole corpus to 8,000
+    with open(os.path.join(golden_dir, "port_t85k_v8000_wp_vocab.json"),
+              encoding="utf-8") as f:
+        golden_wp = json.load(f)
+    wp_merges = [tuple(m) for m in golden_wp["merges"]]
+    wp_vocab = golden_wp["vocab"]
+    n_alpha = len(wp_vocab) - len(wp_merges)
+    assert n_alpha == len(table_wp), (n_alpha, len(table_wp))
+
+    def check_wp_train(tok, what, n_merges=None):
+        want = wp_merges[:n_merges]
+        if tok._merge_log != want or (n_merges is None and sorted(
+                tok.vocab) != wp_vocab):
+            bad = next((i for i, (g, w) in enumerate(
+                zip(tok._merge_log, want)) if g != w),
+                min(len(tok._merge_log), len(want)))
+            raise AssertionError(
+                f"{what}: {len(tok._merge_log)} merges, first difference "
+                f"from the JAX golden at merge {bad}")
+        rebuilt = [syms[0] + "".join(s[2:] for s in syms[1:])
+                   for syms, _ in tok.corpus_as_symbols]
+        if rebuilt != words or [f for _, f in tok.corpus_as_symbols] != \
+                freq.tolist():
+            raise AssertionError(f"{what}: corpus_as_symbols is wrong")
+
+    states = []
+    real_state = train_loop.FlatState
+
+    class KeptState(real_state):
+        """FlatState that keeps each instance, to read the carried
+        weights after a run."""
+
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            states.append(self)
+
+    pair_stats.launches = select_unify.launches = merge_apply.launches = 0
+    select_unify.wp_launches = merge_apply.wp_launches = 0
+    symbol_freqs.launches = 0
+    # run 0 is cold (the process's first WordPiece training), runs 1-2
+    # warm, run 3 warm with the phase profiler on
+    wp_walls = []
+    try:
+        train_loop.FlatState = KeptState
+        for run in range(4):
+            profiling.enable(run == 3)
+            profiling.reset()
+            tok = NaiveWP(device=dev)
+            t0 = time.perf_counter()
+            tok.train(corpus, 8000)
+            torch.cuda.synchronize()
+            wp_walls.append(time.perf_counter() - t0)
+            check_wp_train(tok, f"WordPiece run {run}")
+    finally:
+        train_loop.FlatState = real_state
+    wp_phase_ms = {name: round(v["total_s"] * 1e3, 3)
+                   for name, v in profiling.report().items()}
+    profiling.enable(False)
+    wp_launches = {"pair_stats": pair_stats.launches,
+                   "select_unify": select_unify.wp_launches,
+                   "merge_apply": merge_apply.wp_launches,
+                   "symbol_freqs": symbol_freqs.launches}
+    if not all(wp_launches.values()) or \
+            select_unify.launches != select_unify.wp_launches:
+        raise AssertionError(f"a WordPiece kernel was not launched: "
+                             f"{wp_launches}")
+    st = states[-1]
+    fs_end, _, wgt_end = st.arrays()
+    cap = st.sym_freq.shape[0] - 1
+    recount = symbol_freqs(fs_end, wgt_end, cap)
+    errs["merge_apply_wp"] = max(errs["merge_apply_wp"], max_err(
+        st.sym_freq, recount), max_err(st.sym_freq, symbol_freqs_ref(
+            fs_end, wgt_end, cap)))
+    if errs["merge_apply_wp"]:
+        raise AssertionError("the carried weights differ from a recount")
+    print(f"phase 8: NaiveWP(device='cuda').train of all {len(corpus)} "
+          f"sentences ({len(words)} word types, {n_slots} slots, "
+          f"{len(table_wp)} initial symbols) to 8000: {len(wp_merges)} "
+          f"merges and the vocab equal the JAX golden, corpus_as_symbols "
+          f"rebuilds the words, the carried weights equal a recount; "
+          f"launches {wp_launches}; cold {wp_walls[0]:.3f} s, warm "
+          f"{wp_walls[1]:.3f} / {wp_walls[2]:.3f} s; profiled "
+          f"{wp_walls[3]:.3f} s, phases (ms) {json.dumps(wp_phase_ms)}; "
+          f"{smi}")
+
+    with tempfile.TemporaryDirectory() as d:
+        wall, busy, by_name = device_trace(
+            lambda: NaiveWP(device=dev).train(corpus, 8000),
+            os.path.join(d, "wp_train_trace.json"))
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
+    dev_line = ("not measured (the trace holds no device events)"
+                if not by_name else
+                f"device busy {busy:.3f} ms of {wall:.1f} ms "
+                f"(idle share {1 - busy / wall:.4f}); "
+                + "; ".join(f"{n} x{c} {ms:.3f} ms" for n, (c, ms) in top))
+    print(f"phase 8c: one warm WordPiece train under torch.profiler: "
+          f"{dev_line}; {smi}")
+
+    # ---- phase 8b: the other WordPiece routes
+    with tempfile.TemporaryDirectory() as d:
+        part = NaiveWP(device=dev)
+        part.train(corpus, n_alpha + 1400, checkpoint_dir=d,
+                   checkpoint_every=500)
+        check_wp_train(part, "checkpointed run", 1400)
+        resumed = NaiveWP(device=dev)
+        resumed.train(corpus, 8000, checkpoint_dir=d, resume=True)
+        check_wp_train(resumed, "resumed run")
+    per_step = NaiveWP(device=dev)
+    per_step._force_per_step = True
+    per_step.train(corpus, n_alpha + 1000)
+    check_wp_train(per_step, "per-step run", 1000)
+    small = corpus[:500]
+    plain = NaiveWP(device=dev)
+    plain.train(small, 300)
+    real_hashes, real_run = train_loop.str_hashes, train_loop.run_fused
+    raised = []
+
+    def spy(*args, **kwargs):
+        try:
+            return real_run(*args, **kwargs)
+        except train_loop.HashCollision as e:
+            raised.append(e)
+            raise
+
+    try:
+        train_loop.str_hashes = lambda s: (0, 0)
+        train_loop.run_fused = spy
+        forced = NaiveWP(device=dev)
+        forced.train(small, 300)
+    finally:
+        train_loop.str_hashes, train_loop.run_fused = real_hashes, real_run
+    assert len(raised) == 1, "the forced collision did not fall back"
+    assert (forced._merge_log, forced.vocab, forced.corpus_as_symbols) == \
+        (plain._merge_log, plain.vocab, plain.corpus_as_symbols)
+    fast = FastWP(device=dev)
+    fast.train(corpus, 8000)
+    check_wp_train(fast, "FastWP run")
+    loaded = FastWP(device=dev)
+    with tempfile.TemporaryDirectory() as d:
+        with open(os.path.join(d, "vocab.json"), "w", encoding="utf-8") as f:
+            json.dump(wp_vocab, f, ensure_ascii=False)
+        loaded.load_resources(d, strict=True)
+    encoded = fast.tokenize_batch(corpus)
+    if digest(encoded) != digest(loaded.tokenize_batch(corpus)):
+        raise AssertionError("FastWP after train encodes differently from "
+                             "the golden vocab")
+    print(f"phase 8b: a checkpoint at 1400 merges resumed to 8000 equals "
+          f"the golden; the per-step path to 1000 merges equals its "
+          f"prefix; a forced hash collision on 500 sentences fell back and "
+          f"equals the fused run ({len(plain._merge_log)} merges); "
+          f"FastWP.train then tokenize_batch ({sum(map(len, encoded))} "
+          f"tokens) equals a FastWP loading the golden vocab")
+
     record = {"kernels": [
         {"name": "wp_e2e_scan", "route": "cuda",
          "source": "subword_tokenizers_tpu_torch/csrc/wp_e2e_scan.cu",
@@ -676,6 +1029,33 @@ def main() -> int:
             ("pair_stats", "subword_tokenizers_tpu/ops/flat.py:65"),
             ("select_unify", "subword_tokenizers_tpu/ops/train_loop.py:68"),
             ("merge_apply", "subword_tokenizers_tpu/ops/flat.py:204"))]}
+    # the WordPiece path (phase 8) through K1-K3, and its two new kernels
+    by_name = {k["name"]: k for k in record["kernels"]}
+    by_name["pair_stats"]["wp_launches"] = wp_launches["pair_stats"]
+    for k, replaces in (
+            ("select_unify", "subword_tokenizers_tpu/ops/pairstats.py:240"),
+            ("merge_apply", "subword_tokenizers_tpu/ops/train_loop.py:264")):
+        by_name[k].update(
+            wp_mode=f"WordPiece mode, replaces {replaces}",
+            wp_launches=wp_launches[k], wp_max_abs_err=errs[f"{k}_wp"],
+            wp_ms=timing[f"{k}_wp"][0], wp_plain_ms=timing[f"{k}_wp"][1])
+    record["kernels"] += [
+        {"name": "symbol_freqs", "route": "cuda",
+         "source": "subword_tokenizers_tpu_torch/csrc/symbol_freqs.cu",
+         "replaces": "subword_tokenizers_tpu/ops/pairstats.py:201",
+         "launches": wp_launches["symbol_freqs"],
+         "max_abs_err": errs["symbol_freqs"],
+         "ms": timing["symbol_freqs"][0],
+         "plain_ms": timing["symbol_freqs"][1]},
+        {"name": "wp_score", "route": "cuda",
+         "source": "subword_tokenizers_tpu_torch/csrc/select_unify.cu",
+         "replaces": "subword_tokenizers_tpu/ops/pairstats.py:211",
+         "launches": wp_launches["select_unify"],
+         "note": "a __device__ scorer run inside each WordPiece-mode "
+                 "select_unify launch (those are its launches); its own "
+                 "launcher swt_score_bits serves the checks and the times",
+         "max_abs_err": errs["wp_score"], "ms": timing["wp_score"][0],
+         "plain_ms": timing["wp_score"][1]}]
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -2,9 +2,11 @@
 subword_tokenizers_tpu.
 
 It holds FastWP batched encode (the end-to-end WordPiece scan and the
-token-stream compaction) and BPE training (``NaiveBPE``/``FastBPE``
+token-stream compaction), BPE training (``NaiveBPE``/``FastBPE``
 ``train``: pair counts, selection with hash unification, and merge with
-compaction). On an NVIDIA GPU (``device="cuda"``) each runs as
+compaction) and WordPiece training (``NaiveWP``/``FastWP`` ``train``:
+the same kernels with selection by the exact score, and per-symbol
+weights). On an NVIDIA GPU (``device="cuda"``) each runs as
 hand-written CUDA kernels; on the CPU (``device="cpu"``) as their plain
 PyTorch versions. Outputs equal the JAX package's.
 The package imports torch and never jax; it reads the JAX package's C++

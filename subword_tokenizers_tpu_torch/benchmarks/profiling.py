@@ -3,11 +3,12 @@
 FastWP's batched encode wraps each stage in :func:`phase`:
 ``encode.native_prep``, ``encode.pack_u16``, ``encode.h2d``,
 ``encode.scan``, ``encode.compact``, ``encode.d2h`` and
-``encode.stitch``. BPE training: ``train.frontend``, ``train.corpus``
-(symbol interning, flat state, host-to-device copy), ``train.resume``,
-``train.device_block`` (K steps queued and, while profiling, run),
-``train.fetch_records``, ``train.verify``, ``train.per_step`` and
-``train.final_fetch``. Off by default (one module-bool check per block);
+``encode.stitch``. BPE and WordPiece training: ``train.frontend``,
+``train.corpus`` (symbol interning, flat state, host-to-device copy),
+``train.resume``, ``train.device_block`` (K steps queued and, while
+profiling, run), ``train.fetch_records``, ``train.verify``,
+``train.per_step`` and ``train.final_fetch``. Off by default (one
+module-bool check per block);
 on with ``SWT_PROFILE=1`` or :func:`enable`. Kernels launch
 asynchronously, so while profiling is on a device phase ends with
 ``torch.cuda.synchronize()`` and is charged its own device time; while

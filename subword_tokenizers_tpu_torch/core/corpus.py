@@ -53,3 +53,16 @@ def build_bpe_corpus(words: Sequence[str], freq: np.ndarray,
             sym[i, j] = table.intern(ch)
     return SymbolCorpus(sym=sym, freq=np.asarray(freq, dtype=np.int64),
                         table=table, words=list(words))
+
+
+def build_wp_corpus(words: Sequence[str], freq: np.ndarray,
+                    table: SymbolTable) -> SymbolCorpus:
+    """WordPiece's initial state: each word's first character bare and
+    every later one as ``"##" + ch``, interned in scan order."""
+    max_len = max((len(w) for w in words), default=1)
+    sym = np.full((max(len(words), 1), max_len), PAD, dtype=np.int32)
+    for i, w in enumerate(words):
+        for j, ch in enumerate(w):
+            sym[i, j] = table.intern(ch if j == 0 else "##" + ch)
+    return SymbolCorpus(sym=sym, freq=np.asarray(freq, dtype=np.int64),
+                        table=table, words=list(words))

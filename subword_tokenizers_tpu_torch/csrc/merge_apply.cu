@@ -1,10 +1,13 @@
-// K3: apply one BPE merge to the flat state and left-compact it.
+// K3: apply one merge (BPE or WordPiece) to the flat state and
+// left-compact it.
 //
 // Replaces the JAX package's jitted XLA programs
 //   subword_tokenizers_tpu/ops/flat.py: flat_apply (and compact_flat), and
 //   subword_tokenizers_tpu/ops/merge.py: apply_merge (the padded layout;
 //     the port keeps one layout, and the JAX package's own tests hold the
-//     two equal),
+//     two equal), and
+//   subword_tokenizers_tpu/ops/train_loop.py:264-267, WordPiece's carried
+//     per-symbol weights,
 // which mark matches with shifted copies and a cummax for the self-merge
 // parity, then compact with a stable sort keyed on liveness. Here the
 // compaction is a prefix sum instead of a sort. The step's (a, b, new_id,
@@ -29,6 +32,13 @@
 //   self-merge.
 // - scan_kernel, one block: exclusive scan of the block counts (as in
 //   compact.cu); writes the total to blocks[2 NB] and to rec[5] (n_live).
+//   With a sym_freq table (WordPiece; null for BPE) and an active step,
+//   its thread 0 also applies the carried update with the final n_rep,
+//   which every block of mark_kernel has added by then (stream order):
+//   sym_freq[a] -= n_rep, sym_freq[b] -= n_rep, sym_freq[new_id] += n_rep,
+//   in that order, so a self-merge subtracts twice as JAX's chained
+//   .at[].add does. Each replacement consumes one a and one b and makes
+//   one new_id, so the table stays equal to a recount (symbol_freqs.cu).
 // - scatter_kernel, one thread per slot: the slot's place is its block's
 //   offset plus its rank among the block's kept slots (warp ballots).
 // Bound on this card: memory traffic, about 4 passes over the 16 bytes a
@@ -105,9 +115,16 @@ __global__ void mark_kernel(const int32_t* __restrict__ fs,
 }
 
 __global__ void scan_kernel(const int32_t* __restrict__ cnt, int64_t n,
-                            int32_t* __restrict__ off, int32_t* rec) {
+                            int32_t* __restrict__ off, int32_t* rec,
+                            const long long* n_rep, long long* sym_freq) {
   __shared__ int64_t part[kScanThreads];
   const int t = threadIdx.x;
+  if (t == 0 && sym_freq != nullptr && rec[4] != 0) {
+    const long long r = *n_rep;
+    sym_freq[rec[0]] -= r;
+    sym_freq[rec[1]] -= r;
+    sym_freq[rec[2]] += r;
+  }
   const int64_t per = (n + kScanThreads - 1) / kScanThreads;
   const int64_t b = t * per;
   const int64_t e = b + per < n ? b + per : n;
@@ -173,12 +190,13 @@ extern "C" {
 
 // fs i32[F], wid i32[F], wgt i64[F], rec i32[6] -> out_fs/out_wid/out_wgt
 // (same shapes, separate buffers), rec[5] = live slots, n_rep i64[1];
-// scratch flags u8[F], blocks i32[2 NB + 1] with NB = ceil(F / 256).
+// scratch flags u8[F], blocks i32[2 NB + 1] with NB = ceil(F / 256);
+// sym_freq i64[> every symbol id] updated in place, or null.
 // 2 <= F < 2^31. Returns the cudaError_t.
 int swt_merge_apply(const void* fs, const void* wid, const void* wgt,
                     int64_t F, void* rec, void* out_fs, void* out_wid,
                     void* out_wgt, void* flags, void* blocks, void* n_rep,
-                    void* stream) {
+                    void* sym_freq, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int64_t nb = (F + kThreads - 1) / kThreads;
   int32_t* cnt = static_cast<int32_t*>(blocks);
@@ -192,8 +210,9 @@ int swt_merge_apply(const void* fs, const void* wid, const void* wgt,
       static_cast<unsigned long long*>(n_rep));
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  scan_kernel<<<1, kScanThreads, 0, s>>>(cnt, nb, off,
-                                         static_cast<int32_t*>(rec));
+  scan_kernel<<<1, kScanThreads, 0, s>>>(
+      cnt, nb, off, static_cast<int32_t*>(rec),
+      static_cast<const long long*>(n_rep), static_cast<long long*>(sym_freq));
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   scatter_kernel<<<static_cast<unsigned>(nb), kThreads, 0, s>>>(

@@ -1,34 +1,55 @@
-// K2: one BPE step's winner and merged symbol.
+// K2: one training step's winner and merged symbol, for BPE and WordPiece.
 //
 // Replaces the JAX package's jitted XLA programs
 //   subword_tokenizers_tpu/ops/pairstats.py: _select (and bpe_select's
-//     selection), and
+//     selection), wp_select_core and wp_score_bits (and wp_select's
+//     selection, with compact_cands and _prefilter_cap),
+//   subword_tokenizers_tpu/ops/bitmath.py: div_double_bits,
+//     div_double_bits_wide, mul_53x53, bitlen, bitlen128, _round_q55, and
 //   subword_tokenizers_tpu/ops/train_loop.py: _select_and_unify.
 // Selection: over the pair table of K1 (pair_stats.cu), the pair with the
-// largest count, then the least first position. Positions are unique, so
-// the order is total and the result does not depend on where K1 put each
-// pair. Counts reach 2^52, so (count, ~pos) cannot be packed into one u64
-// for atomicMax (that packing would hold only while counts < 2^32):
-// instead a two-stage reduction compares (count, pos) pairs exactly.
+// largest metric, then the least first position. The metric is the count
+// (BPE) or the score count / (freq_a * freq_b) as the int64 bits of the
+// correctly rounded double (WordPiece; freq from the carried sym_freq).
+// Positions are unique, so the order is total and the result does not
+// depend on where K1 put each pair. Metrics reach 2^63, so (metric, ~pos)
+// cannot be packed into one u64 for atomicMax: instead a two-stage
+// reduction compares (metric, pos) pairs exactly.
 //   - select_partial_kernel: a grid strides over the table; each block
-//     writes its best (count, pos, key) to part[3 * block].
+//     writes its best (metric, pos, key) to part[3 * block].
 //   - select_unify_kernel, one block: reduces the partials, then decides
-//     active = alive && count > 0 && vocab_size < max_vocab (an inactive
-//     step records a = b = 0), computes the merged symbol's hashes
-//       m = (h[a] * B^len(b) + h[b]) mod (2^31 - 1)
-//     in int64 (residues < 2^31, so products < 2^62) for both bases, and
+//     active = alive && metric > 0 && vocab_size < max_vocab (an inactive
+//     step records a = b = 0; every live score is a positive double, so
+//     metric > 0 is JAX's count > 0 in both modes), computes the merged
+//     symbol's hashes
+//       m = (h[a] * B^l + h'[b]) mod (2^31 - 1)
+//     in int64 (residues < 2^31, so products < 2^62) for both bases, with
+//     l = len(b) and h'[b] = h[b] for BPE; for WordPiece the merged string
+//     is a + b[2:], so l = max(len(b) - 2, 0) and the leading "##" is
+//     stripped algebraically, h'[b] = (h[b] - h("##") * B^l) mod M, taken
+//     non-negative (C's % of a negative is negative; JAX's is not). It
 //     searches (h1, h2, len) over ids < n_sym: a hit takes the LARGEST
 //     matching id, a miss appends at n_sym and counts one more symbol.
 //     It writes the record (a, b, new_id, matched, active) and updates
 //     ctrl = (n_sym, vocab_size, alive && active).
+// The WordPiece score (score_bits below) is exact, so no near-tie redo is
+// ever needed: narrow entries (fa * fb < 2^53, checked with __umul64hi)
+// take __ddiv_rn of two exact doubles; wide ones a 128-bit restoring
+// division with JAX's round-half-even tail. The JAX package compacts the
+// run starts and prefilters them by exponent only to cut its TPU's long
+// divisions per position; K1's table already holds one entry per distinct
+// pair, so every live entry is scored.
 // With host_ids set, the step is selection only (active = count > 0,
 // new_id = -1 for the host to fill in), and neither the hash tables nor
 // ctrl are touched: the exact per-step path of the trainer.
 //
 // Bound on this card: latency. The table is a few MB (T = 2^19 entries at
-// train-85k's width), read once; the unify scans at most max_vocab + 8
-// ids in one block. The two launches are a few microseconds each, which
-// is why the step's kernels are queued K at a time with no host sync.
+// train-85k's width), read once, with two gathers of sym_freq per live
+// entry in WordPiece mode; the unify scans at most max_vocab + 8 ids in
+// one block. The two launches are a few microseconds each, which is why
+// the step's kernels are queued K at a time with no host sync.
+//
+// swt_score_bits launches the scorer alone, elementwise, for the checks.
 
 #include <cstdint>
 
@@ -41,6 +62,77 @@ constexpr int kWarps = kThreads / 32;
 constexpr unsigned long long kEmpty = ~0ULL;
 constexpr int64_t kMod = (1LL << 31) - 1;
 constexpr int64_t kNoPos = INT64_MAX;
+constexpr uint64_t kNarrow = 1ULL << 53;
+
+__device__ __forceinline__ int bitlen64(uint64_t x) { return 64 - __clzll(x); }
+
+// IEEE-754 bits of the double nearest q * 2^(e0 - 55), ties to even, where
+// q = floor(value * 2^(55 - e0)) lies in [2^54, 2^56) and rem_nonzero
+// marks an inexact quotient (JAX's _round_q55).
+__device__ int64_t round_q55(uint64_t q, int64_t e0, bool rem_nonzero) {
+  const int big = q >= (1ULL << 55);
+  int64_t e = e0 - 1 + big;
+  const uint64_t dropped = big ? (q & 1) : 0;
+  const uint64_t q2 = q >> big;
+  uint64_t m = q2 >> 2;
+  const bool round_bit = (q2 >> 1) & 1;
+  const bool sticky = (q2 & 1) || dropped || rem_nonzero;
+  if (round_bit && (sticky || (m & 1))) ++m;
+  if (m == kNarrow) {
+    m = 1ULL << 52;
+    ++e;
+  }
+  return ((e + 1023) << 52) | static_cast<int64_t>(m & ((1ULL << 52) - 1));
+}
+
+// One restoring-division step without doubling: R in [0, 2d) -> [0, d).
+__device__ __forceinline__ void sub_if_ge(uint64_t& rh, uint64_t& rl,
+                                          uint64_t dh, uint64_t dl,
+                                          uint64_t& q) {
+  const bool ge = rh > dh || (rh == dh && rl >= dl);
+  if (ge) {
+    const uint64_t borrow = rl < dl;
+    rl -= dl;
+    rh -= dh + borrow;
+  }
+  q = (q << 1) | ge;
+}
+
+// Bits of max(c,1) / (max(fa,1) * max(fb,1)) as CPython's int / int
+// rounds it; c < 2^53 and fa, fb < 2^52.
+__device__ int64_t score_bits(int64_t c_in, int64_t fa_in, int64_t fb_in) {
+  const uint64_t c = c_in > 1 ? c_in : 1;
+  const uint64_t fa = fa_in > 1 ? fa_in : 1;
+  const uint64_t fb = fb_in > 1 ? fb_in : 1;
+  const uint64_t dl = fa * fb;
+  const uint64_t dh = __umul64hi(fa, fb);
+  if (dh == 0 && dl < kNarrow) {
+    // Both operands are exact doubles; IEEE division rounds correctly.
+    return __double_as_longlong(
+        __ddiv_rn(static_cast<double>(c), static_cast<double>(dl)));
+  }
+  // d >= 2^53 > c. Align c to d's bit length (N = c << t < 2d), take the
+  // leading quotient bit, then 55 doubling steps: q = floor(c 2^(55-e0)/d).
+  const int lc = bitlen64(c);
+  const int ld = dh ? 64 + bitlen64(dh) : bitlen64(dl);
+  const int t = ld - lc;
+  uint64_t rh, rl;
+  if (t >= 64) {
+    rh = c << (t - 64);
+    rl = 0;
+  } else {
+    rh = t ? c >> (64 - t) : 0;
+    rl = c << t;
+  }
+  uint64_t q = 0;
+  sub_if_ge(rh, rl, dh, dl, q);
+  for (int k = 0; k < 55; ++k) {
+    rh = (rh << 1) | (rl >> 63);
+    rl <<= 1;
+    sub_if_ge(rh, rl, dh, dl, q);
+  }
+  return round_q55(q, lc - ld, (rh | rl) != 0);
+}
 
 __device__ __forceinline__ bool better(int64_t c, int64_t p, int64_t bc,
                                        int64_t bp) {
@@ -88,7 +180,8 @@ __device__ void block_best(int64_t& cnt, int64_t& pos, int64_t& key) {
 __global__ void select_partial_kernel(const unsigned long long* keys,
                                       const int64_t* counts,
                                       const uint32_t* pos, int64_t T,
-                                      int64_t* part) {
+                                      const int64_t* sym_freq,
+                                      int wordpiece, int64_t* part) {
   int64_t bc = -1, bp = kNoPos, bk = -1;
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   for (int64_t t = blockIdx.x * static_cast<int64_t>(blockDim.x) +
@@ -96,7 +189,10 @@ __global__ void select_partial_kernel(const unsigned long long* keys,
        t < T; t += stride) {
     const unsigned long long k = keys[t];
     if (k == kEmpty) continue;
-    const int64_t c = counts[t];
+    const int64_t c =
+        wordpiece ? score_bits(counts[t], sym_freq[k >> 32],
+                               sym_freq[k & 0xffffffffULL])
+                  : counts[t];
     const int64_t p = pos[t];
     if (better(c, p, bc, bp)) {
       bc = c;
@@ -117,7 +213,9 @@ __global__ void select_unify_kernel(const int64_t* part, int n_part,
                                     int64_t sym_cap, int32_t* ctrl,
                                     const int64_t* pw1, const int64_t* pw2,
                                     int64_t n_pow, int64_t max_vocab,
-                                    int32_t* rec, int host_ids) {
+                                    int32_t* rec, int host_ids,
+                                    int wordpiece, int64_t sh1,
+                                    int64_t sh2) {
   __shared__ int64_t s_key, s_cnt, s_m1, s_m2, s_lm;
   __shared__ int s_hit;
   int64_t bc = -1, bp = kNoPos, bk = -1;
@@ -157,11 +255,17 @@ __global__ void select_unify_kernel(const int64_t* part, int n_part,
   const int32_t a = active ? static_cast<int32_t>(key >> 32) : 0;
   const int32_t b = active ? static_cast<int32_t>(key & 0xffffffffLL) : 0;
   if (threadIdx.x == 0) {
-    // B^len(b), with the index clamped to the table as XLA's gather does.
-    const int64_t lb = slen[b] < n_pow - 1 ? slen[b] : n_pow - 1;
-    s_m1 = (h1[a] * pw1[lb] % kMod + h1[b]) % kMod;
-    s_m2 = (h2[a] * pw2[lb] % kMod + h2[b]) % kMod;
-    s_lm = slen[a] + slen[b];
+    const int64_t lb = wordpiece ? (slen[b] > 2 ? slen[b] - 2 : 0) : slen[b];
+    // B^lb, with the index clamped to the table as XLA's gather does.
+    const int64_t k = lb < n_pow - 1 ? lb : n_pow - 1;
+    int64_t hb1 = h1[b], hb2 = h2[b];
+    if (wordpiece) {
+      hb1 = (hb1 - sh1 * pw1[k] % kMod + kMod) % kMod;
+      hb2 = (hb2 - sh2 * pw2[k] % kMod + kMod) % kMod;
+    }
+    s_m1 = (h1[a] * pw1[k] % kMod + hb1) % kMod;
+    s_m2 = (h2[a] * pw2[k] % kMod + hb2) % kMod;
+    s_lm = slen[a] + lb;
   }
   __syncthreads();
   const int64_t m1 = s_m1, m2 = s_m2, lm = s_lm;
@@ -191,23 +295,37 @@ __global__ void select_unify_kernel(const int64_t* part, int n_part,
   }
 }
 
+__global__ void score_bits_kernel(const int64_t* c, const int64_t* fa,
+                                  const int64_t* fb, int64_t n,
+                                  int64_t* out) {
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) +
+                   threadIdx.x;
+       i < n; i += stride)
+    out[i] = score_bits(c[i], fa[i], fb[i]);
+}
+
 }  // namespace
 
 extern "C" {
 
 // keys/counts i64[T], pos i32[T] (K1's table), part i64[3 * n_part]
 // scratch; h1/h2/slen i64[sym_cap], ctrl i32[3], pw1/pw2 i64[n_pow],
-// rec i32[6] (columns 0-4 written). Returns the cudaError_t.
+// rec i32[6] (columns 0-4 written); with wordpiece, sym_freq i64[>= every
+// symbol id + 1] and (sh1, sh2) the hashes of "##". Returns the
+// cudaError_t.
 int swt_select_unify(const void* keys, const void* counts, const void* pos,
                      int64_t T, void* part, int n_part, void* h1, void* h2,
                      void* slen, int64_t sym_cap, void* ctrl, const void* pw1,
                      const void* pw2, int64_t n_pow, int64_t max_vocab,
-                     void* rec, int host_ids, void* stream) {
+                     void* rec, int host_ids, const void* sym_freq,
+                     int wordpiece, int64_t sh1, int64_t sh2, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   select_partial_kernel<<<n_part, kThreads, 0, s>>>(
       static_cast<const unsigned long long*>(keys),
       static_cast<const int64_t*>(counts), static_cast<const uint32_t*>(pos),
-      T, static_cast<int64_t*>(part));
+      T, static_cast<const int64_t*>(sym_freq), wordpiece,
+      static_cast<int64_t*>(part));
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   select_unify_kernel<<<1, kThreads, 0, s>>>(
@@ -215,7 +333,20 @@ int swt_select_unify(const void* keys, const void* counts, const void* pos,
       static_cast<int64_t*>(h2), static_cast<int64_t*>(slen), sym_cap,
       static_cast<int32_t*>(ctrl), static_cast<const int64_t*>(pw1),
       static_cast<const int64_t*>(pw2), n_pow, max_vocab,
-      static_cast<int32_t*>(rec), host_ids);
+      static_cast<int32_t*>(rec), host_ids, wordpiece, sh1, sh2);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// c/fa/fb/out i64[n], n >= 1: out = score_bits(c, fa, fb) elementwise.
+// Returns the cudaError_t.
+int swt_score_bits(const void* c, const void* fa, const void* fb, int64_t n,
+                   void* out, void* stream) {
+  const int64_t want = (n + kThreads - 1) / kThreads;
+  const unsigned blocks = static_cast<unsigned>(want < 4096 ? want : 4096);
+  score_bits_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(
+                                                stream)>>>(
+      static_cast<const int64_t*>(c), static_cast<const int64_t*>(fa),
+      static_cast<const int64_t*>(fb), n, static_cast<int64_t*>(out));
   return static_cast<int>(cudaGetLastError());
 }
 

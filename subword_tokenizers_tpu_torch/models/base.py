@@ -4,8 +4,27 @@ from __future__ import annotations
 
 from typing import List
 
+import torch
+
 from ..frontend.pretokenize import (Token, WordBatch, pre_tokenize_str,
                                     pretokenize_batch)
+
+
+def resolve_device(owner: object, device) -> torch.device:
+    """The ``torch.device`` a tokenizer of class ``owner`` runs on: "cpu"
+    (the kernels' plain versions) or a CUDA device, which must exist and
+    gets an explicit index. Raises for anything else."""
+    dev = torch.device(device)
+    name = type(owner).__name__
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"{name}(device='cuda'): CUDA is not "
+                               "available")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    elif dev.type != "cpu":
+        raise ValueError(f"{name}: unsupported device {dev}")
+    return dev
 
 
 class SubwordTokenizer:

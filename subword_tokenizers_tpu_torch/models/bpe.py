@@ -34,7 +34,7 @@ from ..core.corpus import build_bpe_corpus, unique_words
 from ..core.symbols import SymbolTable
 from ..ops import train_loop
 from ..ops.flat import build_flat
-from .base import SubwordTokenizer
+from .base import SubwordTokenizer, resolve_device
 
 # Training domain ceiling: per-pair counts, and every sum of them the
 # kernels take, stay below 2**52 symbol occurrences (exact in int64 with
@@ -58,17 +58,7 @@ class NaiveBPE(SubwordTokenizer):
     """BPE trained on ``device`` ("cuda" or "cpu")."""
 
     def __init__(self, device="cuda") -> None:
-        self.device = torch.device(device)
-        if self.device.type == "cuda":
-            if not torch.cuda.is_available():
-                raise RuntimeError(f"{type(self).__name__}(device='cuda'): "
-                                   "CUDA is not available")
-            if self.device.index is None:
-                self.device = torch.device("cuda",
-                                           torch.cuda.current_device())
-        elif self.device.type != "cpu":
-            raise ValueError(f"{type(self).__name__}: unsupported device "
-                             f"{self.device}")
+        self.device = resolve_device(self, device)
         self.merges_list: List[Tuple[str, str]] = []
         self.vocab: set = set()
         self.corpus_as_symbols: List[Tuple[List[str], int]] = []

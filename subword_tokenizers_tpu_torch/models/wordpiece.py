@@ -1,10 +1,21 @@
-"""WordPiece tokenizers of the port: NaiveWP (the vocabulary and its
-greedy longest-match word encoder) and FastWP (batched end-to-end
-LinMaxMatch encode on the device).
+"""WordPiece tokenizers of the port: NaiveWP (training, the vocabulary
+and its greedy longest-match word encoder) and FastWP (NaiveWP's
+training, then batched end-to-end LinMaxMatch encode on the device).
 
 Outputs equal the JAX package's ``subword_tokenizers_tpu/models/
-wordpiece.py`` token for token, and its errors are raised with the same
-type, order and text. FastWP's batched encode:
+wordpiece.py`` token for token and merge for merge, and its errors are
+raised with the same type, order and text.
+
+``train`` runs BPE's path (models/bpe.py) with WordPiece's three
+differences: words are interned as their first character and ``"##" +
+ch`` for every later one; the winner is the pair of largest score
+``count / (freq_a * freq_b)``, compared as the exact double CPython
+computes (ops/bitmath.py), over per-symbol weights that kernel K4
+counts once and K3 carries; the merged token is ``a + b[2:]``. Only the
+vocabulary is a resource; the merge log is kept for checkpoints
+(``wp_state.json``), which resume replays.
+
+FastWP's batched encode:
 
 1. the C++ front end lowers, splits on whitespace and dedups the
    sentences, and packs the unique chunks into u16 char words
@@ -20,6 +31,11 @@ type, order and text. FastWP's batched encode:
 
 Every batch goes to the kernels, whatever its size. ``device="cpu"``
 runs the kernels' plain PyTorch versions.
+
+The profiling phases of ``train`` are BPE's: ``train.frontend``,
+``train.corpus``, ``train.resume``, ``train.device_block``,
+``train.fetch_records``, ``train.verify``, ``train.per_step`` and
+``train.final_fetch``.
 """
 from __future__ import annotations
 
@@ -32,15 +48,23 @@ import torch
 
 from .._native import binding
 from ..benchmarks import profiling
+from ..core.corpus import build_wp_corpus, unique_words
 from ..core.symbols import SymbolTable
 from ..frontend.charclass import PUNC_PY, WS_PY, codepoints, \
     lower_codepoints
+from ..ops import train_loop
 from ..ops.fetch import compact_ids
+from ..ops.flat import build_flat
 from ..ops.wp_encode import wp_e2e_encode
 from ..ops.wp_encode_e2e import pack_chars, route_params, wp_e2e_scan
-from .base import SubwordTokenizer
+from .base import SubwordTokenizer, resolve_device
 from .state import E2EState, e2e_state_from_numpy
 from .trie import E2ETrie
+
+# Exact-score domain ceiling: the scorer needs pair counts < 2**53 and
+# fa, fb < 2**52, so total symbol occurrences < 2**52, as in the JAX
+# package. Below 2**26 occurrences every fa * fb < 2**53 (narrow scores).
+MAX_TOKENS_WP = 1 << 52
 
 UNK = "[UNK]"
 UNK_E2E = "['UNK']"  # FastWP's literal quirk, unlike NaiveWP's "[UNK]"
@@ -51,10 +75,175 @@ PACKED_MAX_POPS = 8
 
 
 class NaiveWP(SubwordTokenizer):
-    """The WordPiece vocabulary with greedy longest-match word encoding."""
+    """WordPiece trained on ``device`` ("cuda" or "cpu"), with greedy
+    longest-match word encoding."""
 
-    def __init__(self) -> None:
+    def __init__(self, device="cuda") -> None:
+        self.device = resolve_device(self, device)
         self.vocab: set = set()
+        self.corpus_as_symbols: List[Tuple[List[str], int]] = []
+        self._checkpoint_dir: Optional[str] = None
+        self._checkpoint_every = 1000
+        self._resume_dir: Optional[str] = None
+        self._progress = False
+        self._force_per_step = False
+        self._merge_log: List[Tuple[str, str]] = []
+
+    def _save_checkpoint(self) -> None:
+        """Atomic mid-training checkpoint: ``wp_state.json`` (vocab and
+        merge log) and ``vocab.json``."""
+        os.makedirs(self._checkpoint_dir, exist_ok=True)
+        target = os.path.join(self._checkpoint_dir, "wp_state.json")
+        tmp = target + ".tmp"
+        with open(tmp, "w", encoding="utf-8") as f:
+            json.dump({"vocab": list(self.vocab),
+                       "merges": self._merge_log}, f, ensure_ascii=False)
+        os.replace(tmp, target)
+        self.save_resources(self._checkpoint_dir)
+
+    # ------------------------------------------------------------ training
+
+    def train(self, corpus: List[str], max_vocab: int = 30_000, *,
+              checkpoint_dir: Optional[str] = None,
+              checkpoint_every: int = 1000, resume: bool = False,
+              progress: bool = False) -> None:
+        """Learn the vocabulary by score-ranked merges until it holds
+        ``max_vocab`` tokens or no pair is left.
+
+        ``checkpoint_dir`` writes ``wp_state.json`` and ``vocab.json``
+        there every ``checkpoint_every`` merges (after the block that
+        passes it) and at the end; ``resume=True`` replays the merge log
+        found there over the rebuilt corpus first and trains on from
+        that state. ``progress`` shows a tqdm bar.
+        """
+        if not isinstance(corpus, list) or not all(
+                isinstance(example, str) for example in corpus):
+            raise TypeError("corpus must be a list of strings.")
+        if not isinstance(max_vocab, int):
+            raise TypeError("max_vocab must be an int.")
+
+        self.reset()
+        self._checkpoint_dir = checkpoint_dir
+        self._checkpoint_every = max(int(checkpoint_every), 1)
+        self._resume_dir = checkpoint_dir if resume else None
+        self._progress = progress
+        self._merge_log = []
+
+        with profiling.phase("train.frontend"):
+            words, freq, _ = unique_words(self.preprocessing_batch(corpus))
+        if not words:
+            return
+
+        total_tokens = int((np.array([len(w) for w in words],
+                                     dtype=np.int64) * freq).sum())
+        if total_tokens >= MAX_TOKENS_WP:
+            raise ValueError(
+                "corpus exceeds the exact-score domain "
+                f"({total_tokens} symbol occurrences >= 2**52)")
+
+        dev = self.device
+        table = SymbolTable()
+        with profiling.phase("train.corpus", dev):
+            arrays = build_wp_corpus(words, freq, table)
+            state = train_loop.FlatState(*build_flat(arrays.sym,
+                                                     arrays.freq), dev)
+        self.vocab |= set(table.strings())
+        max_len = arrays.sym.shape[1]
+        rec = torch.zeros(6, dtype=torch.int32, device=dev)
+
+        if self._resume_dir is not None:
+            # Training is deterministic: replaying the checkpointed
+            # merges rebuilds the interrupted state exactly.
+            state_file = os.path.join(self._resume_dir, "wp_state.json")
+            with open(state_file, "r", encoding="utf-8") as f:
+                saved = json.load(f)
+            with profiling.phase("train.resume", dev):
+                for sa, sb in (tuple(p) for p in saved["merges"]):
+                    a_id, b_id = table.get(sa), table.get(sb)
+                    if a_id is None or b_id is None:
+                        raise ValueError(
+                            "checkpoint does not match this corpus: "
+                            f"unknown symbol in merge ({sa!r}, {sb!r})")
+                    merged = sa + sb[2:]
+                    self.vocab.add(merged)
+                    self._merge_log.append((sa, sb))
+                    train_loop.merge_host_ids(state, a_id, b_id,
+                                              table.intern(merged), rec)
+
+        pbar = None
+        if self._progress:
+            from tqdm import tqdm
+            pbar = tqdm(total=max_vocab - len(self.vocab),
+                        desc="Training WordPiece")
+
+        if not self._force_per_step:
+            def on_merge(sa, sb, merged):
+                self.vocab.add(merged)
+                self._merge_log.append((sa, sb))
+
+            since_ckpt = [0]
+
+            def ckpt_cb(steps):
+                since_ckpt[0] += steps
+                if since_ckpt[0] >= self._checkpoint_every:
+                    since_ckpt[0] = 0
+                    self._save_checkpoint()
+
+            try:
+                train_loop.run_fused(
+                    state, table, max_vocab, max_len, on_merge,
+                    checkpoint_cb=(ckpt_cb if self._checkpoint_dir
+                                   is not None else None),
+                    progress_cb=pbar.update if pbar is not None else None,
+                    wordpiece=True)
+            except train_loop.HashCollision:
+                # A double-hash collision: redo the whole run on the
+                # exact per-step path.
+                if pbar is not None:
+                    pbar.close()
+                self._force_per_step = True
+                try:
+                    return self.train(
+                        corpus, max_vocab,
+                        checkpoint_dir=self._checkpoint_dir,
+                        checkpoint_every=self._checkpoint_every,
+                        resume=self._resume_dir is not None,
+                        progress=self._progress)
+                finally:
+                    self._force_per_step = False
+        else:
+            steps = 0
+            with profiling.phase("train.per_step", dev):
+                state.count_symbols(train_loop.sym_capacity(table,
+                                                            max_vocab))
+                while len(self.vocab) < max_vocab:
+                    got = train_loop.step_host_ids(state, table, rec,
+                                                   wordpiece=True)
+                    if got is None:
+                        break
+                    sa, sb, merged = got
+                    self.vocab.add(merged)
+                    self._merge_log.append((sa, sb))
+                    steps += 1
+                    if pbar is not None:
+                        pbar.update(1)
+                    if (self._checkpoint_dir is not None
+                            and steps % self._checkpoint_every == 0):
+                        self._save_checkpoint()
+        if pbar is not None:
+            pbar.close()
+        if self._checkpoint_dir is not None:
+            self._save_checkpoint()
+
+        with profiling.phase("train.final_fetch"):
+            sym_host = train_loop._flat_to_padded(*state.host(),
+                                                  len(arrays.freq))
+            self.corpus_as_symbols = [
+                ([table.string(int(s)) for s in row if s >= 0], int(f))
+                for row, f in zip(sym_host, arrays.freq)
+            ]
+
+    # ------------------------------------------------------------ encoding
 
     def encode_word(self, word: str) -> List[str]:
         """Greedy longest-prefix encoding with '##' continuations and
@@ -81,6 +270,13 @@ class NaiveWP(SubwordTokenizer):
                 word = f"##{word}"
         return tokens
 
+    # ------------------------------------------------------------- state io
+
+    def reset(self) -> None:
+        """Forget the vocabulary and the trained corpus."""
+        self.vocab.clear()
+        self.corpus_as_symbols.clear()
+
     def save_resources(self, path: str) -> None:
         """Write ``vocab.json``, a JSON list of the vocabulary, atomically."""
         os.makedirs(path, exist_ok=True)
@@ -106,22 +302,18 @@ class FastWP(NaiveWP):
     boundaries, batched on ``device``."""
 
     def __init__(self, device="cuda") -> None:
-        super().__init__()
-        self.device = torch.device(device)
-        if self.device.type == "cuda":
-            if not torch.cuda.is_available():
-                raise RuntimeError("FastWP(device='cuda'): CUDA is not "
-                                   "available")
-            if self.device.index is None:
-                self.device = torch.device("cuda",
-                                           torch.cuda.current_device())
-        elif self.device.type != "cpu":
-            raise ValueError(f"FastWP: unsupported device {self.device}")
+        super().__init__(device)
         self._e2e_trie: Optional[E2ETrie] = None
         self._e2e_out: Optional[SymbolTable] = None
         self._sharp_seq: Optional[Tuple[int, ...]] = None
         self._unk_id: Optional[int] = None
         self._state: Optional[Tuple[E2ETrie, E2EState]] = None
+
+    def train(self, corpus: List[str], max_vocab: int = 30_000,
+              **kwargs) -> None:
+        """NaiveWP's training, then the end-to-end trie of the new vocab."""
+        super().train(corpus, max_vocab, **kwargs)
+        self._build_e2e()
 
     def _build_e2e(self):
         out = SymbolTable()
@@ -425,6 +617,13 @@ class FastWP(NaiveWP):
                                    np.arange(S + 1, dtype=np.int64))
 
     # ------------------------------------------------------------- state io
+
+    def reset(self) -> None:
+        """NaiveWP's reset, and the trie and its device tables go too."""
+        super().reset()
+        self._e2e_trie = None
+        self._e2e_out = None
+        self._state = None
 
     def load_resources(self, path: str, strict: bool = False) -> None:
         """Load the vocab and rebuild the trie."""

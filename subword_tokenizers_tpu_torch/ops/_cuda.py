@@ -39,8 +39,11 @@ SIGNATURES = {
     "swt_compact": [_P, _I64, _I, _P, _P, _P, _P, _P, _P, _P],
     "swt_pair_stats": [_P, _P, _P, _I64, _P, _P, _P, _I64, _P],
     "swt_select_unify": [_P, _P, _P, _I64, _P, _I, _P, _P, _P, _I64, _P, _P,
-                         _P, _I64, _I64, _P, _I, _P],
-    "swt_merge_apply": [_P, _P, _P, _I64, _P, _P, _P, _P, _P, _P, _P, _P],
+                         _P, _I64, _I64, _P, _I, _P, _I, _I64, _I64, _P],
+    "swt_score_bits": [_P, _P, _P, _I64, _P, _P],
+    "swt_merge_apply": [_P, _P, _P, _I64, _P, _P, _P, _P, _P, _P, _P, _P,
+                        _P],
+    "swt_symbol_freqs": [_P, _P, _I64, _I64, _P, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

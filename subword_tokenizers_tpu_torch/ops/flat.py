@@ -48,14 +48,13 @@ def build_flat(sym2d: np.ndarray, freq: np.ndarray, pad_to: int = 1024
     return fs, wid, wgt
 
 
-def merge_apply_ref(fs, wid, wgt, rec):
+def merge_apply_ref(fs, wid, wgt, rec, sym_freq=None):
     """Plain PyTorch version of :func:`merge_apply` (same outputs, and
-    the same write of ``rec[N_LIVE]``)."""
+    the same writes of ``rec[N_LIVE]`` and ``sym_freq``)."""
     dev = fs.device
     F = fs.shape[0]
-    a, b, new_id, _, active = rec[:N_LIVE].tolist()
-    if not active:
-        a = b = -3
+    ra, rb, new_id, _, active = rec[:N_LIVE].tolist()
+    a, b = (ra, rb) if active else (-3, -3)
     neg = torch.full((1,), -1, dtype=torch.int32, device=dev)
     neg2 = torch.full((1,), -2, dtype=torch.int32, device=dev)
     nxt = torch.cat([fs[1:], neg])
@@ -82,10 +81,16 @@ def merge_apply_ref(fs, wid, wgt, rec):
     nwgt = torch.cat([wgt[keep], torch.zeros(pad, dtype=torch.int64,
                                              device=dev)])
     rec[N_LIVE] = n_live
-    return nfs, nwid, nwgt, wgt[match].sum()
+    n_rep = wgt[match].sum()
+    if active and sym_freq is not None:
+        sym_freq[ra] -= n_rep
+        sym_freq[rb] -= n_rep
+        sym_freq[new_id] += n_rep
+    return nfs, nwid, nwgt, n_rep
 
 
-def merge_apply(fs, wid, wgt, rec, out: Optional[tuple] = None):
+def merge_apply(fs, wid, wgt, rec, out: Optional[tuple] = None,
+                sym_freq=None):
     """Apply one merge to the flat state and left-compact it.
 
     ``rec`` is the step's int32[6] record (see ``N_LIVE``):
@@ -97,9 +102,14 @@ def merge_apply(fs, wid, wgt, rec, out: Optional[tuple] = None):
     Writes ``rec[N_LIVE]`` (live slots after the step) and returns
     (fs, wid, wgt, n_rep): the new state, in ``out`` when given (three
     tensors like the inputs, none of them an input), and int64 ``n_rep``,
-    the total weight of the replacements. Launches the CUDA kernel for
-    CUDA tensors, runs the PyTorch version for CPU tensors, and raises
-    for any other device.
+    the total weight of the replacements.
+
+    ``sym_freq`` (int64, WordPiece's per-symbol weights, or None) is
+    updated in place when the step is active: ``n_rep`` off ``a`` and
+    off ``b`` (twice off ``a`` for a self-merge), onto ``new_id``.
+
+    Launches the CUDA kernel for CUDA tensors, runs the PyTorch version
+    for CPU tensors, and raises for any other device.
     """
     dev = fs.device
     check_tensor("fs", fs, (torch.int32,), 1, dev)
@@ -111,8 +121,10 @@ def merge_apply(fs, wid, wgt, rec, out: Optional[tuple] = None):
         raise ValueError("merge_apply: inconsistent shapes")
     if F < 2 or F >= 2 ** 31:
         raise ValueError(f"merge_apply: width {F} outside [2, 2**31)")
+    if sym_freq is not None:
+        check_tensor("sym_freq", sym_freq, (torch.int64,), 1, dev)
     if dev.type == "cpu":
-        nfs, nwid, nwgt, n_rep = merge_apply_ref(fs, wid, wgt, rec)
+        nfs, nwid, nwgt, n_rep = merge_apply_ref(fs, wid, wgt, rec, sym_freq)
         if out is None:
             return nfs, nwid, nwgt, n_rep
         for dst, src in zip(out, (nfs, nwid, nwgt)):
@@ -138,9 +150,13 @@ def merge_apply(fs, wid, wgt, rec, out: Optional[tuple] = None):
         _cuda.launch("swt_merge_apply", fs.data_ptr(), wid.data_ptr(),
                      wgt.data_ptr(), F, rec.data_ptr(), out[0].data_ptr(),
                      out[1].data_ptr(), out[2].data_ptr(), flags.data_ptr(),
-                     blocks.data_ptr(), n_rep.data_ptr())
+                     blocks.data_ptr(), n_rep.data_ptr(),
+                     None if sym_freq is None else sym_freq.data_ptr())
     merge_apply.launches += 1
+    if sym_freq is not None:
+        merge_apply.wp_launches += 1
     return (*out, n_rep)
 
 
 merge_apply.launches = 0
+merge_apply.wp_launches = 0  # launches that carried WordPiece's sym_freq

@@ -12,6 +12,9 @@ A pair's key is ``a << 32 | b`` in int64; the kernel's table marks empty
 entries with ``EMPTY_KEY``. Its layout has no counterpart in the plain
 version, so the two are compared in :func:`canonical` form: the pairs
 sorted by key, with counts and first positions.
+
+WordPiece also needs each symbol's total weight: :func:`symbol_freqs`
+(kernel K4), counted once per run and then carried by K3.
 """
 from __future__ import annotations
 
@@ -118,3 +121,46 @@ def pair_stats(fs, wid, wgt, table: Optional[tuple] = None):
 
 
 pair_stats.launches = 0
+
+
+def symbol_freqs_ref(fs, wgt, sym_cap: int):
+    """Plain PyTorch version of :func:`symbol_freqs`."""
+    ok = (fs >= 0) & (fs < sym_cap)
+    out = torch.zeros(sym_cap + 1, dtype=torch.int64, device=fs.device)
+    out.index_add_(0, torch.where(ok, fs, sym_cap).to(torch.int64),
+                   torch.where(ok, wgt, 0))
+    return out
+
+
+def symbol_freqs(fs, wgt, sym_cap: int):
+    """Per-symbol total weight of a flat state (fs int32[F], wgt
+    int64[F]): int64[sym_cap + 1], whose entry ``s`` sums ``wgt`` over
+    the slots of symbol ``s``; the last entry is the trash bucket of the
+    padding and stays 0 (WordPiece's ``freq_a``, ``freq_b``).
+
+    Launches kernel K4 for CUDA tensors, runs the PyTorch version for
+    CPU tensors, and raises for any other device.
+    """
+    dev = fs.device
+    check_tensor("fs", fs, (torch.int32,), 1, dev)
+    check_tensor("wgt", wgt, (torch.int64,), 1, dev)
+    F = fs.shape[0]
+    if wgt.shape[0] != F:
+        raise ValueError("symbol_freqs: inconsistent shapes")
+    if F < 1 or F >= 2 ** 31 or sym_cap < 0:
+        raise ValueError(f"symbol_freqs: width {F} outside [1, 2**31) or "
+                         f"sym_cap {sym_cap} < 0")
+    if dev.type == "cpu":
+        return symbol_freqs_ref(fs, wgt, sym_cap)
+    if dev.type != "cuda":
+        raise ValueError(f"symbol_freqs: no kernel for device {dev}")
+    out = torch.empty(sym_cap + 1, dtype=torch.int64, device=dev)
+    from . import _cuda
+    with torch.cuda.device(dev):
+        _cuda.launch("swt_symbol_freqs", fs.data_ptr(), wgt.data_ptr(), F,
+                     sym_cap, out.data_ptr())
+    symbol_freqs.launches += 1
+    return out
+
+
+symbol_freqs.launches = 0

@@ -1,6 +1,6 @@
-"""BPE's merge loop on the device: selection and string unification
-(kernel K2), and the host loop that queues K steps of K1 -> K2 -> K3
-with no host sync between them.
+"""The training merge loop on the device, for BPE and WordPiece:
+selection and string unification (kernel K2), and the host loop that
+queues K steps of K1 -> K2 -> K3 with no host sync between them.
 
 The only host dependency of a merge step is interning the merged string
 (two merges that spell the same string are one symbol). As in the JAX
@@ -11,6 +11,13 @@ exact (h1, h2, len) match over the live ids reuses an id, a miss
 appends one. After each block the host checks every record against real
 interning and raises :class:`HashCollision` on any disagreement; the
 model then redoes the run on the exact per-step path.
+
+WordPiece differs in three places, each a ``wordpiece`` argument: K2
+selects on the exact score ``count / (freq_a * freq_b)``
+(ops/bitmath.py) over per-symbol weights that K4 counts once per run
+and K3 carries from step to step; the merged string is ``a + b[2:]``,
+its hashes stripped of the leading "##"; the host checks records with
+the same string.
 
 Each step writes one int32 record ``(a, b, new_id, matched, active,
 n_live)`` (column names in ops/flat.py).
@@ -24,8 +31,10 @@ import torch
 
 from ..benchmarks import profiling
 from . import check_tensor
+from .bitmath import score_bits_ref
 from .flat import ACTIVE, NEW_ID, merge_apply
-from .pairstats import EMPTY_KEY, alloc_table, pair_stats, table_size
+from .pairstats import (EMPTY_KEY, alloc_table, pair_stats, symbol_freqs,
+                        table_size)
 
 MOD = (1 << 31) - 1  # Mersenne prime; products of residues fit in int64
 HASH_B1 = 1_000_003
@@ -53,13 +62,20 @@ def pow_tables(max_len: int):
 
 
 def select_unify_ref(keys, counts, pos, h1, h2, slen, ctrl, pw1, pw2,
-                     max_vocab: int, rec, host_ids: bool = False) -> None:
+                     max_vocab: int, rec, host_ids: bool = False,
+                     wordpiece: bool = False, sym_freq=None,
+                     sharp=(0, 0)) -> None:
     """Plain PyTorch version of :func:`select_unify` (same writes)."""
     live = keys != EMPTY_KEY
-    best = int(torch.where(live, counts, -1).max()) if keys.numel() else -1
+    metric = counts
+    if wordpiece:
+        k = torch.where(live, keys, 0)
+        metric = score_bits_ref(counts, sym_freq[k >> 32],
+                                sym_freq[k & 0xFFFFFFFF])
+    best = int(torch.where(live, metric, -1).max()) if keys.numel() else -1
     key = 0
     if best >= 0:
-        at = live & (counts == best)
+        at = live & (metric == best)
         first = int(pos.to(torch.int64)[at].min())
         key = int(keys[at & (pos.to(torch.int64) == first)].max())
     n_sym, vocab, alive = ctrl.tolist()
@@ -70,11 +86,17 @@ def select_unify_ref(keys, counts, pos, h1, h2, slen, ctrl, pw1, pw2,
         return
     active = bool(alive) and best > 0 and vocab < max_vocab
     a, b = (key >> 32, key & 0xFFFFFFFF) if active else (0, 0)
-    top = pw1.shape[0] - 1
-    lb = min(int(slen[b]), top)
-    m1 = (int(h1[a]) * int(pw1[lb]) % MOD + int(h1[b])) % MOD
-    m2 = (int(h2[a]) * int(pw2[lb]) % MOD + int(h2[b])) % MOD
-    lm = int(slen[a]) + int(slen[b])
+    lb = int(slen[b])
+    hb1, hb2 = int(h1[b]), int(h2[b])
+    if wordpiece:
+        lb = max(lb - 2, 0)
+    k = min(lb, pw1.shape[0] - 1)
+    if wordpiece:
+        hb1 = (hb1 - sharp[0] * int(pw1[k])) % MOD
+        hb2 = (hb2 - sharp[1] * int(pw2[k])) % MOD
+    m1 = (int(h1[a]) * int(pw1[k]) % MOD + hb1) % MOD
+    m2 = (int(h2[a]) * int(pw2[k]) % MOD + hb2) % MOD
+    lm = int(slen[a]) + lb
     ids = torch.arange(h1.shape[0], device=h1.device)
     hit = (ids < n_sym) & (h1 == m1) & (h2 == m2) & (slen == lm)
     matched = bool(hit.any())
@@ -89,22 +111,30 @@ def select_unify_ref(keys, counts, pos, h1, h2, slen, ctrl, pw1, pw2,
 
 
 def select_unify(keys, counts, pos, h1, h2, slen, ctrl, pw1, pw2,
-                 max_vocab: int, rec, host_ids: bool = False) -> None:
+                 max_vocab: int, rec, host_ids: bool = False,
+                 wordpiece: bool = False, sym_freq=None,
+                 sharp=(0, 0)) -> None:
     """One step's winner and merged symbol, written into ``rec`` (int32[6]).
 
     The pair table (keys, counts, pos) is either layout of
     ops/pairstats.pair_stats. The winner is the pair of largest count,
-    then least first position (the reference's ``most_common(1)``). The
-    step is active while ``ctrl`` = int32 (n_sym, vocab_size, alive) is
-    alive, the count is positive and vocab_size < max_vocab; an inactive
-    step records a = b = 0.
+    then least first position (the reference's ``most_common(1)``). With
+    ``wordpiece`` it is the pair of largest score ``count / (sym_freq[a]
+    * sym_freq[b])``, compared as the exact double (ops/bitmath.py),
+    then least first position (the reference's ``max`` over its dict);
+    ``sym_freq`` is int64 over the symbol ids. The step is active while
+    ``ctrl`` = int32 (n_sym, vocab_size, alive) is alive, the count is
+    positive and vocab_size < max_vocab; an inactive step records
+    a = b = 0.
 
     Unless ``host_ids``, the merged symbol's hashes (``h1``, ``h2`` int64
     and ``slen`` int64 over [sym_cap] ids; ``pw1``/``pw2`` the powers of
     :func:`pow_tables`) are matched against every id below n_sym: a hit
     takes the largest matching id, a miss appends the symbol at n_sym
-    and counts it in n_sym and vocab_size. ``ctrl`` stops being alive
-    after an inactive step. With ``host_ids`` only the
+    and counts it in n_sym and vocab_size. With ``wordpiece`` the merged
+    string is ``a + b[2:]``: its hashes strip b's leading "##", whose
+    hashes are ``sharp``. ``ctrl`` stops being alive after an inactive
+    step. With ``host_ids`` only the
     selection runs (active = count > 0), ``new_id`` is left to the host
     and the hash tables and ``ctrl`` are not touched.
 
@@ -120,6 +150,10 @@ def select_unify(keys, counts, pos, h1, h2, slen, ctrl, pw1, pw2,
         check_tensor(name, t, (torch.int64,), 1, dev)
     check_tensor("ctrl", ctrl, (torch.int32,), 1, dev)
     check_tensor("rec", rec, (torch.int32,), 1, dev)
+    if wordpiece:
+        if sym_freq is None:
+            raise ValueError("select_unify: wordpiece needs sym_freq")
+        check_tensor("sym_freq", sym_freq, (torch.int64,), 1, dev)
     T = keys.shape[0]
     if (counts.shape[0] != T or pos.shape[0] != T or ctrl.shape[0] != 3
             or rec.shape[0] != 6 or h2.shape[0] != h1.shape[0]
@@ -128,7 +162,8 @@ def select_unify(keys, counts, pos, h1, h2, slen, ctrl, pw1, pw2,
         raise ValueError("select_unify: inconsistent shapes")
     if dev.type == "cpu":
         return select_unify_ref(keys, counts, pos, h1, h2, slen, ctrl, pw1,
-                                pw2, max_vocab, rec, host_ids)
+                                pw2, max_vocab, rec, host_ids, wordpiece,
+                                sym_freq, sharp)
     if dev.type != "cuda":
         raise ValueError(f"select_unify: no kernel for device {dev}")
     if pos.dtype != torch.int32:
@@ -142,11 +177,16 @@ def select_unify(keys, counts, pos, h1, h2, slen, ctrl, pw1, pw2,
                      h1.data_ptr(), h2.data_ptr(), slen.data_ptr(),
                      h1.shape[0], ctrl.data_ptr(), pw1.data_ptr(),
                      pw2.data_ptr(), pw1.shape[0], max_vocab,
-                     rec.data_ptr(), int(host_ids))
+                     rec.data_ptr(), int(host_ids),
+                     sym_freq.data_ptr() if wordpiece else None,
+                     int(wordpiece), int(sharp[0]), int(sharp[1]))
     select_unify.launches += 1
+    if wordpiece:
+        select_unify.wp_launches += 1
 
 
 select_unify.launches = 0
+select_unify.wp_launches = 0  # launches in WordPiece mode
 
 
 class HashCollision(Exception):
@@ -159,7 +199,8 @@ class FlatState:
 
     ``F`` is the width the kernels see; the caller may lower it to cut a
     dead tail off (merges only consume slots, and K3 compacts to the
-    front).
+    front). ``sym_freq`` is WordPiece's per-symbol weight table, None
+    until :meth:`count_symbols`; K3 then carries it with every merge.
     """
 
     def __init__(self, fs: np.ndarray, wid: np.ndarray, wgt: np.ndarray,
@@ -172,6 +213,7 @@ class FlatState:
         self._cur = 0
         self._table = alloc_table(self.F, self.device) \
             if self.device.type == "cuda" else None
+        self.sym_freq: Optional[torch.Tensor] = None
 
     def arrays(self):
         """(fs, wid, wgt) views of the current state."""
@@ -185,12 +227,18 @@ class FlatState:
             table = tuple(x[:T] for x in self._table)
         return pair_stats(*self.arrays(), table=table)
 
+    def count_symbols(self, sym_cap: int) -> None:
+        """K4: ``sym_freq`` becomes the state's per-symbol weights, int64
+        [sym_cap + 1], counted from the slots."""
+        fs, _, wgt = self.arrays()
+        self.sym_freq = symbol_freqs(fs, wgt, sym_cap)
+
     def merge(self, rec) -> None:
         """K3 with the step record ``rec`` (on the device); the state
-        becomes the result."""
+        becomes the result, and ``sym_freq`` follows it."""
         nxt = 1 - self._cur
         out = tuple(x[:self.F] for x in self._bufs[nxt])
-        merge_apply(*self.arrays(), rec, out=out)
+        merge_apply(*self.arrays(), rec, out=out, sym_freq=self.sym_freq)
         self._cur = nxt
 
     def host(self) -> Tuple[np.ndarray, np.ndarray]:
@@ -204,12 +252,19 @@ class FlatState:
 _FLAT_MIN = 8192
 
 
+def sym_capacity(table, max_vocab: int) -> int:
+    """Symbol ids a run from ``table`` to ``max_vocab`` can reach, with
+    room to spare: the length of the hash tables, and of ``sym_freq``
+    less its trash bucket."""
+    return max(max_vocab, len(table)) + 8
+
+
 def init_tables(table, max_vocab: int, max_len: int, device):
     """(h1, h2, slen, ctrl, pw1, pw2) on ``device`` for a run from the
-    symbols of ``table`` to ``max_vocab``; words are at most ``max_len``
-    symbols long."""
+    symbols of ``table`` to ``max_vocab``, and the host hashes of "##";
+    words are at most ``max_len`` symbols long."""
     n0 = len(table)
-    sym_cap = max(max_vocab, n0) + 8
+    sym_cap = sym_capacity(table, max_vocab)
     h1 = np.zeros(sym_cap, dtype=np.int64)
     h2 = np.zeros(sym_cap, dtype=np.int64)
     sl = np.zeros(sym_cap, dtype=np.int64)
@@ -219,12 +274,12 @@ def init_tables(table, max_vocab: int, max_len: int, device):
     pw1, pw2 = pow_tables(max_len + 4)
     ctrl = np.array([n0, n0, 1], dtype=np.int32)
     return tuple(torch.from_numpy(x).to(device)
-                 for x in (h1, h2, sl, ctrl, pw1, pw2))
+                 for x in (h1, h2, sl, ctrl, pw1, pw2)) + (str_hashes("##"),)
 
 
 def run_fused(state: FlatState, table, max_vocab: int, max_len: int,
               on_merge, K: int = 256, checkpoint_cb=None,
-              progress_cb=None) -> None:
+              progress_cb=None, wordpiece: bool = False) -> None:
     """Train on ``state`` until ``max_vocab`` symbols or no pair is left.
 
     Each block queues K steps (K1, K2, K3) with no host sync between
@@ -236,11 +291,17 @@ def run_fused(state: FlatState, table, max_vocab: int, max_len: int,
     ``checkpoint_cb(steps)`` run after each block that merged; the
     caller keeps its own cadence. Between blocks the state shrinks to
     half its width while its live slots fit.
+
+    With ``wordpiece`` the run first counts ``state.sym_freq`` with K4,
+    selects by score, and merges into ``a + b[2:]``.
     """
     if len(table) >= max_vocab:
         return
     dev = state.device
-    h1, h2, sl, ctrl, pw1, pw2 = init_tables(table, max_vocab, max_len, dev)
+    h1, h2, sl, ctrl, pw1, pw2, sharp = init_tables(table, max_vocab,
+                                                    max_len, dev)
+    if wordpiece:
+        state.count_symbols(sym_capacity(table, max_vocab))
     recs = torch.zeros((K, 6), dtype=torch.int32, device=dev)
     done = False
     while not done:
@@ -249,7 +310,8 @@ def run_fused(state: FlatState, table, max_vocab: int, max_len: int,
                 rec = recs[k]
                 keys, counts, pos = state.pairs()
                 select_unify(keys, counts, pos, h1, h2, sl, ctrl, pw1, pw2,
-                             max_vocab, rec)
+                             max_vocab, rec, wordpiece=wordpiece,
+                             sym_freq=state.sym_freq, sharp=sharp)
                 state.merge(rec)
         with profiling.phase("train.fetch_records"):
             recs_np = recs.cpu().numpy()
@@ -260,7 +322,7 @@ def run_fused(state: FlatState, table, max_vocab: int, max_len: int,
                     done = True
                     break
                 sa, sb = table.string(a), table.string(b)
-                merged = sa + sb
+                merged = sa + (sb[2:] if wordpiece else sb)
                 nid = table.intern(merged)
                 if nid != new_id:
                     raise HashCollision(
@@ -280,22 +342,25 @@ def run_fused(state: FlatState, table, max_vocab: int, max_len: int,
                 state.F //= 2
 
 
-def step_host_ids(state: FlatState, table, rec) -> Optional[
-        Tuple[str, str, str]]:
+def step_host_ids(state: FlatState, table, rec,
+                  wordpiece: bool = False) -> Optional[Tuple[str, str, str]]:
     """One exact per-step merge: K1, K2 selection only, interning on the
     host, K3 with the host's id. Returns (sa, sb, merged), or None when
-    no pair is left (nothing is merged then)."""
+    no pair is left (nothing is merged then). With ``wordpiece`` the
+    caller has counted ``state.sym_freq`` (:meth:`FlatState.count_symbols`)
+    and K3 carries it."""
     keys, counts, pos = state.pairs()
     dev = state.device
     empty = torch.zeros(1, dtype=torch.int64, device=dev)
     ctrl = torch.zeros(3, dtype=torch.int32, device=dev)
     select_unify(keys, counts, pos, empty, empty, empty, ctrl, empty, empty,
-                 0, rec, host_ids=True)
+                 0, rec, host_ids=True, wordpiece=wordpiece,
+                 sym_freq=state.sym_freq)
     a, b, _, _, active = rec[:ACTIVE + 1].tolist()
     if not active:
         return None
     sa, sb = table.string(a), table.string(b)
-    merged = sa + sb
+    merged = sa + (sb[2:] if wordpiece else sb)
     rec[NEW_ID] = table.intern(merged)
     state.merge(rec)
     return sa, sb, merged

@@ -191,6 +191,10 @@ def test_port_imports_no_jax():
         "bpe = FastBPE(device='cpu')\n"
         "bpe.train(['aaa aab abab', 'ab ba'], 8)\n"
         "assert bpe.merges_list[0] == ('a', 'b'), bpe.merges_list\n"
+        "from subword_tokenizers_tpu_torch import NaiveWP\n"
+        "wp = NaiveWP(device='cpu')\n"
+        "wp.train(['aaa aab abab', 'ab ba'], 8)\n"
+        "assert wp._merge_log and 'a' in wp.vocab, wp._merge_log\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
         "('jax.', 'subword_tokenizers_tpu.')) or m == "
         "'subword_tokenizers_tpu']\n"
