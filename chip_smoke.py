@@ -47,10 +47,36 @@ WordPiece vocab ``tests/golden/port_t85k_fastwp_vocab.json``:
    cold and warm times, the phase split, and (8c) the idle share;
 8b. the other WordPiece routes: a checkpoint at 1,400 merges resumed to
    8,000, the per-step path to 1,000, a forced hash collision, and
-   ``FastWP.train`` then ``tokenize_batch`` against the golden vocab.
+   ``FastWP.train`` then ``tokenize_batch`` against the golden vocab;
+9. holds the two encode kernels against their plain versions, exactly:
+   the BPE merge loop (greedy and monotone) on seeded random rows (runs
+   of one symbol, PAD at the end, unseen ids, lengths 0, 1 and 33) and on
+   the
+   corpus's 22,971 word types with the trained and the shuffled merges;
+   the WordPiece greedy match on seeded random vocabs, on the word types
+   with the trained vocab, on a vocab with "#" and no "##" (overflow) and
+   on a word forced to [UNK]; times each at the word types' shapes;
+10. encodes the whole corpus with ``FastBPE``, ``NaiveBPE`` (the trained
+   merges) and ``NaiveWP`` (the trained vocab) on the card: a cold and
+   three warm runs, each equal to the JAX package's digest
+   (``tests/golden/port_t85k_encode_expect.json``), each call with its
+   own launch counts (its encode kernel and kernel 2 once each), the
+   phase split, and the idle share under ``torch.profiler``;
+10b. the other encode routes: the shuffled merges through both BPE
+   encoders, NaiveBPE with a merge listed twice (the host route, no
+   kernel launch), ``tokenize_stream`` and small batches against the
+   host ``tokenize``, and the WordPiece overflow error on the card.
 
 Each phase prints one line; any failure raises. The line before the last
 is the kernels' JSON record, the last ``{"ok": true, "device": ...}``.
+Each kernel's ``bound_ms`` is the larger of the bytes it must move (its
+inputs read once, its outputs written once, at the timed shapes; of a
+table it probes, such as a trie or a hash, only the entries this run's
+data visits, counted low) over
+3.35 TB/s and a lower count of its operations over 67 T/s, the H100's
+scalar 32-bit rate outside the tensor cores (the integer rate is lower,
+so the bound stays a bound); ``library_ms`` is one PyTorch call that
+computes the same function, where there is one.
 Without CUDA, or without the rest of the repo, it exits non-zero.
 """
 from __future__ import annotations
@@ -58,19 +84,76 @@ from __future__ import annotations
 import hashlib
 import json
 import os
+import random
 import subprocess
 import sys
 import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+GOLDEN = os.path.join(ROOT, "tests", "golden")
 SEED = 20261016
+SHUFFLE_SEED = 7  # the shuffled merge list of the encode goldens
 DEVICE = "cuda:0"
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
+SCALAR_OPS_PER_S = 67e12   # H100 SXM float32 outside the tensor cores
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def visited(n_visits: int, bytes_each: int, *table) -> int:
+    """Bytes a kernel reads of a table it probes: ``bytes_each`` per
+    visit, and no more than the whole table."""
+    return min(n_visits * bytes_each, nbytes(*table))
+
+
+def bound(n_bytes: int, n_ops: int):
+    """(least ms, "bytes" or "operations"): the larger of the two times."""
+    by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    by_ops = n_ops / SCALAR_OPS_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else \
+        (by_ops, "operations")
 
 
 def digest(token_lists) -> str:
     return hashlib.sha256(json.dumps(token_lists, ensure_ascii=False)
                           .encode("utf-8")).hexdigest()
+
+
+def merge_lists():
+    """{"golden", "shuffled", "duplicated"}: the merge lists the encode
+    goldens (``tests/golden/port_t85k_encode_expect.json``) encode: the
+    7,922 trained merges, the same shuffled by ``random.Random(7)``, and
+    the trained list with one merge copied to the front."""
+    with open(os.path.join(GOLDEN, "port_t85k_v8000_bpe_merges.json"),
+              encoding="utf-8") as f:
+        merges = [tuple(p) for p in json.load(f)]
+    shuffled = random.Random(SHUFFLE_SEED).sample(merges, len(merges))
+    # The first merge from 1,000 on whose halves are single characters,
+    # copied to the front: it then applies before the merges it follows.
+    i = next(i for i in range(1000, len(merges))
+             if len(merges[i][0]) == len(merges[i][1]) == 1)
+    return {"golden": merges, "shuffled": shuffled,
+            "duplicated": [merges[i]] + merges}
+
+
+def wp_vocab():
+    """The 8,000-token trained WordPiece vocab of the encode goldens."""
+    with open(os.path.join(GOLDEN, "port_t85k_v8000_wp_vocab.json"),
+              encoding="utf-8") as f:
+        return json.load(f)["vocab"]
+
+
+def load(tok, name, data):
+    """``tok.load_resources`` from a temp dir holding ``data`` as
+    ``name``."""
+    with tempfile.TemporaryDirectory() as d:
+        with open(os.path.join(d, name), "w", encoding="utf-8") as f:
+            json.dump(data, f, ensure_ascii=False)
+        tok.load_resources(d, strict=True)
+    return tok
 
 
 def cuda_ms(fn, reps: int, queue_ahead: bool = False) -> float:
@@ -117,20 +200,36 @@ def emitted(ids, head, out_n, cap):
     return ids[dest[keep]]
 
 
-def device_trace(fn, path):
+def device_trace(fn, path, warmup=False):
     """Run ``fn`` once under torch.profiler; return (host wall ms, device
     busy ms, {kernel or copy name: [count, device ms]}) read from the
-    Chrome trace, which is kept at ``path``."""
+    Chrome trace, which is kept at ``path``. ``warmup`` runs ``fn`` once
+    more first, as the profiler's untraced warm-up step: a short call
+    traced alone can come back without its kernels."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+    from torch.profiler import ProfilerActivity, profile, schedule
     os.makedirs(os.path.dirname(path), exist_ok=True)
-    prof.export_chrome_trace(path)
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    if warmup:
+        with profile(activities=activities,
+                     schedule=schedule(wait=0, warmup=1, active=1),
+                     on_trace_ready=lambda p: p.export_chrome_trace(path)
+                     ) as prof:
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            prof.step()
+    else:
+        with profile(activities=activities) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        prof.export_chrome_trace(path)
     with open(path, encoding="utf-8") as f:
         events = json.load(f)["traceEvents"]
     spans, by_name = [], {}
@@ -177,6 +276,81 @@ def random_case(rng, S, W, n_nodes, A, max_pops, hang_sharp):
     return (np.asarray(words, dtype=np.int32),
             np.asarray(slen, dtype=np.int32), tables,
             dict(root_p=n_nodes - 1, root_sharp=2, unk_id=1000))
+
+
+def bpe_random_case(rng, W, L, n_sym, n_merges, inner_pad=False):
+    """Seeded rows for the BPE merge loop and the entries of a rank hash.
+
+    Merges join ids already known (the base symbols 0..n_sym-1 and
+    earlier merges' outputs, a fifth of them self-pairs) into fresh ids,
+    with ranks in random order, so the greedy and the monotone rules
+    disagree. Rows hold runs of one symbol (the self-pair parity rule),
+    PAD (-1) at the end (and inside, with ``inner_pad``: only the plain
+    version takes such rows), unseen ids above every merge output, and
+    lengths 0, 1 and L among random ones. Returns (sym int32[W, L],
+    [(key, rank, out_id)])."""
+    import numpy as np
+    pairs = {}
+    n_ids = n_sym
+    while len(pairs) < n_merges:
+        a = int(rng.integers(0, n_ids))
+        b = a if rng.random() < 0.2 else int(rng.integers(0, n_ids))
+        if (a, b) not in pairs:
+            pairs[(a, b)] = n_ids
+            n_ids += 1
+    ranks = rng.permutation(n_merges).tolist()
+    entries = [((a << 21) | b, r, out)
+               for ((a, b), out), r in zip(pairs.items(), ranks)]
+    lens = rng.integers(0, L + 1, size=W)
+    lens[:3] = (0, 1, L)
+    sym = np.full((W, L), -1, dtype=np.int32)
+    for w in range(W):
+        s = int(rng.integers(0, n_sym))
+        j = 0
+        for _ in range(int(lens[w])):
+            u = rng.random()
+            if u < 0.04:
+                sym[w, j] = n_ids + int(rng.integers(0, 3))
+            elif u < 0.07 and inner_pad:
+                pass  # PAD inside the row
+            else:
+                if u > 0.45:
+                    s = int(rng.integers(0, n_sym))
+                sym[w, j] = s
+            j += 1
+    return sym, entries
+
+
+def wp_random_case(rng, W, max_len, alphabet, n_tokens):
+    """A seeded vocab of ``n_tokens`` strings over ``alphabet`` (half of
+    them "##" continuations) and W words over ``alphabet`` plus "!",
+    which no token holds, of lengths 0 to max_len. Where the alphabet
+    holds '#', the vocab holds "#" and not "##", so that some words grow
+    '#' without end (the matcher's overflow)."""
+    import numpy as np
+    chars = list(alphabet)
+    vocab = set()
+    while len(vocab) < n_tokens:
+        t = "".join(rng.choice(chars, size=int(rng.integers(1, 5))))
+        vocab.add("##" + t if rng.random() < 0.5 else t)
+    if "#" in chars:
+        vocab.add("#")
+        vocab.discard("##")
+    words = ["".join(rng.choice(chars + ["!"] * (len(chars) // 8 + 1),
+                                size=int(rng.integers(0, max_len + 1))))
+             for _ in range(W)]
+    return vocab, words
+
+
+def match_rows(alpha, n_alpha, words, L):
+    """int32[W, L] alphabet ids of ``words`` (each at most L long),
+    padded with the OOV id, and int32[W] lengths."""
+    import numpy as np
+    wlen = np.array([len(w) for w in words], dtype=np.int32)
+    wmat = np.full((len(words), L), n_alpha, dtype=np.int32)
+    for r, w in enumerate(words):
+        wmat[r, :len(w)] = alpha[[ord(c) for c in w]]
+    return wmat, wlen
 
 
 def bpe_random_state(rng, n_words, max_len, n_sym, wscale, unit, holes):
@@ -301,10 +475,14 @@ def main() -> int:
     slen = rng.integers(1, 40, size=512).astype(np.int32)
     chars = pack_words(*(torch.from_numpy(a).to(dev) for a in
                          (st.alpha[cps], WS_PY[cps], PUNC_PY[cps])))
-    check(chars, torch.from_numpy(slen).to(dev),
-          [st.goto, st.fail, st.pops_off, st.pops_flat, st.sharp],
-          dict(root_p=st.root_p, root_sharp=st.root_sharp,
-               unk_id=st.unk_id), *route_params(40, general=True))
+    gen_tables = [st.goto, st.fail, st.pops_off, st.pops_flat, st.sharp]
+    gen_args = (chars, torch.from_numpy(slen).to(dev), st.goto, st.fail,
+                st.pops_off, st.pops_flat, st.root_p, st.root_sharp,
+                st.unk_id, st.sharp)
+    gen_out = check(chars, gen_args[1], gen_tables,
+                    dict(root_p=st.root_p, root_sharp=st.root_sharp,
+                         unk_id=st.unk_id),
+                    *route_params(40, general=True))[0]
 
     # the main path's shapes: the corpus's unique chunks
     with open(os.path.join(ROOT, "data", "train-85k.json"),
@@ -350,6 +528,24 @@ def main() -> int:
             cuda_ms(lambda: compact_ids(*got), 200, True),
             cuda_ms(lambda: compact_ids_ref(*got), 20)),
     }
+    gen_params = route_params(40, general=True)
+    timing["wp_e2e_general"] = (
+        cuda_ms(lambda: wp_e2e_scan(*gen_args, *gen_params), 50, True),
+        cuda_ms(lambda: wp_e2e_scan_ref(*gen_args, *gen_params), 3))
+    # Operations, counted low: a trie step per character (4 integer
+    # operations); an add per row and a copy per emitted id. Bytes: of the
+    # trie, one goto entry per character.
+    n_chars = int(slen_d.sum())
+    n_gen = int(gen_args[1].sum())
+    bounds = {
+        "wp_e2e_scan": bound(nbytes(chars, slen_d, *got)
+                             + visited(n_chars, 4, st.goto), 4 * n_chars),
+        "wp_e2e_general": bound(nbytes(gen_args[0], gen_args[1], *gen_out)
+                                + visited(n_gen, 4, gen_args[2]),
+                                4 * n_gen),
+        "compact_ids": bound(nbytes(*got) + 4 * (total + 2 * R + 1),
+                             2 * (R + total)),
+    }
     torch.cuda.synchronize()
     print(f"phase 2: kernels equal their plain versions exactly on "
           f"{n_cases} cases (rows flagged ovf/stuck/crash/##: "
@@ -357,7 +553,9 @@ def main() -> int:
           f"{timing['wp_e2e_scan'][0]:.3f} ms (plain "
           f"{timing['wp_e2e_scan'][1]:.3f} ms), compact "
           f"{timing['compact_ids'][0]:.3f} ms (plain "
-          f"{timing['compact_ids'][1]:.3f} ms); {smi}")
+          f"{timing['compact_ids'][1]:.3f} ms); the general-pops route at "
+          f"512 x 40: {timing['wp_e2e_general'][0]:.3f} ms (plain "
+          f"{timing['wp_e2e_general'][1]:.3f} ms); {smi}")
 
     # ---- phase 3: the main path
     n_bytes = sum(len(s.encode("utf-8")) for s in corpus)
@@ -550,6 +748,15 @@ def main() -> int:
     timing["merge_apply"] = (
         cuda_ms(lambda: merge_apply(fs, wid, wgt, rec, out=out), 200, True),
         cuda_ms(lambda: merge_apply_ref(fs, wid, wgt, rec), 10))
+    # Operations, counted low: a hash insert per live slot (10), a compare
+    # per table entry (4), a merge test and a scan step per slot (6).
+    # K2's bytes: the pair table, the control words and the record (of
+    # the symbol hash and power tables it reads the winner's few entries).
+    bounds["pair_stats"] = bound(nbytes(fs, wid, wgt, *tab), 10 * n_slots)
+    bounds["select_unify"] = bound(nbytes(*tab, ctrl, rec),
+                                   4 * tab[0].shape[0])
+    bounds["merge_apply"] = bound(2 * nbytes(fs, wid, wgt) + nbytes(rec),
+                                  6 * F0)
     torch.cuda.synchronize()
     print(f"phase 5: BPE kernels equal their plain versions exactly on "
           f"{n_bpe_cases} states (6 random x 2 symbol tables, the 85k "
@@ -836,6 +1043,24 @@ def main() -> int:
                                     sym_freq=sf_t), 200, True),
         cuda_ms(lambda: merge_apply_ref(fs, wid, wgt, rec, sym_freq=sf_t),
                 10))
+    # One PyTorch call computes K4's function: index_add_ of the weights
+    # at the symbol ids (padding slots sent to the trash bucket first).
+    sf_index = torch.where(fs >= 0, fs, cap).to(torch.int64)
+    library = {"symbol_freqs": cuda_ms(
+        lambda: torch.zeros(cap + 1, dtype=torch.int64,
+                            device=dev).index_add_(0, sf_index, wgt), 200,
+        True)}
+    assert max_err(torch.zeros(cap + 1, dtype=torch.int64, device=dev)
+                   .index_add_(0, sf_index, wgt), sf0) == 0
+    # Operations, counted low: an add per slot (2); one correctly
+    # rounded division per score (20); K2's and K3's as in phase 5.
+    bounds["symbol_freqs"] = bound(nbytes(fs, wgt, sf0), 2 * F0)
+    bounds["wp_score"] = bound(nbytes(*sc_narrow) + 8 * F0, 20 * F0)
+    bounds["select_unify_wp"] = bound(
+        nbytes(*tab, ctrl, rec, sf0),
+        (4 + 20) * tab[0].shape[0])
+    bounds["merge_apply_wp"] = bound(
+        2 * nbytes(fs, wid, wgt) + nbytes(rec, sf_t), 6 * F0)
     torch.cuda.synchronize()
     print(f"phase 7: WordPiece kernels equal their plain versions exactly: "
           f"the scorer on {n_score} cases ({n_wide} wide, d up to 2^104), "
@@ -1004,6 +1229,279 @@ def main() -> int:
           f"FastWP.train then tokenize_batch ({sum(map(len, encoded))} "
           f"tokens) equals a FastWP loading the golden vocab")
 
+    # ---- phase 9: the encode kernels against their plain versions
+    from subword_tokenizers_tpu_torch import FastBPE
+    from subword_tokenizers_tpu_torch.models.trie import MatchTrie
+    from subword_tokenizers_tpu_torch.ops.bpe_encode import (
+        bpe_encode, bpe_encode_ref, build_rank_hash)
+    from subword_tokenizers_tpu_torch.ops.wp_encode import (
+        wp_match_encode, wp_match_encode_ref)
+    errs.update(bpe_encode=0, wp_match_encode=0)
+    flags9 = np.zeros(4, dtype=np.int64)  # rows: merged, unk, ovf, empty
+    n_bpe9 = n_wp9 = 0
+
+    def check_bpe9(sym, hk, hr, ho, max_probe):
+        nonlocal n_bpe9
+        for monotone in (True, False):
+            got = bpe_encode(sym, hk, hr, ho, monotone, max_probe)
+            want = bpe_encode_ref(sym, hk, hr, ho, monotone, max_probe)
+            errs["bpe_encode"] = max(errs["bpe_encode"], err_all(got, want))
+            flags9[0] += int((got[1] < (sym >= 0).sum(1)).sum())
+            n_bpe9 += 1
+
+    def check_wp9(words9, wlen9, trie):
+        nonlocal n_wp9
+        args = (words9, wlen9, *(torch.from_numpy(a).to(dev)
+                                 for a in (trie.goto, trie.accept)),
+                int(trie.alpha[ord("#")]))
+        got = wp_match_encode(*args)
+        want = wp_match_encode_ref(*args)
+        errs["wp_match_encode"] = max(errs["wp_match_encode"],
+                                      err_all(got, want))
+        flags9[1:] += [int(got[2].sum()), int(got[3].sum()),
+                       int((wlen9 == 0).sum())]
+        n_wp9 += 1
+        return got
+
+    def match_trie(vocab):
+        out_t = SymbolTable()
+        out_t.intern("[UNK]")
+        return MatchTrie.build(sorted(vocab), out_t)
+
+    for W9, L9, n_sym9, n_m9 in [(4000, 12, 5, 30), (3000, 33, 4, 60),
+                                 (512, 1, 3, 4), (4000, 24, 9, 200)]:
+        sym9, ent9 = bpe_random_case(rng, W9, L9, n_sym9, n_m9)
+        hk9, hr9, ho9, mp9 = build_rank_hash(ent9)
+        check_bpe9(*(torch.from_numpy(a).to(dev)
+                     for a in (sym9, hk9, hr9, ho9)), mp9)
+    for alpha9, n_tok9, L9 in [("abc", 12, 8), ("abcd", 40, 16),
+                               ("ab#", 15, 9), ("a#", 6, 33),
+                               ("abcdefgh", 120, 24)]:
+        vocab9, words_r = wp_random_case(rng, 3000, L9, alpha9, n_tok9)
+        trie9 = match_trie(vocab9)
+        check_wp9(*(torch.from_numpy(a).to(dev) for a in match_rows(
+            trie9.alpha, trie9.n_alpha, words_r, L9)), trie9)
+    # '#' without '##': the word ends exactly at the cap of 16 pending
+    # '#' with a token of 16 '#', and overflows with 17; "q" is [UNK]
+    for tail in (16, 17):
+        trie9 = match_trie({"a", "#", "#" * tail + "b"})
+        got9 = check_wp9(*(torch.from_numpy(a).to(dev) for a in match_rows(
+            trie9.alpha, trie9.n_alpha, ["ab", "q"], 16)), trie9)
+        assert got9[3].tolist() == [tail == 17, False], got9[3]
+        assert got9[2].tolist() == [False, True], got9[2]
+
+    # the main path's shapes: the corpus's word types
+    lists = merge_lists()
+    enc = {}
+    for order in ("golden", "shuffled"):
+        tok9 = load(NaiveBPE(device=dev), "merges.json", lists[order])
+        st9 = tok9._device_tables()
+        sym_w = torch.from_numpy(tok9._encode_inputs(words, st9.table)).to(
+            dev)
+        check_bpe9(sym_w, st9.hkeys, st9.hrank, st9.hout, st9.max_probe)
+        enc[order] = (sym_w, st9)
+    wp_tok = load(NaiveWP(device=dev), "vocab.json", wp_vocab)
+    trie_w, _, wmat_w, wlen_w = wp_tok._match_inputs(words)
+    wmat_w, wlen_w = (torch.from_numpy(a).to(dev) for a in (wmat_w, wlen_w))
+    got_w = check_wp9(wmat_w, wlen_w, trie_w)
+    if errs["bpe_encode"] or errs["wp_match_encode"]:
+        raise AssertionError(f"an encode kernel differs: {errs}")
+    if not flags9.all():
+        raise AssertionError(f"phase 9 left a case unmet: {flags9}")
+
+    sym_w, st9 = enc["golden"]
+    W_w, L_w = sym_w.shape
+    bpe_args = (sym_w, st9.hkeys, st9.hrank, st9.hout)
+    mst = wp_tok._match_device()
+    wp_args = (wmat_w, wlen_w, mst.goto, mst.accept,
+               int(trie_w.alpha[ord("#")]))
+    k5_out = (torch.empty_like(sym_w),
+              torch.empty(W_w, dtype=torch.int32, device=dev))
+
+    def k5_alone(monotone):
+        # K5 as the wrapper launches it, without the wrapper's check of
+        # the rows' layout (a reduction and a wait for its answer)
+        _cuda.launch("swt_bpe_encode", sym_w.data_ptr(), W_w, L_w,
+                     st9.hkeys.data_ptr(), st9.hrank.data_ptr(),
+                     st9.hout.data_ptr(), st9.hkeys.shape[0], int(monotone),
+                     st9.max_probe, k5_out[0].data_ptr(),
+                     k5_out[1].data_ptr())
+
+    for monotone, key in ((True, "bpe_encode"), (False, "bpe_encode_greedy")):
+        k5_alone(monotone)
+        if err_all(k5_out, bpe_encode(*bpe_args, monotone, st9.max_probe)):
+            raise AssertionError("K5 launched alone differs from its wrapper")
+        timing[key] = (
+            cuda_ms(lambda: k5_alone(monotone), 100, True),
+            cuda_ms(lambda: bpe_encode_ref(*bpe_args, monotone,
+                                           st9.max_probe), 3),
+            cuda_ms(lambda: bpe_encode(*bpe_args, monotone, st9.max_probe),
+                    20))
+    timing["wp_match_encode"] = (
+        cuda_ms(lambda: wp_match_encode(*wp_args), 100, True),
+        cuda_ms(lambda: wp_match_encode_ref(*wp_args), 3))
+    # Operations, counted low: a probe of 8 integer operations per pair a
+    # word starts with and two per merge after (each merge removes a
+    # symbol); a trie step of 4 per character. Bytes, of the tables: a
+    # hash key per probe; a goto and an accept entry per character.
+    merged_w, out_n_w = bpe_encode(*bpe_args, True, st9.max_probe)
+    wl = (sym_w >= 0).sum(1)
+    n_probes = int((wl - 1).clamp(min=0).sum() + 2 * (wl - out_n_w).sum())
+    bounds["bpe_encode"] = bound(
+        nbytes(sym_w, merged_w, out_n_w) + visited(n_probes, 8, st9.hkeys),
+        8 * n_probes)
+    n_chars = int(wlen_w.sum())
+    bounds["wp_match_encode"] = bound(
+        nbytes(wmat_w, wlen_w, *got_w) + visited(n_chars, 4, mst.goto)
+        + visited(n_chars, 4, mst.accept), 4 * n_chars)
+    torch.cuda.synchronize()
+    print(f"phase 9: encode kernels equal their plain versions exactly: "
+          f"the BPE merge loop on {n_bpe9} cases (greedy and monotone: 4 "
+          f"random, the {W_w} word types with the trained and the shuffled "
+          f"merges), the WordPiece match on {n_wp9} cases (5 random vocabs, "
+          f"the '#' cap at 16 and 17, the word types with the trained "
+          f"vocab); rows merged/unk/ovf/empty {flags9.tolist()}; at "
+          f"{W_w} x {L_w}: bpe_encode monotone "
+          f"{timing['bpe_encode'][0]:.3f} ms (plain "
+          f"{timing['bpe_encode'][1]:.3f}, the wrapper with its layout "
+          f"check {timing['bpe_encode'][2]:.3f}), greedy "
+          f"{timing['bpe_encode_greedy'][0]:.3f} ms (plain "
+          f"{timing['bpe_encode_greedy'][1]:.3f}, wrapper "
+          f"{timing['bpe_encode_greedy'][2]:.3f}), bound "
+          f"{bounds['bpe_encode'][0]:.4f} ms ({bounds['bpe_encode'][1]}); "
+          f"wp_match_encode {timing['wp_match_encode'][0]:.3f} ms (plain "
+          f"{timing['wp_match_encode'][1]:.3f}), bound "
+          f"{bounds['wp_match_encode'][0]:.4f} ms "
+          f"({bounds['wp_match_encode'][1]}); {smi}")
+
+    # ---- phase 10: the encode path, the whole corpus, three encoders
+    with open(os.path.join(ROOT, "tests", "golden",
+                           "port_t85k_encode_expect.json"),
+              encoding="utf-8") as f:
+        expect_enc = json.load(f)
+    encoders = {
+        "FastBPE": load(FastBPE(device=dev), "merges.json",
+                        lists["golden"]),
+        "NaiveBPE": load(NaiveBPE(device=dev), "merges.json",
+                         lists["golden"]),
+        "NaiveWP": load(NaiveWP(device=dev), "vocab.json", wp_vocab)}
+    enc_lines = []
+    enc_kernels = (bpe_encode, wp_match_encode, compact_ids)
+    # each call's launches: its encode kernel and kernel 2, once each
+    per_call = {
+        "FastBPE": {"bpe_encode": 1, "wp_match_encode": 0, "compact_ids": 1},
+        "NaiveBPE": {"bpe_encode": 1, "wp_match_encode": 0,
+                     "compact_ids": 1},
+        "NaiveWP": {"bpe_encode": 0, "wp_match_encode": 1,
+                    "compact_ids": 1}}
+    enc_launches = {name: dict.fromkeys(per_call[name], 0)
+                    for name in encoders}
+    for name, tok in encoders.items():
+        want = expect_enc[f"{name}_golden"]
+        walls = []
+        # run 0 is cold (tables built and moved), runs 1-3 warm, run 4
+        # warm with the phase profiler on
+        for run in range(5):
+            profiling.enable(run == 4)
+            profiling.reset()
+            out = None
+            for k in enc_kernels:
+                k.launches = 0
+            t0 = time.perf_counter()
+            out = tok.tokenize_batch(corpus)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            counts = {k.__name__: k.launches for k in enc_kernels}
+            if counts != per_call[name]:
+                raise AssertionError(f"{name} run {run} launched {counts}, "
+                                     f"not {per_call[name]}")
+            for k, n in counts.items():
+                enc_launches[name][k] += n
+            if digest(out) != want["full_sha256"]:
+                raise AssertionError(f"{name} run {run}: output differs "
+                                     "from the JAX package's")
+        phases = {k: round(v["total_s"] * 1e3, 3)
+                  for k, v in profiling.report().items()}
+        profiling.enable(False)
+        n_tok = sum(map(len, out))
+        assert n_tok == want["full_tokens"], (name, n_tok)
+        enc_lines.append(
+            f"{name} {n_tok} tokens: cold {walls[0] * 1e3:.3f} ms, warm "
+            f"{[round(w * 1e3, 3) for w in walls[1:4]]} ms (median "
+            f"{sorted(walls[1:4])[1] * 1e3:.3f} = "
+            f"{n_bytes / sorted(walls[1:4])[1] / 1e6:.3f} MB/s), "
+            f"profiled {walls[4] * 1e3:.3f} ms, phases (ms) "
+            f"{json.dumps(phases)}")
+    out = None
+    print(f"phase 10: tokenize_batch of all {len(corpus)} sentences "
+          f"({n_bytes} bytes) equals the JAX digests; launches of each "
+          f"encoder's five calls, counted per call {enc_launches}; "
+          + "; ".join(enc_lines) + f"; {smi}")
+    # A short traced call came back without its kernels on the card,
+    # even traced alone three times: trace after a warm-up step, and
+    # again, up to three times, until the encoder's kernel is there.
+    own = {"FastBPE": "bpe_encode_kernel", "NaiveBPE": "bpe_encode_kernel",
+           "NaiveWP": "wp_match_kernel"}
+    for name, tok in encoders.items():
+        for attempt in range(1, 4):
+            with tempfile.TemporaryDirectory() as d:
+                wall, busy, by_name = device_trace(
+                    lambda: tok.tokenize_batch(corpus),
+                    os.path.join(d, "encode_trace.json"), warmup=True)
+            if any(own[name] in k for k in by_name):
+                break
+        top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
+        dev_line = ("not measured (the trace holds no device events)"
+                    if not any(own[name] in k for k in by_name) else
+                    f"device busy {busy:.3f} ms of {wall:.1f} ms (idle "
+                    f"share {1 - busy / wall:.4f}); "
+                    + "; ".join(f"{n} x{c} {ms:.3f} ms"
+                                for n, (c, ms) in top))
+        print(f"phase 10c: one warm {name}.tokenize_batch under "
+              f"torch.profiler (trace {attempt} of up to 3): {dev_line}; "
+              f"{smi}")
+
+    # ---- phase 10b: the other encode routes
+    for name in ("FastBPE", "NaiveBPE"):
+        tok = load(encoders[name].__class__(device=dev), "merges.json",
+                   lists["shuffled"])
+        out = tok.tokenize_batch(corpus)
+        if digest(out) != expect_enc[f"{name}_shuffled"]["full_sha256"]:
+            raise AssertionError(f"{name} with the shuffled merges differs "
+                                 "from the JAX package's")
+    n_small = expect_enc["small_n"]
+    dup = load(NaiveBPE(device=dev), "merges.json", lists["duplicated"])
+    bpe_encode.launches = 0
+    out = dup.tokenize_batch(corpus[:n_small])
+    assert bpe_encode.launches == 0, "the host route launched K5"
+    if digest(out) != expect_enc["NaiveBPE_duplicated"]["small_sha256"]:
+        raise AssertionError("NaiveBPE with a duplicated merge differs")
+    small = rng.integers(0, len(corpus), size=64)
+    for name, tok in encoders.items():
+        streamed = list(tok.tokenize_stream(iter(corpus[:20000]),
+                                            batch_sentences=8192))
+        assert streamed == tok.tokenize_batch(corpus[:20000]), name
+        for n in (1, 7, 64):
+            batch = [corpus[i] for i in small[:n]]
+            assert tok.tokenize_batch(batch) == \
+                [tok.tokenize(s) for s in batch], name
+    hang_wp = NaiveWP(device=dev)
+    hang_wp.vocab = {"a", "b", "#"}
+    try:
+        hang_wp.tokenize_batch(["a", "ab"])
+    except RuntimeError as e:
+        assert "wp_match_encode overflow" in str(e), e
+    else:
+        raise AssertionError("the WordPiece overflow input did not raise")
+    out = None
+    print(f"phase 10b: the shuffled merges (FastBPE and NaiveBPE, whole "
+          f"corpus) equal the JAX digests; NaiveBPE with a duplicated "
+          f"merge on {n_small} sentences took the host route (no K5 "
+          f"launch) and equals its digest; tokenize_stream of 20000 "
+          f"sentences (blocks of 8192) equals the batch and batches of 1, "
+          f"7 and 64 equal the host tokenize, for all three; the "
+          f"WordPiece overflow input raised on the card")
+
     record = {"kernels": [
         {"name": "wp_e2e_scan", "route": "cuda",
          "source": "subword_tokenizers_tpu_torch/csrc/wp_e2e_scan.cu",
@@ -1056,6 +1554,63 @@ def main() -> int:
                  "launcher swt_score_bits serves the checks and the times",
          "max_abs_err": errs["wp_score"], "ms": timing["wp_score"][0],
          "plain_ms": timing["wp_score"][1]}]
+    # the general-pops route (phase 2) and the encode path of phase 10
+    by_name["wp_e2e_scan"].update(
+        general_ms=timing["wp_e2e_general"][0],
+        general_plain_ms=timing["wp_e2e_general"][1],
+        general_bound_ms=bounds["wp_e2e_general"][0],
+        general_bound_by=bounds["wp_e2e_general"][1])
+    # each encode path's launches (phase 3: FastWP; phase 10: the others)
+    by_path = {"FastWP": {"compact_ids": launches["compact_ids"]},
+               **enc_launches}
+    for k in ("compact_ids", "bpe_encode", "wp_match_encode"):
+        launches[k] = sum(p.get(k, 0) for p in by_path.values())
+    by_name["compact_ids"]["launches"] = launches["compact_ids"]
+    by_name["compact_ids"]["launches_by_path"] = {
+        p: c["compact_ids"] for p, c in by_path.items()}
+    record["kernels"] += [
+        {"name": "bpe_encode", "route": "cuda",
+         "source": "subword_tokenizers_tpu_torch/csrc/bpe_encode.cu",
+         "replaces": "subword_tokenizers_tpu/ops/bpe_encode.py:119",
+         "launches": launches["bpe_encode"],
+         "launches_by_path": {p: enc_launches[p]["bpe_encode"]
+                              for p in ("FastBPE", "NaiveBPE")},
+         "max_abs_err": errs["bpe_encode"], "ms": timing["bpe_encode"][0],
+         "plain_ms": timing["bpe_encode"][1],
+         "wrapper_ms": timing["bpe_encode"][2],
+         "greedy_ms": timing["bpe_encode_greedy"][0],
+         "greedy_plain_ms": timing["bpe_encode_greedy"][1],
+         "greedy_wrapper_ms": timing["bpe_encode_greedy"][2],
+         "note": "ms: the kernel launched alone, back to back; "
+                 "wrapper_ms adds the wrapper's check of the rows' layout "
+                 "(a reduction and a wait for it)"},
+        {"name": "wp_match_encode", "route": "cuda",
+         "source": "subword_tokenizers_tpu_torch/csrc/wp_match.cu",
+         "replaces": "subword_tokenizers_tpu/ops/wp_encode.py:47",
+         "launches": launches["wp_match_encode"],
+         "launches_by_path": {"NaiveWP":
+                              enc_launches["NaiveWP"]["wp_match_encode"]},
+         "max_abs_err": errs["wp_match_encode"],
+         "ms": timing["wp_match_encode"][0],
+         "plain_ms": timing["wp_match_encode"][1]}]
+    no_library = {
+        "wp_e2e_scan": "no PyTorch call walks a trie",
+        "compact_ids": "no one call gives the offsets, the stream and the "
+                       "flags",
+        "pair_stats": "no one call builds the weighted pair table",
+        "select_unify": "no one call selects and unifies by string hash",
+        "merge_apply": "no one call merges pairs with the parity rule",
+        "wp_score": "no one call gives the exact double of c / (fa * fb)",
+        "bpe_encode": "no PyTorch call runs a per-row merge loop",
+        "wp_match_encode": "no PyTorch call walks a trie"}
+    for k in record["kernels"]:
+        name = k["name"]
+        k["bound_ms"], k["bound_by"] = bounds[name]
+        k["library_ms"] = library.get(name)
+        if name in no_library:
+            k["library_note"] = no_library[name]
+        if f"{name}_wp" in bounds:
+            k["wp_bound_ms"], k["wp_bound_by"] = bounds[f"{name}_wp"]
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -6,7 +6,9 @@ token-stream compaction), BPE training (``NaiveBPE``/``FastBPE``
 ``train``: pair counts, selection with hash unification, and merge with
 compaction) and WordPiece training (``NaiveWP``/``FastWP`` ``train``:
 the same kernels with selection by the exact score, and per-symbol
-weights). On an NVIDIA GPU (``device="cuda"``) each runs as
+weights) and the batched encode of FastBPE, NaiveBPE and NaiveWP (the
+per-word merge loop and the greedy longest match, each followed by the
+compaction). On an NVIDIA GPU (``device="cuda"``) each runs as
 hand-written CUDA kernels; on the CPU (``device="cpu"``) as their plain
 PyTorch versions. Outputs equal the JAX package's.
 The package imports torch and never jax; it reads the JAX package's C++

@@ -210,12 +210,15 @@ def chunk_unique(cps: np.ndarray):
 
 
 def stitch(strings: list, out_ids: np.ndarray, out_n: np.ndarray,
-           inverse: np.ndarray, bounds: np.ndarray) -> list:
+           inverse: np.ndarray, bounds: np.ndarray,
+           alt: Optional[list] = None) -> list:
     """Token-id matrix -> list-of-list-of-str in one native pass.
 
     ``strings``: id -> token string; ``out_ids`` i32[U, W] with
     ``out_n`` i32[U] valid counts; ``inverse`` i32[C] chunk -> unique row;
-    ``bounds`` i64[S+1] chunk ranges per sentence.
+    ``bounds`` i64[S+1] chunk ranges per sentence. ``alt``: None, or a
+    list as long as ``strings`` whose entries render token positions > 0
+    of a row (BPE's ``"##"`` continuations).
     """
     load()
     out_ids = np.ascontiguousarray(out_ids, dtype=np.int32)
@@ -223,7 +226,7 @@ def stitch(strings: list, out_ids: np.ndarray, out_n: np.ndarray,
     inverse = np.ascontiguousarray(inverse, dtype=np.int32)
     bounds = np.ascontiguousarray(bounds, dtype=np.int64)
     U, W = out_ids.shape
-    return _stitch_fn(strings, None, _ptr(out_ids, ctypes.c_int32),
+    return _stitch_fn(strings, alt, _ptr(out_ids, ctypes.c_int32),
                       _ptr(out_n, ctypes.c_int32), U, W,
                       _ptr(inverse, ctypes.c_int32),
                       _ptr(bounds, ctypes.c_int64), bounds.shape[0] - 1)
@@ -231,11 +234,11 @@ def stitch(strings: list, out_ids: np.ndarray, out_n: np.ndarray,
 
 def stitch_flat(strings: list, ids: np.ndarray, starts: np.ndarray,
                 counts: np.ndarray, inverse: np.ndarray,
-                bounds: np.ndarray) -> list:
+                bounds: np.ndarray, alt: Optional[list] = None) -> list:
     """Dense token-id stream -> list-of-list-of-str.
 
     ``ids`` i32[n]; ``starts`` i64[U] / ``counts`` i32[U] are each unique
-    row's span in it; ``inverse``/``bounds`` as in :func:`stitch`.
+    row's span in it; ``inverse``/``bounds``/``alt`` as in :func:`stitch`.
     """
     load()
     ids = np.ascontiguousarray(ids, dtype=np.int32)
@@ -243,7 +246,7 @@ def stitch_flat(strings: list, ids: np.ndarray, starts: np.ndarray,
     counts = np.ascontiguousarray(counts, dtype=np.int32)
     inverse = np.ascontiguousarray(inverse, dtype=np.int32)
     bounds = np.ascontiguousarray(bounds, dtype=np.int64)
-    return _stitch_flat_fn(strings, None, _ptr(ids, ctypes.c_int32),
+    return _stitch_flat_fn(strings, alt, _ptr(ids, ctypes.c_int32),
                            _ptr(starts, ctypes.c_int64),
                            _ptr(counts, ctypes.c_int32), ids.shape[0],
                            _ptr(inverse, ctypes.c_int32),

@@ -3,7 +3,12 @@
 FastWP's batched encode wraps each stage in :func:`phase`:
 ``encode.native_prep``, ``encode.pack_u16``, ``encode.h2d``,
 ``encode.scan``, ``encode.compact``, ``encode.d2h`` and
-``encode.stitch``. BPE and WordPiece training: ``train.frontend``,
+``encode.stitch``. The BPE encoders and NaiveWP's batched encode:
+``encode.frontend`` (pre-split, word-type dedup, symbol or alphabet
+ids), ``encode.h2d``, ``encode.bpe_merge`` or ``encode.wp_match``,
+``encode.compact``, ``encode.d2h`` and ``encode.stitch``; NaiveBPE's
+host route for a merge list with a pair listed twice is
+``encode.host``. BPE and WordPiece training: ``train.frontend``,
 ``train.corpus`` (symbol interning, flat state, host-to-device copy),
 ``train.resume``, ``train.device_block`` (K steps queued and, while
 profiling, run), ``train.fetch_records``, ``train.verify``,

@@ -1,9 +1,15 @@
-"""FastWP's weights on the device.
+"""The encoders' weights on the device.
 
-For a tokenizer the weights are the trie tables. :func:`e2e_state_from_
-numpy` takes them as numpy arrays, from this package's
-``models/trie.E2ETrie`` or from the JAX package's (the two build equal
-arrays), and moves the ones the scan reads to ``device`` once.
+For a tokenizer the weights are its lookup tables, moved to ``device``
+once per vocabulary and dropped with it (``reset``, ``load_resources``,
+``train``):
+
+- FastWP: the end-to-end trie's tables. :func:`e2e_state_from_numpy`
+  takes them as numpy arrays, from this package's ``models/trie.E2ETrie``
+  or from the JAX package's (the two build equal arrays);
+- NaiveBPE and FastBPE: the rank hash of ``ops/bpe_encode.build_rank_hash``
+  (:class:`BPEState`);
+- NaiveWP: the match trie's ``goto`` and ``accept`` (:class:`MatchState`).
 """
 from __future__ import annotations
 
@@ -12,6 +18,43 @@ from typing import Optional, Sequence
 
 import numpy as np
 import torch
+
+from ..core.symbols import SymbolTable
+
+
+def _put(a, device) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
+@dataclass
+class BPEState:
+    """The BPE encoders' rank hash on the device, and the host table of
+    the symbol ids it is written in (unseen characters are interned into
+    it at encode time and take part in no merge)."""
+
+    table: SymbolTable
+    hkeys: torch.Tensor  # int64[H]
+    hrank: torch.Tensor  # int32[H]
+    hout: torch.Tensor   # int32[H]
+    max_probe: int
+
+    @classmethod
+    def build(cls, table, hkeys, hrank, hout, max_probe, device
+              ) -> "BPEState":
+        return cls(table, _put(hkeys, device), _put(hrank, device),
+                   _put(hout, device), int(max_probe))
+
+
+@dataclass
+class MatchState:
+    """NaiveWP's match trie on the device."""
+
+    goto: torch.Tensor    # int32[n_nodes, A+1]
+    accept: torch.Tensor  # int32[n_nodes]
+
+    @classmethod
+    def build(cls, trie, device) -> "MatchState":
+        return cls(_put(trie.goto, device), _put(trie.accept, device))
 
 
 @dataclass

@@ -1,7 +1,12 @@
-"""The LinMaxMatch end-to-end trie of FastWP, as flat integer arrays.
+"""The vocabulary tries of the WordPiece encoders, as flat integer arrays.
 
-Built on the host exactly as the JAX package builds it
-(``subword_tokenizers_tpu/models/trie.py``, ``E2ETrie.build``):
+:class:`MatchTrie` is NaiveWP's plain prefix trie, for the greedy
+longest-match kernel: a dense ``goto`` table and each node's output
+token id (``accept``, -1 where no vocab token ends).
+
+:class:`E2ETrie` is FastWP's LinMaxMatch end-to-end trie. Both are built
+on the host exactly as the JAX package builds them
+(``subword_tokenizers_tpu/models/trie.py``); for ``E2ETrie.build``:
 level-order processing; is_end nodes fail to the "##" node with a single
 pop; other nodes accumulate pops along the parent's failure chain; and
 any node whose character is not Python-alphanumeric has its failure
@@ -53,6 +58,44 @@ def _pack_edges(children: List[Dict[int, int]]
     vals = np.asarray(vals, dtype=np.int32)
     order = np.argsort(keys, kind="stable")
     return keys[order], vals[order]
+
+
+@dataclass
+class MatchTrie:
+    """Prefix trie: the greedy longest-match automaton's tables."""
+
+    edge_keys: np.ndarray   # i64[n_edges], sorted (node<<21)|cp
+    edge_vals: np.ndarray   # i32[n_edges]
+    accept: np.ndarray      # i32[n_nodes], output token id or -1
+    n_nodes: int
+    goto: np.ndarray        # i32[n_nodes, n_alpha+1] dense transitions
+    alpha: np.ndarray       # i32[MAX_CP] codepoint -> alphabet id (OOV=A)
+    n_alpha: int
+
+    @classmethod
+    def build(cls, vocab: Iterable[str], out_table) -> "MatchTrie":
+        """``out_table``: SymbolTable interning the output tokens, in
+        ``vocab``'s order."""
+        children: List[Dict[int, int]] = [{}]
+        accept: List[int] = [NO_NODE]
+        for tok in vocab:
+            node = 0
+            for c in tok:
+                cp = ord(c)
+                nxt = children[node].get(cp)
+                if nxt is None:
+                    nxt = len(children)
+                    children[node][cp] = nxt
+                    children.append({})
+                    accept.append(NO_NODE)
+                node = nxt
+            accept[node] = out_table.intern(tok)
+        keys, vals = _pack_edges(children)
+        goto, alpha, n_alpha = _dense_tables(children)
+        return cls(edge_keys=keys, edge_vals=vals,
+                   accept=np.asarray(accept, dtype=np.int32),
+                   n_nodes=len(children), goto=goto, alpha=alpha,
+                   n_alpha=n_alpha)
 
 
 @dataclass

@@ -1,5 +1,5 @@
-"""WordPiece tokenizers of the port: NaiveWP (training, the vocabulary
-and its greedy longest-match word encoder) and FastWP (NaiveWP's
+"""WordPiece tokenizers of the port: NaiveWP (training, and greedy
+longest-match encode, batched on the device) and FastWP (NaiveWP's
 training, then batched end-to-end LinMaxMatch encode on the device).
 
 Outputs equal the JAX package's ``subword_tokenizers_tpu/models/
@@ -14,6 +14,21 @@ computes (ops/bitmath.py), over per-symbol weights that kernel K4
 counts once and K3 carries; the merged token is ``a + b[2:]``. Only the
 vocabulary is a resource; the merge log is kept for checkpoints
 (``wp_state.json``), which resume replays.
+
+NaiveWP's batched encode (``tokenize_batch``):
+
+1. the C++ front end lowers and pre-splits the corpus, word types are
+   deduplicated, and each becomes a row of the match trie's alphabet ids
+   (``encode.frontend``);
+2. one host-to-device copy (``encode.h2d``); the trie's ``goto`` and
+   ``accept`` are moved once per vocabulary (models/state.MatchState);
+3. kernel 6 matches every word type, writing ``[UNK]`` (token 0) for a
+   word with an unmatched segment (``encode.wp_match``,
+   ops/wp_encode.wp_match_encode), and kernel 2 writes the flags byte
+   and the dense token stream (``encode.compact``, ops/fetch.compact_ids);
+4. two device-to-host copies (``encode.d2h``); a word that overflowed
+   raises here;
+5. the C++ stitch builds the token lists (``encode.stitch``).
 
 FastWP's batched encode:
 
@@ -53,13 +68,12 @@ from ..core.symbols import SymbolTable
 from ..frontend.charclass import PUNC_PY, WS_PY, codepoints, \
     lower_codepoints
 from ..ops import train_loop
-from ..ops.fetch import compact_ids
 from ..ops.flat import build_flat
-from ..ops.wp_encode import wp_e2e_encode
+from ..ops.wp_encode import wp_e2e_encode, wp_match_encode
 from ..ops.wp_encode_e2e import pack_chars, route_params, wp_e2e_scan
-from .base import SubwordTokenizer, resolve_device
-from .state import E2EState, e2e_state_from_numpy
-from .trie import E2ETrie
+from .base import SubwordTokenizer, fetch_stream, resolve_device
+from .state import E2EState, MatchState, e2e_state_from_numpy
+from .trie import E2ETrie, MatchTrie
 
 # Exact-score domain ceiling: the scorer needs pair counts < 2**53 and
 # fa, fb < 2**52, so total symbol occurrences < 2**52, as in the JAX
@@ -88,6 +102,7 @@ class NaiveWP(SubwordTokenizer):
         self._progress = False
         self._force_per_step = False
         self._merge_log: List[Tuple[str, str]] = []
+        self._drop_encode_state()
 
     def _save_checkpoint(self) -> None:
         """Atomic mid-training checkpoint: ``wp_state.json`` (vocab and
@@ -270,12 +285,83 @@ class NaiveWP(SubwordTokenizer):
                 word = f"##{word}"
         return tokens
 
+    def _drop_encode_state(self) -> None:
+        """Forget what encoding derived from the vocabulary."""
+        self._encode_cache: Dict[str, List[str]] = {}
+        self._match_trie: Optional[MatchTrie] = None
+        self._match_out: Optional[SymbolTable] = None
+        self._match_state: Optional[MatchState] = None
+
+    def _build_match_trie(self) -> Tuple[MatchTrie, SymbolTable]:
+        """The match trie of the sorted vocab; "[UNK]" is output id 0."""
+        if self._match_trie is None:
+            out = SymbolTable()
+            out.intern(UNK)
+            self._match_trie = MatchTrie.build(sorted(self.vocab), out)
+            self._match_out = out
+            self._match_state = None
+        return self._match_trie, self._match_out
+
+    def _match_device(self) -> MatchState:
+        """The match trie's tables on ``self.device``, moved once."""
+        trie, _ = self._build_match_trie()
+        if self._match_state is None:
+            self._match_state = MatchState.build(trie, self.device)
+        return self._match_state
+
+    def _match_inputs(self, words: List[str]):
+        """(trie, output table, int32[W, L] alphabet ids padded with the
+        OOV id, int32[W] lengths), L the longest word rounded up to a
+        multiple of 8 (at least 8)."""
+        trie, out_table = self._build_match_trie()
+        W = len(words)
+        wlen = np.fromiter((len(w) for w in words), dtype=np.int32, count=W)
+        L = -(-max(2, int(wlen.max()) if W else 1) // 8) * 8
+        wmat = np.full((W, L), trie.n_alpha, dtype=np.int32)
+        wmat[np.arange(L, dtype=np.int32)[None, :] < wlen[:, None]] = \
+            trie.alpha[codepoints("".join(words))]
+        return trie, out_table, wmat, wlen
+
+    def tokenize_batch(self, corpus: List[str]) -> List[List[str]]:
+        """Tokenize a corpus; equals ``tokenize`` of each sentence. Every
+        word type is matched once, by the kernels on ``self.device``."""
+        S = len(corpus)
+        dev = self.device
+        with profiling.phase("encode.frontend"):
+            wb = self.preprocessing_batch(corpus)
+            words, _, inverse = unique_words(wb)
+            if words:
+                trie, out_table, wmat, wlen = self._match_inputs(words)
+        if not words:
+            return [[] for _ in range(S)]
+        st = self._match_device()
+        with profiling.phase("encode.h2d", dev):
+            wmat_d = torch.from_numpy(wmat).to(dev)
+            wlen_d = torch.from_numpy(wlen).to(dev)
+        with profiling.phase("encode.wp_match", dev):
+            out, out_n, _, ovf = wp_match_encode(
+                wmat_d, wlen_d, st.goto, st.accept,
+                int(trie.alpha[ord("#")]))
+        ids, offs, flags = fetch_stream(out, out_n, ovf)
+        if flags.any():
+            raise RuntimeError(
+                "wp_match_encode overflow: vocabulary drives the greedy "
+                "matcher into unbounded '#' growth (the reference would "
+                "not terminate on this input)")
+        bounds = np.searchsorted(wb.sent_id, np.arange(S + 1))
+        with profiling.phase("encode.stitch"):
+            return binding.stitch_flat(out_table.strings(), ids, offs[:-1],
+                                       np.diff(offs).astype(np.int32),
+                                       inverse, bounds)
+
     # ------------------------------------------------------------- state io
 
     def reset(self) -> None:
-        """Forget the vocabulary and the trained corpus."""
+        """Forget the vocabulary, the trained corpus, and what encoding
+        derived from them."""
         self.vocab.clear()
         self.corpus_as_symbols.clear()
+        self._drop_encode_state()
 
     def save_resources(self, path: str) -> None:
         """Write ``vocab.json``, a JSON list of the vocabulary, atomically."""
@@ -293,6 +379,7 @@ class NaiveWP(SubwordTokenizer):
         if os.path.isfile(vocab_file):
             with open(vocab_file, "r", encoding="utf-8") as f:
                 self.vocab = set(json.load(f))
+            self._drop_encode_state()
         elif strict:
             raise FileNotFoundError(vocab_file)
 
@@ -463,16 +550,9 @@ class FastWP(NaiveWP):
         """Kernel 2 and the copies back: (ids int32[total], starts
         int64[R], counts int32[R]) of the scanned rows, or the scan's
         error."""
-        dev = self.device
-        R = out.shape[0]
-        with profiling.phase("encode.compact", dev):
-            ids_d, head_d = compact_ids(out, out_n, ovf, stuck, crash)
-        with profiling.phase("encode.d2h", dev):
-            head = head_d.cpu().numpy()
-            self._finish_e2e(head[R + 1:])
-            offs = head[:R + 1].astype(np.int64)
-            ids = ids_d[:int(offs[R])].cpu().numpy()
-        return ids, offs[:R], np.diff(offs).astype(np.int32)
+        ids, offs, flags = fetch_stream(out, out_n, ovf, stuck, crash)
+        self._finish_e2e(flags)
+        return ids, offs[:-1], np.diff(offs).astype(np.int32)
 
     def _run_e2e_packed(self, chars: np.ndarray, slen: np.ndarray):
         """Scan rows of packed char words (u16 or i32 [R, Lc]) and

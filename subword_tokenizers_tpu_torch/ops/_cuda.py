@@ -44,6 +44,10 @@ SIGNATURES = {
     "swt_merge_apply": [_P, _P, _P, _I64, _P, _P, _P, _P, _P, _P, _P, _P,
                         _P],
     "swt_symbol_freqs": [_P, _P, _I64, _I64, _P, _P],
+    "swt_bpe_encode": [_P, _I64, _I64, _P, _P, _P, _I64, _I, _I, _P, _P,
+                       _P],
+    "swt_wp_match": [_P, _I64, _I64, _P, _P, _I64, _P, _I, _I, _I64, _P, _P,
+                     _P, _P, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None
