@@ -65,7 +65,24 @@ WordPiece vocab ``tests/golden/port_t85k_fastwp_vocab.json``:
 10b. the other encode routes: the shuffled merges through both BPE
    encoders, NaiveBPE with a merge listed twice (the host route, no
    kernel launch), ``tokenize_stream`` and small batches against the
-   host ``tokenize``, and the WordPiece overflow error on the card.
+   host ``tokenize``, and the WordPiece overflow error on the card;
+11. holds the kernels of the training loop's other routes against their
+   plain versions, exactly: K1 and K3 in skip mode (deferred compaction)
+   and the overflow guard on seeded flat states with holes, runs and
+   gaps wider than the window (windows 2, 3, 8, 12 and 64) and on the
+   corpus's state after 1,000 skip-mode merges; K3p (the padded layout's
+   merge) and K1 over padded rows on seeded rows (lengths 0, 1 and L,
+   PADs inside) and the corpus's 22,971 x 22 tensor; K2's tournament
+   mode on the Bezout near tie (which must be redone), an exact tie, a
+   clear order, seeded tables and the corpus's WordPiece tables; times
+   each at the corpus's shapes;
+12. trains all of the corpus to 8,000 through each route of
+   ``run_fused`` (``SWT_SKIP_COMPACT=12`` and ``=2`` for BPE, ``=12``
+   for WordPiece, ``SWT_WP_TOURNAMENT=1``, and
+   ``run_fused(flat=False)`` for both): every run equals the JAX golden,
+   each route launches its kernels (``=2`` must compact on overflow),
+   with cold and warm times, the phase split and (12c) the idle share of
+   the skip route.
 
 Each phase prints one line; any failure raises. The line before the last
 is the kernels' JSON record, the last ``{"ok": true, "device": ...}``.
@@ -374,6 +391,455 @@ def bpe_random_state(rng, n_words, max_len, n_sym, wscale, unit, holes):
         dead = (rng.random(fs.shape[0]) < 0.08) & (fs >= 0)
         fs[dead], wid[dead], wgt[dead] = -1, WID_PAD, 0
     return fs, wid, wgt
+
+
+def skip_random_state(rng, n_words, max_len, n_sym, holes, gaps):
+    """A seeded flat state (numpy fs, wid, wgt) for the skip mode: runs of
+    equal symbols (self-merges through dead slots), a share ``holes`` of
+    the live slots dead, and ``gaps`` stretches of 70 dead slots, wider
+    than every window up to 64 (overflows)."""
+    import numpy as np
+    from subword_tokenizers_tpu_torch.ops.flat import WID_PAD
+    fs, wid, wgt = bpe_random_state(rng, n_words, max_len, n_sym, 1, False,
+                                    False)
+    dead = (rng.random(fs.shape[0]) < holes) & (fs >= 0)
+    for g in rng.integers(0, int((fs >= 0).sum()) - 80, size=gaps):
+        dead[g:g + 70] |= fs[g:g + 70] >= 0
+    fs[dead], wid[dead], wgt[dead] = -1, WID_PAD, 0
+    return fs, wid, wgt
+
+
+def skip_steps(state, table, n_steps, skip, max_len, dev,
+               wordpiece=False):
+    """``n_steps`` merges of the skip route on a FlatState, as
+    ``run_fused`` queues them, without the block's closing compaction:
+    the state keeps its dead slots."""
+    import torch
+    from subword_tokenizers_tpu_torch.ops import train_loop
+    h1, h2, sl, ctrl, pw1, pw2, sharp = train_loop.init_tables(
+        table, len(table) + n_steps, max_len, dev)
+    if wordpiece:
+        state.count_symbols(train_loop.sym_capacity(table,
+                                                    len(table) + n_steps))
+    stats = torch.zeros(2, dtype=torch.int32, device=dev)
+    rec = torch.zeros(6, dtype=torch.int32, device=dev)
+    for _ in range(n_steps):
+        state.guard(skip, stats[1:])
+        train_loop.select_unify(*state.pairs(skip), h1, h2, sl, ctrl, pw1,
+                                pw2, len(table) + n_steps, rec,
+                                wordpiece=wordpiece,
+                                sym_freq=state.sym_freq, sharp=sharp)
+        state.merge(rec, skip)
+    return int(stats[1])
+
+
+def phase11(dev, rng, flat_bpe, table, flat_wp, table_wp, sym_pad, max_len,
+            smi):
+    """Phase 11: the slice's kernels against their plain versions, exactly
+    (K1 and K3 in skip mode and the overflow guard, K3p, K2's tournament
+    mode), and their times at the main path's shapes. Returns (errs,
+    timing, bounds, notes)."""
+    import numpy as np
+    import torch
+    from subword_tokenizers_tpu_torch.ops import train_loop
+    from subword_tokenizers_tpu_torch.ops.flat import (merge_skip,
+                                                       merge_skip_ref,
+                                                       skip_guard,
+                                                       skip_guard_ref)
+    from subword_tokenizers_tpu_torch.ops.merge import (apply_merge,
+                                                        apply_merge_ref)
+    from subword_tokenizers_tpu_torch.ops.pairstats import (
+        EMPTY_KEY, canonical, pair_stats, pair_stats_ref, symbol_freqs)
+    from subword_tokenizers_tpu_torch.ops.train_loop import (select_unify,
+                                                             select_unify_ref)
+    names = ("pair_stats_skip", "pair_stats_rows", "skip_guard",
+             "merge_skip", "merge_rows", "select_unify_tournament")
+    errs = dict.fromkeys(names, 0)
+    timing, bounds = {}, {}
+    notes = {"guard_fired": 0, "skip_states": 0, "rows_states": 0,
+             "tournament_tables": 0, "redos": {}}
+
+    def err_all(got, want):
+        return max(max_err(g, w) for g, w in zip(got, want))
+
+    def clone(*ts):
+        return [t.clone() for t in ts]
+
+    def check_skip(fs, wid, wgt, S, recs):
+        """K1 and K3 in skip mode and the guard, on one state."""
+        errs["pair_stats_skip"] = max(errs["pair_stats_skip"], err_all(
+            canonical(*pair_stats(fs, wid, wgt, skip=S)),
+            pair_stats_ref(fs, wid, wgt, S)))
+        cnt_k = torch.zeros(1, dtype=torch.int32, device=dev)
+        cnt_r = cnt_k.clone()
+        got, want = clone(fs, wid, wgt), clone(fs, wid, wgt)
+        skip_guard(*got, S, cnt_k)
+        skip_guard_ref(*want, S, cnt_r)
+        errs["skip_guard"] = max(errs["skip_guard"],
+                                 err_all([*got, cnt_k], [*want, cnt_r]))
+        notes["guard_fired"] += int(cnt_k)
+        cap = int(fs.max()) + 2
+        sf = symbol_freqs(fs, wgt, cap)
+        for row in recs:
+            rec = torch.tensor(row, dtype=torch.int32, device=dev)
+            got, want = clone(fs, wid, wgt, sf), clone(fs, wid, wgt, sf)
+            merge_skip(*got[:3], rec, S, got[3])
+            merge_skip_ref(*want[:3], rec, S, want[3])
+            errs["merge_skip"] = max(errs["merge_skip"], err_all(got, want),
+                                     max_err(got[3], symbol_freqs(
+                                         got[0], got[2], cap)))
+        notes["skip_states"] += 1
+
+    def records(fs, wid, wgt, S):
+        keys, counts, _ = pair_stats_ref(fs, wid, wgt, S)
+        top = int(keys[counts.argmax()])
+        live = fs[fs >= 0]
+        mode = int(live.mode().values)
+        n = int(fs.max()) + 1
+        return [[top >> 32, top & 0xFFFFFFFF, n, 0, 1, 0],
+                [mode, mode, n, 0, 1, 0],
+                [top >> 32, top & 0xFFFFFFFF, n, 0, 0, 0]]
+
+    for S, holes, gaps in ((2, 0.3, 0), (3, 0.2, 2), (8, 0.3, 2),
+                           (12, 0.4, 2), (64, 0.5, 2), (12, 0.05, 0)):
+        fs, wid, wgt = (torch.from_numpy(x).to(dev) for x in
+                        skip_random_state(rng, 4000, 12, 3, holes, gaps))
+        check_skip(fs, wid, wgt, S, records(fs, wid, wgt, S))
+    # the train-85k state after 1,000 skip-mode merges (window 12)
+    state = train_loop.FlatState(*flat_bpe, dev)
+    t1000 = type(table)(table.strings())
+    fired = skip_steps(state, t1000, 1000, 12, max_len, dev)
+    fs, wid, wgt = state.arrays()
+    live = fs >= 0
+    n_dead = int(torch.nonzero(live).max()) + 1 - int(live.sum())
+    for S in (2, 12):
+        check_skip(fs, wid, wgt, S, records(fs, wid, wgt, S))
+
+    # K3p: random padded rows, and the train-85k tensor
+    def check_rows(sym):
+        pst = train_loop.PaddedState(sym.cpu().numpy(), np.ones(
+            sym.shape[0], np.int64), dev)
+        errs["pair_stats_rows"] = max(errs["pair_stats_rows"], err_all(
+            canonical(*pst.pairs()), pair_stats_ref(
+                pst.sym.view(-1), pst._wid, pst._wgt)))
+        keys, counts, _ = pair_stats_ref(pst.sym.view(-1), pst._wid,
+                                         pst._wgt)
+        top = int(keys[counts.argmax()]) if keys.numel() else 7 << 32 | 8
+        mode = int(sym[sym >= 0].mode().values)
+        n = int(sym.max()) + 1
+        for row in ([top >> 32, top & 0xFFFFFFFF, n, 0, 1, 0],
+                    [mode, mode, n, 0, 1, 0], [7, 7, n, 0, 0, 0]):
+            rec = torch.tensor(row, dtype=torch.int32, device=dev)
+            got = apply_merge(sym.clone(), rec)
+            errs["merge_rows"] = max(errs["merge_rows"], max_err(
+                got, apply_merge_ref(sym, rec)))
+        notes["rows_states"] += 1
+        return rec
+
+    for W, L, n_sym in ((3000, 12, 3), (3000, 33, 2), (512, 1, 3),
+                        (4000, 24, 6)):
+        sym, _ = bpe_random_case(rng, W, L, n_sym, 1, inner_pad=True)
+        check_rows(torch.from_numpy(sym).to(dev))
+    sym85 = torch.from_numpy(sym_pad).to(dev)
+    check_rows(sym85)
+
+    # K2's tournament mode: equal to the exact mode's record
+    z = torch.zeros(1, dtype=torch.int64, device=dev)
+    redo = torch.zeros(1, dtype=torch.int32, device=dev)
+
+    def check_tournament(tab, sf, want_redo=None):
+        rec_k = torch.zeros(6, dtype=torch.int32, device=dev)
+        rec_e, rec_t = rec_k.clone(), rec_k.clone()
+        ctrl = torch.zeros(3, dtype=torch.int32, device=dev)
+        before = int(redo)
+        select_unify(*tab, z, z, z, ctrl, z, z, 0, rec_k, True, True, sf,
+                     tournament=True, redo=redo)
+        after = int(redo)
+        select_unify_ref(*tab, z, z, z, ctrl, z, z, 0, rec_e, True, True, sf)
+        select_unify_ref(*tab, z, z, z, ctrl, z, z, 0, rec_t, True, True, sf,
+                         tournament=True, redo=redo.clone())
+        errs["select_unify_tournament"] = max(
+            errs["select_unify_tournament"], max_err(rec_k, rec_e),
+            max_err(rec_k, rec_t))
+        if want_redo is not None and after - before != want_redo:
+            raise AssertionError(f"tournament redo {after - before}, "
+                                 f"expected {want_redo}")
+        notes["tournament_tables"] += 1
+        return after - before, rec_k
+
+    def table_of(entries, T):
+        keys = torch.full((T,), EMPTY_KEY, dtype=torch.int64)
+        counts = torch.zeros(T, dtype=torch.int64)
+        pos = torch.zeros(T, dtype=torch.int32)
+        slots = torch.from_numpy(rng.permutation(T)[:len(entries)])
+        for s, (a, b, c, p) in zip(slots.tolist(), entries):
+            keys[s], counts[s], pos[s] = (a << 32) | b, c, p
+        return [x.to(dev) for x in (keys, counts, pos)]
+
+    q, p = (1 << 26) - 1, (1 << 26) - 3
+    c1 = (1 << 25) - 1
+    c2 = (c1 * p - 1) // q
+    A = (1 << 20) + 7
+    sf_b = torch.tensor([1, A, p, q, 1], dtype=torch.int64, device=dev)
+    for pos1, pos2 in ((5, 9), (9, 5)):  # the Bezout near tie: a redo
+        check_tournament(table_of([(1, 3, c1, pos1), (1, 2, c2, pos2)], 64),
+                         sf_b, 1)
+    sf_t = torch.tensor([1, 12, 18, 18, 12], dtype=torch.int64, device=dev)
+    _, rec = check_tournament(table_of([(1, 2, 6, 11), (3, 4, 6, 3)], 64),
+                              sf_t, 0)  # an exact tie: the least position
+    if rec.tolist()[:2] != [3, 4]:
+        raise AssertionError(f"exact tie won by {rec.tolist()}")
+    sf_c = torch.tensor([1, 10, 20, 30, 1], dtype=torch.int64, device=dev)
+    check_tournament(table_of([(1, 2, 7, 4), (2, 3, 5, 2)], 64), sf_c, 0)
+    for k in range(8):  # random tables, weights from a few values (ties)
+        n_sym = 40
+        sf_r = torch.from_numpy(rng.choice([1 << 10, 3 << 9, 1 << 11, 5],
+                                           size=n_sym)).to(dev)
+        pairs = {(int(a), int(b)) for a, b in
+                 rng.integers(0, n_sym, size=(3000, 2))}
+        entries = [(a, b, int(rng.integers(1, 20 if k % 2 else 3)),
+                    int(i * 7 + 1)) for i, (a, b) in enumerate(pairs)]
+        check_tournament(table_of(entries, 4096), sf_r)
+    # the train-85k WordPiece tables: initial, and after 1,000 merges
+    fs_w, wid_w, wgt_w = (torch.from_numpy(x).to(dev) for x in flat_wp)
+    sf_w = symbol_freqs(fs_w, wgt_w, 8008)
+    tab_w = pair_stats(fs_w, wid_w, wgt_w)
+    notes["redos"]["85k initial"], _ = check_tournament(tab_w, sf_w)
+    st_w = train_loop.FlatState(*flat_wp, dev)
+    tw = type(table_wp)(table_wp.strings())
+    skip_steps(st_w, tw, 1000, 12, max_len, dev, wordpiece=True)
+    notes["redos"]["85k after 1,000"], _ = check_tournament(
+        st_w.pairs(12), st_w.sym_freq)
+    if any(errs.values()):
+        raise AssertionError(f"a kernel of this slice differs: {errs}")
+
+    # times at the main path's shapes: the 85k state after 1,000
+    # skip-mode merges (window 12), the 85k padded tensor, the 85k
+    # WordPiece table
+    tab = pair_stats(fs, wid, wgt, skip=12)
+    rec = records(fs, wid, wgt, 12)[0]
+    rec = torch.tensor(rec, dtype=torch.int32, device=dev)
+    cnt = torch.zeros(1, dtype=torch.int32, device=dev)
+    work = clone(fs, wid, wgt)
+    out = clone(fs, wid, wgt)
+    ovf = skip_random_state(rng, 40000, 12, 3, 0.3, 4)
+    ovf = [torch.from_numpy(x).to(dev) for x in ovf]
+    ovf_out = clone(*ovf)
+    F = fs.shape[0]
+    n_live = int((fs >= 0).sum())
+    timing["pair_stats_skip"] = (
+        cuda_ms(lambda: pair_stats(fs, wid, wgt, tab, skip=12), 200, True),
+        cuda_ms(lambda: pair_stats_ref(fs, wid, wgt, 12), 5))
+    timing["skip_guard"] = (
+        cuda_ms(lambda: skip_guard(*work, 12, cnt, out), 200, True),
+        cuda_ms(lambda: skip_guard_ref(*work, 12, cnt), 5))
+    # A compaction ends the overflow, so each timed call first restores
+    # the state (three copies, timed alone and taken off).
+    ovf0 = clone(*ovf)
+
+    def restore():
+        for dst, src in zip(ovf, ovf0):
+            dst.copy_(src)
+
+    t_restore = cuda_ms(restore, 100, True)
+    timing["skip_guard_fired"] = (
+        cuda_ms(lambda: (restore(), skip_guard(*ovf, 2, cnt, ovf_out)), 100,
+                True) - t_restore,
+        cuda_ms(lambda: (restore(), skip_guard_ref(*ovf, 2, cnt)), 5)
+        - t_restore)
+    timing["merge_skip"] = (
+        cuda_ms(lambda: merge_skip(*work, rec, 12), 200, True),
+        cuda_ms(lambda: merge_skip_ref(*work, rec, 12), 5))
+    sym_t = sym85.clone()
+    rec_p = check_rows(sym85)
+    rec_p = torch.tensor([int(rec_p[0]), int(rec_p[1]), 9000, 0, 1, 0],
+                         dtype=torch.int32, device=dev)
+    timing["merge_rows"] = (
+        cuda_ms(lambda: apply_merge(sym_t, rec_p), 200, True),
+        cuda_ms(lambda: apply_merge_ref(sym_t, rec_p), 5))
+    h1, h2, sl, ctrl, pw1, pw2, sharp = train_loop.init_tables(
+        table_wp, 8000, max_len, dev)
+    rec_w = torch.zeros(6, dtype=torch.int32, device=dev)
+    tab_ref = pair_stats_ref(fs_w, wid_w, wgt_w)
+    timing["select_unify_tournament"] = (
+        cuda_ms(lambda: select_unify(*tab_w, h1, h2, sl, ctrl, pw1, pw2,
+                                     8000, rec_w, False, True, sf_w, sharp,
+                                     True, redo), 200, True),
+        cuda_ms(lambda: select_unify_ref(*tab_ref, h1, h2, sl, ctrl, pw1,
+                                         pw2, 8000, rec_w, False, True,
+                                         sf_w, sharp, True, redo), 5))
+    timing["select_unify_exact_wp"] = (
+        cuda_ms(lambda: select_unify(*tab_w, h1, h2, sl, ctrl, pw1, pw2,
+                                     8000, rec_w, False, True, sf_w, sharp),
+                200, True), None)
+    n_rows, L = sym85.shape
+    # Bytes: each input read once and each output written once (the
+    # in-place kernels count the slots they change, low: none); the pair
+    # table as K1's. Operations, counted low: a window probe and a hash
+    # insert per live slot (10), a liveness test per slot (2), a match
+    # test per slot (6), a move per row slot (2), a 128-bit compare per
+    # table entry (12).
+    bounds["pair_stats_skip"] = bound(nbytes(fs, wid, wgt, *tab),
+                                      10 * n_live)
+    bounds["skip_guard"] = bound(nbytes(fs), 2 * F)
+    bounds["skip_guard_fired"] = bound(2 * nbytes(*ovf), 8 * ovf[0].shape[0])
+    bounds["merge_skip"] = bound(nbytes(fs, wid, wgt, rec), 6 * F)
+    bounds["merge_rows"] = bound(2 * nbytes(sym85) + nbytes(rec_p),
+                                 2 * n_rows * L)
+    bounds["select_unify_tournament"] = bound(
+        nbytes(*tab_w, ctrl, rec_w, sf_w), 12 * tab_w[0].shape[0])
+    notes.update(fired_1000=fired, dead_1000=n_dead, F=F, n_live=n_live,
+                 rows=(n_rows, L))
+    torch.cuda.synchronize()
+    print(f"phase 11: the slice's kernels equal their plain versions "
+          f"exactly: K1 and K3 in skip mode and the guard on "
+          f"{notes['skip_states']} states (windows 2, 3, 8, 12, 64 with "
+          f"holes, runs and 70-slot gaps; the 85k state after 1,000 "
+          f"skip-mode merges, {n_dead} dead slots, at windows 2 and 12; the "
+          f"guard compacted {notes['guard_fired']} of them, and {fired} "
+          f"times in the 1,000 merges), K1 and K3p on "
+          f"{notes['rows_states']} padded states (lengths 0, 1, L, PADs "
+          f"inside, the {n_rows} x {L} train-85k tensor), K2's tournament "
+          f"on {notes['tournament_tables']} tables (the Bezout near tie "
+          f"redone in both orders, an exact tie to the least position, a "
+          f"clear order, 8 random, the 85k WordPiece tables: redos "
+          f"{notes['redos']}); at F = {F} ({n_live} live): " + ", ".join(
+              f"{k} {timing[k][0]:.4f} ms (plain {timing[k][1]:.3f}, bound "
+              f"{bounds[k][0]:.4f})" for k in (
+                  "pair_stats_skip", "skip_guard", "skip_guard_fired",
+                  "merge_skip", "merge_rows", "select_unify_tournament"))
+          + f"; exact WordPiece K2 on the same table "
+          f"{timing['select_unify_exact_wp'][0]:.4f} ms; {smi}")
+    return errs, timing, bounds, notes
+
+
+ROUTES = (
+    # (name, model, environment, flat)
+    ("bpe_skip12", "NaiveBPE", {"SWT_SKIP_COMPACT": "12"}, True),
+    ("bpe_skip2", "NaiveBPE", {"SWT_SKIP_COMPACT": "2"}, True),
+    ("wp_skip12", "NaiveWP", {"SWT_SKIP_COMPACT": "12"}, True),
+    ("wp_tournament", "NaiveWP", {"SWT_WP_TOURNAMENT": "1"}, True),
+    ("bpe_padded", "NaiveBPE", {}, False),
+    ("wp_padded", "NaiveWP", {}, False),
+)
+
+
+def route_counters():
+    """{name: (object, attribute)} of every launch and event count the
+    routes of phase 12 read."""
+    from subword_tokenizers_tpu_torch.ops.flat import (merge_apply,
+                                                       merge_skip,
+                                                       skip_guard)
+    from subword_tokenizers_tpu_torch.ops.merge import apply_merge
+    from subword_tokenizers_tpu_torch.ops.pairstats import (pair_stats,
+                                                            symbol_freqs)
+    from subword_tokenizers_tpu_torch.ops.train_loop import select_unify
+    return {"pair_stats": (pair_stats, "launches"),
+            "pair_stats_skip": (pair_stats, "skip_launches"),
+            "select_unify": (select_unify, "launches"),
+            "select_unify_tournament": (select_unify, "tournament_launches"),
+            "merge_apply": (merge_apply, "launches"),
+            "merge_skip": (merge_skip, "launches"),
+            "skip_guard": (skip_guard, "launches"),
+            "merge_rows": (apply_merge, "launches"),
+            "symbol_freqs": (symbol_freqs, "launches"),
+            "overflow_compactions": (skip_guard, "overflow_compactions"),
+            "risky_redos": (select_unify, "risky_redos")}
+
+
+# The kernels each route must launch (phase 12).
+ROUTE_KERNELS = {
+    "bpe_skip12": ("pair_stats_skip", "skip_guard", "merge_skip",
+                   "select_unify"),
+    "bpe_skip2": ("pair_stats_skip", "skip_guard", "merge_skip",
+                  "overflow_compactions"),
+    "wp_skip12": ("pair_stats_skip", "skip_guard", "merge_skip",
+                  "symbol_freqs"),
+    "wp_tournament": ("select_unify_tournament", "pair_stats", "merge_apply"),
+    "bpe_padded": ("pair_stats", "merge_rows", "select_unify"),
+    "wp_padded": ("pair_stats", "merge_rows", "symbol_freqs"),
+}
+
+
+def phase12(dev, corpus, check_bpe, check_wp, smi, trace_dir,
+            max_vocab=8000):
+    """Phase 12: each route of this slice trains all of ``corpus`` to
+    ``max_vocab`` (a cold, a warm and a profiled run), each run checked against
+    the JAX golden by ``check_bpe`` / ``check_wp``; then one skip-route
+    run under torch.profiler. Returns {route: launches of its three
+    runs}."""
+    import functools
+    import torch
+    from subword_tokenizers_tpu_torch import NaiveBPE, NaiveWP
+    from subword_tokenizers_tpu_torch.benchmarks import profiling
+    from subword_tokenizers_tpu_torch.ops import train_loop
+    models = {"NaiveBPE": NaiveBPE, "NaiveWP": NaiveWP}
+    counters = route_counters()
+    real_run = train_loop.run_fused
+    saved = {k: os.environ.get(k) for k in ("SWT_SKIP_COMPACT",
+                                           "SWT_WP_TOURNAMENT")}
+    by_route, lines = {}, []
+    try:
+        for name, model, env, flat in ROUTES:
+            for k in saved:
+                os.environ.pop(k, None)
+            os.environ.update(env)
+            train_loop.run_fused = real_run if flat else functools.partial(
+                real_run, flat=False)
+            for obj, attr in counters.values():
+                setattr(obj, attr, 0)
+            walls = []
+            # run 0 is cold (the route's first), run 1 warm, run 2 warm
+            # with the phase profiler on
+            for run in range(3):
+                profiling.enable(run == 2)
+                profiling.reset()
+                tok = models[model](device=dev)
+                t0 = time.perf_counter()
+                tok.train(corpus, max_vocab)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+                (check_bpe if model == "NaiveBPE" else check_wp)(
+                    tok, f"{name} run {run}")
+            phases = {k: round(v["total_s"] * 1e3, 3)
+                      for k, v in profiling.report().items()}
+            profiling.enable(False)
+            counts = {k: getattr(obj, attr)
+                      for k, (obj, attr) in counters.items()}
+            missing = [k for k in ROUTE_KERNELS[name] if not counts[k]]
+            if missing:
+                raise AssertionError(f"{name}: nothing counted for "
+                                     f"{missing}: {counts}")
+            by_route[name] = counts
+            lines.append(
+                f"{name} cold {walls[0]:.3f} s, warm {walls[1]:.3f} s, "
+                f"profiled {walls[2]:.3f} s, phases (ms) "
+                f"{json.dumps(phases)}, counts of 3 runs "
+                f"{ {k: v for k, v in counts.items() if v} }")
+        os.environ.pop("SWT_WP_TOURNAMENT", None)
+        os.environ["SWT_SKIP_COMPACT"] = "12"
+        train_loop.run_fused = real_run
+        wall, busy, by_name = device_trace(
+            lambda: NaiveBPE(device=dev).train(corpus, max_vocab),
+            os.path.join(trace_dir, "skip_train_trace.json"))
+    finally:
+        train_loop.run_fused = real_run
+        for k, v in saved.items():
+            os.environ.pop(k, None)
+            if v is not None:
+                os.environ[k] = v
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
+    dev_line = ("not measured (the trace holds no device events)"
+                if not by_name else
+                f"device busy {busy:.3f} ms of {wall:.1f} ms (idle share "
+                f"{1 - busy / wall:.4f}); "
+                + "; ".join(f"{n} x{c} {ms:.3f} ms" for n, (c, ms) in top))
+    print(f"phase 12: all of {len(corpus)} sentences to {max_vocab} through "
+          f"each route equal the JAX golden (merges; WordPiece's vocab too): "
+          + "; ".join(lines) + f"; {smi}")
+    print(f"phase 12c: one warm NaiveBPE train with SWT_SKIP_COMPACT=12 "
+          f"under torch.profiler: {dev_line}; {smi}")
+    return by_route
 
 
 def main() -> int:
@@ -1502,6 +1968,17 @@ def main() -> int:
           f"7 and 64 equal the host tokenize, for all three; the "
           f"WordPiece overflow input raised on the card")
 
+    # ---- phase 11: this slice's kernels against their plain versions
+    errs11, timing11, bounds11, notes11 = phase11(
+        dev, rng, flat0, table, flat_wp, table_wp, arrays.sym, max_len, smi)
+    errs.update(errs11)
+    timing.update(timing11)
+    bounds.update(bounds11)
+
+    # ---- phase 12: the routes of run_fused, the whole corpus to 8,000
+    with tempfile.TemporaryDirectory() as d:
+        by_route = phase12(dev, corpus, check_train, check_wp_train, smi, d)
+
     record = {"kernels": [
         {"name": "wp_e2e_scan", "route": "cuda",
          "source": "subword_tokenizers_tpu_torch/csrc/wp_e2e_scan.cu",
@@ -1593,6 +2070,50 @@ def main() -> int:
          "max_abs_err": errs["wp_match_encode"],
          "ms": timing["wp_match_encode"][0],
          "plain_ms": timing["wp_match_encode"][1]}]
+    # the routes of phase 12: each new kernel's launches by route
+    def routes_of(key):
+        return {r: c[key] for r, c in by_route.items() if c[key]}
+
+    by_name["pair_stats"].update(
+        padded_launches=sum(by_route[r]["pair_stats"]
+                            for r in ("bpe_padded", "wp_padded")),
+        padded_max_abs_err=errs["pair_stats_rows"])
+    new_kernels = (
+        ("pair_stats_skip", "pair_stats.cu",
+         "subword_tokenizers_tpu/ops/flat.py:148"),
+        ("skip_guard", "merge_apply.cu",
+         "subword_tokenizers_tpu/ops/flat.py:94"),
+        ("merge_skip", "merge_apply.cu",
+         "subword_tokenizers_tpu/ops/flat.py:168"),
+        ("merge_rows", "merge_rows.cu",
+         "subword_tokenizers_tpu/ops/merge.py:19"),
+        ("select_unify_tournament", "select_unify.cu",
+         "subword_tokenizers_tpu/ops/wp_tournament.py:93"))
+    for k, src, replaces in new_kernels:
+        paths = routes_of(k)
+        record["kernels"].append(
+            {"name": k, "route": "cuda",
+             "source": f"subword_tokenizers_tpu_torch/csrc/{src}",
+             "replaces": replaces, "launches": sum(paths.values()),
+             "launches_by_path": paths, "max_abs_err": errs[k],
+             "ms": timing[k][0], "plain_ms": timing[k][1]})
+    by_name = {k["name"]: k for k in record["kernels"]}
+    by_name["skip_guard"].update(
+        note="ms: the overflow test with the gate closed (the usual "
+             "step); fired_ms: with the compaction it gates",
+        fired_ms=timing["skip_guard_fired"][0],
+        fired_plain_ms=timing["skip_guard_fired"][1],
+        fired_bound_ms=bounds["skip_guard_fired"][0],
+        overflow_compactions=routes_of("overflow_compactions"))
+    by_name["select_unify_tournament"].update(
+        risky_redos=routes_of("risky_redos") or {"wp_tournament": 0},
+        exact_wp_ms=timing["select_unify_exact_wp"][0])
+    by_name["merge_skip"]["note"] = (
+        "ms: a pass with no match left (the timed record's pairs merge on "
+        "its first call)")
+    by_name["merge_rows"]["note"] = (
+        "ms: a pass with no match left over the rows, each read and "
+        "rewritten (the timed record's pairs merge on its first call)")
     no_library = {
         "wp_e2e_scan": "no PyTorch call walks a trie",
         "compact_ids": "no one call gives the offsets, the stream and the "
@@ -1602,6 +2123,12 @@ def main() -> int:
         "merge_apply": "no one call merges pairs with the parity rule",
         "wp_score": "no one call gives the exact double of c / (fa * fb)",
         "bpe_encode": "no PyTorch call runs a per-row merge loop",
+        "pair_stats_skip": "no one call builds the weighted pair table",
+        "skip_guard": "no one call tests the window and compacts",
+        "merge_skip": "no one call merges pairs with the parity rule",
+        "merge_rows": "no one call merges pairs with the parity rule",
+        "select_unify_tournament": "no one call selects and unifies by "
+                                   "string hash",
         "wp_match_encode": "no PyTorch call walks a trie"}
     for k in record["kernels"]:
         name = k["name"]

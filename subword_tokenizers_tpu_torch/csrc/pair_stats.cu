@@ -18,6 +18,23 @@
 // selection (select_unify.cu) is order-free. The table is cleared with
 // cudaMemsetAsync on every call.
 //
+// Skip mode (skip = S > 0), which replaces the deferred-compaction pair
+// count of
+//   subword_tokenizers_tpu/ops/flat.py: skip_next, flat_skip_aggregate
+//   (flat_train_steps with skip > 0):
+// merges leave dead slots (-1) in place, so slot i pairs with its nearest
+// LIVE successor j within S + 1 slots, when one exists and wid[j] ==
+// wid[i]; the pair's position is the raw slot index i. JAX uses the
+// compacted index there, but deletion never reorders live slots, so the
+// two order the pairs alike and the least one is the same pair. The same
+// kernel reads S + 1 slots ahead instead of one; the adjacent mode is
+// S = 0.
+//
+// The padded layout's pair count (ops/pairstats.py pack_pairs and
+// _run_aggregate inside train_steps) is this kernel over the [n, L]
+// tensor viewed as n * L slots with wid = row index and wgt = the row's
+// weight: position row * L + j orders pairs as JAX's row * (L - 1) + j.
+//
 // Bound on this card: at F = 187,885 (train-85k) it is a few MB of
 // table traffic and some hundred thousand atomics; frequent pairs make
 // many threads add to one entry, which L2 serialises. A thread reads an
@@ -48,13 +65,18 @@ __global__ void pair_insert_kernel(const int32_t* __restrict__ fs,
                                    const int64_t* __restrict__ wgt, int64_t F,
                                    unsigned long long* keys,
                                    unsigned long long* counts,
-                                   unsigned int* pos, unsigned long long mask) {
+                                   unsigned int* pos, unsigned long long mask,
+                                   int skip) {
   const int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) +
                     threadIdx.x;
   if (i + 1 >= F) return;
   const int32_t a = fs[i];
-  const int32_t b = fs[i + 1];
-  if (a < 0 || b < 0 || wid[i] != wid[i + 1]) return;
+  if (a < 0) return;
+  int64_t j = i + 1;
+  const int64_t last = i + 1 + skip < F - 1 ? i + 1 + skip : F - 1;
+  while (j < last && fs[j] < 0) ++j;
+  const int32_t b = fs[j];
+  if (b < 0 || wid[i] != wid[j]) return;
   const unsigned long long key =
       (static_cast<unsigned long long>(static_cast<uint32_t>(a)) << 32) |
       static_cast<uint32_t>(b);
@@ -78,10 +100,11 @@ __global__ void pair_insert_kernel(const int32_t* __restrict__ fs,
 extern "C" {
 
 // fs i32[F], wid i32[F], wgt i64[F] -> keys/counts i64[T], pos i32[T].
-// T a power of two >= 2(F-1); 2 <= F < 2^31. Returns the cudaError_t.
+// T a power of two >= 2(F-1); 2 <= F < 2^31; skip >= 0 (0: adjacent
+// slots). Returns the cudaError_t.
 int swt_pair_stats(const void* fs, const void* wid, const void* wgt,
                    int64_t F, void* keys, void* counts, void* pos, int64_t T,
-                   void* stream) {
+                   int skip, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaMemsetAsync(keys, 0xFF, T * sizeof(uint64_t), s);
   if (err == cudaSuccess)
@@ -96,7 +119,7 @@ int swt_pair_stats(const void* fs, const void* wid, const void* wgt,
       static_cast<unsigned long long*>(keys),
       static_cast<unsigned long long*>(counts),
       static_cast<unsigned int*>(pos),
-      static_cast<unsigned long long>(T - 1));
+      static_cast<unsigned long long>(T - 1), skip);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -6,7 +6,10 @@
 //     selection, with compact_cands and _prefilter_cap),
 //   subword_tokenizers_tpu/ops/bitmath.py: div_double_bits,
 //     div_double_bits_wide, mul_53x53, bitlen, bitlen128, _round_q55, and
-//   subword_tokenizers_tpu/ops/train_loop.py: _select_and_unify.
+//   subword_tokenizers_tpu/ops/train_loop.py: _select_and_unify, and
+//   subword_tokenizers_tpu/ops/wp_tournament.py: wp_tournament_select
+//     (_cmp128, _sub128, _combine) with its redo at ops/pairstats.py:280-292
+//     (the tournament mode below).
 // Selection: over the pair table of K1 (pair_stats.cu), the pair with the
 // largest metric, then the least first position. The metric is the count
 // (BPE) or the score count / (freq_a * freq_b) as the int64 bits of the
@@ -32,13 +35,27 @@
 //     matching id, a miss appends at n_sym and counts one more symbol.
 //     It writes the record (a, b, new_id, matched, active) and updates
 //     ctrl = (n_sym, vocab_size, alive && active).
-// The WordPiece score (score_bits below) is exact, so no near-tie redo is
-// ever needed: narrow entries (fa * fb < 2^53, checked with __umul64hi)
+// The WordPiece score (score_bits below) is exact, so the exact mode needs
+// no near-tie redo: narrow entries (fa * fb < 2^53, checked with __umul64hi)
 // take __ddiv_rn of two exact doubles; wide ones a 128-bit restoring
 // division with JAX's round-half-even tail. The JAX package compacts the
 // run starts and prefilters them by exponent only to cut its TPU's long
 // divisions per position; K1's table already holds one entry per distinct
 // pair, so every live entry is scored.
+// Tournament mode (WordPiece, narrow scores only: every fa * fb < 2^52 and
+// count < 2^26) compares two entries c1 / d1 and c2 / d2, d = fa * fb, by
+// the exact 128-bit products c1 d2 and c2 d1 (__umul64hi), with no
+// division; equal rationals go by the least position. Each comparison
+// whose relative gap is in (0, 2^-50] (JAX's _combine test) sets a sticky
+// near-tie flag. The same two-stage reduction carries (c, d, pos, key,
+// flag) instead of (metric, pos, key). Its tree is not JAX's halving
+// tree, but every tree of exact comparisons picks the same winner. An
+// entry whose double could tie the winner's lies within 2^-52 of it, and
+// the entry that knocks it out lies between the two, so that comparison
+// raises the flag in any tree; the flag may fire on other steps than in
+// JAX, which costs time only. When the flag is set, the
+// one-block kernel redoes the step itself with the exact scores over the
+// whole table (the same launch, no host sync) and counts one redo.
 // With host_ids set, the step is selection only (active = count > 0,
 // new_id = -1 for the host to fill in), and neither the hash tables nor
 // ctrl are touched: the exact per-step path of the trainer.
@@ -46,7 +63,8 @@
 // Bound on this card: latency. The table is a few MB (T = 2^19 entries at
 // train-85k's width), read once, with two gathers of sym_freq per live
 // entry in WordPiece mode; the unify scans at most max_vocab + 8 ids in
-// one block. The two launches are a few microseconds each, which is why
+// one block; a tournament redo reads the table again in that one block.
+// The two launches are a few microseconds each, which is why
 // the step's kernels are queued K at a time with no host sync.
 //
 // swt_score_bits launches the scorer alone, elementwise, for the checks.
@@ -177,16 +195,90 @@ __device__ void block_best(int64_t& cnt, int64_t& pos, int64_t& key) {
   }
 }
 
-__global__ void select_partial_kernel(const unsigned long long* keys,
-                                      const int64_t* counts,
-                                      const uint32_t* pos, int64_t T,
-                                      const int64_t* sym_freq,
-                                      int wordpiece, int64_t* part) {
-  int64_t bc = -1, bp = kNoPos, bk = -1;
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t t = blockIdx.x * static_cast<int64_t>(blockDim.x) +
-                   threadIdx.x;
-       t < T; t += stride) {
+// 128-bit product of two values < 2^64, as (hi, lo).
+__device__ __forceinline__ void mul128(uint64_t a, uint64_t b, uint64_t& hi,
+                                       uint64_t& lo) {
+  lo = a * b;
+  hi = __umul64hi(a, b);
+}
+
+// JAX's _combine: x becomes the winner of x and y, and its flag the OR of
+// both flags and this comparison's near tie.
+__device__ __forceinline__ void combine(int64_t& cx, int64_t& dx,
+                                        int64_t& px, int64_t& kx, int& fx,
+                                        int64_t cy, int64_t dy, int64_t py,
+                                        int64_t ky, int fy) {
+  uint64_t uh, ul, vh, vl;
+  mul128(cx, dy, uh, ul);  // x's score times dx * dy
+  mul128(cy, dx, vh, vl);  // y's
+  const bool greater = uh > vh || (uh == vh && ul > vl);
+  const bool equal = uh == vh && ul == vl;
+  const uint64_t mh = greater ? uh : vh, ml = greater ? ul : vl;
+  const uint64_t sh = greater ? vh : uh, sl = greater ? vl : ul;
+  const uint64_t dl = ml - sl;
+  const uint64_t dh = mh - sh - (ml < sl);
+  const uint64_t th = mh >> 50, tl = (mh << 14) | (ml >> 50);
+  const bool near = !equal && (dh < th || (dh == th && dl <= tl));
+  if (!(greater || (equal && px <= py))) {
+    cx = cy;
+    dx = dy;
+    px = py;
+    kx = ky;
+  }
+  fx = fx | fy | near;
+}
+
+// Block-wide combine of (c, d, pos, key, flag); valid in thread 0.
+__device__ void block_combine(int64_t& c, int64_t& d, int64_t& p,
+                              int64_t& k, int& f) {
+  __shared__ int64_t sc[kWarps], sd[kWarps], sp[kWarps], sk[kWarps];
+  __shared__ int sf[kWarps];
+  for (int off = 16; off > 0; off >>= 1) {
+    const int64_t oc = __shfl_down_sync(0xffffffffu, c, off);
+    const int64_t od = __shfl_down_sync(0xffffffffu, d, off);
+    const int64_t op = __shfl_down_sync(0xffffffffu, p, off);
+    const int64_t ok = __shfl_down_sync(0xffffffffu, k, off);
+    const int of = __shfl_down_sync(0xffffffffu, f, off);
+    combine(c, d, p, k, f, oc, od, op, ok, of);
+  }
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  if (lane == 0) {
+    sc[warp] = c;
+    sd[warp] = d;
+    sp[warp] = p;
+    sk[warp] = k;
+    sf[warp] = f;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    const bool in = lane < kWarps;
+    c = in ? sc[lane] : 0;
+    d = in ? sd[lane] : 1;
+    p = in ? sp[lane] : kNoPos;
+    k = in ? sk[lane] : -1;
+    f = in ? sf[lane] : 0;
+    for (int off = 16; off > 0; off >>= 1) {
+      const int64_t oc = __shfl_down_sync(0xffffffffu, c, off);
+      const int64_t od = __shfl_down_sync(0xffffffffu, d, off);
+      const int64_t op = __shfl_down_sync(0xffffffffu, p, off);
+      const int64_t ok = __shfl_down_sync(0xffffffffu, k, off);
+      const int of = __shfl_down_sync(0xffffffffu, f, off);
+      combine(c, d, p, k, f, oc, od, op, ok, of);
+    }
+  }
+}
+
+// This thread's best (metric, pos, key) over entries start, start +
+// stride, ... of the table (the exact modes).
+__device__ __forceinline__ void scan_best(const unsigned long long* keys,
+                                          const int64_t* counts,
+                                          const uint32_t* pos, int64_t T,
+                                          const int64_t* sym_freq,
+                                          int wordpiece, int64_t start,
+                                          int64_t stride, int64_t& bc,
+                                          int64_t& bp, int64_t& bk) {
+  for (int64_t t = start; t < T; t += stride) {
     const unsigned long long k = keys[t];
     if (k == kEmpty) continue;
     const int64_t c =
@@ -200,6 +292,45 @@ __global__ void select_partial_kernel(const unsigned long long* keys,
       bk = static_cast<int64_t>(k);
     }
   }
+}
+
+__global__ void tourney_partial_kernel(const unsigned long long* keys,
+                                       const int64_t* counts,
+                                       const uint32_t* pos, int64_t T,
+                                       const int64_t* sym_freq,
+                                       int64_t* part) {
+  int64_t c = 0, d = 1, p = kNoPos, k = -1;
+  int f = 0;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t t = blockIdx.x * static_cast<int64_t>(blockDim.x) +
+                   threadIdx.x;
+       t < T; t += stride) {
+    const unsigned long long key = keys[t];
+    if (key == kEmpty) continue;
+    const int64_t fa = sym_freq[key >> 32], fb = sym_freq[key & 0xffffffffULL];
+    combine(c, d, p, k, f, counts[t], (fa > 1 ? fa : 1) * (fb > 1 ? fb : 1),
+            pos[t], static_cast<int64_t>(key), 0);
+  }
+  block_combine(c, d, p, k, f);
+  if (threadIdx.x == 0) {
+    int64_t* out = part + 5 * blockIdx.x;
+    out[0] = c;
+    out[1] = d;
+    out[2] = p;
+    out[3] = k;
+    out[4] = f;
+  }
+}
+
+__global__ void select_partial_kernel(const unsigned long long* keys,
+                                      const int64_t* counts,
+                                      const uint32_t* pos, int64_t T,
+                                      const int64_t* sym_freq,
+                                      int wordpiece, int64_t* part) {
+  int64_t bc = -1, bp = kNoPos, bk = -1;
+  scan_best(keys, counts, pos, T, sym_freq, wordpiece,
+            blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x,
+            static_cast<int64_t>(gridDim.x) * blockDim.x, bc, bp, bk);
   block_best(bc, bp, bk);
   if (threadIdx.x == 0) {
     part[3 * blockIdx.x] = bc;
@@ -214,21 +345,49 @@ __global__ void select_unify_kernel(const int64_t* part, int n_part,
                                     const int64_t* pw1, const int64_t* pw2,
                                     int64_t n_pow, int64_t max_vocab,
                                     int32_t* rec, int host_ids,
-                                    int wordpiece, int64_t sh1,
-                                    int64_t sh2) {
+                                    int wordpiece, int64_t sh1, int64_t sh2,
+                                    int tournament,
+                                    const unsigned long long* keys,
+                                    const int64_t* counts,
+                                    const uint32_t* pos, int64_t T,
+                                    const int64_t* sym_freq, int32_t* redo) {
   __shared__ int64_t s_key, s_cnt, s_m1, s_m2, s_lm;
-  __shared__ int s_hit;
+  __shared__ int s_hit, s_near;
   int64_t bc = -1, bp = kNoPos, bk = -1;
-  for (int j = threadIdx.x; j < n_part; j += blockDim.x) {
-    const int64_t c = part[3 * j];
-    const int64_t p = part[3 * j + 1];
-    if (better(c, p, bc, bp)) {
-      bc = c;
-      bp = p;
-      bk = part[3 * j + 2];
+  if (tournament) {
+    int64_t c = 0, d = 1, p = kNoPos, k = -1;
+    int f = 0;
+    for (int j = threadIdx.x; j < n_part; j += blockDim.x) {
+      const int64_t* in = part + 5 * j;
+      combine(c, d, p, k, f, in[0], in[1], in[2], in[3],
+              static_cast<int>(in[4]));
     }
+    block_combine(c, d, p, k, f);
+    if (threadIdx.x == 0) s_near = f;
+    __syncthreads();
+    if (s_near) {
+      // A near tie: the exact scores decide, over the whole table.
+      scan_best(keys, counts, pos, T, sym_freq, 1, threadIdx.x, blockDim.x,
+                bc, bp, bk);
+      __syncthreads();
+      block_best(bc, bp, bk);
+      if (threadIdx.x == 0) ++*redo;
+    } else {
+      bc = c;  // the count; the step is active while it is positive
+      bk = k;
+    }
+  } else {
+    for (int j = threadIdx.x; j < n_part; j += blockDim.x) {
+      const int64_t c = part[3 * j];
+      const int64_t p = part[3 * j + 1];
+      if (better(c, p, bc, bp)) {
+        bc = c;
+        bp = p;
+        bk = part[3 * j + 2];
+      }
+    }
+    block_best(bc, bp, bk);
   }
-  block_best(bc, bp, bk);
   const int32_t n_sym = ctrl[0];
   const int32_t vocab = ctrl[1];
   const int32_t alive = ctrl[2];
@@ -309,23 +468,34 @@ __global__ void score_bits_kernel(const int64_t* c, const int64_t* fa,
 
 extern "C" {
 
-// keys/counts i64[T], pos i32[T] (K1's table), part i64[3 * n_part]
+// keys/counts i64[T], pos i32[T] (K1's table), part i64[5 * n_part]
 // scratch; h1/h2/slen i64[sym_cap], ctrl i32[3], pw1/pw2 i64[n_pow],
 // rec i32[6] (columns 0-4 written); with wordpiece, sym_freq i64[>= every
-// symbol id + 1] and (sh1, sh2) the hashes of "##". Returns the
-// cudaError_t.
+// symbol id + 1] and (sh1, sh2) the hashes of "##"; with tournament
+// (wordpiece too), redo i32[1] counts the steps redone exactly. Returns
+// the cudaError_t.
 int swt_select_unify(const void* keys, const void* counts, const void* pos,
                      int64_t T, void* part, int n_part, void* h1, void* h2,
                      void* slen, int64_t sym_cap, void* ctrl, const void* pw1,
                      const void* pw2, int64_t n_pow, int64_t max_vocab,
                      void* rec, int host_ids, const void* sym_freq,
-                     int wordpiece, int64_t sh1, int64_t sh2, void* stream) {
+                     int wordpiece, int64_t sh1, int64_t sh2, int tournament,
+                     void* redo, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  select_partial_kernel<<<n_part, kThreads, 0, s>>>(
-      static_cast<const unsigned long long*>(keys),
-      static_cast<const int64_t*>(counts), static_cast<const uint32_t*>(pos),
-      T, static_cast<const int64_t*>(sym_freq), wordpiece,
-      static_cast<int64_t*>(part));
+  if (tournament) {
+    tourney_partial_kernel<<<n_part, kThreads, 0, s>>>(
+        static_cast<const unsigned long long*>(keys),
+        static_cast<const int64_t*>(counts),
+        static_cast<const uint32_t*>(pos), T,
+        static_cast<const int64_t*>(sym_freq), static_cast<int64_t*>(part));
+  } else {
+    select_partial_kernel<<<n_part, kThreads, 0, s>>>(
+        static_cast<const unsigned long long*>(keys),
+        static_cast<const int64_t*>(counts),
+        static_cast<const uint32_t*>(pos), T,
+        static_cast<const int64_t*>(sym_freq), wordpiece,
+        static_cast<int64_t*>(part));
+  }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   select_unify_kernel<<<1, kThreads, 0, s>>>(
@@ -333,7 +503,10 @@ int swt_select_unify(const void* keys, const void* counts, const void* pos,
       static_cast<int64_t*>(h2), static_cast<int64_t*>(slen), sym_cap,
       static_cast<int32_t*>(ctrl), static_cast<const int64_t*>(pw1),
       static_cast<const int64_t*>(pw2), n_pow, max_vocab,
-      static_cast<int32_t*>(rec), host_ids, wordpiece, sh1, sh2);
+      static_cast<int32_t*>(rec), host_ids, wordpiece, sh1, sh2, tournament,
+      static_cast<const unsigned long long*>(keys),
+      static_cast<const int64_t*>(counts), static_cast<const uint32_t*>(pos),
+      T, static_cast<const int64_t*>(sym_freq), static_cast<int32_t*>(redo));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -17,6 +17,10 @@ FastBPE's ``_bpe_ranks``) and raises its errors. The path:
    (K1, K2 selection only, host interning, K3);
 5. the final state comes back in one copy (``train.final_fetch``).
 
+``SWT_SKIP_COMPACT`` (and, for WordPiece, ``SWT_WP_TOURNAMENT``) choose
+the other routes of step 3, with the same merges, as in the JAX package
+(ops/train_loop.run_fused); unset, every step compacts.
+
 Encoding gives the JAX package's token lists. ``tokenize`` and
 ``encode_word`` run on the host (NaiveBPE: the cursor-monotone greedy
 loop, which equals applying every merge in order; FastBPE: greedy
@@ -188,6 +192,7 @@ class NaiveBPE(SubwordTokenizer):
                     train_loop.merge_host_ids(state, a_id, b_id,
                                               table.intern(merged), rec)
 
+        sym_host = None  # the final state, when run_fused returns it
         pbar = None
         if self._progress:
             from tqdm import tqdm
@@ -208,7 +213,7 @@ class NaiveBPE(SubwordTokenizer):
                     self.save_resources(self._checkpoint_dir)
 
             try:
-                train_loop.run_fused(
+                sym_host = train_loop.run_fused(
                     state, table, max_vocab, max_len, on_merge,
                     checkpoint_cb=(ckpt_cb if self._checkpoint_dir
                                    is not None else None),
@@ -250,8 +255,8 @@ class NaiveBPE(SubwordTokenizer):
             self.save_resources(self._checkpoint_dir)
 
         with profiling.phase("train.final_fetch"):
-            sym_host = train_loop._flat_to_padded(*state.host(),
-                                                  len(arrays.freq))
+            if sym_host is None:
+                sym_host = state.padded()
             self.corpus_as_symbols = [
                 ([table.string(int(s)) for s in row if s >= 0], int(f))
                 for row, f in zip(sym_host, arrays.freq)

@@ -77,8 +77,10 @@ from .trie import E2ETrie, MatchTrie
 
 # Exact-score domain ceiling: the scorer needs pair counts < 2**53 and
 # fa, fb < 2**52, so total symbol occurrences < 2**52, as in the JAX
-# package. Below 2**26 occurrences every fa * fb < 2**53 (narrow scores).
+# package. Below 2**26 occurrences every fa * fb < 2**53 (narrow scores,
+# the only ones the tournament takes).
 MAX_TOKENS_WP = 1 << 52
+WIDE_SCORE_MIN = 1 << 26
 
 UNK = "[UNK]"
 UNK_E2E = "['UNK']"  # FastWP's literal quirk, unlike NaiveWP's "[UNK]"
@@ -185,6 +187,7 @@ class NaiveWP(SubwordTokenizer):
                     train_loop.merge_host_ids(state, a_id, b_id,
                                               table.intern(merged), rec)
 
+        sym_host = None  # the final state, when run_fused returns it
         pbar = None
         if self._progress:
             from tqdm import tqdm
@@ -205,12 +208,13 @@ class NaiveWP(SubwordTokenizer):
                     self._save_checkpoint()
 
             try:
-                train_loop.run_fused(
+                sym_host = train_loop.run_fused(
                     state, table, max_vocab, max_len, on_merge,
                     checkpoint_cb=(ckpt_cb if self._checkpoint_dir
                                    is not None else None),
                     progress_cb=pbar.update if pbar is not None else None,
-                    wordpiece=True)
+                    wordpiece=True,
+                    wide_score=total_tokens >= WIDE_SCORE_MIN)
             except train_loop.HashCollision:
                 # A double-hash collision: redo the whole run on the
                 # exact per-step path.
@@ -251,8 +255,8 @@ class NaiveWP(SubwordTokenizer):
             self._save_checkpoint()
 
         with profiling.phase("train.final_fetch"):
-            sym_host = train_loop._flat_to_padded(*state.host(),
-                                                  len(arrays.freq))
+            if sym_host is None:
+                sym_host = state.padded()
             self.corpus_as_symbols = [
                 ([table.string(int(s)) for s in row if s >= 0], int(f))
                 for row, f in zip(sym_host, arrays.freq)

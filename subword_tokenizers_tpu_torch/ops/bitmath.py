@@ -22,6 +22,9 @@ emulated f64 divide is not correctly rounded. Here:
 Domain: ``c < 2**53`` and ``fa, fb < 2**52`` (``MAX_TOKENS_WP``).
 Arguments below 1 are raised to 1, as the JAX scorer does.
 
+:func:`mul_53x53` is the JAX package's exact 128-bit product, for the
+tournament's plain version (ops/wp_tournament.py).
+
 The kernel's scorer is a ``__device__`` function of
 ``csrc/select_unify.cu``, inlined into K2's WordPiece mode;
 :func:`score_bits` launches it on its own for the checks.
@@ -35,6 +38,7 @@ import torch
 from . import check_tensor
 
 NARROW = 1 << 53
+MASK53 = (1 << 53) - 1
 
 
 def is_narrow(fa, fb):
@@ -89,3 +93,16 @@ def score_bits(c, fa, fb):
 
 
 score_bits.launches = 0
+
+
+def mul_53x53(a, b):
+    """Exact product of two int64 tensors of values below 2**53, as
+    base-2**53 limbs ``(hi, lo)``: ``a * b == hi * 2**53 + lo``, ``0 <= lo
+    < 2**53`` (the JAX package's ``mul_53x53``; every intermediate stays
+    below 2**63)."""
+    a1, a0 = a >> 27, a & ((1 << 27) - 1)
+    b1, b0 = b >> 27, b & ((1 << 27) - 1)
+    hl = a1 * b0 + a0 * b1
+    lo_raw = a0 * b0 + ((hl & ((1 << 26) - 1)) << 27)
+    hi = ((a1 * b1) << 1) + (hl >> 26) + (lo_raw >> 53)
+    return hi, lo_raw & MASK53

@@ -13,6 +13,14 @@ rebuilding the reference's symbol lists does, so first-position
 tie-breaks are unchanged. A pair (i, i+1) counts only within one word.
 Weights are int64 whatever the corpus size: the JAX package's i32 weight
 layout served its TPU's sort and never changes a result.
+
+Deferred compaction (``skip`` = S > 0, the JAX package's
+``SWT_SKIP_COMPACT``): a merge leaves the consumed slot dead (-1) where
+it stands (:func:`merge_skip`), and a slot pairs with its nearest live
+successor within S + 1 slots (:func:`skip_next`). Before each step,
+:func:`skip_guard` compacts the state when a live gap is wider than the
+window (:func:`skip_overflow`), so no pair is missed; the training loop
+compacts at the end of each block.
 """
 from __future__ import annotations
 
@@ -46,6 +54,39 @@ def build_flat(sym2d: np.ndarray, freq: np.ndarray, pad_to: int = 1024
         wid = np.concatenate([wid, np.full(pad, WID_PAD, np.int32)])
         wgt = np.concatenate([wgt, np.zeros(pad, np.int64)])
     return fs, wid, wgt
+
+
+def _check_state(what, fs, wid, wgt, rec, sym_freq) -> None:
+    """Raise unless (fs, wid, wgt) is a flat state of one width in [2,
+    2**31) on one device, with an int32[6] record and an optional int64
+    ``sym_freq`` there."""
+    dev = fs.device
+    check_tensor("fs", fs, (torch.int32,), 1, dev)
+    check_tensor("wid", wid, (torch.int32,), 1, dev)
+    check_tensor("wgt", wgt, (torch.int64,), 1, dev)
+    check_tensor("rec", rec, (torch.int32,), 1, dev)
+    F = fs.shape[0]
+    if wid.shape[0] != F or wgt.shape[0] != F or rec.shape[0] != 6:
+        raise ValueError(f"{what}: inconsistent shapes")
+    if F < 2 or F >= 2 ** 31:
+        raise ValueError(f"{what}: width {F} outside [2, 2**31)")
+    if sym_freq is not None:
+        check_tensor("sym_freq", sym_freq, (torch.int64,), 1, dev)
+
+
+def _out_buffers(what, fs, wid, wgt, out):
+    """``out``, or three new tensors like (fs, wid, wgt); each a separate
+    buffer of the state's width."""
+    if out is None:
+        return (torch.empty_like(fs), torch.empty_like(wid),
+                torch.empty_like(wgt))
+    for name, o, like in zip(("out_fs", "out_wid", "out_wgt"), out,
+                             (fs, wid, wgt)):
+        check_tensor(name, o, (like.dtype,), 1, fs.device)
+        if o.shape[0] != fs.shape[0] or o.data_ptr() == like.data_ptr():
+            raise ValueError(f"{what}: {name} must be a separate buffer of "
+                             f"width {fs.shape[0]}")
+    return out
 
 
 def merge_apply_ref(fs, wid, wgt, rec, sym_freq=None):
@@ -112,17 +153,8 @@ def merge_apply(fs, wid, wgt, rec, out: Optional[tuple] = None,
     for CPU tensors, and raises for any other device.
     """
     dev = fs.device
-    check_tensor("fs", fs, (torch.int32,), 1, dev)
-    check_tensor("wid", wid, (torch.int32,), 1, dev)
-    check_tensor("wgt", wgt, (torch.int64,), 1, dev)
-    check_tensor("rec", rec, (torch.int32,), 1, dev)
+    _check_state("merge_apply", fs, wid, wgt, rec, sym_freq)
     F = fs.shape[0]
-    if wid.shape[0] != F or wgt.shape[0] != F or rec.shape[0] != 6:
-        raise ValueError("merge_apply: inconsistent shapes")
-    if F < 2 or F >= 2 ** 31:
-        raise ValueError(f"merge_apply: width {F} outside [2, 2**31)")
-    if sym_freq is not None:
-        check_tensor("sym_freq", sym_freq, (torch.int64,), 1, dev)
     if dev.type == "cpu":
         nfs, nwid, nwgt, n_rep = merge_apply_ref(fs, wid, wgt, rec, sym_freq)
         if out is None:
@@ -132,15 +164,7 @@ def merge_apply(fs, wid, wgt, rec, out: Optional[tuple] = None,
         return (*out, n_rep)
     if dev.type != "cuda":
         raise ValueError(f"merge_apply: no kernel for device {dev}")
-    if out is None:
-        out = (torch.empty_like(fs), torch.empty_like(wid),
-               torch.empty_like(wgt))
-    for name, o, like in zip(("out_fs", "out_wid", "out_wgt"), out,
-                             (fs, wid, wgt)):
-        check_tensor(name, o, (like.dtype,), 1, dev)
-        if o.shape[0] != F or o.data_ptr() == like.data_ptr():
-            raise ValueError(f"merge_apply: {name} must be a separate "
-                             f"buffer of width {F}")
+    out = _out_buffers("merge_apply", fs, wid, wgt, out)
     nb = -(-F // 256)
     flags = torch.empty(F, dtype=torch.uint8, device=dev)
     blocks = torch.empty(2 * nb + 1, dtype=torch.int32, device=dev)
@@ -160,3 +184,168 @@ def merge_apply(fs, wid, wgt, rec, out: Optional[tuple] = None,
 
 merge_apply.launches = 0
 merge_apply.wp_launches = 0  # launches that carried WordPiece's sym_freq
+
+
+def _shift(x, k: int, fill):
+    """x[i + k] (k > 0) or x[i - |k|] (k < 0), ``fill`` out of range."""
+    out = torch.full_like(x, fill)
+    if k > 0:
+        out[:-k] = x[k:]
+    else:
+        out[-k:] = x[:k]
+    return out
+
+
+def skip_next(fs, wid, S: int):
+    """(nsym, nwid): symbol and word of each slot's nearest live successor
+    within ``S + 1`` slots, (-1, ``WID_PAD``) when there is none (the JAX
+    package's ``skip_next``)."""
+    nsym = torch.full_like(fs, -1)
+    nwid = torch.full_like(wid, WID_PAD)
+    for k in range(1, S + 2):
+        cs = _shift(fs, k, -1)
+        take = (nsym < 0) & (cs >= 0)
+        nsym = torch.where(take, cs, nsym)
+        nwid = torch.where(take, _shift(wid, k, WID_PAD), nwid)
+    return nsym, nwid
+
+
+def skip_prev_select(fs, S: int, payload, fill):
+    """``payload`` at each slot's nearest live predecessor within ``S + 1``
+    slots, ``fill`` where there is none."""
+    out = torch.full_like(payload, fill)
+    done = torch.zeros_like(fs, dtype=torch.bool)
+    for k in range(1, S + 2):
+        cs = _shift(fs, -k, -1)
+        take = ~done & (cs >= 0)
+        out = torch.where(take, _shift(payload, -k, fill), out)
+        done |= cs >= 0
+    return out
+
+
+def skip_overflow(fs, wid, S: int) -> bool:
+    """True when a live slot has no live successor within ``S + 1`` slots
+    while a later live slot exists: the window would miss a pair. Across
+    words too (conservative, as in the JAX package)."""
+    live = fs >= 0
+    found = skip_next(fs, wid, S)[0] >= 0
+    later = torch.flip(torch.cummax(torch.flip(live.to(torch.int32), [0]),
+                                    0).values, [0])
+    later = _shift(later, 1, 0) > 0
+    return bool((live & later & ~found).any())
+
+
+def merge_skip_ref(fs, wid, wgt, rec, S: int, sym_freq=None):
+    """Plain PyTorch version of :func:`merge_skip` (the JAX package's
+    ``flat_skip_apply``); returns the int64 ``n_rep``."""
+    ra, rb, new_id, _, active = rec[:N_LIVE].tolist()
+    a, b = (ra, rb) if active else (-3, -3)
+    live = fs >= 0
+    nsym, nwid = skip_next(fs, wid, S)
+    match = live & (fs == a) & (nsym == b) & (nwid == wid)
+    if a == b:
+        # Self-merge: even offsets in a run of equal live symbols of one
+        # word, counted over live slots (the compacted index cpos).
+        change = ((fs != skip_prev_select(fs, S, fs, -2))
+                  | (wid != skip_prev_select(fs, S, wid, -2)))
+        cpos = torch.cumsum(live.to(torch.int64), 0) - 1
+        start = torch.cummax(torch.where(change & live, cpos, 0), 0).values
+        match &= ((cpos - start) & 1) == 0
+    dead = live & skip_prev_select(fs, S, match, False)
+    n_rep = wgt[match].sum()
+    fs[match] = new_id
+    fs[dead] = -1
+    wid[dead] = WID_PAD
+    wgt[dead] = 0
+    if active and sym_freq is not None:
+        sym_freq[ra] -= n_rep
+        sym_freq[rb] -= n_rep
+        sym_freq[new_id] += n_rep
+    return n_rep
+
+
+def merge_skip(fs, wid, wgt, rec, S: int, sym_freq=None) -> None:
+    """Apply one merge to the flat state in place, with window ``S``.
+
+    Slot i matches when it is live, holds a, and its nearest live
+    successor within ``S + 1`` slots (:func:`skip_next`) holds b in the
+    same word; for a == b only at an even offset in its run of equal
+    live symbols. A match takes new_id; the live slot after it dies where
+    it stands (-1, ``WID_PAD``, 0). ``rec`` and ``sym_freq`` are as for
+    :func:`merge_apply`; ``rec[N_LIVE]`` is not written.
+
+    Launches the CUDA kernel for CUDA tensors, runs the PyTorch version
+    for CPU tensors, and raises for any other device.
+    """
+    dev = fs.device
+    _check_state("merge_skip", fs, wid, wgt, rec, sym_freq)
+    F = fs.shape[0]
+    if not 0 < S < F - 1:
+        raise ValueError(f"merge_skip: window {S} outside [1, {F - 1})")
+    if dev.type == "cpu":
+        merge_skip_ref(fs, wid, wgt, rec, S, sym_freq)
+        return
+    if dev.type != "cuda":
+        raise ValueError(f"merge_skip: no kernel for device {dev}")
+    flags = torch.empty(F, dtype=torch.uint8, device=dev)
+    from . import _cuda
+    with torch.cuda.device(dev):
+        _cuda.launch("swt_merge_skip", fs.data_ptr(), wid.data_ptr(),
+                     wgt.data_ptr(), F, S, rec.data_ptr(), flags.data_ptr(),
+                     None if sym_freq is None else sym_freq.data_ptr())
+    merge_skip.launches += 1
+
+
+merge_skip.launches = 0
+
+
+def skip_guard_ref(fs, wid, wgt, S: int, count) -> None:
+    """Plain PyTorch version of :func:`skip_guard`."""
+    if skip_overflow(fs, wid, S):
+        idle = torch.zeros(6, dtype=torch.int32, device=fs.device)
+        for dst, src in zip((fs, wid, wgt),
+                            merge_apply_ref(fs, wid, wgt, idle)):
+            dst.copy_(src)
+        count += 1
+
+
+def skip_guard(fs, wid, wgt, S: int, count, out: Optional[tuple] = None):
+    """Before a step with window ``S``: when :func:`skip_overflow` holds,
+    compact the state in place (live slots to the front, in order) and
+    add one to ``count`` (int32[1]); else change nothing. On the card the
+    test and the compaction are gated on the device, with no host sync;
+    ``out`` is a second buffer like :func:`merge_apply`'s.
+
+    Launches the CUDA kernels for CUDA tensors, runs the PyTorch version
+    for CPU tensors, and raises for any other device.
+    """
+    dev = fs.device
+    idle = torch.zeros(6, dtype=torch.int32, device=dev)
+    _check_state("skip_guard", fs, wid, wgt, idle, None)
+    check_tensor("count", count, (torch.int32,), 1, dev)
+    F = fs.shape[0]
+    if not 0 < S < F - 1:
+        raise ValueError(f"skip_guard: window {S} outside [1, {F - 1})")
+    if dev.type == "cpu":
+        skip_guard_ref(fs, wid, wgt, S, count)
+        return
+    if dev.type != "cuda":
+        raise ValueError(f"skip_guard: no kernel for device {dev}")
+    out = _out_buffers("skip_guard", fs, wid, wgt, out)
+    nb = -(-F // 256)
+    flags = torch.empty(F, dtype=torch.uint8, device=dev)
+    blocks = torch.empty(2 * nb + 1, dtype=torch.int32, device=dev)
+    n_rep = torch.empty((), dtype=torch.int64, device=dev)
+    gate = torch.empty(2, dtype=torch.int32, device=dev)
+    from . import _cuda
+    with torch.cuda.device(dev):
+        _cuda.launch("swt_skip_guard", fs.data_ptr(), wid.data_ptr(),
+                     wgt.data_ptr(), F, S, out[0].data_ptr(),
+                     out[1].data_ptr(), out[2].data_ptr(), flags.data_ptr(),
+                     blocks.data_ptr(), n_rep.data_ptr(), idle.data_ptr(),
+                     gate.data_ptr(), count.data_ptr())
+    skip_guard.launches += 1
+
+
+skip_guard.launches = 0
+skip_guard.overflow_compactions = 0  # compactions that fired, from run_fused

@@ -8,6 +8,13 @@ package gets them by sorting (key, position) and aggregating runs
 (``ops/pairstats.py`` ``_run_aggregate``, ``ops/flat.py``
 ``flat_aggregate``); the kernel inserts into a hash table instead.
 
+With a window ``skip`` = S > 0 (deferred compaction, ops/flat.py) slot i
+pairs instead with its nearest live successor within S + 1 slots, and
+its position is the raw slot index i: deletion never reorders live
+slots, so positions order the pairs as the JAX package's compacted
+indices do. The padded layout [n, L] is counted as n * L slots with
+``wid`` the row and ``wgt`` the row's weight (ops/train_loop.PaddedState).
+
 A pair's key is ``a << 32 | b`` in int64; the kernel's table marks empty
 entries with ``EMPTY_KEY``. Its layout has no counterpart in the plain
 version, so the two are compared in :func:`canonical` form: the pairs
@@ -23,6 +30,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import check_tensor
+from .flat import WID_PAD, skip_next
 
 EMPTY_KEY = -1
 
@@ -45,18 +53,22 @@ def alloc_table(F: int, device) -> Tuple[torch.Tensor, ...]:
             torch.empty(T, dtype=torch.int32, device=device))
 
 
-def pair_stats_ref(fs, wid, wgt):
+def pair_stats_ref(fs, wid, wgt, skip: int = 0):
     """Plain PyTorch version: (keys, counts, first) int64, one entry per
     distinct pair, sorted by key."""
     dev = fs.device
-    a = fs[:-1].to(torch.int64)
-    b = fs[1:].to(torch.int64)
-    valid = (a >= 0) & (b >= 0) & (wid[:-1] == wid[1:])
+    if skip:
+        b, wb = skip_next(fs, wid, skip)
+    else:
+        b = torch.cat([fs[1:], fs.new_full((1,), -1)])
+        wb = torch.cat([wid[1:], wid.new_full((1,), WID_PAD)])
+    valid = (fs >= 0) & (b >= 0) & (wid == wb)
     pos = torch.nonzero(valid).flatten()
-    keys, inv = torch.unique((a[valid] << 32) | b[valid], sorted=True,
+    keys, inv = torch.unique((fs[valid].to(torch.int64) << 32)
+                             | b[valid].to(torch.int64), sorted=True,
                              return_inverse=True)
     counts = torch.zeros(keys.shape[0], dtype=torch.int64, device=dev)
-    counts.scatter_add_(0, inv, wgt[:-1][valid])
+    counts.scatter_add_(0, inv, wgt[valid])
     first = torch.full((keys.shape[0],), 2 ** 62, dtype=torch.int64,
                        device=dev)
     first.scatter_reduce_(0, inv, pos, "amin")
@@ -72,9 +84,10 @@ def canonical(keys, counts, pos):
             pos[live][order].to(torch.int64))
 
 
-def pair_stats(fs, wid, wgt, table: Optional[tuple] = None):
+def pair_stats(fs, wid, wgt, table: Optional[tuple] = None,
+               skip: int = 0):
     """Pair counts and first positions of a flat state (fs int32[F], wid
-    int32[F], wgt int64[F]).
+    int32[F], wgt int64[F]), with window ``skip`` (0: adjacent slots).
 
     For CUDA tensors, launches the kernel into ``table`` (from
     :func:`alloc_table`, allocated when None) and returns it as (keys,
@@ -92,8 +105,10 @@ def pair_stats(fs, wid, wgt, table: Optional[tuple] = None):
         raise ValueError("pair_stats: inconsistent shapes")
     if F < 2 or F >= 2 ** 31:
         raise ValueError(f"pair_stats: width {F} outside [2, 2**31)")
+    if not 0 <= skip < max(F - 1, 1):
+        raise ValueError(f"pair_stats: window {skip} outside [0, {F - 1})")
     if dev.type == "cpu":
-        return pair_stats_ref(fs, wid, wgt)
+        return pair_stats_ref(fs, wid, wgt, skip)
     if dev.type != "cuda":
         raise ValueError(f"pair_stats: no kernel for device {dev}")
     if table is None:
@@ -115,12 +130,15 @@ def pair_stats(fs, wid, wgt, table: Optional[tuple] = None):
     with torch.cuda.device(dev):
         _cuda.launch("swt_pair_stats", fs.data_ptr(), wid.data_ptr(),
                      wgt.data_ptr(), F, keys.data_ptr(), counts.data_ptr(),
-                     pos.data_ptr(), T)
+                     pos.data_ptr(), T, skip)
     pair_stats.launches += 1
+    if skip:
+        pair_stats.skip_launches += 1
     return table
 
 
 pair_stats.launches = 0
+pair_stats.skip_launches = 0  # launches with a window
 
 
 def symbol_freqs_ref(fs, wgt, sym_cap: int):

@@ -21,9 +21,16 @@ the same string.
 
 Each step writes one int32 record ``(a, b, new_id, matched, active,
 n_live)`` (column names in ops/flat.py).
+
+:func:`run_fused` also runs the JAX package's other routes of the same
+loop, each giving the same merges: deferred compaction (``skip``, K1 and
+K3 in skip mode behind an overflow guard), the padded layout
+(``flat=False``: :class:`PaddedState`, K3p) and WordPiece's tournament
+(K2's tournament mode).
 """
 from __future__ import annotations
 
+import os
 from typing import Optional, Tuple
 
 import numpy as np
@@ -32,9 +39,12 @@ import torch
 from ..benchmarks import profiling
 from . import check_tensor
 from .bitmath import score_bits_ref
-from .flat import ACTIVE, NEW_ID, merge_apply
+from .flat import (ACTIVE, NEW_ID, N_LIVE, merge_apply, merge_skip,
+                   skip_guard)
+from .merge import apply_merge
 from .pairstats import (EMPTY_KEY, alloc_table, pair_stats, symbol_freqs,
                         table_size)
+from .wp_tournament import wp_tournament_select
 
 MOD = (1 << 31) - 1  # Mersenne prime; products of residues fit in int64
 HASH_B1 = 1_000_003
@@ -61,11 +71,10 @@ def pow_tables(max_len: int):
     return p1, p2
 
 
-def select_unify_ref(keys, counts, pos, h1, h2, slen, ctrl, pw1, pw2,
-                     max_vocab: int, rec, host_ids: bool = False,
-                     wordpiece: bool = False, sym_freq=None,
-                     sharp=(0, 0)) -> None:
-    """Plain PyTorch version of :func:`select_unify` (same writes)."""
+def _exact_best(keys, counts, pos, wordpiece: bool, sym_freq):
+    """(metric, key) of the exact selection: the largest count (BPE) or
+    score bits (WordPiece), then the least position; metric -1 and key 0
+    for an empty table."""
     live = keys != EMPTY_KEY
     metric = counts
     if wordpiece:
@@ -78,6 +87,23 @@ def select_unify_ref(keys, counts, pos, h1, h2, slen, ctrl, pw1, pw2,
         at = live & (metric == best)
         first = int(pos.to(torch.int64)[at].min())
         key = int(keys[at & (pos.to(torch.int64) == first)].max())
+    return best, key
+
+
+def select_unify_ref(keys, counts, pos, h1, h2, slen, ctrl, pw1, pw2,
+                     max_vocab: int, rec, host_ids: bool = False,
+                     wordpiece: bool = False, sym_freq=None,
+                     sharp=(0, 0), tournament: bool = False,
+                     redo=None) -> None:
+    """Plain PyTorch version of :func:`select_unify` (same writes)."""
+    if tournament:
+        key, _, _, best, risky = wp_tournament_select(keys, counts, pos,
+                                                      sym_freq)
+        if risky:
+            best, key = _exact_best(keys, counts, pos, True, sym_freq)
+            redo += 1
+    else:
+        best, key = _exact_best(keys, counts, pos, wordpiece, sym_freq)
     n_sym, vocab, alive = ctrl.tolist()
     if host_ids:
         active = best > 0
@@ -113,7 +139,8 @@ def select_unify_ref(keys, counts, pos, h1, h2, slen, ctrl, pw1, pw2,
 def select_unify(keys, counts, pos, h1, h2, slen, ctrl, pw1, pw2,
                  max_vocab: int, rec, host_ids: bool = False,
                  wordpiece: bool = False, sym_freq=None,
-                 sharp=(0, 0)) -> None:
+                 sharp=(0, 0), tournament: bool = False,
+                 redo=None) -> None:
     """One step's winner and merged symbol, written into ``rec`` (int32[6]).
 
     The pair table (keys, counts, pos) is either layout of
@@ -154,6 +181,11 @@ def select_unify(keys, counts, pos, h1, h2, slen, ctrl, pw1, pw2,
         if sym_freq is None:
             raise ValueError("select_unify: wordpiece needs sym_freq")
         check_tensor("sym_freq", sym_freq, (torch.int64,), 1, dev)
+    if tournament:
+        if not wordpiece or redo is None:
+            raise ValueError("select_unify: the tournament needs wordpiece "
+                             "and a redo counter")
+        check_tensor("redo", redo, (torch.int32,), 1, dev)
     T = keys.shape[0]
     if (counts.shape[0] != T or pos.shape[0] != T or ctrl.shape[0] != 3
             or rec.shape[0] != 6 or h2.shape[0] != h1.shape[0]
@@ -163,13 +195,13 @@ def select_unify(keys, counts, pos, h1, h2, slen, ctrl, pw1, pw2,
     if dev.type == "cpu":
         return select_unify_ref(keys, counts, pos, h1, h2, slen, ctrl, pw1,
                                 pw2, max_vocab, rec, host_ids, wordpiece,
-                                sym_freq, sharp)
+                                sym_freq, sharp, tournament, redo)
     if dev.type != "cuda":
         raise ValueError(f"select_unify: no kernel for device {dev}")
     if pos.dtype != torch.int32:
         raise TypeError("select_unify: the kernel takes int32 positions")
     n_part = max(1, min(264, -(-T // 256)))
-    part = torch.empty(3 * n_part, dtype=torch.int64, device=dev)
+    part = torch.empty(5 * n_part, dtype=torch.int64, device=dev)
     from . import _cuda
     with torch.cuda.device(dev):
         _cuda.launch("swt_select_unify", keys.data_ptr(), counts.data_ptr(),
@@ -179,14 +211,20 @@ def select_unify(keys, counts, pos, h1, h2, slen, ctrl, pw1, pw2,
                      pw2.data_ptr(), pw1.shape[0], max_vocab,
                      rec.data_ptr(), int(host_ids),
                      sym_freq.data_ptr() if wordpiece else None,
-                     int(wordpiece), int(sharp[0]), int(sharp[1]))
+                     int(wordpiece), int(sharp[0]), int(sharp[1]),
+                     int(tournament),
+                     redo.data_ptr() if tournament else None)
     select_unify.launches += 1
     if wordpiece:
         select_unify.wp_launches += 1
+    if tournament:
+        select_unify.tournament_launches += 1
 
 
 select_unify.launches = 0
 select_unify.wp_launches = 0  # launches in WordPiece mode
+select_unify.tournament_launches = 0  # launches in tournament mode
+select_unify.risky_redos = 0  # steps redone exactly, added by run_fused
 
 
 class HashCollision(Exception):
@@ -201,12 +239,15 @@ class FlatState:
     dead tail off (merges only consume slots, and K3 compacts to the
     front). ``sym_freq`` is WordPiece's per-symbol weight table, None
     until :meth:`count_symbols`; K3 then carries it with every merge.
+    ``n_words`` is the number of word types (rows of :meth:`padded`).
     """
 
     def __init__(self, fs: np.ndarray, wid: np.ndarray, wgt: np.ndarray,
                  device) -> None:
         self.device = torch.device(device)
         self.F = int(fs.shape[0])
+        live = fs >= 0
+        self.n_words = int(wid[live].max()) + 1 if live.any() else 0
         cur = tuple(torch.from_numpy(np.ascontiguousarray(x)).to(
             self.device) for x in (fs, wid, wgt))
         self._bufs = [cur, tuple(torch.empty_like(x) for x in cur)]
@@ -219,13 +260,16 @@ class FlatState:
         """(fs, wid, wgt) views of the current state."""
         return tuple(x[:self.F] for x in self._bufs[self._cur])
 
-    def pairs(self):
-        """K1 over the current state."""
+    def _other(self):
+        return tuple(x[:self.F] for x in self._bufs[1 - self._cur])
+
+    def pairs(self, skip: int = 0):
+        """K1 over the current state, with window ``skip``."""
         table = None
         if self._table is not None:
             T = table_size(self.F)
             table = tuple(x[:T] for x in self._table)
-        return pair_stats(*self.arrays(), table=table)
+        return pair_stats(*self.arrays(), table=table, skip=skip)
 
     def count_symbols(self, sym_cap: int) -> None:
         """K4: ``sym_freq`` becomes the state's per-symbol weights, int64
@@ -233,19 +277,85 @@ class FlatState:
         fs, _, wgt = self.arrays()
         self.sym_freq = symbol_freqs(fs, wgt, sym_cap)
 
-    def merge(self, rec) -> None:
+    def merge(self, rec, skip: int = 0) -> None:
         """K3 with the step record ``rec`` (on the device); the state
-        becomes the result, and ``sym_freq`` follows it."""
-        nxt = 1 - self._cur
-        out = tuple(x[:self.F] for x in self._bufs[nxt])
-        merge_apply(*self.arrays(), rec, out=out, sym_freq=self.sym_freq)
-        self._cur = nxt
+        becomes the result, and ``sym_freq`` follows it. With a window
+        ``skip`` the merge is in place and nothing is compacted."""
+        if skip:
+            merge_skip(*self.arrays(), rec, skip, self.sym_freq)
+            return
+        merge_apply(*self.arrays(), rec, out=self._other(),
+                    sym_freq=self.sym_freq)
+        self._cur = 1 - self._cur
+
+    def guard(self, skip: int, count) -> None:
+        """Before a step with window ``skip``: compact the state when the
+        window would miss a pair, counting it in ``count`` (int32[1])."""
+        skip_guard(*self.arrays(), skip, count, out=self._other())
 
     def host(self) -> Tuple[np.ndarray, np.ndarray]:
         """(fs, wid) on the host, in one copy."""
         fs, wid, _ = self.arrays()
         both = torch.stack([fs, wid]).cpu().numpy()
         return both[0], both[1]
+
+    def padded(self) -> np.ndarray:
+        """The state as a padded host tensor [n_words, longest word]."""
+        return _flat_to_padded(*self.host(), self.n_words)
+
+
+class PaddedState:
+    """The padded training state on ``device``: ``sym`` int32[n, L], a
+    row per word type, and each row's weight. K1 and K4 see it as n * L
+    flat slots whose word is the row and whose weight is the row's
+    (positions row * L + j order pairs as the flat layout's do); K3p
+    (ops/merge.py) merges each row in place. As in the JAX package's
+    ``train_steps``, WordPiece recounts ``sym_freq`` with K4 every step.
+    """
+
+    def __init__(self, sym: np.ndarray, freq: np.ndarray, device) -> None:
+        self.device = torch.device(device)
+        sym = np.asarray(sym, dtype=np.int32)
+        if sym.shape[1] < 2:  # K1 needs two slots; PAD changes nothing
+            sym = np.pad(sym, ((0, 0), (0, 2 - sym.shape[1])),
+                         constant_values=-1)
+        n, L = sym.shape
+        self.sym = torch.from_numpy(np.ascontiguousarray(sym)).to(
+            self.device)
+        self._wid = torch.from_numpy(np.repeat(
+            np.arange(n, dtype=np.int32), L)).to(self.device)
+        self._wgt = torch.from_numpy(np.repeat(
+            np.asarray(freq, dtype=np.int64), L)).to(self.device)
+        self._table = alloc_table(n * L, self.device) \
+            if self.device.type == "cuda" else None
+        self.sym_freq: Optional[torch.Tensor] = None
+
+    @classmethod
+    def from_flat(cls, state: FlatState) -> "PaddedState":
+        """The same corpus state in the padded layout."""
+        fs, wid, wgt = (x.cpu().numpy() for x in state.arrays())
+        live = fs >= 0
+        freq = np.zeros(state.n_words, dtype=np.int64)
+        freq[wid[live]] = wgt[live]
+        return cls(_flat_to_padded(fs, wid, state.n_words), freq,
+                   state.device)
+
+    def pairs(self, skip: int = 0):
+        """K1 over the rows seen as flat slots (no window: rows stay
+        compacted)."""
+        return pair_stats(self.sym.view(-1), self._wid, self._wgt,
+                          table=self._table)
+
+    def count_symbols(self, sym_cap: int) -> None:
+        """K4 over the rows: ``sym_freq`` int64 [sym_cap + 1]."""
+        self.sym_freq = symbol_freqs(self.sym.view(-1), self._wgt, sym_cap)
+
+    def merge(self, rec, skip: int = 0) -> None:
+        """K3p with the step record ``rec``, in place."""
+        apply_merge(self.sym, rec)
+
+    def padded(self) -> np.ndarray:
+        return self.sym.cpu().numpy()
 
 
 # Floor of the between-block shrink: below it a step is cheap anyway.
@@ -277,10 +387,43 @@ def init_tables(table, max_vocab: int, max_len: int, device):
                  for x in (h1, h2, sl, ctrl, pw1, pw2)) + (str_hashes("##"),)
 
 
+def default_skip() -> int:
+    """The deferred-compaction window: ``SWT_SKIP_COMPACT`` (an integer;
+    0 and below compact every step), else 0. The JAX package's default is
+    12; the port compacts every step unless asked (PERF.md)."""
+    v = os.environ.get("SWT_SKIP_COMPACT")
+    if v is None:
+        return 0
+    try:
+        return max(int(v), 0)
+    except ValueError:
+        raise ValueError(
+            f"SWT_SKIP_COMPACT must be an integer, got {v!r}") from None
+
+
+def use_tournament(wordpiece: bool, wide_score: bool) -> bool:
+    """Whether WordPiece selects by tournament: ``SWT_WP_TOURNAMENT``
+    "1" (on) or "0"/unset (off; the JAX package's default is on for its
+    CPU backend). The value is checked first, for BPE too; a forced "1"
+    on a wide-score run (at least 2**26 symbol occurrences), which the
+    tournament cannot take, raises."""
+    t = os.environ.get("SWT_WP_TOURNAMENT")
+    if t not in (None, "0", "1"):
+        raise ValueError(f"SWT_WP_TOURNAMENT must be '0' or '1', got {t!r}")
+    if t == "1" and wordpiece and wide_score:
+        raise ValueError(
+            "SWT_WP_TOURNAMENT=1 needs the narrow score domain (fewer than "
+            "2**26 symbol occurrences); this corpus has wide scores")
+    return t == "1" and wordpiece
+
+
 def run_fused(state: FlatState, table, max_vocab: int, max_len: int,
               on_merge, K: int = 256, checkpoint_cb=None,
-              progress_cb=None, wordpiece: bool = False) -> None:
-    """Train on ``state`` until ``max_vocab`` symbols or no pair is left.
+              progress_cb=None, wordpiece: bool = False, flat: bool = True,
+              skip: Optional[int] = None,
+              wide_score: bool = False) -> np.ndarray:
+    """Train on ``state`` until ``max_vocab`` symbols or no pair is left;
+    return the final state as a padded host tensor [word types, L].
 
     Each block queues K steps (K1, K2, K3) with no host sync between
     them; every stop condition is enforced on the device, so steps past
@@ -293,31 +436,60 @@ def run_fused(state: FlatState, table, max_vocab: int, max_len: int,
     half its width while its live slots fit.
 
     With ``wordpiece`` the run first counts ``state.sym_freq`` with K4,
-    selects by score, and merges into ``a + b[2:]``.
+    selects by score, and merges into ``a + b[2:]``; the tournament
+    (:func:`use_tournament`, narrow scores only: ``wide_score`` False)
+    selects the same pairs without division.
+
+    The routes of the JAX package's ``run_fused``, each with the same
+    merges: ``skip`` (None: :func:`default_skip`, 0 with ``flat=False``)
+    defers the compaction with that window, clamped as JAX clamps it to
+    ``min(skip, 64, min(F, 8192) - 2)``: each step first compacts only
+    when a live gap outgrows the window (:func:`~.flat.skip_guard`), K1
+    and K3 run in skip mode, and each block ends compacted. ``flat=False``
+    trains the padded layout instead (:class:`PaddedState`, K3p, no
+    shrink; WordPiece recounts its weights with K4 every step).
     """
+    if skip is None:
+        skip = default_skip() if flat else 0
+    tournament = use_tournament(wordpiece, wide_score)
     if len(table) >= max_vocab:
-        return
+        return state.padded()
     dev = state.device
+    if flat:
+        skip = min(skip, 64, max(min(state.F, _FLAT_MIN) - 2, 0))
+    else:
+        state, skip = PaddedState.from_flat(state), 0
     h1, h2, sl, ctrl, pw1, pw2, sharp = init_tables(table, max_vocab,
                                                     max_len, dev)
-    if wordpiece:
-        state.count_symbols(sym_capacity(table, max_vocab))
-    recs = torch.zeros((K, 6), dtype=torch.int32, device=dev)
+    sym_cap = sym_capacity(table, max_vocab)
+    if wordpiece and flat:
+        state.count_symbols(sym_cap)
+    # Row K is the record of the block's closing compaction (skip mode):
+    # inactive, its N_LIVE column the live slots after it.
+    recs = torch.zeros((K + 1, 6), dtype=torch.int32, device=dev)
+    stats = torch.zeros(2, dtype=torch.int32, device=dev)  # redos, overflows
     done = False
     while not done:
         with profiling.phase("train.device_block", dev):
             for k in range(K):
                 rec = recs[k]
-                keys, counts, pos = state.pairs()
+                if skip:
+                    state.guard(skip, stats[1:])
+                keys, counts, pos = state.pairs(skip)
+                if wordpiece and not flat:
+                    state.count_symbols(sym_cap)
                 select_unify(keys, counts, pos, h1, h2, sl, ctrl, pw1, pw2,
                              max_vocab, rec, wordpiece=wordpiece,
-                             sym_freq=state.sym_freq, sharp=sharp)
-                state.merge(rec)
+                             sym_freq=state.sym_freq, sharp=sharp,
+                             tournament=tournament, redo=stats[:1])
+                state.merge(rec, skip)
+            if skip:
+                state.merge(recs[K])
         with profiling.phase("train.fetch_records"):
             recs_np = recs.cpu().numpy()
         with profiling.phase("train.verify"):
             steps = 0
-            for a, b, new_id, _, active, _ in recs_np.tolist():
+            for a, b, new_id, _, active, _ in recs_np[:K].tolist():
                 if not active:
                     done = True
                     break
@@ -336,10 +508,15 @@ def run_fused(state: FlatState, table, max_vocab: int, max_len: int,
             checkpoint_cb(steps)
         if len(table) >= max_vocab:
             done = True
-        if steps and not done:
-            n_live = int(recs_np[steps - 1, 5])
+        if steps and not done and flat:
+            n_live = int(recs_np[K if skip else steps - 1, N_LIVE])
             if state.F >= 2 * _FLAT_MIN and n_live <= state.F // 2:
                 state.F //= 2
+    redos, overflows = stats.tolist()
+    select_unify.risky_redos += redos
+    skip_guard.overflow_compactions += overflows
+    with profiling.phase("train.final_fetch"):
+        return state.padded()
 
 
 def step_host_ids(state: FlatState, table, rec,
