@@ -82,7 +82,27 @@ WordPiece vocab ``tests/golden/port_t85k_fastwp_vocab.json``:
    ``run_fused(flat=False)`` for both): every run equals the JAX golden,
    each route launches its kernels (``=2`` must compact on overflow),
    with cold and warm times, the phase split and (12c) the idle share of
-   the skip route.
+   the skip route;
+13. holds the kernels of the data-parallel selection against their
+   plain versions, exactly: the candidate lookup, the table compaction
+   (with caps that overflow), K1's runs mode and the certificate, on
+   seeded sharded states, on the corpus's 8-shard state (22,976 rows,
+   2,872 x 22 a shard) initial and after 1,000 merges for BPE and
+   WordPiece, with weights scaled into the wide score domain, and on
+   hand-made certificates (a near tie, an exact tie, saturation, a
+   62-bit veto, a zero sum); times each, and ``torch.topk``, at the
+   corpus's shapes;
+14. trains ``NaiveBPE`` and ``NaiveWP(mesh=make_data_mesh(8,
+   devices=["cuda:0"] * 8))`` on the whole corpus to 8,000, each equal to
+   its golden, with the tiers that settled each step and the shard
+   kernels' launches; the forced tiers and a mesh of 1 to 1,000, each
+   equal to the golden's prefix; FastWP's sharded encode and the other
+   three encoders under the mesh against the JAX digests; and (14d) the
+   idle share of one warm sharded train;
+15. the process-group route: ``torch.distributed`` with NCCL at world
+   size 1 (NCCL takes one rank per GPU), a TCP store on localhost, an
+   8-shard process-group mesh on the card, NaiveBPE to 578 equal to the
+   golden, the coordinator and ``fetch_global``.
 
 Each phase prints one line; any failure raises. The line before the last
 is the kernels' JSON record, the last ``{"ok": true, "device": ...}``.
@@ -840,6 +860,432 @@ def phase12(dev, corpus, check_bpe, check_wp, smi, trace_dir,
     print(f"phase 12c: one warm NaiveBPE train with SWT_SKIP_COMPACT=12 "
           f"under torch.profiler: {dev_line}; {smi}")
     return by_route
+
+
+def padded_random(rng, n, L, n_sym, wscale=1):
+    """Seeded padded rows [n, L] (runs of one symbol, lengths 0 to L, PAD
+    at the end) and their weights."""
+    import numpy as np
+    sym = np.full((n, L), -1, dtype=np.int32)
+    for r in range(n):
+        s = int(rng.integers(0, n_sym))
+        for j in range(int(rng.integers(0, L + 1))):
+            if rng.random() > 0.5:
+                s = int(rng.integers(0, n_sym))
+            sym[r, j] = s
+    return sym, rng.integers(1, 50, size=n).astype(np.int64) * wscale
+
+
+# Hand-made certificate cases (kth rows, candidates, summed counts, the
+# record, sym_freq or None, wide scores), the CPU tests' and a near tie:
+# each shard's K-th (metric, count, key), the winner (1, 2).
+_KEY = (1 << 32) | 2
+_KTH1 = [1, 1, (3 << 32) | 4]
+CERT_CASES = (
+    ([[4, 4, 0], [5, 5, 0]], [_KEY], [10], None, False),
+    ([[4, 4, 0], [6, 6, 0]], [_KEY], [10], None, False),
+    ([[-1, 0, 0], [-1, 0, 0]], [_KEY], [1], None, False),   # sum t == 0
+    ([_KTH1], [_KEY], [6], [0, 3, 4, 2, 2], False),
+    ([_KTH1, _KTH1], [_KEY], [6], [0, 3, 4, 2, 2], False),
+    ([_KTH1], [_KEY], [1], [0, 2, 2, 2, 2], False),          # an exact tie
+    ([[1, 1 << 20, (3 << 32) | 4], [-1, 0, 0]], [_KEY], [6],
+     [0, 3, 4, 0, 2], False),                                # saturated
+    ([_KTH1], [_KEY], [6], [0, 3, 4, 1 << 31, 1 << 31], True),  # unsafe
+    ([_KTH1], [_KEY], [6], [0, 3, 4, 1 << 31, 1 << 31], False),
+    # a near tie: (2^30 + 1) / d against 2^30 / d, d = 2^36 + 1, inside
+    # the margin
+    ([[1, 1 << 30, (3 << 32) | 4]], [_KEY], [(1 << 30) + 1],
+     [0, (1 << 36) + 1, 1, (1 << 36) + 1, 1], False),
+)
+
+
+def shard_kernels():
+    """{name: wrapper} of every kernel the sharded path launches; each
+    wrapper's ``launches`` counts its kernel's launches."""
+    from subword_tokenizers_tpu_torch.ops.bitmath import score_bits
+    from subword_tokenizers_tpu_torch.ops.fetch import compact_ids
+    from subword_tokenizers_tpu_torch.ops.merge import apply_merge
+    from subword_tokenizers_tpu_torch.ops.pairstats import (pair_stats,
+                                                            pair_stats_runs,
+                                                            symbol_freqs)
+    from subword_tokenizers_tpu_torch.ops.shard_select import (
+        certificate, compact_table, lookup_runs)
+    from subword_tokenizers_tpu_torch.ops.train_loop import select_unify
+    from subword_tokenizers_tpu_torch.ops.wp_encode_e2e import wp_e2e_scan
+    return {"lookup_runs": lookup_runs, "compact_table": compact_table,
+            "pair_stats_runs": pair_stats_runs, "certificate": certificate,
+            "pair_stats": pair_stats, "select_unify": select_unify,
+            "merge_rows": apply_merge, "symbol_freqs": symbol_freqs,
+            "wp_score": score_bits, "wp_e2e_scan": wp_e2e_scan,
+            "compact_ids": compact_ids}
+
+
+def zero_counts(kernels):
+    for k in kernels.values():
+        k.launches = 0
+
+
+def read_counts(kernels):
+    return {name: k.launches for name, k in kernels.items()}
+
+
+def phase13(dev, rng, arrays, table, arrays_wp, table_wp, golden,
+            wp_merges, smi):
+    """Phase 13: the shard kernels (candidate lookup, table compaction,
+    K1's runs mode, the certificate) against their plain versions,
+    exactly, on seeded padded states, the corpus's 8-shard initial state
+    and its state after 1,000 merges (BPE and WordPiece), caps that
+    overflow, weights scaled wide, and the hand-made certificate cases;
+    then each timed at the corpus's shapes with its bound, and
+    ``torch.topk``. Returns (errs, timing, bounds, notes)."""
+    import torch
+    from subword_tokenizers_tpu_torch.ops.pairstats import (
+        EMPTY_KEY, alloc_table, canonical, pair_stats_runs,
+        pair_stats_runs_ref)
+    from subword_tokenizers_tpu_torch.ops.shard_select import (
+        certificate, certificate_ref, compact_table, compact_table_ref,
+        lookup_runs, lookup_runs_ref, nominate)
+    from subword_tokenizers_tpu_torch.ops.train_loop import (select_host_ids,
+                                                             sym_capacity)
+    from subword_tokenizers_tpu_torch.parallel import train as ptrain
+    from subword_tokenizers_tpu_torch.parallel.mesh import make_data_mesh
+    names = ("lookup_runs", "compact_table", "pair_stats_runs",
+             "certificate")
+    errs = dict.fromkeys(names, 0)
+    notes = {"states": 0, "overflowed_caps": 0, "proven": 0, "refused": 0}
+    mesh = make_data_mesh(8, devices=[dev] * 8)
+    absent = torch.tensor([EMPTY_KEY, (60000 << 32) | 60001, 0],
+                          dtype=torch.int64, device=dev)
+
+    def cert(kth, cand, g_cnt, rec, sf, wide):
+        got, want = rec.clone(), rec.clone()
+        certificate(kth, cand, g_cnt, got, sf, wide)
+        certificate_ref(kth, cand, g_cnt, want, sf, wide)
+        errs["certificate"] = max(errs["certificate"], max_err(got, want))
+        notes["proven" if int(got[5]) else "refused"] += 1
+
+    def check(corpus, sf=None, wide=False, topk=ptrain.TOPK):
+        """Every new kernel against its plain version on one sharded
+        state, as the tiers use them."""
+        tables = [s.pairs() for s in corpus.shards]
+        k = min(topk, corpus.n_local_pairs)
+        picks = [nominate(t, k, sf) for t in tables]
+        cand = mesh.gather([c for c, _ in picks])
+        kth = mesh.gather([t for _, t in picks])
+        probe = torch.cat([cand, absent])
+        looked = []
+        for t, base in zip(tables, corpus.bases):
+            got = lookup_runs(probe, t, base)
+            want = lookup_runs_ref(probe, t, base)
+            errs["lookup_runs"] = max(errs["lookup_runs"],
+                                      *(max_err(g, w)
+                                        for g, w in zip(got, want)))
+            looked.append(lookup_runs(cand, t, base))
+        g_cnt = mesh.sum([c for c, _ in looked])
+        g_pos = mesh.amin([p for _, p in looked])
+        rec = torch.zeros(6, dtype=torch.int32, device=dev)
+        select_host_ids(cand, g_cnt, g_pos, rec, sf)
+        cert(kth, cand, g_cnt, rec, sf, wide)
+        n_live = [int((t[0] != EMPTY_KEY).sum()) for t in tables]
+        cap0 = min(ptrain.run_gather_cap(corpus.n_local_pairs),
+                   corpus.n_local_pairs)
+        for cap in (cap0, max(max(n_live) // 2, 1)):
+            runs = []
+            for t, base in zip(tables, corpus.bases):
+                got = compact_table(t, cap, base)
+                want = compact_table_ref(t, cap, base)
+                errs["compact_table"] = max(errs["compact_table"],
+                                            *(max_err(g, w)
+                                              for g, w in zip(got, want)))
+                runs.append(got)
+            notes["overflowed_caps"] += any(int(r[3][0]) for r in runs)
+            gk, gc, gp = (torch.cat([r[j] for r in runs]) for j in range(3))
+            got = canonical(*pair_stats_runs(gk, gc, gp))
+            want = pair_stats_runs_ref(gk, gc, gp)
+            errs["pair_stats_runs"] = max(errs["pair_stats_runs"],
+                                          *(max_err(g, w)
+                                            for g, w in zip(got, want)))
+        notes["states"] += 1
+        return tables, cand, kth, g_cnt, rec
+
+    for n, L, n_sym, topk in ((400, 9, 6, 16), (1003, 12, 20, 256),
+                              (64, 5, 3, 256)):
+        sym, freq = padded_random(rng, n, L, n_sym)
+        corpus = ptrain.shard_corpus(mesh, sym, freq)
+        check(corpus, topk=topk)
+        check(corpus, ptrain.sharded_sym_freq(corpus, n_sym + 9), topk=topk)
+    # the corpus: BPE and WordPiece, initial and after 1,000 merges
+    bpe = ptrain.shard_corpus(mesh, arrays.sym, arrays.freq)
+    tables, cand, kth, g_cnt, rec = check(bpe)
+    t1000 = type(table)(table.strings())
+    for sa, sb in golden[:1000]:
+        ptrain.sharded_apply_merge(bpe, t1000.get(sa), t1000.get(sb),
+                                   t1000.intern(sa + sb))
+    check(bpe)
+    sym_cap = sym_capacity(table_wp, 8000)
+    wp = ptrain.shard_corpus(mesh, arrays_wp.sym, arrays_wp.freq)
+    check(wp, ptrain.sharded_sym_freq(wp, sym_cap))
+    t1000 = type(table_wp)(table_wp.strings())
+    for sa, sb in wp_merges[:1000]:
+        ptrain.sharded_apply_merge(wp, t1000.get(sa), t1000.get(sb),
+                                   t1000.intern(sa + sb[2:]))
+    check(wp, ptrain.sharded_sym_freq(wp, sym_cap))
+    # weights scaled into the wide score domain: K-th denominators of
+    # more than 62 bits veto
+    wide = ptrain.shard_corpus(mesh, arrays_wp.sym,
+                               arrays_wp.freq * (1 << 26))
+    check(wide, ptrain.sharded_sym_freq(wide, sym_cap), wide=True)
+    for kth_c, cand_c, cnt_c, sf_c, wide_c in CERT_CASES:
+        rec_c = torch.tensor([1, 2, -1, 0, 1, 0], dtype=torch.int32,
+                             device=dev)
+        cert(torch.tensor(kth_c, dtype=torch.int64, device=dev).flatten(),
+             torch.tensor(cand_c, dtype=torch.int64, device=dev),
+             torch.tensor(cnt_c, dtype=torch.int64, device=dev), rec_c,
+             None if sf_c is None else
+             torch.tensor(sf_c, dtype=torch.int64, device=dev), wide_c)
+    if any(errs.values()):
+        raise AssertionError(f"a shard kernel differs: {errs}")
+    if not notes["overflowed_caps"]:
+        raise AssertionError("no cap overflowed")
+
+    # times at the corpus's initial 8-shard BPE state, shard 0
+    t0, base0 = tables[0], bpe.bases[0]
+    M = cand.shape[0]
+    cap = min(ptrain.run_gather_cap(bpe.n_local_pairs), bpe.n_local_pairs)
+    runs = [compact_table(t, cap, b) for t, b in zip(tables, bpe.bases)]
+    gk, gc, gp = (torch.cat([r[j] for r in runs]) for j in range(3))
+    agg = alloc_table(gk.shape[0] + 1, dev)
+    metric = torch.where(t0[0] != EMPTY_KEY, t0[1], -1)
+    timing = {
+        "lookup_runs": (
+            cuda_ms(lambda: lookup_runs(cand, t0, base0), 200, True),
+            cuda_ms(lambda: lookup_runs_ref(cand, t0, base0), 10)),
+        "compact_table": (
+            cuda_ms(lambda: compact_table(t0, cap, base0), 200, True),
+            cuda_ms(lambda: compact_table_ref(t0, cap, base0), 10)),
+        "pair_stats_runs": (
+            cuda_ms(lambda: pair_stats_runs(gk, gc, gp, agg), 200, True),
+            cuda_ms(lambda: pair_stats_runs_ref(gk, gc, gp), 10)),
+        "certificate": (
+            cuda_ms(lambda: certificate(kth, cand, g_cnt, rec), 200, True),
+            cuda_ms(lambda: certificate_ref(kth, cand, g_cnt, rec.clone()),
+                    10)),
+        "topk": (cuda_ms(lambda: torch.topk(metric, ptrain.TOPK), 200,
+                         True), None)}
+    T = t0[0].shape[0]
+    n_live0 = int((t0[0] != EMPTY_KEY).sum())
+    # Bytes: inputs once, outputs once; of a probed table, one 20-byte
+    # entry per lookup. Operations, counted low: a hash and a compare per
+    # lookup (10), a test and a scan step per table entry (4), a hash
+    # insert per run (10), a restoring division per shard (128 x 4) and
+    # a compare per candidate.
+    bounds = {
+        "lookup_runs": bound(nbytes(cand) + 12 * M + visited(M, 20, *t0),
+                             10 * M),
+        "compact_table": bound(nbytes(*t0) + 20 * cap + 4, 4 * T),
+        "pair_stats_runs": bound(nbytes(gk, gc, gp, *agg), 10 * M),
+        "certificate": bound(nbytes(kth, cand, g_cnt, rec),
+                             512 * 8 + 2 * M)}
+    notes.update(T=T, live=n_live0, cap=cap, M=M, runs=gk.shape[0])
+    torch.cuda.synchronize()
+    print(f"phase 13: the shard kernels equal their plain versions exactly "
+          f"on {notes['states']} sharded states (3 seeded, BPE and "
+          f"WordPiece; the corpus's 8 shards of {bpe.rows} x {bpe.L} "
+          f"initial and after 1,000 merges, BPE and WordPiece; weights "
+          f"scaled by 2^26 into the wide domain), caps that overflowed on "
+          f"{notes['overflowed_caps']} states, and {len(CERT_CASES)} "
+          f"hand-made certificates (proven {notes['proven']}, refused "
+          f"{notes['refused']} in all); at shard 0 of the corpus ({n_live0} "
+          f"live of T = {T}, K.D = {M} candidates, cap {cap}): " + ", ".join(
+              f"{k} {timing[k][0]:.4f} ms (plain {timing[k][1]:.3f}, bound "
+              f"{bounds[k][0]:.4f})" for k in names)
+          + f"; torch.topk of {ptrain.TOPK} over T {timing['topk'][0]:.4f} "
+          f"ms; {smi}")
+    return errs, timing, bounds, notes
+
+
+def phase14(dev, corpus, check_train, check_wp_train, lists, wp_merges,
+            wp_vocab, expect, expect_enc, smi, trace_dir, max_vocab=8000,
+            small_vocab=1000, trace_vocab=2000):
+    """Phase 14: this slice's main path on the card, an 8-shard mesh on
+    one device: NaiveBPE and NaiveWP trained on all of ``corpus`` to
+    ``max_vocab`` (cold and warm, each equal to the golden, the tier
+    counts, the shard kernels' launches), the forced tiers and a mesh of
+    1 to ``small_vocab``,
+    FastWP's sharded encode and the other three encoders under the mesh
+    against the JAX digests, and the idle share of one warm sharded
+    train to ``trace_vocab`` (a trace of a whole run to 8,000 holds
+    millions of kernels). Returns {path: launches}."""
+    import torch
+    from subword_tokenizers_tpu_torch import FastBPE, FastWP, NaiveBPE, \
+        NaiveWP
+    from subword_tokenizers_tpu_torch.parallel.mesh import make_data_mesh
+    mesh = make_data_mesh(8, devices=[dev] * 8)
+    kernels = shard_kernels()
+    must = {"NaiveBPE": ("pair_stats", "lookup_runs", "certificate",
+                         "compact_table", "pair_stats_runs", "select_unify",
+                         "merge_rows"),
+            "NaiveWP": ("pair_stats", "lookup_runs", "certificate",
+                        "select_unify", "merge_rows", "symbol_freqs",
+                        "wp_score")}
+    checks = {"NaiveBPE": check_train, "NaiveWP": check_wp_train}
+    models = {"NaiveBPE": NaiveBPE, "NaiveWP": NaiveWP}
+    by_path, lines = {}, []
+    for name, cls in models.items():
+        walls = []
+        for run in range(2):  # cold, warm
+            zero_counts(kernels)
+            tok = cls(mesh=mesh, device=dev)
+            t0 = time.perf_counter()
+            tok.train(corpus, max_vocab)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            counts = read_counts(kernels)
+            checks[name](tok, f"{name} mesh of 8 run {run}")
+        missing = [k for k in must[name] if not counts[k]]
+        if missing:
+            raise AssertionError(f"{name} under the mesh launched no "
+                                 f"{missing}: {counts}")
+        by_path[f"{name}_mesh8"] = {k: v for k, v in counts.items() if v}
+        lines.append(f"{name} cold {walls[0]:.3f} s, warm {walls[1]:.3f} s, "
+                     f"tiers {tok._sel_stats} ({tok._topk_fallbacks} "
+                     f"fallbacks), warm launches {by_path[name + '_mesh8']}")
+    print(f"phase 14: NaiveBPE and NaiveWP(mesh=make_data_mesh(8, "
+          f"devices=['{dev}'] * 8)).train of all {len(corpus)} sentences to "
+          f"{max_vocab} equal the JAX goldens: " + "; ".join(lines)
+          + f"; {smi}")
+
+    # the forced tiers and a mesh of 1, to 1,000
+    tier_lines = []
+    for name, cls in models.items():
+        for tier in ("compact", "full", None):
+            m = mesh if tier else make_data_mesh(1, devices=[dev])
+            tok = cls(mesh=m, device=dev)
+            tok._force_tier = tier
+            t0 = time.perf_counter()
+            tok.train(corpus, small_vocab)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            got = tok.merges_list if name == "NaiveBPE" else tok._merge_log
+            want = (lists["golden"] if name == "NaiveBPE"
+                    else wp_merges)[:len(got)]
+            if got != want or len(tok.vocab) != small_vocab:
+                raise AssertionError(f"{name} tier {tier}: the merges differ "
+                                     "from the golden's prefix")
+            st = tok._sel_stats
+            if tier and (st["proven"] or not st[tier]
+                         or (tier == "full" and st["compact"])):
+                raise AssertionError(f"{name} tier {tier}: {st}")
+            tier_lines.append(f"{name} {tier or 'mesh of 1'} {wall:.3f} s "
+                              f"{st}")
+    print(f"phase 14b: to {small_vocab}, each equal to the golden's "
+          "prefix, tiers asserted: " + "; ".join(tier_lines) + f"; {smi}")
+
+    # FastWP's sharded encode and the other encoders under the mesh
+    with open(os.path.join(GOLDEN, "port_t85k_fastwp_vocab.json"),
+              encoding="utf-8") as f:
+        fast_vocab = json.load(f)
+    enc = {"FastWP": (load(FastWP(mesh=mesh, device=dev), "vocab.json",
+                           fast_vocab), expect),
+           "FastBPE": (load(FastBPE(mesh=mesh, device=dev), "merges.json",
+                            lists["golden"]), expect_enc["FastBPE_golden"]),
+           "NaiveBPE": (load(NaiveBPE(mesh=mesh, device=dev), "merges.json",
+                             lists["golden"]),
+                        expect_enc["NaiveBPE_golden"]),
+           "NaiveWP": (load(NaiveWP(mesh=mesh, device=dev), "vocab.json",
+                            wp_vocab), expect_enc["NaiveWP_golden"])}
+    enc_lines = []
+    for name, (tok, want) in enc.items():
+        walls = []
+        for run in range(2):
+            zero_counts(kernels)
+            t0 = time.perf_counter()
+            out = tok.tokenize_batch(corpus)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            if digest(out) != want["full_sha256"]:
+                raise AssertionError(f"{name} under the mesh: the output "
+                                     "differs from the JAX package's")
+        counts = {k: v for k, v in read_counts(kernels).items() if v}
+        if name == "FastWP" and (counts.get("wp_e2e_scan") != 8
+                                 or counts.get("compact_ids") != 8):
+            raise AssertionError(f"FastWP under the mesh: {counts}")
+        by_path[f"{name}_mesh8_encode"] = counts
+        enc_lines.append(f"{name} cold {walls[0] * 1e3:.3f} ms, warm "
+                         f"{walls[1] * 1e3:.3f} ms, launches {counts}")
+    out = None
+    print("phase 14c: tokenize_batch of the whole corpus under the mesh "
+          "equals the JAX digests: " + "; ".join(enc_lines) + f"; {smi}")
+
+    wall, busy, by_name = device_trace(
+        lambda: NaiveBPE(mesh=mesh, device=dev).train(corpus, trace_vocab),
+        os.path.join(trace_dir, "mesh_train_trace.json"))
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
+    dev_line = ("not measured (the trace holds no device events)"
+                if not by_name else
+                f"device busy {busy:.3f} ms of {wall:.1f} ms (idle share "
+                f"{1 - busy / wall:.4f}); "
+                + "; ".join(f"{n} x{c} {ms:.3f} ms" for n, (c, ms) in top))
+    print(f"phase 14d: one warm NaiveBPE train to {trace_vocab} on the mesh "
+          f"of 8 under torch.profiler: {dev_line}; {smi}")
+    return by_path
+
+
+def phase15(dev, corpus, golden, anchor, smi, max_vocab=578,
+            kind="cuda"):
+    """Phase 15: the process-group route with NCCL at world size 1 (NCCL
+    takes one rank per GPU): a TCP store on localhost, an 8-shard
+    process-group mesh on the card, NaiveBPE to 578 equal to the golden's
+    first merges (its first 500 the reference anchor), the coordinator
+    and ``fetch_global``. Returns the launches of the run. (``kind``
+    "cpu" takes gloo, for a rehearsal on the CPU.)"""
+    import socket
+    import torch
+    import torch.distributed as dist
+    from subword_tokenizers_tpu_torch import NaiveBPE
+    from subword_tokenizers_tpu_torch.parallel import distributed
+    from subword_tokenizers_tpu_torch.parallel.mesh import make_data_mesh
+    s = socket.socket()
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+    s.close()
+    kernels = shard_kernels()
+    distributed.initialize(f"localhost:{port}", num_processes=1,
+                           process_id=0, device=kind)
+    try:
+        assert dist.get_backend() == ("nccl" if kind == "cuda" else "gloo")
+        assert distributed.is_coordinator()
+        assert distributed.process_count() == 1
+        mesh = make_data_mesh(8, devices=[dev] * 8)
+        assert mesh.group and mesh.size == 8
+        zero_counts(kernels)
+        tok = NaiveBPE(mesh=mesh, device=dev)
+        t0 = time.perf_counter()
+        tok.train(corpus, max_vocab)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {k: v for k, v in read_counts(kernels).items() if v}
+        if tok.merges_list != golden[:len(tok.merges_list)] or \
+                tok.merges_list[:len(anchor)] != anchor:
+            raise AssertionError("the process-group run differs from the "
+                                 "golden")
+        rows = [torch.full((2, 3), i, device=dev) for i in range(8)]
+        got = distributed.fetch_global(rows, mesh)
+        assert got[:, 0].tolist() == [i for i in range(8) for _ in range(2)]
+        for k in ("lookup_runs", "certificate", "pair_stats", "merge_rows"):
+            if not counts.get(k):
+                raise AssertionError(f"phase 15 launched no {k}: {counts}")
+    finally:
+        dist.destroy_process_group()
+    print(f"phase 15: torch.distributed NCCL at world size 1 (TCP store on "
+          f"localhost), a process-group mesh of 8 shards on the card: "
+          f"NaiveBPE to {max_vocab} gives {len(tok.merges_list)} merges equal "
+          f"to the "
+          f"golden (the first {len(anchor)} the reference anchor) in "
+          f"{wall:.3f} s, tiers {tok._sel_stats}; is_coordinator, "
+          f"process_count 1 and fetch_global checked; launches {counts}; "
+          f"{smi}")
+    return counts
 
 
 def main() -> int:
@@ -1979,6 +2425,21 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as d:
         by_route = phase12(dev, corpus, check_train, check_wp_train, smi, d)
 
+    # ---- phase 13: the shard kernels against their plain versions
+    errs13, timing13, bounds13, notes13 = phase13(
+        dev, rng, arrays, table, arrays_wp, table_wp, golden, wp_merges, smi)
+    errs.update(errs13)
+    timing.update(timing13)
+    bounds.update(bounds13)
+
+    # ---- phase 14: the sharded main path, an 8-shard mesh on the card
+    with tempfile.TemporaryDirectory() as d:
+        by_mesh = phase14(dev, corpus, check_train, check_wp_train, lists,
+                          wp_merges, wp_vocab, expect, expect_enc, smi, d)
+
+    # ---- phase 15: torch.distributed, NCCL at world size 1
+    by_group = phase15(dev, corpus, golden, anchor, smi)
+
     record = {"kernels": [
         {"name": "wp_e2e_scan", "route": "cuda",
          "source": "subword_tokenizers_tpu_torch/csrc/wp_e2e_scan.cu",
@@ -2114,6 +2575,40 @@ def main() -> int:
     by_name["merge_rows"]["note"] = (
         "ms: a pass with no match left over the rows, each read and "
         "rewritten (the timed record's pairs merge on its first call)")
+    # the sharded main path (phase 14) and the process group (phase 15)
+    def mesh_of(key):
+        return {p: c[key] for p, c in by_mesh.items() if c.get(key)}
+
+    for k, src, replaces in (
+            ("lookup_runs", "shard_select.cu",
+             "subword_tokenizers_tpu/parallel/train.py:105"),
+            ("compact_table", "shard_select.cu",
+             "subword_tokenizers_tpu/ops/pairstats.py:162"),
+            ("pair_stats_runs", "pair_stats.cu",
+             "subword_tokenizers_tpu/parallel/train.py:199"),
+            ("certificate", "shard_select.cu",
+             "subword_tokenizers_tpu/parallel/train.py:287")):
+        paths = {p: n for p, n in mesh_of(k).items()
+                 if not p.endswith("_encode")}
+        record["kernels"].append(
+            {"name": k, "route": "cuda",
+             "source": f"subword_tokenizers_tpu_torch/csrc/{src}",
+             "replaces": replaces, "launches": sum(paths.values()),
+             "launches_by_path": {**paths,
+                                  "NaiveBPE_nccl_world1": by_group.get(k, 0)},
+             "max_abs_err": errs[k], "ms": timing[k][0],
+             "plain_ms": timing[k][1]})
+    by_name = {k["name"]: k for k in record["kernels"]}
+    by_name["certificate"]["note"] = (
+        "also replaces the WordPiece certificate at "
+        "subword_tokenizers_tpu/parallel/train.py:336-365 and :383-400")
+    by_name["compact_table"]["topk_ms"] = timing["topk"][0]
+    by_name["compact_table"]["topk_note"] = (
+        "topk_ms: torch.topk of 256 over one shard's table, the "
+        "nomination of the top-K tier (a library call the port makes)")
+    for k in ("pair_stats", "select_unify", "merge_rows", "symbol_freqs",
+              "wp_score", "wp_e2e_scan", "compact_ids"):
+        by_name[k]["mesh_launches"] = mesh_of(k)
     no_library = {
         "wp_e2e_scan": "no PyTorch call walks a trie",
         "compact_ids": "no one call gives the offsets, the stream and the "
@@ -2129,7 +2624,13 @@ def main() -> int:
         "merge_rows": "no one call merges pairs with the parity rule",
         "select_unify_tournament": "no one call selects and unifies by "
                                    "string hash",
-        "wp_match_encode": "no PyTorch call walks a trie"}
+        "wp_match_encode": "no PyTorch call walks a trie",
+        "lookup_runs": "no PyTorch call probes a hash table",
+        "compact_table": "no one call compacts a table with an overflow "
+                         "flag",
+        "pair_stats_runs": "no one call sums counts and takes least "
+                           "positions by key",
+        "certificate": "no one call computes the certificate"}
     for k in record["kernels"]:
         name = k["name"]
         k["bound_ms"], k["bound_by"] = bounds[name]

@@ -35,6 +35,14 @@
 // tensor viewed as n * L slots with wid = row index and wgt = the row's
 // weight: position row * L + j orders pairs as JAX's row * (L - 1) + j.
 //
+// Runs mode (swt_pair_stats_runs), which replaces the re-aggregation of the
+// gathered compacted runs in the JAX package's compact tier,
+//   subword_tokenizers_tpu/parallel/train.py: _run_aggregate(gk, gp, gc)
+//   inside sharded_bpe_select_compact and sharded_wp_select_compact:
+// each thread takes one (key, count, position) triple of every shard's
+// runs (shard_select.cu compacts them) and inserts it into the same table,
+// adding its count and taking the least position; EMPTY keys are skipped.
+//
 // Bound on this card: at F = 187,885 (train-85k) it is a few MB of
 // table traffic and some hundred thousand atomics; frequent pairs make
 // many threads add to one entry, which L2 serialises. A thread reads an
@@ -95,6 +103,33 @@ __global__ void pair_insert_kernel(const int32_t* __restrict__ fs,
   atomicMin(&pos[h], static_cast<unsigned int>(i));
 }
 
+__global__ void runs_insert_kernel(const unsigned long long* __restrict__ rk,
+                                   const int64_t* __restrict__ rc,
+                                   const uint32_t* __restrict__ rp, int64_t M,
+                                   unsigned long long* keys,
+                                   unsigned long long* counts,
+                                   unsigned int* pos,
+                                   unsigned long long mask) {
+  const int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) +
+                    threadIdx.x;
+  if (i >= M) return;
+  const unsigned long long key = rk[i];
+  if (key == kEmpty) return;
+  unsigned long long h = mix64(key) & mask;
+  while (true) {
+    unsigned long long cur =
+        *reinterpret_cast<volatile unsigned long long*>(&keys[h]);
+    if (cur == kEmpty) {
+      cur = atomicCAS(&keys[h], kEmpty, key);
+      if (cur == kEmpty) cur = key;
+    }
+    if (cur == key) break;
+    h = (h + 1) & mask;
+  }
+  atomicAdd(&counts[h], static_cast<unsigned long long>(rc[i]));
+  atomicMin(&pos[h], rp[i]);
+}
+
 }  // namespace
 
 extern "C" {
@@ -120,6 +155,29 @@ int swt_pair_stats(const void* fs, const void* wid, const void* wgt,
       static_cast<unsigned long long*>(counts),
       static_cast<unsigned int*>(pos),
       static_cast<unsigned long long>(T - 1), skip);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// rk/rc i64[M], rp i32[M] (runs, EMPTY keys skipped) -> keys/counts
+// i64[T], pos i32[T]; T a power of two >= 2M. Returns the cudaError_t.
+int swt_pair_stats_runs(const void* rk, const void* rc, const void* rp,
+                        int64_t M, void* keys, void* counts, void* pos,
+                        int64_t T, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaMemsetAsync(keys, 0xFF, T * sizeof(uint64_t), s);
+  if (err == cudaSuccess)
+    err = cudaMemsetAsync(counts, 0, T * sizeof(uint64_t), s);
+  if (err == cudaSuccess)
+    err = cudaMemsetAsync(pos, 0xFF, T * sizeof(uint32_t), s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (M <= 0) return 0;
+  const int64_t blocks = (M + kThreads - 1) / kThreads;
+  runs_insert_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
+      static_cast<const unsigned long long*>(rk),
+      static_cast<const int64_t*>(rc), static_cast<const uint32_t*>(rp), M,
+      static_cast<unsigned long long*>(keys),
+      static_cast<unsigned long long*>(counts),
+      static_cast<unsigned int*>(pos), static_cast<unsigned long long>(T - 1));
   return static_cast<int>(cudaGetLastError());
 }
 

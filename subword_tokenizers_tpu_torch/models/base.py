@@ -1,13 +1,17 @@
 """Model base class: what every tokenizer of the port shares, including
-the built-in BERT-style front end (frontend/pretokenize.py)."""
+the built-in BERT-style front end (frontend/pretokenize.py) and, as in
+the JAX package, an injected HF-style tokenizer used only for
+pre-tokenization (any object exposing
+``backend_tokenizer.pre_tokenizer.pre_tokenize_str``)."""
 from __future__ import annotations
 
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 import torch
 
 from ..benchmarks import profiling
+from ..frontend.charclass import codepoints
 from ..frontend.pretokenize import (Token, WordBatch, pre_tokenize_str,
                                     pretokenize_batch)
 from ..ops.fetch import compact_ids
@@ -48,17 +52,117 @@ def fetch_stream(out2d, out_n, ovf=None, stuck=None, crash=None):
     return ids, offs, head[R + 1:]
 
 
+def resolve_mesh(owner: object, mesh, device: torch.device) -> torch.device:
+    """The device of a tokenizer built with ``mesh`` (parallel/mesh.py):
+    the mesh's home device, which must be of ``device``'s type."""
+    if mesh is None:
+        return device
+    if mesh.type != device.type:
+        raise ValueError(f"{type(owner).__name__}: the mesh is on "
+                         f"{mesh.type}, the tokenizer on {device.type}")
+    return mesh.home
+
+
 class SubwordTokenizer:
     """Parent class for the port's tokenizers."""
+
+    def __init__(self, tokenizer: Optional[object] = None) -> None:
+        """``tokenizer``: an HF-style tokenizer used only for
+        pre-tokenization; None takes the built-in front end."""
+        self.tokenizer = tokenizer
 
     def preprocessing(self, corpus: List[str]) -> List[List[Token]]:
         """Lower and pre-split each sentence: per sentence,
         ``[(word, (start, end)), ...]`` (the reference's schema)."""
+        if self.tokenizer is not None:
+            pt = self.tokenizer.backend_tokenizer.pre_tokenizer
+            return [pt.pre_tokenize_str(example.lower())
+                    for example in corpus]
         return [pre_tokenize_str(example) for example in corpus]
 
     def preprocessing_batch(self, corpus: List[str]) -> WordBatch:
-        """The front end's output as flat arrays (the trainers' input)."""
-        return pretokenize_batch(corpus)
+        """The front end's output as flat arrays (the trainers' input);
+        an injected tokenizer's words go through the reference's schema
+        into the same arrays."""
+        if self.tokenizer is None:
+            return pretokenize_batch(corpus)
+        toks = self.preprocessing(corpus)
+        lowered = [s.lower() for s in corpus]
+        sent_off = np.zeros(len(corpus) + 1, dtype=np.int64)
+        np.cumsum([len(s) for s in lowered], out=sent_off[1:])
+        ws, we, sid = [], [], []
+        for i, sent in enumerate(toks):
+            for _, (s, e) in sent:
+                ws.append(s + sent_off[i])
+                we.append(e + sent_off[i])
+                sid.append(i)
+        return WordBatch(cps=codepoints("".join(lowered)),
+                         word_start=np.asarray(ws, dtype=np.int64),
+                         word_end=np.asarray(we, dtype=np.int64),
+                         sent_id=np.asarray(sid, dtype=np.int32),
+                         sent_cp_off=sent_off)
+
+    def _train_on_mesh(self, arrays, table, max_vocab: int, log: list,
+                       join, resume, save, desc: str, sym_cap=None,
+                       wide_score: bool = False) -> None:
+        """Training under ``self.mesh`` (parallel/train.py), the JAX
+        package's per-step loop: the tiered selection, host interning of
+        ``join(sa, sb)``, K3p on every shard. ``resume`` is the merges to
+        replay first, ``save()`` writes a checkpoint, ``log`` gets each
+        merge's pair; ``sym_cap`` (WordPiece) selects by exact score.
+        Sets ``vocab``, ``corpus_as_symbols``, ``_sel_stats`` and
+        ``_topk_fallbacks``; ``_force_tier`` ('compact' or 'full') pins
+        the selection to one exact tier."""
+        from ..parallel.train import ShardedTrainer
+        dev = self.device
+        with profiling.phase("train.corpus", dev):
+            trainer = ShardedTrainer(
+                self.mesh, arrays.sym, arrays.freq, sym_cap=sym_cap,
+                wide_score=wide_score,
+                force_tier=getattr(self, "_force_tier", None))
+        self._sel_stats = trainer.sel_stats
+        self._topk_fallbacks = 0
+
+        def merge(a_id, b_id, sa, sb):
+            merged = join(sa, sb)
+            self.vocab.add(merged)
+            log.append((sa, sb))
+            trainer.merge(a_id, b_id, table.intern(merged))
+
+        for sa, sb in resume:
+            a_id, b_id = table.get(sa), table.get(sb)
+            if a_id is None or b_id is None:
+                raise ValueError(
+                    "checkpoint does not match this corpus: "
+                    f"unknown symbol in merge ({sa!r}, {sb!r})")
+            merge(a_id, b_id, sa, sb)
+        pbar = None
+        if self._progress:
+            from tqdm import tqdm
+            pbar = tqdm(total=max_vocab - len(self.vocab), desc=desc)
+        steps = 0
+        with profiling.phase("train.sharded", dev):
+            while len(self.vocab) < max_vocab:
+                got = trainer.select()
+                self._topk_fallbacks = trainer.topk_fallbacks
+                if got is None:
+                    break
+                merge(*got, table.string(got[0]), table.string(got[1]))
+                steps += 1
+                if pbar is not None:
+                    pbar.update(1)
+                if (self._checkpoint_dir is not None
+                        and steps % self._checkpoint_every == 0):
+                    save()
+        if pbar is not None:
+            pbar.close()
+        if self._checkpoint_dir is not None:
+            save()
+        with profiling.phase("train.final_fetch"):
+            self.corpus_as_symbols = [
+                ([table.string(int(s)) for s in row if s >= 0], int(f))
+                for row, f in zip(trainer.host(), arrays.freq)
+            ]
 
     def vocab_length(self, corpus: List[str]) -> int:
         """Number of distinct characters in the corpus."""

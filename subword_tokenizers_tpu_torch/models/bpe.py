@@ -46,6 +46,12 @@ the cursor rule; and FastBPE rows that merge to nothing are assembled on
 the host as ``[""]``.
 
 ``device="cpu"`` runs the kernels' plain PyTorch versions.
+
+With ``mesh`` (parallel/mesh.py) training shards the word types across
+the mesh and picks each merge through the tiered selection of
+parallel/train.py, with the same merges as one device (there is no
+fused block loop under a mesh, as in the JAX package); encoding keeps
+its kernels on the mesh's first device.
 """
 from __future__ import annotations
 
@@ -64,7 +70,8 @@ from ..frontend.charclass import codepoints
 from ..ops import train_loop
 from ..ops.bpe_encode import SYM_BITS, bpe_encode, build_rank_hash
 from ..ops.flat import build_flat
-from .base import SubwordTokenizer, fetch_stream, resolve_device
+from .base import (SubwordTokenizer, fetch_stream, resolve_device,
+                   resolve_mesh)
 from .state import BPEState
 
 # Training domain ceiling: per-pair counts, and every sum of them the
@@ -111,12 +118,17 @@ def _read_merges(path: str, strict: bool) -> Optional[List[Tuple[str, str]]]:
 
 class NaiveBPE(SubwordTokenizer):
     """BPE trained on ``device`` ("cuda" or "cpu"), whose encoder applies
-    every merge once, in order."""
+    every merge once, in order. ``tokenizer``: an HF-style pre-tokenizer
+    (models/base.py); ``mesh``: a data mesh on ``device``'s type, which
+    shards training (parallel/train.py)."""
 
     _MONOTONE = True
 
-    def __init__(self, device="cuda") -> None:
-        self.device = resolve_device(self, device)
+    def __init__(self, tokenizer: Optional[object] = None,
+                 mesh: Optional[object] = None, *, device="cuda") -> None:
+        super().__init__(tokenizer)
+        self.mesh = mesh
+        self.device = resolve_mesh(self, mesh, resolve_device(self, device))
         self.merges_list: List[Tuple[str, str]] = []
         self.vocab: set = set()
         self.corpus_as_symbols: List[Tuple[List[str], int]] = []
@@ -169,6 +181,17 @@ class NaiveBPE(SubwordTokenizer):
 
         dev = self.device
         table = SymbolTable()
+        if self.mesh is not None:
+            with profiling.phase("train.corpus", dev):
+                arrays = build_bpe_corpus(words, freq, table)
+            self._train_on_mesh(
+                arrays, table, max_vocab, self.merges_list,
+                lambda sa, sb: sa + sb,
+                _read_merges(self._resume_dir, strict=True)
+                if self._resume_dir is not None else [],
+                lambda: self.save_resources(self._checkpoint_dir),
+                "Training BPE")
+            return
         with profiling.phase("train.corpus", dev):
             arrays = build_bpe_corpus(words, freq, table)
             state = train_loop.FlatState(*build_flat(arrays.sym,
@@ -438,12 +461,17 @@ class NaiveBPE(SubwordTokenizer):
 
 class FastBPE(NaiveBPE):
     """BPE whose encoder merges greedily by rank; training is
-    NaiveBPE's, and the ranks are kept in ``_bpe_ranks``."""
+    NaiveBPE's, and the ranks are kept in ``_bpe_ranks``. As in the JAX
+    package (and the reference), ``reset`` keeps ``_bpe_ranks``: the host
+    encoder (``tokenize``, ``encode_word``) goes on using the last
+    trained or loaded ranks, while ``tokenize_batch`` ranks the current
+    ``merges_list``."""
 
     _MONOTONE = False
 
-    def __init__(self, device="cuda") -> None:
-        super().__init__(device)
+    def __init__(self, tokenizer: Optional[object] = None,
+                 mesh: Optional[object] = None, *, device="cuda") -> None:
+        super().__init__(tokenizer, mesh, device=device)
         self._bpe_ranks: Dict[Tuple[str, str], int] = {}
 
     def train(self, corpus: List[str], max_vocab: int = 30_000,
@@ -453,12 +481,9 @@ class FastBPE(NaiveBPE):
                            enumerate(self.merges_list)}
 
     def _rank_map(self) -> Dict[Tuple[str, str], int]:
-        """``_bpe_ranks``, built from the merge list where it is empty (a
-        list assigned directly): a later duplicate overwrites the rank."""
-        if not self._bpe_ranks:
-            self._bpe_ranks = {pair: i for i, pair in
-                               enumerate(self.merges_list)}
-        return self._bpe_ranks
+        """The ranks of ``merges_list`` (a later duplicate overwrites the
+        rank), which the device encoder uses."""
+        return {pair: i for i, pair in enumerate(self.merges_list)}
 
     def _has_duplicate_merges(self) -> bool:
         # Greedy encoding uses dict ranks: duplicates change nothing.
@@ -470,7 +495,9 @@ class FastBPE(NaiveBPE):
         symbols = list(word)
         if len(symbols) < 2:
             return symbols
-        ranks = self._rank_map()
+        if self._host_ranks is None:
+            self._host_ranks = self._bpe_ranks or self._rank_map()
+        ranks = self._host_ranks
         while len(symbols) > 1:
             best = None
             best_rank = None
@@ -492,11 +519,8 @@ class FastBPE(NaiveBPE):
             symbols[1:] = ["##" + s for s in symbols[1:]]
         return symbols
 
-    def reset(self) -> None:
-        super().reset()
-        self._bpe_ranks = {}
-
     def load_resources(self, path: str, strict: bool = False) -> None:
         super().load_resources(path, strict=strict)
         self._bpe_ranks = {pair: i for i, pair in
                            enumerate(self.merges_list)}
+        self._host_ranks = None

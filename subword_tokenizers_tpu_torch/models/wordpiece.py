@@ -47,6 +47,13 @@ FastWP's batched encode:
 Every batch goes to the kernels, whatever its size. ``device="cpu"``
 runs the kernels' plain PyTorch versions.
 
+With ``mesh`` (parallel/mesh.py) training shards the word types as
+BPE's does (parallel/train.py), and FastWP's scan sorts the unique rows
+by length (stably), gives each shard a block of them with the trie's
+tables on its device (parallel/encode.py), and restores their order
+after the fetch. NaiveWP's match keeps its kernels on the mesh's first
+device.
+
 The profiling phases of ``train`` are BPE's: ``train.frontend``,
 ``train.corpus``, ``train.resume``, ``train.device_block``,
 ``train.fetch_records``, ``train.verify``, ``train.per_step`` and
@@ -71,7 +78,8 @@ from ..ops import train_loop
 from ..ops.flat import build_flat
 from ..ops.wp_encode import wp_e2e_encode, wp_match_encode
 from ..ops.wp_encode_e2e import pack_chars, route_params, wp_e2e_scan
-from .base import SubwordTokenizer, fetch_stream, resolve_device
+from .base import (SubwordTokenizer, fetch_stream, resolve_device,
+                   resolve_mesh)
 from .state import E2EState, MatchState, e2e_state_from_numpy
 from .trie import E2ETrie, MatchTrie
 
@@ -92,10 +100,15 @@ PACKED_MAX_POPS = 8
 
 class NaiveWP(SubwordTokenizer):
     """WordPiece trained on ``device`` ("cuda" or "cpu"), with greedy
-    longest-match word encoding."""
+    longest-match word encoding. ``tokenizer``: an HF-style pre-tokenizer
+    (models/base.py); ``mesh``: a data mesh on ``device``'s type
+    (parallel/mesh.py)."""
 
-    def __init__(self, device="cuda") -> None:
-        self.device = resolve_device(self, device)
+    def __init__(self, tokenizer: Optional[object] = None,
+                 mesh: Optional[object] = None, *, device="cuda") -> None:
+        super().__init__(tokenizer)
+        self.mesh = mesh
+        self.device = resolve_mesh(self, mesh, resolve_device(self, device))
         self.vocab: set = set()
         self.corpus_as_symbols: List[Tuple[List[str], int]] = []
         self._checkpoint_dir: Optional[str] = None
@@ -105,6 +118,15 @@ class NaiveWP(SubwordTokenizer):
         self._force_per_step = False
         self._merge_log: List[Tuple[str, str]] = []
         self._drop_encode_state()
+
+    def _saved_merges(self) -> List[Tuple[str, str]]:
+        """The merge log of the checkpoint to resume from (none when not
+        resuming)."""
+        if self._resume_dir is None:
+            return []
+        state_file = os.path.join(self._resume_dir, "wp_state.json")
+        with open(state_file, "r", encoding="utf-8") as f:
+            return [tuple(p) for p in json.load(f)["merges"]]
 
     def _save_checkpoint(self) -> None:
         """Atomic mid-training checkpoint: ``wp_state.json`` (vocab and
@@ -160,6 +182,17 @@ class NaiveWP(SubwordTokenizer):
 
         dev = self.device
         table = SymbolTable()
+        if self.mesh is not None:
+            with profiling.phase("train.corpus", dev):
+                arrays = build_wp_corpus(words, freq, table)
+            self.vocab |= set(table.strings())
+            self._train_on_mesh(
+                arrays, table, max_vocab, self._merge_log,
+                lambda sa, sb: sa + sb[2:], self._saved_merges(),
+                self._save_checkpoint, "Training WordPiece",
+                sym_cap=train_loop.sym_capacity(table, max_vocab),
+                wide_score=total_tokens >= WIDE_SCORE_MIN)
+            return
         with profiling.phase("train.corpus", dev):
             arrays = build_wp_corpus(words, freq, table)
             state = train_loop.FlatState(*build_flat(arrays.sym,
@@ -171,11 +204,8 @@ class NaiveWP(SubwordTokenizer):
         if self._resume_dir is not None:
             # Training is deterministic: replaying the checkpointed
             # merges rebuilds the interrupted state exactly.
-            state_file = os.path.join(self._resume_dir, "wp_state.json")
-            with open(state_file, "r", encoding="utf-8") as f:
-                saved = json.load(f)
             with profiling.phase("train.resume", dev):
-                for sa, sb in (tuple(p) for p in saved["merges"]):
+                for sa, sb in self._saved_merges():
                     a_id, b_id = table.get(sa), table.get(sb)
                     if a_id is None or b_id is None:
                         raise ValueError(
@@ -390,15 +420,17 @@ class NaiveWP(SubwordTokenizer):
 
 class FastWP(NaiveWP):
     """End-to-end WordPiece: linear-time trie scan with punctuation-aware
-    boundaries, batched on ``device``."""
+    boundaries, batched on ``device`` (or sharded over ``mesh``)."""
 
-    def __init__(self, device="cuda") -> None:
-        super().__init__(device)
+    def __init__(self, tokenizer: Optional[object] = None,
+                 mesh: Optional[object] = None, *, device="cuda") -> None:
+        super().__init__(tokenizer, mesh, device=device)
         self._e2e_trie: Optional[E2ETrie] = None
         self._e2e_out: Optional[SymbolTable] = None
         self._sharp_seq: Optional[Tuple[int, ...]] = None
         self._unk_id: Optional[int] = None
-        self._state: Optional[Tuple[E2ETrie, E2EState]] = None
+        # (trie, {device: its tables there})
+        self._state: Optional[Tuple[E2ETrie, Dict]] = None
 
     def train(self, corpus: List[str], max_vocab: int = 30_000,
               **kwargs) -> None:
@@ -427,15 +459,20 @@ class FastWP(NaiveWP):
             self._build_e2e()
         return self._e2e_trie, self._e2e_out
 
-    def _device_state(self) -> E2EState:
-        """The trie's tables on ``self.device``, moved once per trie."""
+    def _device_state(self, device=None) -> E2EState:
+        """The trie's tables on ``device`` (default ``self.device``),
+        moved once per trie and device."""
         trie, _ = self._trie()
+        device = self.device if device is None else device
         if self._state is None or self._state[0] is not trie:
-            self._state = (trie, e2e_state_from_numpy(
+            self._state = (trie, {})
+        states = self._state[1]
+        if device not in states:
+            states[device] = e2e_state_from_numpy(
                 trie.goto, trie.alpha, trie.fail, trie.pops_off,
                 trie.pops_flat, trie.root_p, trie.root_sharp, self._unk_id,
-                self._sharp_seq, self.device))
-        return self._state[1]
+                self._sharp_seq, device)
+        return states[device]
 
     # ------------------------------------------------------------ encoding
 
@@ -568,6 +605,9 @@ class FastWP(NaiveWP):
             chars.shape[1], general=st.max_pops > PACKED_MAX_POPS)
         if chars.dtype == np.uint16:
             chars = chars.view(np.int16)
+        if self.mesh is not None:
+            return self._run_e2e_sharded(chars, slen, cap, max_steps,
+                                         unk_ovf)
         with profiling.phase("encode.h2d", dev):
             chars_d = torch.from_numpy(chars).to(dev)
             slen_d = torch.from_numpy(slen.astype(np.int32)).to(dev)
@@ -577,6 +617,22 @@ class FastWP(NaiveWP):
                               st.unk_id, st.sharp, cap=cap,
                               max_steps=max_steps, unk_ovf=unk_ovf)
         return self._compact(*res)
+
+    def _run_e2e_sharded(self, chars, slen, cap, max_steps, unk_ovf):
+        """The packed scan over ``self.mesh``: rows length-sorted
+        (stably) so that each shard's block holds rows of like length,
+        kernels 1 and 2 per shard (parallel/encode.py), then each row's
+        (start, count) and flags back in the caller's order."""
+        from ..parallel.encode import sharded_e2e_scan
+        order = np.argsort(slen, kind="stable")
+        with profiling.phase("encode.sharded_scan"):
+            ids, offs, flags = sharded_e2e_scan(
+                self.mesh, chars[order], slen[order], self._device_state,
+                cap, max_steps, unk_ovf)
+        inv = np.empty_like(order)
+        inv[order] = np.arange(order.shape[0])
+        self._finish_e2e(flags[inv])
+        return ids, offs[:-1][inv], np.diff(offs).astype(np.int32)[inv]
 
     def _run_e2e(self, cps: np.ndarray, slen: np.ndarray):
         """General route over padded codepoint rows [S, T]; see

@@ -38,6 +38,11 @@ SIGNATURES = {
     "swt_wp_e2e_scan_i32": _SCAN_ARGS,
     "swt_compact": [_P, _I64, _I, _P, _P, _P, _P, _P, _P, _P],
     "swt_pair_stats": [_P, _P, _P, _I64, _P, _P, _P, _I64, _I, _P],
+    "swt_pair_stats_runs": [_P, _P, _P, _I64, _P, _P, _P, _I64, _P],
+    "swt_lookup_runs": [_P, _I64, _P, _P, _P, _I64, _I64, _P, _P, _P],
+    "swt_compact_table": [_P, _P, _P, _I64, _I64, _I64, _P, _P, _P, _P, _P,
+                          _P],
+    "swt_certificate": [_P, _I, _P, _P, _I64, _P, _P, _I, _I, _P],
     "swt_select_unify": [_P, _P, _P, _I64, _P, _I, _P, _P, _P, _I64, _P, _P,
                          _P, _I64, _I64, _P, _I, _P, _I, _I64, _I64, _I, _P,
                          _P],

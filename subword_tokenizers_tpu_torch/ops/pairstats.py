@@ -20,6 +20,11 @@ entries with ``EMPTY_KEY``. Its layout has no counterpart in the plain
 version, so the two are compared in :func:`canonical` form: the pairs
 sorted by key, with counts and first positions.
 
+In runs mode (:func:`pair_stats_runs`) the inputs are (key, count,
+position) triples, every shard's compacted runs (ops/shard_select.py),
+and the table sums their counts and keeps their least positions: the
+compact tier of the data-parallel selection (parallel/train.py).
+
 WordPiece also needs each symbol's total weight: :func:`symbol_freqs`
 (kernel K4), counted once per run and then carried by K3.
 """
@@ -139,6 +144,60 @@ def pair_stats(fs, wid, wgt, table: Optional[tuple] = None,
 
 pair_stats.launches = 0
 pair_stats.skip_launches = 0  # launches with a window
+
+
+def pair_stats_runs_ref(rk, rc, rp):
+    """Plain PyTorch version of :func:`pair_stats_runs`: (keys, counts,
+    first) int64, one entry per distinct key, sorted by key."""
+    live = rk != EMPTY_KEY
+    keys, inv = torch.unique(rk[live], sorted=True, return_inverse=True)
+    counts = torch.zeros(keys.shape[0], dtype=torch.int64, device=rk.device)
+    counts.scatter_add_(0, inv, rc[live])
+    first = torch.full((keys.shape[0],), 2 ** 62, dtype=torch.int64,
+                       device=rk.device)
+    first.scatter_reduce_(0, inv, rp[live].to(torch.int64), "amin")
+    return keys, counts, first
+
+
+def pair_stats_runs(rk, rc, rp, table: Optional[tuple] = None):
+    """Aggregate runs (rk int64[M] keys, EMPTY_KEY for none; rc int64[M]
+    counts; rp int32[M] positions, int64 on the CPU): per distinct key
+    the summed count and the least position, in :func:`pair_stats`'s two
+    forms (a table of at least ``table_size(M + 1)`` entries for CUDA
+    tensors, allocated when None; the sorted plain form for CPU tensors).
+    Raises for any other device.
+    """
+    dev = rk.device
+    check_tensor("rk", rk, (torch.int64,), 1, dev)
+    check_tensor("rc", rc, (torch.int64,), 1, dev)
+    check_tensor("rp", rp, (torch.int32, torch.int64), 1, dev)
+    M = rk.shape[0]
+    if rc.shape[0] != M or rp.shape[0] != M:
+        raise ValueError("pair_stats_runs: inconsistent shapes")
+    if dev.type == "cpu":
+        return pair_stats_runs_ref(rk, rc, rp)
+    if dev.type != "cuda":
+        raise ValueError(f"pair_stats_runs: no kernel for device {dev}")
+    if rp.dtype != torch.int32:
+        raise TypeError("pair_stats_runs: the kernel takes int32 positions")
+    if table is None:
+        table = alloc_table(M + 1, dev)
+    keys, counts, pos = table
+    T = keys.shape[0]
+    if (counts.shape[0] != T or pos.shape[0] != T or T < table_size(M + 1)
+            or T & (T - 1)):
+        raise ValueError(f"pair_stats_runs: bad table of {T} entries for "
+                         f"{M} runs")
+    from . import _cuda
+    with torch.cuda.device(dev):
+        _cuda.launch("swt_pair_stats_runs", rk.data_ptr(), rc.data_ptr(),
+                     rp.data_ptr(), M, keys.data_ptr(), counts.data_ptr(),
+                     pos.data_ptr(), T)
+    pair_stats_runs.launches += 1
+    return table
+
+
+pair_stats_runs.launches = 0
 
 
 def symbol_freqs_ref(fs, wgt, sym_cap: int):

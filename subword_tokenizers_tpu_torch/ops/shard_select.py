@@ -1,0 +1,287 @@
+"""The per-shard pieces of data-parallel selection (parallel/train.py).
+
+Each shard of a data mesh counts its pairs with K1 (ops/pairstats.py)
+into its own table, positions local to the shard (``row * L + j``); a
+shard adds its fixed base ``first_row * L`` to every position it reports,
+so positions order pairs across shards as one device's do. On that table:
+
+- :func:`nominate`: the shard's top ``k`` entries by count (BPE) or by
+  the exact score bits over the global symbol weights (WordPiece, the
+  scorer of ops/bitmath.py), with ``torch.topk``, and its K-th best entry
+  (metric, count, key), which bounds every pair it did not nominate;
+- :func:`lookup_runs`: each gathered candidate's local count and
+  position (kernel ``swt_lookup_runs``; the JAX package's ``_lookup_runs``
+  binary search, ``parallel/train.py:105``);
+- :func:`compact_table`: the shard's live entries as at most ``cap`` dense
+  runs and an overflow flag (kernel ``swt_compact_table``; the JAX
+  package's ``compact_cands``, ``ops/pairstats.py:162``, as its compact
+  tier uses it);
+- :func:`certificate`: the Σ-threshold certificate of the top-K tier
+  (kernel ``swt_certificate``; ``parallel/train.py:287-290`` for BPE,
+  ``:336-365`` and ``:383-400`` for WordPiece), written into the step's
+  record as its one flag read back.
+
+Every kernel is in ``csrc/shard_select.cu``. The plain versions take
+either form of K1's table (its hash table, or the sorted form of the
+plain ``pair_stats``).
+"""
+from __future__ import annotations
+
+import torch
+
+from . import check_tensor
+from .bitmath import score_bits
+from .pairstats import EMPTY_KEY
+
+POS_MAX = 2 ** 31 - 1   # the position of an absent candidate
+SCALE_BITS = 36         # the WordPiece certificate's scale, as in JAX
+SAT = 1 << 55           # its per-shard saturation
+LOW32 = 0xFFFFFFFF
+
+
+def _check_table(table, dev):
+    keys, counts, pos = table
+    check_tensor("keys", keys, (torch.int64,), 1, dev)
+    check_tensor("counts", counts, (torch.int64,), 1, dev)
+    check_tensor("pos", pos, (torch.int32, torch.int64), 1, dev)
+    T = keys.shape[0]
+    if counts.shape[0] != T or pos.shape[0] != T:
+        raise ValueError("inconsistent pair table")
+    if dev.type == "cuda" and (pos.dtype != torch.int32 or T < 2
+                               or T & (T - 1)):
+        raise ValueError("the kernels take K1's table: a power-of-two "
+                         "size and int32 positions")
+    return T
+
+
+def nominate(table, k: int, sym_freq=None):
+    """(cand int64[k], kth int64[3]) of one shard: its ``k`` best live
+    entries by count, or with ``sym_freq`` (int64 over the symbol ids, the
+    mesh's sum) by exact score bits, EMPTY_KEY past the live ones; and
+    its K-th best (metric, count, key), metric -1 when it has fewer than
+    ``k`` live entries. Tensor operations and ``torch.topk``, with the
+    scorer's kernel in WordPiece mode."""
+    keys, counts, _ = table
+    live = keys != EMPTY_KEY
+    if sym_freq is None:
+        metric = torch.where(live, counts, -1)
+    else:
+        k0 = torch.where(live, keys, 0)
+        metric = torch.where(live, score_bits(counts, sym_freq[k0 >> 32],
+                                              sym_freq[k0 & LOW32]), -1)
+    if metric.shape[0] < k:  # the plain table holds only live entries
+        pad = k - metric.shape[0]
+        metric = torch.cat([metric, metric.new_full((pad,), -1)])
+        keys = torch.cat([keys, keys.new_full((pad,), EMPTY_KEY)])
+        counts = torch.cat([counts, counts.new_zeros(pad)])
+    topv, topi = torch.topk(metric, k)
+    # A BPE count of 0 nominates nothing; every live score is positive.
+    cand = torch.where(topv > 0 if sym_freq is None else topv >= 0,
+                       keys[topi], EMPTY_KEY)
+    last = topi[k - 1]
+    kth = torch.stack([topv[k - 1], counts[last], keys[last]])
+    return cand, kth
+
+
+def lookup_runs_ref(cand, table, base: int):
+    """Plain PyTorch version of :func:`lookup_runs` (int64 positions)."""
+    keys, counts, pos = table
+    live = keys != EMPTY_KEY
+    k, order = torch.sort(keys[live])
+    c = counts[live][order]
+    p = pos[live].to(torch.int64)[order]
+    if k.numel() == 0:
+        return (torch.zeros_like(cand),
+                torch.full_like(cand, POS_MAX))
+    j = torch.searchsorted(k, cand).clamp(max=k.numel() - 1)
+    found = (k[j] == cand) & (cand != EMPTY_KEY)
+    return (torch.where(found, c[j], 0),
+            torch.where(found, p[j] + base, POS_MAX))
+
+
+def lookup_runs(cand, table, base: int):
+    """Each candidate key's local (count, position + ``base``) in one
+    shard's pair table, or (0, POS_MAX) when the key is absent or
+    EMPTY_KEY. ``cand`` int64[M]; ``table`` K1's (keys, counts, pos).
+    Returns (count int64[M], position int32[M]; int64 on the CPU).
+
+    Launches ``swt_lookup_runs`` for CUDA tensors, runs the PyTorch
+    version for CPU tensors, and raises for any other device."""
+    dev = cand.device
+    check_tensor("cand", cand, (torch.int64,), 1, dev)
+    T = _check_table(table, dev)
+    if base < 0:
+        raise ValueError(f"lookup_runs: base {base} < 0")
+    if dev.type == "cpu":
+        return lookup_runs_ref(cand, table, base)
+    if dev.type != "cuda":
+        raise ValueError(f"lookup_runs: no kernel for device {dev}")
+    M = cand.shape[0]
+    cnt = torch.empty(M, dtype=torch.int64, device=dev)
+    pos = torch.empty(M, dtype=torch.int32, device=dev)
+    keys, counts, tpos = table
+    from . import _cuda
+    with torch.cuda.device(dev):
+        _cuda.launch("swt_lookup_runs", cand.data_ptr(), M, keys.data_ptr(),
+                     counts.data_ptr(), tpos.data_ptr(), T, base,
+                     cnt.data_ptr(), pos.data_ptr())
+    lookup_runs.launches += 1
+    return cnt, pos
+
+
+lookup_runs.launches = 0
+
+
+def compact_table_ref(table, cap: int, base: int):
+    """Plain PyTorch version of :func:`compact_table` (int64 positions;
+    the live entries in table order)."""
+    keys, counts, pos = table
+    dev = keys.device
+    idx = torch.nonzero(keys != EMPTY_KEY).flatten()
+    n = idx.numel()
+    take = idx[:cap]
+    out_k = torch.full((cap,), EMPTY_KEY, dtype=torch.int64, device=dev)
+    out_c = torch.zeros(cap, dtype=torch.int64, device=dev)
+    out_p = torch.full((cap,), POS_MAX, dtype=torch.int64, device=dev)
+    m = take.numel()
+    out_k[:m] = keys[take]
+    out_c[:m] = counts[take]
+    out_p[:m] = pos[take].to(torch.int64) + base
+    return out_k, out_c, out_p, torch.tensor([int(n > cap)],
+                                             dtype=torch.int32, device=dev)
+
+
+def compact_table(table, cap: int, base: int):
+    """One shard's live pairs as at most ``cap`` dense runs: (keys int64
+    [cap], counts int64[cap], positions + ``base`` int32[cap] (int64 on
+    the CPU), overflow int32[1]); unused entries are (EMPTY_KEY, 0,
+    POS_MAX) and the overflow flag is 1 when more than ``cap`` entries
+    are live (the runs are then incomplete).
+
+    Launches ``swt_compact_table`` (two passes over tiles of 1,024
+    entries) for CUDA tensors, runs the
+    PyTorch version for CPU tensors, and raises for any other device."""
+    keys = table[0]
+    dev = keys.device
+    T = _check_table(table, dev)
+    if cap < 1 or base < 0:
+        raise ValueError(f"compact_table: cap {cap} < 1 or base {base} < 0")
+    if dev.type == "cpu":
+        return compact_table_ref(table, cap, base)
+    if dev.type != "cuda":
+        raise ValueError(f"compact_table: no kernel for device {dev}")
+    out_k = torch.empty(cap, dtype=torch.int64, device=dev)
+    out_c = torch.empty(cap, dtype=torch.int64, device=dev)
+    out_p = torch.empty(cap, dtype=torch.int32, device=dev)
+    ovf = torch.empty(1, dtype=torch.int32, device=dev)
+    tile_live = torch.empty(-(-T // 1024), dtype=torch.int32, device=dev)
+    _, counts, pos = table
+    from . import _cuda
+    with torch.cuda.device(dev):
+        _cuda.launch("swt_compact_table", keys.data_ptr(), counts.data_ptr(),
+                     pos.data_ptr(), T, cap, base, out_k.data_ptr(),
+                     out_c.data_ptr(), out_p.data_ptr(), ovf.data_ptr(),
+                     tile_live.data_ptr())
+    compact_table.launches += 1
+    return out_k, out_c, out_p, ovf
+
+
+compact_table.launches = 0
+
+
+def _bitlen(x: int) -> int:
+    return x.bit_length()
+
+
+def certificate_ref(kth, cand, g_cnt, rec, sym_freq=None,
+                    wide_score: bool = False) -> None:
+    """Plain version of :func:`certificate`, in Python integers."""
+    wordpiece = sym_freq is not None
+    rows = kth.view(-1, 3).tolist()
+    a, b, _, _, active = rec[:5].tolist()
+    key = (a << 32) | b
+    best_cnt = -1
+    if active:
+        hit = (cand == key) & (cand != EMPTY_KEY) & (g_cnt > 0)
+        if bool(hit.any()):
+            best_cnt = int(g_cnt[hit].max())
+
+    def freqs(k):
+        return int(sym_freq[k >> 32]), int(sym_freq[k & LOW32])
+
+    def unsafe(fa, fb):
+        return wide_score and _bitlen(max(fa, 1)) + _bitlen(max(fb, 1)) > 62
+
+    sum_t, any_sat = 0, False
+    for metric, c, k in rows:
+        if not wordpiece:
+            sum_t += max(metric, 0)
+            continue
+        if metric < 0:
+            continue
+        c = max(c, 0)
+        fa, fb = freqs(k)
+        bad = unsafe(fa, fb)
+        if bad:
+            fa = fb = c = 1
+        q = (c << SCALE_BITS) // max(fa * fb, 1)
+        t = q + (q >> 50) + 2
+        any_sat = any_sat or t >= SAT or bad
+        sum_t += min(t, SAT)
+    if not wordpiece:
+        proven = best_cnt > sum_t or sum_t == 0
+    else:
+        fa, fb = freqs(key)
+        bad = unsafe(fa, fb)
+        if bad:
+            fa = fb = 1
+        lhs = (max(best_cnt, 0) << SCALE_BITS) // max(fa * fb, 1)
+        proven = (lhs > sum_t + (sum_t >> 50) + 2 and not any_sat
+                  and not bad) or sum_t == 0
+    rec[5] = int(proven)
+
+
+def certificate(kth, cand, g_cnt, rec, sym_freq=None,
+                wide_score: bool = False) -> None:
+    """Write the top-K tier's ``proven`` flag into ``rec[5]``.
+
+    ``kth`` int64[3 * D]: each shard's K-th best (metric, count, key)
+    (:func:`nominate`); ``cand``/``g_cnt`` int64[M]: the gathered
+    candidates and their summed counts; ``rec`` int32[6]: K2's record of
+    the winner over them (a, b, active). BPE (``sym_freq`` None): proven
+    when the winner's count exceeds Σ max(metric_i, 0), or that sum is
+    0 (every run everywhere was nominated). WordPiece (``sym_freq`` the
+    summed symbol weights): each shard's bound t_i = min(q + (q >> 50) +
+    2, 2^55), q = (c << 36) // (fa fb) of its K-th entry; proven when
+    (count << 36) // (fa fb) of the winner exceeds Σ t_i + (Σ t_i >> 50)
+    + 2 and no shard saturated, or Σ t_i == 0; with ``wide_score`` a
+    denominator of more than 62 bits vetoes (K-th entries and winner).
+    Exact where the JAX package's int64 arithmetic does not overflow.
+
+    Launches ``swt_certificate`` for CUDA tensors, runs the Python
+    version for CPU tensors, and raises for any other device."""
+    dev = kth.device
+    check_tensor("kth", kth, (torch.int64,), 1, dev)
+    check_tensor("cand", cand, (torch.int64,), 1, dev)
+    check_tensor("g_cnt", g_cnt, (torch.int64,), 1, dev)
+    check_tensor("rec", rec, (torch.int32,), 1, dev)
+    if sym_freq is not None:
+        check_tensor("sym_freq", sym_freq, (torch.int64,), 1, dev)
+    if (kth.shape[0] % 3 or kth.shape[0] == 0 or rec.shape[0] != 6
+            or g_cnt.shape[0] != cand.shape[0]):
+        raise ValueError("certificate: inconsistent shapes")
+    if dev.type == "cpu":
+        return certificate_ref(kth, cand, g_cnt, rec, sym_freq, wide_score)
+    if dev.type != "cuda":
+        raise ValueError(f"certificate: no kernel for device {dev}")
+    from . import _cuda
+    with torch.cuda.device(dev):
+        _cuda.launch("swt_certificate", kth.data_ptr(), kth.shape[0] // 3,
+                     cand.data_ptr(), g_cnt.data_ptr(), cand.shape[0],
+                     rec.data_ptr(),
+                     sym_freq.data_ptr() if sym_freq is not None else None,
+                     int(sym_freq is not None), int(wide_score))
+    certificate.launches += 1
+
+
+certificate.launches = 0

@@ -519,6 +519,19 @@ def run_fused(state: FlatState, table, max_vocab: int, max_len: int,
         return state.padded()
 
 
+def select_host_ids(keys, counts, pos, rec, sym_freq=None) -> None:
+    """K2's selection only, over a pair table (either form of
+    ops/pairstats.pair_stats): ``rec`` gets (a, b, -1, 0, active) of the
+    pair of largest count, or with ``sym_freq`` of largest exact score,
+    then least position; active = the metric is positive."""
+    dev = keys.device
+    empty = torch.zeros(1, dtype=torch.int64, device=dev)
+    ctrl = torch.zeros(3, dtype=torch.int32, device=dev)
+    select_unify(keys, counts, pos, empty, empty, empty, ctrl, empty, empty,
+                 0, rec, host_ids=True, wordpiece=sym_freq is not None,
+                 sym_freq=sym_freq)
+
+
 def step_host_ids(state: FlatState, table, rec,
                   wordpiece: bool = False) -> Optional[Tuple[str, str, str]]:
     """One exact per-step merge: K1, K2 selection only, interning on the
@@ -526,13 +539,8 @@ def step_host_ids(state: FlatState, table, rec,
     no pair is left (nothing is merged then). With ``wordpiece`` the
     caller has counted ``state.sym_freq`` (:meth:`FlatState.count_symbols`)
     and K3 carries it."""
-    keys, counts, pos = state.pairs()
-    dev = state.device
-    empty = torch.zeros(1, dtype=torch.int64, device=dev)
-    ctrl = torch.zeros(3, dtype=torch.int32, device=dev)
-    select_unify(keys, counts, pos, empty, empty, empty, ctrl, empty, empty,
-                 0, rec, host_ids=True, wordpiece=wordpiece,
-                 sym_freq=state.sym_freq)
+    select_host_ids(*state.pairs(), rec, state.sym_freq if wordpiece
+                    else None)
     a, b, _, _, active = rec[:ACTIVE + 1].tolist()
     if not active:
         return None

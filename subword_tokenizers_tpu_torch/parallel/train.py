@@ -1,0 +1,264 @@
+"""Data-parallel training: word types shard across a mesh, and each
+merge is chosen by an exact, deterministic reduction over the shards,
+equal to one device's choice (the JAX package's ``parallel/train.py``).
+
+Each shard holds the padded state of its block of rows
+(ops/train_loop.PaddedState): K1 counts its pairs into its own table at
+local positions ``row * L + j``, and the shard adds its fixed base
+``first_row * L``, so positions order pairs across shards exactly as the
+padded layout of one device does, and never move as words shrink. Rows
+are padded to a multiple of the mesh size with all-PAD, zero-weight rows
+at the end (:func:`shard_corpus`).
+
+A step picks its merge through three exact tiers, as in the JAX package:
+
+1. **top-K** (:func:`sharded_select_topk`): every shard nominates its
+   ``TOPK`` best entries by local count (BPE) or local exact score over
+   the global symbol weights (WordPiece); the K·D candidates are
+   gathered, each shard looks up its local (count, position) for every
+   one, the mesh sums the counts and takes the least positions, K2 picks
+   the winner among them, and a Σ-threshold certificate proves that no
+   pair outside the candidates can win (ops/shard_select.py). The flag
+   is the one value read back;
+2. **compact** (:func:`sharded_select_compact`): every shard compacts its
+   table into at most ``cap`` runs (:func:`run_gather_cap`), the runs are
+   gathered and aggregated again by K1's runs mode, and K2 picks; exact
+   unless a shard had more than ``cap`` runs;
+3. **full** (:func:`sharded_select_full`): every shard's rows are
+   gathered and K1 and K2 run over them.
+
+WordPiece's symbol weights are K4 per shard, then summed
+(:func:`sharded_sym_freq`). The merge is K3p on every shard
+(:func:`sharded_apply_merge`). The port scores each shard's whole table,
+so the JAX package's candidate cap (``c_ovf``) never vetoes a
+certificate here: the tier counts may differ from the JAX package's for
+WordPiece, the merges do not.
+"""
+from __future__ import annotations
+
+from typing import List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..ops.merge import apply_merge
+from ..ops.pairstats import alloc_table, pair_stats_runs
+from ..ops.shard_select import (certificate, compact_table, lookup_runs,
+                                nominate)
+from ..ops.train_loop import PaddedState, select_host_ids
+from .mesh import DataMesh
+
+# Candidates nominated per shard per step, as in the JAX package.
+TOPK = 256
+
+FLAG = 5  # the record column of a tier's flag: proven / exact / 1
+
+
+def run_gather_cap(n_local_pairs: int) -> int:
+    """Distinct-run cap of the compact tier: a quarter of the local pair
+    slots, at least 1,024, rounded up to 256 and at most the slots (the
+    JAX package's ``run_gather_cap``)."""
+    cap = max(n_local_pairs // 4, 1024)
+    return min(-(-cap // 256) * 256, max(n_local_pairs, 1))
+
+
+class ShardedCorpus:
+    """The padded training state of this process's shards of ``mesh``:
+    ``shards[i]`` (a PaddedState on ``mesh.devices[i]``) holds rows
+    ``(mesh.first + i) * rows`` on, and its positions start at
+    ``bases[i]``. ``n_real`` is the number of rows before padding."""
+
+    def __init__(self, mesh: DataMesh, sym: np.ndarray,
+                 freq: np.ndarray) -> None:
+        D = mesh.size
+        sym = np.asarray(sym, dtype=np.int32)
+        freq = np.asarray(freq, dtype=np.int64)
+        self.n_real, L = sym.shape
+        pad = (-self.n_real) % D
+        L = max(L, 2)  # K1 needs two slots; PAD changes nothing
+        if (self.n_real + pad) * L >= 2 ** 31:
+            raise ValueError("shard_corpus: positions must stay below 2**31")
+        full = np.full((self.n_real + pad, L), -1, dtype=np.int32)
+        full[:self.n_real, :sym.shape[1]] = sym
+        self.freq = np.concatenate([freq, np.zeros(pad, dtype=np.int64)])
+        self.mesh = mesh
+        self.L = L
+        self.rows = full.shape[0] // D
+        self.shards: List[PaddedState] = []
+        self.bases: List[int] = []
+        for i, dev in enumerate(mesh.devices):
+            lo = (mesh.first + i) * self.rows
+            self.shards.append(PaddedState(full[lo:lo + self.rows],
+                                           self.freq[lo:lo + self.rows],
+                                           dev))
+            self.bases.append(lo * L)
+        self._full: Optional[PaddedState] = None
+        self._runs_table = None
+
+    @property
+    def n_local_pairs(self) -> int:
+        """Pair slots of one shard, as the JAX package counts them."""
+        return self.rows * (self.L - 1)
+
+    def full_state(self, sym: torch.Tensor) -> PaddedState:
+        """A PaddedState over every row of the mesh, holding ``sym``
+        (the gathered rows, on ``mesh.home``)."""
+        if self._full is None:
+            self._full = PaddedState(
+                np.full((self.freq.shape[0], self.L), -1, dtype=np.int32),
+                self.freq, self.mesh.home)
+        self._full.sym = sym
+        return self._full
+
+    def runs_table(self, M: int):
+        """K1's runs-mode table for the M runs the compact tier gathers
+        (always as many) on ``mesh.home``; None on the CPU, whose plain
+        version allocates."""
+        if self._runs_table is None and self.mesh.home.type == "cuda":
+            self._runs_table = alloc_table(M + 1, self.mesh.home)
+        return self._runs_table
+
+    def host(self) -> np.ndarray:
+        """Every shard's rows on the host, without the padding rows (the
+        JAX package's ``fetch_global``)."""
+        from .distributed import fetch_global
+        return fetch_global([s.sym for s in self.shards],
+                            self.mesh)[:self.n_real]
+
+
+def shard_corpus(mesh: DataMesh, sym: np.ndarray,
+                 freq: np.ndarray) -> ShardedCorpus:
+    """Pad the rows to a multiple of the mesh size (all-PAD, weight 0, at
+    the end: no pairs, and the real rows keep their positions) and place
+    this process's blocks on their devices."""
+    return ShardedCorpus(mesh, sym, freq)
+
+
+def sharded_sym_freq(corpus: ShardedCorpus, sym_cap: int) -> torch.Tensor:
+    """WordPiece's symbol weights over the whole mesh: K4 per shard,
+    then the mesh's sum (the JAX package's ``_local_sym_freq``)."""
+    for s in corpus.shards:
+        s.count_symbols(sym_cap)
+    return corpus.mesh.sum([s.sym_freq for s in corpus.shards])
+
+
+def sharded_select_topk(corpus: ShardedCorpus, tables, rec,
+                        sym_freq=None, wide_score: bool = False,
+                        topk: int = TOPK) -> None:
+    """The top-K tier: ``rec`` gets K2's winner over the gathered
+    candidates (a, b, active) and, in ``rec[5]``, the certificate's
+    proven flag. ``tables`` are the shards' K1 tables; ``sym_freq`` (on
+    ``mesh.home``) selects WordPiece. Replaces the JAX package's
+    ``sharded_bpe_select_topk`` and ``sharded_wp_select_topk``."""
+    mesh = corpus.mesh
+    k = min(topk, corpus.n_local_pairs)
+    picks = [nominate(t, k, None if sym_freq is None
+                      else sym_freq.to(s.device))
+             for s, t in zip(corpus.shards, tables)]
+    cand = mesh.gather([c for c, _ in picks])
+    kth = mesh.gather([t for _, t in picks])
+    looked = [lookup_runs(cand.to(s.device), t, base)
+              for s, t, base in zip(corpus.shards, tables, corpus.bases)]
+    g_cnt = mesh.sum([c for c, _ in looked])
+    g_pos = mesh.amin([p for _, p in looked])
+    select_host_ids(cand, g_cnt, g_pos, rec, sym_freq)
+    certificate(kth, cand, g_cnt, rec, sym_freq, wide_score)
+
+
+def sharded_select_compact(corpus: ShardedCorpus, tables, rec, cap: int,
+                           sym_freq=None) -> None:
+    """The compact tier: ``rec`` gets K2's winner over the aggregated
+    runs of every shard and, in ``rec[5]``, 1 when no shard had more than
+    ``cap`` runs (the answer is then exact). Replaces the JAX package's
+    ``sharded_bpe_select_compact`` and ``sharded_wp_select_compact``."""
+    mesh = corpus.mesh
+    cap = min(cap, corpus.n_local_pairs)
+    runs = [compact_table(t, cap, base)
+            for t, base in zip(tables, corpus.bases)]
+    gk, gc, gp = (mesh.gather([r[j] for r in runs]) for j in range(3))
+    agg = pair_stats_runs(gk, gc, gp, table=corpus.runs_table(gk.shape[0]))
+    select_host_ids(*agg, rec, sym_freq)
+    rec[FLAG:].copy_(1 - mesh.any([r[3] for r in runs]))
+
+
+def sharded_select_full(corpus: ShardedCorpus, rec, sym_freq=None) -> None:
+    """The full tier: every shard's rows gathered, then K1 and K2 over
+    them. ``rec[5]`` = 1. Replaces the JAX package's
+    ``sharded_bpe_select`` and ``sharded_wp_select``."""
+    mesh = corpus.mesh
+    state = corpus.full_state(mesh.gather([s.sym for s in corpus.shards]))
+    select_host_ids(*state.pairs(), rec, sym_freq)
+    rec[FLAG] = 1
+
+
+def sharded_apply_merge(corpus: ShardedCorpus, a: int, b: int,
+                        new_id: int) -> None:
+    """Merge (a, b) into ``new_id`` on every shard: K3p, row-local, with
+    no traffic between shards."""
+    host = torch.tensor([a, b, new_id, 0, 1, 0], dtype=torch.int32)
+    recs = {}
+    for s in corpus.shards:
+        rec = recs.get(s.device)
+        if rec is None:
+            rec = recs[s.device] = host.to(s.device)
+        apply_merge(s.sym, rec)
+
+
+class ShardedTrainer:
+    """The per-step loop of training under a mesh, for the models: a
+    tiered selection and the merge on every shard, counting which tier
+    settled each step in ``sel_stats`` and the steps the certificate did
+    not settle in ``topk_fallbacks``. ``force_tier`` ('compact' or
+    'full') pins the selection to that exact tier."""
+
+    def __init__(self, mesh: DataMesh, sym: np.ndarray, freq: np.ndarray,
+                 sym_cap: Optional[int] = None, wide_score: bool = False,
+                 force_tier: Optional[str] = None) -> None:
+        if force_tier not in (None, "compact", "full"):
+            raise ValueError(f"_force_tier must be 'compact' or 'full', "
+                             f"got {force_tier!r}")
+        self.corpus = shard_corpus(mesh, sym, freq)
+        # The JAX package's estimate of the local pair slots, padding
+        # included.
+        n_dev = mesh.size
+        n_pos = (sym.shape[0] + n_dev) * max(sym.shape[1] - 1, 1)
+        self.run_cap = run_gather_cap(n_pos // n_dev)
+        self.sym_cap = sym_cap  # WordPiece: the size of K4's table
+        self.wide_score = wide_score
+        self.force_tier = force_tier
+        self.sel_stats = {"proven": 0, "compact": 0, "full": 0}
+        self.topk_fallbacks = 0
+        self.rec = torch.zeros(6, dtype=torch.int32, device=mesh.home)
+
+    def select(self) -> Optional[Tuple[int, int]]:
+        """The next merge's (a, b), or None when no pair is left."""
+        corpus, rec = self.corpus, self.rec
+        tables = [s.pairs() for s in corpus.shards] \
+            if self.force_tier != "full" else None
+        sym_freq = None if self.sym_cap is None else \
+            sharded_sym_freq(corpus, self.sym_cap)
+        if self.force_tier is None:
+            sharded_select_topk(corpus, tables, rec, sym_freq,
+                                self.wide_score)
+            a, b, _, _, active, proven = rec.tolist()
+            if proven:
+                self.sel_stats["proven"] += 1
+                return (a, b) if active else None
+            self.topk_fallbacks += 1
+        if self.force_tier != "full":
+            sharded_select_compact(corpus, tables, rec, self.run_cap,
+                                   sym_freq)
+            a, b, _, _, active, exact = rec.tolist()
+            if exact:
+                self.sel_stats["compact"] += 1
+                return (a, b) if active else None
+        self.sel_stats["full"] += 1
+        sharded_select_full(corpus, rec, sym_freq)
+        a, b, _, _, active, _ = rec.tolist()
+        return (a, b) if active else None
+
+    def merge(self, a: int, b: int, new_id: int) -> None:
+        sharded_apply_merge(self.corpus, a, b, new_id)
+
+    def host(self) -> np.ndarray:
+        return self.corpus.host()
