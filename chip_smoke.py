@@ -102,7 +102,21 @@ WordPiece vocab ``tests/golden/port_t85k_fastwp_vocab.json``:
 15. the process-group route: ``torch.distributed`` with NCCL at world
    size 1 (NCCL takes one rank per GPU), a TCP store on localhost, an
    8-shard process-group mesh on the card, NaiveBPE to 578 equal to the
-   golden, the coordinator and ``fetch_global``.
+   golden, the coordinator and ``fetch_global``;
+16. the gather probe (``subword_tokenizers_tpu_torch.tools.gather_probe``,
+   the port of the TPU probe ``tools/pallas_probe.py``): its ``main`` on
+   the card, then its three kernels (a 2-D gather, a chain of 128
+   dependent gathers through the caches and from shared memory) against
+   their plain versions, exactly, with their times, the marginal time of
+   one dependent iteration, the loops' latency bound, and kernel 1's
+   slowest row on the corpus at each mode's iteration time;
+17. the CLI (``python3 -m subword_tokenizers_tpu_torch.cli``) at full
+   width in a temporary directory: ``--train`` of the four models on the
+   whole corpus to 8,000 (the saved merges and vocabs equal the goldens),
+   ``--tokenize`` of the corpus file (each model's digest equals the JAX
+   package's; FastWordPiece with the 8,043-token vocab), the pretrained
+   ``--benchmark`` of the corpus and ``--compare`` on its first 2,000
+   sentences (equal to the CPU path's report), each step's launches.
 
 Each phase prints one line; any failure raises. The line before the last
 is the kernels' JSON record, the last ``{"ok": true, "device": ...}``.
@@ -1078,14 +1092,16 @@ def phase13(dev, rng, arrays, table, arrays_wp, table_wp, golden,
     # entry per lookup. Operations, counted low: a hash and a compare per
     # lookup (10), a test and a scan step per table entry (4), a hash
     # insert per run (10), a restoring division per shard (128 x 4) and
-    # a compare per candidate.
+    # a compare per candidate; torch.topk reads the metric once, writes
+    # its values and indices (int64 each) and compares once an entry.
     bounds = {
         "lookup_runs": bound(nbytes(cand) + 12 * M + visited(M, 20, *t0),
                              10 * M),
         "compact_table": bound(nbytes(*t0) + 20 * cap + 4, 4 * T),
         "pair_stats_runs": bound(nbytes(gk, gc, gp, *agg), 10 * M),
         "certificate": bound(nbytes(kth, cand, g_cnt, rec),
-                             512 * 8 + 2 * M)}
+                             512 * 8 + 2 * M),
+        "topk": bound(nbytes(metric) + 16 * ptrain.TOPK, T)}
     notes.update(T=T, live=n_live0, cap=cap, M=M, runs=gk.shape[0])
     torch.cuda.synchronize()
     print(f"phase 13: the shard kernels equal their plain versions exactly "
@@ -1100,7 +1116,7 @@ def phase13(dev, rng, arrays, table, arrays_wp, table_wp, golden,
               f"{k} {timing[k][0]:.4f} ms (plain {timing[k][1]:.3f}, bound "
               f"{bounds[k][0]:.4f})" for k in names)
           + f"; torch.topk of {ptrain.TOPK} over T {timing['topk'][0]:.4f} "
-          f"ms; {smi}")
+          f"ms (bound {bounds['topk'][0]:.5f}); {smi}")
     return errs, timing, bounds, notes
 
 
@@ -1286,6 +1302,300 @@ def phase15(dev, corpus, golden, anchor, smi, max_vocab=578,
           f"process_count 1 and fetch_global checked; launches {counts}; "
           f"{smi}")
     return counts
+
+
+def phase16(dev, scan_args, scan_params, smi, seed=SEED):
+    """Phase 16: the gather probe (``tools/gather_probe.py``). Its
+    ``main`` runs on the card with the launch counts zeroed just before;
+    then its three kernels (``gather_take2d``, ``gather_loop`` global and
+    shared) against their plain versions on the card, exactly, on the
+    probe's inputs from three seeds and on int32 edge cases; their times
+    by CUDA events, the marginal time of one dependent iteration of each
+    loop mode (the slope from 128 to 1,152 iterations), their byte
+    bounds and the loops' latency bound (128 iterations at that slope);
+    and kernel 1's slowest row on the corpus (``scan_args`` at
+    ``scan_params``: its count of steps, found by the plain scan) times
+    each mode's iteration. Returns (errs, timing, bounds, library,
+    launches, notes)."""
+    import contextlib
+    import io
+    import numpy as np
+    import torch
+    from subword_tokenizers_tpu_torch.ops.wp_encode_e2e import \
+        wp_e2e_scan_ref
+    from subword_tokenizers_tpu_torch.tools import gather_probe as gp
+    names = ("gather_take2d", "gather_loop", "gather_loop_shared")
+    gp.gather_take2d.launches = 0
+    gp.gather_loop.launches = gp.gather_loop.shared_launches = 0
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        res = gp.main(["--seed", str(seed)], device=dev)
+    launches = {"gather_take2d": gp.gather_take2d.launches,
+                "gather_loop": gp.gather_loop.launches,
+                "gather_loop_shared": gp.gather_loop.shared_launches}
+    if not all(launches.values()):
+        raise AssertionError(f"the probe launched no kernel: {launches}")
+    if not all(res[k]["correct"] for k in ("take2d", "loop_global",
+                                           "loop_shared")):
+        raise AssertionError(f"the probe's main found a difference:\n"
+                             f"{buf.getvalue()}")
+
+    errs = dict.fromkeys(names, 0)
+    n_cases = 0
+
+    def check_loop(tab, idx, iters):
+        nonlocal n_cases
+        want = gp.gather_loop_ref(tab, idx, iters)
+        for shared, key in ((False, "gather_loop"),
+                            (True, "gather_loop_shared")):
+            errs[key] = max(errs[key], max_err(
+                gp.gather_loop(tab, idx, iters, shared), want))
+        n_cases += 1
+
+    for s in (seed, 1, 2):
+        tab, idx, col = (torch.from_numpy(a).to(dev)
+                         for a in gp.take_inputs(s))
+        errs["gather_take2d"] = max(errs["gather_take2d"], max_err(
+            gp.gather_take2d(tab, idx, col),
+            gp.gather_take2d_ref(tab, idx, col)))
+        check_loop(*(torch.from_numpy(a).to(dev) for a in gp.loop_inputs(s)),
+                   gp.LOOP_ITERS)
+    # int32 edges: indices outside the table; full-range values through
+    # the run-time divisor (N = 97) and the compile-time one (N = 50,000)
+    rng = np.random.default_rng(seed)
+    edge = torch.tensor([-1, 4096, 0, 2 ** 31 - 1], dtype=torch.int32,
+                        device=dev)
+    errs["gather_take2d"] = max(errs["gather_take2d"], max_err(
+        gp.gather_take2d(tab, edge, edge.flip(0).clamp(max=127)),
+        gp.gather_take2d_ref(tab, edge, edge.flip(0).clamp(max=127))))
+    for N in (97, gp.LOOP_N_TAB):
+        full = (torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, size=n,
+                                              dtype=np.int32)).to(dev)
+                for n in (N, 3000))
+        check_loop(*full, 40)
+    if any(errs.values()):
+        raise AssertionError(f"a probe kernel differs: {errs}")
+
+    tab, idx, col = (torch.from_numpy(a).to(dev)
+                     for a in gp.take_inputs(seed))
+    ltab, lidx = (torch.from_numpy(a).to(dev) for a in gp.loop_inputs(seed))
+    idx64, col64 = idx.long(), col.long()
+    long_iters = 9 * gp.LOOP_ITERS
+    timing = {"gather_take2d": (
+        cuda_ms(lambda: gp.gather_take2d(tab, idx, col), 200, True),
+        cuda_ms(lambda: gp.gather_take2d_ref(tab, idx, col), 20))}
+    per_iter = {}
+    for key, shared in (("gather_loop", False),
+                        ("gather_loop_shared", True)):
+        timing[key] = (
+            cuda_ms(lambda: gp.gather_loop(ltab, lidx, shared=shared), 200,
+                    True),
+            cuda_ms(lambda: gp.gather_loop_ref(ltab, lidx), 3))
+        t_long = cuda_ms(lambda: gp.gather_loop(ltab, lidx, long_iters,
+                                                shared), 50, True)
+        per_iter[key] = (t_long - timing[key][0]) / (long_iters
+                                                     - gp.LOOP_ITERS)
+    library = {"gather_take2d": cuda_ms(lambda: tab[idx64, col64], 200,
+                                        True)}
+    # Bytes: the indices read and the output written once, and one
+    # 4-byte entry of the table per gather, never more than the whole
+    # table. Operations, counted low: a gather; for the loop, two adds
+    # and two remainders an iteration.
+    n_take, n_lane = idx.shape[0], lidx.shape[0]
+    n_visit = n_lane * gp.LOOP_ITERS
+    loop_bound = bound(nbytes(lidx) * 2 + visited(n_visit, 4, ltab),
+                       4 * n_visit)
+    bounds = {"gather_take2d": bound(nbytes(idx, col) + 4 * n_take
+                                     + visited(n_take, 4, tab), n_take),
+              "gather_loop": loop_bound, "gather_loop_shared": loop_bound}
+    latency = {k: gp.LOOP_ITERS * per_iter[k] for k in per_iter}
+
+    # kernel 1's slowest row: the fewest steps after which no row runs
+    cap, max_steps, unk_ovf = scan_params
+    lo, hi = 0, int(max_steps)
+    while lo < hi:
+        mid = (lo + hi) // 2
+        stuck = wp_e2e_scan_ref(*scan_args, cap, mid, unk_ovf)[3]
+        if bool(stuck.any()):
+            lo = mid + 1
+        else:
+            hi = mid
+    k1_steps = lo
+    k1_latency = {k: k1_steps * per_iter[k] for k in per_iter}
+    notes = {"per_iter_ms": per_iter, "latency_bound_ms": latency,
+             "k1_steps": k1_steps, "k1_latency_ms": k1_latency,
+             "cases": n_cases, "probe_main": res}
+    torch.cuda.synchronize()
+    print(f"phase 16: the gather probe's main on the card (launches "
+          f"{launches}): " + "; ".join(ln.rsplit(" (", 1)[0] for ln in
+                                       buf.getvalue().splitlines())
+          + f"; the three kernels equal their plain versions exactly on "
+          f"{n_cases} loop cases and 4 take cases (3 seeds, int32 edges); "
+          f"take2d {timing['gather_take2d'][0] * 1e3:.3f} us (plain "
+          f"{timing['gather_take2d'][1] * 1e3:.3f}, tab[idx, col] "
+          f"{library['gather_take2d'] * 1e3:.3f}, bound "
+          f"{bounds['gather_take2d'][0] * 1e3:.4f}); " + "; ".join(
+              f"{k} {timing[k][0] * 1e3:.3f} us a call (plain "
+              f"{timing[k][1]:.3f} ms), {per_iter[k] * 1e6:.2f} ns a "
+              f"dependent iteration (marginal), latency bound "
+              f"{latency[k] * 1e3:.3f} us, byte bound "
+              f"{bounds[k][0] * 1e3:.4f} us" for k in per_iter)
+          + f"; kernel 1's slowest row on the corpus takes {k1_steps} steps: "
+          + ", ".join(f"{k1_latency[k] * 1e3:.3f} us at the {k} rate"
+                      for k in per_iter) + f"; {smi}")
+    return errs, timing, bounds, library, launches, notes
+
+
+def cli_kernels():
+    """{name: wrapper} of the encode and training kernels of slices 1-4,
+    which the CLI's steps launch: kernels 1 and 2, K1-K6. Each wrapper's
+    ``launches`` counts its kernel's launches."""
+    from subword_tokenizers_tpu_torch.ops.bpe_encode import bpe_encode
+    from subword_tokenizers_tpu_torch.ops.fetch import compact_ids
+    from subword_tokenizers_tpu_torch.ops.flat import merge_apply
+    from subword_tokenizers_tpu_torch.ops.pairstats import (pair_stats,
+                                                            symbol_freqs)
+    from subword_tokenizers_tpu_torch.ops.train_loop import select_unify
+    from subword_tokenizers_tpu_torch.ops.wp_encode import wp_match_encode
+    from subword_tokenizers_tpu_torch.ops.wp_encode_e2e import wp_e2e_scan
+    return {"wp_e2e_scan": wp_e2e_scan, "compact_ids": compact_ids,
+            "pair_stats": pair_stats, "select_unify": select_unify,
+            "merge_apply": merge_apply, "symbol_freqs": symbol_freqs,
+            "bpe_encode": bpe_encode, "wp_match_encode": wp_match_encode}
+
+
+CLI_MODELS = ("NaiveBPE", "FastBPE", "NaiveWordPiece", "FastWordPiece")
+# The kernels each step of phase 17 must launch.
+CLI_MUST = {
+    "train": ("pair_stats", "select_unify", "merge_apply", "symbol_freqs"),
+    "tokenize": ("wp_e2e_scan", "compact_ids", "bpe_encode",
+                 "wp_match_encode"),
+    "benchmark": ("wp_e2e_scan", "compact_ids", "bpe_encode",
+                  "wp_match_encode"),
+}
+
+
+def phase17(dev, corpus, golden, wp_golden, want_sha, fast_vocab, smi,
+            max_vocab=8000, n_compare=2000):
+    """Phase 17: the CLI (``python3 -m subword_tokenizers_tpu_torch.cli``,
+    its ``main`` on ``dev``) at full width, in a temporary working
+    directory: the four models trained on all of ``corpus`` to
+    ``max_vocab`` and saved (BPE's merges equal to ``golden``,
+    WordPiece's vocab to ``wp_golden``); then, with FastWordPiece's
+    resources replaced by ``fast_vocab``, the whole corpus tokenized from
+    the file (each model's token lists' sha256 equal to ``want_sha``),
+    the pretrained benchmark of the whole corpus, and ``--compare`` on
+    its first ``n_compare`` sentences, whose report must equal the CPU
+    path's. Each step's stdout is captured, its wall and launches
+    printed. Returns {step: launches}."""
+    import contextlib
+    import io
+    import torch
+    from subword_tokenizers_tpu_torch import cli
+    kernels = cli_kernels()
+    models = list(CLI_MODELS)
+    lines, by_step = [], {}
+    cwd = os.getcwd()
+
+    def step(name, argv, device=dev):
+        zero_counts(kernels)
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            cli.main(argv, device=device)
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {k: v for k, v in read_counts(kernels).items() if v}
+        if device is dev:
+            missing = [k for k in CLI_MUST.get(name, ())
+                       if not counts.get(k)]
+            if missing:
+                raise AssertionError(f"CLI step {name} launched no "
+                                     f"{missing}: {counts}")
+            by_step[name] = counts
+        return buf.getvalue(), wall, counts
+
+    with tempfile.TemporaryDirectory() as d:
+        os.chdir(d)
+        try:
+            with open("corpus.json", "w", encoding="utf-8") as f:
+                json.dump(corpus, f, ensure_ascii=False)
+            with open("head.json", "w", encoding="utf-8") as f:
+                json.dump(corpus[:n_compare], f, ensure_ascii=False)
+            out, wall, counts = step("train", [
+                "--model", *models, "--train", "corpus.json", "--max_vocab",
+                str(max_vocab), "--save", "p17"])
+            res = os.path.join("resources", "p17")
+            for m in models:
+                is_bpe = m.endswith("BPE")
+                with open(os.path.join(res, m, "merges.json" if is_bpe
+                                       else "vocab.json"),
+                          encoding="utf-8") as f:
+                    saved = json.load(f)
+                if (saved != [list(p) for p in golden] if is_bpe
+                        else sorted(saved) != wp_golden):
+                    raise AssertionError(f"CLI --train: {m}'s saved "
+                                         "resources differ from the golden")
+            lines.append(f"--train {wall:.3f} s (resources equal the "
+                         f"goldens), launches {counts}")
+
+            with open(os.path.join(res, "FastWordPiece", "vocab.json"), "w",
+                      encoding="utf-8") as f:
+                json.dump(fast_vocab, f, ensure_ascii=False)
+            out, wall, counts = step("tokenize", [
+                "--model", *models, "--pretrained", "p17", "--tokenize",
+                "corpus.json"])
+            n_lines = out.count("\n")
+            with open("corpus.tokens.json", encoding="utf-8") as f:
+                toks = json.load(f)
+            bad = [m for m in models if digest(toks[m]) != want_sha[m]]
+            if bad or list(toks) != models:
+                raise AssertionError(f"CLI --tokenize: {bad} differ from "
+                                     "the JAX digests")
+            toks = out = None
+            lines.append(f"--tokenize {wall:.3f} s ({n_lines} lines "
+                         f"printed; four digests equal), launches {counts}")
+
+            out, wall, counts = step("benchmark", [
+                "--model", *models, "--pretrained", "p17", "--benchmark",
+                "corpus.json"])
+            report = [ln.split()[-2] if ln.startswith("Throughput:")
+                      else ln.split()[-1] if ln.startswith("Total time:")
+                      else ln.split()[-2]
+                      for ln in out.splitlines() if ln.startswith((
+                          "=== Tokenization Metrics for", "Throughput:",
+                          "Total time:"))]
+            if len(report) != 3 * len(models):
+                raise AssertionError(f"CLI --benchmark report:\n{out}")
+            lines.append(f"--benchmark {wall:.3f} s (batch time and "
+                         "throughput the report prints: " + "; ".join(
+                             f"{n} {t}, {r} tokens/s" for n, t, r in zip(
+                                 *(iter(report),) * 3))
+                         + f"), launches {counts}")
+
+            argv = ["--model", *models, "--pretrained", "p17",
+                    "--benchmark", "head.json", "--compare"]
+            out, wall, counts = step("compare", argv)
+            cpu_out, cpu_wall, _ = step("compare", argv, device="cpu")
+            if out != cpu_out or "Token Sequence Equivalence" not in out:
+                raise AssertionError("CLI --compare: the card's report "
+                                     "differs from the CPU path's")
+            rates = [" ".join(ln.split()) for ln in out.splitlines()
+                     if "match rate" in ln]
+            lines.append(f"--compare on {n_compare} sentences {wall:.3f} s, "
+                         f"equal to the CPU path's ({cpu_wall:.3f} s): "
+                         + "; ".join(rates))
+        finally:
+            os.chdir(cwd)
+    launched = set().union(*by_step.values())
+    missing = [k for k in kernels if k not in launched]
+    if missing:
+        raise AssertionError(f"phase 17 launched no {missing}")
+    print(f"phase 17: the CLI at full width ({', '.join(models)}; all "
+          f"{len(corpus)} sentences, vocab {max_vocab}): "
+          + "; ".join(lines) + f"; {smi}")
+    return by_step
 
 
 def main() -> int:
@@ -2440,6 +2750,26 @@ def main() -> int:
     # ---- phase 15: torch.distributed, NCCL at world size 1
     by_group = phase15(dev, corpus, golden, anchor, smi)
 
+    # ---- phase 16: the gather probe (the TPU probe's port)
+    (errs16, timing16, bounds16, library16, probe_launches,
+     notes16) = phase16(dev, scan_args, params, smi)
+    errs.update(errs16)
+    timing.update(timing16)
+    bounds.update(bounds16)
+    library.update(library16)
+
+    # ---- phase 17: the CLI at full width
+    want_sha = {
+        "NaiveBPE": expect_enc["NaiveBPE_golden"]["full_sha256"],
+        "FastBPE": expect_enc["FastBPE_golden"]["full_sha256"],
+        "NaiveWordPiece": expect_enc["NaiveWP_golden"]["full_sha256"],
+        "FastWordPiece": expect["full_sha256"]}
+    with open(os.path.join(GOLDEN, "port_t85k_fastwp_vocab.json"),
+              encoding="utf-8") as f:
+        fast_vocab = json.load(f)
+    by_cli = phase17(dev, corpus, golden, wp_vocab, want_sha, fast_vocab,
+                     smi)
+
     record = {"kernels": [
         {"name": "wp_e2e_scan", "route": "cuda",
          "source": "subword_tokenizers_tpu_torch/csrc/wp_e2e_scan.cu",
@@ -2602,7 +2932,33 @@ def main() -> int:
     by_name["certificate"]["note"] = (
         "also replaces the WordPiece certificate at "
         "subword_tokenizers_tpu/parallel/train.py:336-365 and :383-400")
+    # the gather probe (phase 16): launches of its main on the card
+    for k, replaces in (("gather_take2d", "tools/pallas_probe.py:35"),
+                        ("gather_loop", "tools/pallas_probe.py:74"),
+                        ("gather_loop_shared", "tools/pallas_probe.py:74")):
+        entry = {"name": k, "route": "cuda",
+                 "source": "subword_tokenizers_tpu_torch/csrc/"
+                           "gather_probe.cu",
+                 "replaces": replaces, "launches": probe_launches[k],
+                 "max_abs_err": errs[k], "ms": timing[k][0],
+                 "plain_ms": timing[k][1]}
+        if k != "gather_take2d":
+            entry.update(
+                per_iter_ms=notes16["per_iter_ms"][k],
+                latency_bound_ms=notes16["latency_bound_ms"][k],
+                latency_note="128 dependent iterations at the marginal "
+                             "time of one (the slope from 128 to 1,152 "
+                             "iterations)",
+                k1_steps=notes16["k1_steps"],
+                k1_latency_ms=notes16["k1_latency_ms"][k])
+        record["kernels"].append(entry)
+    by_name = {k["name"]: k for k in record["kernels"]}
+    # the CLI's steps (phase 17)
+    for k in cli_kernels():
+        by_name[k]["cli_launches"] = {s: c[k] for s, c in by_cli.items()
+                                      if c.get(k)}
     by_name["compact_table"]["topk_ms"] = timing["topk"][0]
+    by_name["compact_table"]["topk_bound_ms"] = bounds["topk"][0]
     by_name["compact_table"]["topk_note"] = (
         "topk_ms: torch.topk of 256 over one shard's table, the "
         "nomination of the top-K tier (a library call the port makes)")
@@ -2630,7 +2986,10 @@ def main() -> int:
                          "flag",
         "pair_stats_runs": "no one call sums counts and takes least "
                            "positions by key",
-        "certificate": "no one call computes the certificate"}
+        "certificate": "no one call computes the certificate",
+        "gather_loop": "no PyTorch call runs a chain of dependent gathers",
+        "gather_loop_shared": "no PyTorch call runs a chain of dependent "
+                              "gathers"}
     for k in record["kernels"]:
         name = k["name"]
         k["bound_ms"], k["bound_by"] = bounds[name]

@@ -10,6 +10,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from .. import utils
 from ..benchmarks import profiling
 from ..frontend.charclass import codepoints
 from ..frontend.pretokenize import (Token, WordBatch, pre_tokenize_str,
@@ -138,8 +139,8 @@ class SubwordTokenizer:
             merge(a_id, b_id, sa, sb)
         pbar = None
         if self._progress:
-            from tqdm import tqdm
-            pbar = tqdm(total=max_vocab - len(self.vocab), desc=desc)
+            pbar = utils.Progress(total=max_vocab - len(self.vocab),
+                                  desc=desc)
         steps = 0
         with profiling.phase("train.sharded", dev):
             while len(self.vocab) < max_vocab:

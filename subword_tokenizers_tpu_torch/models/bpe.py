@@ -62,6 +62,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import utils
 from .._native import binding
 from ..benchmarks import profiling
 from ..core.corpus import build_bpe_corpus, unique_words
@@ -151,7 +152,8 @@ class NaiveBPE(SubwordTokenizer):
         ``checkpoint_every`` merges (after the block that passes it) and
         at the end; ``resume=True`` replays the merges found there over
         the rebuilt corpus first and trains on from that state.
-        ``progress`` shows a tqdm bar.
+        ``progress`` writes the count of merges to stderr
+        (``utils.Progress``).
         """
         if not isinstance(corpus, list) or not all(
                 isinstance(example, str) for example in corpus):
@@ -218,9 +220,8 @@ class NaiveBPE(SubwordTokenizer):
         sym_host = None  # the final state, when run_fused returns it
         pbar = None
         if self._progress:
-            from tqdm import tqdm
-            pbar = tqdm(total=max_vocab - len(self.vocab),
-                        desc="Training BPE")
+            pbar = utils.Progress(total=max_vocab - len(self.vocab),
+                                  desc="Training BPE")
 
         if not self._force_per_step:
             def on_merge(sa, sb, merged):

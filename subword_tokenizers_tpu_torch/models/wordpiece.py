@@ -68,6 +68,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import utils
 from .._native import binding
 from ..benchmarks import profiling
 from ..core.corpus import build_wp_corpus, unique_words
@@ -153,7 +154,8 @@ class NaiveWP(SubwordTokenizer):
         there every ``checkpoint_every`` merges (after the block that
         passes it) and at the end; ``resume=True`` replays the merge log
         found there over the rebuilt corpus first and trains on from
-        that state. ``progress`` shows a tqdm bar.
+        that state. ``progress`` writes the count of merges to stderr
+        (``utils.Progress``).
         """
         if not isinstance(corpus, list) or not all(
                 isinstance(example, str) for example in corpus):
@@ -220,9 +222,8 @@ class NaiveWP(SubwordTokenizer):
         sym_host = None  # the final state, when run_fused returns it
         pbar = None
         if self._progress:
-            from tqdm import tqdm
-            pbar = tqdm(total=max_vocab - len(self.vocab),
-                        desc="Training WordPiece")
+            pbar = utils.Progress(total=max_vocab - len(self.vocab),
+                                  desc="Training WordPiece")
 
         if not self._force_per_step:
             def on_merge(sa, sb, merged):

@@ -58,6 +58,8 @@ SIGNATURES = {
                        _P],
     "swt_wp_match": [_P, _I64, _I64, _P, _P, _I64, _P, _I, _I, _I64, _P, _P,
                      _P, _P, _P],
+    "swt_gather_take2d": [_P, _I64, _I64, _P, _P, _I64, _P, _P],
+    "swt_gather_loop": [_P, _I64, _P, _I64, _I, _I, _P, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

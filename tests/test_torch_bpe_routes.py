@@ -4,14 +4,13 @@ a hash collision, FastBPE's ranks and the ``merges.json`` resources."""
 import functools
 import json
 import sys
-import types
 
 import pytest
 import torch
 
 from subword_tokenizers_tpu import FastBPE as JaxFastBPE
 from subword_tokenizers_tpu import NaiveBPE as JaxNaiveBPE
-from subword_tokenizers_tpu_torch import FastBPE, NaiveBPE
+from subword_tokenizers_tpu_torch import FastBPE, NaiveBPE, utils
 from subword_tokenizers_tpu_torch.models import bpe as bpe_mod
 from subword_tokenizers_tpu_torch.ops import train_loop
 
@@ -148,7 +147,8 @@ def test_resources_match_jax(tmp_path, jax_full):
 
 
 def test_progress_bar_counts_merges(monkeypatch):
-    """``progress=True`` imports tqdm only then, and counts every merge."""
+    """``progress=True`` counts every merge in the port's own progress
+    writer (``utils.Progress``), with no tqdm installed."""
     updates = []
 
     class Bar:
@@ -161,7 +161,8 @@ def test_progress_bar_counts_merges(monkeypatch):
         def close(self):
             pass
 
-    monkeypatch.setitem(sys.modules, "tqdm", types.SimpleNamespace(tqdm=Bar))
+    monkeypatch.setitem(sys.modules, "tqdm", None)
+    monkeypatch.setattr(utils, "Progress", Bar)
     port = NaiveBPE(device="cpu")
     port.train(CORPUS, 60, progress=True)
     assert sum(updates) == len(port.merges_list) > 0

@@ -8,7 +8,6 @@ import functools
 import json
 import os
 import sys
-import types
 
 import numpy as np
 import pytest
@@ -17,7 +16,7 @@ import torch
 from subword_tokenizers_tpu import FastWP as JaxFastWP
 from subword_tokenizers_tpu import NaiveWP as JaxNaiveWP
 from subword_tokenizers_tpu.models import wordpiece as jax_wp_mod
-from subword_tokenizers_tpu_torch import FastWP, NaiveWP
+from subword_tokenizers_tpu_torch import FastWP, NaiveWP, utils
 from subword_tokenizers_tpu_torch.models import wordpiece as wp_mod
 from subword_tokenizers_tpu_torch.ops import train_loop
 
@@ -263,7 +262,8 @@ def test_resources_match_jax(tmp_path, jax_full):
 
 
 def test_progress_bar_counts_merges(monkeypatch):
-    """``progress=True`` imports tqdm only then, and counts every merge."""
+    """``progress=True`` counts every merge in the port's own progress
+    writer (``utils.Progress``), with no tqdm installed."""
     updates = []
 
     class Bar:
@@ -276,7 +276,8 @@ def test_progress_bar_counts_merges(monkeypatch):
         def close(self):
             pass
 
-    monkeypatch.setitem(sys.modules, "tqdm", types.SimpleNamespace(tqdm=Bar))
+    monkeypatch.setitem(sys.modules, "tqdm", None)
+    monkeypatch.setattr(utils, "Progress", Bar)
     port = NaiveWP(device="cpu")
     port.train(CORPUS, 60, progress=True)
     assert sum(updates) == len(port._merge_log) > 0
