@@ -84,21 +84,29 @@ WordPiece vocab ``tests/golden/port_t85k_fastwp_vocab.json``:
    with cold and warm times, the phase split and (12c) the idle share of
    the skip route;
 13. holds the kernels of the data-parallel selection against their
-   plain versions, exactly: the candidate lookup, the table compaction
-   (with caps that overflow), K1's runs mode and the certificate, on
+   plain versions, exactly: the candidate lookup and the table
+   compaction, each one launch over every table of a device (and over
+   one table alone), the compaction with caps that overflow on every
+   shard and on some shards only and 1,000 times back to back with
+   alternating tables and caps, K1's runs mode and the certificate, on
    seeded sharded states, on the corpus's 8-shard state (22,976 rows,
    2,872 x 22 a shard) initial and after 1,000 merges for BPE and
-   WordPiece, with weights scaled into the wide score domain, and on
-   hand-made certificates (a near tie, an exact tie, saturation, a
-   62-bit veto, a zero sum); times each, and ``torch.topk``, at the
-   corpus's shapes;
+   WordPiece, on the mesh of 1's table (2^20 entries, 8 clusters of the
+   compaction and a look-back between them), with weights scaled into
+   the wide score domain, and on hand-made certificates (a near tie, an
+   exact tie, saturation, a 62-bit veto, a zero sum); times each at the
+   corpus's shapes, beside the launch floors, ``torch.nonzero`` over the
+   compaction's own keys, ``torch.topk``, and K1 and K3p (a real merge)
+   at a shard's shape;
 14. trains ``NaiveBPE`` and ``NaiveWP(mesh=make_data_mesh(8,
    devices=["cuda:0"] * 8))`` on the whole corpus to 8,000, each equal to
    its golden, with the tiers that settled each step and the shard
-   kernels' launches; the forced tiers and a mesh of 1 to 1,000, each
-   equal to the golden's prefix; FastWP's sharded encode and the other
-   three encoders under the mesh against the JAX digests; and (14d) the
-   idle share of one warm sharded train;
+   kernels' launches (one lookup a step, one compaction a step the
+   certificate did not settle); the forced tiers and a mesh of 1 to
+   1,000, each equal to the golden's prefix; FastWP's sharded encode and
+   the other three encoders under the mesh against the JAX digests; and
+   (14d) the idle share of one warm sharded train, with the lookup's and
+   the compaction's kernels by name;
 15. the process-group route: ``torch.distributed`` with NCCL at world
    size 1 (NCCL takes one rank per GPU), a TCP store on localhost, an
    8-shard process-group mesh on the card, NaiveBPE to 578 equal to the
@@ -136,6 +144,7 @@ import hashlib
 import json
 import os
 import random
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -923,10 +932,10 @@ def shard_kernels():
                                                             pair_stats_runs,
                                                             symbol_freqs)
     from subword_tokenizers_tpu_torch.ops.shard_select import (
-        certificate, compact_table, lookup_runs)
+        certificate, compact_tables, lookup_reduce)
     from subword_tokenizers_tpu_torch.ops.train_loop import select_unify
     from subword_tokenizers_tpu_torch.ops.wp_encode_e2e import wp_e2e_scan
-    return {"lookup_runs": lookup_runs, "compact_table": compact_table,
+    return {"lookup_reduce": lookup_reduce, "compact_tables": compact_tables,
             "pair_stats_runs": pair_stats_runs, "certificate": certificate,
             "pair_stats": pair_stats, "select_unify": select_unify,
             "merge_rows": apply_merge, "symbol_freqs": symbol_freqs,
@@ -944,32 +953,50 @@ def read_counts(kernels):
 
 
 def phase13(dev, rng, arrays, table, arrays_wp, table_wp, golden,
-            wp_merges, smi):
-    """Phase 13: the shard kernels (candidate lookup, table compaction,
-    K1's runs mode, the certificate) against their plain versions,
-    exactly, on seeded padded states, the corpus's 8-shard initial state
-    and its state after 1,000 merges (BPE and WordPiece), caps that
-    overflow, weights scaled wide, and the hand-made certificate cases;
-    then each timed at the corpus's shapes with its bound, and
-    ``torch.topk``. Returns (errs, timing, bounds, notes)."""
+            wp_merges, smi, trace_dir, n_back_to_back=1000):
+    """Phase 13: the shard kernels (the grouped candidate lookup and table
+    compaction, K1's runs mode, the certificate) against their plain
+    versions, exactly, on seeded padded states, the corpus's 8-shard
+    initial state and its state after 1,000 merges (BPE and WordPiece),
+    the mesh of 1's one table at both BPE states, caps that overflow on
+    every shard and on some shards only, weights scaled wide, and the
+    hand-made certificate cases; the grouped kernels over the 8 tables of
+    a state (one launch) and over each table alone (the one-table
+    wrappers); ``n_back_to_back`` compactions in a row with alternating
+    table sets and caps, each compared; then each timed at the corpus's
+    shapes with its bound (the compaction's also at the mesh of 1), the
+    launch floors, ``torch.nonzero`` over the same keys (the compaction's
+    library yardstick, its device time from traces in ``trace_dir``),
+    ``torch.topk``, and K1 and K3p (the golden's 1,001st merge) at a
+    shard's shape. Returns (errs, timing, bounds, library, notes)."""
     import torch
+    from subword_tokenizers_tpu_torch.ops import _cuda
+    from subword_tokenizers_tpu_torch.ops.merge import (apply_merge,
+                                                        apply_merge_ref)
     from subword_tokenizers_tpu_torch.ops.pairstats import (
         EMPTY_KEY, alloc_table, canonical, pair_stats_runs,
         pair_stats_runs_ref)
     from subword_tokenizers_tpu_torch.ops.shard_select import (
         certificate, certificate_ref, compact_table, compact_table_ref,
-        lookup_runs, lookup_runs_ref, nominate)
+        compact_tables, compact_tables_ref, lookup_reduce, lookup_reduce_ref,
+        lookup_runs, lookup_runs_ref, nominate, ROUND_SPAN, TableSet)
     from subword_tokenizers_tpu_torch.ops.train_loop import (select_host_ids,
                                                              sym_capacity)
     from subword_tokenizers_tpu_torch.parallel import train as ptrain
     from subword_tokenizers_tpu_torch.parallel.mesh import make_data_mesh
-    names = ("lookup_runs", "compact_table", "pair_stats_runs",
+    names = ("lookup_reduce", "compact_tables", "pair_stats_runs",
              "certificate")
     errs = dict.fromkeys(names, 0)
-    notes = {"states": 0, "overflowed_caps": 0, "proven": 0, "refused": 0}
+    notes = {"states": 0, "overflowed_caps": 0, "mixed_caps": 0,
+             "proven": 0, "refused": 0, "grouped_checks": 0,
+             "one_table_checks": 0, "mesh1_checks": 0}
     mesh = make_data_mesh(8, devices=[dev] * 8)
     absent = torch.tensor([EMPTY_KEY, (60000 << 32) | 60001, 0],
                           dtype=torch.int64, device=dev)
+
+    def diff(name, got, want):
+        errs[name] = max(errs[name], *(max_err(g, w)
+                                       for g, w in zip(got, want)))
 
     def cert(kth, cand, g_cnt, rec, sf, wide):
         got, want = rec.clone(), rec.clone()
@@ -979,46 +1006,47 @@ def phase13(dev, rng, arrays, table, arrays_wp, table_wp, golden,
         notes["proven" if int(got[5]) else "refused"] += 1
 
     def check(corpus, sf=None, wide=False, topk=ptrain.TOPK):
-        """Every new kernel against its plain version on one sharded
-        state, as the tiers use them."""
+        """Every kernel against its plain version on one sharded state,
+        as the tiers use them: the grouped kernels over the 8 tables in
+        one launch, and over each table alone."""
         tables = [s.pairs() for s in corpus.shards]
+        bases = corpus.bases
         k = min(topk, corpus.n_local_pairs)
         picks = [nominate(t, k, sf) for t in tables]
         cand = mesh.gather([c for c, _ in picks])
         kth = mesh.gather([t for _, t in picks])
         probe = torch.cat([cand, absent])
-        looked = []
-        for t, base in zip(tables, corpus.bases):
-            got = lookup_runs(probe, t, base)
-            want = lookup_runs_ref(probe, t, base)
-            errs["lookup_runs"] = max(errs["lookup_runs"],
-                                      *(max_err(g, w)
-                                        for g, w in zip(got, want)))
-            looked.append(lookup_runs(cand, t, base))
-        g_cnt = mesh.sum([c for c, _ in looked])
-        g_pos = mesh.amin([p for _, p in looked])
+        for t, base in zip(tables, bases):
+            diff("lookup_reduce", lookup_runs(probe, t, base),
+                 lookup_runs_ref(probe, t, base))
+            notes["one_table_checks"] += 1
+        diff("lookup_reduce", lookup_reduce(probe, tables, bases),
+             lookup_reduce_ref(probe, tables, bases))
+        notes["grouped_checks"] += 1
+        g_cnt, g_pos = lookup_reduce(cand, tables, bases)
         rec = torch.zeros(6, dtype=torch.int32, device=dev)
         select_host_ids(cand, g_cnt, g_pos, rec, sf)
         cert(kth, cand, g_cnt, rec, sf, wide)
-        n_live = [int((t[0] != EMPTY_KEY).sum()) for t in tables]
+        n_live = sorted(int((t[0] != EMPTY_KEY).sum()) for t in tables)
         cap0 = min(ptrain.run_gather_cap(corpus.n_local_pairs),
                    corpus.n_local_pairs)
-        for cap in (cap0, max(max(n_live) // 2, 1)):
-            runs = []
-            for t, base in zip(tables, corpus.bases):
-                got = compact_table(t, cap, base)
-                want = compact_table_ref(t, cap, base)
-                errs["compact_table"] = max(errs["compact_table"],
-                                            *(max_err(g, w)
-                                              for g, w in zip(got, want)))
-                runs.append(got)
-            notes["overflowed_caps"] += any(int(r[3][0]) for r in runs)
-            gk, gc, gp = (torch.cat([r[j] for r in runs]) for j in range(3))
-            got = canonical(*pair_stats_runs(gk, gc, gp))
-            want = pair_stats_runs_ref(gk, gc, gp)
-            errs["pair_stats_runs"] = max(errs["pair_stats_runs"],
-                                          *(max_err(g, w)
-                                            for g, w in zip(got, want)))
+        # the main path's cap, one that overflows every shard, and one
+        # between the shards' sizes (some overflow, some do not)
+        for cap in (cap0, max(n_live[0] // 2, 1), n_live[len(n_live) // 2]):
+            for t, base in zip(tables, bases):
+                diff("compact_tables", compact_table(t, cap, base),
+                     compact_table_ref(t, cap, base))
+                notes["one_table_checks"] += 1
+            runs = compact_tables(tables, bases, cap)
+            diff("compact_tables", runs,
+                 compact_tables_ref(tables, bases, cap))
+            notes["grouped_checks"] += 1
+            over = sum(n > cap for n in n_live)
+            notes["overflowed_caps"] += over > 0
+            notes["mixed_caps"] += 0 < over < len(n_live)
+            gk, gc, gp = runs[:3]
+            diff("pair_stats_runs", canonical(*pair_stats_runs(gk, gc, gp)),
+                 pair_stats_runs_ref(gk, gc, gp))
         notes["states"] += 1
         return tables, cand, kth, g_cnt, rec
 
@@ -1028,14 +1056,46 @@ def phase13(dev, rng, arrays, table, arrays_wp, table_wp, golden,
         corpus = ptrain.shard_corpus(mesh, sym, freq)
         check(corpus, topk=topk)
         check(corpus, ptrain.sharded_sym_freq(corpus, n_sym + 9), topk=topk)
-    # the corpus: BPE and WordPiece, initial and after 1,000 merges
+    def check_mesh1(corpus):
+        """The mesh of 1's one table (2^20 entries, 8 clusters of the
+        compaction): the one-table wrappers, and the grouped compaction
+        over the table twice (two shards of 8 clusters each), at the
+        tier's cap, one that overflows and 1."""
+        t = corpus.shards[0].pairs()
+        probe = torch.cat([mesh.gather([nominate(s.pairs(), ptrain.TOPK)[0]
+                                        for s in bpe.shards]), absent])
+        diff("lookup_reduce", lookup_runs(probe, t, 0),
+             lookup_runs_ref(probe, t, 0))
+        n = int((t[0] != EMPTY_KEY).sum())
+        cap1 = min(ptrain.run_gather_cap(corpus.n_local_pairs),
+                   corpus.n_local_pairs)
+        for cap in (cap1, n // 2, 1):
+            diff("compact_tables", compact_table(t, cap, 0),
+                 compact_table_ref(t, cap, 0))
+            diff("compact_tables", compact_tables([t, t], [0, 1 << 20], cap),
+                 compact_tables_ref([t, t], [0, 1 << 20], cap))
+            notes["mesh1_checks"] += 2
+        return t, cap1
+
+    # the corpus: BPE and WordPiece, initial and after 1,000 merges; BPE
+    # also on the mesh of 1
     bpe = ptrain.shard_corpus(mesh, arrays.sym, arrays.freq)
-    tables, cand, kth, g_cnt, rec = check(bpe)
+    check(bpe)
+    mesh1 = ptrain.shard_corpus(make_data_mesh(1, devices=[dev]), arrays.sym,
+                                arrays.freq)
+    check_mesh1(mesh1)
     t1000 = type(table)(table.strings())
     for sa, sb in golden[:1000]:
-        ptrain.sharded_apply_merge(bpe, t1000.get(sa), t1000.get(sb),
-                                   t1000.intern(sa + sb))
-    check(bpe)
+        ab = t1000.get(sa), t1000.get(sb), t1000.intern(sa + sb)
+        ptrain.sharded_apply_merge(bpe, *ab)
+        ptrain.sharded_apply_merge(mesh1, *ab)
+    # K3p's timed merge: the golden's 1,001st at this state
+    sa, sb = golden[1000]
+    rec_k3p = torch.tensor([t1000.get(sa), t1000.get(sb),
+                            t1000.intern(sa + sb), 0, 1, 0],
+                           dtype=torch.int32, device=dev)
+    tables, cand, kth, g_cnt, rec = check(bpe)
+    big, cap_big = check_mesh1(mesh1)
     sym_cap = sym_capacity(table_wp, 8000)
     wp = ptrain.shard_corpus(mesh, arrays_wp.sym, arrays_wp.freq)
     check(wp, ptrain.sharded_sym_freq(wp, sym_cap))
@@ -1043,7 +1103,7 @@ def phase13(dev, rng, arrays, table, arrays_wp, table_wp, golden,
     for sa, sb in wp_merges[:1000]:
         ptrain.sharded_apply_merge(wp, t1000.get(sa), t1000.get(sb),
                                    t1000.intern(sa + sb[2:]))
-    check(wp, ptrain.sharded_sym_freq(wp, sym_cap))
+    wp_tables = check(wp, ptrain.sharded_sym_freq(wp, sym_cap))[0]
     # weights scaled into the wide score domain: K-th denominators of
     # more than 62 bits veto
     wide = ptrain.shard_corpus(mesh, arrays_wp.sym,
@@ -1057,26 +1117,102 @@ def phase13(dev, rng, arrays, table, arrays_wp, table_wp, golden,
              torch.tensor(cnt_c, dtype=torch.int64, device=dev), rec_c,
              None if sf_c is None else
              torch.tensor(sf_c, dtype=torch.int64, device=dev), wide_c)
-    if any(errs.values()):
-        raise AssertionError(f"a shard kernel differs: {errs}")
-    if not notes["overflowed_caps"]:
-        raise AssertionError("no cap overflowed")
 
-    # times at the corpus's initial 8-shard BPE state, shard 0
-    t0, base0 = tables[0], bpe.bases[0]
-    M = cand.shape[0]
+    # compactions back to back: five table sets (BPE's 8, WordPiece's 8,
+    # one WordPiece table, the mesh of 1's table alone and twice, whose 8
+    # clusters a table run the look-back) and four caps (the main path's,
+    # every shard over, some over, none over at 8 shards) in turn, every
+    # call against the plain version's result on the device, read back
+    # once at the end
     cap = min(ptrain.run_gather_cap(bpe.n_local_pairs), bpe.n_local_pairs)
-    runs = [compact_table(t, cap, b) for t, b in zip(tables, bpe.bases)]
-    gk, gc, gp = (torch.cat([r[j] for r in runs]) for j in range(3))
+    n_live = sorted(int((t[0] != EMPTY_KEY).sum()) for t in tables)
+    sets = ((tables, bpe.bases), (wp_tables, wp.bases),
+            (wp_tables[3:4], wp.bases[3:4]), ([big], [0]),
+            ([big, big], [0, 1 << 20]))
+    caps = (cap, 1, n_live[4], 1 << 17)
+    want = {(s, c): compact_tables_ref(*sets[s], caps[c])
+            for s in range(len(sets)) for c in range(len(caps))}
+    bad = torch.zeros((), dtype=torch.int64, device=dev)
+    flags = [0, 0]
+    for i in range(n_back_to_back):
+        s, c = i % len(sets), (i // len(sets)) % len(caps)
+        got = compact_tables(*sets[s], caps[c])
+        for g, w in zip(got, want[(s, c)]):
+            bad += (g.to(torch.int64) != w.to(torch.int64)).sum()
+        flags[int(want[(s, c)][3][0])] += 1
+    notes["back_to_back"] = n_back_to_back
+    notes["back_to_back_flags"] = flags  # calls without and with overflow
+    notes["back_to_back_wrong"] = int(bad)
+    if any(errs.values()) or notes["back_to_back_wrong"]:
+        raise AssertionError(f"a shard kernel differs: {errs}, back to "
+                             f"back {notes['back_to_back_wrong']}")
+    if not notes["overflowed_caps"] or not notes["mixed_caps"] or \
+            not all(flags):
+        raise AssertionError(f"the caps did not overflow as planned: {notes}")
+
+    # times at the corpus's 8-shard BPE state after 1,000 merges (most of
+    # a BPE train's fallback steps are later than step 473)
+    t0, base0, bases = tables[0], bpe.bases[0], bpe.bases
+    M = cand.shape[0]
+    runs = compact_tables(tables, bases, cap)
+    gk, gc, gp = runs[:3]
     agg = alloc_table(gk.shape[0] + 1, dev)
     metric = torch.where(t0[0] != EMPTY_KEY, t0[1], -1)
+    out = bpe.run_buffers(0, cap)
+    # the sets built once, as a sharded run keeps them (a wrapper called
+    # without one builds and copies one each call)
+    tset = bpe.table_set(0, tables)
+    tset0 = TableSet([t0], [base0])
+    tset_big = TableSet([big], [0])
+    shard = bpe.shards[0]
+    sym0 = shard.sym.clone()
+    n_changed = int((apply_merge_ref(sym0, rec_k3p) != sym0).sum())
+
+    def merge_once():
+        """K3p's device time of one real merge, each call on the state
+        before it (the copy outside the events)."""
+        ev = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(50)]
+        apply_merge(shard.sym.copy_(sym0), rec_k3p)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(100_000_000)  # queue the calls ahead
+        for a, b in ev:
+            shard.sym.copy_(sym0)
+            a.record()
+            apply_merge(shard.sym, rec_k3p)
+            b.record()
+        torch.cuda.synchronize()
+        shard.sym.copy_(sym0)
+        return statistics.median(a.elapsed_time(b) for a, b in ev)
+
     timing = {
-        "lookup_runs": (
-            cuda_ms(lambda: lookup_runs(cand, t0, base0), 200, True),
+        "lookup_reduce": (
+            cuda_ms(lambda: lookup_reduce(cand, tables, bases, tset), 200,
+                    True),
+            cuda_ms(lambda: lookup_reduce_ref(cand, tables, bases), 10)),
+        "lookup_one_table": (
+            cuda_ms(lambda: lookup_reduce(cand, [t0], [base0], tset0), 200,
+                    True),
             cuda_ms(lambda: lookup_runs_ref(cand, t0, base0), 10)),
-        "compact_table": (
-            cuda_ms(lambda: compact_table(t0, cap, base0), 200, True),
+        "compact_tables": (
+            cuda_ms(lambda: compact_tables(tables, bases, cap, out=out,
+                                           tset=tset), 200, True),
+            cuda_ms(lambda: compact_tables_ref(tables, bases, cap), 10)),
+        "compact_mesh1": (
+            cuda_ms(lambda: compact_tables([big], [0], cap_big,
+                                           tset=tset_big), 200, True),
+            cuda_ms(lambda: compact_table_ref(big, cap_big, 0), 10)),
+        "compact_one_table": (
+            cuda_ms(lambda: compact_tables([t0], [base0], cap, tset=tset0),
+                    200, True),
             cuda_ms(lambda: compact_table_ref(t0, cap, base0), 10)),
+        "launch_floor": (
+            cuda_ms(lambda: _cuda.launch("swt_launch_floor", 0), 200, True),
+            None),
+        "launch_floor_cluster": (
+            cuda_ms(lambda: _cuda.launch("swt_launch_floor",
+                                         tset.clusters * len(tables)),
+                    200, True), None),
         "pair_stats_runs": (
             cuda_ms(lambda: pair_stats_runs(gk, gc, gp, agg), 200, True),
             cuda_ms(lambda: pair_stats_runs_ref(gk, gc, gp), 10)),
@@ -1085,39 +1221,119 @@ def phase13(dev, rng, arrays, table, arrays_wp, table_wp, golden,
             cuda_ms(lambda: certificate_ref(kth, cand, g_cnt, rec.clone()),
                     10)),
         "topk": (cuda_ms(lambda: torch.topk(metric, ptrain.TOPK), 200,
-                         True), None)}
+                         True), None),
+        "shard_pair_stats": (cuda_ms(shard.pairs, 200, True), None),
+        "shard_merge_rows": (merge_once(), None)}
+    shard.pairs()  # the table as the state gives it (timed calls rewrote it)
+    # torch.nonzero waits for its count: its device time comes from a
+    # trace of 50 calls, over the compaction's own inputs: the 8 tables'
+    # keys (concatenated before the trace), one table's, the mesh of 1's
+    reps = 50
+    all_keys = torch.cat([t[0] for t in tables])
+    library = {}
+    for k, keys in (("compact_tables", all_keys), ("compact_one_table", t0[0]),
+                    ("compact_mesh1", big[0])):
+        _, busy, by_kernel = device_trace(
+            lambda: [torch.nonzero(keys != EMPTY_KEY) for _ in range(reps)],
+            os.path.join(trace_dir, f"nonzero_{k}_trace.json"), warmup=True)
+        library[k] = busy / reps if by_kernel else None
     T = t0[0].shape[0]
-    n_live0 = int((t0[0] != EMPTY_KEY).sum())
+    D = len(tables)
+    live = [int((t[0] != EMPTY_KEY).sum()) for t in tables]
+    n_live0 = live[0]
+    live_big = int((big[0] != EMPTY_KEY).sum())
+    n_slots = shard.sym.numel()
+
+    def compact_bytes(T_i, live_i, cap_i):
+        """What a compaction must move: every key (8 bytes), the count and
+        position of each live entry of rank < cap (12), and each output
+        slot (20)."""
+        return 8 * T_i + 12 * min(live_i, cap_i) + 20 * cap_i
+
     # Bytes: inputs once, outputs once; of a probed table, one 20-byte
-    # entry per lookup. Operations, counted low: a hash and a compare per
+    # entry per lookup; K3p reads every slot and writes the slots its
+    # merge changes. Operations, counted low: a hash and a compare per
     # lookup (10), a test and a scan step per table entry (4), a hash
-    # insert per run (10), a restoring division per shard (128 x 4) and
-    # a compare per candidate; torch.topk reads the metric once, writes
-    # its values and indices (int64 each) and compares once an entry.
+    # insert per run or live slot (10), a restoring division per shard
+    # (128 x 4) and a compare per candidate; torch.topk reads the metric
+    # once, writes its values and indices (int64 each) and compares once
+    # an entry; K3p tests each slot and its neighbour (2).
     bounds = {
-        "lookup_runs": bound(nbytes(cand) + 12 * M + visited(M, 20, *t0),
-                             10 * M),
-        "compact_table": bound(nbytes(*t0) + 20 * cap + 4, 4 * T),
+        "lookup_reduce": bound(nbytes(cand) + 12 * M
+                               + sum(visited(M, 20, *t) for t in tables),
+                               10 * M * D),
+        "lookup_one_table": bound(nbytes(cand) + 12 * M
+                                  + visited(M, 20, *t0), 10 * M),
+        "compact_tables": bound(sum(compact_bytes(t[0].shape[0], n, cap)
+                                    for t, n in zip(tables, live)) + 4,
+                                4 * T * D),
+        "compact_one_table": bound(compact_bytes(T, n_live0, cap) + 4, 4 * T),
+        "compact_mesh1": bound(compact_bytes(big[0].shape[0], live_big,
+                                             cap_big) + 4,
+                               4 * big[0].shape[0]),
         "pair_stats_runs": bound(nbytes(gk, gc, gp, *agg), 10 * M),
         "certificate": bound(nbytes(kth, cand, g_cnt, rec),
                              512 * 8 + 2 * M),
-        "topk": bound(nbytes(metric) + 16 * ptrain.TOPK, T)}
-    notes.update(T=T, live=n_live0, cap=cap, M=M, runs=gk.shape[0])
+        "topk": bound(nbytes(metric) + 16 * ptrain.TOPK, T),
+        "shard_pair_stats": bound(nbytes(shard.sym, shard._wid, shard._wgt,
+                                         *t0), 10 * n_slots),
+        "shard_merge_rows": bound(nbytes(sym0, rec_k3p) + 4 * n_changed,
+                                  2 * n_slots)}
+    notes.update(T=T, live=n_live0, cap=cap, M=M, runs=gk.shape[0], D=D,
+                 launch_floor_ms=timing["launch_floor"][0],
+                 launch_floor_cluster_ms=timing["launch_floor_cluster"][0],
+                 rows=tuple(shard.sym.shape), merge_changed=n_changed,
+                 mesh1=dict(T=big[0].shape[0], live=live_big, cap=cap_big,
+                            clusters=-(-big[0].shape[0] // ROUND_SPAN)))
     torch.cuda.synchronize()
+
+    def line(k):
+        return (f"{k} {timing[k][0]:.4f} ms (plain {timing[k][1]:.3f}, "
+                f"bound {bounds[k][0]:.5f})")
+
     print(f"phase 13: the shard kernels equal their plain versions exactly "
           f"on {notes['states']} sharded states (3 seeded, BPE and "
           f"WordPiece; the corpus's 8 shards of {bpe.rows} x {bpe.L} "
           f"initial and after 1,000 merges, BPE and WordPiece; weights "
-          f"scaled by 2^26 into the wide domain), caps that overflowed on "
-          f"{notes['overflowed_caps']} states, and {len(CERT_CASES)} "
-          f"hand-made certificates (proven {notes['proven']}, refused "
-          f"{notes['refused']} in all); at shard 0 of the corpus ({n_live0} "
-          f"live of T = {T}, K.D = {M} candidates, cap {cap}): " + ", ".join(
-              f"{k} {timing[k][0]:.4f} ms (plain {timing[k][1]:.3f}, bound "
-              f"{bounds[k][0]:.4f})" for k in names)
-          + f"; torch.topk of {ptrain.TOPK} over T {timing['topk'][0]:.4f} "
-          f"ms (bound {bounds['topk'][0]:.5f}); {smi}")
-    return errs, timing, bounds, notes
+          f"scaled by 2^26 into the wide domain; the grouped kernels "
+          f"checked {notes['grouped_checks']} times over the 8 tables in "
+          f"one launch and {notes['one_table_checks']} times over one "
+          f"table), caps that overflowed on {notes['overflowed_caps']} "
+          f"states and on some shards only on {notes['mixed_caps']}, "
+          f"the mesh of 1's table of {big[0].shape[0]} entries "
+          f"({notes['mesh1']['clusters']} clusters) checked "
+          f"{notes['mesh1_checks']} times alone and twice in one launch, "
+          f"{n_back_to_back} compactions back to back ({len(sets)} table "
+          f"sets, 4 caps; {flags[0]} without and {flags[1]} with overflow) "
+          f"all equal, and {len(CERT_CASES)} hand-made certificates (proven "
+          f"{notes['proven']}, refused {notes['refused']} in all); at the "
+          f"corpus's BPE state after 1,000 merges (shard 0: {n_live0} live "
+          f"of T = {T}; K.D = {M} candidates, cap {cap}): "
+          + ", ".join(line(k) for k in (
+              "lookup_reduce", "compact_tables", "lookup_one_table",
+              "compact_one_table", "pair_stats_runs", "certificate"))
+          + f"; the mesh of 1 ({live_big} live of {big[0].shape[0]}, cap "
+          f"{cap_big}): " + line("compact_mesh1")
+          + f"; per shard: lookup_reduce "
+          f"{timing['lookup_reduce'][0] / D:.5f} ms, compact_tables "
+          f"{timing['compact_tables'][0] / D:.5f} ms; launch floor "
+          f"{timing['launch_floor'][0]:.4f} ms (one block), "
+          f"{timing['launch_floor_cluster'][0]:.4f} ms (the compaction's "
+          f"grid, {tset.clusters * D} clusters of 8 x 1,024); "
+          f"torch.nonzero's device time "
+          f"over the 8 tables' keys "
+          f"{library['compact_tables'] or float('nan'):.4f} ms, one table's "
+          f"{library['compact_one_table'] or float('nan'):.4f}, the mesh of "
+          f"1's {library['compact_mesh1'] or float('nan'):.4f}; "
+          f"torch.topk of {ptrain.TOPK} over T "
+          f"{timing['topk'][0]:.4f} ms (bound {bounds['topk'][0]:.5f}); at a "
+          f"shard's {shard.sym.shape[0]} x {shard.sym.shape[1]} rows K1 "
+          f"{timing['shard_pair_stats'][0]:.4f} ms (bound "
+          f"{bounds['shard_pair_stats'][0]:.5f}), K3p "
+          f"{timing['shard_merge_rows'][0]:.4f} ms (bound "
+          f"{bounds['shard_merge_rows'][0]:.5f}; the golden's 1,001st "
+          f"merge, {n_changed} slots changed); {smi}")
+    return errs, timing, bounds, library, notes
 
 
 def phase14(dev, corpus, check_train, check_wp_train, lists, wp_merges,
@@ -1138,10 +1354,10 @@ def phase14(dev, corpus, check_train, check_wp_train, lists, wp_merges,
     from subword_tokenizers_tpu_torch.parallel.mesh import make_data_mesh
     mesh = make_data_mesh(8, devices=[dev] * 8)
     kernels = shard_kernels()
-    must = {"NaiveBPE": ("pair_stats", "lookup_runs", "certificate",
-                         "compact_table", "pair_stats_runs", "select_unify",
+    must = {"NaiveBPE": ("pair_stats", "lookup_reduce", "certificate",
+                         "compact_tables", "pair_stats_runs", "select_unify",
                          "merge_rows"),
-            "NaiveWP": ("pair_stats", "lookup_runs", "certificate",
+            "NaiveWP": ("pair_stats", "lookup_reduce", "certificate",
                         "select_unify", "merge_rows", "symbol_freqs",
                         "wp_score")}
     checks = {"NaiveBPE": check_train, "NaiveWP": check_wp_train}
@@ -1162,10 +1378,20 @@ def phase14(dev, corpus, check_train, check_wp_train, lists, wp_merges,
         if missing:
             raise AssertionError(f"{name} under the mesh launched no "
                                  f"{missing}: {counts}")
+        # one grouped launch a step on the one-card mesh: a lookup every
+        # step, a compaction every step the certificate did not settle
+        steps = sum(tok._sel_stats.values())
+        if (counts["lookup_reduce"], counts["compact_tables"]) != (
+                steps, tok._topk_fallbacks):
+            raise AssertionError(f"{name}: {steps} steps and "
+                                 f"{tok._topk_fallbacks} fallbacks, but "
+                                 f"launches {counts}")
         by_path[f"{name}_mesh8"] = {k: v for k, v in counts.items() if v}
         lines.append(f"{name} cold {walls[0]:.3f} s, warm {walls[1]:.3f} s, "
                      f"tiers {tok._sel_stats} ({tok._topk_fallbacks} "
-                     f"fallbacks), warm launches {by_path[name + '_mesh8']}")
+                     f"fallbacks; 1 lookup launch a step, 1 compaction "
+                     f"launch a fallback step), warm launches "
+                     f"{by_path[name + '_mesh8']}")
     print(f"phase 14: NaiveBPE and NaiveWP(mesh=make_data_mesh(8, "
           f"devices=['{dev}'] * 8)).train of all {len(corpus)} sentences to "
           f"{max_vocab} equal the JAX goldens: " + "; ".join(lines)
@@ -1237,11 +1463,18 @@ def phase14(dev, corpus, check_train, check_wp_train, lists, wp_merges,
         lambda: NaiveBPE(mesh=mesh, device=dev).train(corpus, trace_vocab),
         os.path.join(trace_dir, "mesh_train_trace.json"))
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
+    grouped = {k: [sum(c for n, (c, _) in by_name.items() if k in n),
+                   sum(ms for n, (_, ms) in by_name.items() if k in n)]
+               for k in ("lookup_reduce_kernel", "compact_tables_kernel")}
+    if by_name and not all(c for c, _ in grouped.values()):
+        raise AssertionError(f"the trace shows no grouped kernel: {grouped}")
     dev_line = ("not measured (the trace holds no device events)"
                 if not by_name else
                 f"device busy {busy:.3f} ms of {wall:.1f} ms (idle share "
                 f"{1 - busy / wall:.4f}); "
-                + "; ".join(f"{n} x{c} {ms:.3f} ms" for n, (c, ms) in top))
+                + "; ".join(f"{n} x{c} {ms:.3f} ms" for n, (c, ms) in top)
+                + "; the grouped kernels: " + "; ".join(
+                    f"{n} x{c} {ms:.3f} ms" for n, (c, ms) in grouped.items()))
     print(f"phase 14d: one warm NaiveBPE train to {trace_vocab} on the mesh "
           f"of 8 under torch.profiler: {dev_line}; {smi}")
     return by_path
@@ -1288,7 +1521,8 @@ def phase15(dev, corpus, golden, anchor, smi, max_vocab=578,
         rows = [torch.full((2, 3), i, device=dev) for i in range(8)]
         got = distributed.fetch_global(rows, mesh)
         assert got[:, 0].tolist() == [i for i in range(8) for _ in range(2)]
-        for k in ("lookup_runs", "certificate", "pair_stats", "merge_rows"):
+        for k in ("lookup_reduce", "certificate", "pair_stats",
+                  "merge_rows"):
             if not counts.get(k):
                 raise AssertionError(f"phase 15 launched no {k}: {counts}")
     finally:
@@ -2736,11 +2970,14 @@ def main() -> int:
         by_route = phase12(dev, corpus, check_train, check_wp_train, smi, d)
 
     # ---- phase 13: the shard kernels against their plain versions
-    errs13, timing13, bounds13, notes13 = phase13(
-        dev, rng, arrays, table, arrays_wp, table_wp, golden, wp_merges, smi)
+    with tempfile.TemporaryDirectory() as d:
+        errs13, timing13, bounds13, library13, notes13 = phase13(
+            dev, rng, arrays, table, arrays_wp, table_wp, golden, wp_merges,
+            smi, d)
     errs.update(errs13)
     timing.update(timing13)
     bounds.update(bounds13)
+    library.update(library13)
 
     # ---- phase 14: the sharded main path, an 8-shard mesh on the card
     with tempfile.TemporaryDirectory() as d:
@@ -2910,9 +3147,9 @@ def main() -> int:
         return {p: c[key] for p, c in by_mesh.items() if c.get(key)}
 
     for k, src, replaces in (
-            ("lookup_runs", "shard_select.cu",
+            ("lookup_reduce", "shard_select.cu",
              "subword_tokenizers_tpu/parallel/train.py:105"),
-            ("compact_table", "shard_select.cu",
+            ("compact_tables", "shard_select.cu",
              "subword_tokenizers_tpu/ops/pairstats.py:162"),
             ("pair_stats_runs", "pair_stats.cu",
              "subword_tokenizers_tpu/parallel/train.py:199"),
@@ -2929,6 +3166,43 @@ def main() -> int:
              "max_abs_err": errs[k], "ms": timing[k][0],
              "plain_ms": timing[k][1]})
     by_name = {k["name"]: k for k in record["kernels"]}
+    for k, one in (("lookup_reduce", "lookup_one_table"),
+                   ("compact_tables", "compact_one_table")):
+        by_name[k].update(
+            note=f"ms: one launch over the {notes13['D']} tables of the "
+                 f"one-card mesh (per_shard_ms: ms / {notes13['D']}); "
+                 f"one_table_ms: one launch over one table (its TableSet "
+                 f"built once)",
+            per_shard_ms=timing[k][0] / notes13["D"],
+            one_table_ms=timing[one][0], one_table_plain_ms=timing[one][1],
+            one_table_bound_ms=bounds[one][0],
+            launch_floor_ms=notes13["launch_floor_ms"],
+            launch_floor_cluster_ms=notes13["launch_floor_cluster_ms"])
+    by_name["compact_tables"].update(
+        library_note="library_ms: the device time of torch.nonzero(keys != "
+                     "EMPTY_KEY) over the 8 tables' keys concatenated (the "
+                     "ranks only), from a trace of 50 calls; "
+                     "one_table_library_ms over one table's",
+        one_table_library_ms=library["compact_one_table"],
+        mesh1={**notes13["mesh1"], "ms": timing["compact_mesh1"][0],
+               "plain_ms": timing["compact_mesh1"][1],
+               "bound_ms": bounds["compact_mesh1"][0],
+               "library_ms": library["compact_mesh1"],
+               "note": "compact_table of the mesh of 1's one table"},
+        bound_note="bytes: every key (8), the count and position of each "
+                   "live entry of rank < cap (12), each output slot (20)")
+    by_name["merge_rows"]["shard_note"] = (
+        "shard_ms: K3p's device time of the golden's 1,001st merge on "
+        "shard 0 of 8 (the state before it restored between calls); its "
+        "bound reads every slot and writes the changed ones")
+    by_name["compact_tables"]["back_to_back"] = {
+        "calls": notes13["back_to_back"],
+        "without_and_with_overflow": notes13["back_to_back_flags"],
+        "wrong": notes13["back_to_back_wrong"]}
+    for k in ("pair_stats", "merge_rows"):
+        by_name[k].update(shard_ms=timing[f"shard_{k}"][0],
+                          shard_bound_ms=bounds[f"shard_{k}"][0],
+                          shard_rows=notes13["rows"])
     by_name["certificate"]["note"] = (
         "also replaces the WordPiece certificate at "
         "subword_tokenizers_tpu/parallel/train.py:336-365 and :383-400")
@@ -2957,9 +3231,9 @@ def main() -> int:
     for k in cli_kernels():
         by_name[k]["cli_launches"] = {s: c[k] for s, c in by_cli.items()
                                       if c.get(k)}
-    by_name["compact_table"]["topk_ms"] = timing["topk"][0]
-    by_name["compact_table"]["topk_bound_ms"] = bounds["topk"][0]
-    by_name["compact_table"]["topk_note"] = (
+    by_name["compact_tables"]["topk_ms"] = timing["topk"][0]
+    by_name["compact_tables"]["topk_bound_ms"] = bounds["topk"][0]
+    by_name["compact_tables"]["topk_note"] = (
         "topk_ms: torch.topk of 256 over one shard's table, the "
         "nomination of the top-K tier (a library call the port makes)")
     for k in ("pair_stats", "select_unify", "merge_rows", "symbol_freqs",
@@ -2981,9 +3255,7 @@ def main() -> int:
         "select_unify_tournament": "no one call selects and unifies by "
                                    "string hash",
         "wp_match_encode": "no PyTorch call walks a trie",
-        "lookup_runs": "no PyTorch call probes a hash table",
-        "compact_table": "no one call compacts a table with an overflow "
-                         "flag",
+        "lookup_reduce": "no PyTorch call probes a hash table",
         "pair_stats_runs": "no one call sums counts and takes least "
                            "positions by key",
         "certificate": "no one call computes the certificate",

@@ -9,13 +9,18 @@ so positions order pairs across shards as one device's do. On that table:
   the exact score bits over the global symbol weights (WordPiece, the
   scorer of ops/bitmath.py), with ``torch.topk``, and its K-th best entry
   (metric, count, key), which bounds every pair it did not nominate;
-- :func:`lookup_runs`: each gathered candidate's local count and
-  position (kernel ``swt_lookup_runs``; the JAX package's ``_lookup_runs``
-  binary search, ``parallel/train.py:105``);
-- :func:`compact_table`: the shard's live entries as at most ``cap`` dense
-  runs and an overflow flag (kernel ``swt_compact_table``; the JAX
-  package's ``compact_cands``, ``ops/pairstats.py:162``, as its compact
-  tier uses it);
+- :func:`lookup_reduce`: each gathered candidate's count summed over
+  the shards of one device and its least position (kernel
+  ``swt_lookup_reduce``, one launch for all of the device's shards; the
+  JAX package's ``_lookup_runs`` binary search,
+  ``parallel/train.py:105``, with the mesh's sum and minimum over those
+  shards); :func:`lookup_runs` is its one-table case;
+- :func:`compact_tables`: each shard's live entries as at most ``cap``
+  dense runs, in the gathered layout, and the OR of their overflow flags
+  (kernel ``swt_compact_tables``, one launch for all of the device's
+  shards; the JAX package's ``compact_cands``,
+  ``ops/pairstats.py:162``, as its compact tier uses it);
+  :func:`compact_table` is its one-table case;
 - :func:`certificate`: the Σ-threshold certificate of the top-K tier
   (kernel ``swt_certificate``; ``parallel/train.py:287-290`` for BPE,
   ``:336-365`` and ``:383-400`` for WordPiece), written into the step's
@@ -34,6 +39,10 @@ from .bitmath import score_bits
 from .pairstats import EMPTY_KEY
 
 POS_MAX = 2 ** 31 - 1   # the position of an absent candidate
+MAX_LOCAL_SHARDS = 1024  # tables of one grouped launch (the lookup keeps
+                         # their descriptor rows in shared memory)
+ROUND_SPAN = 1 << 17    # table entries of one compaction cluster
+EPOCH_MAX = (1 << 30) - 1  # the compaction's look-back epochs
 SCALE_BITS = 36         # the WordPiece certificate's scale, as in JAX
 SAT = 1 << 55           # its per-shard saturation
 LOW32 = 0xFFFFFFFF
@@ -99,37 +108,120 @@ def lookup_runs_ref(cand, table, base: int):
             torch.where(found, p[j] + base, POS_MAX))
 
 
-def lookup_runs(cand, table, base: int):
-    """Each candidate key's local (count, position + ``base``) in one
-    shard's pair table, or (0, POS_MAX) when the key is absent or
-    EMPTY_KEY. ``cand`` int64[M]; ``table`` K1's (keys, counts, pos).
-    Returns (count int64[M], position int32[M]; int64 on the CPU).
+def _check_tables(tables, bases, dev, name: str) -> None:
+    if not tables or len(tables) != len(bases):
+        raise ValueError(f"{name}: {len(tables)} tables, {len(bases)} bases")
+    if len(tables) > MAX_LOCAL_SHARDS:
+        raise ValueError(f"{name}: more than {MAX_LOCAL_SHARDS} tables")
+    for table, base in zip(tables, bases):
+        _check_table(table, dev)
+        if base < 0:
+            raise ValueError(f"{name}: base {base} < 0")
 
-    Launches ``swt_lookup_runs`` for CUDA tensors, runs the PyTorch
-    version for CPU tensors, and raises for any other device."""
+
+class TableSet:
+    """One device's pair tables as the grouped kernels take them, built
+    once for a set of tables (``ShardedCorpus.table_set`` keeps one a
+    group of the mesh, whose K1 tables are allocated once) so that a step
+    copies nothing to the device. ``desc`` is int64[6 * D + 1 + D + C *
+    D] on the tables' device: per table its keys, counts and pos
+    pointers, T, base and a slot for the compaction's overflow flag; then
+    the compaction's ticket, a cluster counter a table, and C look-back
+    status words a table (C = ceil(max T / ROUND_SPAN), the compaction's
+    clusters a table), all 0 between calls but the status words, which
+    :meth:`next_epoch` makes stale without a memset."""
+
+    def __init__(self, tables, bases):
+        self.rows = self.rows_of(tables, bases)
+        self.D = len(tables)
+        self.clusters = max(-(-t[0].shape[0] // ROUND_SPAN) for t in tables)
+        self.desc = torch.tensor(
+            list(self.rows) + [0] * (1 + self.D + self.D * self.clusters),
+            dtype=torch.int64).to(tables[0][0].device)
+        self.epoch = 0
+
+    @staticmethod
+    def rows_of(tables, bases) -> tuple:
+        rows = []
+        for (keys, counts, pos), base in zip(tables, bases):
+            rows += [keys.data_ptr(), counts.data_ptr(), pos.data_ptr(),
+                     keys.shape[0], base, 0]
+        return tuple(rows)
+
+    def holds(self, tables, bases) -> bool:
+        """Whether this set was built for exactly these tables and bases."""
+        return self.rows == self.rows_of(tables, bases)
+
+    def next_epoch(self) -> int:
+        """The epoch of the next compaction, 1 .. EPOCH_MAX in turn; on
+        the wrap the status words are zeroed, so a word of an earlier
+        call never carries the new epoch."""
+        self.epoch += 1
+        if self.epoch > EPOCH_MAX:
+            self.desc[6 * self.D + 1 + self.D:].zero_()
+            self.epoch = 1
+        return self.epoch
+
+
+def _check_table_set(tset, tables, name: str) -> None:
+    if tset is not None and (tset.D != len(tables)
+                             or tset.desc.device != tables[0][0].device):
+        raise ValueError(f"{name}: a TableSet of {tset.D} tables on "
+                         f"{tset.desc.device} for {len(tables)} on "
+                         f"{tables[0][0].device}")
+
+
+def lookup_reduce_ref(cand, tables, bases):
+    """Plain PyTorch version of :func:`lookup_reduce`: the one-table
+    lookups summed and their positions' minimum (int64 positions)."""
+    looked = [lookup_runs_ref(cand, t, b) for t, b in zip(tables, bases)]
+    return (torch.stack([c for c, _ in looked]).sum(0),
+            torch.stack([p for _, p in looked]).amin(0))
+
+
+def lookup_reduce(cand, tables, bases, tset=None):
+    """Each candidate key's count summed over the pair tables of one
+    device's shards and its least position + base over them, or (0,
+    POS_MAX) when the key is absent from every table or EMPTY_KEY.
+    ``cand`` int64[M]; ``tables`` K1's (keys, counts, pos) of each shard,
+    ``bases`` their position bases; ``tset``, if given, their
+    :class:`TableSet` (else one is built for the call). Returns (count
+    int64[M], position int32[M]; int64 on the CPU).
+
+    Launches ``swt_lookup_reduce`` once for CUDA tensors, whatever the
+    number of tables, runs the PyTorch version for CPU tensors, and raises
+    for any other device."""
     dev = cand.device
     check_tensor("cand", cand, (torch.int64,), 1, dev)
-    T = _check_table(table, dev)
-    if base < 0:
-        raise ValueError(f"lookup_runs: base {base} < 0")
+    _check_tables(tables, bases, dev, "lookup_reduce")
+    _check_table_set(tset, tables, "lookup_reduce")
     if dev.type == "cpu":
-        return lookup_runs_ref(cand, table, base)
+        return lookup_reduce_ref(cand, tables, bases)
     if dev.type != "cuda":
-        raise ValueError(f"lookup_runs: no kernel for device {dev}")
+        raise ValueError(f"lookup_reduce: no kernel for device {dev}")
     M = cand.shape[0]
     cnt = torch.empty(M, dtype=torch.int64, device=dev)
     pos = torch.empty(M, dtype=torch.int32, device=dev)
-    keys, counts, tpos = table
+    if M == 0:
+        return cnt, pos
+    tset = tset or TableSet(tables, bases)
     from . import _cuda
     with torch.cuda.device(dev):
-        _cuda.launch("swt_lookup_runs", cand.data_ptr(), M, keys.data_ptr(),
-                     counts.data_ptr(), tpos.data_ptr(), T, base,
-                     cnt.data_ptr(), pos.data_ptr())
-    lookup_runs.launches += 1
+        _cuda.launch("swt_lookup_reduce", cand.data_ptr(), M,
+                     tset.desc.data_ptr(), len(tables), cnt.data_ptr(),
+                     pos.data_ptr())
+    lookup_reduce.launches += 1
     return cnt, pos
 
 
-lookup_runs.launches = 0
+lookup_reduce.launches = 0
+
+
+def lookup_runs(cand, table, base: int):
+    """Each candidate key's local (count, position + ``base``) in one
+    shard's pair table, or (0, POS_MAX) when the key is absent or
+    EMPTY_KEY: :func:`lookup_reduce` of the one table."""
+    return lookup_reduce(cand, [table], [base])
 
 
 def compact_table_ref(table, cap: int, base: int):
@@ -151,42 +243,83 @@ def compact_table_ref(table, cap: int, base: int):
                                              dtype=torch.int32, device=dev)
 
 
+def compact_tables_ref(tables, bases, cap: int):
+    """Plain PyTorch version of :func:`compact_tables`: the one-table
+    compactions concatenated and their flags' OR (int64 positions)."""
+    runs = [compact_table_ref(t, cap, b) for t, b in zip(tables, bases)]
+    return tuple(torch.cat([r[j] for r in runs]) for j in range(3)) + (
+        torch.stack([r[3] for r in runs]).amax(0),)
+
+
+def compact_tables(tables, bases, cap: int, out=None, tset=None):
+    """The live pairs of one device's shards, each shard's as at most
+    ``cap`` dense runs in table order, in the gathered layout (shard i at
+    ``[i * cap, (i + 1) * cap)``): (keys int64[D * cap], counts int64[D *
+    cap], positions + base int32[D * cap] (int64 on the CPU), overflow
+    int32[1]). Unused entries are (EMPTY_KEY, 0, POS_MAX); the overflow
+    flag is 1 when some shard has more than ``cap`` live entries (its runs
+    are then incomplete). ``tables`` are K1's tables of the shards,
+    ``bases`` their position bases; ``out``, if given, the four outputs
+    to write (reused across calls); ``tset``, if given, the tables'
+    :class:`TableSet` (else one is built for the call).
+
+    Launches ``swt_compact_tables`` once for CUDA tensors, whatever the
+    number of tables, runs the PyTorch version for CPU tensors, and raises
+    for any other device."""
+    dev = tables[0][0].device if tables else None
+    _check_tables(tables, bases, dev, "compact_tables")
+    _check_table_set(tset, tables, "compact_tables")
+    if cap < 1:
+        raise ValueError(f"compact_tables: cap {cap} < 1")
+    D = len(tables)
+    pos_dtype = torch.int64 if dev.type == "cpu" else torch.int32
+    if out is not None:
+        for name, t, n, dt in (("keys", out[0], D * cap, torch.int64),
+                               ("counts", out[1], D * cap, torch.int64),
+                               ("pos", out[2], D * cap, pos_dtype),
+                               ("ovf", out[3], 1, torch.int32)):
+            check_tensor(f"out {name}", t, (dt,), 1, dev)
+            if t.shape[0] != n:
+                raise ValueError(f"compact_tables: out {name} has "
+                                 f"{t.shape[0]} entries, expected {n}")
+    if dev.type == "cpu":
+        runs = compact_tables_ref(tables, bases, cap)
+        if out is None:
+            return runs
+        for o, r in zip(out, runs):
+            o.copy_(r)
+        return tuple(out)
+    if dev.type != "cuda":
+        raise ValueError(f"compact_tables: no kernel for device {dev}")
+    if any(t[0].data_ptr() % 16 for t in tables):
+        raise ValueError("compact_tables: the kernel reads keys as 16-byte "
+                         "vectors; a table's keys are not 16-byte aligned")
+    if any(t[0].shape[0] >= 2 ** 31 for t in tables):
+        raise ValueError("compact_tables: a table of 2**31 entries or more")
+    if out is None:
+        out = (torch.empty(D * cap, dtype=torch.int64, device=dev),
+               torch.empty(D * cap, dtype=torch.int64, device=dev),
+               torch.empty(D * cap, dtype=torch.int32, device=dev),
+               torch.empty(1, dtype=torch.int32, device=dev))
+    tset = tset or TableSet(tables, bases)
+    from . import _cuda
+    with torch.cuda.device(dev):
+        _cuda.launch("swt_compact_tables", tset.desc.data_ptr(), D,
+                     tset.clusters, cap, tset.next_epoch(),
+                     *(t.data_ptr() for t in out))
+    compact_tables.launches += 1
+    return tuple(out)
+
+
+compact_tables.launches = 0
+
+
 def compact_table(table, cap: int, base: int):
     """One shard's live pairs as at most ``cap`` dense runs: (keys int64
     [cap], counts int64[cap], positions + ``base`` int32[cap] (int64 on
-    the CPU), overflow int32[1]); unused entries are (EMPTY_KEY, 0,
-    POS_MAX) and the overflow flag is 1 when more than ``cap`` entries
-    are live (the runs are then incomplete).
-
-    Launches ``swt_compact_table`` (two passes over tiles of 1,024
-    entries) for CUDA tensors, runs the
-    PyTorch version for CPU tensors, and raises for any other device."""
-    keys = table[0]
-    dev = keys.device
-    T = _check_table(table, dev)
-    if cap < 1 or base < 0:
-        raise ValueError(f"compact_table: cap {cap} < 1 or base {base} < 0")
-    if dev.type == "cpu":
-        return compact_table_ref(table, cap, base)
-    if dev.type != "cuda":
-        raise ValueError(f"compact_table: no kernel for device {dev}")
-    out_k = torch.empty(cap, dtype=torch.int64, device=dev)
-    out_c = torch.empty(cap, dtype=torch.int64, device=dev)
-    out_p = torch.empty(cap, dtype=torch.int32, device=dev)
-    ovf = torch.empty(1, dtype=torch.int32, device=dev)
-    tile_live = torch.empty(-(-T // 1024), dtype=torch.int32, device=dev)
-    _, counts, pos = table
-    from . import _cuda
-    with torch.cuda.device(dev):
-        _cuda.launch("swt_compact_table", keys.data_ptr(), counts.data_ptr(),
-                     pos.data_ptr(), T, cap, base, out_k.data_ptr(),
-                     out_c.data_ptr(), out_p.data_ptr(), ovf.data_ptr(),
-                     tile_live.data_ptr())
-    compact_table.launches += 1
-    return out_k, out_c, out_p, ovf
-
-
-compact_table.launches = 0
+    the CPU), overflow int32[1]): :func:`compact_tables` of the one
+    table."""
+    return compact_tables([table], [base], cap)
 
 
 def _bitlen(x: int) -> int:

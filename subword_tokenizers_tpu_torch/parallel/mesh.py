@@ -21,11 +21,15 @@ interface, so ``parallel/train.py`` is written once:
   process, and their result lies on the process's own device.
 
 In both routes ``home`` is the device of the reduced results, where the
-replicated selection runs.
+replicated selection runs. A kernel that takes every shard of a device
+in one launch (ops/shard_select.py) gives one partial result for each
+of ``groups``, the runs of the process's consecutive shards on one
+device; the collectives take those partials in place of the shards'
+tensors and finish the reduction across devices and processes.
 """
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -60,6 +64,13 @@ class DataMesh:
         self.size = len(self.devices) * world
         self.first = rank * len(self.devices)
         self.home = self.devices[0]
+        # (device, start, stop): runs of consecutive shards on one device
+        self.groups: List[Tuple[torch.device, int, int]] = []
+        for i, d in enumerate(self.devices):
+            if self.groups and self.groups[-1][0] == d:
+                self.groups[-1] = (d, self.groups[-1][1], i + 1)
+            else:
+                self.groups.append((d, i, i + 1))
 
     @property
     def type(self) -> str:
@@ -67,16 +78,20 @@ class DataMesh:
         return self.home.type
 
     def _local(self, parts) -> List[torch.Tensor]:
-        if len(parts) != len(self.devices):
-            raise ValueError(f"expected {len(self.devices)} shard tensors, "
-                             f"got {len(parts)}")
+        if len(parts) not in (len(self.devices), len(self.groups)):
+            raise ValueError(f"expected {len(self.devices)} shard tensors or "
+                             f"{len(self.groups)} group partials, got "
+                             f"{len(parts)}")
         return [p.to(self.home) for p in parts]
 
     def gather(self, parts) -> torch.Tensor:
         """The shards' tensors (one per shard of this process, each of the
-        same shape) concatenated along dim 0 in shard order, over every
-        shard of the mesh, on ``home``."""
-        local = torch.cat(self._local(parts))
+        same shape; or one per group, each its shards' concatenation)
+        concatenated along dim 0 in shard order, over every shard of the
+        mesh, on ``home``. A single part on one process is returned as it
+        is."""
+        local = self._local(parts)
+        local = local[0] if len(local) == 1 else torch.cat(local)
         if not self.group:
             return local
         import torch.distributed as dist
@@ -86,7 +101,10 @@ class DataMesh:
         return out
 
     def _reduce(self, parts, op: str) -> torch.Tensor:
-        stacked = torch.stack(self._local(parts))
+        local = self._local(parts)
+        if len(local) == 1 and not self.group:
+            return local[0]  # nothing to reduce: the part as it is
+        stacked = torch.stack(local)
         local = stacked.sum(0) if op == "sum" else \
             stacked.amin(0) if op == "min" else stacked.amax(0)
         if self.group:
@@ -97,17 +115,19 @@ class DataMesh:
         return local
 
     def sum(self, parts) -> torch.Tensor:
-        """Elementwise sum of the shards' tensors over the mesh."""
+        """Elementwise sum of the shards' tensors (or of the groups'
+        partial sums) over the mesh."""
         return self._reduce(parts, "sum")
 
     def amin(self, parts) -> torch.Tensor:
-        """Elementwise minimum of the shards' tensors over the mesh."""
+        """Elementwise minimum of the shards' tensors (or of the groups'
+        partial minima) over the mesh."""
         return self._reduce(parts, "min")
 
-    def any(self, parts) -> torch.Tensor:
-        """int32 1 where any shard's tensor is nonzero, else 0, on
-        ``home`` (no host sync)."""
-        return self._reduce([(p != 0).to(torch.int32) for p in parts], "max")
+    def amax(self, parts) -> torch.Tensor:
+        """Elementwise maximum of the shards' tensors (or of the groups'
+        partial maxima) over the mesh."""
+        return self._reduce(parts, "max")
 
 
 def make_data_mesh(n_devices: Optional[int] = None,

@@ -15,15 +15,17 @@ A step picks its merge through three exact tiers, as in the JAX package:
 1. **top-K** (:func:`sharded_select_topk`): every shard nominates its
    ``TOPK`` best entries by local count (BPE) or local exact score over
    the global symbol weights (WordPiece); the K·D candidates are
-   gathered, each shard looks up its local (count, position) for every
-   one, the mesh sums the counts and takes the least positions, K2 picks
+   gathered, one launch a device looks up every one in the tables of its
+   shards, summing the counts and taking the least positions, the mesh
+   finishes that reduction across devices and processes, K2 picks
    the winner among them, and a Σ-threshold certificate proves that no
    pair outside the candidates can win (ops/shard_select.py). The flag
    is the one value read back;
-2. **compact** (:func:`sharded_select_compact`): every shard compacts its
-   table into at most ``cap`` runs (:func:`run_gather_cap`), the runs are
-   gathered and aggregated again by K1's runs mode, and K2 picks; exact
-   unless a shard had more than ``cap`` runs;
+2. **compact** (:func:`sharded_select_compact`): one launch a device
+   compacts the tables of its shards into at most ``cap`` runs each
+   (:func:`run_gather_cap`), the runs are gathered and aggregated again
+   by K1's runs mode, and K2 picks; exact unless a shard had more than
+   ``cap`` runs;
 3. **full** (:func:`sharded_select_full`): every shard's rows are
    gathered and K1 and K2 run over them.
 
@@ -43,8 +45,8 @@ import torch
 
 from ..ops.merge import apply_merge
 from ..ops.pairstats import alloc_table, pair_stats_runs
-from ..ops.shard_select import (certificate, compact_table, lookup_runs,
-                                nominate)
+from ..ops.shard_select import (TableSet, certificate, compact_tables,
+                                lookup_reduce, nominate)
 from ..ops.train_loop import PaddedState, select_host_ids
 from .mesh import DataMesh
 
@@ -94,6 +96,8 @@ class ShardedCorpus:
             self.bases.append(lo * L)
         self._full: Optional[PaddedState] = None
         self._runs_table = None
+        self._run_buffers = {}
+        self._table_sets = {}
 
     @property
     def n_local_pairs(self) -> int:
@@ -117,6 +121,34 @@ class ShardedCorpus:
         if self._runs_table is None and self.mesh.home.type == "cuda":
             self._runs_table = alloc_table(M + 1, self.mesh.home)
         return self._runs_table
+
+    def run_buffers(self, group: int, cap: int):
+        """The compaction's outputs for group ``group`` of the mesh at
+        ``cap`` runs a shard, allocated once and written every step (on
+        CUDA; None on the CPU, whose plain version allocates)."""
+        dev, start, stop = self.mesh.groups[group]
+        if dev.type != "cuda":
+            return None
+        out = self._run_buffers.get((group, cap))
+        if out is None:
+            n = (stop - start) * cap
+            out = self._run_buffers[(group, cap)] = (
+                torch.empty(n, dtype=torch.int64, device=dev),
+                torch.empty(n, dtype=torch.int64, device=dev),
+                torch.empty(n, dtype=torch.int32, device=dev),
+                torch.empty(1, dtype=torch.int32, device=dev))
+        return out
+
+    def table_set(self, group: int, tables) -> TableSet:
+        """The grouped kernels' TableSet of group ``group`` of the mesh
+        over ``tables`` (its shards' K1 tables), built on the first step
+        and rebuilt only if the tables move."""
+        _, start, stop = self.mesh.groups[group]
+        ts = self._table_sets.get(group)
+        if ts is None or not ts.holds(tables, self.bases[start:stop]):
+            ts = self._table_sets[group] = TableSet(tables,
+                                                    self.bases[start:stop])
+        return ts
 
     def host(self) -> np.ndarray:
         """Every shard's rows on the host, without the padding rows (the
@@ -157,8 +189,9 @@ def sharded_select_topk(corpus: ShardedCorpus, tables, rec,
              for s, t in zip(corpus.shards, tables)]
     cand = mesh.gather([c for c, _ in picks])
     kth = mesh.gather([t for _, t in picks])
-    looked = [lookup_runs(cand.to(s.device), t, base)
-              for s, t, base in zip(corpus.shards, tables, corpus.bases)]
+    looked = [lookup_reduce(cand.to(dev), tables[a:b], corpus.bases[a:b],
+                            corpus.table_set(g, tables[a:b]))
+              for g, (dev, a, b) in enumerate(mesh.groups)]
     g_cnt = mesh.sum([c for c, _ in looked])
     g_pos = mesh.amin([p for _, p in looked])
     select_host_ids(cand, g_cnt, g_pos, rec, sym_freq)
@@ -173,12 +206,14 @@ def sharded_select_compact(corpus: ShardedCorpus, tables, rec, cap: int,
     ``sharded_bpe_select_compact`` and ``sharded_wp_select_compact``."""
     mesh = corpus.mesh
     cap = min(cap, corpus.n_local_pairs)
-    runs = [compact_table(t, cap, base)
-            for t, base in zip(tables, corpus.bases)]
+    runs = [compact_tables(tables[a:b], corpus.bases[a:b], cap,
+                           out=corpus.run_buffers(g, cap),
+                           tset=corpus.table_set(g, tables[a:b]))
+            for g, (_, a, b) in enumerate(mesh.groups)]
     gk, gc, gp = (mesh.gather([r[j] for r in runs]) for j in range(3))
     agg = pair_stats_runs(gk, gc, gp, table=corpus.runs_table(gk.shape[0]))
     select_host_ids(*agg, rec, sym_freq)
-    rec[FLAG:].copy_(1 - mesh.any([r[3] for r in runs]))
+    rec[FLAG:].copy_(1 - mesh.amax([r[3] for r in runs]))
 
 
 def sharded_select_full(corpus: ShardedCorpus, rec, sym_freq=None) -> None:

@@ -1,0 +1,161 @@
+"""Paired timing of two checkouts of the repo on one NVIDIA GPU, each run
+in a process of its own in the order parent, change, change, parent.
+
+    python3 -m subword_tokenizers_tpu_torch.tools.ab_sharded_train \\
+        PARENT_DIR CHANGE_DIR [compact] [NaiveBPE] [NaiveWP]
+
+- ``NaiveBPE`` / ``NaiveWP``: the model under the one-card mesh
+  ``make_data_mesh(8, devices=["cuda:0"] * 8)``, trained on all of
+  ``data/train-85k.json`` to 8,000 and checked against the JAX goldens
+  (a warm-up train to 300, then the timed train; about 65 s a run).
+- ``compact``: one step's table compaction, as the checkout's compact
+  tier calls it (one ``compact_tables`` a device with the corpus's
+  ``TableSet`` and output buffers, or ``compact_table`` a shard), at
+  the BPE state after the golden's first 1,000 merges, on that mesh of
+  8 and on the mesh of 1 (one table of 2^20 entries), each at its
+  tier's cap: the mean time a call on the device's clock over 200
+  calls queued back to back (10-25 s a run).
+
+Each checkout builds its own kernels. Prints one JSON line a run and a
+last line with all of them and the card's name and power limit.
+"""
+import json
+import os
+import subprocess
+import sys
+import time
+
+TRAIN = r'''
+import json, os, sys, time
+import torch
+sys.path.insert(0, os.getcwd())
+from subword_tokenizers_tpu_torch import NaiveBPE, NaiveWP
+from subword_tokenizers_tpu_torch.ops import _cuda
+from subword_tokenizers_tpu_torch.parallel.mesh import make_data_mesh
+corpus = json.load(open("data/train-85k.json", encoding="utf-8"))
+MODEL = sys.argv[1]
+if MODEL == "NaiveBPE":
+    cls = NaiveBPE
+    golden = [tuple(p) for p in json.load(open(
+        "tests/golden/port_t85k_v8000_bpe_merges.json", encoding="utf-8"))]
+else:
+    cls = NaiveWP
+    golden = [tuple(p) for p in json.load(open(
+        "tests/golden/port_t85k_v8000_wp_vocab.json",
+        encoding="utf-8"))["merges"]]
+dev = torch.device("cuda:0")
+_cuda.lib()
+mesh = make_data_mesh(8, devices=[dev] * 8)
+cls(mesh=mesh, device=dev).train(corpus, 300)  # warm-up
+tok = cls(mesh=mesh, device=dev)
+t0 = time.perf_counter()
+tok.train(corpus, 8000)
+torch.cuda.synchronize()
+wall = time.perf_counter() - t0
+got = tok.merges_list if MODEL == "NaiveBPE" else tok._merge_log
+assert got == golden
+print(json.dumps({"wall": wall, "tiers": tok._sel_stats}))
+'''
+
+COMPACT = r'''
+import json, os, sys
+import torch
+sys.path.insert(0, os.getcwd())
+from subword_tokenizers_tpu_torch.core.corpus import (build_bpe_corpus,
+                                                      unique_words)
+from subword_tokenizers_tpu_torch.core.symbols import SymbolTable
+from subword_tokenizers_tpu_torch.frontend.pretokenize import \
+    pretokenize_batch
+from subword_tokenizers_tpu_torch.ops import _cuda, shard_select
+from subword_tokenizers_tpu_torch.parallel import train as ptrain
+from subword_tokenizers_tpu_torch.parallel.mesh import make_data_mesh
+corpus = json.load(open("data/train-85k.json", encoding="utf-8"))
+golden = [tuple(p) for p in json.load(open(
+    "tests/golden/port_t85k_v8000_bpe_merges.json", encoding="utf-8"))]
+dev = torch.device("cuda:0")
+_cuda.lib()
+words, freq, _ = unique_words(pretokenize_batch(corpus))
+table = SymbolTable()
+arrays = build_bpe_corpus(words, freq, table)
+
+
+def state(n_dev):
+    sc = ptrain.shard_corpus(make_data_mesh(n_dev, devices=[dev] * n_dev),
+                             arrays.sym, arrays.freq)
+    t = SymbolTable(table.strings())
+    for sa, sb in golden[:1000]:
+        ptrain.sharded_apply_merge(sc, t.get(sa), t.get(sb),
+                                   t.intern(sa + sb))
+    cap = min(ptrain.run_gather_cap(sc.n_local_pairs), sc.n_local_pairs)
+    return sc, [s.pairs() for s in sc.shards], cap
+
+
+def ms(fn, reps=200):
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000_000)  # queue the calls ahead of the stream
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def step(sc, tables, cap):
+    """One step's compaction as the checkout's compact tier calls it."""
+    if hasattr(sc, "table_set"):  # one launch a device
+        out, ts = sc.run_buffers(0, cap), sc.table_set(0, tables)
+        return lambda: shard_select.compact_tables(tables, sc.bases, cap,
+                                                   out=out, tset=ts)
+    return lambda: [shard_select.compact_table(t, cap, b)
+                    for t, b in zip(tables, sc.bases)]
+
+
+sc8, tables8, cap8 = state(8)
+sc1, tables1, cap1 = state(1)
+print(json.dumps({
+    "mesh8_step_ms": ms(step(sc8, tables8, cap8)), "mesh8_cap": cap8,
+    "mesh8_T": tables8[0][0].shape[0],
+    "mesh1_step_ms": ms(step(sc1, tables1, cap1)), "mesh1_cap": cap1,
+    "mesh1_T": tables1[0][0].shape[0],
+    "mesh1_live": int((tables1[0][0] != -1).sum())}))
+'''
+
+
+def main(argv) -> int:
+    if len(argv) < 2:
+        print(__doc__, file=sys.stderr)
+        return 2
+    parent, change = argv[0], argv[1]
+    modes = argv[2:] or ["NaiveBPE"]
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
+    print(smi, flush=True)
+    res = []
+    for mode in modes:
+        args = ([COMPACT] if mode == "compact" else [TRAIN, mode])
+        for name, d in (("parent", parent), ("change", change),
+                        ("change", change), ("parent", parent)):
+            t0 = time.perf_counter()
+            out = subprocess.run([sys.executable, "-c", *args], cwd=d,
+                                 capture_output=True, text=True)
+            if out.returncode:
+                print(f"{mode} {name} failed:\n{out.stderr[-3000:]}",
+                      flush=True)
+                return 1
+            r = json.loads(out.stdout.strip().splitlines()[-1])
+            r.update(name=name, mode=mode, dir=os.path.abspath(d),
+                     process_s=time.perf_counter() - t0)
+            res.append(r)
+            print(json.dumps(r), flush=True)
+    print("AB", json.dumps(res), smi, flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))
