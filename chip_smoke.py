@@ -97,16 +97,26 @@ WordPiece vocab ``tests/golden/port_t85k_fastwp_vocab.json``:
    exact tie, saturation, a 62-bit veto, a zero sum); times each at the
    corpus's shapes, beside the launch floors, ``torch.nonzero`` over the
    compaction's own keys, ``torch.topk``, and K1 and K3p (a real merge)
-   at a shard's shape;
+   at a shard's shape; (13b) the sharded step's grouped K1
+   (``pair_rows``: every shard of a device in one launch, which fills one
+   set of tables and empties the other) and K3p (one launch over the
+   device's block, ids from the host or the record) against their plain
+   versions, exactly, on seeded rows (L of 2 to 70, 1 and 8 shards, PADs
+   inside, runs of a == b, inactive records), a double buffer over three
+   steps, and the corpus's 8 shards and the mesh of 1 at the golden's
+   1,001st merge; their times beside the per-shard launches they replace
+   (8 x ``swt_pair_stats``, 8 x ``swt_merge_rows``), and K4 at a shard's
+   shape;
 14. trains ``NaiveBPE`` and ``NaiveWP(mesh=make_data_mesh(8,
    devices=["cuda:0"] * 8))`` on the whole corpus to 8,000, each equal to
    its golden, with the tiers that settled each step and the shard
-   kernels' launches (one lookup a step, one compaction a step the
-   certificate did not settle); the forced tiers and a mesh of 1 to
-   1,000, each equal to the golden's prefix; FastWP's sharded encode and
-   the other three encoders under the mesh against the JAX digests; and
-   (14d) the idle share of one warm sharded train, with the lookup's and
-   the compaction's kernels by name;
+   kernels' launches (one grouped K1 and one lookup a step, one
+   compaction a step the certificate did not settle, one grouped K3p a
+   merge, the per-shard K1 only in the full tier); the forced tiers and
+   a mesh of 1 to 1,000, each equal to the golden's prefix, with their K1
+   and K3p launches; FastWP's sharded encode and the other three encoders
+   under the mesh against the JAX digests; and (14d) the idle share of
+   one warm sharded train, with the grouped kernels by name;
 15. the process-group route: ``torch.distributed`` with NCCL at world
    size 1 (NCCL takes one rank per GPU), a TCP store on localhost, an
    8-shard process-group mesh on the card, NaiveBPE to 578 equal to the
@@ -157,6 +167,9 @@ SHUFFLE_SEED = 7  # the shuffled merge list of the encode goldens
 DEVICE = "cuda:0"
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 SCALAR_OPS_PER_S = 67e12   # H100 SXM float32 outside the tensor cores
+# host-to-device copies a sharded train may make in its set-up (the
+# corpus's blocks, the records); none a step
+H2D_SETUP_MAX = 50
 
 
 def nbytes(*tensors) -> int:
@@ -727,8 +740,7 @@ def phase11(dev, rng, flat_bpe, table, flat_wp, table_wp, sym_pad, max_len,
     bounds["skip_guard"] = bound(nbytes(fs), 2 * F)
     bounds["skip_guard_fired"] = bound(2 * nbytes(*ovf), 8 * ovf[0].shape[0])
     bounds["merge_skip"] = bound(nbytes(fs, wid, wgt, rec), 6 * F)
-    bounds["merge_rows"] = bound(2 * nbytes(sym85) + nbytes(rec_p),
-                                 2 * n_rows * L)
+    bounds["merge_rows"] = bound(nbytes(sym85, rec_p), 2 * n_rows * L)
     bounds["select_unify_tournament"] = bound(
         nbytes(*tab_w, ctrl, rec_w, sf_w), 12 * tab_w[0].shape[0])
     notes.update(fired_1000=fired, dead_1000=n_dead, F=F, n_live=n_live,
@@ -928,7 +940,8 @@ def shard_kernels():
     from subword_tokenizers_tpu_torch.ops.bitmath import score_bits
     from subword_tokenizers_tpu_torch.ops.fetch import compact_ids
     from subword_tokenizers_tpu_torch.ops.merge import apply_merge
-    from subword_tokenizers_tpu_torch.ops.pairstats import (pair_stats,
+    from subword_tokenizers_tpu_torch.ops.pairstats import (pair_rows,
+                                                            pair_stats,
                                                             pair_stats_runs,
                                                             symbol_freqs)
     from subword_tokenizers_tpu_torch.ops.shard_select import (
@@ -937,7 +950,8 @@ def shard_kernels():
     from subword_tokenizers_tpu_torch.ops.wp_encode_e2e import wp_e2e_scan
     return {"lookup_reduce": lookup_reduce, "compact_tables": compact_tables,
             "pair_stats_runs": pair_stats_runs, "certificate": certificate,
-            "pair_stats": pair_stats, "select_unify": select_unify,
+            "pair_rows": pair_rows, "pair_stats": pair_stats,
+            "select_unify": select_unify,
             "merge_rows": apply_merge, "symbol_freqs": symbol_freqs,
             "wp_score": score_bits, "wp_e2e_scan": wp_e2e_scan,
             "compact_ids": compact_ids}
@@ -1161,7 +1175,7 @@ def phase13(dev, rng, arrays, table, arrays_wp, table_wp, golden,
     out = bpe.run_buffers(0, cap)
     # the sets built once, as a sharded run keeps them (a wrapper called
     # without one builds and copies one each call)
-    tset = bpe.table_set(0, tables)
+    tset = TableSet(tables, bases)
     tset0 = TableSet([t0], [base0])
     tset_big = TableSet([big], [0])
     shard = bpe.shards[0]
@@ -1336,6 +1350,294 @@ def phase13(dev, rng, arrays, table, arrays_wp, table_wp, golden,
     return errs, timing, bounds, library, notes
 
 
+def per_call_ms(fn, restore, n=50):
+    """Median device time of ``fn`` over ``n`` calls by CUDA events, each
+    call on the state ``restore()`` puts back first (outside the events),
+    the calls queued behind a spin of the stream."""
+    import torch
+    ev = [(torch.cuda.Event(enable_timing=True),
+           torch.cuda.Event(enable_timing=True)) for _ in range(n)]
+    restore()
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(100_000_000)
+    for a, b in ev:
+        restore()
+        a.record()
+        fn()
+        b.record()
+    torch.cuda.synchronize()
+    restore()
+    return statistics.median(a.elapsed_time(b) for a, b in ev)
+
+
+def phase13b(dev, rng, arrays, table, golden, sym_cap, smi, reps=200):
+    """Phase 13b: the sharded step's grouped kernels, one launch a device:
+    K1 over the padded rows of every shard of the device (``pair_rows``,
+    which fills one set of tables and empties the other) and K3p over
+    the device's block (``apply_merge`` with the ids as arguments, or
+    from the record), against their plain versions, exactly: seeded rows
+    with runs of a == b and PADs inside, L of 2, 22, 40 and 70, 1 and 8
+    shards, an inactive record; three steps of a double buffer whose
+    second set starts dirty; the corpus's 8 shards and the mesh of 1
+    after the golden's first 1,000 merges (their rows equal the plain
+    version's replay) and its 1,001st. Then the times at the corpus's
+    8-shard state beside the per-shard launches they replace (8 x
+    ``swt_pair_stats`` with its memsets, 8 x ``swt_merge_rows``), the
+    mesh of 1's, and K4 at a shard's shape with ``index_add_`` beside it.
+    Returns (errs, timing, bounds, library, notes)."""
+    import torch
+    from subword_tokenizers_tpu_torch.ops.merge import (apply_merge,
+                                                        apply_merge_ref)
+    from subword_tokenizers_tpu_torch.ops.pairstats import (
+        EMPTY_KEY, canonical, clean_table, pair_rows, pair_rows_ref,
+        symbol_freqs, symbol_freqs_ref)
+    from subword_tokenizers_tpu_torch.ops.shard_select import TableSet
+    from subword_tokenizers_tpu_torch.parallel import train as ptrain
+    from subword_tokenizers_tpu_torch.parallel.mesh import make_data_mesh
+    errs = {"pair_rows": 0, "merge_rows_grouped": 0, "shard_symbol_freqs": 0}
+    notes = {"cases": 0, "k1_checks": 0, "k3p_checks": 0, "emptied_sets": 0}
+
+    def err(name, e):
+        errs[name] = max(errs[name], e)
+
+    def check_tables(got, sym, wgt, rows):
+        want = pair_rows_ref(sym, wgt, rows)
+        if len(got) != len(want):
+            raise AssertionError(f"pair_rows: {len(got)} tables for "
+                                 f"{len(want)} shards")
+        for g, w in zip(got, want):
+            err("pair_rows", max(max_err(x, y)
+                                 for x, y in zip(canonical(*g), w)))
+        notes["k1_checks"] += 1
+
+    def check_empty(tables):
+        for keys, counts, pos in tables:
+            err("pair_rows", int((keys != EMPTY_KEY).sum()
+                                 + (counts != 0).sum() + (pos != -1).sum()))
+        notes["emptied_sets"] += 1
+
+    def check_merges(sym, merges):
+        """K3p on copies of ``sym``, each (a, b, new_id, active) from the
+        record and, when active, from the host's ids."""
+        for a, b, n, active in merges:
+            rec = torch.tensor([a, b, n, 0, active, 0], dtype=torch.int32,
+                               device=dev)
+            want = apply_merge_ref(sym, rec)
+            err("merge_rows_grouped", max_err(apply_merge(sym.clone(), rec),
+                                              want))
+            if active:
+                err("merge_rows_grouped", max_err(
+                    apply_merge(sym.clone(), merge=(a, b, n)), want))
+            notes["k3p_checks"] += 1
+
+    def merges_of(sym):
+        """The most frequent adjacent pair, the most frequent symbol with
+        itself, an absent pair, and an inactive record."""
+        s = sym.to(torch.int64)
+        a, b = s[:, :-1], s[:, 1:]
+        ok = (a >= 0) & (b >= 0)
+        keys, cnt = torch.unique((a[ok] << 32) | b[ok], return_counts=True)
+        top = int(keys[cnt.argmax()]) if keys.numel() else (7 << 32) | 8
+        live = sym[sym >= 0]
+        mode = int(live.mode().values) if live.numel() else 7
+        n = max(int(sym.max()), 9) + 1
+        ta, tb = top >> 32, top & 0xFFFFFFFF
+        return [(ta, tb, n, 1), (mode, mode, n, 1), (n + 1, n + 2, n, 1),
+                (ta, tb, n, 0)]
+
+    # seeded rows: (L, shards, rows a shard, symbols, PADs inside)
+    for L, D, rows, n_sym, inner in ((2, 8, 41, 3, False),
+                                     (22, 8, 37, 4, True),
+                                     (22, 1, 300, 2, True),
+                                     (40, 8, 23, 2, True),
+                                     (40, 1, 250, 5, False),
+                                     (70, 1, 120, 3, True)):
+        sym, wgt = padded_random(rng, rows * D, L, n_sym)
+        if inner:
+            sym[rng.random(sym.shape) < 0.1] = -1
+        sym_t, wgt_t = (torch.from_numpy(x).to(dev) for x in (sym, wgt))
+        tset = TableSet([clean_table(rows * L, dev) for _ in range(D)],
+                        [0] * D)
+        check_tables(pair_rows(sym_t, wgt_t, rows, tset), sym_t, wgt_t,
+                     rows)
+        check_merges(sym_t, merges_of(sym_t))
+        notes["cases"] += 1
+    # a double buffer over three steps, the second set dirty at first
+    sym, wgt = padded_random(rng, 8 * 50, 22, 3)
+    sym_t, wgt_t = (torch.from_numpy(x).to(dev) for x in (sym, wgt))
+    sets = [[clean_table(50 * 22, dev) for _ in range(8)] for _ in range(2)]
+    descs = [TableSet(t, [0] * 8) for t in sets]
+    for keys, counts, pos in sets[1]:
+        keys.fill_(5)
+        counts.fill_(3)
+        pos.fill_(2)
+    for step in range(3):
+        p = step % 2
+        check_tables(pair_rows(sym_t, wgt_t, 50, descs[p],
+                               clear=descs[1 - p]), sym_t, wgt_t, 50)
+        check_empty(sets[1 - p])
+        apply_merge(sym_t, merge=merges_of(sym_t)[step % 2][:3])
+
+    # the corpus: 8 shards and the mesh of 1, after the golden's first
+    # 1,000 merges (K3p from the host's ids), held against the plain
+    # version's replay of the same merges
+    bpe = ptrain.shard_corpus(make_data_mesh(8, devices=[dev] * 8),
+                              arrays.sym, arrays.freq)
+    mesh1 = ptrain.shard_corpus(make_data_mesh(1, devices=[dev]),
+                                arrays.sym, arrays.freq)
+    replay = mesh1.blocks[0].state.sym.clone()
+    t1000 = type(table)(table.strings())
+    for sa, sb in golden[:1000]:
+        ab = t1000.get(sa), t1000.get(sb), t1000.intern(sa + sb)
+        ptrain.sharded_apply_merge(bpe, *ab)
+        ptrain.sharded_apply_merge(mesh1, *ab)
+        replay = apply_merge_ref(replay, merge=ab)
+    err("merge_rows_grouped", max_err(mesh1.blocks[0].state.sym, replay))
+    err("merge_rows_grouped", max_err(
+        bpe.blocks[0].state.sym[:replay.shape[0]], replay))
+    sa, sb = golden[1000]
+    m1001 = (t1000.get(sa), t1000.get(sb), t1000.intern(sa + sb))
+    for corpus in (bpe, mesh1):
+        blk = corpus.blocks[0]
+        for _ in range(3):  # the block's own double buffer, three steps
+            check_tables(blk.pairs(), blk.state.sym, blk.wgt, blk.rows)
+        check_merges(blk.state.sym, [(*m1001, 1), (*m1001, 0)])
+    if any(v for k, v in errs.items()):
+        raise AssertionError(f"a grouped kernel differs: {errs}")
+
+    # times: one step's K1 and K3p on the one-card mesh of 8, and on the
+    # mesh of 1 (the golden's 1,001st merge, the state restored between
+    # calls), beside the per-shard launches of the same work
+    timing, bounds, library = {}, {}, {}
+    blk, blk1 = bpe.blocks[0], mesh1.blocks[0]
+    sym8, sym1 = blk.state.sym.clone(), blk1.state.sym.clone()
+    timing["pair_rows"] = (
+        cuda_ms(blk.pairs, reps, True),
+        cuda_ms(lambda: pair_rows_ref(blk.state.sym, blk.wgt, blk.rows), 5))
+    # 8 wrapper calls a rep: fewer reps, so that the host queues them
+    # all inside the stream's spin
+    timing["shard8_pair_stats"] = (
+        cuda_ms(lambda: [s.pairs() for s in bpe.shards], max(reps // 8, 1),
+                True),
+        None)
+    timing["pair_rows_mesh1"] = (
+        cuda_ms(blk1.pairs, reps, True),
+        cuda_ms(lambda: pair_rows_ref(blk1.state.sym, blk1.wgt, blk1.rows),
+                5))
+    timing["merge_rows_grouped"] = (
+        per_call_ms(lambda: apply_merge(blk.state.sym, merge=m1001),
+                    lambda: blk.state.sym.copy_(sym8)),
+        cuda_ms(lambda: apply_merge_ref(sym8, merge=m1001), 5))
+    timing["shard8_merge_rows"] = (
+        per_call_ms(lambda: [apply_merge(s.sym, merge=m1001)
+                             for s in bpe.shards],
+                    lambda: blk.state.sym.copy_(sym8)), None)
+    timing["merge_rows_mesh1"] = (
+        per_call_ms(lambda: apply_merge(blk1.state.sym, merge=m1001),
+                    lambda: blk1.state.sym.copy_(sym1)),
+        cuda_ms(lambda: apply_merge_ref(sym1, merge=m1001), 5))
+    # K4 under the mesh: one shard's rows, as WordPiece's step counts them
+    shard = bpe.shards[0]
+    fs0, w0 = shard.sym.view(-1), shard._wgt
+    sf = symbol_freqs(fs0, w0, sym_cap)
+    err("shard_symbol_freqs", max_err(sf, symbol_freqs_ref(fs0, w0,
+                                                           sym_cap)))
+    # index_add_ computes K4's function over these inputs (the PAD slots
+    # sent to the trash bucket with weight 0 beforehand)
+    sf_index = torch.where(fs0 >= 0, fs0, sym_cap).to(torch.int64)
+    w_lib = torch.where(fs0 >= 0, w0, 0)
+    err("shard_symbol_freqs", max_err(torch.zeros_like(sf).index_add_(
+        0, sf_index, w_lib), sf))
+    if errs["shard_symbol_freqs"]:
+        raise AssertionError(f"K4 at a shard differs: {errs}")
+    timing["shard_symbol_freqs"] = (
+        cuda_ms(lambda: symbol_freqs(fs0, w0, sym_cap), reps, True),
+        cuda_ms(lambda: symbol_freqs_ref(fs0, w0, sym_cap), 10))
+    library["shard_symbol_freqs"] = cuda_ms(
+        lambda: torch.zeros_like(sf).index_add_(0, sf_index, w_lib), reps,
+        True)
+
+    def k1_bytes(b):
+        """What one grouped K1 must move: the rows (4 bytes a slot), the
+        rows' weights (8 a row), each distinct pair's entry written once
+        (20) and each entry the step before filled emptied (20). The
+        kernel empties the whole other set (20 bytes an entry of it): a
+        choice of its design, counted apart as ``full_clear``."""
+        def live_of(tables):
+            return sum(int((t[0] != EMPTY_KEY).sum()) for t in tables)
+
+        prev = live_of(b.pairs())
+        tables = b.pairs()  # empties the set the call above filled
+        live = live_of(tables)
+        T_all = sum(t[0].shape[0] for t in tables)
+        valid = int(((b.state.sym[:, :-1] >= 0)
+                     & (b.state.sym[:, 1:] >= 0)).sum())
+        rows = nbytes(b.state.sym, b.wgt)
+        return (rows + 20 * live + 20 * prev,
+                rows + 20 * live + 20 * T_all, valid, live, T_all)
+
+    def k3p_bytes(sym0):
+        """Every slot read, and the rows the merge changes written."""
+        changed = int((apply_merge_ref(sym0, merge=m1001) != sym0).any(1)
+                      .sum())
+        return nbytes(sym0) + 4 * sym0.shape[1] * changed, changed
+
+    # Operations, counted low: a hash insert per valid pair slot (10), a
+    # match test and a place per slot (2), an add per slot (2).
+    k1_8, full8, valid8, live8, T8 = k1_bytes(blk)
+    k1_1, full1, valid1, live1, T1 = k1_bytes(blk1)
+    k3_8, changed8 = k3p_bytes(sym8)
+    k3_1, changed1 = k3p_bytes(sym1)
+    bounds["pair_rows"] = bound(k1_8, 10 * valid8)
+    bounds["pair_rows_mesh1"] = bound(k1_1, 10 * valid1)
+    bounds["pair_rows_full_clear"] = bound(full8, 10 * valid8)
+    bounds["pair_rows_mesh1_full_clear"] = bound(full1, 10 * valid1)
+    bounds["merge_rows_grouped"] = bound(k3_8, 2 * sym8.numel())
+    bounds["merge_rows_mesh1"] = bound(k3_1, 2 * sym1.numel())
+    bounds["shard_symbol_freqs"] = bound(nbytes(shard.sym, w0, sf),
+                                         2 * shard.sym.numel())
+    notes.update(rows=tuple(blk.state.sym.shape), shard_rows=blk.rows,
+                 D=len(bpe.shards), live=live8, T_all=T8, live_mesh1=live1,
+                 T_mesh1=T1, changed_rows=changed8,
+                 changed_rows_mesh1=changed1, sym_cap=sym_cap)
+    torch.cuda.synchronize()
+
+    def line(k):
+        plain = timing[k][1]
+        return (f"{k} {timing[k][0]:.4f} ms (plain "
+                + (f"{plain:.3f}" if plain is not None else "-")
+                + (f", bound {bounds[k][0]:.5f}" if k in bounds else "")
+                + ")")
+
+    print(f"phase 13b: the grouped K1 (pair_rows) and K3p (apply_merge, "
+          f"record and host ids) equal their plain versions exactly on "
+          f"{notes['cases']} seeded cases (L 2, 22, 40, 70; 1 and 8 "
+          f"shards; PADs inside; a == b runs; inactive records), 3 steps "
+          f"of a double buffer ({notes['emptied_sets']} sets emptied, the "
+          f"first dirty), the corpus's 8 shards of {blk.rows} x "
+          f"{blk.state.sym.shape[1]} and the mesh of 1 after the golden's "
+          f"1,000 merges (equal to the plain replay) and its 1,001st "
+          f"({notes['k1_checks']} K1 and {notes['k3p_checks']} K3p "
+          f"checks); at the 8-shard state ({live8} live of {T8} entries, "
+          f"{changed8} rows changed by the merge): "
+          + ", ".join(line(k) for k in (
+              "pair_rows", "shard8_pair_stats", "merge_rows_grouped",
+              "shard8_merge_rows"))
+          + f" (K1's bound with the whole other set emptied, as the "
+          f"kernel does: {bounds['pair_rows_full_clear'][0]:.5f})"
+          + f"; the mesh of 1 ({live1} live of {T1}, {changed1} rows "
+          f"changed): " + ", ".join(line(k) for k in (
+              "pair_rows_mesh1", "merge_rows_mesh1"))
+          + f" (K1 with the full clear: "
+          f"{bounds['pair_rows_mesh1_full_clear'][0]:.5f})"
+          + f"; K4 at a shard's {shard.sym.shape[0]} x "
+          f"{shard.sym.shape[1]} rows, sym_cap {sym_cap}: "
+          + line("shard_symbol_freqs")
+          + f", index_add_ {library['shard_symbol_freqs']:.4f} ms; {smi}")
+    return errs, timing, bounds, library, notes
+
+
 def phase14(dev, corpus, check_train, check_wp_train, lists, wp_merges,
             wp_vocab, expect, expect_enc, smi, trace_dir, max_vocab=8000,
             small_vocab=1000, trace_vocab=2000):
@@ -1354,10 +1656,10 @@ def phase14(dev, corpus, check_train, check_wp_train, lists, wp_merges,
     from subword_tokenizers_tpu_torch.parallel.mesh import make_data_mesh
     mesh = make_data_mesh(8, devices=[dev] * 8)
     kernels = shard_kernels()
-    must = {"NaiveBPE": ("pair_stats", "lookup_reduce", "certificate",
+    must = {"NaiveBPE": ("pair_rows", "lookup_reduce", "certificate",
                          "compact_tables", "pair_stats_runs", "select_unify",
                          "merge_rows"),
-            "NaiveWP": ("pair_stats", "lookup_reduce", "certificate",
+            "NaiveWP": ("pair_rows", "lookup_reduce", "certificate",
                         "select_unify", "merge_rows", "symbol_freqs",
                         "wp_score")}
     checks = {"NaiveBPE": check_train, "NaiveWP": check_wp_train}
@@ -1378,19 +1680,25 @@ def phase14(dev, corpus, check_train, check_wp_train, lists, wp_merges,
         if missing:
             raise AssertionError(f"{name} under the mesh launched no "
                                  f"{missing}: {counts}")
-        # one grouped launch a step on the one-card mesh: a lookup every
-        # step, a compaction every step the certificate did not settle
+        # one grouped launch a step on the one-card mesh: K1 and a lookup
+        # every step, a compaction every step the certificate did not
+        # settle, K3p every merge; the per-shard K1 only in the full tier
         steps = sum(tok._sel_stats.values())
-        if (counts["lookup_reduce"], counts["compact_tables"]) != (
-                steps, tok._topk_fallbacks):
-            raise AssertionError(f"{name}: {steps} steps and "
-                                 f"{tok._topk_fallbacks} fallbacks, but "
+        merges = len(tok.merges_list if name == "NaiveBPE"
+                     else tok._merge_log)
+        want = {"pair_rows": steps, "lookup_reduce": steps,
+                "compact_tables": tok._topk_fallbacks, "merge_rows": merges,
+                "pair_stats": tok._sel_stats["full"]}
+        if any(counts[k] != v for k, v in want.items()):
+            raise AssertionError(f"{name}: {steps} steps, {merges} merges "
+                                 f"and {tok._topk_fallbacks} fallbacks, but "
                                  f"launches {counts}")
         by_path[f"{name}_mesh8"] = {k: v for k, v in counts.items() if v}
         lines.append(f"{name} cold {walls[0]:.3f} s, warm {walls[1]:.3f} s, "
                      f"tiers {tok._sel_stats} ({tok._topk_fallbacks} "
-                     f"fallbacks; 1 lookup launch a step, 1 compaction "
-                     f"launch a fallback step), warm launches "
+                     f"fallbacks; 1 K1 and 1 lookup launch a step, 1 "
+                     f"compaction launch a fallback step, 1 K3p launch a "
+                     f"merge, no per-shard K1), warm launches "
                      f"{by_path[name + '_mesh8']}")
     print(f"phase 14: NaiveBPE and NaiveWP(mesh=make_data_mesh(8, "
           f"devices=['{dev}'] * 8)).train of all {len(corpus)} sentences to "
@@ -1404,10 +1712,12 @@ def phase14(dev, corpus, check_train, check_wp_train, lists, wp_merges,
             m = mesh if tier else make_data_mesh(1, devices=[dev])
             tok = cls(mesh=m, device=dev)
             tok._force_tier = tier
+            zero_counts(kernels)
             t0 = time.perf_counter()
             tok.train(corpus, small_vocab)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
+            counts = read_counts(kernels)
             got = tok.merges_list if name == "NaiveBPE" else tok._merge_log
             want = (lists["golden"] if name == "NaiveBPE"
                     else wp_merges)[:len(got)]
@@ -1418,6 +1728,14 @@ def phase14(dev, corpus, check_train, check_wp_train, lists, wp_merges,
             if tier and (st["proven"] or not st[tier]
                          or (tier == "full" and st["compact"])):
                 raise AssertionError(f"{name} tier {tier}: {st}")
+            # the forced full tier counts the gathered rows only
+            steps = sum(st.values())
+            if (counts["pair_rows"], counts["pair_stats"],
+                    counts["merge_rows"]) != (
+                    0 if tier == "full" else steps, st["full"],
+                    len(got)):
+                raise AssertionError(f"{name} tier {tier}: {st}, "
+                                     f"launches {counts}")
             tier_lines.append(f"{name} {tier or 'mesh of 1'} {wall:.3f} s "
                               f"{st}")
     print(f"phase 14b: to {small_vocab}, each equal to the golden's "
@@ -1465,16 +1783,27 @@ def phase14(dev, corpus, check_train, check_wp_train, lists, wp_merges,
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
     grouped = {k: [sum(c for n, (c, _) in by_name.items() if k in n),
                    sum(ms for n, (_, ms) in by_name.items() if k in n)]
-               for k in ("lookup_reduce_kernel", "compact_tables_kernel")}
+               for k in ("pair_rows_kernel", "lookup_reduce_kernel",
+                         "compact_tables_kernel", "merge_rows_kernel")}
     if by_name and not all(c for c, _ in grouped.values()):
         raise AssertionError(f"the trace shows no grouped kernel: {grouped}")
+    # the merge takes its ids as arguments: no host-to-device copy a
+    # step, so the train's copies are its set-up's, a few whatever the
+    # number of merges
+    h2d = sum(c for n, (c, _) in by_name.items() if "HtoD" in n)
+    if by_name and h2d > H2D_SETUP_MAX:
+        raise AssertionError(f"{h2d} host-to-device copies for "
+                             f"{grouped['merge_rows_kernel'][0]} merges "
+                             f"(set-up makes at most {H2D_SETUP_MAX})")
     dev_line = ("not measured (the trace holds no device events)"
                 if not by_name else
                 f"device busy {busy:.3f} ms of {wall:.1f} ms (idle share "
                 f"{1 - busy / wall:.4f}); "
                 + "; ".join(f"{n} x{c} {ms:.3f} ms" for n, (c, ms) in top)
                 + "; the grouped kernels: " + "; ".join(
-                    f"{n} x{c} {ms:.3f} ms" for n, (c, ms) in grouped.items()))
+                    f"{n} x{c} {ms:.3f} ms" for n, (c, ms) in grouped.items())
+                + f"; host-to-device copies in the whole train (set-up "
+                  f"included) {h2d}")
     print(f"phase 14d: one warm NaiveBPE train to {trace_vocab} on the mesh "
           f"of 8 under torch.profiler: {dev_line}; {smi}")
     return by_path
@@ -1521,7 +1850,7 @@ def phase15(dev, corpus, golden, anchor, smi, max_vocab=578,
         rows = [torch.full((2, 3), i, device=dev) for i in range(8)]
         got = distributed.fetch_global(rows, mesh)
         assert got[:, 0].tolist() == [i for i in range(8) for _ in range(2)]
-        for k in ("lookup_reduce", "certificate", "pair_stats",
+        for k in ("lookup_reduce", "certificate", "pair_rows",
                   "merge_rows"):
             if not counts.get(k):
                 raise AssertionError(f"phase 15 launched no {k}: {counts}")
@@ -2978,6 +3307,14 @@ def main() -> int:
     timing.update(timing13)
     bounds.update(bounds13)
     library.update(library13)
+    # ---- phase 13b: the grouped K1 and K3p against their plain versions
+    errs13b, timing13b, bounds13b, library13b, notes13b = phase13b(
+        dev, rng, arrays, table, golden,
+        train_loop.sym_capacity(table_wp, 8000), smi)
+    errs.update(errs13b)
+    timing.update(timing13b)
+    bounds.update(bounds13b)
+    library.update(library13b)
 
     # ---- phase 14: the sharded main path, an 8-shard mesh on the card
     with tempfile.TemporaryDirectory() as d:
@@ -3154,7 +3491,9 @@ def main() -> int:
             ("pair_stats_runs", "pair_stats.cu",
              "subword_tokenizers_tpu/parallel/train.py:199"),
             ("certificate", "shard_select.cu",
-             "subword_tokenizers_tpu/parallel/train.py:287")):
+             "subword_tokenizers_tpu/parallel/train.py:287"),
+            ("pair_rows", "pair_stats.cu",
+             "subword_tokenizers_tpu/parallel/train.py:78")):
         paths = {p: n for p, n in mesh_of(k).items()
                  if not p.endswith("_encode")}
         record["kernels"].append(
@@ -3206,6 +3545,56 @@ def main() -> int:
     by_name["certificate"]["note"] = (
         "also replaces the WordPiece certificate at "
         "subword_tokenizers_tpu/parallel/train.py:336-365 and :383-400")
+    # the grouped K1 and K3p of the sharded step (phase 13b)
+    by_name["pair_rows"].update(
+        also_replaces="subword_tokenizers_tpu/ops/pairstats.py:92",
+        note=f"ms: one launch over the {notes13b['D']} shards of the "
+             f"one-card mesh ({notes13b['shard_rows']} x "
+             f"{notes13b['rows'][1]} rows each) at the golden's 1,001st "
+             f"step, filling one set of tables and emptying the other; "
+             f"shard8_pair_stats_ms: the per-shard launches it replaces "
+             f"(8 x swt_pair_stats, three memsets and an insert each)",
+        bound_note="bytes: the rows, the rows' weights, 20 bytes for each "
+                   "live entry written and for each entry the step before "
+                   "filled, emptied; full_clear_bound_ms: the same with "
+                   "every entry of the other set emptied, as the kernel "
+                   "does",
+        full_clear_bound_ms=bounds["pair_rows_full_clear"][0],
+        mesh1_full_clear_bound_ms=bounds["pair_rows_mesh1_full_clear"][0],
+        shard8_pair_stats_ms=timing["shard8_pair_stats"][0],
+        mesh1_ms=timing["pair_rows_mesh1"][0],
+        mesh1_plain_ms=timing["pair_rows_mesh1"][1],
+        mesh1_bound_ms=bounds["pair_rows_mesh1"][0],
+        live=notes13b["live"], entries=notes13b["T_all"])
+    merge_paths = {**routes_of("merge_rows"),
+                   **{p: n for p, n in mesh_of("merge_rows").items()
+                      if not p.endswith("_encode")}}
+    by_name["merge_rows"].update(
+        launches=sum(merge_paths.values()), launches_by_path=merge_paths,
+        max_abs_err=max(errs["merge_rows"], errs["merge_rows_grouped"]),
+        ms=timing["merge_rows_grouped"][0],
+        plain_ms=timing["merge_rows_grouped"][1],
+        note=f"ms: one launch over the {notes13b['D']} shards of the "
+             f"one-card mesh with the golden's 1,001st merge as host ids "
+             f"({notes13b['changed_rows']} rows changed; the state "
+             f"restored between calls); shard8_merge_rows_ms: 8 launches, "
+             f"one a shard; padded_ms: a pass with no match left over the "
+             f"whole corpus (the padded route's shape)",
+        shard8_merge_rows_ms=timing["shard8_merge_rows"][0],
+        mesh1_ms=timing["merge_rows_mesh1"][0],
+        mesh1_plain_ms=timing["merge_rows_mesh1"][1],
+        mesh1_bound_ms=bounds["merge_rows_mesh1"][0],
+        padded_ms=timing["merge_rows"][0],
+        padded_plain_ms=timing["merge_rows"][1],
+        padded_bound_ms=bounds["merge_rows"][0])
+    bounds["merge_rows"] = bounds["merge_rows_grouped"]
+    by_name["symbol_freqs"].update(
+        shard_ms=timing["shard_symbol_freqs"][0],
+        shard_plain_ms=timing["shard_symbol_freqs"][1],
+        shard_bound_ms=bounds["shard_symbol_freqs"][0],
+        shard_library_ms=library["shard_symbol_freqs"],
+        shard_note="K4 over one shard's rows of the one-card mesh of 8, "
+                   "as WordPiece's sharded step counts each shard")
     # the gather probe (phase 16): launches of its main on the card
     for k, replaces in (("gather_take2d", "tools/pallas_probe.py:35"),
                         ("gather_loop", "tools/pallas_probe.py:74"),
@@ -3256,6 +3645,7 @@ def main() -> int:
                                    "string hash",
         "wp_match_encode": "no PyTorch call walks a trie",
         "lookup_reduce": "no PyTorch call probes a hash table",
+        "pair_rows": "no one call builds each shard's weighted pair table",
         "pair_stats_runs": "no one call sums counts and takes least "
                            "positions by key",
         "certificate": "no one call computes the certificate",

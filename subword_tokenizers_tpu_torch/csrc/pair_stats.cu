@@ -43,11 +43,37 @@
 // runs (shard_select.cu compacts them) and inserts it into the same table,
 // adding its count and taking the least position; EMPTY keys are skipped.
 //
+// Grouped rows mode (swt_pair_rows), which replaces, under the mesh, the
+// JAX package's per-shard pair count
+//   subword_tokenizers_tpu/parallel/train.py:78 _local_pairs, then
+//   subword_tokenizers_tpu/ops/pairstats.py:92 _run_aggregate
+//   (inside every step of the sharded selection):
+// one launch takes the padded rows [R, L] of one device's D consecutive
+// shards, shard s holding rows [s * rows, (s + 1) * rows). A thread per
+// slot inserts its pair into its shard's own table (a TableSet's
+// descriptor, ops/shard_select.py: 6 int64 a table, keys, counts, pos and
+// T first) with the same hash and probe, at the local position (row -
+// s * rows) * L + j, and the row's weight: the padded layout's word is the
+// row, so there are no per-slot word ids or weights to read. The same
+// launch empties a second set of tables, the other half of a double
+// buffer (parallel/train.py ShardBlock): its first blocks store EMPTY / 0
+// / all ones over every entry as 16-byte vectors, neighbouring threads on
+// neighbouring addresses. A step then issues one stream operation a
+// device, not three memsets and an insert a shard; the readers of the
+// tables it empties ran before it, in stream order.
+//
+// A thread reads an entry before it tries a compare-and-swap, so threads
+// of an existing pair add without one, and reads the first position
+// before it takes the atomic minimum, which it skips when that is
+// already smaller (positions only fall, so a stale read never skips
+// wrongly).
+//
 // Bound on this card: at F = 187,885 (train-85k) it is a few MB of
 // table traffic and some hundred thousand atomics; frequent pairs make
-// many threads add to one entry, which L2 serialises. A thread reads an
-// entry before it tries a compare-and-swap, so threads of an existing
-// pair add without one.
+// many threads add to one entry, which L2 serialises. The grouped rows
+// mode on one device's 8 shards of train-85k (2,872 x 22 rows each, T =
+// 131,072) reads 2 MB of rows and 0.2 MB of weights and writes 21 MB to
+// empty the other set of tables, which bounds it by bytes.
 
 #include <cstdint>
 
@@ -56,6 +82,7 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kClearSpan = 2048;  // entries of a table one block empties
 constexpr unsigned long long kEmpty = ~0ULL;
 
 __device__ __forceinline__ unsigned long long mix64(unsigned long long x) {
@@ -66,6 +93,30 @@ __device__ __forceinline__ unsigned long long mix64(unsigned long long x) {
   x *= 0xc4ceb9fe1a85ec53ULL;
   x ^= x >> 33;
   return x;
+}
+
+// Add (weight w, position p) to key's entry of the table, claiming an
+// empty entry on the key's linear probe if it has none.
+__device__ __forceinline__ void insert(unsigned long long key,
+                                       unsigned long long w, unsigned int p,
+                                       unsigned long long* keys,
+                                       unsigned long long* counts,
+                                       unsigned int* pos,
+                                       unsigned long long mask) {
+  unsigned long long h = mix64(key) & mask;
+  while (true) {
+    unsigned long long cur =
+        *reinterpret_cast<volatile unsigned long long*>(&keys[h]);
+    if (cur == kEmpty) {
+      cur = atomicCAS(&keys[h], kEmpty, key);
+      if (cur == kEmpty) cur = key;
+    }
+    if (cur == key) break;
+    h = (h + 1) & mask;
+  }
+  atomicAdd(&counts[h], w);
+  if (*reinterpret_cast<volatile unsigned int*>(&pos[h]) > p)
+    atomicMin(&pos[h], p);
 }
 
 __global__ void pair_insert_kernel(const int32_t* __restrict__ fs,
@@ -88,19 +139,8 @@ __global__ void pair_insert_kernel(const int32_t* __restrict__ fs,
   const unsigned long long key =
       (static_cast<unsigned long long>(static_cast<uint32_t>(a)) << 32) |
       static_cast<uint32_t>(b);
-  unsigned long long h = mix64(key) & mask;
-  while (true) {
-    unsigned long long cur =
-        *reinterpret_cast<volatile unsigned long long*>(&keys[h]);
-    if (cur == kEmpty) {
-      cur = atomicCAS(&keys[h], kEmpty, key);
-      if (cur == kEmpty) cur = key;
-    }
-    if (cur == key) break;
-    h = (h + 1) & mask;
-  }
-  atomicAdd(&counts[h], static_cast<unsigned long long>(wgt[i]));
-  atomicMin(&pos[h], static_cast<unsigned int>(i));
+  insert(key, static_cast<unsigned long long>(wgt[i]),
+         static_cast<unsigned int>(i), keys, counts, pos, mask);
 }
 
 __global__ void runs_insert_kernel(const unsigned long long* __restrict__ rk,
@@ -115,19 +155,67 @@ __global__ void runs_insert_kernel(const unsigned long long* __restrict__ rk,
   if (i >= M) return;
   const unsigned long long key = rk[i];
   if (key == kEmpty) return;
-  unsigned long long h = mix64(key) & mask;
-  while (true) {
-    unsigned long long cur =
-        *reinterpret_cast<volatile unsigned long long*>(&keys[h]);
-    if (cur == kEmpty) {
-      cur = atomicCAS(&keys[h], kEmpty, key);
-      if (cur == kEmpty) cur = key;
+  insert(key, static_cast<unsigned long long>(rc[i]), rp[i], keys, counts,
+         pos, mask);
+}
+
+// Blocks [0, clear_blocks) empty the tables of `clear` (kClearSpan entries
+// of one table a block); the rest insert the pairs of the rows, one thread
+// a slot, each into its shard's table of `fill`.
+__global__ void pair_rows_kernel(const int32_t* __restrict__ sym,
+                                 const int64_t* __restrict__ wgt,
+                                 uint32_t slots, uint32_t L, uint32_t rows,
+                                 const int64_t* __restrict__ fill,
+                                 const int64_t* __restrict__ clear,
+                                 uint32_t clear_blocks,
+                                 uint32_t blocks_per_table) {
+  if (blockIdx.x < clear_blocks) {
+    const uint32_t t = blockIdx.x / blocks_per_table;
+    const int64_t lo =
+        static_cast<int64_t>(blockIdx.x - t * blocks_per_table) * kClearSpan;
+    const int64_t* d = clear + 6 * t;
+    auto* keys = reinterpret_cast<unsigned long long*>(d[0]);
+    auto* counts = reinterpret_cast<unsigned long long*>(d[1]);
+    auto* pos = reinterpret_cast<unsigned int*>(d[2]);
+    const int64_t T = d[3];
+    if (lo + kClearSpan <= T) {
+      auto* k2 = reinterpret_cast<ulonglong2*>(keys + lo);
+      auto* c2 = reinterpret_cast<ulonglong2*>(counts + lo);
+      auto* p4 = reinterpret_cast<uint4*>(pos + lo);
+      for (int v = threadIdx.x; v < kClearSpan / 2; v += blockDim.x) {
+        k2[v] = make_ulonglong2(kEmpty, kEmpty);
+        c2[v] = make_ulonglong2(0, 0);
+      }
+      for (int v = threadIdx.x; v < kClearSpan / 4; v += blockDim.x)
+        p4[v] = make_uint4(~0u, ~0u, ~0u, ~0u);
+    } else {  // a table smaller than a span (T is a power of two)
+      for (int64_t e = lo + threadIdx.x; e < T; e += blockDim.x) {
+        keys[e] = kEmpty;
+        counts[e] = 0;
+        pos[e] = ~0u;
+      }
     }
-    if (cur == key) break;
-    h = (h + 1) & mask;
+    return;
   }
-  atomicAdd(&counts[h], static_cast<unsigned long long>(rc[i]));
-  atomicMin(&pos[h], rp[i]);
+  const uint32_t i = (blockIdx.x - clear_blocks) * blockDim.x + threadIdx.x;
+  if (i >= slots) return;
+  const uint32_t r = i / L;
+  const uint32_t j = i - r * L;
+  if (j + 1 >= L) return;
+  const int32_t a = sym[i];
+  if (a < 0) return;
+  const int32_t b = sym[i + 1];
+  if (b < 0) return;
+  const uint32_t s = r / rows;
+  const int64_t* d = fill + 6 * s;
+  const unsigned long long key =
+      (static_cast<unsigned long long>(static_cast<uint32_t>(a)) << 32) |
+      static_cast<uint32_t>(b);
+  insert(key, static_cast<unsigned long long>(wgt[r]), (r - s * rows) * L + j,
+         reinterpret_cast<unsigned long long*>(d[0]),
+         reinterpret_cast<unsigned long long*>(d[1]),
+         reinterpret_cast<unsigned int*>(d[2]),
+         static_cast<unsigned long long>(d[3] - 1));
 }
 
 }  // namespace
@@ -178,6 +266,31 @@ int swt_pair_stats_runs(const void* rk, const void* rc, const void* rp,
       static_cast<unsigned long long*>(keys),
       static_cast<unsigned long long*>(counts),
       static_cast<unsigned int*>(pos), static_cast<unsigned long long>(T - 1));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// sym i32[R, L], R = D * rows, rows * L and R * L < 2^31; wgt i64[R];
+// fill: the descriptor (6 int64 a table: keys, counts, pos, T, ...) of the
+// D shards' tables, each empty on entry, T a power of two >= 2(rows * L -
+// 1); clear: the descriptor of Dc other tables to empty (NULL when Dc is
+// 0), each T a power of two <= T_max, its arrays 16-byte aligned. Returns
+// the cudaError_t.
+int swt_pair_rows(const void* sym, const void* wgt, int64_t R, int64_t L,
+                  int64_t rows, const void* fill, const void* clear,
+                  int64_t Dc, int64_t T_max, void* stream) {
+  const int64_t slots = R * L;
+  const int64_t per_table = clear != nullptr && Dc > 0
+                                ? (T_max + kClearSpan - 1) / kClearSpan
+                                : 0;
+  const int64_t clear_blocks = per_table * (clear != nullptr ? Dc : 0);
+  const int64_t blocks = clear_blocks + (slots + kThreads - 1) / kThreads;
+  pair_rows_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
+                     static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(sym), static_cast<const int64_t*>(wgt),
+      static_cast<uint32_t>(slots), static_cast<uint32_t>(L),
+      static_cast<uint32_t>(rows), static_cast<const int64_t*>(fill),
+      static_cast<const int64_t*>(clear), static_cast<uint32_t>(clear_blocks),
+      static_cast<uint32_t>(per_table > 0 ? per_table : 1));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -39,6 +39,7 @@ SIGNATURES = {
     "swt_compact": [_P, _I64, _I, _P, _P, _P, _P, _P, _P, _P],
     "swt_pair_stats": [_P, _P, _P, _I64, _P, _P, _P, _I64, _I, _P],
     "swt_pair_stats_runs": [_P, _P, _P, _I64, _P, _P, _P, _I64, _P],
+    "swt_pair_rows": [_P, _P, _I64, _I64, _I64, _P, _P, _I64, _I64, _P],
     "swt_lookup_reduce": [_P, _I64, _P, _I, _P, _P, _P],
     "swt_compact_tables": [_P, _I, _I, _I64, _I, _P, _P, _P, _P, _P],
     "swt_launch_floor": [_I, _P],
@@ -52,7 +53,7 @@ SIGNATURES = {
     "swt_skip_guard": [_P, _P, _P, _I64, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                        _P, _P],
     "swt_merge_skip": [_P, _P, _P, _I64, _I, _P, _P, _P, _P],
-    "swt_merge_rows": [_P, _I64, _I64, _P, _P],
+    "swt_merge_rows": [_P, _I64, _I64, _P, _I, _I, _I, _P],
     "swt_symbol_freqs": [_P, _P, _I64, _I64, _P, _P],
     "swt_bpe_encode": [_P, _I64, _I64, _P, _P, _P, _I64, _I, _I, _P, _P,
                        _P],

@@ -25,6 +25,12 @@ position) triples, every shard's compacted runs (ops/shard_select.py),
 and the table sums their counts and keeps their least positions: the
 compact tier of the data-parallel selection (parallel/train.py).
 
+In grouped rows mode (:func:`pair_rows`) one launch counts the padded
+rows of every shard of one device, each shard into its own table at
+local positions ``row * L + j``, with no per-slot word ids or weights,
+and empties the other half of a double buffer of tables: the data-parallel
+step's K1 (parallel/train.py).
+
 WordPiece also needs each symbol's total weight: :func:`symbol_freqs`
 (kernel K4), counted once per run and then carried by K3.
 """
@@ -56,6 +62,16 @@ def alloc_table(F: int, device) -> Tuple[torch.Tensor, ...]:
     return (torch.empty(T, dtype=torch.int64, device=device),
             torch.empty(T, dtype=torch.int64, device=device),
             torch.empty(T, dtype=torch.int32, device=device))
+
+
+def clean_table(F: int, device) -> Tuple[torch.Tensor, ...]:
+    """:func:`alloc_table` with every entry empty (keys ``EMPTY_KEY``,
+    counts 0, positions all ones), as :func:`pair_rows` takes it."""
+    keys, counts, pos = alloc_table(F, device)
+    keys.fill_(EMPTY_KEY)
+    counts.zero_()
+    pos.fill_(-1)
+    return keys, counts, pos
 
 
 def pair_stats_ref(fs, wid, wgt, skip: int = 0):
@@ -198,6 +214,120 @@ def pair_stats_runs(rk, rc, rp, table: Optional[tuple] = None):
 
 
 pair_stats_runs.launches = 0
+
+
+def pair_rows_ref(sym, wgt, rows: int):
+    """Plain PyTorch version of :func:`pair_rows`: per shard its (keys,
+    counts, first) int64, one entry per distinct pair, sorted by key."""
+    R, L = sym.shape
+    dev = sym.device
+    local = (torch.arange(rows, device=dev)[:, None] * L
+             + torch.arange(L - 1, device=dev))
+    out = []
+    for lo in range(0, R, rows):
+        s = sym[lo:lo + rows].to(torch.int64)
+        a, b = s[:, :-1], s[:, 1:]
+        valid = (a >= 0) & (b >= 0)
+        keys, inv = torch.unique((a[valid] << 32) | b[valid], sorted=True,
+                                 return_inverse=True)
+        counts = torch.zeros(keys.shape[0], dtype=torch.int64, device=dev)
+        counts.scatter_add_(0, inv, wgt[lo:lo + rows, None].expand_as(a)[
+            valid])
+        first = torch.full((keys.shape[0],), 2 ** 62, dtype=torch.int64,
+                           device=dev)
+        first.scatter_reduce_(0, inv, local[valid], "amin")
+        out.append((keys, counts, first))
+    return out
+
+
+def _check_row_tables(tset, dev) -> None:
+    """Check once that a TableSet's tables are K1 tables :func:`pair_rows`
+    can fill or empty: int64 keys and counts, int32 positions, contiguous
+    on ``dev``, a power-of-two size, 16-byte aligned."""
+    if tset.k1_checked:
+        return
+    for keys, counts, pos in tset.tables:
+        T = keys.shape[0]
+        for name, t, dt in (("keys", keys, torch.int64),
+                            ("counts", counts, torch.int64),
+                            ("pos", pos, torch.int32)):
+            check_tensor(name, t, (dt,), 1, dev)
+            if t.shape[0] != T:
+                raise ValueError("pair_rows: inconsistent table")
+            if t.data_ptr() % 16:
+                raise ValueError(f"pair_rows: {name} not 16-byte aligned")
+        if T < 2 or T & (T - 1):
+            raise ValueError(f"pair_rows: table size {T} is not a power "
+                             f"of 2")
+    tset.k1_checked = True
+
+
+def pair_rows(sym, wgt, rows: int, tset=None, clear=None):
+    """K1 over the padded rows of one device's consecutive shards, in one
+    launch. ``sym`` int32[R, L] holds D = R / ``rows`` shards, shard i its
+    rows ``[i * rows, (i + 1) * rows)``; ``wgt`` int64[R] the rows'
+    weights. For each shard: every distinct pair (a, b) of adjacent slots
+    of a row (both >= 0), the sum of the row weights over its occurrences
+    and its least local position ``row * L + j``, rows counted from the
+    shard's first.
+
+    For CUDA tensors, launches ``swt_pair_rows`` once and returns the D
+    tables of ``tset`` (a TableSet, ops/shard_select.py, which the caller
+    builds once and must give): shard i's pairs go into its table i,
+    a K1 table (keys, counts, pos) of at least ``table_size(rows * L)``
+    entries that must be empty on entry, as :func:`clean_table` makes it
+    or an earlier call's ``clear`` leaves it. ``clear``, if given, is the
+    TableSet of other tables that the same launch empties, the other half
+    of a double buffer (parallel/train.ShardBlock); the caller's readers
+    of them must be queued before. For CPU tensors, runs the PyTorch
+    version and returns each shard's sorted (keys, counts, first). Raises
+    for any other device.
+    """
+    dev = sym.device
+    check_tensor("sym", sym, (torch.int32,), 2, dev)
+    check_tensor("wgt", wgt, (torch.int64,), 1, dev)
+    R, L = sym.shape
+    if wgt.shape[0] != R:
+        raise ValueError(f"pair_rows: {wgt.shape[0]} weights for {R} rows")
+    if rows < 1 or R < 1 or R % rows or L < 1 or R * L >= 2 ** 31:
+        raise ValueError(f"pair_rows: {R} x {L} rows in shards of {rows} "
+                         f"(a positive multiple, fewer than 2**31 slots)")
+    D = R // rows
+    if dev.type == "cpu":
+        return pair_rows_ref(sym, wgt, rows)
+    if dev.type != "cuda":
+        raise ValueError(f"pair_rows: no kernel for device {dev}")
+    if tset is None:
+        raise ValueError("pair_rows: CUDA tensors need the TableSet of "
+                         "the tables to fill")
+    for ts in (tset,) if clear is None else (tset, clear):
+        if ts.desc.device != dev:
+            raise ValueError(f"pair_rows: a TableSet on {ts.desc.device}, "
+                             f"expected {dev}")
+        _check_row_tables(ts, dev)
+    if tset.D != D:
+        raise ValueError(f"pair_rows: {tset.D} tables for {D} shards")
+    need = table_size(rows * L)
+    if any(tset.rows[6 * i + 3] < need for i in range(D)):
+        raise ValueError(f"pair_rows: a table of fewer than {need} "
+                         f"entries for {rows} x {L} rows")
+    T_max = 0
+    if clear is not None:
+        if {tset.rows[6 * i] for i in range(D)}.intersection(
+                clear.rows[6 * i] for i in range(clear.D)):
+            raise ValueError("pair_rows: a table to empty is one to fill")
+        T_max = max(clear.rows[6 * i + 3] for i in range(clear.D))
+    from . import _cuda
+    with torch.cuda.device(dev):
+        _cuda.launch("swt_pair_rows", sym.data_ptr(), wgt.data_ptr(), R, L,
+                     rows, tset.desc.data_ptr(),
+                     None if clear is None else clear.desc.data_ptr(),
+                     0 if clear is None else clear.D, T_max)
+    pair_rows.launches += 1
+    return list(tset.tables)
+
+
+pair_rows.launches = 0
 
 
 def symbol_freqs_ref(fs, wgt, sym_cap: int):

@@ -121,7 +121,7 @@ def _check_tables(tables, bases, dev, name: str) -> None:
 
 class TableSet:
     """One device's pair tables as the grouped kernels take them, built
-    once for a set of tables (``ShardedCorpus.table_set`` keeps one a
+    once for a set of tables (``parallel/train.ShardBlock`` keeps two a
     group of the mesh, whose K1 tables are allocated once) so that a step
     copies nothing to the device. ``desc`` is int64[6 * D + 1 + D + C *
     D] on the tables' device: per table its keys, counts and pos
@@ -129,9 +129,13 @@ class TableSet:
     the compaction's ticket, a cluster counter a table, and C look-back
     status words a table (C = ceil(max T / ROUND_SPAN), the compaction's
     clusters a table), all 0 between calls but the status words, which
-    :meth:`next_epoch` makes stale without a memset."""
+    :meth:`next_epoch` makes stale without a memset. ``tables`` keeps the
+    tables themselves (so the pointers stay valid), and ``k1_checked``
+    records that ops/pairstats.pair_rows has checked them."""
 
     def __init__(self, tables, bases):
+        self.tables = tuple(tables)
+        self.k1_checked = False
         self.rows = self.rows_of(tables, bases)
         self.D = len(tables)
         self.clusters = max(-(-t[0].shape[0] // ROUND_SPAN) for t in tables)

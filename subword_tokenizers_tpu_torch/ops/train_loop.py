@@ -326,9 +326,23 @@ class PaddedState:
             np.arange(n, dtype=np.int32), L)).to(self.device)
         self._wgt = torch.from_numpy(np.repeat(
             np.asarray(freq, dtype=np.int64), L)).to(self.device)
-        self._table = alloc_table(n * L, self.device) \
-            if self.device.type == "cuda" else None
+        self._table = None  # K1's table, allocated by the first count
         self.sym_freq: Optional[torch.Tensor] = None
+
+    def rows(self, lo: int, hi: int) -> "PaddedState":
+        """Rows ``[lo, hi)`` as a state of their own whose tensors are
+        views of this one's (a merge through either shows in both); its
+        K1 table is its own. The data-parallel layer's shards are such
+        views of one block a device (parallel/train.py)."""
+        L = self.sym.shape[1]
+        view = object.__new__(PaddedState)
+        view.device = self.device
+        view.sym = self.sym[lo:hi]
+        view._wid = self._wid[lo * L:hi * L]
+        view._wgt = self._wgt[lo * L:hi * L]
+        view._table = None
+        view.sym_freq = None
+        return view
 
     @classmethod
     def from_flat(cls, state: FlatState) -> "PaddedState":
@@ -343,6 +357,8 @@ class PaddedState:
     def pairs(self, skip: int = 0):
         """K1 over the rows seen as flat slots (no window: rows stay
         compacted)."""
+        if self._table is None and self.device.type == "cuda":
+            self._table = alloc_table(self.sym.numel(), self.device)
         return pair_stats(self.sym.view(-1), self._wid, self._wgt,
                           table=self._table)
 

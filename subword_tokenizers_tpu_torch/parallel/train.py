@@ -3,8 +3,10 @@ merge is chosen by an exact, deterministic reduction over the shards,
 equal to one device's choice (the JAX package's ``parallel/train.py``).
 
 Each shard holds the padded state of its block of rows
-(ops/train_loop.PaddedState): K1 counts its pairs into its own table at
-local positions ``row * L + j``, and the shard adds its fixed base
+(ops/train_loop.PaddedState), and the shards of one device lie
+contiguously in one block (:class:`ShardBlock`). K1 counts each shard's
+pairs into its own table at local positions ``row * L + j``, one launch
+a device (ops/pairstats.pair_rows), and the shard adds its fixed base
 ``first_row * L``, so positions order pairs across shards exactly as the
 padded layout of one device does, and never move as words shrink. Rows
 are padded to a multiple of the mesh size with all-PAD, zero-weight rows
@@ -30,8 +32,9 @@ A step picks its merge through three exact tiers, as in the JAX package:
    gathered and K1 and K2 run over them.
 
 WordPiece's symbol weights are K4 per shard, then summed
-(:func:`sharded_sym_freq`). The merge is K3p on every shard
-(:func:`sharded_apply_merge`). The port scores each shard's whole table,
+(:func:`sharded_sym_freq`). The merge is K3p, one launch a device over
+its block with the host's ids as arguments (:func:`sharded_apply_merge`).
+The port scores each shard's whole table,
 so the JAX package's candidate cap (``c_ovf``) never vetoes a
 certificate here: the tier counts may differ from the JAX package's for
 WordPiece, the merges do not.
@@ -44,7 +47,8 @@ import numpy as np
 import torch
 
 from ..ops.merge import apply_merge
-from ..ops.pairstats import alloc_table, pair_stats_runs
+from ..ops.pairstats import (alloc_table, clean_table, pair_rows,
+                             pair_stats_runs)
 from ..ops.shard_select import (TableSet, certificate, compact_tables,
                                 lookup_reduce, nominate)
 from ..ops.train_loop import PaddedState, select_host_ids
@@ -64,11 +68,70 @@ def run_gather_cap(n_local_pairs: int) -> int:
     return min(-(-cap // 256) * 256, max(n_local_pairs, 1))
 
 
+class ShardBlock:
+    """One device's consecutive shards of the mesh (a group of
+    ``mesh.groups``) as one block of rows: ``state`` is their PaddedState
+    [D * rows, L] and ``shards`` its views, one a shard. K1 counts every
+    shard's pairs into the shard's own table in one launch (:meth:`pairs`)
+    and K3p merges the whole block in one launch.
+
+    On CUDA each shard has two tables, used on alternate steps: the launch
+    that fills one set empties the other, whose readers (the tiers'
+    ``torch.topk``, lookup and compaction) ran before it in stream order.
+    A step thus issues one K1 stream operation a device and no memset.
+    ``sets`` are the two sets' TableSets, built once with the shards'
+    position bases, and ``filled`` the one the last :meth:`pairs` filled
+    (None on the CPU, whose plain versions need no descriptor)."""
+
+    def __init__(self, sym: np.ndarray, freq: np.ndarray, device,
+                 n_shards: int, bases: List[int]) -> None:
+        self.state = PaddedState(sym, freq, device)
+        n, L = self.state.sym.shape
+        self.rows = n // n_shards
+        self.wgt = torch.from_numpy(np.asarray(freq, dtype=np.int64)).to(
+            self.state.device)
+        self.shards = [self.state.rows(i * self.rows, (i + 1) * self.rows)
+                       for i in range(n_shards)]
+        self.sets: List[TableSet] = []
+        if self.state.device.type == "cuda":
+            self.sets = [TableSet([clean_table(self.rows * L,
+                                               self.state.device)
+                                   for _ in range(n_shards)], bases)
+                         for _ in range(2)]
+        self.filled: Optional[TableSet] = None
+        self._parity = 0
+
+    def pairs(self) -> list:
+        """K1 over the block: each shard's table, this step's set."""
+        if not self.sets:
+            return pair_rows(self.state.sym, self.wgt, self.rows)
+        p, self._parity = self._parity, 1 - self._parity
+        self.filled = self.sets[p]
+        return pair_rows(self.state.sym, self.wgt, self.rows, self.filled,
+                         clear=self.sets[1 - p])
+
+    def table_set(self, tables) -> Optional[TableSet]:
+        """``filled`` when ``tables`` are its tables (this step's K1), for
+        the tiers' grouped kernels; else None, and the wrappers build a
+        set for the call."""
+        ts = self.filled
+        if ts is not None and len(ts.tables) == len(tables) and all(
+                t is u for t, u in zip(ts.tables, tables)):
+            return ts
+        return None
+
+    def merge(self, a: int, b: int, new_id: int) -> None:
+        """K3p over the block, the ids as the kernel's arguments."""
+        apply_merge(self.state.sym, merge=(a, b, new_id))
+
+
 class ShardedCorpus:
     """The padded training state of this process's shards of ``mesh``:
-    ``shards[i]`` (a PaddedState on ``mesh.devices[i]``) holds rows
-    ``(mesh.first + i) * rows`` on, and its positions start at
-    ``bases[i]``. ``n_real`` is the number of rows before padding."""
+    ``blocks[g]`` holds the shards of group ``g`` of the mesh (one
+    :class:`ShardBlock` a device), ``shards[i]`` (a view of its block, on
+    ``mesh.devices[i]``) holds rows ``(mesh.first + i) * rows`` on, and
+    its positions start at ``bases[i]``. ``n_real`` is the number of rows
+    before padding."""
 
     def __init__(self, mesh: DataMesh, sym: np.ndarray,
                  freq: np.ndarray) -> None:
@@ -86,18 +149,24 @@ class ShardedCorpus:
         self.mesh = mesh
         self.L = L
         self.rows = full.shape[0] // D
-        self.shards: List[PaddedState] = []
-        self.bases: List[int] = []
-        for i, dev in enumerate(mesh.devices):
-            lo = (mesh.first + i) * self.rows
-            self.shards.append(PaddedState(full[lo:lo + self.rows],
-                                           self.freq[lo:lo + self.rows],
-                                           dev))
-            self.bases.append(lo * L)
+        self.bases: List[int] = [(mesh.first + i) * self.rows * L
+                                 for i in range(len(mesh.devices))]
+        self.blocks: List[ShardBlock] = []
+        for dev, start, stop in mesh.groups:
+            lo, hi = ((mesh.first + i) * self.rows for i in (start, stop))
+            self.blocks.append(ShardBlock(full[lo:hi], self.freq[lo:hi], dev,
+                                          stop - start,
+                                          self.bases[start:stop]))
+        self.shards: List[PaddedState] = [
+            s for blk in self.blocks for s in blk.shards]
         self._full: Optional[PaddedState] = None
         self._runs_table = None
         self._run_buffers = {}
-        self._table_sets = {}
+
+    def pairs(self) -> list:
+        """K1 over every shard, one launch a device: the shards' tables in
+        shard order."""
+        return [t for blk in self.blocks for t in blk.pairs()]
 
     @property
     def n_local_pairs(self) -> int:
@@ -139,22 +208,11 @@ class ShardedCorpus:
                 torch.empty(1, dtype=torch.int32, device=dev))
         return out
 
-    def table_set(self, group: int, tables) -> TableSet:
-        """The grouped kernels' TableSet of group ``group`` of the mesh
-        over ``tables`` (its shards' K1 tables), built on the first step
-        and rebuilt only if the tables move."""
-        _, start, stop = self.mesh.groups[group]
-        ts = self._table_sets.get(group)
-        if ts is None or not ts.holds(tables, self.bases[start:stop]):
-            ts = self._table_sets[group] = TableSet(tables,
-                                                    self.bases[start:stop])
-        return ts
-
     def host(self) -> np.ndarray:
         """Every shard's rows on the host, without the padding rows (the
         JAX package's ``fetch_global``)."""
         from .distributed import fetch_global
-        return fetch_global([s.sym for s in self.shards],
+        return fetch_global([blk.state.sym for blk in self.blocks],
                             self.mesh)[:self.n_real]
 
 
@@ -190,7 +248,7 @@ def sharded_select_topk(corpus: ShardedCorpus, tables, rec,
     cand = mesh.gather([c for c, _ in picks])
     kth = mesh.gather([t for _, t in picks])
     looked = [lookup_reduce(cand.to(dev), tables[a:b], corpus.bases[a:b],
-                            corpus.table_set(g, tables[a:b]))
+                            corpus.blocks[g].table_set(tables[a:b]))
               for g, (dev, a, b) in enumerate(mesh.groups)]
     g_cnt = mesh.sum([c for c, _ in looked])
     g_pos = mesh.amin([p for _, p in looked])
@@ -208,7 +266,7 @@ def sharded_select_compact(corpus: ShardedCorpus, tables, rec, cap: int,
     cap = min(cap, corpus.n_local_pairs)
     runs = [compact_tables(tables[a:b], corpus.bases[a:b], cap,
                            out=corpus.run_buffers(g, cap),
-                           tset=corpus.table_set(g, tables[a:b]))
+                           tset=corpus.blocks[g].table_set(tables[a:b]))
             for g, (_, a, b) in enumerate(mesh.groups)]
     gk, gc, gp = (mesh.gather([r[j] for r in runs]) for j in range(3))
     agg = pair_stats_runs(gk, gc, gp, table=corpus.runs_table(gk.shape[0]))
@@ -221,22 +279,19 @@ def sharded_select_full(corpus: ShardedCorpus, rec, sym_freq=None) -> None:
     them. ``rec[5]`` = 1. Replaces the JAX package's
     ``sharded_bpe_select`` and ``sharded_wp_select``."""
     mesh = corpus.mesh
-    state = corpus.full_state(mesh.gather([s.sym for s in corpus.shards]))
+    state = corpus.full_state(mesh.gather([blk.state.sym
+                                           for blk in corpus.blocks]))
     select_host_ids(*state.pairs(), rec, sym_freq)
     rec[FLAG] = 1
 
 
 def sharded_apply_merge(corpus: ShardedCorpus, a: int, b: int,
                         new_id: int) -> None:
-    """Merge (a, b) into ``new_id`` on every shard: K3p, row-local, with
-    no traffic between shards."""
-    host = torch.tensor([a, b, new_id, 0, 1, 0], dtype=torch.int32)
-    recs = {}
-    for s in corpus.shards:
-        rec = recs.get(s.device)
-        if rec is None:
-            rec = recs[s.device] = host.to(s.device)
-        apply_merge(s.sym, rec)
+    """Merge (a, b) into ``new_id`` on every shard: K3p, row-local, one
+    launch a device over its block, the ids as the kernel's arguments (no
+    record and no copy to the device)."""
+    for blk in corpus.blocks:
+        blk.merge(a, b, new_id)
 
 
 class ShardedTrainer:
@@ -268,8 +323,7 @@ class ShardedTrainer:
     def select(self) -> Optional[Tuple[int, int]]:
         """The next merge's (a, b), or None when no pair is left."""
         corpus, rec = self.corpus, self.rec
-        tables = [s.pairs() for s in corpus.shards] \
-            if self.force_tier != "full" else None
+        tables = corpus.pairs() if self.force_tier != "full" else None
         sym_freq = None if self.sym_cap is None else \
             sharded_sym_freq(corpus, self.sym_cap)
         if self.force_tier is None:
@@ -291,6 +345,16 @@ class ShardedTrainer:
         sharded_select_full(corpus, rec, sym_freq)
         a, b, _, _, active, _ = rec.tolist()
         return (a, b) if active else None
+
+    def table_set(self, tables) -> Optional[TableSet]:
+        """``filled`` when ``tables`` are its tables (this step's K1), for
+        the tiers' grouped kernels; else None, and the wrappers build a
+        set for the call."""
+        ts = self.filled
+        if ts is not None and len(ts.tables) == len(tables) and all(
+                t is u for t, u in zip(ts.tables, tables)):
+            return ts
+        return None
 
     def merge(self, a: int, b: int, new_id: int) -> None:
         sharded_apply_merge(self.corpus, a, b, new_id)

@@ -2,19 +2,25 @@
 in a process of its own in the order parent, change, change, parent.
 
     python3 -m subword_tokenizers_tpu_torch.tools.ab_sharded_train \\
-        PARENT_DIR CHANGE_DIR [compact] [NaiveBPE] [NaiveWP]
+        PARENT_DIR CHANGE_DIR [compact] [kernels] [NaiveBPE] [NaiveWP]
 
 - ``NaiveBPE`` / ``NaiveWP``: the model under the one-card mesh
   ``make_data_mesh(8, devices=["cuda:0"] * 8)``, trained on all of
   ``data/train-85k.json`` to 8,000 and checked against the JAX goldens
   (a warm-up train to 300, then the timed train; about 65 s a run).
 - ``compact``: one step's table compaction, as the checkout's compact
-  tier calls it (one ``compact_tables`` a device with the corpus's
+  tier calls it (one ``compact_tables`` a device with the device's
   ``TableSet`` and output buffers, or ``compact_table`` a shard), at
   the BPE state after the golden's first 1,000 merges, on that mesh of
   8 and on the mesh of 1 (one table of 2^20 entries), each at its
   tier's cap: the mean time a call on the device's clock over 200
   calls queued back to back (10-25 s a run).
+- ``kernels``: the sharded step's K1 and K3p as the checkout's step calls
+  them, on the mesh of 8 from the BPE state after the golden's first
+  1,000 merges: 200 steps of K1 followed by the golden's next merge (a
+  real merge every step), their device span by CUDA events and their
+  host wall; then K1 alone, 25 calls queued back to back (10-20 s a
+  run).
 
 Each checkout builds its own kernels. Prints one JSON line a run and a
 last line with all of them and the card's name and power limit.
@@ -87,6 +93,8 @@ def state(n_dev):
         ptrain.sharded_apply_merge(sc, t.get(sa), t.get(sb),
                                    t.intern(sa + sb))
     cap = min(ptrain.run_gather_cap(sc.n_local_pairs), sc.n_local_pairs)
+    if hasattr(sc, "blocks"):  # K1 one launch a device
+        return sc, sc.pairs(), cap
     return sc, [s.pairs() for s in sc.shards], cap
 
 
@@ -106,6 +114,10 @@ def ms(fn, reps=200):
 
 def step(sc, tables, cap):
     """One step's compaction as the checkout's compact tier calls it."""
+    if hasattr(sc, "blocks"):  # the block's own set
+        out, ts = sc.run_buffers(0, cap), sc.blocks[0].table_set(tables)
+        return lambda: shard_select.compact_tables(tables, sc.bases, cap,
+                                                   out=out, tset=ts)
     if hasattr(sc, "table_set"):  # one launch a device
         out, ts = sc.run_buffers(0, cap), sc.table_set(0, tables)
         return lambda: shard_select.compact_tables(tables, sc.bases, cap,
@@ -125,6 +137,68 @@ print(json.dumps({
 '''
 
 
+KERNELS = r'''
+import json, os, sys, time
+import torch
+sys.path.insert(0, os.getcwd())
+from subword_tokenizers_tpu_torch.core.corpus import (build_bpe_corpus,
+                                                      unique_words)
+from subword_tokenizers_tpu_torch.core.symbols import SymbolTable
+from subword_tokenizers_tpu_torch.frontend.pretokenize import \
+    pretokenize_batch
+from subword_tokenizers_tpu_torch.ops import _cuda
+from subword_tokenizers_tpu_torch.parallel import train as ptrain
+from subword_tokenizers_tpu_torch.parallel.mesh import make_data_mesh
+corpus = json.load(open("data/train-85k.json", encoding="utf-8"))
+golden = [tuple(p) for p in json.load(open(
+    "tests/golden/port_t85k_v8000_bpe_merges.json", encoding="utf-8"))]
+dev = torch.device("cuda:0")
+_cuda.lib()
+words, freq, _ = unique_words(pretokenize_batch(corpus))
+table = SymbolTable()
+arrays = build_bpe_corpus(words, freq, table)
+sc = ptrain.shard_corpus(make_data_mesh(8, devices=[dev] * 8), arrays.sym,
+                         arrays.freq)
+t = SymbolTable(table.strings())
+ids = [(t.get(sa), t.get(sb), t.intern(sa + sb)) for sa, sb in golden[:1200]]
+for m in ids[:1000]:
+    ptrain.sharded_apply_merge(sc, *m)
+
+
+def k1():
+    """One step's K1 as the checkout calls it."""
+    if hasattr(sc, "pairs"):  # one launch a device
+        return sc.pairs()
+    return [s.pairs() for s in sc.shards]
+
+
+k1()
+torch.cuda.synchronize()
+start = torch.cuda.Event(enable_timing=True)
+end = torch.cuda.Event(enable_timing=True)
+t0 = time.perf_counter()
+start.record()
+for m in ids[1000:]:
+    k1()
+    ptrain.sharded_apply_merge(sc, *m)
+end.record()
+torch.cuda.synchronize()
+wall = time.perf_counter() - t0
+step_device = start.elapsed_time(end) / 200
+k1()
+torch.cuda.synchronize()
+torch.cuda._sleep(100_000_000)  # queue the calls ahead of the stream
+start.record()
+for _ in range(25):  # up to 8 wrapper calls each, all inside the spin
+    k1()
+end.record()
+torch.cuda.synchronize()
+print(json.dumps({"step_device_ms": step_device,
+                  "step_host_ms": wall * 1e3 / 200,
+                  "k1_ms": start.elapsed_time(end) / 25}))
+'''
+
+
 def main(argv) -> int:
     if len(argv) < 2:
         print(__doc__, file=sys.stderr)
@@ -138,7 +212,8 @@ def main(argv) -> int:
     print(smi, flush=True)
     res = []
     for mode in modes:
-        args = ([COMPACT] if mode == "compact" else [TRAIN, mode])
+        args = ([COMPACT] if mode == "compact" else
+                [KERNELS] if mode == "kernels" else [TRAIN, mode])
         for name, d in (("parent", parent), ("change", change),
                         ("change", change), ("parent", parent)):
             t0 = time.perf_counter()

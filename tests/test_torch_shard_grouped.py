@@ -146,8 +146,8 @@ def test_table_set_layout_and_epochs(monkeypatch):
     """A TableSet is the grouped kernels' descriptor: per table its
     pointers, T, base and a flag slot, then the ticket, a cluster counter
     a table and C look-back words a table; its epochs run 1 ..
-    EPOCH_MAX and the wrap zeroes the look-back words. ShardedCorpus
-    keeps one a group and builds another only when the tables move."""
+    EPOCH_MAX and the wrap zeroes the look-back words. A block of the
+    mesh lends its set only for the tables its K1 filled."""
     def table(T):
         return (torch.full((T,), EMPTY_KEY, dtype=torch.int64),
                 torch.zeros(T, dtype=torch.int64),
@@ -173,12 +173,14 @@ def test_table_set_layout_and_epochs(monkeypatch):
 
     sym, freq = random_rows(33, n=48)
     corpus, tables, _ = shards(sym, freq, 4)
-    one = corpus.table_set(0, tables)
-    assert corpus.table_set(0, tables) is one
+    one = TableSet(tables, corpus.bases)
     assert one.D == 4 and one.holds(tables, corpus.bases)
+    blk = corpus.blocks[0]
+    assert blk.table_set(tables) is None  # the CPU fills no set
+    blk.filled = one
+    assert blk.table_set(tables) is one
     moved = [tuple(x.clone() for x in t) for t in tables]
-    other = corpus.table_set(0, moved)
-    assert other is not one and other.holds(moved, corpus.bases)
+    assert blk.table_set(moved) is None and blk.table_set(tables[:3]) is None
     # the wrappers refuse a set of another count of tables
     cand = torch.tensor([EMPTY_KEY], dtype=torch.int64)
     with pytest.raises(ValueError, match="TableSet of 4 tables"):
