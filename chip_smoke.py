@@ -105,14 +105,27 @@ WordPiece vocab ``tests/golden/port_t85k_fastwp_vocab.json``:
    inside, runs of a == b, inactive records), a double buffer over three
    steps, and the corpus's 8 shards and the mesh of 1 at the golden's
    1,001st merge; their times beside the per-shard launches they replace
-   (8 x ``swt_pair_stats``, 8 x ``swt_merge_rows``), and K4 at a shard's
-   shape;
+   (8 x ``swt_pair_stats``, 8 x ``swt_merge_rows``); (13c) K4 in its
+   grouped rows mode (``symbol_rows``: a device's block of shards in one
+   launch, filling one of two outputs and emptying the other) and flat
+   mode against the plain version, exactly, on seeded rows (PADs inside,
+   all-PAD rows, ids at and above sym_cap, a sym_cap of 40,000), the
+   WordPiece corpus's 8-shard block over three steps, the mesh of 1, the
+   padded route and the flat route, with times beside 8 per-shard
+   launches and ``index_add_``; the single-device K1 (one launch a call
+   into one of two tables, emptying the other's claimed entries) on five
+   consecutive flat-route steps across a shrink, five in skip mode and
+   three padded, each table emptied whole, timed at the initial state
+   beside its bound as the function needs and with a full clear;
+   WordPiece's scorer at a shard's table; and a traced 256-step block of
+   the flat and of the padded route with no memset;
 14. trains ``NaiveBPE`` and ``NaiveWP(mesh=make_data_mesh(8,
    devices=["cuda:0"] * 8))`` on the whole corpus to 8,000, each equal to
    its golden, with the tiers that settled each step and the shard
    kernels' launches (one grouped K1 and one lookup a step, one
    compaction a step the certificate did not settle, one grouped K3p a
-   merge, the per-shard K1 only in the full tier); the forced tiers and
+   merge, one grouped K4 a WordPiece step and 14 kernel-wrapper calls in
+   all, the per-shard K1 only in the full tier); the forced tiers and
    a mesh of 1 to 1,000, each equal to the golden's prefix, with their K1
    and K3p launches; FastWP's sharded encode and the other three encoders
    under the mesh against the JAX digests; and (14d) the idle share of
@@ -505,7 +518,8 @@ def phase11(dev, rng, flat_bpe, table, flat_wp, table_wp, sym_pad, max_len,
     from subword_tokenizers_tpu_torch.ops.merge import (apply_merge,
                                                         apply_merge_ref)
     from subword_tokenizers_tpu_torch.ops.pairstats import (
-        EMPTY_KEY, canonical, pair_stats, pair_stats_ref, symbol_freqs)
+        EMPTY_KEY, TablePair, canonical, pair_stats, pair_stats_ref,
+        symbol_freqs)
     from subword_tokenizers_tpu_torch.ops.train_loop import (select_unify,
                                                              select_unify_ref)
     names = ("pair_stats_skip", "pair_stats_rows", "skip_guard",
@@ -672,7 +686,8 @@ def phase11(dev, rng, flat_bpe, table, flat_wp, table_wp, sym_pad, max_len,
     # times at the main path's shapes: the 85k state after 1,000
     # skip-mode merges (window 12), the 85k padded tensor, the 85k
     # WordPiece table
-    tab = pair_stats(fs, wid, wgt, skip=12)
+    k1 = TablePair(fs.shape[0], dev)
+    tab = k1.pairs(fs, wid, wgt, skip=12)
     rec = records(fs, wid, wgt, 12)[0]
     rec = torch.tensor(rec, dtype=torch.int32, device=dev)
     cnt = torch.zeros(1, dtype=torch.int32, device=dev)
@@ -684,7 +699,7 @@ def phase11(dev, rng, flat_bpe, table, flat_wp, table_wp, sym_pad, max_len,
     F = fs.shape[0]
     n_live = int((fs >= 0).sum())
     timing["pair_stats_skip"] = (
-        cuda_ms(lambda: pair_stats(fs, wid, wgt, tab, skip=12), 200, True),
+        cuda_ms(lambda: k1.pairs(fs, wid, wgt, skip=12), 200, True),
         cuda_ms(lambda: pair_stats_ref(fs, wid, wgt, 12), 5))
     timing["skip_guard"] = (
         cuda_ms(lambda: skip_guard(*work, 12, cnt, out), 200, True),
@@ -787,7 +802,8 @@ def route_counters():
                                                        skip_guard)
     from subword_tokenizers_tpu_torch.ops.merge import apply_merge
     from subword_tokenizers_tpu_torch.ops.pairstats import (pair_stats,
-                                                            symbol_freqs)
+                                                            symbol_freqs,
+                                                            symbol_rows)
     from subword_tokenizers_tpu_torch.ops.train_loop import select_unify
     return {"pair_stats": (pair_stats, "launches"),
             "pair_stats_skip": (pair_stats, "skip_launches"),
@@ -798,6 +814,7 @@ def route_counters():
             "skip_guard": (skip_guard, "launches"),
             "merge_rows": (apply_merge, "launches"),
             "symbol_freqs": (symbol_freqs, "launches"),
+            "symbol_rows": (symbol_rows, "launches"),
             "overflow_compactions": (skip_guard, "overflow_compactions"),
             "risky_redos": (select_unify, "risky_redos")}
 
@@ -812,7 +829,7 @@ ROUTE_KERNELS = {
                   "symbol_freqs"),
     "wp_tournament": ("select_unify_tournament", "pair_stats", "merge_apply"),
     "bpe_padded": ("pair_stats", "merge_rows", "select_unify"),
-    "wp_padded": ("pair_stats", "merge_rows", "symbol_freqs"),
+    "wp_padded": ("pair_stats", "merge_rows", "symbol_rows"),
 }
 
 
@@ -943,7 +960,8 @@ def shard_kernels():
     from subword_tokenizers_tpu_torch.ops.pairstats import (pair_rows,
                                                             pair_stats,
                                                             pair_stats_runs,
-                                                            symbol_freqs)
+                                                            symbol_freqs,
+                                                            symbol_rows)
     from subword_tokenizers_tpu_torch.ops.shard_select import (
         certificate, compact_tables, lookup_reduce)
     from subword_tokenizers_tpu_torch.ops.train_loop import select_unify
@@ -953,6 +971,7 @@ def shard_kernels():
             "pair_rows": pair_rows, "pair_stats": pair_stats,
             "select_unify": select_unify,
             "merge_rows": apply_merge, "symbol_freqs": symbol_freqs,
+            "symbol_rows": symbol_rows,
             "wp_score": score_bits, "wp_e2e_scan": wp_e2e_scan,
             "compact_ids": compact_ids}
 
@@ -988,7 +1007,7 @@ def phase13(dev, rng, arrays, table, arrays_wp, table_wp, golden,
     from subword_tokenizers_tpu_torch.ops.merge import (apply_merge,
                                                         apply_merge_ref)
     from subword_tokenizers_tpu_torch.ops.pairstats import (
-        EMPTY_KEY, alloc_table, canonical, pair_stats_runs,
+        EMPTY_KEY, TablePair, canonical, pair_stats_runs,
         pair_stats_runs_ref)
     from subword_tokenizers_tpu_torch.ops.shard_select import (
         certificate, certificate_ref, compact_table, compact_table_ref,
@@ -1070,14 +1089,16 @@ def phase13(dev, rng, arrays, table, arrays_wp, table_wp, golden,
         corpus = ptrain.shard_corpus(mesh, sym, freq)
         check(corpus, topk=topk)
         check(corpus, ptrain.sharded_sym_freq(corpus, n_sym + 9), topk=topk)
-    def check_mesh1(corpus):
+    def check_mesh1(corpus, shard_tables):
         """The mesh of 1's one table (2^20 entries, 8 clusters of the
         compaction): the one-table wrappers, and the grouped compaction
         over the table twice (two shards of 8 clusters each), at the
-        tier's cap, one that overflows and 1."""
+        tier's cap, one that overflows and 1; probed with the candidates
+        of the 8 shards' tables ``shard_tables`` (a shard's next count
+        would empty them)."""
         t = corpus.shards[0].pairs()
-        probe = torch.cat([mesh.gather([nominate(s.pairs(), ptrain.TOPK)[0]
-                                        for s in bpe.shards]), absent])
+        probe = torch.cat([mesh.gather([nominate(s, ptrain.TOPK)[0]
+                                        for s in shard_tables]), absent])
         diff("lookup_reduce", lookup_runs(probe, t, 0),
              lookup_runs_ref(probe, t, 0))
         n = int((t[0] != EMPTY_KEY).sum())
@@ -1094,10 +1115,10 @@ def phase13(dev, rng, arrays, table, arrays_wp, table_wp, golden,
     # the corpus: BPE and WordPiece, initial and after 1,000 merges; BPE
     # also on the mesh of 1
     bpe = ptrain.shard_corpus(mesh, arrays.sym, arrays.freq)
-    check(bpe)
+    tables = check(bpe)[0]
     mesh1 = ptrain.shard_corpus(make_data_mesh(1, devices=[dev]), arrays.sym,
                                 arrays.freq)
-    check_mesh1(mesh1)
+    check_mesh1(mesh1, tables)
     t1000 = type(table)(table.strings())
     for sa, sb in golden[:1000]:
         ab = t1000.get(sa), t1000.get(sb), t1000.intern(sa + sb)
@@ -1109,7 +1130,7 @@ def phase13(dev, rng, arrays, table, arrays_wp, table_wp, golden,
                             t1000.intern(sa + sb), 0, 1, 0],
                            dtype=torch.int32, device=dev)
     tables, cand, kth, g_cnt, rec = check(bpe)
-    big, cap_big = check_mesh1(mesh1)
+    big, cap_big = check_mesh1(mesh1, tables)
     sym_cap = sym_capacity(table_wp, 8000)
     wp = ptrain.shard_corpus(mesh, arrays_wp.sym, arrays_wp.freq)
     check(wp, ptrain.sharded_sym_freq(wp, sym_cap))
@@ -1170,7 +1191,7 @@ def phase13(dev, rng, arrays, table, arrays_wp, table_wp, golden,
     M = cand.shape[0]
     runs = compact_tables(tables, bases, cap)
     gk, gc, gp = runs[:3]
-    agg = alloc_table(gk.shape[0] + 1, dev)
+    agg = TablePair(gk.shape[0] + 1, dev)  # filled on alternate calls
     metric = torch.where(t0[0] != EMPTY_KEY, t0[1], -1)
     out = bpe.run_buffers(0, cap)
     # the sets built once, as a sharded run keeps them (a wrapper called
@@ -1228,7 +1249,7 @@ def phase13(dev, rng, arrays, table, arrays_wp, table_wp, golden,
                                          tset.clusters * len(tables)),
                     200, True), None),
         "pair_stats_runs": (
-            cuda_ms(lambda: pair_stats_runs(gk, gc, gp, agg), 200, True),
+            cuda_ms(lambda: agg.runs(gk, gc, gp), 200, True),
             cuda_ms(lambda: pair_stats_runs_ref(gk, gc, gp), 10)),
         "certificate": (
             cuda_ms(lambda: certificate(kth, cand, g_cnt, rec), 200, True),
@@ -1285,7 +1306,8 @@ def phase13(dev, rng, arrays, table, arrays_wp, table_wp, golden,
         "compact_mesh1": bound(compact_bytes(big[0].shape[0], live_big,
                                              cap_big) + 4,
                                4 * big[0].shape[0]),
-        "pair_stats_runs": bound(nbytes(gk, gc, gp, *agg), 10 * M),
+        "pair_stats_runs": bound(nbytes(gk, gc, gp, *agg.tables[0].view(
+            agg.tables[0].size)), 10 * M),
         "certificate": bound(nbytes(kth, cand, g_cnt, rec),
                              512 * 8 + 2 * M),
         "topk": bound(nbytes(metric) + 16 * ptrain.TOPK, T),
@@ -1371,7 +1393,7 @@ def per_call_ms(fn, restore, n=50):
     return statistics.median(a.elapsed_time(b) for a, b in ev)
 
 
-def phase13b(dev, rng, arrays, table, golden, sym_cap, smi, reps=200):
+def phase13b(dev, rng, arrays, table, golden, smi, reps=200):
     """Phase 13b: the sharded step's grouped kernels, one launch a device:
     K1 over the padded rows of every shard of the device (``pair_rows``,
     which fills one set of tables and empties the other) and K3p over
@@ -1383,19 +1405,17 @@ def phase13b(dev, rng, arrays, table, golden, sym_cap, smi, reps=200):
     after the golden's first 1,000 merges (their rows equal the plain
     version's replay) and its 1,001st. Then the times at the corpus's
     8-shard state beside the per-shard launches they replace (8 x
-    ``swt_pair_stats`` with its memsets, 8 x ``swt_merge_rows``), the
-    mesh of 1's, and K4 at a shard's shape with ``index_add_`` beside it.
+    ``swt_pair_stats``, 8 x ``swt_merge_rows``) and the mesh of 1's.
     Returns (errs, timing, bounds, library, notes)."""
     import torch
     from subword_tokenizers_tpu_torch.ops.merge import (apply_merge,
                                                         apply_merge_ref)
     from subword_tokenizers_tpu_torch.ops.pairstats import (
-        EMPTY_KEY, canonical, clean_table, pair_rows, pair_rows_ref,
-        symbol_freqs, symbol_freqs_ref)
+        EMPTY_KEY, canonical, clean_table, pair_rows, pair_rows_ref)
     from subword_tokenizers_tpu_torch.ops.shard_select import TableSet
     from subword_tokenizers_tpu_torch.parallel import train as ptrain
     from subword_tokenizers_tpu_torch.parallel.mesh import make_data_mesh
-    errs = {"pair_rows": 0, "merge_rows_grouped": 0, "shard_symbol_freqs": 0}
+    errs = {"pair_rows": 0, "merge_rows_grouped": 0}
     notes = {"cases": 0, "k1_checks": 0, "k3p_checks": 0, "emptied_sets": 0}
 
     def err(name, e):
@@ -1537,27 +1557,6 @@ def phase13b(dev, rng, arrays, table, golden, sym_cap, smi, reps=200):
         per_call_ms(lambda: apply_merge(blk1.state.sym, merge=m1001),
                     lambda: blk1.state.sym.copy_(sym1)),
         cuda_ms(lambda: apply_merge_ref(sym1, merge=m1001), 5))
-    # K4 under the mesh: one shard's rows, as WordPiece's step counts them
-    shard = bpe.shards[0]
-    fs0, w0 = shard.sym.view(-1), shard._wgt
-    sf = symbol_freqs(fs0, w0, sym_cap)
-    err("shard_symbol_freqs", max_err(sf, symbol_freqs_ref(fs0, w0,
-                                                           sym_cap)))
-    # index_add_ computes K4's function over these inputs (the PAD slots
-    # sent to the trash bucket with weight 0 beforehand)
-    sf_index = torch.where(fs0 >= 0, fs0, sym_cap).to(torch.int64)
-    w_lib = torch.where(fs0 >= 0, w0, 0)
-    err("shard_symbol_freqs", max_err(torch.zeros_like(sf).index_add_(
-        0, sf_index, w_lib), sf))
-    if errs["shard_symbol_freqs"]:
-        raise AssertionError(f"K4 at a shard differs: {errs}")
-    timing["shard_symbol_freqs"] = (
-        cuda_ms(lambda: symbol_freqs(fs0, w0, sym_cap), reps, True),
-        cuda_ms(lambda: symbol_freqs_ref(fs0, w0, sym_cap), 10))
-    library["shard_symbol_freqs"] = cuda_ms(
-        lambda: torch.zeros_like(sf).index_add_(0, sf_index, w_lib), reps,
-        True)
-
     def k1_bytes(b):
         """What one grouped K1 must move: the rows (4 bytes a slot), the
         rows' weights (8 a row), each distinct pair's entry written once
@@ -1595,12 +1594,10 @@ def phase13b(dev, rng, arrays, table, golden, sym_cap, smi, reps=200):
     bounds["pair_rows_mesh1_full_clear"] = bound(full1, 10 * valid1)
     bounds["merge_rows_grouped"] = bound(k3_8, 2 * sym8.numel())
     bounds["merge_rows_mesh1"] = bound(k3_1, 2 * sym1.numel())
-    bounds["shard_symbol_freqs"] = bound(nbytes(shard.sym, w0, sf),
-                                         2 * shard.sym.numel())
     notes.update(rows=tuple(blk.state.sym.shape), shard_rows=blk.rows,
                  D=len(bpe.shards), live=live8, T_all=T8, live_mesh1=live1,
                  T_mesh1=T1, changed_rows=changed8,
-                 changed_rows_mesh1=changed1, sym_cap=sym_cap)
+                 changed_rows_mesh1=changed1)
     torch.cuda.synchronize()
 
     def line(k):
@@ -1630,11 +1627,329 @@ def phase13b(dev, rng, arrays, table, golden, sym_cap, smi, reps=200):
           f"changed): " + ", ".join(line(k) for k in (
               "pair_rows_mesh1", "merge_rows_mesh1"))
           + f" (K1 with the full clear: "
-          f"{bounds['pair_rows_mesh1_full_clear'][0]:.5f})"
-          + f"; K4 at a shard's {shard.sym.shape[0]} x "
-          f"{shard.sym.shape[1]} rows, sym_cap {sym_cap}: "
-          + line("shard_symbol_freqs")
-          + f", index_add_ {library['shard_symbol_freqs']:.4f} ms; {smi}")
+          f"{bounds['pair_rows_mesh1_full_clear'][0]:.5f}); {smi}")
+    return errs, timing, bounds, library, notes
+
+
+def memsets(by_name) -> int:
+    """Memset spans in a trace read by :func:`device_trace`."""
+    return sum(c for n, (c, _) in by_name.items() if "memset" in n.lower())
+
+
+def phase13c(dev, rng, flat_bpe, table, arrays, arrays_wp, table_wp,
+             max_len, smi, trace_dir, reps=200):
+    """Phase 13c: K4 in rows mode (``symbol_rows``: one launch over a
+    device's block of shards, their sum, into one of two outputs while it
+    empties the other) and in flat mode (``symbol_freqs``), and the
+    single-device K1 (``pair_stats`` into one of two PairTables, the
+    launch emptying the entries the other's last fill claimed), against
+    their plain versions, exactly: K4 on seeded rows (PADs inside, all-PAD
+    rows, ids at and above sym_cap, zero and wide weights, L of 1 to 70,
+    a sym_cap of 40,000), the WordPiece corpus's 8-shard block over three
+    alternating steps, the mesh of 1, the padded route's whole corpus,
+    the flat route's slots and the 8-shard block at a sym_cap of 40,000;
+    K1 on five consecutive steps of the flat route with real merges (K2,
+    K3) and a shrink after the second, five in skip mode, three of the
+    padded route, each table emptied whole. Times: K4 at each of those
+    shapes beside its 8 per-shard launches and ``index_add_``; K1 at the
+    corpus's initial state, its bound as the function needs and with a
+    full clear; WordPiece's scorer with its gathers at a shard's table.
+    Then a traced 256-step block of the flat route (BPE) and of the
+    padded route (WordPiece), each with no memset. Returns (errs, timing,
+    bounds, library, notes)."""
+    import numpy as np
+    import torch
+    from subword_tokenizers_tpu_torch.ops import train_loop
+    from subword_tokenizers_tpu_torch.ops.bitmath import score_bits
+    from subword_tokenizers_tpu_torch.ops.flat import WID_PAD, build_flat
+    from subword_tokenizers_tpu_torch.ops.pairstats import (
+        EMPTY_KEY, TablePair, canonical, pair_stats_ref, symbol_freqs,
+        symbol_freqs_ref, symbol_rows, symbol_rows_ref, table_size)
+    from subword_tokenizers_tpu_torch.ops.shard_select import LOW32
+    from subword_tokenizers_tpu_torch.parallel import train as ptrain
+    from subword_tokenizers_tpu_torch.parallel.mesh import make_data_mesh
+    errs = {"symbol_rows": 0, "symbol_freqs_flat": 0, "pair_stats_steps": 0}
+    notes = {"k4_cases": 0, "k1_steps": 0, "emptied": 0}
+    timing, bounds, library = {}, {}, {}
+    sym_cap = train_loop.sym_capacity(table_wp, 8000)
+
+    def err(name, e):
+        errs[name] = max(errs[name], e)
+
+    def zeros(n):
+        return torch.zeros(n, dtype=torch.int64, device=dev)
+
+    def check_rows(sym, wgt, cap):
+        """symbol_rows into a zero output while it empties a dirty one."""
+        out, dirty = zeros(cap + 1), zeros(cap + 1) + 7
+        got = symbol_rows(sym, wgt, cap, out, dirty)
+        err("symbol_rows", max_err(got, symbol_rows_ref(sym, wgt, cap)))
+        err("symbol_rows", int(got[cap]) + int((dirty != 0).sum()))
+        notes["k4_cases"] += 1
+
+    # seeded rows: (rows, L, symbols, sym_cap, weight scale)
+    for n, L, n_sym, cap, wscale in ((3000, 22, 40, 30, 1),
+                                     (2000, 1, 9, 9, 1),
+                                     (500, 70, 2, 8, 1 << 40),
+                                     (4000, 22, 45000, 40000, 3),
+                                     (64, 5, 3, 0, 1)):
+        sym, wgt = padded_random(rng, n, L, n_sym, wscale)
+        sym[rng.random(sym.shape) < 0.1] = -1        # PADs inside
+        sym[rng.random(n) < 0.05] = -1               # all-PAD rows
+        wgt[rng.random(n) < 0.05] = 0                # zero weights
+        sym_t, wgt_t = (torch.from_numpy(x).to(dev) for x in (sym, wgt))
+        check_rows(sym_t, wgt_t, cap)
+    # the WordPiece corpus: 8 shards of the one-card mesh, three steps of
+    # the block's double buffer, each the sum of _local_sym_freq's counts
+    wp8 = ptrain.shard_corpus(make_data_mesh(8, devices=[dev] * 8),
+                              arrays_wp.sym, arrays_wp.freq)
+    mesh1 = ptrain.shard_corpus(make_data_mesh(1, devices=[dev]),
+                                arrays_wp.sym, arrays_wp.freq)
+    blk, blk1 = wp8.blocks[0], mesh1.blocks[0]
+    per_shard = sum(symbol_freqs_ref(s.sym.reshape(-1), s._wgt, sym_cap)
+                    for s in wp8.shards)
+    prev = None
+    for _ in range(3):
+        before = symbol_rows.launches
+        got = ptrain.sharded_sym_freq(wp8, sym_cap)
+        if symbol_rows.launches != before + 1:
+            raise AssertionError(f"sharded_sym_freq launched K4 "
+                                 f"{symbol_rows.launches - before} times")
+        err("symbol_rows", max_err(got, per_shard))
+        if prev is not None:
+            err("symbol_rows", int((prev != 0).sum()))  # emptied
+            notes["emptied"] += 1
+        prev = got
+        notes["k4_cases"] += 1
+    err("symbol_rows", max_err(blk1.state.count_symbols(sym_cap),
+                               per_shard))
+    padded = train_loop.PaddedState(arrays_wp.sym, arrays_wp.freq, dev)
+    for _ in range(2):
+        err("symbol_rows", max_err(padded.count_symbols(sym_cap),
+                                   per_shard))
+    fs_w, _, wgt_w = (torch.from_numpy(x).to(dev) for x in
+                      build_flat(arrays_wp.sym, arrays_wp.freq))
+    sf_flat = symbol_freqs(fs_w, wgt_w, sym_cap)
+    err("symbol_freqs_flat", max_err(sf_flat, symbol_freqs_ref(
+        fs_w, wgt_w, sym_cap)) + max_err(sf_flat, per_shard))
+    check_rows(blk.state.sym, blk.wgt, 40000)
+    notes["k4_cases"] += 4
+    if any(errs.values()):
+        raise AssertionError(f"K4 differs: {errs}")
+
+    # K4's times: the one-card mesh's block (its double buffer), its 8
+    # per-shard launches, index_add_ over the same slots, the mesh of 1,
+    # the padded route's whole corpus, the flat route (one output added
+    # into again: the same work) and a sym_cap of 40,000
+    shard_bufs = [(zeros(sym_cap + 1), zeros(sym_cap + 1)) for _ in wp8.shards]
+    flat_out, big = zeros(sym_cap + 1), (zeros(40001), zeros(40001))
+    timing["symbol_rows"] = (
+        cuda_ms(lambda: blk.state.count_symbols(sym_cap), reps, True),
+        cuda_ms(lambda: symbol_rows_ref(blk.state.sym, blk.wgt, sym_cap),
+                10))
+    timing["symbol_rows_8_launches"] = (
+        cuda_ms(lambda: [symbol_rows(s.sym, s.wgt, sym_cap, o, c)
+                         for s, (o, c) in zip(wp8.shards, shard_bufs)],
+                max(reps // 8, 1), True), None)
+    timing["symbol_rows_mesh1"] = (
+        cuda_ms(lambda: blk1.state.count_symbols(sym_cap), reps, True),
+        None)
+    timing["symbol_rows_padded"] = (
+        cuda_ms(lambda: padded.count_symbols(sym_cap), reps, True), None)
+    timing["symbol_rows_cap40000"] = (
+        cuda_ms(lambda: symbol_rows(blk.state.sym, blk.wgt, 40000, *big),
+                reps, True), None)
+    timing["symbol_freqs_flat"] = (
+        cuda_ms(lambda: symbol_freqs(fs_w, wgt_w, sym_cap, flat_out), reps,
+                True),
+        cuda_ms(lambda: symbol_freqs_ref(fs_w, wgt_w, sym_cap), 10))
+    sym_all = blk.state.sym.reshape(-1)
+    ok = (sym_all >= 0) & (sym_all < sym_cap)
+    lib_idx = torch.where(ok, sym_all, sym_cap).to(torch.int64)
+    lib_w = torch.where(ok, blk.state._wgt, 0)
+    err("symbol_rows", max_err(zeros(sym_cap + 1).index_add_(
+        0, lib_idx, lib_w), per_shard))
+    library["symbol_rows"] = cuda_ms(
+        lambda: zeros(sym_cap + 1).index_add_(0, lib_idx, lib_w), reps, True)
+    flat_idx = torch.where(fs_w >= 0, fs_w, sym_cap).to(torch.int64)
+    library["symbol_freqs_flat"] = cuda_ms(
+        lambda: zeros(sym_cap + 1).index_add_(0, flat_idx, wgt_w), reps,
+        True)
+    # Bytes: the rows (4 a slot), the row weights (8 a row), the output
+    # written and the other emptied (8 a bin each); flat: the slots and
+    # their weights, the output written. Operations, counted low: an add
+    # a slot (2).
+    out_bytes = 8 * (sym_cap + 1)
+    bounds["symbol_rows"] = bound(nbytes(blk.state.sym, blk.wgt)
+                                  + 2 * out_bytes, 2 * sym_all.numel())
+    bounds["symbol_rows_mesh1"] = bound(nbytes(blk1.state.sym, blk1.wgt)
+                                        + 2 * out_bytes,
+                                        2 * blk1.state.sym.numel())
+    bounds["symbol_rows_cap40000"] = bound(
+        nbytes(blk.state.sym, blk.wgt) + 16 * 40001, 2 * sym_all.numel())
+    bounds["symbol_freqs_flat"] = bound(nbytes(fs_w, wgt_w) + out_bytes,
+                                        2 * fs_w.numel())
+
+    # K1 on a single device: five consecutive steps of the flat route with
+    # real merges, the state's width halved after the second (a dead tail
+    # as long as the corpus's slots, cut off: the table filled at the wide
+    # width is emptied whole); five in skip mode; three of the padded route
+    def tables_of(st):
+        return st._tables
+
+    def check_steps(st, t, n_steps, skip=0, shrink_at=None):
+        h1, h2, sl, ctrl, pw1, pw2, _ = train_loop.init_tables(
+            t, len(t) + n_steps, max_len, dev)
+        stats = torch.zeros(2, dtype=torch.int32, device=dev)
+        rec = torch.zeros(6, dtype=torch.int32, device=dev)
+        for step in range(n_steps):
+            if step == shrink_at:
+                st.F //= 2
+            if skip:
+                st.guard(skip, stats[1:])
+            got = st.pairs(skip)
+            arrays_now = ((st.sym.view(-1), st._wid, st._wgt)
+                          if isinstance(st, train_loop.PaddedState)
+                          else st.arrays())
+            err("pair_stats_steps", max(max_err(x, y) for x, y in zip(
+                canonical(*got), pair_stats_ref(*arrays_now, skip))))
+            pair = tables_of(st)
+            emptied = pair.tables[pair._next]  # the next call fills it
+            err("pair_stats_steps", int(
+                (emptied.keys != EMPTY_KEY).sum() + (emptied.counts != 0)
+                .sum() + (emptied.pos != -1).sum()))
+            notes["k1_steps"] += 1
+            train_loop.select_unify(*got, h1, h2, sl, ctrl, pw1, pw2,
+                                    len(t) + n_steps, rec)
+            st.merge(rec, skip)
+            if not int(rec[4]):
+                raise AssertionError("a K1 check step merged nothing")
+
+    fs, wid, wgt = flat_bpe
+    n0 = fs.shape[0]
+    wide = (np.concatenate([fs, np.full(n0, -1, np.int32)]),
+            np.concatenate([wid, np.full(n0, WID_PAD, np.int32)]),
+            np.concatenate([wgt, np.zeros(n0, np.int64)]))
+    st = train_loop.FlatState(*wide, dev)
+    t_big = table_size(st.F)  # the tables' size, made by the first count
+    check_steps(st, type(table)(table.strings()), 5, shrink_at=2)
+    if tables_of(st).tables[0].size != t_big or table_size(st.F) >= t_big:
+        raise AssertionError("the K1 check's state did not shrink its table")
+    check_steps(train_loop.FlatState(*(x.copy() for x in flat_bpe), dev),
+                type(table)(table.strings()), 5, skip=12)
+    check_steps(train_loop.PaddedState(arrays.sym, arrays.freq, dev),
+                type(table)(table.strings()), 3)
+    if any(errs.values()):
+        raise AssertionError(f"K1 differs on a step: {errs}")
+
+    # K1's time at the corpus's initial state: alternate calls of one
+    # pair of tables, each filling one and emptying the other's entries
+    fs_t, wid_t, wgt_t = (torch.from_numpy(x).to(dev) for x in flat_bpe)
+    k1 = TablePair(n0, dev)
+    timing["pair_stats_initial"] = (
+        cuda_ms(lambda: k1.pairs(fs_t, wid_t, wgt_t), reps, True),
+        cuda_ms(lambda: pair_stats_ref(fs_t, wid_t, wgt_t), 10))
+    live = int(pair_stats_ref(fs_t, wid_t, wgt_t)[0].shape[0])
+    T0 = table_size(n0)
+    valid = int((fs_t >= 0).sum())
+    # Bytes: the slots (16 a slot), 20 for each distinct pair's entry
+    # written and for each the call before filled, emptied (the same
+    # state's pairs); full clear: every entry of the table emptied.
+    bounds["pair_stats_initial"] = bound(nbytes(fs_t, wid_t, wgt_t)
+                                         + 40 * live, 10 * valid)
+    bounds["pair_stats_full_clear"] = bound(
+        nbytes(fs_t, wid_t, wgt_t) + 20 * live + 20 * T0, 10 * valid)
+    notes.update(k1_live=live, k1_T=T0, k1_slots=n0, sym_cap=sym_cap)
+
+    # WordPiece's scorer at a shard's table: nominate's score_bits with
+    # its gathers and masks, and the kernel alone
+    tables = wp8.pairs()
+    sf = ptrain.sharded_sym_freq(wp8, sym_cap)
+    keys, counts, _ = tables[0]
+    mask = keys != EMPTY_KEY
+
+    def scores():
+        k0 = torch.where(mask, keys, 0)
+        return torch.where(mask, score_bits(counts, sf[k0 >> 32],
+                                            sf[k0 & LOW32]), -1)
+
+    k0 = torch.where(mask, keys, 0)
+    fa, fb = sf[k0 >> 32], sf[k0 & LOW32]
+    timing["wp_score_shard"] = (cuda_ms(scores, reps, True), None)
+    timing["wp_score_shard_kernel"] = (
+        cuda_ms(lambda: score_bits(counts, fa, fb), reps, True), None)
+    T_shard = keys.shape[0]
+    # Bytes: a key and a count read, two weights gathered, a score
+    # written (40 an entry); operations: a division an entry (20).
+    bounds["wp_score_shard"] = bound(40 * T_shard, 20 * T_shard)
+    notes.update(shard_entries=T_shard, shard_live=int(mask.sum()))
+    torch.cuda.synchronize()
+
+    # a traced 256-step block of the flat route (BPE) and of the padded
+    # route (WordPiece), the states made before the trace: no memset
+    def block(flat, wordpiece):
+        arr, tab = (flat_bpe, table) if not wordpiece else (
+            build_flat(arrays_wp.sym, arrays_wp.freq), table_wp)
+        st = train_loop.FlatState(*(x.copy() for x in arr), dev)
+        t = type(tab)(tab.strings())
+        return lambda: train_loop.run_fused(
+            st, t, len(t) + 256, max_len, lambda *m: None,
+            wordpiece=wordpiece, flat=flat)
+
+    traced = {}
+    for name, flat, wordpiece in (("flat_bpe", True, False),
+                                  ("padded_wp", False, True)):
+        block(flat, wordpiece)()  # warm: the kernels loaded
+        fn = block(flat, wordpiece)
+        wall, busy, by_name = device_trace(
+            fn, os.path.join(trace_dir, f"block_{name}.json"))
+        traced[name] = (memsets(by_name), wall, busy, bool(by_name))
+        if by_name and traced[name][0]:
+            raise AssertionError(f"the {name} block made {traced[name][0]} "
+                                 f"memsets: {by_name}")
+    notes["traced"] = {k: {"memsets": v[0] if v[3] else None,
+                           "wall_ms": v[1], "busy_ms": v[2]}
+                       for k, v in traced.items()}
+
+    def line(k, extra=""):
+        parts = ([f"plain {timing[k][1]:.3f}"] if timing[k][1] is not None
+                 else []) + ([f"bound {bounds[k][0]:.5f}"] if k in bounds
+                             else []) + ([extra] if extra else [])
+        return f"{k} {timing[k][0]:.4f} ms" + (
+            f" ({', '.join(parts)})" if parts else "")
+
+    trace_line = "; ".join(
+        f"{k}: " + (f"{v['memsets']} memsets, device busy "
+                    f"{v['busy_ms']:.3f} of {v['wall_ms']:.1f} ms"
+                    if v["memsets"] is not None else "not measured (the "
+                    "trace holds no device events)")
+        for k, v in notes["traced"].items())
+    print(f"phase 13c: K4 (symbol_rows, one launch a device; symbol_freqs "
+          f"flat) equals its plain version exactly on {notes['k4_cases']} "
+          f"cases (seeded rows with PADs, all-PAD rows, ids at and above "
+          f"sym_cap, zero and wide weights, L 1-70, sym_cap 0 and 40,000; "
+          f"the WordPiece corpus's 8-shard block over 3 alternating steps "
+          f"({notes['emptied']} outputs emptied, one launch each), the mesh "
+          f"of 1, the padded route, the flat route, sym_cap 40,000); K1 "
+          f"(pair_stats, one launch a call) on {notes['k1_steps']} steps "
+          f"with real merges (5 consecutive of the flat route, its table "
+          f"shrunk from {t_big} entries after the second; 5 in skip mode "
+          f"12; 3 padded), each table emptied whole; at the 8-shard "
+          f"block ({blk.state.sym.shape[0]} x {blk.state.sym.shape[1]}, "
+          f"sym_cap {sym_cap}): " + line(
+              "symbol_rows", f"index_add_ {library['symbol_rows']:.4f}")
+          + ", " + ", ".join(line(k) for k in (
+              "symbol_rows_8_launches", "symbol_rows_mesh1",
+              "symbol_rows_padded", "symbol_rows_cap40000"))
+          + ", " + line("symbol_freqs_flat", f"index_add_ "
+                        f"{library['symbol_freqs_flat']:.4f}")
+          + f"; K1 at the initial state ({n0} slots, {live} pairs, T = "
+          f"{T0}): " + line("pair_stats_initial", f"with a full clear "
+                            f"{bounds['pair_stats_full_clear'][0]:.5f}")
+          + f"; WordPiece's scorer at a shard's {T_shard} entries "
+          f"({notes['shard_live']} live): " + line("wp_score_shard")
+          + f", the kernel alone {timing['wp_score_shard_kernel'][0]:.4f} "
+          f"ms; 256-step blocks traced: {trace_line}; {smi}")
     return errs, timing, bounds, library, notes
 
 
@@ -1660,7 +1975,7 @@ def phase14(dev, corpus, check_train, check_wp_train, lists, wp_merges,
                          "compact_tables", "pair_stats_runs", "select_unify",
                          "merge_rows"),
             "NaiveWP": ("pair_rows", "lookup_reduce", "certificate",
-                        "select_unify", "merge_rows", "symbol_freqs",
+                        "select_unify", "merge_rows", "symbol_rows",
                         "wp_score")}
     checks = {"NaiveBPE": check_train, "NaiveWP": check_wp_train}
     models = {"NaiveBPE": NaiveBPE, "NaiveWP": NaiveWP}
@@ -1688,17 +2003,29 @@ def phase14(dev, corpus, check_train, check_wp_train, lists, wp_merges,
                      else tok._merge_log)
         want = {"pair_rows": steps, "lookup_reduce": steps,
                 "compact_tables": tok._topk_fallbacks, "merge_rows": merges,
-                "pair_stats": tok._sel_stats["full"]}
+                "pair_stats": tok._sel_stats["full"],
+                "symbol_rows": steps if name == "NaiveWP" else 0,
+                "symbol_freqs": 0}
+        # every wrapper's calls: a WordPiece step the certificate settles
+        # makes 14 (K1, K4, the scorer on each of 8 shards, the lookup,
+        # K2, the certificate, K3p), the last step no K3p
+        calls = sum(counts.values())
+        if name == "NaiveWP" and not tok._topk_fallbacks:
+            want["calls"] = 14 * steps - (steps - merges)
+            counts["calls"] = calls
         if any(counts[k] != v for k, v in want.items()):
             raise AssertionError(f"{name}: {steps} steps, {merges} merges "
                                  f"and {tok._topk_fallbacks} fallbacks, but "
                                  f"launches {counts}")
+        counts.pop("calls", None)
         by_path[f"{name}_mesh8"] = {k: v for k, v in counts.items() if v}
         lines.append(f"{name} cold {walls[0]:.3f} s, warm {walls[1]:.3f} s, "
                      f"tiers {tok._sel_stats} ({tok._topk_fallbacks} "
                      f"fallbacks; 1 K1 and 1 lookup launch a step, 1 "
                      f"compaction launch a fallback step, 1 K3p launch a "
-                     f"merge, no per-shard K1), warm launches "
+                     f"merge, 1 K4 a WordPiece step, no per-shard K1), "
+                     f"{calls} kernel-wrapper calls in {steps} steps "
+                     f"({calls / steps:.3f} a step), warm launches "
                      f"{by_path[name + '_mesh8']}")
     print(f"phase 14: NaiveBPE and NaiveWP(mesh=make_data_mesh(8, "
           f"devices=['{dev}'] * 8)).train of all {len(corpus)} sentences to "
@@ -1777,9 +2104,14 @@ def phase14(dev, corpus, check_train, check_wp_train, lists, wp_merges,
     print("phase 14c: tokenize_batch of the whole corpus under the mesh "
           "equals the JAX digests: " + "; ".join(enc_lines) + f"; {smi}")
 
+    traced = []
+
+    def traced_train():
+        traced.append(NaiveBPE(mesh=mesh, device=dev))
+        traced[-1].train(corpus, trace_vocab)
+
     wall, busy, by_name = device_trace(
-        lambda: NaiveBPE(mesh=mesh, device=dev).train(corpus, trace_vocab),
-        os.path.join(trace_dir, "mesh_train_trace.json"))
+        traced_train, os.path.join(trace_dir, "mesh_train_trace.json"))
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
     grouped = {k: [sum(c for n, (c, _) in by_name.items() if k in n),
                    sum(ms for n, (_, ms) in by_name.items() if k in n)]
@@ -1795,6 +2127,20 @@ def phase14(dev, corpus, check_train, check_wp_train, lists, wp_merges,
         raise AssertionError(f"{h2d} host-to-device copies for "
                              f"{grouped['merge_rows_kernel'][0]} merges "
                              f"(set-up makes at most {H2D_SETUP_MAX})")
+    # no memset of the port's: the only ones are torch.topk's own (the
+    # nomination's library call, 8 a step), counted a call from a trace
+    # of 10 calls over a shard's table
+    n_memsets = memsets(by_name)
+    _, _, topk_names = device_trace(  # a shard's 131,072 int64 metrics
+        lambda: [torch.topk(torch.arange(131072, device=dev), 256)
+                 for _ in range(10)],
+        os.path.join(trace_dir, "topk_trace.json"), warmup=True)
+    topk_memsets = memsets(topk_names) / 10
+    topk_calls = 8 * sum(traced[-1]._sel_stats.values())
+    if by_name and topk_names and n_memsets != topk_memsets * topk_calls:
+        raise AssertionError(f"{n_memsets} memsets in the traced train, "
+                             f"torch.topk's {topk_memsets} a call x "
+                             f"{topk_calls} calls")
     dev_line = ("not measured (the trace holds no device events)"
                 if not by_name else
                 f"device busy {busy:.3f} ms of {wall:.1f} ms (idle share "
@@ -1803,7 +2149,9 @@ def phase14(dev, corpus, check_train, check_wp_train, lists, wp_merges,
                 + "; the grouped kernels: " + "; ".join(
                     f"{n} x{c} {ms:.3f} ms" for n, (c, ms) in grouped.items())
                 + f"; host-to-device copies in the whole train (set-up "
-                  f"included) {h2d}")
+                  f"included) {h2d}; memsets {n_memsets}, all torch.topk's "
+                  f"({topk_memsets:g} a call x {topk_calls} calls), none "
+                  f"of the port's kernels")
     print(f"phase 14d: one warm NaiveBPE train to {trace_vocab} on the mesh "
           f"of 8 under torch.profiler: {dev_line}; {smi}")
     return by_path
@@ -2423,7 +2771,7 @@ def main() -> int:
     from subword_tokenizers_tpu_torch.ops.flat import (build_flat,
                                                        merge_apply,
                                                        merge_apply_ref)
-    from subword_tokenizers_tpu_torch.ops.pairstats import (alloc_table,
+    from subword_tokenizers_tpu_torch.ops.pairstats import (TablePair,
                                                             canonical,
                                                             pair_stats,
                                                             pair_stats_ref)
@@ -2514,16 +2862,17 @@ def main() -> int:
     if any(errs[k] for k in bpe_kernels):
         raise AssertionError(f"a BPE kernel differs: {errs}")
 
-    # times at the initial state
-    tab = alloc_table(F0, dev)
+    # times at the initial state; K1 into one of two tables on alternate
+    # calls, as the training loop makes them
+    k1 = TablePair(F0, dev)
     h1, h2, sl, ctrl, pw1, pw2, _ = init_tables(table, 8000, max_len, dev)
     rec = torch.zeros(6, dtype=torch.int32, device=dev)
-    pair_stats(fs, wid, wgt, tab)
+    tab = pair_stats(fs, wid, wgt)
     tab_ref = pair_stats_ref(fs, wid, wgt)
     select_unify(*tab, h1, h2, sl, ctrl, pw1, pw2, 8000, rec)
     out = tuple(torch.empty_like(x) for x in (fs, wid, wgt))
     timing["pair_stats"] = (
-        cuda_ms(lambda: pair_stats(fs, wid, wgt, tab), 200, True),
+        cuda_ms(lambda: k1.pairs(fs, wid, wgt), 200, True),
         cuda_ms(lambda: pair_stats_ref(fs, wid, wgt), 10))
     timing["select_unify"] = (
         cuda_ms(lambda: select_unify(*tab, h1, h2, sl, ctrl, pw1, pw2,
@@ -2535,9 +2884,12 @@ def main() -> int:
         cuda_ms(lambda: merge_apply_ref(fs, wid, wgt, rec), 10))
     # Operations, counted low: a hash insert per live slot (10), a compare
     # per table entry (4), a merge test and a scan step per slot (6).
+    # K1's bytes: the slots, 20 for each distinct pair's entry written and
+    # for each entry the call before filled (the same pairs), emptied.
     # K2's bytes: the pair table, the control words and the record (of
     # the symbol hash and power tables it reads the winner's few entries).
-    bounds["pair_stats"] = bound(nbytes(fs, wid, wgt, *tab), 10 * n_slots)
+    bounds["pair_stats"] = bound(nbytes(fs, wid, wgt)
+                                 + 40 * tab_ref[0].shape[0], 10 * n_slots)
     bounds["select_unify"] = bound(nbytes(*tab, ctrl, rec),
                                    4 * tab[0].shape[0])
     bounds["merge_apply"] = bound(2 * nbytes(fs, wid, wgt) + nbytes(rec),
@@ -2794,7 +3146,7 @@ def main() -> int:
     # times at the initial state
     cap = 8008
     sf0 = symbol_freqs(fs, wgt, cap)
-    tab = pair_stats(fs, wid, wgt, alloc_table(F0, dev))
+    tab = pair_stats(fs, wid, wgt)
     tab_ref = pair_stats_ref(fs, wid, wgt)
     h1, h2, sl, ctrl, pw1, pw2, sharp = init_tables(table_wp, 8000, max_len,
                                                     dev)
@@ -2807,8 +3159,9 @@ def main() -> int:
     sc_narrow = tuple(torch.from_numpy(x).to(dev) for x in (
         rng.integers(1, 1 << 20, size=F0), rng.integers(1, 1 << 26, size=F0),
         rng.integers(1, 1 << 26, size=F0)))
-    timing["symbol_freqs"] = (
-        cuda_ms(lambda: symbol_freqs(fs, wgt, cap), 200, True),
+    sf_out = torch.zeros(cap + 1, dtype=torch.int64, device=dev)
+    timing["symbol_freqs"] = (  # one output added into again: same work
+        cuda_ms(lambda: symbol_freqs(fs, wgt, cap, sf_out), 200, True),
         cuda_ms(lambda: symbol_freqs_ref(fs, wgt, cap), 10))
     timing["wp_score"] = (
         cuda_ms(lambda: score_bits(*sc_narrow), 200, True),
@@ -3309,12 +3662,20 @@ def main() -> int:
     library.update(library13)
     # ---- phase 13b: the grouped K1 and K3p against their plain versions
     errs13b, timing13b, bounds13b, library13b, notes13b = phase13b(
-        dev, rng, arrays, table, golden,
-        train_loop.sym_capacity(table_wp, 8000), smi)
+        dev, rng, arrays, table, golden, smi)
     errs.update(errs13b)
     timing.update(timing13b)
     bounds.update(bounds13b)
     library.update(library13b)
+    # ---- phase 13c: K4 grouped and flat, the single-device K1, the scorer
+    with tempfile.TemporaryDirectory() as d:
+        errs13c, timing13c, bounds13c, library13c, notes13c = phase13c(
+            dev, rng, flat0, table, arrays, arrays_wp, table_wp, max_len,
+            smi, d)
+    errs.update(errs13c)
+    timing.update(timing13c)
+    bounds.update(bounds13c)
+    library.update(library13c)
 
     # ---- phase 14: the sharded main path, an 8-shard mesh on the card
     with tempfile.TemporaryDirectory() as d:
@@ -3553,7 +3914,7 @@ def main() -> int:
              f"{notes13b['rows'][1]} rows each) at the golden's 1,001st "
              f"step, filling one set of tables and emptying the other; "
              f"shard8_pair_stats_ms: the per-shard launches it replaces "
-             f"(8 x swt_pair_stats, three memsets and an insert each)",
+             f"(8 x swt_pair_stats, a launch each)",
         bound_note="bytes: the rows, the rows' weights, 20 bytes for each "
                    "live entry written and for each entry the step before "
                    "filled, emptied; full_clear_bound_ms: the same with "
@@ -3588,13 +3949,65 @@ def main() -> int:
         padded_plain_ms=timing["merge_rows"][1],
         padded_bound_ms=bounds["merge_rows"][0])
     bounds["merge_rows"] = bounds["merge_rows_grouped"]
+    # K4 (phase 13c): the flat route's one launch a run, and the grouped
+    # rows mode of the padded route and the sharded WordPiece step
     by_name["symbol_freqs"].update(
-        shard_ms=timing["shard_symbol_freqs"][0],
-        shard_plain_ms=timing["shard_symbol_freqs"][1],
-        shard_bound_ms=bounds["shard_symbol_freqs"][0],
-        shard_library_ms=library["shard_symbol_freqs"],
-        shard_note="K4 over one shard's rows of the one-card mesh of 8, "
-                   "as WordPiece's sharded step counts each shard")
+        flat_ms=timing["symbol_freqs_flat"][0],
+        flat_plain_ms=timing["symbol_freqs_flat"][1],
+        flat_bound_ms=bounds["symbol_freqs_flat"][0],
+        flat_library_ms=library["symbol_freqs_flat"],
+        flat_max_abs_err=errs["symbol_freqs_flat"],
+        flat_note="flat_*: the WordPiece corpus's flat slots at sym_cap "
+                  f"{notes13c.get('sym_cap', 'of the run')}, phase 13c")
+    rows_paths = {**{p: n for p, n in mesh_of("symbol_rows").items()
+                     if not p.endswith("_encode")},
+                  **routes_of("symbol_rows")}
+    record["kernels"].append(
+        {"name": "symbol_rows", "route": "cuda",
+         "source": "subword_tokenizers_tpu_torch/csrc/symbol_freqs.cu",
+         "replaces": "subword_tokenizers_tpu/parallel/train.py:97",
+         "also_replaces": "subword_tokenizers_tpu/ops/train_loop.py:152",
+         "launches": sum(rows_paths.values()),
+         "launches_by_path": rows_paths,
+         "max_abs_err": errs["symbol_rows"],
+         "ms": timing["symbol_rows"][0],
+         "plain_ms": timing["symbol_rows"][1],
+         "note": "ms: one launch over the one-card mesh's 8 WordPiece "
+                 "shards (their sum), filling one output and emptying the "
+                 "other; shard8_ms: 8 launches of it, one a shard, as the "
+                 "step made before; library_ms: index_add_ of the "
+                 "per-slot weights over the same slots",
+         "shard8_ms": timing["symbol_rows_8_launches"][0],
+         "mesh1_ms": timing["symbol_rows_mesh1"][0],
+         "mesh1_bound_ms": bounds["symbol_rows_mesh1"][0],
+         "padded_ms": timing["symbol_rows_padded"][0],
+         "cap40000_ms": timing["symbol_rows_cap40000"][0],
+         "cap40000_bound_ms": bounds["symbol_rows_cap40000"][0],
+         "bound_note": "bytes: the rows (4 a slot), the row weights (8 a "
+                       "row), the output written and the other emptied (8 "
+                       "a bin each)"})
+    by_name = {k["name"]: k for k in record["kernels"]}
+    # the single-device K1 (phase 13c): one launch a call, no memset
+    by_name["pair_stats"].update(
+        steps_max_abs_err=errs["pair_stats_steps"],
+        steps_checked=notes13c["k1_steps"],
+        initial_ms=timing["pair_stats_initial"][0],
+        initial_bound_ms=bounds["pair_stats_initial"][0],
+        full_clear_bound_ms=bounds["pair_stats_full_clear"][0],
+        bound_note="bytes: the slots (16 a slot), 20 for each distinct "
+                   "pair's entry written and 20 for each the call before "
+                   "filled, emptied; full_clear_bound_ms: every entry of "
+                   "the table emptied instead (as three memsets would)",
+        traced_blocks=notes13c["traced"])
+    by_name["wp_score"].update(
+        shard_ms=timing["wp_score_shard"][0],
+        shard_kernel_ms=timing["wp_score_shard_kernel"][0],
+        shard_bound_ms=bounds["wp_score_shard"][0],
+        shard_entries=notes13c["shard_entries"],
+        shard_note="shard_ms: nominate's score_bits with its gathers and "
+                   "masks over one shard's table of the one-card mesh of 8 "
+                   "(WordPiece, initial state); mesh_launches its launches "
+                   "under the mesh, one a shard a step")
     # the gather probe (phase 16): launches of its main on the card
     for k, replaces in (("gather_take2d", "tools/pallas_probe.py:35"),
                         ("gather_loop", "tools/pallas_probe.py:74"),

@@ -24,16 +24,17 @@
 //
 // Three launches on the caller's stream:
 // - mark_kernel, one thread per slot: the slot's kind (0 dropped, 1 kept,
-//   2 kept as new_id) into flags[i]; each block's kept count; n_rep, the
-//   weight of the matches, by one atomicAdd per block (integer, exact).
+//   2 kept as new_id) into flags[i]; each block's kept count and the
+//   weight of its matches, each into the block's own word (no atomics,
+//   so nothing needs zeroing before the launch: no memset).
 //   The parity walk steps back through the run, so it is bounded by the
 //   longest word (22 symbols on train-85k) and runs only for matches of a
 //   self-merge.
 // - scan_kernel, one block: exclusive scan of the block counts (as in
-//   compact.cu); writes the total to blocks[2 NB] and to rec[5] (n_live).
+//   compact.cu); writes the total to blocks[2 NB] and to rec[5] (n_live),
+//   and the blocks' match weights summed to n_rep (integer, exact).
 //   With a sym_freq table (WordPiece; null for BPE) and an active step,
-//   its thread 0 also applies the carried update with the final n_rep,
-//   which every block of mark_kernel has added by then (stream order):
+//   its thread 0 also applies the carried update with that n_rep:
 //   sym_freq[a] -= n_rep, sym_freq[b] -= n_rep, sym_freq[new_id] += n_rep,
 //   in that order, so a self-merge subtracts twice as JAX's chained
 //   .at[].add does. Each replacement consumes one a and one b and makes
@@ -106,7 +107,7 @@ __global__ void mark_kernel(const int32_t* __restrict__ fs,
                             const int32_t* __restrict__ rec,
                             uint8_t* __restrict__ flags,
                             int32_t* __restrict__ block_cnt,
-                            unsigned long long* n_rep,
+                            long long* __restrict__ block_rep,
                             const int32_t* gate) {
   if (!gate_open(gate, F)) return;
   __shared__ int s_cnt[kWarps];
@@ -143,30 +144,44 @@ __global__ void mark_kernel(const int32_t* __restrict__ fs,
       r += s_rep[w];
     }
     block_cnt[blockIdx.x] = cnt;
-    if (r) atomicAdd(n_rep, static_cast<unsigned long long>(r));
+    block_rep[blockIdx.x] = r;
   }
 }
 
+// n_rep[0] gets the sum of the blocks' match weights n_rep[1 .. n].
 __global__ void scan_kernel(const int32_t* __restrict__ cnt, int64_t n,
                             int32_t* __restrict__ off, int32_t* rec,
-                            const long long* n_rep, long long* sym_freq,
+                            long long* n_rep, long long* sym_freq,
                             const int32_t* gate, int64_t F) {
   if (!gate_open(gate, F)) return;
   __shared__ int64_t part[kScanThreads];
+  __shared__ long long reps[kScanThreads];
   const int t = threadIdx.x;
-  if (t == 0 && sym_freq != nullptr && rec[4] != 0) {
-    const long long r = *n_rep;
-    sym_freq[rec[0]] -= r;
-    sym_freq[rec[1]] -= r;
-    sym_freq[rec[2]] += r;
-  }
   const int64_t per = (n + kScanThreads - 1) / kScanThreads;
   const int64_t b = t * per;
   const int64_t e = b + per < n ? b + per : n;
   int64_t sum = 0;
-  for (int64_t k = b; k < e; ++k) sum += cnt[k];
+  long long rep = 0;
+  for (int64_t k = b; k < e; ++k) {
+    sum += cnt[k];
+    rep += n_rep[1 + k];
+  }
   part[t] = sum;
+  reps[t] = rep;
   __syncthreads();
+  for (int d = kScanThreads / 2; d > 0; d >>= 1) {
+    if (t < d) reps[t] += reps[t + d];
+    __syncthreads();
+  }
+  if (t == 0) {
+    const long long r = reps[0];
+    n_rep[0] = r;
+    if (sym_freq != nullptr && rec[4] != 0) {
+      sym_freq[rec[0]] -= r;
+      sym_freq[rec[1]] -= r;
+      sym_freq[rec[2]] += r;
+    }
+  }
   // Hillis-Steele inclusive scan over the stretch sums.
   for (int d = 1; d < kScanThreads; d <<= 1) {
     const int64_t v = t >= d ? part[t - d] : 0;
@@ -360,8 +375,9 @@ __global__ void apply_skip_kernel(int32_t* __restrict__ fs,
 extern "C" {
 
 // fs i32[F], wid i32[F], wgt i64[F], rec i32[6] -> out_fs/out_wid/out_wgt
-// (same shapes, separate buffers), rec[5] = live slots, n_rep i64[1];
-// scratch flags u8[F], blocks i32[2 NB + 1] with NB = ceil(F / 256);
+// (same shapes, separate buffers), rec[5] = live slots, n_rep i64[NB + 1]
+// (n_rep[0] the merge's weight, the rest the blocks' scratch); scratch
+// flags u8[F], blocks i32[2 NB + 1] with NB = ceil(F / 256);
 // sym_freq i64[> every symbol id] updated in place, or null.
 // 2 <= F < 2^31. Returns the cudaError_t.
 int swt_merge_apply(const void* fs, const void* wid, const void* wgt,
@@ -372,19 +388,16 @@ int swt_merge_apply(const void* fs, const void* wid, const void* wgt,
   const int64_t nb = (F + kThreads - 1) / kThreads;
   int32_t* cnt = static_cast<int32_t*>(blocks);
   int32_t* off = cnt + nb;
-  cudaError_t err = cudaMemsetAsync(n_rep, 0, sizeof(int64_t), s);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  long long* reps = static_cast<long long*>(n_rep);
   mark_kernel<<<static_cast<unsigned>(nb), kThreads, 0, s>>>(
       static_cast<const int32_t*>(fs), static_cast<const int32_t*>(wid),
       static_cast<const int64_t*>(wgt), F, static_cast<const int32_t*>(rec),
-      static_cast<uint8_t*>(flags), cnt,
-      static_cast<unsigned long long*>(n_rep), nullptr);
-  err = cudaGetLastError();
+      static_cast<uint8_t*>(flags), cnt, reps + 1, nullptr);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   scan_kernel<<<1, kScanThreads, 0, s>>>(
-      cnt, nb, off, static_cast<int32_t*>(rec),
-      static_cast<const long long*>(n_rep), static_cast<long long*>(sym_freq),
-      nullptr, F);
+      cnt, nb, off, static_cast<int32_t*>(rec), reps,
+      static_cast<long long*>(sym_freq), nullptr, F);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   scatter_kernel<<<static_cast<unsigned>(nb), kThreads, 0, s>>>(
@@ -421,13 +434,13 @@ int swt_skip_guard(void* fs, void* wid, void* wgt, int64_t F, int skip,
   mark_kernel<<<grid, kThreads, 0, s>>>(
       static_cast<const int32_t*>(fs), static_cast<const int32_t*>(wid),
       static_cast<const int64_t*>(wgt), F, static_cast<const int32_t*>(crec),
-      static_cast<uint8_t*>(flags), cnt,
-      static_cast<unsigned long long*>(n_rep), g);
+      static_cast<uint8_t*>(flags), cnt, static_cast<long long*>(n_rep) + 1,
+      g);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   scan_kernel<<<1, kScanThreads, 0, s>>>(
       cnt, nb, off, static_cast<int32_t*>(crec),
-      static_cast<const long long*>(n_rep), nullptr, g, F);
+      static_cast<long long*>(n_rep), nullptr, g, F);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   scatter_kernel<<<grid, kThreads, 0, s>>>(

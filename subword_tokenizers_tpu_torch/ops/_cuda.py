@@ -33,12 +33,15 @@ _I64 = ctypes.c_int64
 _I = ctypes.c_int
 _SCAN_ARGS = [_P, _I64, _I64, _P, _P, _I64, _P, _P, _P, _P, _I, _I, _I, _I,
               _I, _I, _I, _P, _P, _P, _P, _P, _P]
+# K1's table to fill (keys, counts, pos, T, claims, two counters) and the
+# one to empty (keys, counts, pos, claims, its counter)
+_TABLE_ARGS = [_P, _P, _P, _I64, _P, _P, _P, _P, _P, _P, _P, _P]
 SIGNATURES = {
     "swt_wp_e2e_scan_u16": _SCAN_ARGS,
     "swt_wp_e2e_scan_i32": _SCAN_ARGS,
     "swt_compact": [_P, _I64, _I, _P, _P, _P, _P, _P, _P, _P],
-    "swt_pair_stats": [_P, _P, _P, _I64, _P, _P, _P, _I64, _I, _P],
-    "swt_pair_stats_runs": [_P, _P, _P, _I64, _P, _P, _P, _I64, _P],
+    "swt_pair_stats": [_P, _P, _P, _I64, *_TABLE_ARGS, _I, _P],
+    "swt_pair_stats_runs": [_P, _P, _P, _I64, *_TABLE_ARGS, _P],
     "swt_pair_rows": [_P, _P, _I64, _I64, _I64, _P, _P, _I64, _I64, _P],
     "swt_lookup_reduce": [_P, _I64, _P, _I, _P, _P, _P],
     "swt_compact_tables": [_P, _I, _I, _I64, _I, _P, _P, _P, _P, _P],
@@ -54,7 +57,7 @@ SIGNATURES = {
                        _P, _P],
     "swt_merge_skip": [_P, _P, _P, _I64, _I, _P, _P, _P, _P],
     "swt_merge_rows": [_P, _I64, _I64, _P, _I, _I, _I, _P],
-    "swt_symbol_freqs": [_P, _P, _I64, _I64, _P, _P],
+    "swt_symbol_freqs": [_P, _P, _I64, _I64, _I64, _P, _P, _I64, _P],
     "swt_bpe_encode": [_P, _I64, _I64, _P, _P, _P, _I64, _I, _I, _P, _P,
                        _P],
     "swt_wp_match": [_P, _I64, _I64, _P, _P, _I64, _P, _I, _I, _I64, _P, _P,

@@ -168,7 +168,8 @@ def merge_apply(fs, wid, wgt, rec, out: Optional[tuple] = None,
     nb = -(-F // 256)
     flags = torch.empty(F, dtype=torch.uint8, device=dev)
     blocks = torch.empty(2 * nb + 1, dtype=torch.int32, device=dev)
-    n_rep = torch.empty((), dtype=torch.int64, device=dev)
+    # [0] the merge's weight, [1:] the blocks' (no memset: each is written)
+    n_rep = torch.empty(nb + 1, dtype=torch.int64, device=dev)
     from . import _cuda
     with torch.cuda.device(dev):
         _cuda.launch("swt_merge_apply", fs.data_ptr(), wid.data_ptr(),
@@ -179,7 +180,7 @@ def merge_apply(fs, wid, wgt, rec, out: Optional[tuple] = None,
     merge_apply.launches += 1
     if sym_freq is not None:
         merge_apply.wp_launches += 1
-    return (*out, n_rep)
+    return (*out, n_rep[0])
 
 
 merge_apply.launches = 0
@@ -335,7 +336,7 @@ def skip_guard(fs, wid, wgt, S: int, count, out: Optional[tuple] = None):
     nb = -(-F // 256)
     flags = torch.empty(F, dtype=torch.uint8, device=dev)
     blocks = torch.empty(2 * nb + 1, dtype=torch.int32, device=dev)
-    n_rep = torch.empty((), dtype=torch.int64, device=dev)
+    n_rep = torch.empty(nb + 1, dtype=torch.int64, device=dev)
     gate = torch.empty(2, dtype=torch.int32, device=dev)
     from . import _cuda
     with torch.cuda.device(dev):

@@ -31,8 +31,17 @@ local positions ``row * L + j``, with no per-slot word ids or weights,
 and empties the other half of a double buffer of tables: the data-parallel
 step's K1 (parallel/train.py).
 
-WordPiece also needs each symbol's total weight: :func:`symbol_freqs`
-(kernel K4), counted once per run and then carried by K3.
+On the card :func:`pair_stats` and :func:`pair_stats_runs` fill a
+:class:`PairTable`, which must be empty, and empty another in the same
+launch: only the entries that table's last fill claimed, from its claim
+list. Their callers keep two and alternate (:class:`TablePair`), so a
+call is one kernel launch and no memset.
+
+WordPiece also needs each symbol's total weight (kernel K4):
+:func:`symbol_freqs` over the flat state's slots, counted once per run
+and then carried by K3, and :func:`symbol_rows` over padded rows and
+their row weights, every step of the padded route and of the
+data-parallel step (one launch over a device's block of shards).
 """
 from __future__ import annotations
 
@@ -55,23 +64,109 @@ def table_size(F: int) -> int:
     return T
 
 
-def alloc_table(F: int, device) -> Tuple[torch.Tensor, ...]:
-    """(keys int64[T], counts int64[T], pos int32[T]) for
-    :func:`pair_stats` on a state of width up to ``F``."""
-    T = table_size(F)
-    return (torch.empty(T, dtype=torch.int64, device=device),
-            torch.empty(T, dtype=torch.int64, device=device),
-            torch.empty(T, dtype=torch.int32, device=device))
-
-
 def clean_table(F: int, device) -> Tuple[torch.Tensor, ...]:
-    """:func:`alloc_table` with every entry empty (keys ``EMPTY_KEY``,
-    counts 0, positions all ones), as :func:`pair_rows` takes it."""
-    keys, counts, pos = alloc_table(F, device)
-    keys.fill_(EMPTY_KEY)
-    counts.zero_()
-    pos.fill_(-1)
-    return keys, counts, pos
+    """(keys int64[T], counts int64[T], pos int32[T]) for a state of
+    width up to ``F``, T = ``table_size(F)``, every entry empty (keys
+    ``EMPTY_KEY``, counts 0, positions all ones)."""
+    T = table_size(F)
+    return (torch.full((T,), EMPTY_KEY, dtype=torch.int64, device=device),
+            torch.zeros(T, dtype=torch.int64, device=device),
+            torch.full((T,), -1, dtype=torch.int32, device=device))
+
+
+class PairTable:
+    """A K1 table on a CUDA device for :func:`pair_stats` and
+    :func:`pair_stats_runs`: ``keys``/``counts`` int64 and ``pos`` int32
+    of ``size`` entries (``table_size(F)`` for a state of width up to
+    ``F``; a call uses the first ``table_size`` of its own width), the
+    claim list ``claims`` int32 (the entries a fill claimed, indices into
+    the whole buffer) and its two counters ``n`` int32[2]: fill number j
+    counts its claims in ``n[j % 2]`` and zeroes the other, which the
+    empty after the fill before read. Made empty; the host tracks
+    ``fills`` and whether it holds a count (``dirty``), and the
+    kernel's pointers (``ptrs``)."""
+
+    def __init__(self, F: int, device) -> None:
+        keys, counts, pos = clean_table(F, device)
+        self.keys, self.counts, self.pos = keys, counts, pos
+        self.size = keys.shape[0]
+        # distinct pairs of a state of width F: at most F - 1 <= size / 2
+        self.claims = torch.empty(self.size // 2, dtype=torch.int32,
+                                  device=keys.device)
+        self.n = torch.zeros(2, dtype=torch.int32, device=keys.device)
+        self.fills = 0
+        self.dirty = False
+        self.ptrs = tuple(t.data_ptr() for t in (keys, counts, pos,
+                                                  self.claims))
+
+    def view(self, T: int):
+        """(keys, counts, pos) of the first ``T`` entries."""
+        return self.keys[:T], self.counts[:T], self.pos[:T]
+
+
+class TablePair:
+    """Two :class:`PairTable` for a state of width up to ``F``, used on
+    alternate calls: each call of :meth:`pairs` fills one and empties
+    the other, whose readers were queued before it."""
+
+    def __init__(self, F: int, device) -> None:
+        self.tables = (PairTable(F, device), PairTable(F, device))
+        self._next = 0
+
+    def _take(self):
+        fill = self.tables[self._next]
+        self._next = 1 - self._next
+        return fill, self.tables[self._next]
+
+    def pairs(self, fs, wid, wgt, skip: int = 0):
+        """:func:`pair_stats` into this call's table."""
+        fill, clear = self._take()
+        return pair_stats(fs, wid, wgt, fill, skip, clear)
+
+    def runs(self, rk, rc, rp):
+        """:func:`pair_stats_runs` into this call's table."""
+        fill, clear = self._take()
+        return pair_stats_runs(rk, rc, rp, fill, clear)
+
+
+def _launch_tables(name: str, table, clear, T: int, dev) -> tuple:
+    """The kernel's table arguments: the table to fill (a clean
+    PairTable of at least ``T`` entries) with its counters, and the
+    claims of ``clear`` to empty (nothing when it holds no count). Marks
+    both for after the launch."""
+    if not isinstance(table, PairTable):
+        raise TypeError(f"{name}: the table must be a PairTable (the "
+                        f"kernel empties only what a fill claimed), not "
+                        f"{type(table).__name__}")
+    if table.keys.device != dev:
+        raise ValueError(f"{name}: a table on {table.keys.device}, "
+                         f"expected {dev}")
+    if table.dirty:
+        raise ValueError(f"{name}: the table holds a count; pass it as "
+                         f"`clear` to a call that fills another first")
+    if table.size < T:
+        raise ValueError(f"{name}: table of {table.size} < {T}")
+    if clear is not None:
+        if not isinstance(clear, PairTable):
+            raise TypeError(f"{name}: `clear` must be a PairTable")
+        if clear is table or clear.keys.device != dev:
+            raise ValueError(f"{name}: the table to empty must be another "
+                             f"on {dev}")
+    j = table.fills
+    n0 = table.n.data_ptr()
+    args = (*table.ptrs[:3], T, table.ptrs[3], n0 + 4 * (j % 2),
+            n0 + 4 * ((j + 1) % 2))
+    if clear is None or not clear.dirty:
+        return args + (None,) * 5
+    cn = clear.n.data_ptr() + 4 * ((clear.fills - 1) % 2)
+    return args + (*clear.ptrs, cn)
+
+
+def _mark(table, clear) -> None:
+    table.fills += 1
+    table.dirty = True
+    if clear is not None:
+        clear.dirty = False
 
 
 def pair_stats_ref(fs, wid, wgt, skip: int = 0):
@@ -105,17 +200,20 @@ def canonical(keys, counts, pos):
             pos[live][order].to(torch.int64))
 
 
-def pair_stats(fs, wid, wgt, table: Optional[tuple] = None,
-               skip: int = 0):
+def pair_stats(fs, wid, wgt, table: Optional[PairTable] = None,
+               skip: int = 0, clear: Optional[PairTable] = None):
     """Pair counts and first positions of a flat state (fs int32[F], wid
     int32[F], wgt int64[F]), with window ``skip`` (0: adjacent slots).
 
-    For CUDA tensors, launches the kernel into ``table`` (from
-    :func:`alloc_table`, allocated when None) and returns it as (keys,
-    counts, pos), empty entries keyed ``EMPTY_KEY``. For CPU tensors,
-    runs the PyTorch version and returns its sorted (keys, counts,
-    first). Both forms feed ops/train_loop.select_unify. Raises for any
-    other device.
+    For CUDA tensors, launches the kernel once into ``table``, an empty
+    :class:`PairTable` of at least ``table_size(F)`` entries (a new one
+    when None), and returns its first ``table_size(F)`` entries as
+    (keys, counts, pos), empty entries keyed ``EMPTY_KEY``. The same
+    launch empties ``clear``, another PairTable, if it holds a count:
+    the other half of the caller's double buffer (:class:`TablePair`),
+    whose readers must be queued before. For CPU tensors, runs the
+    PyTorch version and returns its sorted (keys, counts, first). Both
+    forms feed ops/train_loop.select_unify. Raises for any other device.
     """
     dev = fs.device
     check_tensor("fs", fs, (torch.int32,), 1, dev)
@@ -133,29 +231,18 @@ def pair_stats(fs, wid, wgt, table: Optional[tuple] = None,
     if dev.type != "cuda":
         raise ValueError(f"pair_stats: no kernel for device {dev}")
     if table is None:
-        table = alloc_table(F, dev)
-    keys, counts, pos = table
-    T = keys.shape[0]
-    for name, t, dt in (("keys", keys, torch.int64),
-                        ("counts", counts, torch.int64),
-                        ("pos", pos, torch.int32)):
-        check_tensor(name, t, (dt,), 1, dev)
-        if t.shape[0] != T:
-            raise ValueError("pair_stats: inconsistent table")
-    if T < table_size(F):
-        raise ValueError(f"pair_stats: table of {T} < {table_size(F)}")
-    # The kernel probes with a power-of-two mask.
-    if T & (T - 1):
-        raise ValueError(f"pair_stats: table size {T} is not a power of 2")
+        table = PairTable(F, dev)
+    T = table_size(F)
+    args = _launch_tables("pair_stats", table, clear, T, dev)
     from . import _cuda
     with torch.cuda.device(dev):
         _cuda.launch("swt_pair_stats", fs.data_ptr(), wid.data_ptr(),
-                     wgt.data_ptr(), F, keys.data_ptr(), counts.data_ptr(),
-                     pos.data_ptr(), T, skip)
+                     wgt.data_ptr(), F, *args, skip)
+    _mark(table, clear)
     pair_stats.launches += 1
     if skip:
         pair_stats.skip_launches += 1
-    return table
+    return table.view(T)
 
 
 pair_stats.launches = 0
@@ -175,13 +262,15 @@ def pair_stats_runs_ref(rk, rc, rp):
     return keys, counts, first
 
 
-def pair_stats_runs(rk, rc, rp, table: Optional[tuple] = None):
+def pair_stats_runs(rk, rc, rp, table: Optional[PairTable] = None,
+                    clear: Optional[PairTable] = None):
     """Aggregate runs (rk int64[M] keys, EMPTY_KEY for none; rc int64[M]
     counts; rp int32[M] positions, int64 on the CPU): per distinct key
     the summed count and the least position, in :func:`pair_stats`'s two
-    forms (a table of at least ``table_size(M + 1)`` entries for CUDA
-    tensors, allocated when None; the sorted plain form for CPU tensors).
-    Raises for any other device.
+    forms (for CUDA tensors the first ``table_size(M + 1)`` entries of
+    ``table``, an empty PairTable, new when None, with ``clear`` emptied
+    in the same launch; the sorted plain form for CPU tensors). Raises
+    for any other device.
     """
     dev = rk.device
     check_tensor("rk", rk, (torch.int64,), 1, dev)
@@ -197,20 +286,16 @@ def pair_stats_runs(rk, rc, rp, table: Optional[tuple] = None):
     if rp.dtype != torch.int32:
         raise TypeError("pair_stats_runs: the kernel takes int32 positions")
     if table is None:
-        table = alloc_table(M + 1, dev)
-    keys, counts, pos = table
-    T = keys.shape[0]
-    if (counts.shape[0] != T or pos.shape[0] != T or T < table_size(M + 1)
-            or T & (T - 1)):
-        raise ValueError(f"pair_stats_runs: bad table of {T} entries for "
-                         f"{M} runs")
+        table = PairTable(M + 1, dev)
+    T = table_size(M + 1)
+    args = _launch_tables("pair_stats_runs", table, clear, T, dev)
     from . import _cuda
     with torch.cuda.device(dev):
         _cuda.launch("swt_pair_stats_runs", rk.data_ptr(), rc.data_ptr(),
-                     rp.data_ptr(), M, keys.data_ptr(), counts.data_ptr(),
-                     pos.data_ptr(), T)
+                     rp.data_ptr(), M, *args)
+    _mark(table, clear)
     pair_stats_runs.launches += 1
-    return table
+    return table.view(T)
 
 
 pair_stats_runs.launches = 0
@@ -339,14 +424,53 @@ def symbol_freqs_ref(fs, wgt, sym_cap: int):
     return out
 
 
-def symbol_freqs(fs, wgt, sym_cap: int):
+def symbol_rows_ref(sym, wgt, sym_cap: int):
+    """Plain PyTorch version of :func:`symbol_rows`."""
+    n, L = sym.shape
+    return symbol_freqs_ref(sym.reshape(-1),
+                            wgt[:, None].expand(n, L).reshape(-1), sym_cap)
+
+
+def _k4(name, sym, wgt, R: int, L: int, sym_cap: int, out, clear):
+    """Launch K4 over R rows of L slots into ``out`` (zero on entry; new
+    when None), emptying ``clear``; return ``out``."""
+    dev = sym.device
+    if out is None:
+        out = torch.zeros(sym_cap + 1, dtype=torch.int64, device=dev)
+    for what, t in (("out", out), ("clear", clear)):
+        if t is None:
+            continue
+        check_tensor(what, t, (torch.int64,), 1, dev)
+        if t.shape[0] != sym_cap + 1:
+            raise ValueError(f"{name}: {what} of {t.shape[0]} entries, "
+                             f"expected {sym_cap + 1}")
+    if clear is not None and clear.data_ptr() == out.data_ptr():
+        raise ValueError(f"{name}: the output to empty is the one to fill")
+    from . import _cuda
+    with torch.cuda.device(dev):
+        _cuda.launch("swt_symbol_freqs", sym.data_ptr(), wgt.data_ptr(), R,
+                     L, sym_cap, out.data_ptr(),
+                     None if clear is None else clear.data_ptr(),
+                     0 if clear is None else sym_cap + 1)
+    return out
+
+
+def _check_sym_cap(name: str, sym_cap: int) -> None:
+    if not 0 <= sym_cap < 2 ** 31 - 1:
+        raise ValueError(f"{name}: sym_cap {sym_cap} outside [0, 2**31 - 1)")
+
+
+def symbol_freqs(fs, wgt, sym_cap: int, out=None):
     """Per-symbol total weight of a flat state (fs int32[F], wgt
     int64[F]): int64[sym_cap + 1], whose entry ``s`` sums ``wgt`` over
-    the slots of symbol ``s``; the last entry is the trash bucket of the
-    padding and stays 0 (WordPiece's ``freq_a``, ``freq_b``).
+    the slots of symbol ``s``; ids below 0 or at or above ``sym_cap`` are
+    dropped, so the last entry, the trash bucket, stays 0 (WordPiece's
+    ``freq_a``, ``freq_b``).
 
-    Launches kernel K4 for CUDA tensors, runs the PyTorch version for
-    CPU tensors, and raises for any other device.
+    Launches kernel K4 once for CUDA tensors, adding into ``out``
+    (int64[sym_cap + 1], zero on entry; a new one when None) and
+    returning it; runs the PyTorch version for CPU tensors, and raises
+    for any other device.
     """
     dev = fs.device
     check_tensor("fs", fs, (torch.int32,), 1, dev)
@@ -354,20 +478,54 @@ def symbol_freqs(fs, wgt, sym_cap: int):
     F = fs.shape[0]
     if wgt.shape[0] != F:
         raise ValueError("symbol_freqs: inconsistent shapes")
-    if F < 1 or F >= 2 ** 31 or sym_cap < 0:
-        raise ValueError(f"symbol_freqs: width {F} outside [1, 2**31) or "
-                         f"sym_cap {sym_cap} < 0")
+    if F < 1 or F >= 2 ** 31:
+        raise ValueError(f"symbol_freqs: width {F} outside [1, 2**31)")
+    _check_sym_cap("symbol_freqs", sym_cap)
     if dev.type == "cpu":
         return symbol_freqs_ref(fs, wgt, sym_cap)
     if dev.type != "cuda":
         raise ValueError(f"symbol_freqs: no kernel for device {dev}")
-    out = torch.empty(sym_cap + 1, dtype=torch.int64, device=dev)
-    from . import _cuda
-    with torch.cuda.device(dev):
-        _cuda.launch("swt_symbol_freqs", fs.data_ptr(), wgt.data_ptr(), F,
-                     sym_cap, out.data_ptr())
+    out = _k4("symbol_freqs", fs, wgt, F, 1, sym_cap, out, None)
     symbol_freqs.launches += 1
     return out
 
 
 symbol_freqs.launches = 0
+
+
+def symbol_rows(sym, wgt, sym_cap: int, out=None, clear=None):
+    """K4 over padded rows: ``sym`` int32[R, L] and the rows' weights
+    ``wgt`` int64[R]; entry ``s`` of the int64[sym_cap + 1] result sums
+    the row weights over the slots of symbol ``s`` (PAD and ids at or
+    above ``sym_cap`` dropped, the trash bucket 0). Over a device's block
+    of shards (parallel/train.ShardBlock) it is the sum of the shards'
+    counts, that device's part of the mesh's sum.
+
+    For CUDA tensors, launches kernel K4 once: it adds into ``out``
+    (int64[sym_cap + 1], zero on entry; a new one when None), empties
+    ``clear`` (another such vector, the other half of the caller's
+    double buffer, whose readers must be queued before) in the same
+    launch, and returns ``out``. For CPU tensors, runs the PyTorch
+    version (``out`` and ``clear`` unused). Raises for any other device.
+    """
+    dev = sym.device
+    check_tensor("sym", sym, (torch.int32,), 2, dev)
+    check_tensor("wgt", wgt, (torch.int64,), 1, dev)
+    R, L = sym.shape
+    if wgt.shape[0] != R:
+        raise ValueError(f"symbol_rows: {wgt.shape[0]} weights for {R} "
+                         f"rows")
+    if R < 1 or L < 1 or R * L >= 2 ** 31:
+        raise ValueError(f"symbol_rows: {R} x {L} rows outside [1, 2**31) "
+                         f"slots")
+    _check_sym_cap("symbol_rows", sym_cap)
+    if dev.type == "cpu":
+        return symbol_rows_ref(sym, wgt, sym_cap)
+    if dev.type != "cuda":
+        raise ValueError(f"symbol_rows: no kernel for device {dev}")
+    out = _k4("symbol_rows", sym, wgt, R, L, sym_cap, out, clear)
+    symbol_rows.launches += 1
+    return out
+
+
+symbol_rows.launches = 0

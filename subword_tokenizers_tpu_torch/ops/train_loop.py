@@ -42,8 +42,8 @@ from .bitmath import score_bits_ref
 from .flat import (ACTIVE, NEW_ID, N_LIVE, merge_apply, merge_skip,
                    skip_guard)
 from .merge import apply_merge
-from .pairstats import (EMPTY_KEY, alloc_table, pair_stats, symbol_freqs,
-                        table_size)
+from .pairstats import (EMPTY_KEY, TablePair, pair_stats, symbol_freqs,
+                        symbol_rows)
 from .wp_tournament import wp_tournament_select
 
 MOD = (1 << 31) - 1  # Mersenne prime; products of residues fit in int64
@@ -233,7 +233,8 @@ class HashCollision(Exception):
 
 class FlatState:
     """The flat training state on ``device`` (ops/flat.py layout) with a
-    second buffer of each array for K3 to write into, and K1's table.
+    second buffer of each array for K3 to write into, and K1's two tables
+    (on CUDA), each call filling one and emptying the other.
 
     ``F`` is the width the kernels see; the caller may lower it to cut a
     dead tail off (merges only consume slots, and K3 compacts to the
@@ -252,8 +253,7 @@ class FlatState:
             self.device) for x in (fs, wid, wgt))
         self._bufs = [cur, tuple(torch.empty_like(x) for x in cur)]
         self._cur = 0
-        self._table = alloc_table(self.F, self.device) \
-            if self.device.type == "cuda" else None
+        self._tables = None  # K1's TablePair, made by the first count
         self.sym_freq: Optional[torch.Tensor] = None
 
     def arrays(self):
@@ -264,16 +264,18 @@ class FlatState:
         return tuple(x[:self.F] for x in self._bufs[1 - self._cur])
 
     def pairs(self, skip: int = 0):
-        """K1 over the current state, with window ``skip``."""
-        table = None
-        if self._table is not None:
-            T = table_size(self.F)
-            table = tuple(x[:T] for x in self._table)
-        return pair_stats(*self.arrays(), table=table, skip=skip)
+        """K1 over the current state, with window ``skip`` (the tables'
+        first ``table_size(F)`` entries as F shrinks)."""
+        if self._tables is None and self.device.type == "cuda":
+            self._tables = TablePair(self.F, self.device)
+        if self._tables is None:
+            return pair_stats(*self.arrays(), skip=skip)
+        return self._tables.pairs(*self.arrays(), skip=skip)
 
     def count_symbols(self, sym_cap: int) -> None:
         """K4: ``sym_freq`` becomes the state's per-symbol weights, int64
-        [sym_cap + 1], counted from the slots."""
+        [sym_cap + 1], counted from the slots (once a run; K3 carries
+        it)."""
         fs, _, wgt = self.arrays()
         self.sym_freq = symbol_freqs(fs, wgt, sym_cap)
 
@@ -306,11 +308,14 @@ class FlatState:
 
 class PaddedState:
     """The padded training state on ``device``: ``sym`` int32[n, L], a
-    row per word type, and each row's weight. K1 and K4 see it as n * L
-    flat slots whose word is the row and whose weight is the row's
-    (positions row * L + j order pairs as the flat layout's do); K3p
-    (ops/merge.py) merges each row in place. As in the JAX package's
-    ``train_steps``, WordPiece recounts ``sym_freq`` with K4 every step.
+    row per word type, and each row's weight ``wgt`` int64[n]. K1 sees it
+    as n * L flat slots whose word is the row and whose weight is the
+    row's (positions row * L + j order pairs as the flat layout's do),
+    into one of two tables (on CUDA) each call; K3p (ops/merge.py)
+    merges each row in place. As in the JAX package's ``train_steps``,
+    WordPiece recounts ``sym_freq`` every step: K4 over the rows and
+    their weights, into one of two vectors, the launch emptying the
+    other.
     """
 
     def __init__(self, sym: np.ndarray, freq: np.ndarray, device) -> None:
@@ -324,9 +329,11 @@ class PaddedState:
             self.device)
         self._wid = torch.from_numpy(np.repeat(
             np.arange(n, dtype=np.int32), L)).to(self.device)
-        self._wgt = torch.from_numpy(np.repeat(
-            np.asarray(freq, dtype=np.int64), L)).to(self.device)
-        self._table = None  # K1's table, allocated by the first count
+        self.wgt = torch.from_numpy(np.asarray(freq, dtype=np.int64)).to(
+            self.device)
+        self._wgt = self.wgt.repeat_interleave(L)
+        self._tables = None  # K1's TablePair, made by the first count
+        self._freqs = None  # K4's two outputs, made by the first count
         self.sym_freq: Optional[torch.Tensor] = None
 
     def rows(self, lo: int, hi: int) -> "PaddedState":
@@ -338,9 +345,11 @@ class PaddedState:
         view = object.__new__(PaddedState)
         view.device = self.device
         view.sym = self.sym[lo:hi]
+        view.wgt = self.wgt[lo:hi]
         view._wid = self._wid[lo * L:hi * L]
         view._wgt = self._wgt[lo * L:hi * L]
-        view._table = None
+        view._tables = None
+        view._freqs = None
         view.sym_freq = None
         return view
 
@@ -357,14 +366,29 @@ class PaddedState:
     def pairs(self, skip: int = 0):
         """K1 over the rows seen as flat slots (no window: rows stay
         compacted)."""
-        if self._table is None and self.device.type == "cuda":
-            self._table = alloc_table(self.sym.numel(), self.device)
-        return pair_stats(self.sym.view(-1), self._wid, self._wgt,
-                          table=self._table)
+        fs = self.sym.view(-1)
+        if self._tables is None and self.device.type == "cuda":
+            self._tables = TablePair(fs.shape[0], self.device)
+        if self._tables is None:
+            return pair_stats(fs, self._wid, self._wgt)
+        return self._tables.pairs(fs, self._wid, self._wgt)
 
-    def count_symbols(self, sym_cap: int) -> None:
-        """K4 over the rows: ``sym_freq`` int64 [sym_cap + 1]."""
-        self.sym_freq = symbol_freqs(self.sym.view(-1), self._wgt, sym_cap)
+    def count_symbols(self, sym_cap: int) -> torch.Tensor:
+        """K4 over the rows and their weights: ``sym_freq`` int64
+        [sym_cap + 1], returned. On CUDA it is one of two vectors, the
+        launch emptying the other: valid until the next count."""
+        out = clear = None
+        if self.device.type == "cuda" and (
+                self._freqs is None
+                or self._freqs[0].shape[0] != sym_cap + 1):
+            self._freqs = [torch.zeros(sym_cap + 1, dtype=torch.int64,
+                                       device=self.device)
+                           for _ in range(2)]
+        if self._freqs is not None:
+            out, clear = self._freqs
+            self._freqs = [clear, out]
+        self.sym_freq = symbol_rows(self.sym, self.wgt, sym_cap, out, clear)
+        return self.sym_freq
 
     def merge(self, rec, skip: int = 0) -> None:
         """K3p with the step record ``rec``, in place."""

@@ -31,7 +31,8 @@ A step picks its merge through three exact tiers, as in the JAX package:
 3. **full** (:func:`sharded_select_full`): every shard's rows are
    gathered and K1 and K2 run over them.
 
-WordPiece's symbol weights are K4 per shard, then summed
+WordPiece's symbol weights are K4, one launch a device over its block
+of shards (their sum), then the mesh's sum over the devices
 (:func:`sharded_sym_freq`). The merge is K3p, one launch a device over
 its block with the host's ids as arguments (:func:`sharded_apply_merge`).
 The port scores each shard's whole table,
@@ -47,7 +48,7 @@ import numpy as np
 import torch
 
 from ..ops.merge import apply_merge
-from ..ops.pairstats import (alloc_table, clean_table, pair_rows,
+from ..ops.pairstats import (TablePair, clean_table, pair_rows,
                              pair_stats_runs)
 from ..ops.shard_select import (TableSet, certificate, compact_tables,
                                 lookup_reduce, nominate)
@@ -72,8 +73,10 @@ class ShardBlock:
     """One device's consecutive shards of the mesh (a group of
     ``mesh.groups``) as one block of rows: ``state`` is their PaddedState
     [D * rows, L] and ``shards`` its views, one a shard. K1 counts every
-    shard's pairs into the shard's own table in one launch (:meth:`pairs`)
-    and K3p merges the whole block in one launch.
+    shard's pairs into the shard's own table in one launch (:meth:`pairs`),
+    K4 the block's symbol weights in one launch (``state.count_symbols``,
+    its two outputs alternating as the tables do) and K3p merges the
+    whole block in one launch.
 
     On CUDA each shard has two tables, used on alternate steps: the launch
     that fills one set empties the other, whose readers (the tiers'
@@ -88,8 +91,7 @@ class ShardBlock:
         self.state = PaddedState(sym, freq, device)
         n, L = self.state.sym.shape
         self.rows = n // n_shards
-        self.wgt = torch.from_numpy(np.asarray(freq, dtype=np.int64)).to(
-            self.state.device)
+        self.wgt = self.state.wgt
         self.shards = [self.state.rows(i * self.rows, (i + 1) * self.rows)
                        for i in range(n_shards)]
         self.sets: List[TableSet] = []
@@ -160,7 +162,7 @@ class ShardedCorpus:
         self.shards: List[PaddedState] = [
             s for blk in self.blocks for s in blk.shards]
         self._full: Optional[PaddedState] = None
-        self._runs_table = None
+        self._runs_tables: Optional[TablePair] = None
         self._run_buffers = {}
 
     def pairs(self) -> list:
@@ -183,13 +185,15 @@ class ShardedCorpus:
         self._full.sym = sym
         return self._full
 
-    def runs_table(self, M: int):
-        """K1's runs-mode table for the M runs the compact tier gathers
-        (always as many) on ``mesh.home``; None on the CPU, whose plain
-        version allocates."""
-        if self._runs_table is None and self.mesh.home.type == "cuda":
-            self._runs_table = alloc_table(M + 1, self.mesh.home)
-        return self._runs_table
+    def aggregate_runs(self, rk, rc, rp):
+        """K1's runs mode over the M runs the compact tier gathers (always
+        as many) on ``mesh.home``: on CUDA into one of two tables, the
+        launch emptying the other."""
+        if self._runs_tables is None and self.mesh.home.type == "cuda":
+            self._runs_tables = TablePair(rk.shape[0] + 1, self.mesh.home)
+        if self._runs_tables is None:
+            return pair_stats_runs(rk, rc, rp)
+        return self._runs_tables.runs(rk, rc, rp)
 
     def run_buffers(self, group: int, cap: int):
         """The compaction's outputs for group ``group`` of the mesh at
@@ -225,11 +229,12 @@ def shard_corpus(mesh: DataMesh, sym: np.ndarray,
 
 
 def sharded_sym_freq(corpus: ShardedCorpus, sym_cap: int) -> torch.Tensor:
-    """WordPiece's symbol weights over the whole mesh: K4 per shard,
-    then the mesh's sum (the JAX package's ``_local_sym_freq``)."""
-    for s in corpus.shards:
-        s.count_symbols(sym_cap)
-    return corpus.mesh.sum([s.sym_freq for s in corpus.shards])
+    """WordPiece's symbol weights over the whole mesh (the JAX package's
+    ``_local_sym_freq`` with its psum): K4 once a device over its block,
+    the sum of its shards, then the mesh's sum of those partials. Valid
+    until the next call."""
+    return corpus.mesh.sum([blk.state.count_symbols(sym_cap)
+                            for blk in corpus.blocks])
 
 
 def sharded_select_topk(corpus: ShardedCorpus, tables, rec,
@@ -269,7 +274,7 @@ def sharded_select_compact(corpus: ShardedCorpus, tables, rec, cap: int,
                            tset=corpus.blocks[g].table_set(tables[a:b]))
             for g, (_, a, b) in enumerate(mesh.groups)]
     gk, gc, gp = (mesh.gather([r[j] for r in runs]) for j in range(3))
-    agg = pair_stats_runs(gk, gc, gp, table=corpus.runs_table(gk.shape[0]))
+    agg = corpus.aggregate_runs(gk, gc, gp)
     select_host_ids(*agg, rec, sym_freq)
     rec[FLAG:].copy_(1 - mesh.amax([r[3] for r in runs]))
 
@@ -345,16 +350,6 @@ class ShardedTrainer:
         sharded_select_full(corpus, rec, sym_freq)
         a, b, _, _, active, _ = rec.tolist()
         return (a, b) if active else None
-
-    def table_set(self, tables) -> Optional[TableSet]:
-        """``filled`` when ``tables`` are its tables (this step's K1), for
-        the tiers' grouped kernels; else None, and the wrappers build a
-        set for the call."""
-        ts = self.filled
-        if ts is not None and len(ts.tables) == len(tables) and all(
-                t is u for t, u in zip(ts.tables, tables)):
-            return ts
-        return None
 
     def merge(self, a: int, b: int, new_id: int) -> None:
         sharded_apply_merge(self.corpus, a, b, new_id)

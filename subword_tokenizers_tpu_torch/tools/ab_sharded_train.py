@@ -2,7 +2,8 @@
 in a process of its own in the order parent, change, change, parent.
 
     python3 -m subword_tokenizers_tpu_torch.tools.ab_sharded_train \\
-        PARENT_DIR CHANGE_DIR [compact] [kernels] [NaiveBPE] [NaiveWP]
+        PARENT_DIR CHANGE_DIR [compact] [kernels] [single] [NaiveBPE] \
+        [NaiveWP]
 
 - ``NaiveBPE`` / ``NaiveWP``: the model under the one-card mesh
   ``make_data_mesh(8, devices=["cuda:0"] * 8)``, trained on all of
@@ -19,8 +20,15 @@ in a process of its own in the order parent, change, change, parent.
   them, on the mesh of 8 from the BPE state after the golden's first
   1,000 merges: 200 steps of K1 followed by the golden's next merge (a
   real merge every step), their device span by CUDA events and their
-  host wall; then K1 alone, 25 calls queued back to back (10-20 s a
-  run).
+  host wall; then K1 alone, 25 calls queued back to back; then a
+  WordPiece step's symbol weights (K4, ``sharded_sym_freq``) as the
+  checkout's step calls them over the same 8 shards, 25 calls queued
+  back to back for the device time and 200 for the host's time a call
+  (10-20 s a run).
+- ``single``: ``NaiveBPE`` and then ``NaiveWP(device="cuda")`` on one
+  device (the default flat route), each trained on all of
+  ``data/train-85k.json`` to 8,000 and checked against the JAX goldens,
+  after a warm-up train to 300 (about 20 s a run).
 
 Each checkout builds its own kernels. Prints one JSON line a run and a
 last line with all of them and the card's name and power limit.
@@ -193,9 +201,54 @@ for _ in range(25):  # up to 8 wrapper calls each, all inside the spin
     k1()
 end.record()
 torch.cuda.synchronize()
+k1_ms = start.elapsed_time(end) / 25
+# WordPiece's symbol weights a step, as the checkout's step counts them
+sym_cap = max(8000, len(table)) + 8
+ptrain.sharded_sym_freq(sc, sym_cap)
+torch.cuda.synchronize()
+torch.cuda._sleep(100_000_000)
+start.record()
+for _ in range(25):
+    ptrain.sharded_sym_freq(sc, sym_cap)
+end.record()
+torch.cuda.synchronize()
+k4_ms = start.elapsed_time(end) / 25
+t0 = time.perf_counter()
+for _ in range(200):
+    ptrain.sharded_sym_freq(sc, sym_cap)
+k4_host = (time.perf_counter() - t0) * 1e3 / 200
+torch.cuda.synchronize()
 print(json.dumps({"step_device_ms": step_device,
                   "step_host_ms": wall * 1e3 / 200,
-                  "k1_ms": start.elapsed_time(end) / 25}))
+                  "k1_ms": k1_ms, "k4_ms": k4_ms, "k4_host_ms": k4_host}))
+'''
+
+SINGLE = r'''
+import json, os, sys, time
+import torch
+sys.path.insert(0, os.getcwd())
+from subword_tokenizers_tpu_torch import NaiveBPE, NaiveWP
+from subword_tokenizers_tpu_torch.ops import _cuda
+corpus = json.load(open("data/train-85k.json", encoding="utf-8"))
+bpe = [tuple(p) for p in json.load(open(
+    "tests/golden/port_t85k_v8000_bpe_merges.json", encoding="utf-8"))]
+wp = [tuple(p) for p in json.load(open(
+    "tests/golden/port_t85k_v8000_wp_vocab.json",
+    encoding="utf-8"))["merges"]]
+dev = torch.device("cuda:0")
+_cuda.lib()
+out = {}
+for name, cls, golden in (("NaiveBPE", NaiveBPE, bpe),
+                          ("NaiveWP", NaiveWP, wp)):
+    cls(device=dev).train(corpus, 300)  # warm-up
+    tok = cls(device=dev)
+    t0 = time.perf_counter()
+    tok.train(corpus, 8000)
+    torch.cuda.synchronize()
+    out[name] = time.perf_counter() - t0
+    got = tok.merges_list if name == "NaiveBPE" else tok._merge_log
+    assert got == golden, name
+print(json.dumps(out))
 '''
 
 
@@ -213,7 +266,8 @@ def main(argv) -> int:
     res = []
     for mode in modes:
         args = ([COMPACT] if mode == "compact" else
-                [KERNELS] if mode == "kernels" else [TRAIN, mode])
+                [KERNELS] if mode == "kernels" else
+                [SINGLE] if mode == "single" else [TRAIN, mode])
         for name, d in (("parent", parent), ("change", change),
                         ("change", change), ("parent", parent)):
             t0 = time.perf_counter()

@@ -96,10 +96,11 @@ def test_padded_pair_table_and_weights_match_jax(seed):
     assert np.array_equal(counts.numpy(), jc)
     f = first.numpy()
     assert np.array_equal((f // L) * (L - 1) + f % L, jp)
-    st.count_symbols(16)
+    got = st.count_symbols(16)  # K4 over the rows and the row weights
     want = jpairstats.symbol_freqs(
         jnp.asarray(sym).reshape(-1),
         jnp.broadcast_to(jnp.asarray(freq)[:, None], (n, L)).reshape(-1), 16)
+    assert got is st.sym_freq
     assert np.array_equal(st.sym_freq.numpy(), np.asarray(want))
 
 

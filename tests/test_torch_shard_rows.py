@@ -184,14 +184,16 @@ def test_wrappers_reject_bad_input():
 
 @pytest.fixture
 def calls(monkeypatch):
-    """Each call of the grouped K1, K3p and the per-shard K1 from the
-    sharded path: (sym shape, rows or the merge)."""
-    seen = {"pair_rows": [], "apply_merge": [], "pair_stats": []}
+    """Each call of the grouped K1, K3p, K4 and the per-shard K1 from the
+    sharded path: (sym shape, rows, the merge or sym_cap)."""
+    seen = {"pair_rows": [], "apply_merge": [], "pair_stats": [],
+            "symbol_rows": []}
 
     def spy(name, real):
         def f(*args, **kw):
             seen[name].append((tuple(args[0].shape),
-                               args[2] if name == "pair_rows" else
+                               args[2] if name in ("pair_rows",
+                                                   "symbol_rows") else
                                kw.get("merge")))
             return real(*args, **kw)
         return f
@@ -201,15 +203,19 @@ def calls(monkeypatch):
                         spy("apply_merge", merge.apply_merge))
     monkeypatch.setattr(train_loop, "pair_stats",
                         spy("pair_stats", pairstats.pair_stats))
+    monkeypatch.setattr(train_loop, "symbol_rows",
+                        spy("symbol_rows", pairstats.symbol_rows))
     return seen
 
 
 @pytest.mark.parametrize("cls", [NaiveBPE, NaiveWP])
 def test_trainer_calls_one_grouped_kernel_a_step(cls, calls):
     """Under a mesh of 8 CPU shards (one group), every step counts the
-    pairs of all 8 shards in one grouped call and every merge is one call
-    over the block with the host's ids, not the record; the per-shard K1
-    runs only in the full tier. The merges equal a single-device run."""
+    pairs of all 8 shards in one grouped call (WordPiece's symbol weights
+    too: one K4 call over the block a step, none for BPE) and every merge
+    is one call over the block with the host's ids, not the record; the
+    per-shard K1 runs only in the full tier. The merges equal a
+    single-device run."""
     mesh = make_data_mesh(8, devices=["cpu"] * 8)
     tok = cls(mesh=mesh, device="cpu")
     tok.train(CORPUS, 60)
@@ -224,6 +230,8 @@ def test_trainer_calls_one_grouped_kernel_a_step(cls, calls):
     assert all(isinstance(m, tuple) and len(m) == 3
                for _, m in calls["apply_merge"])
     assert len(calls["pair_stats"]) == tok._sel_stats["full"]
+    assert len(calls["symbol_rows"]) == (steps if cls is NaiveWP else 0)
+    assert {c[0][0] for c in calls["symbol_rows"]} <= {n_rows}
     single = cls(device="cpu")
     single.train(CORPUS, 60)
     assert log == (single.merges_list if cls is NaiveBPE
