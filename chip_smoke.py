@@ -84,9 +84,12 @@ WordPiece vocab ``tests/golden/port_t85k_fastwp_vocab.json``:
    with cold and warm times, the phase split and (12c) the idle share of
    the skip route;
 13. holds the kernels of the data-parallel selection against their
-   plain versions, exactly: the candidate lookup and the table
+   plain versions, exactly: the nomination (each shard's 256 best pairs
+   and its K-th row), the candidate lookup and the table
    compaction, each one launch over every table of a device (and over
-   one table alone), the compaction with caps that overflow on every
+   one table alone), the nomination also on all-equal counts, dense
+   tables past a block's staging and tables of 2 and 0 live entries,
+   the compaction with caps that overflow on every
    shard and on some shards only and 1,000 times back to back with
    alternating tables and caps, K1's runs mode and the certificate, on
    seeded sharded states, on the corpus's 8-shard state (22,976 rows,
@@ -96,7 +99,9 @@ WordPiece vocab ``tests/golden/port_t85k_fastwp_vocab.json``:
    the wide score domain, and on hand-made certificates (a near tie, an
    exact tie, saturation, a 62-bit veto, a zero sum); times each at the
    corpus's shapes, beside the launch floors, ``torch.nonzero`` over the
-   compaction's own keys, ``torch.topk``, and K1 and K3p (a real merge)
+   compaction's own keys, 8 ``torch.topk`` over the nomination's
+   metrics, the nomination's registers and spills, and K1 and K3p (a
+   real merge)
    at a shard's shape; (13b) the sharded step's grouped K1
    (``pair_rows``: every shard of a device in one launch, which fills one
    set of tables and empties the other) and K3p (one launch over the
@@ -117,19 +122,21 @@ WordPiece vocab ``tests/golden/port_t85k_fastwp_vocab.json``:
    consecutive flat-route steps across a shrink, five in skip mode and
    three padded, each table emptied whole, timed at the initial state
    beside its bound as the function needs and with a full clear;
-   WordPiece's scorer at a shard's table; and a traced 256-step block of
+   WordPiece's scorer alone at a shard's table; and a traced 256-step block of
    the flat and of the padded route with no memset;
 14. trains ``NaiveBPE`` and ``NaiveWP(mesh=make_data_mesh(8,
    devices=["cuda:0"] * 8))`` on the whole corpus to 8,000, each equal to
    its golden, with the tiers that settled each step and the shard
-   kernels' launches (one grouped K1 and one lookup a step, one
-   compaction a step the certificate did not settle, one grouped K3p a
-   merge, one grouped K4 a WordPiece step and 14 kernel-wrapper calls in
-   all, the per-shard K1 only in the full tier); the forced tiers and
+   kernels' launches (one grouped K1, one nomination and one lookup a
+   step, one compaction a step the certificate did not settle, one
+   grouped K3p a merge, one grouped K4 a WordPiece step, 6
+   kernel-wrapper calls a BPE step and 7 a WordPiece step, the per-shard
+   K1 only in the full tier, no scorer launch); the forced tiers and
    a mesh of 1 to 1,000, each equal to the golden's prefix, with their K1
    and K3p launches; FastWP's sharded encode and the other three encoders
    under the mesh against the JAX digests; and (14d) the idle share of
-   one warm sharded train, with the grouped kernels by name;
+   one warm sharded train, with the grouped kernels by name, no memset
+   and no ``torch.topk`` kernel;
 15. the process-group route: ``torch.distributed`` with NCCL at world
    size 1 (NCCL takes one rank per GPU), a TCP store on localhost, an
    8-shard process-group mesh on the card, NaiveBPE to 578 equal to the
@@ -183,6 +190,8 @@ SCALAR_OPS_PER_S = 67e12   # H100 SXM float32 outside the tensor cores
 # host-to-device copies a sharded train may make in its set-up (the
 # corpus's blocks, the records); none a step
 H2D_SETUP_MAX = 50
+# words in the names of torch.topk's CUDA kernels (sbtopk, mbtopk)
+TOPK_KERNEL_WORDS = ("topk", "radixfindkth", "kthcounts", "withinkcounts")
 
 
 def nbytes(*tensors) -> int:
@@ -951,6 +960,42 @@ CERT_CASES = (
 )
 
 
+def dense_table(rng, T, fill, cmax, n_ids, dev):
+    """A table of K1's shape (keys, counts, pos) of ``T`` entries, a
+    share ``fill`` of them live, with unique keys a << 32 | b (a, b <
+    ``n_ids``) at random slots and counts below ``cmax`` (all 7 when
+    ``cmax`` is 1)."""
+    import numpy as np
+    import torch
+    n = int(T * fill)
+    draw = 2 * n + 16
+    keys_live = np.unique((rng.integers(0, n_ids, draw) << 32)
+                          | rng.integers(0, n_ids, draw))
+    rng.shuffle(keys_live)
+    keys_live = keys_live[:n]
+    slots = rng.permutation(T)[:keys_live.shape[0]]
+    keys = np.full(T, -1, dtype=np.int64)
+    keys[slots] = keys_live
+    counts = np.zeros(T, dtype=np.int64)
+    counts[slots] = 7 if cmax == 1 else rng.integers(0, cmax, slots.shape[0])
+    pos = np.zeros(T, dtype=np.int32)
+    pos[slots] = np.arange(slots.shape[0])
+    return tuple(torch.from_numpy(x).to(dev) for x in (keys, counts, pos))
+
+
+def ptxas_lines(kernel: str) -> str:
+    """ptxas's registers and spills of a kernel, from this process's
+    build of the kernels' library."""
+    from subword_tokenizers_tpu_torch.ops import _cuda
+    lines = _cuda.build_log.splitlines()
+    out = []
+    for i, ln in enumerate(lines):
+        if "Function properties for" in ln and kernel in ln:
+            out += [x.strip() for x in lines[i + 1:i + 3]
+                    if "spill" in x or "registers" in x]
+    return "; ".join(out) or "not in this process's build log"
+
+
 def shard_kernels():
     """{name: wrapper} of every kernel the sharded path launches; each
     wrapper's ``launches`` counts its kernel's launches."""
@@ -963,10 +1008,11 @@ def shard_kernels():
                                                             symbol_freqs,
                                                             symbol_rows)
     from subword_tokenizers_tpu_torch.ops.shard_select import (
-        certificate, compact_tables, lookup_reduce)
+        certificate, compact_tables, lookup_reduce, nominate_tables)
     from subword_tokenizers_tpu_torch.ops.train_loop import select_unify
     from subword_tokenizers_tpu_torch.ops.wp_encode_e2e import wp_e2e_scan
-    return {"lookup_reduce": lookup_reduce, "compact_tables": compact_tables,
+    return {"nominate_tables": nominate_tables,
+            "lookup_reduce": lookup_reduce, "compact_tables": compact_tables,
             "pair_stats_runs": pair_stats_runs, "certificate": certificate,
             "pair_rows": pair_rows, "pair_stats": pair_stats,
             "select_unify": select_unify,
@@ -987,11 +1033,14 @@ def read_counts(kernels):
 
 def phase13(dev, rng, arrays, table, arrays_wp, table_wp, golden,
             wp_merges, smi, trace_dir, n_back_to_back=1000):
-    """Phase 13: the shard kernels (the grouped candidate lookup and table
-    compaction, K1's runs mode, the certificate) against their plain
-    versions, exactly, on seeded padded states, the corpus's 8-shard
-    initial state and its state after 1,000 merges (BPE and WordPiece),
-    the mesh of 1's one table at both BPE states, caps that overflow on
+    """Phase 13: the shard kernels (the grouped nomination, candidate
+    lookup and table compaction, K1's runs mode, the certificate) against
+    their plain versions, exactly, on seeded padded states, the corpus's
+    8-shard initial state and its state after 1,000 merges (BPE and
+    WordPiece), all counts equal, the mesh of 1's one table at both BPE
+    states, the nomination also on dense tables (a block's staging
+    overflowed, counts to 2^40, wide scores, 2 and 0 live entries), caps
+    that overflow on
     every shard and on some shards only, weights scaled wide, and the
     hand-made certificate cases; the grouped kernels over the 8 tables of
     a state (one launch) and over each table alone (the one-table
@@ -1000,8 +1049,10 @@ def phase13(dev, rng, arrays, table, arrays_wp, table_wp, golden,
     shapes with its bound (the compaction's also at the mesh of 1), the
     launch floors, ``torch.nonzero`` over the same keys (the compaction's
     library yardstick, its device time from traces in ``trace_dir``),
-    ``torch.topk``, and K1 and K3p (the golden's 1,001st merge) at a
+    ``torch.topk`` over each shard's metrics (the nomination's), and K1
+    and K3p (the golden's 1,001st merge) at a
     shard's shape. Returns (errs, timing, bounds, library, notes)."""
+    import numpy as np
     import torch
     from subword_tokenizers_tpu_torch.ops import _cuda
     from subword_tokenizers_tpu_torch.ops.merge import (apply_merge,
@@ -1012,17 +1063,21 @@ def phase13(dev, rng, arrays, table, arrays_wp, table_wp, golden,
     from subword_tokenizers_tpu_torch.ops.shard_select import (
         certificate, certificate_ref, compact_table, compact_table_ref,
         compact_tables, compact_tables_ref, lookup_reduce, lookup_reduce_ref,
-        lookup_runs, lookup_runs_ref, nominate, ROUND_SPAN, TableSet)
+        lookup_runs, lookup_runs_ref, nominate, nominate_tables,
+        nominate_tables_ref, LOW32, ROUND_SPAN, TableSet)
+    from subword_tokenizers_tpu_torch.ops.bitmath import score_bits
     from subword_tokenizers_tpu_torch.ops.train_loop import (select_host_ids,
                                                              sym_capacity)
     from subword_tokenizers_tpu_torch.parallel import train as ptrain
     from subword_tokenizers_tpu_torch.parallel.mesh import make_data_mesh
-    names = ("lookup_reduce", "compact_tables", "pair_stats_runs",
-             "certificate")
+    names = ("nominate_tables", "lookup_reduce", "compact_tables",
+             "pair_stats_runs", "certificate")
     errs = dict.fromkeys(names, 0)
+    timing, bounds, library = {}, {}, {}
     notes = {"states": 0, "overflowed_caps": 0, "mixed_caps": 0,
              "proven": 0, "refused": 0, "grouped_checks": 0,
-             "one_table_checks": 0, "mesh1_checks": 0}
+             "one_table_checks": 0, "mesh1_checks": 0, "nominations": 0,
+             "nominate_tables": 0, "short_shards": 0}
     mesh = make_data_mesh(8, devices=[dev] * 8)
     absent = torch.tensor([EMPTY_KEY, (60000 << 32) | 60001, 0],
                           dtype=torch.int64, device=dev)
@@ -1038,6 +1093,16 @@ def phase13(dev, rng, arrays, table, arrays_wp, table_wp, golden,
         errs["certificate"] = max(errs["certificate"], max_err(got, want))
         notes["proven" if int(got[5]) else "refused"] += 1
 
+    def check_nominate(tables, k, sf=None):
+        """The nomination over ``tables`` in one launch against its plain
+        version; returns (cand, kth)."""
+        got = nominate_tables(tables, k, sf)
+        diff("nominate_tables", got, nominate_tables_ref(tables, k, sf))
+        notes["nominations"] += 1
+        notes["nominate_tables"] += len(tables)
+        notes["short_shards"] += int((got[1].view(-1, 3)[:, 0] < 0).sum())
+        return got
+
     def check(corpus, sf=None, wide=False, topk=ptrain.TOPK):
         """Every kernel against its plain version on one sharded state,
         as the tiers use them: the grouped kernels over the 8 tables in
@@ -1045,9 +1110,11 @@ def phase13(dev, rng, arrays, table, arrays_wp, table_wp, golden,
         tables = [s.pairs() for s in corpus.shards]
         bases = corpus.bases
         k = min(topk, corpus.n_local_pairs)
-        picks = [nominate(t, k, sf) for t in tables]
-        cand = mesh.gather([c for c, _ in picks])
-        kth = mesh.gather([t for _, t in picks])
+        cand, kth = check_nominate(tables, k, sf)
+        for t in tables:
+            diff("nominate_tables", nominate(t, k, sf),
+                 nominate_tables_ref([t], k, sf))
+            notes["one_table_checks"] += 1
         probe = torch.cat([cand, absent])
         for t, base in zip(tables, bases):
             diff("lookup_reduce", lookup_runs(probe, t, base),
@@ -1089,6 +1156,33 @@ def phase13(dev, rng, arrays, table, arrays_wp, table_wp, golden,
         corpus = ptrain.shard_corpus(mesh, sym, freq)
         check(corpus, topk=topk)
         check(corpus, ptrain.sharded_sym_freq(corpus, n_sym + 9), topk=topk)
+    # every pair once, of one weight: all counts equal, the keys decide
+    eq_pairs = rng.permutation(300 * 300)[:40000]
+    eq_sym = np.stack([eq_pairs // 300, eq_pairs % 300], 1).astype(np.int32)
+    equal = ptrain.shard_corpus(mesh, eq_sym,
+                                np.full(eq_sym.shape[0], 5, dtype=np.int64))
+    check(equal)
+    check(equal, ptrain.sharded_sym_freq(equal, 309), topk=16)
+    # dense tables the nomination alone takes: blocks of a cluster past
+    # its staging (fill 0.5 and 0.6 of 131,072), all counts equal, counts
+    # to 2^40 and 0 (a BPE metric that nominates nothing), wide scores, a
+    # table of 2 entries and an empty one, one of 2^20 entries
+    for T, fill, cmax, n_ids, n_tab in ((1 << 17, 0.5, 1 << 40, 1 << 20, 8),
+                                        (1 << 17, 0.6, 1, 1 << 20, 3),
+                                        (1 << 17, 0.3, 4, 1 << 20, 2),
+                                        (1 << 14, 0.4, 1 << 20, 1 << 12, 2),
+                                        (2, 0.5, 9, 4, 1), (64, 0.0, 9, 4, 1),
+                                        (1 << 20, 0.3, 1 << 16, 1 << 20, 1)):
+        tabs = [dense_table(rng, T, fill, cmax, n_ids, dev)
+                for _ in range(n_tab)]
+        for k in (ptrain.TOPK, 16, 1):
+            check_nominate(tabs, k)
+        sf = torch.from_numpy(rng.integers(
+            1, 1 << (40 if n_ids == 1 << 12 else 24),
+            size=n_ids)).to(dev)
+        check_nominate(tabs, ptrain.TOPK, sf)
+        check_nominate(tabs, 16, sf)
+
     def check_mesh1(corpus, shard_tables):
         """The mesh of 1's one table (2^20 entries, 8 clusters of the
         compaction): the one-table wrappers, and the grouped compaction
@@ -1097,8 +1191,10 @@ def phase13(dev, rng, arrays, table, arrays_wp, table_wp, golden,
         of the 8 shards' tables ``shard_tables`` (a shard's next count
         would empty them)."""
         t = corpus.shards[0].pairs()
-        probe = torch.cat([mesh.gather([nominate(s, ptrain.TOPK)[0]
-                                        for s in shard_tables]), absent])
+        check_nominate([t], ptrain.TOPK)
+        check_nominate([t, t], 16)
+        probe = torch.cat([check_nominate(shard_tables, ptrain.TOPK)[0],
+                           absent])
         diff("lookup_reduce", lookup_runs(probe, t, 0),
              lookup_runs_ref(probe, t, 0))
         n = int((t[0] != EMPTY_KEY).sum())
@@ -1138,7 +1234,8 @@ def phase13(dev, rng, arrays, table, arrays_wp, table_wp, golden,
     for sa, sb in wp_merges[:1000]:
         ptrain.sharded_apply_merge(wp, t1000.get(sa), t1000.get(sb),
                                    t1000.intern(sa + sb[2:]))
-    wp_tables = check(wp, ptrain.sharded_sym_freq(wp, sym_cap))[0]
+    sf_wp = ptrain.sharded_sym_freq(wp, sym_cap).clone()
+    wp_tables = check(wp, sf_wp)[0]
     # weights scaled into the wide score domain: K-th denominators of
     # more than 62 bits veto
     wide = ptrain.shard_corpus(mesh, arrays_wp.sym,
@@ -1199,6 +1296,82 @@ def phase13(dev, rng, arrays, table, arrays_wp, table_wp, golden,
     tset = TableSet(tables, bases)
     tset0 = TableSet([t0], [base0])
     tset_big = TableSet([big], [0])
+
+    # the nomination: one launch over the 8 tables, its TableSet and
+    # outputs kept as a sharded run keeps them, BPE and WordPiece after
+    # 1,000 merges, and the mesh of 1's table; beside 8 torch.topk over
+    # the same shards' metrics, one a shard, as the tier called it before
+    K = ptrain.TOPK
+    tset_wp = TableSet(wp_tables, wp.bases)
+
+    def nom_out(n):
+        return (torch.empty(n * K, dtype=torch.int64, device=dev),
+                torch.empty(3 * n, dtype=torch.int64, device=dev))
+
+    outs = {"nominate_tables": nom_out(len(tables)),
+            "nominate_tables_wp": nom_out(len(wp_tables)),
+            "nominate_mesh1": nom_out(1)}
+
+    def metric_of(t, sf=None):
+        live = t[0] != EMPTY_KEY
+        if sf is None:
+            return torch.where(live, t[1], -1)
+        k0 = torch.where(live, t[0], 0)
+        return torch.where(live, score_bits(t[1], sf[k0 >> 32],
+                                            sf[k0 & LOW32]), -1)
+
+    metrics = {"nominate_tables": [metric_of(t) for t in tables],
+               "nominate_tables_wp": [metric_of(t, sf_wp)
+                                      for t in wp_tables],
+               "nominate_mesh1": [metric_of(big)]}
+    nom_sets = {"nominate_tables": (tables, None, tset),
+                "nominate_tables_wp": (wp_tables, sf_wp, tset_wp),
+                "nominate_mesh1": ([big], None, tset_big)}
+    for name, (tabs, sf, ts) in nom_sets.items():
+        diff("nominate_tables", nominate_tables(tabs, K, sf, ts, outs[name]),
+             nominate_tables_ref(tabs, K, sf))
+        timing[name] = (
+            cuda_ms(lambda: nominate_tables(tabs, K, sf, ts, outs[name]),
+                    200, True),
+            cuda_ms(lambda: nominate_tables_ref(tabs, K, sf), 5))
+        library[name] = cuda_ms(
+            lambda: [torch.topk(m, K) for m in metrics[name]], 50, True)
+        live = sum(int((t[0] != EMPTY_KEY).sum()) for t in tabs)
+        T_all = sum(t[0].shape[0] for t in tabs)
+        # Bytes: every key (8), the count of each live entry (8) and, for
+        # WordPiece, its two symbol weights (16), the outputs; operations:
+        # a test an entry and a division a live entry's score (20).
+        bounds[name] = bound(
+            8 * T_all + 8 * live + (16 * live if sf is not None else 0)
+            + 8 * (K + 3) * len(tabs),
+            T_all + (20 * live if sf is not None else 0))
+        notes[f"{name}_live"] = live
+        notes[f"{name}_T"] = T_all
+    if errs["nominate_tables"]:
+        raise AssertionError(f"the nomination differs: {errs}")
+    notes["nominate_ptxas"] = ptxas_lines("nominate_kernel")
+
+    def nom_line(name):
+        return (f"{timing[name][0]:.4f} ms (plain {timing[name][1]:.3f}, "
+                f"bound {bounds[name][0]:.5f}, {len(nom_sets[name][0])} x "
+                f"torch.topk {library[name]:.4f}; {notes[name + '_live']} "
+                f"live of {notes[name + '_T']})")
+
+    print(f"phase 13 (nomination): nominate_tables (one launch a "
+          f"device) equals its plain version exactly in "
+          f"{notes['nominations']} grouped calls over "
+          f"{notes['nominate_tables']} tables ({notes['short_shards']} "
+          f"with fewer than k live entries) and on every table alone: the "
+          f"seeded states (k 16 and 256, BPE and WordPiece), the corpus's "
+          f"8 shards initial and after 1,000 merges, all counts equal, "
+          f"dense tables past a block's staging (fill 0.5-0.6 of 131,072), "
+          f"counts to 2^40 and 0, wide scores, tables of 2 and of 0 live "
+          f"entries, the mesh of 1's 2^20 entries; k = {K} over the "
+          f"corpus's BPE tables after 1,000 merges "
+          + nom_line("nominate_tables") + ", WordPiece "
+          + nom_line("nominate_tables_wp") + ", the mesh of 1 "
+          + nom_line("nominate_mesh1")
+          + f"; ptxas: {notes['nominate_ptxas']}; {smi}")
     shard = bpe.shards[0]
     sym0 = shard.sym.clone()
     n_changed = int((apply_merge_ref(sym0, rec_k3p) != sym0).sum())
@@ -1220,7 +1393,7 @@ def phase13(dev, rng, arrays, table, arrays_wp, table_wp, golden,
         shard.sym.copy_(sym0)
         return statistics.median(a.elapsed_time(b) for a, b in ev)
 
-    timing = {
+    timing.update({
         "lookup_reduce": (
             cuda_ms(lambda: lookup_reduce(cand, tables, bases, tset), 200,
                     True),
@@ -1258,14 +1431,13 @@ def phase13(dev, rng, arrays, table, arrays_wp, table_wp, golden,
         "topk": (cuda_ms(lambda: torch.topk(metric, ptrain.TOPK), 200,
                          True), None),
         "shard_pair_stats": (cuda_ms(shard.pairs, 200, True), None),
-        "shard_merge_rows": (merge_once(), None)}
+        "shard_merge_rows": (merge_once(), None)})
     shard.pairs()  # the table as the state gives it (timed calls rewrote it)
     # torch.nonzero waits for its count: its device time comes from a
     # trace of 50 calls, over the compaction's own inputs: the 8 tables'
     # keys (concatenated before the trace), one table's, the mesh of 1's
     reps = 50
     all_keys = torch.cat([t[0] for t in tables])
-    library = {}
     for k, keys in (("compact_tables", all_keys), ("compact_one_table", t0[0]),
                     ("compact_mesh1", big[0])):
         _, busy, by_kernel = device_trace(
@@ -1293,7 +1465,7 @@ def phase13(dev, rng, arrays, table, arrays_wp, table_wp, golden,
     # (128 x 4) and a compare per candidate; torch.topk reads the metric
     # once, writes its values and indices (int64 each) and compares once
     # an entry; K3p tests each slot and its neighbour (2).
-    bounds = {
+    bounds.update({
         "lookup_reduce": bound(nbytes(cand) + 12 * M
                                + sum(visited(M, 20, *t) for t in tables),
                                10 * M * D),
@@ -1314,7 +1486,7 @@ def phase13(dev, rng, arrays, table, arrays_wp, table_wp, golden,
         "shard_pair_stats": bound(nbytes(shard.sym, shard._wid, shard._wgt,
                                          *t0), 10 * n_slots),
         "shard_merge_rows": bound(nbytes(sym0, rec_k3p) + 4 * n_changed,
-                                  2 * n_slots)}
+                                  2 * n_slots)})
     notes.update(T=T, live=n_live0, cap=cap, M=M, runs=gk.shape[0], D=D,
                  launch_floor_ms=timing["launch_floor"][0],
                  launch_floor_cluster_ms=timing["launch_floor_cluster"][0],
@@ -1669,7 +1841,7 @@ def phase13c(dev, rng, flat_bpe, table, arrays, arrays_wp, table_wp,
     from subword_tokenizers_tpu_torch.parallel import train as ptrain
     from subword_tokenizers_tpu_torch.parallel.mesh import make_data_mesh
     errs = {"symbol_rows": 0, "symbol_freqs_flat": 0, "pair_stats_steps": 0}
-    notes = {"k4_cases": 0, "k1_steps": 0, "emptied": 0}
+    notes = {"k4_cases": 0, "k1_steps": 0, "emptied": 0, "buckets": 0}
     timing, bounds, library = {}, {}, {}
     sym_cap = train_loop.sym_capacity(table_wp, 8000)
 
@@ -1680,15 +1852,21 @@ def phase13c(dev, rng, flat_bpe, table, arrays, arrays_wp, table_wp,
         return torch.zeros(n, dtype=torch.int64, device=dev)
 
     def check_rows(sym, wgt, cap):
-        """symbol_rows into a zero output while it empties a dirty one."""
+        """symbol_rows into a zero output while it empties a dirty one;
+        its trash bucket against the weights of the slots holding the id
+        sym_cap itself, summed apart."""
         out, dirty = zeros(cap + 1), zeros(cap + 1) + 7
         got = symbol_rows(sym, wgt, cap, out, dirty)
         err("symbol_rows", max_err(got, symbol_rows_ref(sym, wgt, cap)))
-        err("symbol_rows", int(got[cap]) + int((dirty != 0).sum()))
+        bucket = int((wgt[:, None] * (sym == cap)).sum())
+        err("symbol_rows", abs(int(got[cap]) - bucket)
+            + int((dirty != 0).sum()))
         notes["k4_cases"] += 1
+        notes["buckets"] += bucket > 0
 
     # seeded rows: (rows, L, symbols, sym_cap, weight scale)
     for n, L, n_sym, cap, wscale in ((3000, 22, 40, 30, 1),
+                                     (2000, 9, 12, 10, 1),
                                      (2000, 1, 9, 9, 1),
                                      (500, 70, 2, 8, 1 << 40),
                                      (4000, 22, 45000, 40000, 3),
@@ -1699,6 +1877,13 @@ def phase13c(dev, rng, flat_bpe, table, arrays, arrays_wp, table_wp,
         wgt[rng.random(n) < 0.05] = 0                # zero weights
         sym_t, wgt_t = (torch.from_numpy(x).to(dev) for x in (sym, wgt))
         check_rows(sym_t, wgt_t, cap)
+        # the flat mode over the same slots, a weight a slot
+        fs1, w1 = sym_t.reshape(-1), wgt_t.repeat_interleave(L)
+        err("symbol_freqs_flat", max_err(symbol_freqs(fs1, w1, cap),
+                                         symbol_freqs_ref(fs1, w1, cap)))
+    if notes["buckets"] < 2:
+        raise AssertionError(f"the seeded rows held the id sym_cap "
+                             f"{notes['buckets']} times")
     # the WordPiece corpus: 8 shards of the one-card mesh, three steps of
     # the block's double buffer, each the sum of _local_sym_freq's counts
     wp8 = ptrain.shard_corpus(make_data_mesh(8, devices=[dev] * 8),
@@ -1764,7 +1949,7 @@ def phase13c(dev, rng, flat_bpe, table, arrays, arrays_wp, table_wp,
                 True),
         cuda_ms(lambda: symbol_freqs_ref(fs_w, wgt_w, sym_cap), 10))
     sym_all = blk.state.sym.reshape(-1)
-    ok = (sym_all >= 0) & (sym_all < sym_cap)
+    ok = (sym_all >= 0) & (sym_all <= sym_cap)
     lib_idx = torch.where(ok, sym_all, sym_cap).to(torch.int64)
     lib_w = torch.where(ok, blk.state._wgt, 0)
     err("symbol_rows", max_err(zeros(sym_cap + 1).index_add_(
@@ -1861,27 +2046,21 @@ def phase13c(dev, rng, flat_bpe, table, arrays, arrays_wp, table_wp,
         nbytes(fs_t, wid_t, wgt_t) + 20 * live + 20 * T0, 10 * valid)
     notes.update(k1_live=live, k1_T=T0, k1_slots=n0, sym_cap=sym_cap)
 
-    # WordPiece's scorer at a shard's table: nominate's score_bits with
-    # its gathers and masks, and the kernel alone
+    # WordPiece's scorer alone (swt_score_bits) over a shard's table,
+    # the weights gathered before; the sharded step scores inside the
+    # nomination (phase 13)
     tables = wp8.pairs()
     sf = ptrain.sharded_sym_freq(wp8, sym_cap)
     keys, counts, _ = tables[0]
     mask = keys != EMPTY_KEY
-
-    def scores():
-        k0 = torch.where(mask, keys, 0)
-        return torch.where(mask, score_bits(counts, sf[k0 >> 32],
-                                            sf[k0 & LOW32]), -1)
-
     k0 = torch.where(mask, keys, 0)
     fa, fb = sf[k0 >> 32], sf[k0 & LOW32]
-    timing["wp_score_shard"] = (cuda_ms(scores, reps, True), None)
-    timing["wp_score_shard_kernel"] = (
+    timing["wp_score_shard"] = (
         cuda_ms(lambda: score_bits(counts, fa, fb), reps, True), None)
     T_shard = keys.shape[0]
-    # Bytes: a key and a count read, two weights gathered, a score
-    # written (40 an entry); operations: a division an entry (20).
-    bounds["wp_score_shard"] = bound(40 * T_shard, 20 * T_shard)
+    # Bytes: a count and two weights read, a score written (32 an entry);
+    # operations: a division an entry (20).
+    bounds["wp_score_shard"] = bound(32 * T_shard, 20 * T_shard)
     notes.update(shard_entries=T_shard, shard_live=int(mask.sum()))
     torch.cuda.synchronize()
 
@@ -1927,7 +2106,9 @@ def phase13c(dev, rng, flat_bpe, table, arrays, arrays_wp, table_wp,
     print(f"phase 13c: K4 (symbol_rows, one launch a device; symbol_freqs "
           f"flat) equals its plain version exactly on {notes['k4_cases']} "
           f"cases (seeded rows with PADs, all-PAD rows, ids at and above "
-          f"sym_cap, zero and wide weights, L 1-70, sym_cap 0 and 40,000; "
+          f"sym_cap (the trash bucket summed apart, non-zero on "
+          f"{notes['buckets']}), zero and wide weights, L 1-70, sym_cap 0 "
+          f"and 40,000; "
           f"the WordPiece corpus's 8-shard block over 3 alternating steps "
           f"({notes['emptied']} outputs emptied, one launch each), the mesh "
           f"of 1, the padded route, the flat route, sym_cap 40,000); K1 "
@@ -1946,10 +2127,9 @@ def phase13c(dev, rng, flat_bpe, table, arrays, arrays_wp, table_wp,
           + f"; K1 at the initial state ({n0} slots, {live} pairs, T = "
           f"{T0}): " + line("pair_stats_initial", f"with a full clear "
                             f"{bounds['pair_stats_full_clear'][0]:.5f}")
-          + f"; WordPiece's scorer at a shard's {T_shard} entries "
+          + f"; WordPiece's scorer alone over a shard's {T_shard} entries "
           f"({notes['shard_live']} live): " + line("wp_score_shard")
-          + f", the kernel alone {timing['wp_score_shard_kernel'][0]:.4f} "
-          f"ms; 256-step blocks traced: {trace_line}; {smi}")
+          + f"; 256-step blocks traced: {trace_line}; {smi}")
     return errs, timing, bounds, library, notes
 
 
@@ -1971,12 +2151,12 @@ def phase14(dev, corpus, check_train, check_wp_train, lists, wp_merges,
     from subword_tokenizers_tpu_torch.parallel.mesh import make_data_mesh
     mesh = make_data_mesh(8, devices=[dev] * 8)
     kernels = shard_kernels()
-    must = {"NaiveBPE": ("pair_rows", "lookup_reduce", "certificate",
-                         "compact_tables", "pair_stats_runs", "select_unify",
-                         "merge_rows"),
-            "NaiveWP": ("pair_rows", "lookup_reduce", "certificate",
-                        "select_unify", "merge_rows", "symbol_rows",
-                        "wp_score")}
+    must = {"NaiveBPE": ("pair_rows", "nominate_tables", "lookup_reduce",
+                         "certificate", "compact_tables", "pair_stats_runs",
+                         "select_unify", "merge_rows"),
+            "NaiveWP": ("pair_rows", "nominate_tables", "lookup_reduce",
+                        "certificate", "select_unify", "merge_rows",
+                        "symbol_rows")}
     checks = {"NaiveBPE": check_train, "NaiveWP": check_wp_train}
     models = {"NaiveBPE": NaiveBPE, "NaiveWP": NaiveWP}
     by_path, lines = {}, []
@@ -1995,24 +2175,29 @@ def phase14(dev, corpus, check_train, check_wp_train, lists, wp_merges,
         if missing:
             raise AssertionError(f"{name} under the mesh launched no "
                                  f"{missing}: {counts}")
-        # one grouped launch a step on the one-card mesh: K1 and a lookup
-        # every step, a compaction every step the certificate did not
-        # settle, K3p every merge; the per-shard K1 only in the full tier
+        # one grouped launch a step on the one-card mesh: K1, the
+        # nomination and a lookup every step, a compaction every step the
+        # certificate did not settle, K3p every merge; the per-shard K1
+        # only in the full tier; no torch.topk and no scorer launch
         steps = sum(tok._sel_stats.values())
         merges = len(tok.merges_list if name == "NaiveBPE"
                      else tok._merge_log)
-        want = {"pair_rows": steps, "lookup_reduce": steps,
+        want = {"pair_rows": steps, "nominate_tables": steps,
+                "lookup_reduce": steps,
                 "compact_tables": tok._topk_fallbacks, "merge_rows": merges,
                 "pair_stats": tok._sel_stats["full"],
                 "symbol_rows": steps if name == "NaiveWP" else 0,
-                "symbol_freqs": 0}
-        # every wrapper's calls: a WordPiece step the certificate settles
-        # makes 14 (K1, K4, the scorer on each of 8 shards, the lookup,
-        # K2, the certificate, K3p), the last step no K3p
+                "symbol_freqs": 0, "wp_score": 0}
+        # every wrapper's calls: a step the certificate settles makes 6
+        # (K1, the nomination, the lookup, K2, the certificate, K3p) and a
+        # WordPiece step 7 (K4 too), the last step no K3p; a fallback step
+        # 3 more (the compaction, K1's runs mode, K2), a full-tier step 2
+        # more (K1, K2)
         calls = sum(counts.values())
-        if name == "NaiveWP" and not tok._topk_fallbacks:
-            want["calls"] = 14 * steps - (steps - merges)
-            counts["calls"] = calls
+        want["calls"] = ((7 if name == "NaiveWP" else 6) * steps
+                         - (steps - merges) + 3 * tok._topk_fallbacks
+                         + 2 * tok._sel_stats["full"])
+        counts["calls"] = calls
         if any(counts[k] != v for k, v in want.items()):
             raise AssertionError(f"{name}: {steps} steps, {merges} merges "
                                  f"and {tok._topk_fallbacks} fallbacks, but "
@@ -2021,9 +2206,10 @@ def phase14(dev, corpus, check_train, check_wp_train, lists, wp_merges,
         by_path[f"{name}_mesh8"] = {k: v for k, v in counts.items() if v}
         lines.append(f"{name} cold {walls[0]:.3f} s, warm {walls[1]:.3f} s, "
                      f"tiers {tok._sel_stats} ({tok._topk_fallbacks} "
-                     f"fallbacks; 1 K1 and 1 lookup launch a step, 1 "
-                     f"compaction launch a fallback step, 1 K3p launch a "
-                     f"merge, 1 K4 a WordPiece step, no per-shard K1), "
+                     f"fallbacks; 1 K1, 1 nomination and 1 lookup launch a "
+                     f"step, 1 compaction launch a fallback step, 1 K3p "
+                     f"launch a merge, 1 K4 a WordPiece step, no per-shard "
+                     f"K1, no scorer launch), "
                      f"{calls} kernel-wrapper calls in {steps} steps "
                      f"({calls / steps:.3f} a step), warm launches "
                      f"{by_path[name + '_mesh8']}")
@@ -2058,9 +2244,9 @@ def phase14(dev, corpus, check_train, check_wp_train, lists, wp_merges,
             # the forced full tier counts the gathered rows only
             steps = sum(st.values())
             if (counts["pair_rows"], counts["pair_stats"],
-                    counts["merge_rows"]) != (
+                    counts["merge_rows"], counts["nominate_tables"]) != (
                     0 if tier == "full" else steps, st["full"],
-                    len(got)):
+                    len(got), 0 if tier else steps):
                 raise AssertionError(f"{name} tier {tier}: {st}, "
                                      f"launches {counts}")
             tier_lines.append(f"{name} {tier or 'mesh of 1'} {wall:.3f} s "
@@ -2115,8 +2301,9 @@ def phase14(dev, corpus, check_train, check_wp_train, lists, wp_merges,
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
     grouped = {k: [sum(c for n, (c, _) in by_name.items() if k in n),
                    sum(ms for n, (_, ms) in by_name.items() if k in n)]
-               for k in ("pair_rows_kernel", "lookup_reduce_kernel",
-                         "compact_tables_kernel", "merge_rows_kernel")}
+               for k in ("pair_rows_kernel", "nominate_kernel",
+                         "lookup_reduce_kernel", "compact_tables_kernel",
+                         "merge_rows_kernel")}
     if by_name and not all(c for c, _ in grouped.values()):
         raise AssertionError(f"the trace shows no grouped kernel: {grouped}")
     # the merge takes its ids as arguments: no host-to-device copy a
@@ -2127,20 +2314,18 @@ def phase14(dev, corpus, check_train, check_wp_train, lists, wp_merges,
         raise AssertionError(f"{h2d} host-to-device copies for "
                              f"{grouped['merge_rows_kernel'][0]} merges "
                              f"(set-up makes at most {H2D_SETUP_MAX})")
-    # no memset of the port's: the only ones are torch.topk's own (the
-    # nomination's library call, 8 a step), counted a call from a trace
-    # of 10 calls over a shard's table
+    # no memset and no library top-k: the nomination is the port's
+    # kernel, one launch a step
     n_memsets = memsets(by_name)
-    _, _, topk_names = device_trace(  # a shard's 131,072 int64 metrics
-        lambda: [torch.topk(torch.arange(131072, device=dev), 256)
-                 for _ in range(10)],
-        os.path.join(trace_dir, "topk_trace.json"), warmup=True)
-    topk_memsets = memsets(topk_names) / 10
-    topk_calls = 8 * sum(traced[-1]._sel_stats.values())
-    if by_name and topk_names and n_memsets != topk_memsets * topk_calls:
-        raise AssertionError(f"{n_memsets} memsets in the traced train, "
-                             f"torch.topk's {topk_memsets} a call x "
-                             f"{topk_calls} calls")
+    topk_kernels = {n: c for n, (c, _) in by_name.items()
+                    if any(w in n.lower() for w in TOPK_KERNEL_WORDS)}
+    steps = sum(traced[-1]._sel_stats.values())
+    if by_name and (n_memsets or topk_kernels
+                    or grouped["nominate_kernel"][0] != steps):
+        raise AssertionError(f"the traced train made {n_memsets} memsets, "
+                             f"top-k kernels {topk_kernels}, "
+                             f"{grouped['nominate_kernel'][0]} nominations "
+                             f"in {steps} steps")
     dev_line = ("not measured (the trace holds no device events)"
                 if not by_name else
                 f"device busy {busy:.3f} ms of {wall:.1f} ms (idle share "
@@ -2149,9 +2334,9 @@ def phase14(dev, corpus, check_train, check_wp_train, lists, wp_merges,
                 + "; the grouped kernels: " + "; ".join(
                     f"{n} x{c} {ms:.3f} ms" for n, (c, ms) in grouped.items())
                 + f"; host-to-device copies in the whole train (set-up "
-                  f"included) {h2d}; memsets {n_memsets}, all torch.topk's "
-                  f"({topk_memsets:g} a call x {topk_calls} calls), none "
-                  f"of the port's kernels")
+                  f"included) {h2d}; memsets {n_memsets}, top-k library "
+                  f"kernels {len(topk_kernels)}, nomination launches "
+                  f"{grouped['nominate_kernel'][0]} in {steps} steps")
     print(f"phase 14d: one warm NaiveBPE train to {trace_vocab} on the mesh "
           f"of 8 under torch.profiler: {dev_line}; {smi}")
     return by_path
@@ -2198,8 +2383,8 @@ def phase15(dev, corpus, golden, anchor, smi, max_vocab=578,
         rows = [torch.full((2, 3), i, device=dev) for i in range(8)]
         got = distributed.fetch_global(rows, mesh)
         assert got[:, 0].tolist() == [i for i in range(8) for _ in range(2)]
-        for k in ("lookup_reduce", "certificate", "pair_rows",
-                  "merge_rows"):
+        for k in ("nominate_tables", "lookup_reduce", "certificate",
+                  "pair_rows", "merge_rows"):
             if not counts.get(k):
                 raise AssertionError(f"phase 15 launched no {k}: {counts}")
     finally:
@@ -3845,6 +4030,8 @@ def main() -> int:
         return {p: c[key] for p, c in by_mesh.items() if c.get(key)}
 
     for k, src, replaces in (
+            ("nominate_tables", "nominate.cu",
+             "subword_tokenizers_tpu/parallel/train.py:249"),
             ("lookup_reduce", "shard_select.cu",
              "subword_tokenizers_tpu/parallel/train.py:105"),
             ("compact_tables", "shard_select.cu",
@@ -3906,6 +4093,30 @@ def main() -> int:
     by_name["certificate"]["note"] = (
         "also replaces the WordPiece certificate at "
         "subword_tokenizers_tpu/parallel/train.py:336-365 and :383-400")
+    # the nomination (phase 13): BPE, WordPiece and the mesh of 1
+    by_name["nominate_tables"].update(
+        also_replaces="subword_tokenizers_tpu/parallel/train.py:298",
+        note=f"ms: one launch over the 8 tables of the one-card mesh at "
+             f"the corpus's BPE state after 1,000 merges, k = 256 "
+             f"({notes13['nominate_tables_live']} live of "
+             f"{notes13['nominate_tables_T']}); library_ms: 8 torch.topk "
+             f"of 256 over the same shards' metrics, one a shard, as the "
+             f"tier called them before; wp_*: the WordPiece state after "
+             f"1,000 merges, the scores computed in the kernel; mesh1_*: "
+             f"the mesh of 1's table",
+        bound_note="bytes: every key (8), the count of each live entry "
+                   "(8) and, for WordPiece, its two symbol weights (16), "
+                   "the outputs (8 (k + 3) a shard)",
+        wp_ms=timing["nominate_tables_wp"][0],
+        wp_plain_ms=timing["nominate_tables_wp"][1],
+        wp_bound_ms=bounds["nominate_tables_wp"][0],
+        wp_library_ms=library["nominate_tables_wp"],
+        mesh1_ms=timing["nominate_mesh1"][0],
+        mesh1_plain_ms=timing["nominate_mesh1"][1],
+        mesh1_bound_ms=bounds["nominate_mesh1"][0],
+        mesh1_library_ms=library["nominate_mesh1"],
+        library_one_shard_ms=timing["topk"][0],
+        ptxas=notes13["nominate_ptxas"])
     # the grouped K1 and K3p of the sharded step (phase 13b)
     by_name["pair_rows"].update(
         also_replaces="subword_tokenizers_tpu/ops/pairstats.py:92",
@@ -4001,13 +4212,12 @@ def main() -> int:
         traced_blocks=notes13c["traced"])
     by_name["wp_score"].update(
         shard_ms=timing["wp_score_shard"][0],
-        shard_kernel_ms=timing["wp_score_shard_kernel"][0],
         shard_bound_ms=bounds["wp_score_shard"][0],
         shard_entries=notes13c["shard_entries"],
-        shard_note="shard_ms: nominate's score_bits with its gathers and "
-                   "masks over one shard's table of the one-card mesh of 8 "
-                   "(WordPiece, initial state); mesh_launches its launches "
-                   "under the mesh, one a shard a step")
+        shard_note="shard_ms: swt_score_bits alone over one shard's table "
+                   "of the one-card mesh of 8 (WordPiece, initial state), "
+                   "the weights gathered before; the sharded step scores "
+                   "inside the nomination, so mesh_launches is empty")
     # the gather probe (phase 16): launches of its main on the card
     for k, replaces in (("gather_take2d", "tools/pallas_probe.py:35"),
                         ("gather_loop", "tools/pallas_probe.py:74"),
@@ -4033,11 +4243,6 @@ def main() -> int:
     for k in cli_kernels():
         by_name[k]["cli_launches"] = {s: c[k] for s, c in by_cli.items()
                                       if c.get(k)}
-    by_name["compact_tables"]["topk_ms"] = timing["topk"][0]
-    by_name["compact_tables"]["topk_bound_ms"] = bounds["topk"][0]
-    by_name["compact_tables"]["topk_note"] = (
-        "topk_ms: torch.topk of 256 over one shard's table, the "
-        "nomination of the top-K tier (a library call the port makes)")
     for k in ("pair_stats", "select_unify", "merge_rows", "symbol_freqs",
               "wp_score", "wp_e2e_scan", "compact_ids"):
         by_name[k]["mesh_launches"] = mesh_of(k)

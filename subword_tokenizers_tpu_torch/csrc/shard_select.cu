@@ -80,6 +80,8 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include "table_set.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -89,17 +91,6 @@ constexpr unsigned long long kEmpty = ~0ULL;
 constexpr int32_t kPosMax = 0x7fffffff;
 constexpr uint64_t kSat = 1ULL << 55;
 constexpr int kScaleBits = 36;
-
-// One row of the descriptor.
-struct Shard {
-  const unsigned long long* keys;
-  const int64_t* counts;
-  const uint32_t* pos;
-  int64_t T;     // entries, a power of two
-  int64_t base;  // added to every position the shard reports
-  int64_t flag;  // the compaction's overflow flag of the shard
-};
-static_assert(sizeof(Shard) == 6 * sizeof(int64_t), "descriptor row");
 
 constexpr int kBatch = 8;  // shards a thread probes at once
 // One warp a lookup block: the 2,048 candidates of train-85k at 8 shards

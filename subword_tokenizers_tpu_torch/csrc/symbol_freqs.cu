@@ -15,8 +15,10 @@
 // other: their sum is the device's partial of the mesh's sum), the
 // padded layout, or the flat state as F rows of one slot (a weight a
 // slot). out[s] gains the sum of the row weights over the slots with
-// sym == s; ids below 0 (PAD) and at or above sym_cap are dropped, as
-// segment_sum drops them, so out[sym_cap], the trash bucket, stays 0.
+// sym == s for every s <= sym_cap: ids below 0 (PAD) and above sym_cap
+// are dropped, and an id equal to sym_cap adds into out[sym_cap], the
+// trash bucket, as the JAX package's segment_sum over sym_cap + 1
+// segments does (PADs add their zero weight there).
 // Integer adds give the same sums in any order, so the table is exact.
 //
 // out must be 0 on entry. There is no memset: the caller keeps two
@@ -32,9 +34,9 @@
 // __match_any_sync, so the lowest of them adds the group's sum once and a
 // frequent character costs one shared atomic a warp, not one a slot. A
 // block then flushes only its non-zero bins into out with global atomics:
-// a few thousand a block at most, however frequent the symbol. A
-// sym_cap above kMaxBins splits the ids into ranges over blockIdx.y, each
-// range's blocks reading every slot.
+// a few thousand a block at most, however frequent the symbol. More
+// than kMaxBins ids (sym_cap + 1) split into ranges over blockIdx.y,
+// each range's blocks reading every slot.
 //
 // Bound on this card: bytes. The rows (4 bytes a slot), the row weights
 // (8 a row) and the output written and emptied (16 bytes a bin): 2.3 MB
@@ -63,7 +65,7 @@ __global__ void __launch_bounds__(kThreads)
                      threadIdx.x;
   for (uint32_t e = t; e < n_clear; e += n_threads) clear[e] = 0;
   const int32_t lo = static_cast<int32_t>(blockIdx.y * bins);
-  const int32_t hi = min(lo + static_cast<int32_t>(bins), sym_cap);
+  const int32_t hi = min(lo + static_cast<int32_t>(bins), sym_cap + 1);
   for (int32_t e = threadIdx.x; e < hi - lo; e += kThreads) hist[e] = 0;
   __syncthreads();
   const uint32_t lane = threadIdx.x & 31;
@@ -124,9 +126,9 @@ int swt_symbol_freqs(const void* sym, const void* wgt, int64_t R, int64_t L,
   }
   static const int sms = sm_count();
   const int64_t slots = R * L;
-  const int64_t ranges =
-      sym_cap > 0 ? (sym_cap + kMaxBins - 1) / kMaxBins : 1;
-  const int64_t bins = (sym_cap + ranges - 1) / ranges;
+  // ids 0 .. sym_cap, the trash bucket's included
+  const int64_t ranges = (sym_cap + kMaxBins) / kMaxBins;
+  const int64_t bins = (sym_cap + ranges) / ranges;
   int64_t per_range = sms / ranges > 0 ? sms / ranges : 1;
   const int64_t needed = (slots + kThreads - 1) / kThreads;
   if (needed < per_range) per_range = needed;

@@ -3,7 +3,8 @@
 ``csrc/*.cu`` are compiled by hand with nvcc for ``sm_90a``, one nvcc
 per source and all at once, then linked into one shared library with a
 plain C interface, loaded with ctypes. The library goes to
-``csrc/build/``, named by a hash of the sources and flags, on first use.
+``csrc/build/``, named by a hash of the sources, the headers they
+include (``csrc/*.cuh``) and the flags, on first use.
 Nothing here runs at import: the CPU tests import every module of the
 port, and this machine may have no nvcc.
 
@@ -46,6 +47,7 @@ SIGNATURES = {
     "swt_lookup_reduce": [_P, _I64, _P, _I, _P, _P, _P],
     "swt_compact_tables": [_P, _I, _I, _I64, _I, _P, _P, _P, _P, _P],
     "swt_launch_floor": [_I, _P],
+    "swt_nominate": [_P, _I, _I64, _P, _P, _P, _P],
     "swt_certificate": [_P, _I, _P, _P, _I64, _P, _P, _I, _I, _P],
     "swt_select_unify": [_P, _P, _P, _I64, _P, _I, _P, _P, _P, _I64, _P, _P,
                          _P, _I64, _I64, _P, _I, _P, _I, _I64, _I64, _I, _P,
@@ -74,6 +76,10 @@ def _sources():
     return sorted(glob.glob(os.path.join(CSRC, "*.cu")))
 
 
+def _headers():
+    return sorted(glob.glob(os.path.join(CSRC, "*.cuh")))
+
+
 def nvcc() -> str:
     path = shutil.which("nvcc")
     home_nvcc = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
@@ -87,7 +93,7 @@ def nvcc() -> str:
 
 def _so_path() -> str:
     digest = hashlib.sha256(" ".join(FLAGS).encode())
-    for src in _sources():
+    for src in _sources() + _headers():
         with open(src, "rb") as f:
             digest.update(os.path.basename(src).encode() + f.read())
     return os.path.join(BUILD_DIR, f"kernels-{digest.hexdigest()[:16]}.so")

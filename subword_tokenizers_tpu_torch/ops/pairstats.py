@@ -417,7 +417,7 @@ pair_rows.launches = 0
 
 def symbol_freqs_ref(fs, wgt, sym_cap: int):
     """Plain PyTorch version of :func:`symbol_freqs`."""
-    ok = (fs >= 0) & (fs < sym_cap)
+    ok = (fs >= 0) & (fs <= sym_cap)
     out = torch.zeros(sym_cap + 1, dtype=torch.int64, device=fs.device)
     out.index_add_(0, torch.where(ok, fs, sym_cap).to(torch.int64),
                    torch.where(ok, wgt, 0))
@@ -463,8 +463,9 @@ def _check_sym_cap(name: str, sym_cap: int) -> None:
 def symbol_freqs(fs, wgt, sym_cap: int, out=None):
     """Per-symbol total weight of a flat state (fs int32[F], wgt
     int64[F]): int64[sym_cap + 1], whose entry ``s`` sums ``wgt`` over
-    the slots of symbol ``s``; ids below 0 or at or above ``sym_cap`` are
-    dropped, so the last entry, the trash bucket, stays 0 (WordPiece's
+    the slots of symbol ``s``; ids below 0 or above ``sym_cap`` are
+    dropped, and the last entry, the trash bucket, sums an id equal to
+    ``sym_cap``, as the JAX package's segment sum does (WordPiece's
     ``freq_a``, ``freq_b``).
 
     Launches kernel K4 once for CUDA tensors, adding into ``out``
@@ -496,8 +497,9 @@ symbol_freqs.launches = 0
 def symbol_rows(sym, wgt, sym_cap: int, out=None, clear=None):
     """K4 over padded rows: ``sym`` int32[R, L] and the rows' weights
     ``wgt`` int64[R]; entry ``s`` of the int64[sym_cap + 1] result sums
-    the row weights over the slots of symbol ``s`` (PAD and ids at or
-    above ``sym_cap`` dropped, the trash bucket 0). Over a device's block
+    the row weights over the slots of symbol ``s`` (PAD and ids above
+    ``sym_cap`` dropped; the trash bucket ``sym_cap`` sums that id, as in
+    :func:`symbol_freqs`). Over a device's block
     of shards (parallel/train.ShardBlock) it is the sum of the shards'
     counts, that device's part of the mesh's sum.
 

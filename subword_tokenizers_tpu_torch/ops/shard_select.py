@@ -5,10 +5,14 @@ into its own table, positions local to the shard (``row * L + j``); a
 shard adds its fixed base ``first_row * L`` to every position it reports,
 so positions order pairs across shards as one device's do. On that table:
 
-- :func:`nominate`: the shard's top ``k`` entries by count (BPE) or by
-  the exact score bits over the global symbol weights (WordPiece, the
-  scorer of ops/bitmath.py), with ``torch.topk``, and its K-th best entry
-  (metric, count, key), which bounds every pair it did not nominate;
+- :func:`nominate_tables`: each shard's top ``k`` entries by count (BPE)
+  or by the exact score bits over the global symbol weights (WordPiece,
+  the scorer of ops/bitmath.py), ties to the lower key, and its K-th best
+  entry (metric, count, key), which bounds every pair it did not
+  nominate (kernel ``swt_nominate``, one launch for all of the device's
+  shards; phase 1 of the JAX package's ``sharded_bpe_select_topk`` and
+  ``sharded_wp_select_topk``, ``parallel/train.py:263-275`` and
+  ``:326-341``); :func:`nominate` is its one-table case;
 - :func:`lookup_reduce`: each gathered candidate's count summed over
   the shards of one device and its least position (kernel
   ``swt_lookup_reduce``, one launch for all of the device's shards; the
@@ -26,7 +30,8 @@ so positions order pairs across shards as one device's do. On that table:
   ``:336-365`` and ``:383-400`` for WordPiece), written into the step's
   record as its one flag read back.
 
-Every kernel is in ``csrc/shard_select.cu``. The plain versions take
+The kernels are in ``csrc/shard_select.cu`` and, the nomination's,
+``csrc/nominate.cu``. The plain versions take
 either form of K1's table (its hash table, or the sorted form of the
 plain ``pair_stats``).
 """
@@ -35,7 +40,7 @@ from __future__ import annotations
 import torch
 
 from . import check_tensor
-from .bitmath import score_bits
+from .bitmath import score_bits_ref
 from .pairstats import EMPTY_KEY
 
 POS_MAX = 2 ** 31 - 1   # the position of an absent candidate
@@ -43,6 +48,7 @@ MAX_LOCAL_SHARDS = 1024  # tables of one grouped launch (the lookup keeps
                          # their descriptor rows in shared memory)
 ROUND_SPAN = 1 << 17    # table entries of one compaction cluster
 EPOCH_MAX = (1 << 30) - 1  # the compaction's look-back epochs
+MAX_NOMINATE = 256      # the most entries a shard nominates in one call
 SCALE_BITS = 36         # the WordPiece certificate's scale, as in JAX
 SAT = 1 << 55           # its per-shard saturation
 LOW32 = 0xFFFFFFFF
@@ -63,33 +69,100 @@ def _check_table(table, dev):
     return T
 
 
+def nominate_tables_ref(tables, k: int, sym_freq=None):
+    """Plain PyTorch version of :func:`nominate_tables`: each table's live
+    entries ordered by key with one sort, then by metric descending with a
+    stable sort (so equal metrics keep the key order)."""
+    cands, kths = [], []
+    for keys, counts, _ in tables:
+        live = keys != EMPTY_KEY
+        key, order = torch.sort(keys[live])
+        cnt = counts[live][order]
+        metric = cnt if sym_freq is None else score_bits_ref(
+            cnt, sym_freq[key >> 32], sym_freq[key & LOW32])
+        metric, order = torch.sort(metric, descending=True, stable=True)
+        metric, key, cnt = metric[:k], key[order[:k]], cnt[order[:k]]
+        n = key.shape[0]
+        # A BPE count of 0 nominates nothing; every live score is positive.
+        ok = metric > 0 if sym_freq is None else metric >= 0
+        cand = torch.full((k,), EMPTY_KEY, dtype=torch.int64,
+                          device=keys.device)
+        cand[:n] = torch.where(ok, key, EMPTY_KEY)
+        cands.append(cand)
+        kths.append(torch.stack([metric[k - 1], cnt[k - 1], key[k - 1]])
+                    if n == k else torch.tensor([-1, 0, EMPTY_KEY],
+                                                dtype=torch.int64,
+                                                device=keys.device))
+    return torch.cat(cands), torch.cat(kths)
+
+
+def nominate_tables(tables, k: int, sym_freq=None, tset=None, out=None):
+    """The top-K tier's nomination over the pair tables of one device's
+    shards: (cand int64[D * k], kth int64[3 * D]), shard i's at ``[i * k,
+    (i + 1) * k)`` and ``[3 i, 3 i + 3)``, the gathered layout.
+
+    Each shard's live entries are ranked by metric descending, then key
+    ascending (``jax.lax.top_k`` over the JAX package's key-sorted runs):
+    the metric is the count, or with ``sym_freq`` (int64 over the symbol
+    ids, the mesh's sum) the exact score bits of count / (fa * fb).
+    ``cand`` holds the keys of the ``k`` best, EMPTY_KEY past the live
+    entries and where a BPE count is 0; ``kth`` the (metric, count, key)
+    of the k-th best, which bounds every entry not nominated, or (-1, 0,
+    EMPTY_KEY) when the shard has fewer than ``k`` live entries.
+    ``tables`` are K1's tables of the shards, 1 <= ``k`` <= 256; ``tset``,
+    if given, their :class:`TableSet` (else one is built for the call);
+    ``out``, if given, the two outputs to write (reused across calls).
+
+    Launches ``swt_nominate`` once for CUDA tensors, whatever the number
+    of tables, runs the PyTorch version for CPU tensors, and raises for
+    any other device."""
+    D = len(tables)
+    dev = tables[0][0].device if tables else None
+    _check_tables(tables, [0] * D, dev, "nominate_tables")
+    if not 1 <= k <= MAX_NOMINATE:
+        raise ValueError(f"nominate_tables: k {k} outside 1 .. "
+                         f"{MAX_NOMINATE}")
+    if sym_freq is not None:
+        check_tensor("sym_freq", sym_freq, (torch.int64,), 1, dev)
+    if tset is not None and not tset.covers(tables):
+        raise ValueError("nominate_tables: the TableSet is not that of "
+                         "these tables")
+    if out is not None:
+        for name, t, n in (("cand", out[0], D * k), ("kth", out[1], 3 * D)):
+            check_tensor(f"out {name}", t, (torch.int64,), 1, dev)
+            if t.shape[0] != n:
+                raise ValueError(f"nominate_tables: out {name} has "
+                                 f"{t.shape[0]} entries, expected {n}")
+    if dev.type == "cpu":
+        got = nominate_tables_ref(tables, k, sym_freq)
+        if out is None:
+            return got
+        for o, g in zip(out, got):
+            o.copy_(g)
+        return tuple(out)
+    if dev.type != "cuda":
+        raise ValueError(f"nominate_tables: no kernel for device {dev}")
+    _check_vector_keys(tables, "nominate_tables")
+    if out is None:
+        out = (torch.empty(D * k, dtype=torch.int64, device=dev),
+               torch.empty(3 * D, dtype=torch.int64, device=dev))
+    tset = tset or TableSet(tables, [0] * D)
+    from . import _cuda
+    with torch.cuda.device(dev):
+        _cuda.launch("swt_nominate", tset.desc.data_ptr(), D, k,
+                     None if sym_freq is None else sym_freq.data_ptr(),
+                     out[0].data_ptr(), out[1].data_ptr())
+    nominate_tables.launches += 1
+    return tuple(out)
+
+
+nominate_tables.launches = 0
+
+
 def nominate(table, k: int, sym_freq=None):
-    """(cand int64[k], kth int64[3]) of one shard: its ``k`` best live
-    entries by count, or with ``sym_freq`` (int64 over the symbol ids, the
-    mesh's sum) by exact score bits, EMPTY_KEY past the live ones; and
-    its K-th best (metric, count, key), metric -1 when it has fewer than
-    ``k`` live entries. Tensor operations and ``torch.topk``, with the
-    scorer's kernel in WordPiece mode."""
-    keys, counts, _ = table
-    live = keys != EMPTY_KEY
-    if sym_freq is None:
-        metric = torch.where(live, counts, -1)
-    else:
-        k0 = torch.where(live, keys, 0)
-        metric = torch.where(live, score_bits(counts, sym_freq[k0 >> 32],
-                                              sym_freq[k0 & LOW32]), -1)
-    if metric.shape[0] < k:  # the plain table holds only live entries
-        pad = k - metric.shape[0]
-        metric = torch.cat([metric, metric.new_full((pad,), -1)])
-        keys = torch.cat([keys, keys.new_full((pad,), EMPTY_KEY)])
-        counts = torch.cat([counts, counts.new_zeros(pad)])
-    topv, topi = torch.topk(metric, k)
-    # A BPE count of 0 nominates nothing; every live score is positive.
-    cand = torch.where(topv > 0 if sym_freq is None else topv >= 0,
-                       keys[topi], EMPTY_KEY)
-    last = topi[k - 1]
-    kth = torch.stack([topv[k - 1], counts[last], keys[last]])
-    return cand, kth
+    """(cand int64[k], kth int64[3]) of one shard's table:
+    :func:`nominate_tables` of the one table."""
+    return nominate_tables([table], k, sym_freq)
 
 
 def lookup_runs_ref(cand, table, base: int):
@@ -106,6 +179,16 @@ def lookup_runs_ref(cand, table, base: int):
     found = (k[j] == cand) & (cand != EMPTY_KEY)
     return (torch.where(found, c[j], 0),
             torch.where(found, p[j] + base, POS_MAX))
+
+
+def _check_vector_keys(tables, name: str) -> None:
+    """The tables a cluster kernel reads keys of as 16-byte vectors: each
+    keys 16-byte aligned, fewer than 2**31 entries."""
+    if any(t[0].data_ptr() % 16 for t in tables):
+        raise ValueError(f"{name}: the kernel reads keys as 16-byte "
+                         "vectors; a table's keys are not 16-byte aligned")
+    if any(t[0].shape[0] >= 2 ** 31 for t in tables):
+        raise ValueError(f"{name}: a table of 2**31 entries or more")
 
 
 def _check_tables(tables, bases, dev, name: str) -> None:
@@ -155,6 +238,17 @@ class TableSet:
     def holds(self, tables, bases) -> bool:
         """Whether this set was built for exactly these tables and bases."""
         return self.rows == self.rows_of(tables, bases)
+
+    def covers(self, tables) -> bool:
+        """Whether this set describes exactly these tables, whatever its
+        bases (the very tuples it keeps, or tensors at their addresses)."""
+        if len(tables) != self.D:
+            return False
+        if all(t is u for t, u in zip(tables, self.tables)):
+            return True
+        return all(self.rows[6 * i:6 * i + 4] == (
+            keys.data_ptr(), counts.data_ptr(), pos.data_ptr(),
+            keys.shape[0]) for i, (keys, counts, pos) in enumerate(tables))
 
     def next_epoch(self) -> int:
         """The epoch of the next compaction, 1 .. EPOCH_MAX in turn; on
@@ -295,11 +389,7 @@ def compact_tables(tables, bases, cap: int, out=None, tset=None):
         return tuple(out)
     if dev.type != "cuda":
         raise ValueError(f"compact_tables: no kernel for device {dev}")
-    if any(t[0].data_ptr() % 16 for t in tables):
-        raise ValueError("compact_tables: the kernel reads keys as 16-byte "
-                         "vectors; a table's keys are not 16-byte aligned")
-    if any(t[0].shape[0] >= 2 ** 31 for t in tables):
-        raise ValueError("compact_tables: a table of 2**31 entries or more")
+    _check_vector_keys(tables, "compact_tables")
     if out is None:
         out = (torch.empty(D * cap, dtype=torch.int64, device=dev),
                torch.empty(D * cap, dtype=torch.int64, device=dev),
@@ -383,7 +473,7 @@ def certificate(kth, cand, g_cnt, rec, sym_freq=None,
     """Write the top-K tier's ``proven`` flag into ``rec[5]``.
 
     ``kth`` int64[3 * D]: each shard's K-th best (metric, count, key)
-    (:func:`nominate`); ``cand``/``g_cnt`` int64[M]: the gathered
+    (:func:`nominate_tables`); ``cand``/``g_cnt`` int64[M]: the gathered
     candidates and their summed counts; ``rec`` int32[6]: K2's record of
     the winner over them (a, b, active). BPE (``sym_freq`` None): proven
     when the winner's count exceeds Σ max(metric_i, 0), or that sum is

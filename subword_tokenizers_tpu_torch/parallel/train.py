@@ -16,9 +16,10 @@ A step picks its merge through three exact tiers, as in the JAX package:
 
 1. **top-K** (:func:`sharded_select_topk`): every shard nominates its
    ``TOPK`` best entries by local count (BPE) or local exact score over
-   the global symbol weights (WordPiece); the K·D candidates are
-   gathered, one launch a device looks up every one in the tables of its
-   shards, summing the counts and taking the least positions, the mesh
+   the global symbol weights (WordPiece), one launch a device over the
+   tables of its shards; the K·D candidates are gathered, one launch a
+   device looks up every one in the tables of its shards, summing the
+   counts and taking the least positions, the mesh
    finishes that reduction across devices and processes, K2 picks
    the winner among them, and a Σ-threshold certificate proves that no
    pair outside the candidates can win (ops/shard_select.py). The flag
@@ -51,7 +52,7 @@ from ..ops.merge import apply_merge
 from ..ops.pairstats import (TablePair, clean_table, pair_rows,
                              pair_stats_runs)
 from ..ops.shard_select import (TableSet, certificate, compact_tables,
-                                lookup_reduce, nominate)
+                                lookup_reduce, nominate_tables)
 from ..ops.train_loop import PaddedState, select_host_ids
 from .mesh import DataMesh
 
@@ -80,7 +81,7 @@ class ShardBlock:
 
     On CUDA each shard has two tables, used on alternate steps: the launch
     that fills one set empties the other, whose readers (the tiers'
-    ``torch.topk``, lookup and compaction) ran before it in stream order.
+    nomination, lookup and compaction) ran before it in stream order.
     A step thus issues one K1 stream operation a device and no memset.
     ``sets`` are the two sets' TableSets, built once with the shards'
     position bases, and ``filled`` the one the last :meth:`pairs` filled
@@ -163,7 +164,7 @@ class ShardedCorpus:
             s for blk in self.blocks for s in blk.shards]
         self._full: Optional[PaddedState] = None
         self._runs_tables: Optional[TablePair] = None
-        self._run_buffers = {}
+        self._buffers = {}
 
     def pairs(self) -> list:
         """K1 over every shard, one launch a device: the shards' tables in
@@ -195,22 +196,36 @@ class ShardedCorpus:
             return pair_stats_runs(rk, rc, rp)
         return self._runs_tables.runs(rk, rc, rp)
 
-    def run_buffers(self, group: int, cap: int):
-        """The compaction's outputs for group ``group`` of the mesh at
-        ``cap`` runs a shard, allocated once and written every step (on
-        CUDA; None on the CPU, whose plain version allocates)."""
-        dev, start, stop = self.mesh.groups[group]
+    def _outputs(self, group: int, key, sizes):
+        """Output tensors of a grouped kernel for group ``group`` of the
+        mesh, one for each (entries, dtype) of ``sizes``, allocated once
+        under ``key`` and written every step (on CUDA; None on the CPU,
+        whose plain versions allocate)."""
+        dev = self.mesh.groups[group][0]
         if dev.type != "cuda":
             return None
-        out = self._run_buffers.get((group, cap))
+        out = self._buffers.get((group, key))
         if out is None:
-            n = (stop - start) * cap
-            out = self._run_buffers[(group, cap)] = (
-                torch.empty(n, dtype=torch.int64, device=dev),
-                torch.empty(n, dtype=torch.int64, device=dev),
-                torch.empty(n, dtype=torch.int32, device=dev),
-                torch.empty(1, dtype=torch.int32, device=dev))
+            out = self._buffers[(group, key)] = tuple(
+                torch.empty(n, dtype=dt, device=dev) for n, dt in sizes)
         return out
+
+    def nominate_buffers(self, group: int, k: int):
+        """The nomination's outputs (cand, kth) for group ``group`` of the
+        mesh at ``k`` a shard."""
+        _, start, stop = self.mesh.groups[group]
+        n = stop - start
+        return self._outputs(group, ("nominate", k),
+                             ((n * k, torch.int64), (3 * n, torch.int64)))
+
+    def run_buffers(self, group: int, cap: int):
+        """The compaction's outputs for group ``group`` of the mesh at
+        ``cap`` runs a shard."""
+        _, start, stop = self.mesh.groups[group]
+        n = (stop - start) * cap
+        return self._outputs(group, ("runs", cap),
+                             ((n, torch.int64), (n, torch.int64),
+                              (n, torch.int32), (1, torch.int32)))
 
     def host(self) -> np.ndarray:
         """Every shard's rows on the host, without the padding rows (the
@@ -247,9 +262,11 @@ def sharded_select_topk(corpus: ShardedCorpus, tables, rec,
     ``sharded_bpe_select_topk`` and ``sharded_wp_select_topk``."""
     mesh = corpus.mesh
     k = min(topk, corpus.n_local_pairs)
-    picks = [nominate(t, k, None if sym_freq is None
-                      else sym_freq.to(s.device))
-             for s, t in zip(corpus.shards, tables)]
+    picks = [nominate_tables(tables[a:b], k,
+                             None if sym_freq is None else sym_freq.to(dev),
+                             corpus.blocks[g].table_set(tables[a:b]),
+                             corpus.nominate_buffers(g, k))
+             for g, (dev, a, b) in enumerate(mesh.groups)]
     cand = mesh.gather([c for c, _ in picks])
     kth = mesh.gather([t for _, t in picks])
     looked = [lookup_reduce(cand.to(dev), tables[a:b], corpus.bases[a:b],

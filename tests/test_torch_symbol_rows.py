@@ -90,10 +90,11 @@ CASES = [dict(seed=1), dict(seed=2, n_sym=4), dict(seed=3, L=1),
 @pytest.mark.parametrize("case", CASES)
 def test_grouped_plain_equals_sum_over_shards(D, case):
     """The plain version over a block of D shards equals the sum of the
-    JAX package's per-shard symbol_freqs over every symbol id; PADs and
-    ids at or above sym_cap drop and the trash bucket stays 0 (JAX's
-    segment sum puts the weight of an id equal to sym_cap there, an id a
-    training run never reaches: ``sym_capacity`` leaves room)."""
+    JAX package's per-shard symbol_freqs in every entry, the trash
+    bucket ``sym_cap`` included: PADs and ids above sym_cap drop, and an
+    id equal to sym_cap adds its weight into the bucket, as JAX's segment
+    sum does (an id a training run never reaches: ``sym_capacity``
+    leaves room)."""
     sym, freq = rows_case(**case)
     sym, freq = sym[:sym.shape[0] // D * D], freq[:sym.shape[0] // D * D]
     for sym_cap in ((20, 40_000) if case.get("n_sym") == 41000
@@ -102,8 +103,7 @@ def test_grouped_plain_equals_sum_over_shards(D, case):
                           sym_cap)
         want = jax_sum_over_shards(sym, freq, sym_cap, D)
         assert got.dtype == torch.int64 and got.shape == (sym_cap + 1,)
-        assert np.array_equal(got.numpy()[:sym_cap], want[:sym_cap])
-        assert int(got[sym_cap]) == 0
+        assert np.array_equal(got.numpy(), want)
         assert np.array_equal(got.numpy(), symbol_freqs_ref(
             torch.from_numpy(sym).reshape(-1),
             torch.from_numpy(np.repeat(freq, sym.shape[1])),
@@ -114,15 +114,15 @@ def test_grouped_plain_equals_sum_over_shards(D, case):
 def test_sharded_sym_freq_equals_jax_psum(D):
     """``sharded_sym_freq`` on a CPU mesh of D (rows padded to a multiple
     of D with all-PAD, zero-weight rows) equals the JAX package's
-    ``_local_sym_freq`` under its psum, at sym_caps 40 and 40,000."""
+    ``_local_sym_freq`` under its psum, at sym_caps 40 and 40,000, in
+    every entry, the trash bucket included."""
     sym, freq = rows_case(7, n=203, L=11, n_sym=41000)
     corpus = ptrain.shard_corpus(make_data_mesh(D, devices=["cpu"] * D),
                                  sym, freq)
     for sym_cap in (40, 40_000):
         got = ptrain.sharded_sym_freq(corpus, sym_cap).numpy()
         want = jax_local_sym_freq(sym, freq, sym_cap, D)
-        assert np.array_equal(got[:sym_cap], want[:sym_cap])
-        assert got[sym_cap] == 0
+        assert np.array_equal(got, want)
 
 
 @pytest.fixture
