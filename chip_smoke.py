@@ -23,8 +23,12 @@ WordPiece vocab ``tests/golden/port_t85k_fastwp_vocab.json``:
 5. holds the three BPE training kernels (pair counts, selection with
    hash unification, merge with compaction) against their plain
    versions, exactly, on seeded random flat states, on the corpus's
-   initial state (187,885 slots) and on its state after 1,000 merges;
-   times both at the initial state;
+   initial state (187,885 slots) and on its state after 1,000 merges
+   (shrunk to half the width), K1 into a TablePair (the training
+   loop's own after the merges), K2 over the claims of that fill, over
+   every entry and over the claims of a copy whose unclaimed entries
+   hold poison, K3 with a MergeScratch kept across calls; times each at
+   the initial state beside its bound;
 6. trains ``NaiveBPE(device="cuda")`` on the whole corpus to an
    8,000-symbol vocab: every merge must equal the JAX package's
    (``tests/golden/port_t85k_v8000_bpe_merges.json``, whose first 500
@@ -36,10 +40,12 @@ WordPiece vocab ``tests/golden/port_t85k_fastwp_vocab.json``:
 7. holds the WordPiece training kernels against their plain versions,
    exactly: the exact scorer on about 10^6 seeded cases up to d = 2^104,
    symbol weights (K4), selection by score with "##"-stripping
-   unification (K2's WordPiece mode) and the merge carrying the weights
-   (K3), on the corpus's initial WordPiece state, after 1,000 merges,
-   with weights scaled into the wide score domain, and on a near tie of
-   relative gap 2^-51; times each at the initial state;
+   unification (K2's WordPiece mode, exact and tournament, over the
+   claims, every entry and a poisoned copy's claims) and the merge
+   carrying the weights (K3), on the corpus's initial WordPiece state,
+   after 1,000 merges, on the BPE state at half the width, with weights
+   scaled into the wide score domain, and on a near tie of relative gap
+   2^-51; times each at the initial state beside its bound;
 8. trains ``NaiveWP(device="cuda")`` on the whole corpus to an
    8,000-token vocab: every merge and the vocab must equal the JAX
    package's (``tests/golden/port_t85k_v8000_wp_vocab.json``), the
@@ -122,8 +128,10 @@ WordPiece vocab ``tests/golden/port_t85k_fastwp_vocab.json``:
    consecutive flat-route steps across a shrink, five in skip mode and
    three padded, each table emptied whole, timed at the initial state
    beside its bound as the function needs and with a full clear;
-   WordPiece's scorer alone at a shard's table; and a traced 256-step block of
-   the flat and of the padded route with no memset;
+   WordPiece's scorer alone at a shard's table; and a traced 256-step
+   block of the flat route (BPE and WordPiece: 3 kernels a step, no
+   memset, no allocation inside the block) and of the padded route (no
+   memset);
 14. trains ``NaiveBPE`` and ``NaiveWP(mesh=make_data_mesh(8,
    devices=["cuda:0"] * 8))`` on the whole corpus to 8,000, each equal to
    its golden, with the tiers that settled each step and the shard
@@ -682,7 +690,8 @@ def phase11(dev, rng, flat_bpe, table, flat_wp, table_wp, sym_pad, max_len,
     # the train-85k WordPiece tables: initial, and after 1,000 merges
     fs_w, wid_w, wgt_w = (torch.from_numpy(x).to(dev) for x in flat_wp)
     sf_w = symbol_freqs(fs_w, wgt_w, 8008)
-    tab_w = pair_stats(fs_w, wid_w, wgt_w)
+    pair_w = TablePair(fs_w.shape[0], dev)  # K2 times over its claims
+    tab_w = pair_w.pairs(fs_w, wid_w, wgt_w)
     notes["redos"]["85k initial"], _ = check_tournament(tab_w, sf_w)
     st_w = train_loop.FlatState(*flat_wp, dev)
     tw = type(table_wp)(table_wp.strings())
@@ -741,24 +750,29 @@ def phase11(dev, rng, flat_bpe, table, flat_wp, table_wp, sym_pad, max_len,
         table_wp, 8000, max_len, dev)
     rec_w = torch.zeros(6, dtype=torch.int32, device=dev)
     tab_ref = pair_stats_ref(fs_w, wid_w, wgt_w)
+    n_pairs_w = int(tab_ref[0].shape[0])
+    k2_scratch = train_loop.select_scratch(dev)
     timing["select_unify_tournament"] = (
         cuda_ms(lambda: select_unify(*tab_w, h1, h2, sl, ctrl, pw1, pw2,
                                      8000, rec_w, False, True, sf_w, sharp,
-                                     True, redo), 200, True),
+                                     True, redo, claims=pair_w.claims(),
+                                     scratch=k2_scratch), 200, True),
         cuda_ms(lambda: select_unify_ref(*tab_ref, h1, h2, sl, ctrl, pw1,
                                          pw2, 8000, rec_w, False, True,
                                          sf_w, sharp, True, redo), 5))
     timing["select_unify_exact_wp"] = (
         cuda_ms(lambda: select_unify(*tab_w, h1, h2, sl, ctrl, pw1, pw2,
-                                     8000, rec_w, False, True, sf_w, sharp),
-                200, True), None)
+                                     8000, rec_w, False, True, sf_w, sharp,
+                                     claims=pair_w.claims(),
+                                     scratch=k2_scratch), 200, True), None)
     n_rows, L = sym85.shape
     # Bytes: each input read once and each output written once (the
     # in-place kernels count the slots they change, low: none); the pair
-    # table as K1's. Operations, counted low: a window probe and a hash
-    # insert per live slot (10), a liveness test per slot (2), a match
-    # test per slot (6), a move per row slot (2), a 128-bit compare per
-    # table entry (12).
+    # table as K1's; K2's tournament reads each live entry through the
+    # claim list with its two weights (40) and the h1 of each id below
+    # n_sym. Operations, counted low: a window probe and a hash insert per
+    # live slot (10), a liveness test per slot (2), a match test per slot
+    # (6), a move per row slot (2), a 128-bit compare per live entry (12).
     bounds["pair_stats_skip"] = bound(nbytes(fs, wid, wgt, *tab),
                                       10 * n_live)
     bounds["skip_guard"] = bound(nbytes(fs), 2 * F)
@@ -766,7 +780,8 @@ def phase11(dev, rng, flat_bpe, table, flat_wp, table_wp, sym_pad, max_len,
     bounds["merge_skip"] = bound(nbytes(fs, wid, wgt, rec), 6 * F)
     bounds["merge_rows"] = bound(nbytes(sym85, rec_p), 2 * n_rows * L)
     bounds["select_unify_tournament"] = bound(
-        nbytes(*tab_w, ctrl, rec_w, sf_w), 12 * tab_w[0].shape[0])
+        40 * n_pairs_w + 8 * int(ctrl[0]) + nbytes(ctrl, rec_w),
+        12 * n_pairs_w)
     notes.update(fired_1000=fired, dead_1000=n_dead, F=F, n_live=n_live,
                  rows=(n_rows, L))
     torch.cuda.synchronize()
@@ -1803,9 +1818,115 @@ def phase13b(dev, rng, arrays, table, golden, smi, reps=200):
     return errs, timing, bounds, library, notes
 
 
+def poisoned_copy(table, key: int):
+    """A copy of a filled PairTable, its claim list and counters included,
+    whose every unclaimed entry holds poison: ``key`` with a count of 2^62
+    at position 0, which wins any selection that reads it (the caller
+    picks a pair of its rarest symbol for WordPiece). K2 in claims mode
+    over the copy must give what it gives over the table."""
+    import torch
+    from subword_tokenizers_tpu_torch.ops.pairstats import PairTable
+    cp = PairTable(table.size // 2 + 1, table.keys.device)
+    assert cp.size == table.size
+    for dst, src in zip((cp.keys, cp.counts, cp.pos, cp.claims, cp.n),
+                        (table.keys, table.counts, table.pos, table.claims,
+                         table.n)):
+        dst.copy_(src)
+    cp.fills, cp.dirty = table.fills, True
+    claimed = torch.zeros(cp.size, dtype=torch.bool, device=cp.keys.device)
+    claimed[table.claimed()] = True
+    cp.keys[~claimed] = key
+    cp.counts[~claimed] = 1 << 62
+    cp.pos[~claimed] = 0
+    return cp
+
+
 def memsets(by_name) -> int:
     """Memset spans in a trace read by :func:`device_trace`."""
     return sum(c for n, (c, _) in by_name.items() if "memset" in n.lower())
+
+
+def trace_blocks(dev, flat_bpe, table, arrays_wp, table_wp, max_len,
+                 trace_dir, steps=256):
+    """A traced block of ``steps`` steps of the flat route (BPE and
+    WordPiece) and of the padded route (WordPiece), the states made before
+    the trace (the flat state's K1 tables by a first count): per route the
+    kernel launches a step inside the block (the wrappers' counts), the
+    kernels the trace shows once a step (those it holds at least
+    ``steps`` / 2 times: a trace may lose a few events at its start, the
+    rest is the run's set-up), the memsets and the allocations inside the
+    block. Raises on a memset, and unless a flat block makes 3 launches a
+    step of 3 kernels and no allocation. Returns {route: numbers}."""
+    import contextlib
+
+    import torch
+    from subword_tokenizers_tpu_torch.benchmarks import profiling
+    from subword_tokenizers_tpu_torch.ops import flat as flat_ops
+    from subword_tokenizers_tpu_torch.ops import merge, pairstats, train_loop
+    from subword_tokenizers_tpu_torch.ops.flat import build_flat
+    wrappers = (pairstats.pair_stats, pairstats.pair_stats_runs,
+                pairstats.symbol_freqs, pairstats.symbol_rows,
+                train_loop.select_unify, flat_ops.merge_apply,
+                flat_ops.merge_skip, flat_ops.skip_guard, merge.apply_merge)
+
+    def block(flat, wordpiece):
+        arr, tab = (flat_bpe, table) if not wordpiece else (
+            build_flat(arrays_wp.sym, arrays_wp.freq), table_wp)
+        st = train_loop.FlatState(*(x.copy() for x in arr), dev)
+        if flat:
+            st.pairs()
+        t = type(tab)(tab.strings())
+        return lambda: train_loop.run_fused(
+            st, t, len(t) + steps, max_len, lambda *m: None,
+            wordpiece=wordpiece, flat=flat)
+
+    inside = []  # (allocations, launches) of each device block
+    real_phase = profiling.phase
+
+    @contextlib.contextmanager
+    def counted_phase(name, device=None):
+        allocated = torch.cuda.memory_stats(dev)["allocation.all.allocated"]
+        launched = sum(w.launches for w in wrappers)
+        with real_phase(name, device):
+            yield
+        if name == "train.device_block":
+            inside.append((torch.cuda.memory_stats(dev)[
+                "allocation.all.allocated"] - allocated,
+                sum(w.launches for w in wrappers) - launched))
+
+    traced = {}
+    for name, flat, wordpiece in (("flat_bpe", True, False),
+                                  ("flat_wp", True, True),
+                                  ("padded_wp", False, True)):
+        block(flat, wordpiece)()  # warm: the kernels loaded
+        fn = block(flat, wordpiece)
+        inside.clear()
+        profiling.phase = counted_phase
+        try:
+            wall, busy, by_name = device_trace(
+                fn, os.path.join(trace_dir, f"block_{name}.json"))
+        finally:
+            profiling.phase = real_phase
+        step_kernels = {n: c for n, (c, _) in by_name.items()
+                        if "memcpy" not in n.lower()
+                        and "memset" not in n.lower() and c >= steps // 2}
+        allocations = sum(a for a, _ in inside)
+        per_step = sum(n for _, n in inside) / steps
+        traced[name] = dict(
+            launches_a_step=per_step, allocations=allocations,
+            memsets=memsets(by_name) if by_name else None,
+            traced_step_kernels=step_kernels if by_name else None,
+            wall_ms=wall, busy_ms=busy)
+        if by_name and traced[name]["memsets"]:
+            raise AssertionError(f"the {name} block made "
+                                 f"{traced[name]['memsets']} memsets: "
+                                 f"{by_name}")
+        if flat and (allocations or len(inside) != 1 or per_step != 3 or (
+                by_name and len(step_kernels) != 3)):
+            raise AssertionError(f"the {name} block: {per_step} launches a "
+                                 f"step, {allocations} allocations, traced "
+                                 f"{by_name}")
+    return traced
 
 
 def phase13c(dev, rng, flat_bpe, table, arrays, arrays_wp, table_wp,
@@ -1826,9 +1947,10 @@ def phase13c(dev, rng, flat_bpe, table, arrays, arrays_wp, table_wp,
     shapes beside its 8 per-shard launches and ``index_add_``; K1 at the
     corpus's initial state, its bound as the function needs and with a
     full clear; WordPiece's scorer with its gathers at a shard's table.
-    Then a traced 256-step block of the flat route (BPE) and of the
-    padded route (WordPiece), each with no memset. Returns (errs, timing,
-    bounds, library, notes)."""
+    Then :func:`trace_blocks`: a traced 256-step block of the flat route
+    (BPE and WordPiece), each with no memset, 3 kernels a step and no
+    allocation inside the block, and of the padded route (WordPiece),
+    with no memset. Returns (errs, timing, bounds, library, notes)."""
     import numpy as np
     import torch
     from subword_tokenizers_tpu_torch.ops import train_loop
@@ -2064,31 +2186,8 @@ def phase13c(dev, rng, flat_bpe, table, arrays, arrays_wp, table_wp,
     notes.update(shard_entries=T_shard, shard_live=int(mask.sum()))
     torch.cuda.synchronize()
 
-    # a traced 256-step block of the flat route (BPE) and of the padded
-    # route (WordPiece), the states made before the trace: no memset
-    def block(flat, wordpiece):
-        arr, tab = (flat_bpe, table) if not wordpiece else (
-            build_flat(arrays_wp.sym, arrays_wp.freq), table_wp)
-        st = train_loop.FlatState(*(x.copy() for x in arr), dev)
-        t = type(tab)(tab.strings())
-        return lambda: train_loop.run_fused(
-            st, t, len(t) + 256, max_len, lambda *m: None,
-            wordpiece=wordpiece, flat=flat)
-
-    traced = {}
-    for name, flat, wordpiece in (("flat_bpe", True, False),
-                                  ("padded_wp", False, True)):
-        block(flat, wordpiece)()  # warm: the kernels loaded
-        fn = block(flat, wordpiece)
-        wall, busy, by_name = device_trace(
-            fn, os.path.join(trace_dir, f"block_{name}.json"))
-        traced[name] = (memsets(by_name), wall, busy, bool(by_name))
-        if by_name and traced[name][0]:
-            raise AssertionError(f"the {name} block made {traced[name][0]} "
-                                 f"memsets: {by_name}")
-    notes["traced"] = {k: {"memsets": v[0] if v[3] else None,
-                           "wall_ms": v[1], "busy_ms": v[2]}
-                       for k, v in traced.items()}
+    notes["traced"] = trace_blocks(dev, flat_bpe, table, arrays_wp,
+                                   table_wp, max_len, trace_dir)
 
     def line(k, extra=""):
         parts = ([f"plain {timing[k][1]:.3f}"] if timing[k][1] is not None
@@ -2098,10 +2197,13 @@ def phase13c(dev, rng, flat_bpe, table, arrays, arrays_wp, table_wp,
             f" ({', '.join(parts)})" if parts else "")
 
     trace_line = "; ".join(
-        f"{k}: " + (f"{v['memsets']} memsets, device busy "
-                    f"{v['busy_ms']:.3f} of {v['wall_ms']:.1f} ms"
-                    if v["memsets"] is not None else "not measured (the "
-                    "trace holds no device events)")
+        f"{k}: {v['launches_a_step']:.3f} launches a step, "
+        f"{v['allocations']} allocations in the block's 256 steps, "
+        + (f"{v['memsets']} memsets, the trace's kernels once a step "
+           f"{sorted(v['traced_step_kernels'].values())}, device busy "
+           f"{v['busy_ms']:.3f} of {v['wall_ms']:.1f} ms"
+           if v["memsets"] is not None else "memsets and kernels not "
+           "measured (the trace holds no device events)")
         for k, v in notes["traced"].items())
     print(f"phase 13c: K4 (symbol_rows, one launch a device; symbol_freqs "
           f"flat) equals its plain version exactly on {notes['k4_cases']} "
@@ -2953,7 +3055,8 @@ def main() -> int:
     from subword_tokenizers_tpu_torch.frontend.pretokenize import \
         pretokenize_batch
     from subword_tokenizers_tpu_torch.ops import train_loop
-    from subword_tokenizers_tpu_torch.ops.flat import (build_flat,
+    from subword_tokenizers_tpu_torch.ops.flat import (MergeScratch,
+                                                       build_flat,
                                                        merge_apply,
                                                        merge_apply_ref)
     from subword_tokenizers_tpu_torch.ops.pairstats import (TablePair,
@@ -2961,9 +3064,14 @@ def main() -> int:
                                                             pair_stats,
                                                             pair_stats_ref)
     from subword_tokenizers_tpu_torch.ops.train_loop import (
-        init_tables, select_unify, select_unify_ref, str_hashes)
+        init_tables, select_scratch, select_unify, select_unify_ref,
+        str_hashes)
     bpe_kernels = ("pair_stats", "select_unify", "merge_apply")
     errs.update({k: 0 for k in bpe_kernels})
+    # K2's checks: claims mode and dense mode on each state, and claims
+    # mode on a copy whose unclaimed entries hold poison
+    k2_checks = {"claims": 0, "dense": 0, "poisoned": 0, "poison_read": 0}
+    k2_scratch = select_scratch(dev)
 
     def err_all(got, want):
         return max(max_err(g, w) for g, w in zip(got, want))
@@ -2978,10 +3086,68 @@ def main() -> int:
         pw = train_loop.pow_tables(max_len + 4)
         return [torch.from_numpy(x).to(dev) for x in (*h, *pw)]
 
-    def check_bpe(fs, wid, wgt, strings, max_vocab, max_len):
-        """K1, K2 (both modes) and K3 (the winner, a self-merge, an
-        inactive step) against their plain versions on one state."""
-        tab = pair_stats(fs, wid, wgt)
+    def check_k2(tab, claims, st, pw1, pw2, max_vocab, *args):
+        """K2 over the claims of the table the loop's TablePair filled,
+        over every entry, and over the claims of a copy whose unclaimed
+        entries hold poison, each against the plain version on ``tab``;
+        returns the worst difference and the kernel's record."""
+        st_r = [x.clone() for x in st]
+        rec_r = torch.zeros(6, dtype=torch.int32, device=dev)
+        select_unify_ref(*tab, *st_r, pw1, pw2, max_vocab, rec_r, *args)
+        T = tab[0].shape[0]
+        r = 1  # the poison's pair (r, r): for WordPiece the rarest symbol
+        if len(args) > 2:
+            sf = args[2]
+            r = int(torch.where(sf > 0, sf, sf.max() + 1)[:-1].argmin())
+        poison = poisoned_copy(claims, (r << 32) | r)
+        worst, rec0 = 0, None
+        for mode, c, t in (("claims", claims, tab), ("dense", None, tab),
+                           ("poisoned", poison, poison.view(T)),
+                           ("poison_read", None, poison.view(T))):
+            got = [x.clone() for x in st]
+            rec = torch.zeros(6, dtype=torch.int32, device=dev)
+            select_unify(*t, *got, pw1, pw2, max_vocab, rec, *args,
+                         claims=c, scratch=k2_scratch)
+            if mode == "poison_read":  # the poison wins when it is read
+                if rec.tolist()[:2] != [r, r]:
+                    worst = max(worst, 1)
+            else:
+                worst = max(worst, err_all([*got, rec], [*st_r, rec_r]))
+            k2_checks[mode] += 1
+            rec0 = rec if rec0 is None else rec0
+        return worst, rec0
+
+    def check_k3(fs, wid, wgt, rows, sf=None):
+        """K3 with a MergeScratch and a second buffer kept across the
+        calls (each row merged twice) against its plain version; the
+        worst difference, the carried weights included."""
+        sc = MergeScratch(fs.shape[0], dev)
+        out = tuple(torch.empty_like(x) for x in (fs, wid, wgt))
+        worst = 0
+        for row in rows:
+            for _ in range(2):
+                rec = torch.tensor(row, dtype=torch.int32, device=dev)
+                rec_r = rec.clone()
+                s_k = None if sf is None else sf.clone()
+                s_r = None if sf is None else sf.clone()
+                got = merge_apply(fs, wid, wgt, rec, out=out, sym_freq=s_k,
+                                  scratch=sc)
+                want = merge_apply_ref(fs, wid, wgt, rec_r, sym_freq=s_r)
+                worst = max(worst, err_all([*got, rec], [*want, rec_r]))
+                if sf is not None:
+                    worst = max(worst, max_err(s_k, s_r),
+                                max_err(s_k, symbol_freqs_ref(
+                                    got[0], got[2], sf.shape[0] - 1)))
+        return worst
+
+    def check_bpe(fs, wid, wgt, strings, max_vocab, max_len, pair=None):
+        """K1 into a TablePair (``pair``: the training loop's own), K2
+        (both modes, each over the table's claims, over every entry and
+        over a poisoned copy's claims) and K3 (the winner, a self-merge,
+        an inactive step) against their plain versions on one state."""
+        if pair is None:
+            pair = TablePair(fs.shape[0], dev)
+        tab = pair.pairs(fs, wid, wgt)
         errs["pair_stats"] = max(errs["pair_stats"], err_all(
             canonical(*tab), pair_stats_ref(fs, wid, wgt)))
         n = len(strings)
@@ -2990,25 +3156,15 @@ def main() -> int:
         for host_ids in (False, True):
             st = [h1.clone(), h2.clone(), sl.clone(),
                   torch.tensor([n, n, 1], dtype=torch.int32, device=dev)]
-            st_r = [x.clone() for x in st]
-            rec = torch.zeros(6, dtype=torch.int32, device=dev)
-            rec_r = rec.clone()
-            select_unify(*tab, *st, pw1, pw2, max_vocab, rec, host_ids)
-            select_unify_ref(*tab, *st_r, pw1, pw2, max_vocab, rec_r,
-                             host_ids)
-            errs["select_unify"] = max(errs["select_unify"],
-                                       err_all([*st, rec], [*st_r, rec_r]))
+            e, rec = check_k2(tab, pair.claims(), st, pw1, pw2, max_vocab,
+                              host_ids)
+            errs["select_unify"] = max(errs["select_unify"], e)
             recs.append(rec)
         a, b = recs[0].tolist()[:2]
         self_pair = int(fs[(fs >= 0)].mode().values)
-        for row in (recs[0].tolist(), [self_pair, self_pair, n, 0, 1, 0],
-                    [a, b, n, 0, 0, 0]):
-            rec = torch.tensor(row, dtype=torch.int32, device=dev)
-            rec_r = rec.clone()
-            got = merge_apply(fs, wid, wgt, rec)
-            want = merge_apply_ref(fs, wid, wgt, rec_r)
-            errs["merge_apply"] = max(errs["merge_apply"],
-                                      err_all([*got, rec], [*want, rec_r]))
+        errs["merge_apply"] = max(errs["merge_apply"], check_k3(
+            fs, wid, wgt, (recs[0].tolist(), [self_pair, self_pair, n, 0, 1,
+                                              0], [a, b, n, 0, 0, 0])))
         return recs[0]
 
     n_bpe_cases = 0
@@ -3036,14 +3192,20 @@ def main() -> int:
     n_slots = int((flat0[0] >= 0).sum())
     fs, wid, wgt = (torch.from_numpy(x).to(dev) for x in flat0)
     check_bpe(fs, wid, wgt, table.strings(), 8000, max_len)
-    # the state after 1,000 merges, from the kernel path
+    # the state after 1,000 merges, from the kernel path, counted into the
+    # loop's own tables: its width halved after the second block
     state = train_loop.FlatState(*flat0, dev)
     t1000 = SymbolTable(table.strings())
     train_loop.run_fused(state, t1000, len(table) + 1000, max_len,
                          lambda *m: None)
     assert len(t1000) == len(table) + 1000, len(t1000)
-    check_bpe(*state.arrays(), t1000.strings(), 8000, max_len)
+    if state.F != F0 // 2:
+        raise AssertionError(f"the BPE state did not shrink once by 1,000 "
+                             f"merges: F = {state.F}")
+    check_bpe(*state.arrays(), t1000.strings(), 8000, max_len,
+              state._tables)
     n_bpe_cases += 2
+    bpe_shrunk = state, t1000
     if any(errs[k] for k in bpe_kernels):
         raise AssertionError(f"a BPE kernel differs: {errs}")
 
@@ -3052,40 +3214,64 @@ def main() -> int:
     k1 = TablePair(F0, dev)
     h1, h2, sl, ctrl, pw1, pw2, _ = init_tables(table, 8000, max_len, dev)
     rec = torch.zeros(6, dtype=torch.int32, device=dev)
-    tab = pair_stats(fs, wid, wgt)
+    k2_pair = TablePair(F0, dev)  # K2 reads the claims of its fill
+    tab = k2_pair.pairs(fs, wid, wgt)
+    claims0 = k2_pair.claims()
     tab_ref = pair_stats_ref(fs, wid, wgt)
     select_unify(*tab, h1, h2, sl, ctrl, pw1, pw2, 8000, rec)
     out = tuple(torch.empty_like(x) for x in (fs, wid, wgt))
+    k3_scratch = MergeScratch(F0, dev)
     timing["pair_stats"] = (
         cuda_ms(lambda: k1.pairs(fs, wid, wgt), 200, True),
         cuda_ms(lambda: pair_stats_ref(fs, wid, wgt), 10))
     timing["select_unify"] = (
         cuda_ms(lambda: select_unify(*tab, h1, h2, sl, ctrl, pw1, pw2,
-                                     8000, rec), 200, True),
+                                     8000, rec, claims=claims0,
+                                     scratch=k2_scratch), 200, True),
         cuda_ms(lambda: select_unify_ref(*tab_ref, h1, h2, sl, ctrl, pw1,
                                          pw2, 8000, rec), 10))
+    timing["select_unify_dense"] = (
+        cuda_ms(lambda: select_unify(*tab, h1, h2, sl, ctrl, pw1, pw2,
+                                     8000, rec, scratch=k2_scratch), 200,
+                True), None)
     timing["merge_apply"] = (
-        cuda_ms(lambda: merge_apply(fs, wid, wgt, rec, out=out), 200, True),
+        cuda_ms(lambda: merge_apply(fs, wid, wgt, rec, out=out,
+                                    scratch=k3_scratch), 200, True),
         cuda_ms(lambda: merge_apply_ref(fs, wid, wgt, rec), 10))
+    n_pairs0 = int(tab_ref[0].shape[0])
+    n_sym0 = int(ctrl[0])
     # Operations, counted low: a hash insert per live slot (10), a compare
-    # per table entry (4), a merge test and a scan step per slot (6).
+    # per entry read (4), a merge test and a move per slot (6).
     # K1's bytes: the slots, 20 for each distinct pair's entry written and
     # for each entry the call before filled (the same pairs), emptied.
-    # K2's bytes: the pair table, the control words and the record (of
-    # the symbol hash and power tables it reads the winner's few entries).
+    # K2's bytes, as the function needs them: each live entry through the
+    # claim list (a claim, a key, a count, a position: 24), the 8-byte h1
+    # of each id below n_sym for the unify, the control words and the
+    # record (of the other hash and power tables it reads a few entries);
+    # select_unify_dense: every entry of the table instead of the live
+    # ones (the earlier design's read). K3's: every slot read and written.
     bounds["pair_stats"] = bound(nbytes(fs, wid, wgt)
-                                 + 40 * tab_ref[0].shape[0], 10 * n_slots)
-    bounds["select_unify"] = bound(nbytes(*tab, ctrl, rec),
-                                   4 * tab[0].shape[0])
+                                 + 40 * n_pairs0, 10 * n_slots)
+    bounds["select_unify"] = bound(24 * n_pairs0 + 8 * n_sym0
+                                   + nbytes(ctrl, rec), 4 * n_pairs0)
+    bounds["select_unify_dense"] = bound(nbytes(*tab, ctrl, rec)
+                                         + 8 * n_sym0, 4 * tab[0].shape[0])
     bounds["merge_apply"] = bound(2 * nbytes(fs, wid, wgt) + nbytes(rec),
                                   6 * F0)
     torch.cuda.synchronize()
     print(f"phase 5: BPE kernels equal their plain versions exactly on "
           f"{n_bpe_cases} states (6 random x 2 symbol tables, the 85k "
-          f"initial state, after 1,000 merges); at {n_slots} slots "
-          f"(F = {F0}): " + ", ".join(
-              f"{k} {timing[k][0]:.3f} ms (plain {timing[k][1]:.3f} ms)"
-              for k in bpe_kernels) + f"; {smi}")
+          f"initial state, after 1,000 merges at F = {state.F}); K2 over "
+          f"the claims of the loop's tables {k2_checks['claims']} times, "
+          f"over every entry {k2_checks['dense']}, over a copy whose "
+          f"unclaimed entries hold poison {k2_checks['poisoned']}; at "
+          f"{n_slots} slots (F = {F0}, {n_pairs0} pairs of T = "
+          f"{tab[0].shape[0]}): " + ", ".join(
+              f"{k} {timing[k][0]:.4f} ms (plain {timing[k][1]:.3f} ms, "
+              f"bound {bounds[k][0]:.5f})" for k in bpe_kernels)
+          + f", select_unify over every entry "
+          f"{timing['select_unify_dense'][0]:.4f} ms (bound "
+          f"{bounds['select_unify_dense'][0]:.5f}); {smi}")
 
     # ---- phase 6: the BPE training path, the whole corpus to 8,000
     golden_dir = os.path.join(ROOT, "tests", "golden")
@@ -3231,11 +3417,14 @@ def main() -> int:
                                score_bits_ref(c_d, fa_d, fb_d))
     n_score = int(cs.shape[0])
 
-    def check_wp(fs, wid, wgt, strings, max_len, sf=None):
-        """K4, K1 + K2's WordPiece mode (both modes) and K3 with the
-        weights (the winner, a self-merge, an inactive step) against
-        their plain versions on one state. ``sf``: the weights the run
-        carried, which must equal K4's recount."""
+    def check_wp(fs, wid, wgt, strings, max_len, sf=None, pair=None,
+                 narrow=True):
+        """K4, K1 into a TablePair (``pair``: the training loop's own) +
+        K2's WordPiece mode (both modes, each over the claims, every entry
+        and a poisoned copy's claims; with ``narrow`` scores also the
+        tournament) and K3 with the weights (the winner, a self-merge, an
+        inactive step) against their plain versions on one state. ``sf``:
+        the weights the run carried, which must equal K4's recount."""
         cap = 8008 if sf is None else sf.shape[0] - 1
         sf_k4 = symbol_freqs(fs, wgt, cap)
         errs["symbol_freqs"] = max(errs["symbol_freqs"], max_err(
@@ -3243,37 +3432,28 @@ def main() -> int:
         if sf is not None:
             errs["merge_apply_wp"] = max(errs["merge_apply_wp"],
                                          max_err(sf, sf_k4))
-        tab = pair_stats(fs, wid, wgt)
+        if pair is None:
+            pair = TablePair(fs.shape[0], dev)
+        tab = pair.pairs(fs, wid, wgt)
         n = len(strings)
         h1, h2, sl, pw1, pw2 = hash_tables(strings, cap, max_len)
         sharp = str_hashes("##")
         recs = []
+        redo = torch.zeros(1, dtype=torch.int32, device=dev)
         for host_ids in (False, True):
-            st = [h1.clone(), h2.clone(), sl.clone(),
-                  torch.tensor([n, n, 1], dtype=torch.int32, device=dev)]
-            st_r = [x.clone() for x in st]
-            rec = torch.zeros(6, dtype=torch.int32, device=dev)
-            rec_r = rec.clone()
-            select_unify(*tab, *st, pw1, pw2, 8000, rec, host_ids, True,
-                         sf_k4, sharp)
-            select_unify_ref(*tab, *st_r, pw1, pw2, 8000, rec_r, host_ids,
-                             True, sf_k4, sharp)
-            errs["select_unify_wp"] = max(errs["select_unify_wp"], err_all(
-                [*st, rec], [*st_r, rec_r]))
-            recs.append(rec)
+            for tour in (False, True) if narrow else (False,):
+                st = [h1.clone(), h2.clone(), sl.clone(),
+                      torch.tensor([n, n, 1], dtype=torch.int32, device=dev)]
+                e, rec = check_k2(tab, pair.claims(), st, pw1, pw2, 8000,
+                                  host_ids, True, sf_k4, sharp, tour, redo)
+                errs["select_unify_wp"] = max(errs["select_unify_wp"], e)
+                recs.append(rec)
         a, b = recs[0].tolist()[:2]
         self_pair = int(fs[(fs >= 0)].mode().values)
-        for row in (recs[0].tolist(), [self_pair, self_pair, n, 0, 1, 0],
-                    [a, b, n, 0, 0, 0]):
-            rec = torch.tensor(row, dtype=torch.int32, device=dev)
-            rec_r = rec.clone()
-            s_k, s_r = sf_k4.clone(), sf_k4.clone()
-            got = merge_apply(fs, wid, wgt, rec, sym_freq=s_k)
-            want = merge_apply_ref(fs, wid, wgt, rec_r, sym_freq=s_r)
-            errs["merge_apply_wp"] = max(
-                errs["merge_apply_wp"],
-                err_all([*got, rec, s_k], [*want, rec_r, s_r]),
-                max_err(s_k, symbol_freqs_ref(got[0], got[2], cap)))
+        errs["merge_apply_wp"] = max(errs["merge_apply_wp"], check_k3(
+            fs, wid, wgt, (recs[0].tolist(), [self_pair, self_pair, n, 0, 1,
+                                              0], [a, b, n, 0, 0, 0]),
+            sf_k4))
         return recs[0]
 
     table_wp = SymbolTable()
@@ -3285,7 +3465,8 @@ def main() -> int:
     # weights scaled into the wide score domain (6,006,645 occurrences
     # times 2^28 + 9871 is about 2^50.5; fa * fb passes 2^53)
     wide_scale = (1 << 28) + 9871
-    check_wp(fs, wid, wgt * wide_scale, table_wp.strings(), max_len)
+    check_wp(fs, wid, wgt * wide_scale, table_wp.strings(), max_len,
+             narrow=False)
     sf_wide = symbol_freqs(fs, wgt * wide_scale, 8008)
     assert int(sf_wide.max()) ** 2 >= 1 << 53
     # the state after 1,000 merges, from the kernel path, with the
@@ -3295,8 +3476,14 @@ def main() -> int:
     train_loop.run_fused(state, t1000, len(table_wp) + 1000, max_len,
                          lambda *m: None, wordpiece=True)
     assert len(t1000) == len(table_wp) + 1000, len(t1000)
-    check_wp(*state.arrays(), t1000.strings(), max_len, state.sym_freq)
-    n_wp_cases = 3
+    check_wp(*state.arrays(), t1000.strings(), max_len, state.sym_freq,
+             state._tables)
+    F_wp1000 = state.F
+    # K2's WordPiece mode and K3 with weights at the shrunk width: the BPE
+    # state after 1,000 merges (F = F0 / 2), its tables the loop's
+    check_wp(*bpe_shrunk[0].arrays(), bpe_shrunk[1].strings(), max_len,
+             pair=bpe_shrunk[0]._tables)
+    n_wp_cases = 4
     # a near tie: c1/(A q) and c2/(A p) with c1 p - c2 q = 1, a relative
     # gap of about 2^-51; the larger double wins, and on a tie the first
     # position
@@ -3331,7 +3518,9 @@ def main() -> int:
     # times at the initial state
     cap = 8008
     sf0 = symbol_freqs(fs, wgt, cap)
-    tab = pair_stats(fs, wid, wgt)
+    k2_pair = TablePair(F0, dev)
+    tab = k2_pair.pairs(fs, wid, wgt)
+    claims0 = k2_pair.claims()
     tab_ref = pair_stats_ref(fs, wid, wgt)
     h1, h2, sl, ctrl, pw1, pw2, sharp = init_tables(table_wp, 8000, max_len,
                                                     dev)
@@ -3339,6 +3528,7 @@ def main() -> int:
     select_unify(*tab, h1, h2, sl, ctrl, pw1, pw2, 8000, rec, False, True,
                  sf0, sharp)
     out = tuple(torch.empty_like(x) for x in (fs, wid, wgt))
+    k3_scratch_wp = MergeScratch(F0, dev)
     sf_t = sf0.clone()
     sc = tuple(x[:F0].clone() for x in (c_d, fa_d, fb_d))
     sc_narrow = tuple(torch.from_numpy(x).to(dev) for x in (
@@ -3356,14 +3546,20 @@ def main() -> int:
         cuda_ms(lambda: score_bits_ref(*sc), 1))
     timing["select_unify_wp"] = (
         cuda_ms(lambda: select_unify(*tab, h1, h2, sl, ctrl, pw1, pw2, 8000,
-                                     rec, False, True, sf0, sharp), 200,
-                True),
+                                     rec, False, True, sf0, sharp,
+                                     claims=claims0, scratch=k2_scratch),
+                200, True),
         cuda_ms(lambda: select_unify_ref(*tab_ref, h1, h2, sl, ctrl, pw1,
                                          pw2, 8000, rec, False, True, sf0,
                                          sharp), 10))
+    timing["select_unify_wp_dense"] = (
+        cuda_ms(lambda: select_unify(*tab, h1, h2, sl, ctrl, pw1, pw2, 8000,
+                                     rec, False, True, sf0, sharp,
+                                     scratch=k2_scratch), 200, True), None)
     timing["merge_apply_wp"] = (
         cuda_ms(lambda: merge_apply(fs, wid, wgt, rec, out=out,
-                                    sym_freq=sf_t), 200, True),
+                                    sym_freq=sf_t, scratch=k3_scratch_wp),
+                200, True),
         cuda_ms(lambda: merge_apply_ref(fs, wid, wgt, rec, sym_freq=sf_t),
                 10))
     # One PyTorch call computes K4's function: index_add_ of the weights
@@ -3376,24 +3572,40 @@ def main() -> int:
     assert max_err(torch.zeros(cap + 1, dtype=torch.int64, device=dev)
                    .index_add_(0, sf_index, wgt), sf0) == 0
     # Operations, counted low: an add per slot (2); one correctly
-    # rounded division per score (20); K2's and K3's as in phase 5.
+    # rounded division per score (20); K2's and K3's as in phase 5, K2's
+    # bytes with two gathered weights a live entry (16) more.
+    n_pairs_wp = int(tab_ref[0].shape[0])
+    n_sym_wp = int(ctrl[0])
     bounds["symbol_freqs"] = bound(nbytes(fs, wgt, sf0), 2 * F0)
     bounds["wp_score"] = bound(nbytes(*sc_narrow) + 8 * F0, 20 * F0)
     bounds["select_unify_wp"] = bound(
-        nbytes(*tab, ctrl, rec, sf0),
-        (4 + 20) * tab[0].shape[0])
+        40 * n_pairs_wp + 8 * n_sym_wp + nbytes(ctrl, rec),
+        (4 + 20) * n_pairs_wp)
+    bounds["select_unify_wp_dense"] = bound(
+        nbytes(*tab, ctrl, rec) + 16 * n_pairs_wp + 8 * n_sym_wp,
+        (4 + 20) * n_pairs_wp)
     bounds["merge_apply_wp"] = bound(
         2 * nbytes(fs, wid, wgt) + nbytes(rec, sf_t), 6 * F0)
     torch.cuda.synchronize()
     print(f"phase 7: WordPiece kernels equal their plain versions exactly: "
           f"the scorer on {n_score} cases ({n_wide} wide, d up to 2^104), "
-          f"K4, K2's WordPiece mode and K3 with the weights on {n_wp_cases} "
-          f"states (the 85k initial state, its weights times 2^28 + 9871, "
-          f"after 1,000 merges, a near tie of gap 2^-51 in both orders); at "
-          f"{n_slots} slots (F = {F0}): " + ", ".join(
-              f"{k} {timing[k][0]:.3f} ms (plain {timing[k][1]:.3f} ms)"
+          f"K4, K2's WordPiece mode (exact and tournament, each over the "
+          f"claims of the loop's tables, every entry and a poisoned copy's "
+          f"claims) and K3 with the weights on {n_wp_cases} states (the 85k "
+          f"initial state, its weights times 2^28 + 9871, after 1,000 "
+          f"merges at F = {F_wp1000}, the BPE state shrunk to F = "
+          f"{bpe_shrunk[0].F}, a near tie of gap 2^-51 in both orders); K2 "
+          f"checks in phases 5 and 7 over the claims "
+          f"{k2_checks['claims']}, every entry "
+          f"{k2_checks['dense']}, poisoned {k2_checks['poisoned']} (the "
+          f"poison won each of {k2_checks['poison_read']} dense reads); at "
+          f"{n_slots} slots (F = {F0}, {n_pairs_wp} pairs): " + ", ".join(
+              f"{k} {timing[k][0]:.4f} ms (plain {timing[k][1]:.3f} ms, "
+              f"bound {bounds[k][0]:.5f})"
               for k in ("symbol_freqs", "select_unify_wp",
                         "merge_apply_wp"))
+          + f", select_unify_wp over every entry "
+            f"{timing['select_unify_wp_dense'][0]:.4f} ms"
           + f"; scorer on {F0} narrow cases {timing['wp_score'][0]:.3f} ms "
           f"(plain {timing['wp_score'][1]:.3f} ms), on {F0} of the mixed "
           f"cases {timing['wp_score_mixed'][0]:.3f} ms (plain "
@@ -3925,6 +4137,30 @@ def main() -> int:
             wp_mode=f"WordPiece mode, replaces {replaces}",
             wp_launches=wp_launches[k], wp_max_abs_err=errs[f"{k}_wp"],
             wp_ms=timing[f"{k}_wp"][0], wp_plain_ms=timing[f"{k}_wp"][1])
+    # K2's one launch over the claims of K1's fill (the main path) and over
+    # every entry; K3's one launch with the state's scratch (phases 5, 7)
+    by_name["select_unify"].update(
+        also_replaces="subword_tokenizers_tpu/ops/pairstats.py:147",
+        note="ms: one launch over the claim list of the table K1 filled "
+             "at the corpus's initial state (its counter read on the "
+             "card); dense_ms: over every entry of the same table (the "
+             "sharded top-K tier's gathered candidates take that mode)",
+        bound_note="bytes: each live entry through the claim list (24), "
+                   "WordPiece's two weights of it (16), the h1 of each id "
+                   "below n_sym (8), the control words and the record; "
+                   "dense_bound_ms: every entry of the table instead",
+        dense_ms=timing["select_unify_dense"][0],
+        dense_bound_ms=bounds["select_unify_dense"][0],
+        wp_dense_ms=timing["select_unify_wp_dense"][0],
+        wp_dense_bound_ms=bounds["select_unify_wp_dense"][0],
+        checks=dict(k2_checks))
+    by_name["merge_apply"].update(
+        also_replaces="subword_tokenizers_tpu/ops/flat.py:84",
+        note="ms: one launch (tiles of 2,048 slots, a look-back over the "
+             "state's MergeScratch) into the state's second buffer at the "
+             "corpus's initial state",
+        bound_note="bytes: every slot read once and written once (16 a "
+                   "slot each way), the record")
     record["kernels"] += [
         {"name": "symbol_freqs", "route": "cuda",
          "source": "subword_tokenizers_tpu_torch/csrc/symbol_freqs.cu",

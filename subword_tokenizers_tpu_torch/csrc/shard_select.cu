@@ -80,6 +80,7 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include "lookback.cuh"
 #include "table_set.cuh"
 
 namespace cg = cooperative_groups;
@@ -171,43 +172,9 @@ __global__ void __launch_bounds__(kLookupThreads)
   out_pos[i] = p;
 }
 
-// A cluster's status word in its shard's look-back: the state in bits
-// 63-62 (kAggregate: the cluster's own live count; kInclusive: the live
-// count of the shard's clusters up to and including it), the call's
-// epoch in bits 61-32 and the count in bits 31-0. A word of another
-// epoch is not yet written in this call, so no memset runs between
-// calls.
-constexpr unsigned long long kAggregate = 1ULL << 62;
-constexpr unsigned long long kInclusive = 2ULL << 62;
-constexpr unsigned kEpochMask = (1u << 30) - 1;
-
-__device__ __forceinline__ void publish(unsigned long long* word,
-                                        unsigned long long state,
-                                        unsigned epoch, long long count) {
-  *reinterpret_cast<volatile unsigned long long*>(word) =
-      state | (static_cast<unsigned long long>(epoch) << 32) |
-      static_cast<unsigned long long>(count);
-}
-
-// The live count of the shard's clusters before cluster c: their words
-// read back from c - 1 down, each waited for, up to the first inclusive
-// one. The clusters waited for took their indices before c did, so they
-// are running or done.
-__device__ long long look_back(const unsigned long long* status, int c,
-                               unsigned epoch) {
-  const volatile unsigned long long* st = status;
-  long long sum = 0;
-  for (int p = c - 1; p >= 0; --p) {
-    unsigned long long w;
-    do {
-      w = st[p];
-    } while (static_cast<unsigned>(w >> 32 & kEpochMask) != epoch ||
-             (w >> 62) == 0);
-    sum += static_cast<long long>(w & 0xffffffffULL);
-    if ((w >> 62) == (kInclusive >> 62)) break;
-  }
-  return sum;
-}
+// A cluster's status word in its shard's look-back (lookback.cuh): the
+// cluster's own live count (kAggregate) or the live count of the
+// shard's clusters up to and including it (kInclusive).
 
 __global__ void __cluster_dims__(kCluster, 1, 1)
     __launch_bounds__(kCThreads, 1)

@@ -49,12 +49,11 @@ SIGNATURES = {
     "swt_launch_floor": [_I, _P],
     "swt_nominate": [_P, _I, _I64, _P, _P, _P, _P],
     "swt_certificate": [_P, _I, _P, _P, _I64, _P, _P, _I, _I, _P],
-    "swt_select_unify": [_P, _P, _P, _I64, _P, _I, _P, _P, _P, _I64, _P, _P,
-                         _P, _I64, _I64, _P, _I, _P, _I, _I64, _I64, _I, _P,
-                         _P],
+    "swt_select_unify": [_P, _P, _P, _I64, _P, _P, _P, _I, _P, _P, _P, _I64,
+                         _P, _P, _P, _I64, _I64, _P, _I, _P, _I, _I64, _I64,
+                         _I, _P, _P],
     "swt_score_bits": [_P, _P, _P, _I64, _P, _P],
-    "swt_merge_apply": [_P, _P, _P, _I64, _P, _P, _P, _P, _P, _P, _P, _P,
-                        _P],
+    "swt_merge_apply": [_P, _P, _P, _I64, _P, _P, _P, _P, _P, _I, _P, _P],
     "swt_skip_guard": [_P, _P, _P, _I64, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                        _P, _P],
     "swt_merge_skip": [_P, _P, _P, _I64, _I, _P, _P, _P, _P],

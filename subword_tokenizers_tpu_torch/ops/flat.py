@@ -36,6 +36,9 @@ WID_PAD = 2 ** 30
 # (ops/train_loop.select_unify) writes the first five, K3 reads a, b,
 # new_id and active and writes n_live.
 NEW_ID, ACTIVE, N_LIVE = 2, 4, 5
+TILE = 2048  # slots of one tile of K3's kernel (csrc/merge_apply.cu)
+# the look-back epochs (csrc/lookback.cuh) of K3 and the table compaction
+EPOCH_MAX = (1 << 30) - 1
 
 
 def build_flat(sym2d: np.ndarray, freq: np.ndarray, pad_to: int = 1024
@@ -89,6 +92,52 @@ def _out_buffers(what, fs, wid, wgt, out):
     return out
 
 
+class MergeScratch:
+    """K3's scratch for a flat state of width up to ``F`` on ``device``,
+    built once by the state's owner (ops/train_loop.FlatState), so a
+    merge allocates and clears nothing: ``words`` int64[4 + 2 ceil(F /
+    TILE)] holds the merge's weight (``n_rep``, written by every call)
+    and the tile ticket (0 between calls), then two words a tile (its
+    look-back status and weight); ``epoch`` counts the calls on the host,
+    and each call's words carry it, so a word of an earlier call is never
+    read as this call's."""
+
+    def __init__(self, F: int, device) -> None:
+        self.words = torch.zeros(_scratch_words(F), dtype=torch.int64,
+                                 device=device)
+        self.epoch = 0
+
+    @property
+    def n_rep(self) -> torch.Tensor:
+        """The last merge's weight (int64, 0-d, rewritten by each call)."""
+        return self.words[0]
+
+    def next_epoch(self) -> int:
+        """The epoch of the next call, 1 .. EPOCH_MAX in turn; on the wrap
+        the status words are zeroed, so no word of an earlier call carries
+        the new epoch."""
+        self.epoch += 1
+        if self.epoch > EPOCH_MAX:
+            self.words[4:].zero_()
+            self.epoch = 1
+        return self.epoch
+
+
+def _scratch_words(F: int) -> int:
+    return 4 + 2 * -(-F // TILE)
+
+
+def _check_scratch(what, scratch, F: int, dev) -> None:
+    if not isinstance(scratch, MergeScratch):
+        raise TypeError(f"{what}: scratch must be a MergeScratch, not "
+                        f"{type(scratch).__name__}")
+    if scratch.words.device != dev:
+        raise ValueError(f"{what}: scratch on {scratch.words.device}, "
+                         f"expected {dev}")
+    if scratch.words.shape[0] < _scratch_words(F):
+        raise ValueError(f"{what}: scratch for a width below {F}")
+
+
 def merge_apply_ref(fs, wid, wgt, rec, sym_freq=None):
     """Plain PyTorch version of :func:`merge_apply` (same outputs, and
     the same writes of ``rec[N_LIVE]`` and ``sym_freq``)."""
@@ -131,7 +180,7 @@ def merge_apply_ref(fs, wid, wgt, rec, sym_freq=None):
 
 
 def merge_apply(fs, wid, wgt, rec, out: Optional[tuple] = None,
-                sym_freq=None):
+                sym_freq=None, scratch: Optional[MergeScratch] = None):
     """Apply one merge to the flat state and left-compact it.
 
     ``rec`` is the step's int32[6] record (see ``N_LIVE``):
@@ -143,11 +192,18 @@ def merge_apply(fs, wid, wgt, rec, out: Optional[tuple] = None,
     Writes ``rec[N_LIVE]`` (live slots after the step) and returns
     (fs, wid, wgt, n_rep): the new state, in ``out`` when given (three
     tensors like the inputs, none of them an input), and int64 ``n_rep``,
-    the total weight of the replacements.
+    the total weight of the replacements: with ``scratch`` (a
+    :class:`MergeScratch` for a width of at least F on the same device,
+    kept by the caller) its ``n_rep`` word, rewritten by the next call.
 
     ``sym_freq`` (int64, WordPiece's per-symbol weights, or None) is
     updated in place when the step is active: ``n_rep`` off ``a`` and
     off ``b`` (twice off ``a`` for a self-merge), onto ``new_id``.
+
+    On the card the call is one kernel launch (a tile of 2,048 slots a
+    block, its offset by a look-back over ``scratch``'s status words) and,
+    with ``out`` and ``scratch``, allocates nothing; without ``scratch`` it
+    builds one for the call.
 
     Launches the CUDA kernel for CUDA tensors, runs the PyTorch version
     for CPU tensors, and raises for any other device.
@@ -155,8 +211,13 @@ def merge_apply(fs, wid, wgt, rec, out: Optional[tuple] = None,
     dev = fs.device
     _check_state("merge_apply", fs, wid, wgt, rec, sym_freq)
     F = fs.shape[0]
+    if scratch is not None:
+        _check_scratch("merge_apply", scratch, F, dev)
     if dev.type == "cpu":
         nfs, nwid, nwgt, n_rep = merge_apply_ref(fs, wid, wgt, rec, sym_freq)
+        if scratch is not None:
+            scratch.words[0] = n_rep
+            n_rep = scratch.n_rep
         if out is None:
             return nfs, nwid, nwgt, n_rep
         for dst, src in zip(out, (nfs, nwid, nwgt)):
@@ -165,22 +226,22 @@ def merge_apply(fs, wid, wgt, rec, out: Optional[tuple] = None,
     if dev.type != "cuda":
         raise ValueError(f"merge_apply: no kernel for device {dev}")
     out = _out_buffers("merge_apply", fs, wid, wgt, out)
-    nb = -(-F // 256)
-    flags = torch.empty(F, dtype=torch.uint8, device=dev)
-    blocks = torch.empty(2 * nb + 1, dtype=torch.int32, device=dev)
-    # [0] the merge's weight, [1:] the blocks' (no memset: each is written)
-    n_rep = torch.empty(nb + 1, dtype=torch.int64, device=dev)
+    if any(t.data_ptr() % 16 for t in (fs, wid, wgt, *out)):
+        raise ValueError("merge_apply: the state and its second buffer must "
+                         "be 16-byte aligned")
+    if scratch is None:
+        scratch = MergeScratch(F, dev)
     from . import _cuda
     with torch.cuda.device(dev):
         _cuda.launch("swt_merge_apply", fs.data_ptr(), wid.data_ptr(),
                      wgt.data_ptr(), F, rec.data_ptr(), out[0].data_ptr(),
-                     out[1].data_ptr(), out[2].data_ptr(), flags.data_ptr(),
-                     blocks.data_ptr(), n_rep.data_ptr(),
+                     out[1].data_ptr(), out[2].data_ptr(),
+                     scratch.words.data_ptr(), scratch.next_epoch(),
                      None if sym_freq is None else sym_freq.data_ptr())
     merge_apply.launches += 1
     if sym_freq is not None:
         merge_apply.wp_launches += 1
-    return (*out, n_rep[0])
+    return (*out, scratch.n_rep)
 
 
 merge_apply.launches = 0

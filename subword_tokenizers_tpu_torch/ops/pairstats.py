@@ -103,6 +103,17 @@ class PairTable:
         """(keys, counts, pos) of the first ``T`` entries."""
         return self.keys[:T], self.counts[:T], self.pos[:T]
 
+    def counter(self) -> int:
+        """The address of the counter of the last fill's claims (K2's
+        claims mode reads it on the device; the host never does)."""
+        return self.n.data_ptr() + 4 * ((self.fills - 1) % 2)
+
+    def claimed(self) -> torch.Tensor:
+        """The entries the last fill claimed, as int64 indices (the plain
+        version's view of the claim list: one read of the counter)."""
+        n = int(self.n[(self.fills - 1) % 2])
+        return self.claims[:n].to(torch.int64)
+
 
 class TablePair:
     """Two :class:`PairTable` for a state of width up to ``F``, used on
@@ -112,11 +123,20 @@ class TablePair:
     def __init__(self, F: int, device) -> None:
         self.tables = (PairTable(F, device), PairTable(F, device))
         self._next = 0
+        self.filled: Optional[PairTable] = None  # the last call's table
 
     def _take(self):
         fill = self.tables[self._next]
         self._next = 1 - self._next
+        self.filled = fill
         return fill, self.tables[self._next]
+
+    def claims(self) -> Optional[PairTable]:
+        """The table the last call filled, for K2's claims mode
+        (ops/train_loop.select_unify), or None when the call ran the plain
+        version (CPU tensors: the table holds no count)."""
+        t = self.filled
+        return t if t is not None and t.dirty else None
 
     def pairs(self, fs, wid, wgt, skip: int = 0):
         """:func:`pair_stats` into this call's table."""

@@ -41,13 +41,13 @@ import torch
 
 from . import check_tensor
 from .bitmath import score_bits_ref
+from .flat import EPOCH_MAX
 from .pairstats import EMPTY_KEY
 
 POS_MAX = 2 ** 31 - 1   # the position of an absent candidate
 MAX_LOCAL_SHARDS = 1024  # tables of one grouped launch (the lookup keeps
                          # their descriptor rows in shared memory)
 ROUND_SPAN = 1 << 17    # table entries of one compaction cluster
-EPOCH_MAX = (1 << 30) - 1  # the compaction's look-back epochs
 MAX_NOMINATE = 256      # the most entries a shard nominates in one call
 SCALE_BITS = 36         # the WordPiece certificate's scale, as in JAX
 SAT = 1 << 55           # its per-shard saturation

@@ -39,16 +39,30 @@ import torch
 from ..benchmarks import profiling
 from . import check_tensor
 from .bitmath import score_bits_ref
-from .flat import (ACTIVE, NEW_ID, N_LIVE, merge_apply, merge_skip,
-                   skip_guard)
+from .flat import (ACTIVE, NEW_ID, N_LIVE, MergeScratch, merge_apply,
+                   merge_skip, skip_guard)
 from .merge import apply_merge
-from .pairstats import (EMPTY_KEY, TablePair, pair_stats, symbol_freqs,
-                        symbol_rows)
+from .pairstats import (EMPTY_KEY, PairTable, TablePair, pair_stats,
+                        symbol_freqs, symbol_rows)
 from .wp_tournament import wp_tournament_select
 
 MOD = (1 << 31) - 1  # Mersenne prime; products of residues fit in int64
 HASH_B1 = 1_000_003
 HASH_B2 = 805_306_457
+# K2's blocks at most (csrc/select_unify.cu kMaxPart: two an SM of an
+# H100; over a claim list one an SM, since tens of thousands of claims
+# fill them) and its scratch: a partial of 5 words a block, then the
+# last-block ticket
+SELECT_PARTS = 264
+CLAIM_PARTS = 132
+SELECT_SCRATCH = 5 * SELECT_PARTS + 1
+
+
+def select_scratch(device) -> torch.Tensor:
+    """K2's scratch on ``device``, built once by a caller that selects
+    every step (int64[SELECT_SCRATCH]: the blocks' partials and the
+    ticket, which is 0 between calls)."""
+    return torch.zeros(SELECT_SCRATCH, dtype=torch.int64, device=device)
 
 
 def str_hashes(s: str) -> Tuple[int, int]:
@@ -94,8 +108,12 @@ def select_unify_ref(keys, counts, pos, h1, h2, slen, ctrl, pw1, pw2,
                      max_vocab: int, rec, host_ids: bool = False,
                      wordpiece: bool = False, sym_freq=None,
                      sharp=(0, 0), tournament: bool = False,
-                     redo=None) -> None:
-    """Plain PyTorch version of :func:`select_unify` (same writes)."""
+                     redo=None, claims: Optional[PairTable] = None) -> None:
+    """Plain PyTorch version of :func:`select_unify` (same writes); with
+    ``claims`` only the entries its last fill claimed are read."""
+    if claims is not None:
+        idx = claims.claimed()
+        keys, counts, pos = keys[idx], counts[idx], pos[idx]
     if tournament:
         key, _, _, best, risky = wp_tournament_select(keys, counts, pos,
                                                       sym_freq)
@@ -140,7 +158,8 @@ def select_unify(keys, counts, pos, h1, h2, slen, ctrl, pw1, pw2,
                  max_vocab: int, rec, host_ids: bool = False,
                  wordpiece: bool = False, sym_freq=None,
                  sharp=(0, 0), tournament: bool = False,
-                 redo=None) -> None:
+                 redo=None, claims: Optional[PairTable] = None,
+                 scratch: Optional[torch.Tensor] = None) -> None:
     """One step's winner and merged symbol, written into ``rec`` (int32[6]).
 
     The pair table (keys, counts, pos) is either layout of
@@ -164,6 +183,16 @@ def select_unify(keys, counts, pos, h1, h2, slen, ctrl, pw1, pw2,
     step. With ``host_ids`` only the
     selection runs (active = count > 0), ``new_id`` is left to the host
     and the hash tables and ``ctrl`` are not touched.
+
+    ``claims``, the :class:`~.pairstats.PairTable` whose first entries
+    (keys, counts, pos) are (K1's last fill), restricts the read to the
+    entries that fill claimed: every live entry and no other, so the
+    winner is the same. On the card the kernel then reads the claim list
+    and its counter on the device, not the table. Without it every entry
+    is read (the sharded step's gathered candidates). ``scratch``
+    (:func:`select_scratch`, on the same device) is the kernel's partials
+    and ticket, kept by a caller that selects every step; without it the
+    call builds its own. A call on the card is one kernel launch.
 
     Launches the CUDA kernel for CUDA tensors, runs the PyTorch version
     for CPU tensors, and raises for any other device.
@@ -192,20 +221,34 @@ def select_unify(keys, counts, pos, h1, h2, slen, ctrl, pw1, pw2,
             or slen.shape[0] != h1.shape[0]
             or pw2.shape[0] != pw1.shape[0] or pw1.shape[0] == 0):
         raise ValueError("select_unify: inconsistent shapes")
+    bound = T
+    if claims is not None:
+        _check_claims(claims, keys, counts, pos, dev)
+        bound = claims.claims.shape[0]
+    if scratch is not None:
+        check_tensor("scratch", scratch, (torch.int64,), 1, dev)
+        if scratch.shape[0] != SELECT_SCRATCH:
+            raise ValueError(f"select_unify: scratch of {scratch.shape[0]} "
+                             f"words, expected {SELECT_SCRATCH}")
     if dev.type == "cpu":
         return select_unify_ref(keys, counts, pos, h1, h2, slen, ctrl, pw1,
                                 pw2, max_vocab, rec, host_ids, wordpiece,
-                                sym_freq, sharp, tournament, redo)
+                                sym_freq, sharp, tournament, redo, claims)
     if dev.type != "cuda":
         raise ValueError(f"select_unify: no kernel for device {dev}")
     if pos.dtype != torch.int32:
         raise TypeError("select_unify: the kernel takes int32 positions")
-    n_part = max(1, min(264, -(-T // 256)))
-    part = torch.empty(5 * n_part, dtype=torch.int64, device=dev)
+    if scratch is None:
+        scratch = select_scratch(dev)
+    n_part = max(1, min(SELECT_PARTS if claims is None else CLAIM_PARTS,
+                        -(-bound // 256)))
     from . import _cuda
     with torch.cuda.device(dev):
         _cuda.launch("swt_select_unify", keys.data_ptr(), counts.data_ptr(),
-                     pos.data_ptr(), T, part.data_ptr(), n_part,
+                     pos.data_ptr(), T,
+                     None if claims is None else claims.ptrs[3],
+                     None if claims is None else claims.counter(),
+                     scratch.data_ptr(), n_part,
                      h1.data_ptr(), h2.data_ptr(), slen.data_ptr(),
                      h1.shape[0], ctrl.data_ptr(), pw1.data_ptr(),
                      pw2.data_ptr(), pw1.shape[0], max_vocab,
@@ -227,14 +270,34 @@ select_unify.tournament_launches = 0  # launches in tournament mode
 select_unify.risky_redos = 0  # steps redone exactly, added by run_fused
 
 
+def _check_claims(claims, keys, counts, pos, dev) -> None:
+    """Raise unless ``claims`` is the PairTable that (keys, counts, pos)
+    view, on ``dev``, holding a fill's count (whose counter K2 reads)."""
+    if not isinstance(claims, PairTable):
+        raise TypeError(f"select_unify: claims must be the PairTable K1 "
+                        f"filled, not {type(claims).__name__}")
+    if claims.keys.device != dev:
+        raise ValueError(f"select_unify: claims on {claims.keys.device}, "
+                         f"expected {dev}")
+    if (keys.data_ptr(), counts.data_ptr(), pos.data_ptr()) != \
+            claims.ptrs[:3] or keys.shape[0] > claims.size:
+        raise ValueError("select_unify: the claim list is another table's "
+                         "(the keys, counts and positions must view its "
+                         "first entries)")
+    if not claims.dirty:
+        raise ValueError("select_unify: the PairTable holds no count, so "
+                         "no fill's counter gives its claims")
+
+
 class HashCollision(Exception):
     """Device hash unification disagreed with real string interning."""
 
 
 class FlatState:
     """The flat training state on ``device`` (ops/flat.py layout) with a
-    second buffer of each array for K3 to write into, and K1's two tables
-    (on CUDA), each call filling one and emptying the other.
+    second buffer of each array for K3 to write into, K3's scratch
+    (``scratch``, built once: a merge allocates nothing), and K1's two
+    tables (on CUDA), each call filling one and emptying the other.
 
     ``F`` is the width the kernels see; the caller may lower it to cut a
     dead tail off (merges only consume slots, and K3 compacts to the
@@ -254,6 +317,7 @@ class FlatState:
         self._bufs = [cur, tuple(torch.empty_like(x) for x in cur)]
         self._cur = 0
         self._tables = None  # K1's TablePair, made by the first count
+        self.scratch = MergeScratch(self.F, self.device)
         self.sym_freq: Optional[torch.Tensor] = None
 
     def arrays(self):
@@ -272,6 +336,11 @@ class FlatState:
             return pair_stats(*self.arrays(), skip=skip)
         return self._tables.pairs(*self.arrays(), skip=skip)
 
+    def claims(self) -> Optional[PairTable]:
+        """The table :meth:`pairs` last filled, for K2's claims mode; None
+        when it ran the plain version."""
+        return None if self._tables is None else self._tables.claims()
+
     def count_symbols(self, sym_cap: int) -> None:
         """K4: ``sym_freq`` becomes the state's per-symbol weights, int64
         [sym_cap + 1], counted from the slots (once a run; K3 carries
@@ -287,7 +356,7 @@ class FlatState:
             merge_skip(*self.arrays(), rec, skip, self.sym_freq)
             return
         merge_apply(*self.arrays(), rec, out=self._other(),
-                    sym_freq=self.sym_freq)
+                    sym_freq=self.sym_freq, scratch=self.scratch)
         self._cur = 1 - self._cur
 
     def guard(self, skip: int, count) -> None:
@@ -372,6 +441,11 @@ class PaddedState:
         if self._tables is None:
             return pair_stats(fs, self._wid, self._wgt)
         return self._tables.pairs(fs, self._wid, self._wgt)
+
+    def claims(self) -> Optional[PairTable]:
+        """The table :meth:`pairs` last filled, for K2's claims mode; None
+        when it ran the plain version."""
+        return None if self._tables is None else self._tables.claims()
 
     def count_symbols(self, sym_cap: int) -> torch.Tensor:
         """K4 over the rows and their weights: ``sym_freq`` int64
@@ -507,6 +581,7 @@ def run_fused(state: FlatState, table, max_vocab: int, max_len: int,
     # Row K is the record of the block's closing compaction (skip mode):
     # inactive, its N_LIVE column the live slots after it.
     recs = torch.zeros((K + 1, 6), dtype=torch.int32, device=dev)
+    k2_scratch = select_scratch(dev)
     stats = torch.zeros(2, dtype=torch.int32, device=dev)  # redos, overflows
     done = False
     while not done:
@@ -521,7 +596,8 @@ def run_fused(state: FlatState, table, max_vocab: int, max_len: int,
                 select_unify(keys, counts, pos, h1, h2, sl, ctrl, pw1, pw2,
                              max_vocab, rec, wordpiece=wordpiece,
                              sym_freq=state.sym_freq, sharp=sharp,
-                             tournament=tournament, redo=stats[:1])
+                             tournament=tournament, redo=stats[:1],
+                             claims=state.claims(), scratch=k2_scratch)
                 state.merge(rec, skip)
             if skip:
                 state.merge(recs[K])
@@ -559,17 +635,20 @@ def run_fused(state: FlatState, table, max_vocab: int, max_len: int,
         return state.padded()
 
 
-def select_host_ids(keys, counts, pos, rec, sym_freq=None) -> None:
+def select_host_ids(keys, counts, pos, rec, sym_freq=None,
+                    claims: Optional[PairTable] = None,
+                    scratch: Optional[torch.Tensor] = None) -> None:
     """K2's selection only, over a pair table (either form of
     ops/pairstats.pair_stats): ``rec`` gets (a, b, -1, 0, active) of the
     pair of largest count, or with ``sym_freq`` of largest exact score,
-    then least position; active = the metric is positive."""
+    then least position; active = the metric is positive. ``claims`` and
+    ``scratch`` as for :func:`select_unify`."""
     dev = keys.device
     empty = torch.zeros(1, dtype=torch.int64, device=dev)
     ctrl = torch.zeros(3, dtype=torch.int32, device=dev)
     select_unify(keys, counts, pos, empty, empty, empty, ctrl, empty, empty,
                  0, rec, host_ids=True, wordpiece=sym_freq is not None,
-                 sym_freq=sym_freq)
+                 sym_freq=sym_freq, claims=claims, scratch=scratch)
 
 
 def step_host_ids(state: FlatState, table, rec,
@@ -580,7 +659,7 @@ def step_host_ids(state: FlatState, table, rec,
     caller has counted ``state.sym_freq`` (:meth:`FlatState.count_symbols`)
     and K3 carries it."""
     select_host_ids(*state.pairs(), rec, state.sym_freq if wordpiece
-                    else None)
+                    else None, claims=state.claims())
     a, b, _, _, active = rec[:ACTIVE + 1].tolist()
     if not active:
         return None

@@ -53,7 +53,7 @@ from ..ops.pairstats import (TablePair, clean_table, pair_rows,
                              pair_stats_runs)
 from ..ops.shard_select import (TableSet, certificate, compact_tables,
                                 lookup_reduce, nominate_tables)
-from ..ops.train_loop import PaddedState, select_host_ids
+from ..ops.train_loop import PaddedState, select_host_ids, select_scratch
 from .mesh import DataMesh
 
 # Candidates nominated per shard per step, as in the JAX package.
@@ -165,6 +165,8 @@ class ShardedCorpus:
         self._full: Optional[PaddedState] = None
         self._runs_tables: Optional[TablePair] = None
         self._buffers = {}
+        # K2's partials and ticket on mesh.home, for every tier's selection
+        self.k2_scratch = select_scratch(mesh.home)
 
     def pairs(self) -> list:
         """K1 over every shard, one launch a device: the shards' tables in
@@ -185,6 +187,12 @@ class ShardedCorpus:
                 self.freq, self.mesh.home)
         self._full.sym = sym
         return self._full
+
+    def runs_claims(self):
+        """The table the last :meth:`aggregate_runs` filled, for K2's
+        claims mode (None on the CPU)."""
+        return None if self._runs_tables is None else \
+            self._runs_tables.claims()
 
     def aggregate_runs(self, rk, rc, rp):
         """K1's runs mode over the M runs the compact tier gathers (always
@@ -274,7 +282,8 @@ def sharded_select_topk(corpus: ShardedCorpus, tables, rec,
               for g, (dev, a, b) in enumerate(mesh.groups)]
     g_cnt = mesh.sum([c for c, _ in looked])
     g_pos = mesh.amin([p for _, p in looked])
-    select_host_ids(cand, g_cnt, g_pos, rec, sym_freq)
+    select_host_ids(cand, g_cnt, g_pos, rec, sym_freq,
+                    scratch=corpus.k2_scratch)
     certificate(kth, cand, g_cnt, rec, sym_freq, wide_score)
 
 
@@ -292,7 +301,8 @@ def sharded_select_compact(corpus: ShardedCorpus, tables, rec, cap: int,
             for g, (_, a, b) in enumerate(mesh.groups)]
     gk, gc, gp = (mesh.gather([r[j] for r in runs]) for j in range(3))
     agg = corpus.aggregate_runs(gk, gc, gp)
-    select_host_ids(*agg, rec, sym_freq)
+    select_host_ids(*agg, rec, sym_freq, claims=corpus.runs_claims(),
+                    scratch=corpus.k2_scratch)
     rec[FLAG:].copy_(1 - mesh.amax([r[3] for r in runs]))
 
 
@@ -303,7 +313,8 @@ def sharded_select_full(corpus: ShardedCorpus, rec, sym_freq=None) -> None:
     mesh = corpus.mesh
     state = corpus.full_state(mesh.gather([blk.state.sym
                                            for blk in corpus.blocks]))
-    select_host_ids(*state.pairs(), rec, sym_freq)
+    select_host_ids(*state.pairs(), rec, sym_freq, claims=state.claims(),
+                    scratch=corpus.k2_scratch)
     rec[FLAG] = 1
 
 
