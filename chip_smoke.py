@@ -55,13 +55,18 @@ WordPiece vocab ``tests/golden/port_t85k_fastwp_vocab.json``:
    8,000, the per-step path to 1,000, a forced hash collision, and
    ``FastWP.train`` then ``tokenize_batch`` against the golden vocab;
 9. holds the two encode kernels against their plain versions, exactly:
-   the BPE merge loop (greedy and monotone) on seeded random rows (runs
-   of one symbol, PAD at the end, unseen ids, lengths 0, 1 and 33) and on
-   the
-   corpus's 22,971 word types with the trained and the shuffled merges;
-   the WordPiece greedy match on seeded random vocabs, on the word types
+   the BPE merge loop (greedy and monotone; a warp a word) on seeded
+   random rows (runs of one symbol, PAD at the end, unseen ids, lengths
+   0, 1 and L) at widths from 1 to 13,000 (every path of the kernel: the
+   row in registers, in shared memory and in place), on self-pair runs
+   longer than 32, and on the corpus's 22,971 word types with the
+   trained and the shuffled merges, and the kernel's own layout check
+   raising on each bad row; the WordPiece greedy match on seeded random
+   vocabs, on the word types
    with the trained vocab, on a vocab with "#" and no "##" (overflow) and
-   on a word forced to [UNK]; times each at the word types' shapes;
+   on a word forced to [UNK]; times each at the word types' shapes (the
+   BPE kernel alone, its plain version and its wrapper, in both modes,
+   and the trips of its slowest word);
 10. encodes the whole corpus with ``FastBPE``, ``NaiveBPE`` (the trained
    merges) and ``NaiveWP`` (the trained vocab) on the card: a cold and
    three warm runs, each equal to the JAX package's digest
@@ -97,7 +102,8 @@ WordPiece vocab ``tests/golden/port_t85k_fastwp_vocab.json``:
    tables past a block's staging and tables of 2 and 0 live entries,
    the compaction with caps that overflow on every
    shard and on some shards only and 1,000 times back to back with
-   alternating tables and caps, K1's runs mode and the certificate, on
+   alternating tables and caps, K1's runs mode and the certificate (by
+   its check launcher and inside K2's dense launch), on
    seeded sharded states, on the corpus's 8-shard state (22,976 rows,
    2,872 x 22 a shard) initial and after 1,000 merges for BPE and
    WordPiece, on the mesh of 1's table (2^20 entries, 8 clusters of the
@@ -106,9 +112,10 @@ WordPiece vocab ``tests/golden/port_t85k_fastwp_vocab.json``:
    exact tie, saturation, a 62-bit veto, a zero sum); times each at the
    corpus's shapes, beside the launch floors, ``torch.nonzero`` over the
    compaction's own keys, 8 ``torch.topk`` over the nomination's
-   metrics, the nomination's registers and spills, and K1 and K3p (a
-   real merge)
-   at a shard's shape; (13b) the sharded step's grouped K1
+   metrics, the nomination's registers and spills, K2's dense launch
+   over the candidates without and with the certificate (BPE and
+   WordPiece), and K1 and K3p (a real merge) at a shard's shape; (13b)
+   the sharded step's grouped K1
    (``pair_rows``: every shard of a device in one launch, which fills one
    set of tables and empties the other) and K3p (one launch over the
    device's block, ids from the host or the record) against their plain
@@ -137,14 +144,15 @@ WordPiece vocab ``tests/golden/port_t85k_fastwp_vocab.json``:
    its golden, with the tiers that settled each step and the shard
    kernels' launches (one grouped K1, one nomination and one lookup a
    step, one compaction a step the certificate did not settle, one
-   grouped K3p a merge, one grouped K4 a WordPiece step, 6
-   kernel-wrapper calls a BPE step and 7 a WordPiece step, the per-shard
-   K1 only in the full tier, no scorer launch); the forced tiers and
+   grouped K3p a merge, one grouped K4 a WordPiece step, the
+   certificate inside K2's launch every step, 5 kernel-wrapper calls a
+   BPE step and 6 a WordPiece step, the per-shard K1 only in the full
+   tier, no scorer and no certificate launch); the forced tiers and
    a mesh of 1 to 1,000, each equal to the golden's prefix, with their K1
    and K3p launches; FastWP's sharded encode and the other three encoders
    under the mesh against the JAX digests; and (14d) the idle share of
-   one warm sharded train, with the grouped kernels by name, no memset
-   and no ``torch.topk`` kernel;
+   one warm sharded train, with the grouped kernels by name, no memset,
+   no ``torch.topk`` kernel and no ``certificate_kernel``;
 15. the process-group route: ``torch.distributed`` with NCCL at world
    size 1 (NCCL takes one rank per GPU), a TCP store on localhost, an
    8-shard process-group mesh on the card, NaiveBPE to 578 equal to the
@@ -421,6 +429,28 @@ def bpe_random_case(rng, W, L, n_sym, n_merges, inner_pad=False):
                     s = int(rng.integers(0, n_sym))
                 sym[w, j] = s
             j += 1
+    return sym, entries
+
+
+def self_pair_case(rng, W, L):
+    """Rows of long self-pair runs for the BPE merge loop and the entries
+    of a rank hash: runs of symbol 0 of lengths 1 to L (the first row all
+    of L, the others broken by a 1 here and there), and merges that join
+    a run pairwise again and again (0 0, 2 2, 3 3, 4 4, 5 5) beside mixed
+    ones (0 2, 2 0, 1 0, 3 0, 1 1), ranks in a seeded order. Returns
+    (sym int32[W, L], [(key, rank, out_id)])."""
+    import numpy as np
+    pairs = ((0, 0, 2), (2, 2, 3), (3, 3, 4), (4, 4, 5), (5, 5, 6),
+             (0, 2, 7), (2, 0, 8), (1, 0, 9), (3, 0, 10), (1, 1, 11))
+    ranks = rng.permutation(len(pairs)).tolist()
+    entries = [((a << 21) | b, r, out)
+               for (a, b, out), r in zip(pairs, ranks)]
+    sym = np.full((W, L), -1, dtype=np.int32)
+    sym[0] = 0
+    for w in range(1, W):
+        n = int(rng.integers(1, L + 1))
+        sym[w, :n] = 0
+        sym[w, rng.integers(0, n, size=int(rng.integers(0, 3)))] = 1
     return sym, entries
 
 
@@ -1011,9 +1041,29 @@ def ptxas_lines(kernel: str) -> str:
     return "; ".join(out) or "not in this process's build log"
 
 
+class ModeLaunches:
+    """The launches of one mode of a wrapper's kernel, as ``launches``:
+    the count ``attr`` the wrapper keeps beside its own (K2's launches
+    that ran the top-K tier's certificate, ``cert_launches``)."""
+
+    def __init__(self, fn, attr: str) -> None:
+        self.fn, self.attr = fn, attr
+
+    @property
+    def launches(self) -> int:
+        return getattr(self.fn, self.attr)
+
+    @launches.setter
+    def launches(self, n: int) -> None:
+        setattr(self.fn, self.attr, n)
+
+
 def shard_kernels():
     """{name: wrapper} of every kernel the sharded path launches; each
-    wrapper's ``launches`` counts its kernel's launches."""
+    wrapper's ``launches`` counts its kernel's launches. "certificate"
+    counts K2's launches that ran the certificate (not calls of their
+    own: :func:`wrapper_calls` leaves it out), "certificate_launcher"
+    the check launcher's, which no training path makes."""
     from subword_tokenizers_tpu_torch.ops.bitmath import score_bits
     from subword_tokenizers_tpu_torch.ops.fetch import compact_ids
     from subword_tokenizers_tpu_torch.ops.merge import apply_merge
@@ -1028,13 +1078,21 @@ def shard_kernels():
     from subword_tokenizers_tpu_torch.ops.wp_encode_e2e import wp_e2e_scan
     return {"nominate_tables": nominate_tables,
             "lookup_reduce": lookup_reduce, "compact_tables": compact_tables,
-            "pair_stats_runs": pair_stats_runs, "certificate": certificate,
+            "pair_stats_runs": pair_stats_runs,
+            "certificate": ModeLaunches(select_unify, "cert_launches"),
+            "certificate_launcher": certificate,
             "pair_rows": pair_rows, "pair_stats": pair_stats,
             "select_unify": select_unify,
             "merge_rows": apply_merge, "symbol_freqs": symbol_freqs,
             "symbol_rows": symbol_rows,
             "wp_score": score_bits, "wp_e2e_scan": wp_e2e_scan,
             "compact_ids": compact_ids}
+
+
+def wrapper_calls(counts) -> int:
+    """The kernel-wrapper calls in ``counts`` (read_counts of
+    :func:`shard_kernels`): the certificate runs in K2's calls."""
+    return sum(n for k, n in counts.items() if k != "certificate")
 
 
 def zero_counts(kernels):
@@ -1082,11 +1140,12 @@ def phase13(dev, rng, arrays, table, arrays_wp, table_wp, golden,
         nominate_tables_ref, LOW32, ROUND_SPAN, TableSet)
     from subword_tokenizers_tpu_torch.ops.bitmath import score_bits
     from subword_tokenizers_tpu_torch.ops.train_loop import (select_host_ids,
+                                                             select_scratch,
                                                              sym_capacity)
     from subword_tokenizers_tpu_torch.parallel import train as ptrain
     from subword_tokenizers_tpu_torch.parallel.mesh import make_data_mesh
     names = ("nominate_tables", "lookup_reduce", "compact_tables",
-             "pair_stats_runs", "certificate")
+             "pair_stats_runs", "certificate", "certificate_fused")
     errs = dict.fromkeys(names, 0)
     timing, bounds, library = {}, {}, {}
     notes = {"states": 0, "overflowed_caps": 0, "mixed_caps": 0,
@@ -1101,12 +1160,22 @@ def phase13(dev, rng, arrays, table, arrays_wp, table_wp, golden,
         errs[name] = max(errs[name], *(max_err(g, w)
                                        for g, w in zip(got, want)))
 
-    def cert(kth, cand, g_cnt, rec, sf, wide):
+    def cert(kth, cand, g_cnt, g_pos, rec, sf, wide):
+        """The check launcher on K2's winner ``rec``, and K2's dense
+        selection with the certificate in its launch, each against the
+        plain certificate (after K2's selection alone)."""
         got, want = rec.clone(), rec.clone()
         certificate(kth, cand, g_cnt, got, sf, wide)
         certificate_ref(kth, cand, g_cnt, want, sf, wide)
         errs["certificate"] = max(errs["certificate"], max_err(got, want))
-        notes["proven" if int(got[5]) else "refused"] += 1
+        fused, plain = torch.zeros_like(rec), torch.zeros_like(rec)
+        select_host_ids(cand, g_cnt, g_pos, fused, sf, kth=kth,
+                        wide_score=wide)
+        select_host_ids(cand, g_cnt, g_pos, plain, sf)
+        certificate_ref(kth, cand, g_cnt, plain, sf, wide)
+        errs["certificate_fused"] = max(errs["certificate_fused"],
+                                        max_err(fused, plain))
+        notes["proven" if int(plain[5]) else "refused"] += 1
 
     def check_nominate(tables, k, sf=None):
         """The nomination over ``tables`` in one launch against its plain
@@ -1141,7 +1210,7 @@ def phase13(dev, rng, arrays, table, arrays_wp, table_wp, golden,
         g_cnt, g_pos = lookup_reduce(cand, tables, bases)
         rec = torch.zeros(6, dtype=torch.int32, device=dev)
         select_host_ids(cand, g_cnt, g_pos, rec, sf)
-        cert(kth, cand, g_cnt, rec, sf, wide)
+        cert(kth, cand, g_cnt, g_pos, rec, sf, wide)
         n_live = sorted(int((t[0] != EMPTY_KEY).sum()) for t in tables)
         cap0 = min(ptrain.run_gather_cap(corpus.n_local_pairs),
                    corpus.n_local_pairs)
@@ -1163,7 +1232,7 @@ def phase13(dev, rng, arrays, table, arrays_wp, table_wp, golden,
             diff("pair_stats_runs", canonical(*pair_stats_runs(gk, gc, gp)),
                  pair_stats_runs_ref(gk, gc, gp))
         notes["states"] += 1
-        return tables, cand, kth, g_cnt, rec
+        return tables, cand, kth, g_cnt, g_pos, rec
 
     for n, L, n_sym, topk in ((400, 9, 6, 16), (1003, 12, 20, 256),
                               (64, 5, 3, 256)):
@@ -1240,7 +1309,7 @@ def phase13(dev, rng, arrays, table, arrays_wp, table_wp, golden,
     rec_k3p = torch.tensor([t1000.get(sa), t1000.get(sb),
                             t1000.intern(sa + sb), 0, 1, 0],
                            dtype=torch.int32, device=dev)
-    tables, cand, kth, g_cnt, rec = check(bpe)
+    tables, cand, kth, g_cnt, g_pos, rec = check(bpe)
     big, cap_big = check_mesh1(mesh1, tables)
     sym_cap = sym_capacity(table_wp, 8000)
     wp = ptrain.shard_corpus(mesh, arrays_wp.sym, arrays_wp.freq)
@@ -1250,7 +1319,7 @@ def phase13(dev, rng, arrays, table, arrays_wp, table_wp, golden,
         ptrain.sharded_apply_merge(wp, t1000.get(sa), t1000.get(sb),
                                    t1000.intern(sa + sb[2:]))
     sf_wp = ptrain.sharded_sym_freq(wp, sym_cap).clone()
-    wp_tables = check(wp, sf_wp)[0]
+    wp_tables, cand_wp, kth_wp, g_cnt_wp, g_pos_wp, _ = check(wp, sf_wp)
     # weights scaled into the wide score domain: K-th denominators of
     # more than 62 bits veto
     wide = ptrain.shard_corpus(mesh, arrays_wp.sym,
@@ -1261,7 +1330,8 @@ def phase13(dev, rng, arrays, table, arrays_wp, table_wp, golden,
                              device=dev)
         cert(torch.tensor(kth_c, dtype=torch.int64, device=dev).flatten(),
              torch.tensor(cand_c, dtype=torch.int64, device=dev),
-             torch.tensor(cnt_c, dtype=torch.int64, device=dev), rec_c,
+             torch.tensor(cnt_c, dtype=torch.int64, device=dev),
+             torch.arange(len(cand_c), dtype=torch.int32, device=dev), rec_c,
              None if sf_c is None else
              torch.tensor(sf_c, dtype=torch.int64, device=dev), wide_c)
 
@@ -1306,6 +1376,10 @@ def phase13(dev, rng, arrays, table, arrays_wp, table_wp, golden,
     agg = TablePair(gk.shape[0] + 1, dev)  # filled on alternate calls
     metric = torch.where(t0[0] != EMPTY_KEY, t0[1], -1)
     out = bpe.run_buffers(0, cap)
+    k2_scr = select_scratch(dev)
+    rec_t = torch.zeros(6, dtype=torch.int32, device=dev)
+    rec_wp = torch.zeros(6, dtype=torch.int32, device=dev)
+    select_host_ids(cand_wp, g_cnt_wp, g_pos_wp, rec_wp, sf_wp)
     # the sets built once, as a sharded run keeps them (a wrapper called
     # without one builds and copies one each call)
     tset = TableSet(tables, bases)
@@ -1443,6 +1517,30 @@ def phase13(dev, rng, arrays, table, arrays_wp, table_wp, golden,
             cuda_ms(lambda: certificate(kth, cand, g_cnt, rec), 200, True),
             cuda_ms(lambda: certificate_ref(kth, cand, g_cnt, rec.clone()),
                     10)),
+        # K2's dense launch over the gathered candidates without and with
+        # the certificate, on a scratch kept as the sharded run keeps it
+        "k2_dense": (
+            cuda_ms(lambda: select_host_ids(cand, g_cnt, g_pos, rec_t,
+                                            scratch=k2_scr), 200, True),
+            None),
+        "k2_dense_cert": (
+            cuda_ms(lambda: select_host_ids(cand, g_cnt, g_pos, rec_t,
+                                            scratch=k2_scr, kth=kth),
+                    200, True), None),
+        "k2_dense_wp": (
+            cuda_ms(lambda: select_host_ids(cand_wp, g_cnt_wp, g_pos_wp,
+                                            rec_t, sf_wp, scratch=k2_scr),
+                    200, True), None),
+        "k2_dense_cert_wp": (
+            cuda_ms(lambda: select_host_ids(cand_wp, g_cnt_wp, g_pos_wp,
+                                            rec_t, sf_wp, scratch=k2_scr,
+                                            kth=kth_wp), 200, True),
+            None),
+        "certificate_wp": (
+            cuda_ms(lambda: certificate(kth_wp, cand_wp, g_cnt_wp, rec_wp,
+                                        sf_wp), 200, True),
+            cuda_ms(lambda: certificate_ref(kth_wp, cand_wp, g_cnt_wp,
+                                            rec_wp.clone(), sf_wp), 10)),
         "topk": (cuda_ms(lambda: torch.topk(metric, ptrain.TOPK), 200,
                          True), None),
         "shard_pair_stats": (cuda_ms(shard.pairs, 200, True), None),
@@ -1464,6 +1562,7 @@ def phase13(dev, rng, arrays, table, arrays_wp, table_wp, golden,
     live = [int((t[0] != EMPTY_KEY).sum()) for t in tables]
     n_live0 = live[0]
     live_big = int((big[0] != EMPTY_KEY).sum())
+    live_wp = int((cand_wp != EMPTY_KEY).sum())
     n_slots = shard.sym.numel()
 
     def compact_bytes(T_i, live_i, cap_i):
@@ -1476,10 +1575,14 @@ def phase13(dev, rng, arrays, table, arrays_wp, table_wp, golden,
     # entry per lookup; K3p reads every slot and writes the slots its
     # merge changes. Operations, counted low: a hash and a compare per
     # lookup (10), a test and a scan step per table entry (4), a hash
-    # insert per run or live slot (10), a restoring division per shard
-    # (128 x 4) and a compare per candidate; torch.topk reads the metric
-    # once, writes its values and indices (int64 each) and compares once
-    # an entry; K3p tests each slot and its neighbour (2).
+    # insert per run or live slot (10), a division per shard (20) and a
+    # compare per candidate (2); torch.topk reads the metric once, writes
+    # its values and indices (int64 each) and compares once an entry; K3p
+    # tests each slot and its neighbour (2). K2's dense launch reads the
+    # candidates, their counts and positions (and, for WordPiece, two
+    # symbol weights of each live one, and scores it: 20), writes the
+    # record, and with the certificate reads the K-th rows (and their
+    # weights) too.
     bounds.update({
         "lookup_reduce": bound(nbytes(cand) + 12 * M
                                + sum(visited(M, 20, *t) for t in tables),
@@ -1495,8 +1598,20 @@ def phase13(dev, rng, arrays, table, arrays_wp, table_wp, golden,
                                4 * big[0].shape[0]),
         "pair_stats_runs": bound(nbytes(gk, gc, gp, *agg.tables[0].view(
             agg.tables[0].size)), 10 * M),
-        "certificate": bound(nbytes(kth, cand, g_cnt, rec),
-                             512 * 8 + 2 * M),
+        "certificate": bound(nbytes(kth, cand, g_cnt, rec), 20 * D + 2 * M),
+        "certificate_wp": bound(nbytes(kth_wp, cand_wp, g_cnt_wp, rec_wp)
+                                + 16 * len(wp_tables) + 16,
+                                20 * len(wp_tables) + 2 * M),
+        "k2_dense": bound(nbytes(cand, g_cnt, g_pos, rec_t), 2 * M),
+        "k2_dense_cert": bound(nbytes(cand, g_cnt, g_pos, rec_t, kth),
+                               2 * M + 20 * D),
+        "k2_dense_wp": bound(nbytes(cand_wp, g_cnt_wp, g_pos_wp, rec_t)
+                             + 16 * live_wp, 2 * M + 20 * live_wp),
+        "k2_dense_cert_wp": bound(nbytes(cand_wp, g_cnt_wp, g_pos_wp, rec_t,
+                                         kth_wp) + 16 * live_wp
+                                  + 16 * len(wp_tables),
+                                  2 * M + 20 * live_wp
+                                  + 20 * len(wp_tables)),
         "topk": bound(nbytes(metric) + 16 * ptrain.TOPK, T),
         "shard_pair_stats": bound(nbytes(shard.sym, shard._wid, shard._wgt,
                                          *t0), 10 * n_slots),
@@ -1529,12 +1644,22 @@ def phase13(dev, rng, arrays, table, arrays_wp, table_wp, golden,
           f"{n_back_to_back} compactions back to back ({len(sets)} table "
           f"sets, 4 caps; {flags[0]} without and {flags[1]} with overflow) "
           f"all equal, and {len(CERT_CASES)} hand-made certificates (proven "
-          f"{notes['proven']}, refused {notes['refused']} in all); at the "
+          f"{notes['proven']}, refused {notes['refused']} in all; each "
+          f"state's and case's certificate by the check launcher and "
+          f"inside K2's dense launch, both equal to certificate_ref); at the "
           f"corpus's BPE state after 1,000 merges (shard 0: {n_live0} live "
           f"of T = {T}; K.D = {M} candidates, cap {cap}): "
           + ", ".join(line(k) for k in (
               "lookup_reduce", "compact_tables", "lookup_one_table",
               "compact_one_table", "pair_stats_runs", "certificate"))
+          + "; K2's dense launch over the candidates (BPE; WordPiece after "
+          f"1,000 merges): {timing['k2_dense'][0]:.4f} ms without the "
+          f"certificate, {timing['k2_dense_cert'][0]:.4f} with it (bound "
+          f"{bounds['k2_dense_cert'][0]:.5f}); WordPiece "
+          f"{timing['k2_dense_wp'][0]:.4f} and "
+          f"{timing['k2_dense_cert_wp'][0]:.4f} (bound "
+          f"{bounds['k2_dense_cert_wp'][0]:.5f}); the check launcher "
+          f"alone, WordPiece, " + line("certificate_wp")
           + f"; the mesh of 1 ({live_big} live of {big[0].shape[0]}, cap "
           f"{cap_big}): " + line("compact_mesh1")
           + f"; per shard: lookup_reduce "
@@ -2278,25 +2403,27 @@ def phase14(dev, corpus, check_train, check_wp_train, lists, wp_merges,
             raise AssertionError(f"{name} under the mesh launched no "
                                  f"{missing}: {counts}")
         # one grouped launch a step on the one-card mesh: K1, the
-        # nomination and a lookup every step, a compaction every step the
-        # certificate did not settle, K3p every merge; the per-shard K1
-        # only in the full tier; no torch.topk and no scorer launch
+        # nomination and a lookup every step, the certificate inside K2's
+        # launch every step, a compaction every step the certificate did
+        # not settle, K3p every merge; the per-shard K1 only in the full
+        # tier; no torch.topk, no scorer and no certificate launch
         steps = sum(tok._sel_stats.values())
         merges = len(tok.merges_list if name == "NaiveBPE"
                      else tok._merge_log)
         want = {"pair_rows": steps, "nominate_tables": steps,
-                "lookup_reduce": steps,
+                "lookup_reduce": steps, "certificate": steps,
+                "certificate_launcher": 0,
                 "compact_tables": tok._topk_fallbacks, "merge_rows": merges,
                 "pair_stats": tok._sel_stats["full"],
                 "symbol_rows": steps if name == "NaiveWP" else 0,
                 "symbol_freqs": 0, "wp_score": 0}
-        # every wrapper's calls: a step the certificate settles makes 6
-        # (K1, the nomination, the lookup, K2, the certificate, K3p) and a
-        # WordPiece step 7 (K4 too), the last step no K3p; a fallback step
-        # 3 more (the compaction, K1's runs mode, K2), a full-tier step 2
-        # more (K1, K2)
-        calls = sum(counts.values())
-        want["calls"] = ((7 if name == "NaiveWP" else 6) * steps
+        # every wrapper's calls: a step the certificate settles makes 5
+        # (K1, the nomination, the lookup, K2 with the certificate, K3p)
+        # and a WordPiece step 6 (K4 too), the last step no K3p; a
+        # fallback step 3 more (the compaction, K1's runs mode, K2), a
+        # full-tier step 2 more (K1, K2)
+        calls = wrapper_calls(counts)
+        want["calls"] = ((6 if name == "NaiveWP" else 5) * steps
                          - (steps - merges) + 3 * tok._topk_fallbacks
                          + 2 * tok._sel_stats["full"])
         counts["calls"] = calls
@@ -2309,9 +2436,10 @@ def phase14(dev, corpus, check_train, check_wp_train, lists, wp_merges,
         lines.append(f"{name} cold {walls[0]:.3f} s, warm {walls[1]:.3f} s, "
                      f"tiers {tok._sel_stats} ({tok._topk_fallbacks} "
                      f"fallbacks; 1 K1, 1 nomination and 1 lookup launch a "
-                     f"step, 1 compaction launch a fallback step, 1 K3p "
+                     f"step, the certificate in 1 K2 launch a step, 1 "
+                     f"compaction launch a fallback step, 1 K3p "
                      f"launch a merge, 1 K4 a WordPiece step, no per-shard "
-                     f"K1, no scorer launch), "
+                     f"K1, no scorer and no certificate launch), "
                      f"{calls} kernel-wrapper calls in {steps} steps "
                      f"({calls / steps:.3f} a step), warm launches "
                      f"{by_path[name + '_mesh8']}")
@@ -2422,10 +2550,14 @@ def phase14(dev, corpus, check_train, check_wp_train, lists, wp_merges,
     topk_kernels = {n: c for n, (c, _) in by_name.items()
                     if any(w in n.lower() for w in TOPK_KERNEL_WORDS)}
     steps = sum(traced[-1]._sel_stats.values())
-    if by_name and (n_memsets or topk_kernels
+    # the certificate runs inside K2: no launch of its own
+    cert_kernels = sum(c for n, (c, _) in by_name.items()
+                       if "certificate_kernel" in n)
+    if by_name and (n_memsets or topk_kernels or cert_kernels
                     or grouped["nominate_kernel"][0] != steps):
         raise AssertionError(f"the traced train made {n_memsets} memsets, "
                              f"top-k kernels {topk_kernels}, "
+                             f"{cert_kernels} certificate_kernel launches, "
                              f"{grouped['nominate_kernel'][0]} nominations "
                              f"in {steps} steps")
     dev_line = ("not measured (the trace holds no device events)"
@@ -2437,7 +2569,8 @@ def phase14(dev, corpus, check_train, check_wp_train, lists, wp_merges,
                     f"{n} x{c} {ms:.3f} ms" for n, (c, ms) in grouped.items())
                 + f"; host-to-device copies in the whole train (set-up "
                   f"included) {h2d}; memsets {n_memsets}, top-k library "
-                  f"kernels {len(topk_kernels)}, nomination launches "
+                  f"kernels {len(topk_kernels)}, certificate_kernel "
+                  f"launches {cert_kernels}, nomination launches "
                   f"{grouped['nominate_kernel'][0]} in {steps} steps")
     print(f"phase 14d: one warm NaiveBPE train to {trace_vocab} on the mesh "
           f"of 8 under torch.profiler: {dev_line}; {smi}")
@@ -3768,7 +3901,7 @@ def main() -> int:
     from subword_tokenizers_tpu_torch import FastBPE
     from subword_tokenizers_tpu_torch.models.trie import MatchTrie
     from subword_tokenizers_tpu_torch.ops.bpe_encode import (
-        bpe_encode, bpe_encode_ref, build_rank_hash)
+        bpe_encode, bpe_encode_ref, bpe_encode_trips, build_rank_hash)
     from subword_tokenizers_tpu_torch.ops.wp_encode import (
         wp_match_encode, wp_match_encode_ref)
     errs.update(bpe_encode=0, wp_match_encode=0)
@@ -3803,12 +3936,50 @@ def main() -> int:
         out_t.intern("[UNK]")
         return MatchTrie.build(sorted(vocab), out_t)
 
+    # every path of K5: the row in registers (1, 2 and 4 columns a
+    # lane), in shared memory (up to 12,288 columns) and in place in the
+    # output (wider); and long self-pair runs
+    widths9, bad9 = [], 0
     for W9, L9, n_sym9, n_m9 in [(4000, 12, 5, 30), (3000, 33, 4, 60),
-                                 (512, 1, 3, 4), (4000, 24, 9, 200)]:
+                                 (512, 1, 3, 4), (4000, 24, 9, 200),
+                                 (2000, 2, 3, 6), (2000, 31, 4, 40),
+                                 (2000, 32, 4, 40), (1500, 64, 3, 40),
+                                 (1500, 65, 3, 40), (800, 128, 3, 30),
+                                 (400, 129, 3, 30), (64, 2000, 2, 12),
+                                 (8, 13000, 2, 8)]:
         sym9, ent9 = bpe_random_case(rng, W9, L9, n_sym9, n_m9)
+        hk9, hr9, ho9, mp9 = build_rank_hash(ent9)
+        args9 = [torch.from_numpy(a).to(dev) for a in (sym9, hk9, hr9, ho9)]
+        check_bpe9(*args9, mp9)
+        widths9.append(L9)
+        # the kernel's own layout check: an id below -1, a PAD before an
+        # id in one chunk of 32 and across chunks; each call raises, and
+        # the next good call is exact again
+        lens9 = (sym9 >= 0).sum(1)
+        full9 = int(np.argmax(lens9))
+        bads = [(L9 // 2, L9 // 2 + 1, -2), (0, 1, -1)]
+        if L9 > 33:
+            bads.append((10, 32, -1))  # the rest of chunk 0, ids after
+        for c9, e9, v9 in bads:
+            if lens9[full9] < 2:
+                break
+            bad = args9[0].clone()
+            bad[full9, c9:e9] = v9
+            try:
+                bpe_encode(bad, *args9[1:], bool(c9 % 2), mp9)
+            except ValueError as e:
+                assert "PAD before an id" in str(e), e
+                bad9 += 1
+            else:
+                raise AssertionError(f"K5 took a bad row at L = {L9}: "
+                                     f"columns {c9}:{e9} set to {v9}")
+            check_bpe9(*args9, mp9)
+    for W9, L9 in [(3000, 40), (2000, 70), (500, 130), (100, 1000)]:
+        sym9, ent9 = self_pair_case(rng, W9, L9)
         hk9, hr9, ho9, mp9 = build_rank_hash(ent9)
         check_bpe9(*(torch.from_numpy(a).to(dev)
                      for a in (sym9, hk9, hr9, ho9)), mp9)
+        widths9.append(L9)
     for alpha9, n_tok9, L9 in [("abc", 12, 8), ("abcd", 40, 16),
                                ("ab#", 15, 9), ("a#", 6, 33),
                                ("abcdefgh", 120, 24)]:
@@ -3852,20 +4023,28 @@ def main() -> int:
                int(trie_w.alpha[ord("#")]))
     k5_out = (torch.empty_like(sym_w),
               torch.empty(W_w, dtype=torch.int32, device=dev))
+    k5_flag = torch.zeros(1, dtype=torch.int32, device=dev)
 
     def k5_alone(monotone):
-        # K5 as the wrapper launches it, without the wrapper's check of
-        # the rows' layout (a reduction and a wait for its answer)
+        # K5 as the wrapper launches it, without the wrapper's read-back
+        # of the layout flag (the rows are good, so the flag stays 0)
         _cuda.launch("swt_bpe_encode", sym_w.data_ptr(), W_w, L_w,
                      st9.hkeys.data_ptr(), st9.hrank.data_ptr(),
                      st9.hout.data_ptr(), st9.hkeys.shape[0], int(monotone),
                      st9.max_probe, k5_out[0].data_ptr(),
-                     k5_out[1].data_ptr())
+                     k5_out[1].data_ptr(), k5_flag.data_ptr(), 1)
 
+    trips9 = {}
     for monotone, key in ((True, "bpe_encode"), (False, "bpe_encode_greedy")):
         k5_alone(monotone)
-        if err_all(k5_out, bpe_encode(*bpe_args, monotone, st9.max_probe)):
+        if err_all(k5_out, bpe_encode(*bpe_args, monotone, st9.max_probe)) \
+                or int(k5_flag.item()):
             raise AssertionError("K5 launched alone differs from its wrapper")
+        # each word's trips: the slowest word's are the chain of dependent
+        # probes that bounds the kernel by latency, their sum the warps'
+        # work
+        t9 = bpe_encode_trips(*bpe_args, monotone, st9.max_probe)
+        trips9[key] = {"max": int(t9.max()), "total": int(t9.sum())}
         timing[key] = (
             cuda_ms(lambda: k5_alone(monotone), 100, True),
             cuda_ms(lambda: bpe_encode_ref(*bpe_args, monotone,
@@ -3891,18 +4070,22 @@ def main() -> int:
         + visited(n_chars, 4, mst.accept), 4 * n_chars)
     torch.cuda.synchronize()
     print(f"phase 9: encode kernels equal their plain versions exactly: "
-          f"the BPE merge loop on {n_bpe9} cases (greedy and monotone: 4 "
-          f"random, the {W_w} word types with the trained and the shuffled "
-          f"merges), the WordPiece match on {n_wp9} cases (5 random vocabs, "
+          f"the BPE merge loop on {n_bpe9} cases (greedy and monotone: "
+          f"random rows and self-pair runs at widths {widths9}, each "
+          f"random width again after each of {bad9} bad layouts the kernel "
+          f"refused, the {W_w} word types with the trained and the "
+          f"shuffled merges; the word types' trips, the slowest word's and "
+          f"in all, {trips9}), the "
+          f"WordPiece match on {n_wp9} cases (5 random vocabs, "
           f"the '#' cap at 16 and 17, the word types with the trained "
           f"vocab); rows merged/unk/ovf/empty {flags9.tolist()}; at "
           f"{W_w} x {L_w}: bpe_encode monotone "
-          f"{timing['bpe_encode'][0]:.3f} ms (plain "
+          f"{timing['bpe_encode'][0]:.4f} ms (plain "
           f"{timing['bpe_encode'][1]:.3f}, the wrapper with its layout "
-          f"check {timing['bpe_encode'][2]:.3f}), greedy "
-          f"{timing['bpe_encode_greedy'][0]:.3f} ms (plain "
+          f"flag's read-back {timing['bpe_encode'][2]:.4f}), greedy "
+          f"{timing['bpe_encode_greedy'][0]:.4f} ms (plain "
           f"{timing['bpe_encode_greedy'][1]:.3f}, wrapper "
-          f"{timing['bpe_encode_greedy'][2]:.3f}), bound "
+          f"{timing['bpe_encode_greedy'][2]:.4f}), bound "
           f"{bounds['bpe_encode'][0]:.4f} ms ({bounds['bpe_encode'][1]}); "
           f"wp_match_encode {timing['wp_match_encode'][0]:.3f} ms (plain "
           f"{timing['wp_match_encode'][1]:.3f}), bound "
@@ -4205,9 +4388,18 @@ def main() -> int:
          "greedy_ms": timing["bpe_encode_greedy"][0],
          "greedy_plain_ms": timing["bpe_encode_greedy"][1],
          "greedy_wrapper_ms": timing["bpe_encode_greedy"][2],
-         "note": "ms: the kernel launched alone, back to back; "
-                 "wrapper_ms adds the wrapper's check of the rows' layout "
-                 "(a reduction and a wait for it)"},
+         "trips": trips9,
+         "latency_bound_ms": {
+             k: n["max"] * notes16["per_iter_ms"]["gather_loop"]
+             for k, n in trips9.items()},
+         "latency_note": "the slowest word's trips (monotone under "
+                         "bpe_encode, greedy under bpe_encode_greedy; "
+                         "total: every word's) x one dependent gather "
+                         "through L1/L2 (phase 16's gather_loop, per "
+                         "iteration)",
+         "note": "ms: the kernel launched alone, back to back (a warp a "
+                 "word); wrapper_ms: the wrapper, with the read-back of "
+                 "the layout flag the kernel sets on a bad row"},
         {"name": "wp_match_encode", "route": "cuda",
          "source": "subword_tokenizers_tpu_torch/csrc/wp_match.cu",
          "replaces": "subword_tokenizers_tpu/ops/wp_encode.py:47",
@@ -4274,7 +4466,7 @@ def main() -> int:
              "subword_tokenizers_tpu/ops/pairstats.py:162"),
             ("pair_stats_runs", "pair_stats.cu",
              "subword_tokenizers_tpu/parallel/train.py:199"),
-            ("certificate", "shard_select.cu",
+            ("certificate", "certificate.cuh",
              "subword_tokenizers_tpu/parallel/train.py:287"),
             ("pair_rows", "pair_stats.cu",
              "subword_tokenizers_tpu/parallel/train.py:78")):
@@ -4326,9 +4518,29 @@ def main() -> int:
         by_name[k].update(shard_ms=timing[f"shard_{k}"][0],
                           shard_bound_ms=bounds[f"shard_{k}"][0],
                           shard_rows=notes13["rows"])
-    by_name["certificate"]["note"] = (
-        "also replaces the WordPiece certificate at "
-        "subword_tokenizers_tpu/parallel/train.py:336-365 and :383-400")
+    by_name["certificate"].update(
+        note="also replaces the WordPiece certificate at "
+             "subword_tokenizers_tpu/parallel/train.py:336-365 and "
+             ":383-400. Device functions run inside K2's dense launch "
+             "(select_unify.cu, its last block): launches are the K2 "
+             "launches that ran them on the main path (no launch of its "
+             "own); ms: its check launcher alone (shard_select.cu "
+             "certificate_kernel) at the corpus's 8-shard BPE state after "
+             "1,000 merges; k2_dense_ms / k2_dense_cert_ms: K2's dense "
+             "launch over the same candidates without and with it; wp_*: "
+             "the WordPiece state after 1,000 merges",
+        launcher_source="subword_tokenizers_tpu_torch/csrc/shard_select.cu",
+        k2_dense_ms=timing["k2_dense"][0],
+        k2_dense_cert_ms=timing["k2_dense_cert"][0],
+        k2_dense_bound_ms=bounds["k2_dense"][0],
+        k2_dense_cert_bound_ms=bounds["k2_dense_cert"][0],
+        wp_ms=timing["certificate_wp"][0],
+        wp_plain_ms=timing["certificate_wp"][1],
+        wp_k2_dense_ms=timing["k2_dense_wp"][0],
+        wp_k2_dense_cert_ms=timing["k2_dense_cert_wp"][0],
+        wp_k2_dense_cert_bound_ms=bounds["k2_dense_cert_wp"][0],
+        max_abs_err=max(errs["certificate"], errs["certificate_fused"]),
+        fused_max_abs_err=errs["certificate_fused"])
     # the nomination (phase 13): BPE, WordPiece and the mesh of 1
     by_name["nominate_tables"].update(
         also_replaces="subword_tokenizers_tpu/parallel/train.py:298",

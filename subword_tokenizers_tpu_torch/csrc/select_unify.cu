@@ -68,6 +68,15 @@
 // With host_ids set, the step is selection only (active = count > 0,
 // new_id = -1 for the host to fill in), and neither the hash tables nor
 // ctrl are touched: the exact per-step path of the trainer.
+// Given the shards' K-th rows as well (host_ids, dense mode: the sharded
+// top-K tier's gathered candidates), the last block also runs that tier's
+// certificate (certificate.cuh) and writes its proven flag into rec[5]:
+// each partial carries its entry's count beside the metric, so the
+// winner's summed count comes out of the reduction, and the last warp
+// computes the shards' terms while the first threads read the partials.
+// The certificate then costs the step no launch and no wrapper call of
+// its own (it replaces the JAX package's certificates at
+// subword_tokenizers_tpu/parallel/train.py:283-290, :336-365, :383-400).
 //
 // Bound on this card: latency. What the function needs to read is the
 // live entries (915 of K1's 2^19 at train-85k's initial state, about
@@ -80,12 +89,14 @@
 // its last block, one launch a step. The grid and the partials are
 // fixed, and the partials and ticket are the caller's scratch, built once.
 //
-// swt_score_bits launches the scorer alone, elementwise, for the checks.
+// swt_score_bits launches the scorer alone, elementwise, for the checks;
+// the certificate's own check launcher is shard_select.cu's.
 
 #include <cstdint>
 
 #include <cuda_runtime.h>
 
+#include "certificate.cuh"
 #include "score_bits.cuh"
 
 namespace {
@@ -106,17 +117,22 @@ __device__ __forceinline__ bool better(int64_t c, int64_t p, int64_t bc,
   return c > bc || (c == bc && p < bp);
 }
 
-// Block-wide best (count, pos, key); the result is valid in thread 0.
-__device__ void block_best(int64_t& cnt, int64_t& pos, int64_t& key) {
-  __shared__ int64_t sc[kWarps], sp[kWarps], sk[kWarps];
+// Block-wide best (metric, pos, key) and, with kCount, the entry's count;
+// the result is valid in thread 0.
+template <bool kCount>
+__device__ void block_best(int64_t& cnt, int64_t& pos, int64_t& key,
+                           int64_t& num) {
+  __shared__ int64_t sc[kWarps], sp[kWarps], sk[kWarps], sn[kWarps];
   for (int off = 16; off > 0; off >>= 1) {
     const int64_t oc = __shfl_down_sync(0xffffffffu, cnt, off);
     const int64_t op = __shfl_down_sync(0xffffffffu, pos, off);
     const int64_t ok = __shfl_down_sync(0xffffffffu, key, off);
+    const int64_t on = kCount ? __shfl_down_sync(0xffffffffu, num, off) : 0;
     if (better(oc, op, cnt, pos)) {
       cnt = oc;
       pos = op;
       key = ok;
+      num = on;
     }
   }
   const int lane = threadIdx.x & 31;
@@ -125,20 +141,24 @@ __device__ void block_best(int64_t& cnt, int64_t& pos, int64_t& key) {
     sc[warp] = cnt;
     sp[warp] = pos;
     sk[warp] = key;
+    if (kCount) sn[warp] = num;
   }
   __syncthreads();
   if (warp == 0) {
     cnt = lane < kWarps ? sc[lane] : -1;
     pos = lane < kWarps ? sp[lane] : kNoPos;
     key = lane < kWarps ? sk[lane] : -1;
+    num = kCount && lane < kWarps ? sn[lane] : -1;
     for (int off = 16; off > 0; off >>= 1) {
       const int64_t oc = __shfl_down_sync(0xffffffffu, cnt, off);
       const int64_t op = __shfl_down_sync(0xffffffffu, pos, off);
       const int64_t ok = __shfl_down_sync(0xffffffffu, key, off);
+      const int64_t on = kCount ? __shfl_down_sync(0xffffffffu, num, off) : 0;
       if (better(oc, op, cnt, pos)) {
         cnt = oc;
         pos = op;
         key = ok;
+        num = on;
       }
     }
   }
@@ -231,26 +251,29 @@ struct Entries {
   }
 };
 
-// This thread's best (metric, pos, key) over entries start, start +
-// stride, ... (the exact modes).
+// This thread's best (metric, pos, key, count) over entries start, start
+// + stride, ... (the exact modes).
 __device__ __forceinline__ void scan_best(const Entries& in,
                                           const int64_t* sym_freq,
                                           int wordpiece, int64_t start,
                                           int64_t stride, int64_t& bc,
-                                          int64_t& bp, int64_t& bk) {
+                                          int64_t& bp, int64_t& bk,
+                                          int64_t& bn) {
   for (int64_t e = start; e < in.n; e += stride) {
     const int64_t t = in.at(e);
     const unsigned long long k = in.keys[t];
     if (k == kEmpty) continue;
+    const int64_t n = in.counts[t];
     const int64_t c =
-        wordpiece ? score_bits(in.counts[t], sym_freq[k >> 32],
+        wordpiece ? score_bits(n, sym_freq[k >> 32],
                                sym_freq[k & 0xffffffffULL])
-                  : in.counts[t];
+                  : n;
     const int64_t p = in.pos[t];
     if (better(c, p, bc, bp)) {
       bc = c;
       bp = p;
       bk = static_cast<int64_t>(k);
+      bn = n;
     }
   }
 }
@@ -273,17 +296,29 @@ struct Unify {
   int32_t* redo;
 };
 
+// The certificate's arguments (host_ids mode over the gathered candidates
+// only; kth null: no certificate).
+struct Cert {
+  const int64_t* kth;  // each shard's K-th (metric, count, key)
+  int D;
+  int wide_score;
+};
+
 __device__ __forceinline__ int64_t load_cg(const int64_t* p) {
   return static_cast<int64_t>(__ldcg(reinterpret_cast<const long long*>(p)));
 }
 
-// part: 5 words a block (3 in the exact modes); ticket: 0 between calls;
-// n_claims: the claim count in claims mode, else null.
+// part: 5 words a block (3 in the exact modes, 4 with the certificate);
+// ticket: 0 between calls; n_claims: the claim count in claims mode, else
+// null. kCert: the certificate runs (cert.kth not null), and the partials
+// carry the entries' counts for it.
+template <bool kCert>
 __global__ void __launch_bounds__(kThreads)
     select_kernel(Entries in, const int64_t* sym_freq, int wordpiece,
                   int tournament, int64_t* part, unsigned* ticket, Unify u,
-                  const uint32_t* n_claims) {
-  __shared__ int64_t s_key, s_cnt, s_m1, s_m2, s_lm;
+                  const uint32_t* n_claims, Cert cert) {
+  __shared__ int64_t s_key, s_cnt, s_num, s_m1, s_m2, s_lm;
+  __shared__ CertSum s_cert;
   __shared__ int64_t s_pw1[kPow], s_pw2[kPow];
   __shared__ int32_t s_h1[kPrefetch];
   __shared__ int s_hit, s_near;
@@ -315,13 +350,15 @@ __global__ void __launch_bounds__(kThreads)
       out[4] = f;
     }
   } else {
-    int64_t bc = -1, bp = kNoPos, bk = -1;
-    scan_best(in, sym_freq, wordpiece, start, stride, bc, bp, bk);
-    block_best(bc, bp, bk);
+    int64_t bc = -1, bp = kNoPos, bk = -1, bn = -1;
+    scan_best(in, sym_freq, wordpiece, start, stride, bc, bp, bk, bn);
+    block_best<kCert>(bc, bp, bk, bn);
     if (threadIdx.x == 0) {
-      part[3 * blockIdx.x] = bc;
-      part[3 * blockIdx.x + 1] = bp;
-      part[3 * blockIdx.x + 2] = bk;
+      int64_t* out = part + (kCert ? 4 : 3) * blockIdx.x;
+      out[0] = bc;
+      out[1] = bp;
+      out[2] = bk;
+      if (kCert) out[3] = bn;
     }
   }
   if (threadIdx.x == 0) {
@@ -356,7 +393,15 @@ __global__ void __launch_bounds__(kThreads)
   const int32_t vocab = u.ctrl[1];
   const int32_t alive = u.ctrl[2];
   const int n_part = gridDim.x;
-  int64_t bc = -1, bp = kNoPos, bk = -1;
+  // The certificate's terms need no winner: the last warp computes them
+  // (its loads in flight beside the partials' reads, which the first
+  // threads make) before it joins the reduction.
+  if (kCert && threadIdx.x >= kThreads - 32) {
+    const CertSum cs = cert_terms(cert.kth, cert.D, sym_freq, wordpiece,
+                                  cert.wide_score);
+    if (threadIdx.x == kThreads - 32) s_cert = cs;
+  }
+  int64_t bc = -1, bp = kNoPos, bk = -1, bn = -1;
   if (tournament) {
     int64_t c = 0, d = 1, p = kNoPos, k = -1;
     int f = 0;
@@ -370,8 +415,8 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();
     if (s_near) {
       // A near tie: the exact scores decide, over the same entries.
-      scan_best(in, sym_freq, 1, threadIdx.x, blockDim.x, bc, bp, bk);
-      block_best(bc, bp, bk);
+      scan_best(in, sym_freq, 1, threadIdx.x, blockDim.x, bc, bp, bk, bn);
+      block_best<false>(bc, bp, bk, bn);
       if (threadIdx.x == 0) ++*u.redo;
     } else {
       bc = c;  // the count; the step is active while it is positive
@@ -379,20 +424,24 @@ __global__ void __launch_bounds__(kThreads)
     }
   } else {
     for (int j = threadIdx.x; j < n_part; j += blockDim.x) {
-      const int64_t c = load_cg(part + 3 * j);
-      const int64_t p = load_cg(part + 3 * j + 1);
-      const int64_t k = load_cg(part + 3 * j + 2);
+      const int64_t* q = part + (kCert ? 4 : 3) * j;
+      const int64_t c = load_cg(q);
+      const int64_t p = load_cg(q + 1);
+      const int64_t k = load_cg(q + 2);
+      const int64_t n = kCert ? load_cg(q + 3) : 0;
       if (better(c, p, bc, bp)) {
         bc = c;
         bp = p;
         bk = k;
+        bn = n;
       }
     }
-    block_best(bc, bp, bk);
+    block_best<kCert>(bc, bp, bk, bn);
   }
   if (threadIdx.x == 0) {
     s_cnt = bc;
     s_key = bk;
+    if (kCert) s_num = bn;
     s_hit = -1;
   }
   if (has_pw) {
@@ -421,6 +470,13 @@ __global__ void __launch_bounds__(kThreads)
       rec[2] = -1;
       rec[3] = 0;
       rec[4] = active;
+      // The winner's summed count is its entry's (the candidates of one
+      // key carry the one sum the lookup gave them); -1: none.
+      if (kCert)
+        rec[5] = cert_proven(
+            s_cert, active && s_num > 0 ? s_num : -1,
+            active ? static_cast<uint64_t>(key) : 0, sym_freq, wordpiece,
+            cert.wide_score);
     }
     return;
   }
@@ -507,7 +563,9 @@ extern "C" {
 // pw1/pw2 i64[n_pow], rec i32[6] (columns 0-4 written); with wordpiece,
 // sym_freq i64[>= every symbol id + 1] and (sh1, sh2) the hashes of "##";
 // with tournament (wordpiece too), redo i32[1] counts the steps redone
-// exactly. Returns the cudaError_t.
+// exactly; kth i64[3 * D] (host_ids, dense mode and not the tournament:
+// each shard's K-th metric, count, key) writes the certificate's proven
+// flag into rec[5], or null. Returns the cudaError_t.
 int swt_select_unify(const void* keys, const void* counts, const void* pos,
                      int64_t T, const void* claims, const void* n_claims,
                      void* scratch, int n_part, void* h1, void* h2,
@@ -515,8 +573,12 @@ int swt_select_unify(const void* keys, const void* counts, const void* pos,
                      const void* pw1, const void* pw2, int64_t n_pow,
                      int64_t max_vocab, void* rec, int host_ids,
                      const void* sym_freq, int wordpiece, int64_t sh1,
-                     int64_t sh2, int tournament, void* redo, void* stream) {
+                     int64_t sh2, int tournament, void* redo,
+                     const void* kth, int D, int wide_score, void* stream) {
   if (n_part < 1 || n_part > kMaxPart) return cudaErrorInvalidValue;
+  if (kth != nullptr && (!host_ids || tournament || claims != nullptr ||
+                         D < 1))
+    return cudaErrorInvalidValue;
   Entries in{static_cast<const unsigned long long*>(keys),
              static_cast<const int64_t*>(counts),
              static_cast<const uint32_t*>(pos),
@@ -529,10 +591,12 @@ int swt_select_unify(const void* keys, const void* counts, const void* pos,
           max_vocab,                     static_cast<int32_t*>(rec),
           host_ids,                      sh1,
           sh2,                           static_cast<int32_t*>(redo)};
-  select_kernel<<<n_part, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  auto* kernel = kth != nullptr ? select_kernel<true> : select_kernel<false>;
+  kernel<<<n_part, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       in, static_cast<const int64_t*>(sym_freq), wordpiece, tournament,
       part, reinterpret_cast<unsigned*>(part + 5 * kMaxPart), u,
-      static_cast<const uint32_t*>(n_claims));
+      static_cast<const uint32_t*>(n_claims),
+      Cert{static_cast<const int64_t*>(kth), D, wide_score});
   return static_cast<int>(cudaGetLastError());
 }
 

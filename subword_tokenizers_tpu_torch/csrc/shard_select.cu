@@ -1,5 +1,6 @@
 // The per-shard pieces of data-parallel selection: candidate lookup,
-// table compaction, and the sum-threshold certificate.
+// table compaction, and the check launcher of the sum-threshold
+// certificate.
 //
 // Replaces the per-shard parts of the JAX package's sharded selection,
 //   subword_tokenizers_tpu/parallel/train.py: _lookup_runs (binary search
@@ -50,19 +51,11 @@
 //   POS_MAX), stores its flag (n_live > cap) and takes a ticket; the last
 //   of the D writes the OR of the flags and resets the ticket to 0 (calls
 //   on one descriptor run in stream order).
-// - certificate_kernel, one block: from every shard's K-th best entry (its
-//   metric, count and key) the threshold t_i that bounds any pair the shard
-//   did not nominate, and from the winner K2 chose over the candidates
-//   (the record's a, b, active) and its summed count, the proven flag,
-//   written into rec[5]. BPE: t_i = max(metric, 0), proven = count > sum t
-//   or sum t == 0. WordPiece: t_i = min(q + (q >> 50) + 2, 2^55) with q =
-//   (c << 36) // (fa fb) of the K-th entry, a shard whose bound reaches
-//   2^55 (or, with wide scores, whose K-th denominator needs more than 62
-//   bits) vetoes, and proven = (count << 36) // (fa fb) of the winner >
-//   sum t + (sum t >> 50) + 2 with no veto, or sum t == 0. The JAX package
-//   computes these in int64; here the shifted numerators (up to 2^89) and
-//   their quotients are 128-bit, so the results are the JAX package's
-//   wherever its int64 does not overflow.
+// - certificate_kernel, one block: the check launcher of the top-K tier's
+//   certificate (certificate.cuh). The training step runs the same device
+//   functions inside K2's last block (select_unify.cu), so no training
+//   path launches this one; it scans the candidates for the winner's
+//   summed count, as K2 carries it in its reduction.
 //
 // Bound on this card: the lookup reads K * D candidates and a probed
 // entry per candidate and shard (2,048 x 8 on train-85k), one dependent
@@ -72,14 +65,15 @@
 // counts and positions of its live entries of rank < cap (12 bytes) and
 // writes 20 bytes an output slot: about 12 MB, 0.0037 ms at 3.35 TB/s,
 // for 8 shards after 1,000 merges, against a floor of one cluster launch
-// (swt_launch_floor times both floors); the certificate is one block of
-// integer work over D shards and K * D candidates.
+// (swt_launch_floor times both floors); the certificate launcher is one
+// block of integer work over D shards and K * D candidates.
 
 #include <cstdint>
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include "certificate.cuh"
 #include "lookback.cuh"
 #include "table_set.cuh"
 
@@ -90,8 +84,6 @@ namespace {
 constexpr int kThreads = 256;
 constexpr unsigned long long kEmpty = ~0ULL;
 constexpr int32_t kPosMax = 0x7fffffff;
-constexpr uint64_t kSat = 1ULL << 55;
-constexpr int kScaleBits = 36;
 
 constexpr int kBatch = 8;  // shards a thread probes at once
 // One warp a lookup block: the 2,048 candidates of train-85k at 8 shards
@@ -334,49 +326,29 @@ __global__ void empty_kernel() {}
 __global__ void __cluster_dims__(kCluster, 1, 1)
     __launch_bounds__(kCThreads, 1) empty_cluster_kernel() {}
 
-__device__ __forceinline__ int bitlen64(uint64_t x) {
-  return x ? 64 - __clzll(x) : 0;
-}
-
-// floor((hi * 2^64 + lo) / d) for 0 < d < 2^63, as (*q_hi, return value):
-// a restoring division, the remainder staying below d.
-__device__ uint64_t div128(uint64_t hi, uint64_t lo, uint64_t d,
-                           uint64_t* q_hi) {
-  uint64_t qh = 0, ql = 0, r = 0;
-  for (int i = 127; i >= 0; --i) {
-    const uint64_t bit = i >= 64 ? (hi >> (i - 64)) & 1 : (lo >> i) & 1;
-    r = (r << 1) | bit;
-    if (r >= d) {
-      r -= d;
-      if (i >= 64)
-        qh |= 1ULL << (i - 64);
-      else
-        ql |= 1ULL << i;
-    }
-  }
-  *q_hi = qh;
-  return ql;
-}
-
-// floor((c << 36) / d), c >= 0, 0 < d < 2^63, as (*q_hi, return value).
-__device__ __forceinline__ uint64_t scaled_quotient(uint64_t c, uint64_t d,
-                                                    uint64_t* q_hi) {
-  return div128(c >> (64 - kScaleBits), c << kScaleBits, d, q_hi);
-}
-
-__global__ void certificate_kernel(const int64_t* __restrict__ kth, int D,
-                                   const unsigned long long* __restrict__ cand,
-                                   const int64_t* __restrict__ g_cnt,
-                                   int64_t M, int32_t* rec,
-                                   const int64_t* __restrict__ sym_freq,
-                                   int wordpiece, int wide_score) {
+// The check launcher of the certificate (certificate.cuh): the winner's
+// summed count from a scan of the candidates, then the same device
+// functions K2 runs in its last block. No training path launches it.
+__global__ void __launch_bounds__(kThreads)
+    certificate_kernel(const int64_t* __restrict__ kth, int D,
+                       const unsigned long long* __restrict__ cand,
+                       const int64_t* __restrict__ g_cnt, int64_t M,
+                       int32_t* rec, const int64_t* __restrict__ sym_freq,
+                       int wordpiece, int wide_score) {
   __shared__ unsigned long long s_best;
+  __shared__ CertSum s_sum;
   const bool active = rec[4] != 0;
   const unsigned long long best_key =
-      (static_cast<unsigned long long>(static_cast<uint32_t>(rec[0])) << 32) |
-      static_cast<uint32_t>(rec[1]);
+      active ? (static_cast<unsigned long long>(static_cast<uint32_t>(rec[0]))
+                << 32) |
+                   static_cast<uint32_t>(rec[1])
+             : 0;
   if (threadIdx.x == 0) s_best = 0;
   __syncthreads();
+  if (threadIdx.x < 32) {  // the shards' terms, beside the scan's loads
+    const CertSum s = cert_terms(kth, D, sym_freq, wordpiece, wide_score);
+    if (threadIdx.x == 0) s_sum = s;
+  }
   // The winner's summed count: counts are >= 0, so the largest count + 1
   // over the candidates of its key is kept (0: none).
   if (active) {
@@ -391,70 +363,9 @@ __global__ void certificate_kernel(const int64_t* __restrict__ kth, int D,
     if (best) atomicMax(&s_best, best);
   }
   __syncthreads();
-  if (threadIdx.x != 0) return;
-  const int64_t best_cnt = static_cast<int64_t>(s_best) - 1;  // -1: none
-  uint64_t sum_t = 0;
-  bool any_sat = false;
-  for (int i = 0; i < D; ++i) {
-    const int64_t metric = kth[3 * i];
-    if (!wordpiece) {
-      sum_t += metric > 0 ? static_cast<uint64_t>(metric) : 0;
-      continue;
-    }
-    if (metric < 0) continue;  // no K-th entry: every run was nominated
-    const unsigned long long key =
-        static_cast<unsigned long long>(kth[3 * i + 2]);
-    uint64_t c = kth[3 * i + 1] > 0 ? kth[3 * i + 1] : 0;
-    int64_t fa = sym_freq[key >> 32];
-    int64_t fb = sym_freq[key & 0xffffffffULL];
-    bool unsafe = false;
-    if (wide_score) {
-      unsafe = bitlen64(fa > 1 ? fa : 1) + bitlen64(fb > 1 ? fb : 1) > 62;
-      if (unsafe) {
-        fa = fb = 1;
-        c = 1;
-      }
-    }
-    const int64_t prod = fa * fb;
-    const uint64_t d = prod > 1 ? static_cast<uint64_t>(prod) : 1;
-    uint64_t qh;
-    const uint64_t q = scaled_quotient(c, d, &qh);
-    uint64_t t;
-    bool sat;
-    if (qh != 0 || q >= kSat) {
-      t = kSat;
-      sat = true;
-    } else {
-      const uint64_t bound = q + (q >> 50) + 2;
-      sat = bound >= kSat;
-      t = sat ? kSat : bound;
-    }
-    sum_t += t;
-    any_sat = any_sat || sat || unsafe;
-  }
-  bool proven;
-  if (!wordpiece) {
-    proven = best_cnt > static_cast<int64_t>(sum_t) || sum_t == 0;
-  } else {
-    int64_t fa = sym_freq[best_key >> 32];
-    int64_t fb = sym_freq[best_key & 0xffffffffULL];
-    bool best_unsafe = false;
-    if (wide_score) {
-      best_unsafe =
-          bitlen64(fa > 1 ? fa : 1) + bitlen64(fb > 1 ? fb : 1) > 62;
-      if (best_unsafe) fa = fb = 1;
-    }
-    const int64_t prod = fa * fb;
-    const uint64_t d = prod > 1 ? static_cast<uint64_t>(prod) : 1;
-    uint64_t lh;
-    const uint64_t l =
-        scaled_quotient(best_cnt > 0 ? static_cast<uint64_t>(best_cnt) : 0,
-                        d, &lh);
-    const uint64_t rhs = sum_t + (sum_t >> 50) + 2;
-    const bool above = lh != 0 || l > rhs;
-    proven = (above && !any_sat && !best_unsafe) || sum_t == 0;
-  }
-  rec[5] = proven;
+  if (threadIdx.x == 0)
+    rec[5] = cert_proven(s_sum, static_cast<int64_t>(s_best) - 1, best_key,
+                         sym_freq, wordpiece, wide_score);
 }
 
 }  // namespace

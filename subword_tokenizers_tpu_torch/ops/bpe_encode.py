@@ -26,8 +26,9 @@ in signed 64-bit arithmetic, then linear probing.
 arithmetic exactly.
 
 - :func:`bpe_encode` is the wrapper: on CUDA tensors it launches the
-  hand-written kernel ``csrc/bpe_encode.cu`` (one thread per word), on
-  CPU tensors it runs the plain PyTorch version :func:`bpe_encode_ref`.
+  hand-written kernel ``csrc/bpe_encode.cu`` (a warp per word, which also
+  checks the rows' layout as it loads them), on CPU tensors it runs the
+  plain PyTorch version :func:`bpe_encode_ref`.
 """
 from __future__ import annotations
 
@@ -127,8 +128,21 @@ def bpe_encode_ref(sym, hkeys, hrank, hout, monotone: bool, max_probe: int):
     """Plain PyTorch version of the kernel: every row takes its trip in
     lockstep, as the JAX program does, until no row found a pair.
     Returns (merged int32[W, L], out_n int32[W])."""
+    return _lockstep(sym, hkeys, hrank, hout, monotone, max_probe)[:2]
+
+
+def bpe_encode_trips(sym, hkeys, hrank, hout, monotone: bool,
+                     max_probe: int):
+    """The trips each row takes (int64[W]), its last, which finds no pair,
+    included: the chain of dependent probes the kernel's warp for that row
+    runs, and in all the work of the kernel's warps."""
+    return _lockstep(sym, hkeys, hrank, hout, monotone, max_probe)[2]
+
+
+def _lockstep(sym, hkeys, hrank, hout, monotone: bool, max_probe: int):
     W, L = sym.shape
     merged = sym
+    trips = torch.ones(W, dtype=torch.int64, device=sym.device)
     if W > 0 and L >= 2 and hkeys.shape[0] > 0:
         cursor = torch.zeros(W, dtype=torch.int32, device=sym.device)
         rows = torch.arange(W, device=sym.device)
@@ -147,10 +161,11 @@ def bpe_encode_ref(sym, hkeys, hrank, hout, monotone: bool, max_probe: int):
             merged = _apply_rows(merged, a, b, out_tab[rows, bi])
             if monotone:
                 cursor = torch.where(active, best + 1, cursor)
+            trips += active
             if not bool(active.any()):
                 break
     out_n = (merged >= 0).sum(dim=1).to(torch.int32)
-    return merged.to(torch.int32), out_n
+    return merged.to(torch.int32), out_n, trips
 
 
 def bpe_encode(sym, hkeys, hrank, hout, monotone: bool, max_probe: int):
@@ -161,7 +176,9 @@ def bpe_encode(sym, hkeys, hrank, hout, monotone: bool, max_probe: int):
     ``monotone``: NaiveBPE's cursor rule; else FastBPE's greedy rule.
 
     Every entry is PAD or an id >= 0, and a row's PADs all sit at its
-    right end (a ValueError otherwise: one reduction over ``sym``).
+    right end (a ValueError otherwise: on the CPU one reduction over
+    ``sym``; on the card the kernel checks each row as it loads it and
+    the wrapper reads one word back).
 
     Returns (merged int32[W, L] PAD-filled on the right, out_n int32[W]
     symbols per row). Launches the CUDA kernel for CUDA tensors, runs
@@ -180,25 +197,45 @@ def bpe_encode(sym, hkeys, hrank, hout, monotone: bool, max_probe: int):
                          f"max_probe={max_probe})")
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"bpe_encode: no kernel for device {dev}")
-    pad = sym < 0
-    if bool((sym < PAD).any() | (pad[:, :-1] & ~pad[:, 1:]).any()):
-        raise ValueError("bpe_encode: a row holds an id < -1 or a PAD "
-                         "before an id")
     if dev.type == "cpu":
+        pad = sym < 0
+        if bool((sym < PAD).any() | (pad[:, :-1] & ~pad[:, 1:]).any()):
+            raise ValueError(_BAD_LAYOUT)
         return bpe_encode_ref(sym, hkeys, hrank, hout, monotone, max_probe)
     W, L = sym.shape
     merged = torch.empty_like(sym)
     out_n = torch.empty(W, dtype=torch.int32, device=dev)
     if W == 0:
         return merged, out_n
+    flag, epoch = _layout_flag(dev)
     from . import _cuda
     with torch.cuda.device(dev):
         _cuda.launch("swt_bpe_encode", sym.data_ptr(), W, L,
                      hkeys.data_ptr(), hrank.data_ptr(), hout.data_ptr(), H,
                      int(bool(monotone)), int(max_probe), merged.data_ptr(),
-                     out_n.data_ptr())
+                     out_n.data_ptr(), flag.data_ptr(), epoch)
     bpe_encode.launches += 1
+    if int(flag.item()) == epoch:
+        raise ValueError(_BAD_LAYOUT)
     return merged, out_n
 
 
 bpe_encode.launches = 0
+
+_BAD_LAYOUT = "bpe_encode: a row holds an id < -1 or a PAD before an id"
+_FLAGS = {}  # device -> [the kernel's layout flag word, the last epoch]
+
+
+def _layout_flag(dev):
+    """The layout flag word on ``dev`` (made once) and this call's epoch:
+    a bad row sets the word to the epoch, so the word needs no clearing
+    between calls; it is cleared once when the epochs wrap."""
+    entry = _FLAGS.get(dev)
+    if entry is None or entry[1] == I32_INF:
+        if entry is None:
+            entry = _FLAGS[dev] = [torch.zeros(1, dtype=torch.int32,
+                                               device=dev), 0]
+        entry[0].zero_()
+        entry[1] = 0
+    entry[1] += 1
+    return entry[0], entry[1]

@@ -25,10 +25,13 @@ so positions order pairs across shards as one device's do. On that table:
   shards; the JAX package's ``compact_cands``,
   ``ops/pairstats.py:162``, as its compact tier uses it);
   :func:`compact_table` is its one-table case;
-- :func:`certificate`: the Σ-threshold certificate of the top-K tier
-  (kernel ``swt_certificate``; ``parallel/train.py:287-290`` for BPE,
-  ``:336-365`` and ``:383-400`` for WordPiece), written into the step's
-  record as its one flag read back.
+- :func:`certificate_ref`: the Σ-threshold certificate of the top-K tier
+  (``parallel/train.py:287-290`` for BPE, ``:336-365`` and ``:383-400``
+  for WordPiece), written into the step's record as its one flag read
+  back. On the card the step runs it inside K2's launch
+  (ops/train_loop.select_host_ids with ``kth``; ``csrc/certificate.cuh``);
+  :func:`certificate` launches the same device functions alone, for the
+  checks (kernel ``swt_certificate``), and no training path calls it.
 
 The kernels are in ``csrc/shard_select.cu`` and, the nomination's,
 ``csrc/nominate.cu``. The plain versions take
@@ -485,8 +488,10 @@ def certificate(kth, cand, g_cnt, rec, sym_freq=None,
     denominator of more than 62 bits vetoes (K-th entries and winner).
     Exact where the JAX package's int64 arithmetic does not overflow.
 
-    Launches ``swt_certificate`` for CUDA tensors, runs the Python
-    version for CPU tensors, and raises for any other device."""
+    The check launcher of the device functions that K2 runs in its last
+    block on the training step (``csrc/certificate.cuh``): launches
+    ``swt_certificate`` for CUDA tensors, runs the Python version for CPU
+    tensors, and raises for any other device."""
     dev = kth.device
     check_tensor("kth", kth, (torch.int64,), 1, dev)
     check_tensor("cand", cand, (torch.int64,), 1, dev)

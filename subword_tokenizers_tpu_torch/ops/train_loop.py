@@ -44,6 +44,7 @@ from .flat import (ACTIVE, NEW_ID, N_LIVE, MergeScratch, merge_apply,
 from .merge import apply_merge
 from .pairstats import (EMPTY_KEY, PairTable, TablePair, pair_stats,
                         symbol_freqs, symbol_rows)
+from .shard_select import certificate_ref
 from .wp_tournament import wp_tournament_select
 
 MOD = (1 << 31) - 1  # Mersenne prime; products of residues fit in int64
@@ -108,9 +109,12 @@ def select_unify_ref(keys, counts, pos, h1, h2, slen, ctrl, pw1, pw2,
                      max_vocab: int, rec, host_ids: bool = False,
                      wordpiece: bool = False, sym_freq=None,
                      sharp=(0, 0), tournament: bool = False,
-                     redo=None, claims: Optional[PairTable] = None) -> None:
+                     redo=None, claims: Optional[PairTable] = None,
+                     kth=None, wide_score: bool = False) -> None:
     """Plain PyTorch version of :func:`select_unify` (same writes); with
-    ``claims`` only the entries its last fill claimed are read."""
+    ``claims`` only the entries its last fill claimed are read; with
+    ``kth`` the selection is followed by
+    :func:`~.shard_select.certificate_ref`."""
     if claims is not None:
         idx = claims.claimed()
         keys, counts, pos = keys[idx], counts[idx], pos[idx]
@@ -127,6 +131,9 @@ def select_unify_ref(keys, counts, pos, h1, h2, slen, ctrl, pw1, pw2,
         active = best > 0
         a, b = (key >> 32, key & 0xFFFFFFFF) if active else (0, 0)
         rec[:ACTIVE + 1] = torch.tensor([a, b, -1, 0, int(active)])
+        if kth is not None:
+            certificate_ref(kth, keys, counts, rec,
+                            sym_freq if wordpiece else None, wide_score)
         return
     active = bool(alive) and best > 0 and vocab < max_vocab
     a, b = (key >> 32, key & 0xFFFFFFFF) if active else (0, 0)
@@ -159,7 +166,8 @@ def select_unify(keys, counts, pos, h1, h2, slen, ctrl, pw1, pw2,
                  wordpiece: bool = False, sym_freq=None,
                  sharp=(0, 0), tournament: bool = False,
                  redo=None, claims: Optional[PairTable] = None,
-                 scratch: Optional[torch.Tensor] = None) -> None:
+                 scratch: Optional[torch.Tensor] = None, kth=None,
+                 wide_score: bool = False) -> None:
     """One step's winner and merged symbol, written into ``rec`` (int32[6]).
 
     The pair table (keys, counts, pos) is either layout of
@@ -194,6 +202,14 @@ def select_unify(keys, counts, pos, h1, h2, slen, ctrl, pw1, pw2,
     and ticket, kept by a caller that selects every step; without it the
     call builds its own. A call on the card is one kernel launch.
 
+    ``kth`` (int64[3 * D], with ``host_ids`` over the sharded top-K
+    tier's gathered candidates: each shard's K-th best metric, count and
+    key, ops/shard_select.nominate_tables) adds that tier's certificate
+    to the same launch: its proven flag goes to ``rec[5]``, as
+    :func:`~.shard_select.certificate` computes it over (keys, counts)
+    as the candidates and their summed counts, ``wide_score`` as there.
+    Not with ``claims`` or the tournament.
+
     Launches the CUDA kernel for CUDA tensors, runs the PyTorch version
     for CPU tensors, and raises for any other device.
     """
@@ -215,6 +231,14 @@ def select_unify(keys, counts, pos, h1, h2, slen, ctrl, pw1, pw2,
             raise ValueError("select_unify: the tournament needs wordpiece "
                              "and a redo counter")
         check_tensor("redo", redo, (torch.int32,), 1, dev)
+    if kth is not None:
+        check_tensor("kth", kth, (torch.int64,), 1, dev)
+        if not host_ids or tournament or claims is not None:
+            raise ValueError("select_unify: the certificate (kth) runs in "
+                             "host_ids mode over dense candidates only")
+        if kth.shape[0] % 3 or kth.shape[0] == 0:
+            raise ValueError(f"select_unify: kth of {kth.shape[0]} words, "
+                             f"expected 3 a shard")
     T = keys.shape[0]
     if (counts.shape[0] != T or pos.shape[0] != T or ctrl.shape[0] != 3
             or rec.shape[0] != 6 or h2.shape[0] != h1.shape[0]
@@ -233,7 +257,8 @@ def select_unify(keys, counts, pos, h1, h2, slen, ctrl, pw1, pw2,
     if dev.type == "cpu":
         return select_unify_ref(keys, counts, pos, h1, h2, slen, ctrl, pw1,
                                 pw2, max_vocab, rec, host_ids, wordpiece,
-                                sym_freq, sharp, tournament, redo, claims)
+                                sym_freq, sharp, tournament, redo, claims,
+                                kth, wide_score)
     if dev.type != "cuda":
         raise ValueError(f"select_unify: no kernel for device {dev}")
     if pos.dtype != torch.int32:
@@ -256,8 +281,13 @@ def select_unify(keys, counts, pos, h1, h2, slen, ctrl, pw1, pw2,
                      sym_freq.data_ptr() if wordpiece else None,
                      int(wordpiece), int(sharp[0]), int(sharp[1]),
                      int(tournament),
-                     redo.data_ptr() if tournament else None)
+                     redo.data_ptr() if tournament else None,
+                     None if kth is None else kth.data_ptr(),
+                     0 if kth is None else kth.shape[0] // 3,
+                     int(wide_score))
     select_unify.launches += 1
+    if kth is not None:
+        select_unify.cert_launches += 1
     if wordpiece:
         select_unify.wp_launches += 1
     if tournament:
@@ -267,6 +297,7 @@ def select_unify(keys, counts, pos, h1, h2, slen, ctrl, pw1, pw2,
 select_unify.launches = 0
 select_unify.wp_launches = 0  # launches in WordPiece mode
 select_unify.tournament_launches = 0  # launches in tournament mode
+select_unify.cert_launches = 0  # launches that ran the certificate
 select_unify.risky_redos = 0  # steps redone exactly, added by run_fused
 
 
@@ -635,20 +666,33 @@ def run_fused(state: FlatState, table, max_vocab: int, max_len: int,
         return state.padded()
 
 
+# device -> (empty, ctrl) for select_host_ids: host_ids mode never writes
+# them, so they are made once, not allocated and filled every call
+_HOST_IDS_ARGS = {}
+
+
 def select_host_ids(keys, counts, pos, rec, sym_freq=None,
                     claims: Optional[PairTable] = None,
-                    scratch: Optional[torch.Tensor] = None) -> None:
+                    scratch: Optional[torch.Tensor] = None, kth=None,
+                    wide_score: bool = False) -> None:
     """K2's selection only, over a pair table (either form of
     ops/pairstats.pair_stats): ``rec`` gets (a, b, -1, 0, active) of the
     pair of largest count, or with ``sym_freq`` of largest exact score,
-    then least position; active = the metric is positive. ``claims`` and
-    ``scratch`` as for :func:`select_unify`."""
+    then least position; active = the metric is positive. ``claims``,
+    ``scratch``, and ``kth`` with ``wide_score`` (the top-K tier's
+    certificate into ``rec[5]``, in the same launch) as for
+    :func:`select_unify`."""
     dev = keys.device
-    empty = torch.zeros(1, dtype=torch.int64, device=dev)
-    ctrl = torch.zeros(3, dtype=torch.int32, device=dev)
+    args = _HOST_IDS_ARGS.get(dev)
+    if args is None:
+        args = _HOST_IDS_ARGS[dev] = (
+            torch.zeros(1, dtype=torch.int64, device=dev),
+            torch.zeros(3, dtype=torch.int32, device=dev))
+    empty, ctrl = args
     select_unify(keys, counts, pos, empty, empty, empty, ctrl, empty, empty,
                  0, rec, host_ids=True, wordpiece=sym_freq is not None,
-                 sym_freq=sym_freq, claims=claims, scratch=scratch)
+                 sym_freq=sym_freq, claims=claims, scratch=scratch, kth=kth,
+                 wide_score=wide_score)
 
 
 def step_host_ids(state: FlatState, table, rec,

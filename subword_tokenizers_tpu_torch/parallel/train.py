@@ -21,9 +21,10 @@ A step picks its merge through three exact tiers, as in the JAX package:
    device looks up every one in the tables of its shards, summing the
    counts and taking the least positions, the mesh
    finishes that reduction across devices and processes, K2 picks
-   the winner among them, and a Σ-threshold certificate proves that no
-   pair outside the candidates can win (ops/shard_select.py). The flag
-   is the one value read back;
+   the winner among them and, in the same launch, a Σ-threshold
+   certificate proves that no pair outside the candidates can win
+   (``csrc/certificate.cuh``; ops/shard_select.certificate_ref). The
+   flag is the one value read back;
 2. **compact** (:func:`sharded_select_compact`): one launch a device
    compacts the tables of its shards into at most ``cap`` runs each
    (:func:`run_gather_cap`), the runs are gathered and aggregated again
@@ -51,8 +52,8 @@ import torch
 from ..ops.merge import apply_merge
 from ..ops.pairstats import (TablePair, clean_table, pair_rows,
                              pair_stats_runs)
-from ..ops.shard_select import (TableSet, certificate, compact_tables,
-                                lookup_reduce, nominate_tables)
+from ..ops.shard_select import (TableSet, compact_tables, lookup_reduce,
+                                nominate_tables)
 from ..ops.train_loop import PaddedState, select_host_ids, select_scratch
 from .mesh import DataMesh
 
@@ -265,9 +266,10 @@ def sharded_select_topk(corpus: ShardedCorpus, tables, rec,
                         topk: int = TOPK) -> None:
     """The top-K tier: ``rec`` gets K2's winner over the gathered
     candidates (a, b, active) and, in ``rec[5]``, the certificate's
-    proven flag. ``tables`` are the shards' K1 tables; ``sym_freq`` (on
-    ``mesh.home``) selects WordPiece. Replaces the JAX package's
-    ``sharded_bpe_select_topk`` and ``sharded_wp_select_topk``."""
+    proven flag, both from one K2 launch. ``tables`` are the shards' K1
+    tables; ``sym_freq`` (on ``mesh.home``) selects WordPiece. Replaces
+    the JAX package's ``sharded_bpe_select_topk`` and
+    ``sharded_wp_select_topk``."""
     mesh = corpus.mesh
     k = min(topk, corpus.n_local_pairs)
     picks = [nominate_tables(tables[a:b], k,
@@ -283,8 +285,7 @@ def sharded_select_topk(corpus: ShardedCorpus, tables, rec,
     g_cnt = mesh.sum([c for c, _ in looked])
     g_pos = mesh.amin([p for _, p in looked])
     select_host_ids(cand, g_cnt, g_pos, rec, sym_freq,
-                    scratch=corpus.k2_scratch)
-    certificate(kth, cand, g_cnt, rec, sym_freq, wide_score)
+                    scratch=corpus.k2_scratch, kth=kth, wide_score=wide_score)
 
 
 def sharded_select_compact(corpus: ShardedCorpus, tables, rec, cap: int,

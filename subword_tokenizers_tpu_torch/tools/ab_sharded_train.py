@@ -2,8 +2,8 @@
 in a process of its own in the order parent, change, change, parent.
 
     python3 -m subword_tokenizers_tpu_torch.tools.ab_sharded_train \\
-        PARENT_DIR CHANGE_DIR [compact] [kernels] [single] [NaiveBPE] \
-        [NaiveWP]
+        PARENT_DIR CHANGE_DIR [compact] [kernels] [topk] [encode] [single] \
+        [NaiveBPE] [NaiveWP]
 
 - ``NaiveBPE`` / ``NaiveWP``: the model under the one-card mesh
   ``make_data_mesh(8, devices=["cuda:0"] * 8)``, trained on all of
@@ -25,6 +25,19 @@ in a process of its own in the order parent, change, change, parent.
   checkout's step calls them over the same 8 shards, 25 calls queued
   back to back for the device time and 200 for the host's time a call
   (10-20 s a run).
+- ``topk``: the top-K tier (``sharded_select_topk``: the nomination, the
+  lookup, K2 and the certificate) as the checkout's step calls it, on
+  the mesh of 8 at the BPE and the WordPiece state after each golden's
+  first 1,000 merges: the device time a call over 200 calls queued back
+  to back, and the host's time a call over 200 calls; then, over the
+  same candidates, K2's selection alone (``select_host_ids``) and the
+  certificate's launcher alone (``shard_select.certificate``), 200
+  calls each queued back to back (10-20 s a run).
+- ``encode``: K5, ``bpe_encode`` over the corpus's 22,971 word types with
+  the golden merges, monotone and greedy: the wrapper's wall a call
+  (it waits for its answer) over 50 calls, and the device time a call of
+  the kernels whose names hold "encode", from a ``torch.profiler`` trace
+  of 20 calls (10-20 s a run).
 - ``single``: ``NaiveBPE`` and then ``NaiveWP(device="cuda")`` on one
   device (the default flat route), each trained on all of
   ``data/train-85k.json`` to 8,000 and checked against the JAX goldens,
@@ -223,6 +236,128 @@ print(json.dumps({"step_device_ms": step_device,
                   "k1_ms": k1_ms, "k4_ms": k4_ms, "k4_host_ms": k4_host}))
 '''
 
+TOPK = r'''
+import json, os, sys, time
+import torch
+sys.path.insert(0, os.getcwd())
+from subword_tokenizers_tpu_torch.core.corpus import (build_bpe_corpus,
+                                                      build_wp_corpus,
+                                                      unique_words)
+from subword_tokenizers_tpu_torch.core.symbols import SymbolTable
+from subword_tokenizers_tpu_torch.frontend.pretokenize import \
+    pretokenize_batch
+from subword_tokenizers_tpu_torch.ops import _cuda
+from subword_tokenizers_tpu_torch.ops.shard_select import (
+    certificate, lookup_reduce, nominate_tables)
+from subword_tokenizers_tpu_torch.ops.train_loop import select_host_ids
+from subword_tokenizers_tpu_torch.parallel import train as ptrain
+from subword_tokenizers_tpu_torch.parallel.mesh import make_data_mesh
+corpus = json.load(open("data/train-85k.json", encoding="utf-8"))
+bpe = [tuple(p) for p in json.load(open(
+    "tests/golden/port_t85k_v8000_bpe_merges.json", encoding="utf-8"))]
+wp = [tuple(p) for p in json.load(open(
+    "tests/golden/port_t85k_v8000_wp_vocab.json",
+    encoding="utf-8"))["merges"]]
+dev = torch.device("cuda:0")
+_cuda.lib()
+words, freq, _ = unique_words(pretokenize_batch(corpus))
+mesh = make_data_mesh(8, devices=[dev] * 8)
+out = {}
+
+
+def device_ms(fn, reps=200):
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000_000)  # queue the calls ahead of the stream
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+for name, build, golden, join in (
+        ("bpe", build_bpe_corpus, bpe, lambda a, b: a + b),
+        ("wp", build_wp_corpus, wp, lambda a, b: a + b[2:])):
+    table = SymbolTable()
+    arrays = build(words, freq, table)
+    sc = ptrain.shard_corpus(mesh, arrays.sym, arrays.freq)
+    for sa, sb in golden[:1000]:
+        ptrain.sharded_apply_merge(sc, table.get(sa), table.get(sb),
+                                   table.intern(join(sa, sb)))
+    sf = (ptrain.sharded_sym_freq(sc, max(8000, len(table)) + 8).clone()
+          if name == "wp" else None)
+    tables = sc.pairs()
+    rec = torch.zeros(6, dtype=torch.int32, device=dev)
+
+    def fn():
+        ptrain.sharded_select_topk(sc, tables, rec, sf)
+
+    out[name + "_device_ms"] = device_ms(fn)
+    t0 = time.perf_counter()
+    for _ in range(200):
+        fn()
+    out[name + "_host_ms"] = (time.perf_counter() - t0) * 1e3 / 200
+    torch.cuda.synchronize()
+    out[name + "_rec"] = rec.tolist()
+    cand, kth = nominate_tables(tables, ptrain.TOPK, sf)
+    g_cnt, g_pos = lookup_reduce(cand, tables, sc.bases)
+    r2 = torch.zeros(6, dtype=torch.int32, device=dev)
+    out[name + "_k2_ms"] = device_ms(
+        lambda: select_host_ids(cand, g_cnt, g_pos, r2, sf,
+                                scratch=sc.k2_scratch))
+    out[name + "_cert_launcher_ms"] = device_ms(
+        lambda: certificate(kth, cand, g_cnt, r2, sf))
+print(json.dumps(out))
+'''
+
+ENCODE = r'''
+import json, os, sys, time
+import torch
+from torch.profiler import ProfilerActivity, profile
+sys.path.insert(0, os.getcwd())
+from subword_tokenizers_tpu_torch import NaiveBPE
+from subword_tokenizers_tpu_torch.core.corpus import unique_words
+from subword_tokenizers_tpu_torch.frontend.pretokenize import \
+    pretokenize_batch
+from subword_tokenizers_tpu_torch.ops import _cuda
+from subword_tokenizers_tpu_torch.ops.bpe_encode import bpe_encode
+corpus = json.load(open("data/train-85k.json", encoding="utf-8"))
+merges = [tuple(p) for p in json.load(open(
+    "tests/golden/port_t85k_v8000_bpe_merges.json", encoding="utf-8"))]
+dev = torch.device("cuda:0")
+_cuda.lib()
+words, _, _ = unique_words(pretokenize_batch(corpus))
+tok = NaiveBPE(device=dev)
+tok.merges_list = merges
+st = tok._device_tables()
+sym = torch.from_numpy(tok._encode_inputs(words, st.table)).to(dev)
+out = {"W": sym.shape[0], "L": sym.shape[1]}
+for mode, monotone in (("monotone", True), ("greedy", False)):
+    args = (sym, st.hkeys, st.hrank, st.hout, monotone, st.max_probe)
+    res = bpe_encode(*args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(50):
+        bpe_encode(*args)
+    torch.cuda.synchronize()
+    out[mode + "_wrapper_ms"] = (time.perf_counter() - t0) * 1e3 / 50
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(20):
+            bpe_encode(*args)
+        torch.cuda.synchronize()
+    kern = [e for e in prof.key_averages() if "encode" in e.key]
+    out[mode + "_kernel_ms"] = sum(
+        getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0))
+        for e in kern) / 1e3 / 20
+    out[mode + "_kernels"] = [e.key[:60] for e in kern]
+    out[mode + "_out_n_sum"] = int(res[1].sum())
+print(json.dumps(out))
+'''
+
 SINGLE = r'''
 import json, os, sys, time
 import torch
@@ -267,6 +402,8 @@ def main(argv) -> int:
     for mode in modes:
         args = ([COMPACT] if mode == "compact" else
                 [KERNELS] if mode == "kernels" else
+                [TOPK] if mode == "topk" else
+                [ENCODE] if mode == "encode" else
                 [SINGLE] if mode == "single" else [TRAIN, mode])
         for name, d in (("parent", parent), ("change", change),
                         ("change", change), ("parent", parent)):

@@ -19,7 +19,7 @@ import torch
 
 import jax.numpy as jnp
 
-from chip_smoke import bpe_random_case, merge_lists
+from chip_smoke import bpe_random_case, merge_lists, self_pair_case
 from subword_tokenizers_tpu import FastBPE as JaxFastBPE
 from subword_tokenizers_tpu import NaiveBPE as JaxNaiveBPE
 from subword_tokenizers_tpu.ops import bpe_encode as jbe
@@ -123,6 +123,35 @@ def test_merge_loop_equals_jax(monotone, seed, W, L, n_sym, n_merges):
     assert np.array_equal(out_n, (want >= 0).sum(axis=1))
 
 
+@pytest.mark.parametrize("monotone", [True, False])
+@pytest.mark.parametrize("L", [1, 2, 31, 32, 33, 64, 65])
+def test_widths_equal_jax(monotone, L):
+    """The kernel's layouts by width (a row in registers up to 32, 64 and
+    128 columns a warp): random rows through the wrapper, exactly as JAX
+    merges them."""
+    rng = np.random.default_rng(L)
+    sym, entries = bpe_random_case(rng, 300, L, 4, 40)
+    want = _jax_encode(sym, entries, monotone)
+    merged, out_n = _port_encode(sym, entries, monotone)
+    assert np.array_equal(merged, want)
+    assert np.array_equal(out_n, (want >= 0).sum(axis=1))
+
+
+@pytest.mark.parametrize("monotone", [True, False])
+@pytest.mark.parametrize("L", [33, 40, 70, 130])
+def test_long_self_pair_runs(monotone, L):
+    """Runs of one symbol longer than a warp's 32 columns, merged
+    pairwise again and again: the parity rule across chunks of 32,
+    exactly as JAX merges them."""
+    sym, entries = self_pair_case(np.random.default_rng(L), 64, L)
+    assert (sym == 0).sum(axis=1).max() == L
+    want = _jax_encode(sym, entries, monotone)
+    merged, out_n = _port_encode(sym, entries, monotone)
+    assert np.array_equal(merged, want)
+    assert np.array_equal(out_n, (want >= 0).sum(axis=1))
+    assert (want[0] >= 0).sum() <= (L + 1) // 2  # the full run merged
+
+
 def test_greedy_and_monotone_differ_on_random_ranks():
     rng = np.random.default_rng(14)
     sym, entries = bpe_random_case(rng, 500, 24, 9, 200)
@@ -169,6 +198,17 @@ def test_wrapper_checks():
             tbe.bpe_encode(bad, hk, hr, ho, False, mp)
     tbe.bpe_encode(torch.tensor([[0, 0, -1, -1], [-1] * 4],
                                 dtype=torch.int32), hk, hr, ho, False, mp)
+    # wider rows: an id below -1, a PAD before an id within and across
+    # the chunks of 32 columns the kernel loads
+    wide = torch.zeros(3, 70, dtype=torch.int32)
+    wide[1, 60:] = -1
+    tbe.bpe_encode(wide, hk, hr, ho, True, mp)
+    for cols, v in ((slice(50, 51), -2), (slice(40, 41), -1),
+                    (slice(10, 32), -1), (slice(0, 1), -1)):
+        bad = wide.clone()
+        bad[2, cols] = v
+        with pytest.raises(ValueError, match="PAD before an id"):
+            tbe.bpe_encode(bad, hk, hr, ho, True, mp)
 
 
 @pytest.mark.parametrize("name", ["FastBPE", "NaiveBPE"])
