@@ -10,15 +10,24 @@ WordPiece vocab ``tests/golden/port_t85k_fastwp_vocab.json``:
 0. the card's name and power limit (nvidia-smi) and the versions;
 1. builds the native front end (g++) and the CUDA kernels (nvcc,
    sm_90a) from the sources in the checkout;
-2. holds each kernel against its plain PyTorch version on the same
-   tensors on the card, exactly (every output is an integer): seeded
-   random tries and rows that raise every flag, the general-pops route,
-   and the 27,482 unique chunks of the corpus; times both;
-3. encodes the whole corpus three times through ``FastWP(device="cuda")
+2. holds FastWP's kernels against their plain PyTorch versions on the
+   same tensors on the card, exactly (every output is an integer): the
+   fused scan (kernel 1's walk with kernel 2's compaction in one launch),
+   kernel 1's rows form and kernel 2 over its rows, on seeded random
+   tries and rows that raise every flag (u16 and i32 words, packed and
+   general parameters), batches across the tiles' edges, rows staged 96
+   and 32 a block and rows too wide to stage in shared memory, kernel 2
+   alone across its tiles with overflowing rows, the general-pops route,
+   and the 27,482 unique chunks of the corpus; times each beside its
+   bound, kernel 2 also beside ``torch.masked_select``;
+3. encodes the whole corpus five times through ``FastWP(device="cuda")
    .tokenize_batch``; the output's sha256 must equal the one the JAX
-   package gave (``tests/golden/port_t85k_fastwp_expect.json``) and both
-   kernels must have been launched; then ``tokenize_stream`` and small
-   batches against the host ``tokenize``;
+   package gave (``tests/golden/port_t85k_fastwp_expect.json``) and each
+   call must make one fused launch and no other; then ``tokenize_stream``
+   and small batches against the host ``tokenize``; (3c) one traced call
+   shows one kernel and no memset; (3d) the whole-sentence route (a
+   vocab token with a space) through the rows form and kernel 2 equals
+   the CPU path;
 4. an input on which the reference would hang raises on the card;
 5. holds the three BPE training kernels (pair counts, selection with
    hash unification, merge with compaction) against their plain
@@ -149,8 +158,9 @@ WordPiece vocab ``tests/golden/port_t85k_fastwp_vocab.json``:
    BPE step and 6 a WordPiece step, the per-shard K1 only in the full
    tier, no scorer and no certificate launch); the forced tiers and
    a mesh of 1 to 1,000, each equal to the golden's prefix, with their K1
-   and K3p launches; FastWP's sharded encode and the other three encoders
-   under the mesh against the JAX digests; and (14d) the idle share of
+   and K3p launches; FastWP's sharded encode (one fused launch a shard)
+   and the other three encoders under the mesh against the JAX digests;
+   and (14d) the idle share of
    one warm sharded train, with the grouped kernels by name, no memset,
    no ``torch.topk`` kernel and no ``certificate_kernel``;
 15. the process-group route: ``torch.distributed`` with NCCL at world
@@ -208,6 +218,12 @@ SCALAR_OPS_PER_S = 67e12   # H100 SXM float32 outside the tensor cores
 H2D_SETUP_MAX = 50
 # words in the names of torch.topk's CUDA kernels (sbtopk, mbtopk)
 TOPK_KERNEL_WORDS = ("topk", "radixfindkth", "kthcounts", "withinkcounts")
+# batch sizes at the edges of kernel 1's tiles (128 rows) and kernel 2's
+# (256 rows)
+TILE_EDGE_ROWS = (1, 127, 128, 129, 255, 256, 257, 3 * 256 + 7)
+# row widths whose staging takes 96 and 32 rows a block, and one too wide
+# to stage in shared memory at all (ops/wp_encode_e2e.tile_layout)
+STAGE_WIDTHS = (300, 700, 1100)
 
 
 def nbytes(*tensors) -> int:
@@ -1075,7 +1091,8 @@ def shard_kernels():
     from subword_tokenizers_tpu_torch.ops.shard_select import (
         certificate, compact_tables, lookup_reduce, nominate_tables)
     from subword_tokenizers_tpu_torch.ops.train_loop import select_unify
-    from subword_tokenizers_tpu_torch.ops.wp_encode_e2e import wp_e2e_scan
+    from subword_tokenizers_tpu_torch.ops.wp_encode_e2e import (
+        wp_e2e_scan, wp_e2e_scan_compact)
     return {"nominate_tables": nominate_tables,
             "lookup_reduce": lookup_reduce, "compact_tables": compact_tables,
             "pair_stats_runs": pair_stats_runs,
@@ -1086,7 +1103,8 @@ def shard_kernels():
             "merge_rows": apply_merge, "symbol_freqs": symbol_freqs,
             "symbol_rows": symbol_rows,
             "wp_score": score_bits, "wp_e2e_scan": wp_e2e_scan,
-            "compact_ids": compact_ids}
+            "compact_ids": compact_ids,
+            "wp_e2e_scan_compact": wp_e2e_scan_compact}
 
 
 def wrapper_calls(counts) -> int:
@@ -1971,6 +1989,13 @@ def memsets(by_name) -> int:
     return sum(c for n, (c, _) in by_name.items() if "memset" in n.lower())
 
 
+def kernel_launches(by_name) -> int:
+    """Kernel spans (neither copies nor memsets) in a trace read by
+    :func:`device_trace`."""
+    return sum(c for n, (c, _) in by_name.items()
+               if "memset" not in n.lower() and "memcpy" not in n.lower())
+
+
 def trace_blocks(dev, flat_bpe, table, arrays_wp, table_wp, max_len,
                  trace_dir, steps=256):
     """A traced block of ``steps`` steps of the flat route (BPE and
@@ -2510,8 +2535,8 @@ def phase14(dev, corpus, check_train, check_wp_train, lists, wp_merges,
                 raise AssertionError(f"{name} under the mesh: the output "
                                      "differs from the JAX package's")
         counts = {k: v for k, v in read_counts(kernels).items() if v}
-        if name == "FastWP" and (counts.get("wp_e2e_scan") != 8
-                                 or counts.get("compact_ids") != 8):
+        # FastWP: one fused launch a shard, nothing else
+        if name == "FastWP" and counts != {"wp_e2e_scan_compact": 8}:
             raise AssertionError(f"FastWP under the mesh: {counts}")
         by_path[f"{name}_mesh8_encode"] = counts
         enc_lines.append(f"{name} cold {walls[0] * 1e3:.3f} ms, warm "
@@ -2779,8 +2804,8 @@ def phase16(dev, scan_args, scan_params, smi, seed=SEED):
 
 def cli_kernels():
     """{name: wrapper} of the encode and training kernels of slices 1-4,
-    which the CLI's steps launch: kernels 1 and 2, K1-K6. Each wrapper's
-    ``launches`` counts its kernel's launches."""
+    which the CLI's steps launch: FastWP's fused scan, kernel 2, K1-K6.
+    Each wrapper's ``launches`` counts its kernel's launches."""
     from subword_tokenizers_tpu_torch.ops.bpe_encode import bpe_encode
     from subword_tokenizers_tpu_torch.ops.fetch import compact_ids
     from subword_tokenizers_tpu_torch.ops.flat import merge_apply
@@ -2788,8 +2813,10 @@ def cli_kernels():
                                                             symbol_freqs)
     from subword_tokenizers_tpu_torch.ops.train_loop import select_unify
     from subword_tokenizers_tpu_torch.ops.wp_encode import wp_match_encode
-    from subword_tokenizers_tpu_torch.ops.wp_encode_e2e import wp_e2e_scan
-    return {"wp_e2e_scan": wp_e2e_scan, "compact_ids": compact_ids,
+    from subword_tokenizers_tpu_torch.ops.wp_encode_e2e import \
+        wp_e2e_scan_compact
+    return {"wp_e2e_scan_compact": wp_e2e_scan_compact,
+            "compact_ids": compact_ids,
             "pair_stats": pair_stats, "select_unify": select_unify,
             "merge_apply": merge_apply, "symbol_freqs": symbol_freqs,
             "bpe_encode": bpe_encode, "wp_match_encode": wp_match_encode}
@@ -2799,9 +2826,9 @@ CLI_MODELS = ("NaiveBPE", "FastBPE", "NaiveWordPiece", "FastWordPiece")
 # The kernels each step of phase 17 must launch.
 CLI_MUST = {
     "train": ("pair_stats", "select_unify", "merge_apply", "symbol_freqs"),
-    "tokenize": ("wp_e2e_scan", "compact_ids", "bpe_encode",
+    "tokenize": ("wp_e2e_scan_compact", "compact_ids", "bpe_encode",
                  "wp_match_encode"),
-    "benchmark": ("wp_e2e_scan", "compact_ids", "bpe_encode",
+    "benchmark": ("wp_e2e_scan_compact", "compact_ids", "bpe_encode",
                   "wp_match_encode"),
 }
 
@@ -2957,7 +2984,8 @@ def main() -> int:
                                                         compact_ids_ref)
     from subword_tokenizers_tpu_torch.ops.wp_encode import pack_words
     from subword_tokenizers_tpu_torch.ops.wp_encode_e2e import (
-        route_params, wp_e2e_scan, wp_e2e_scan_ref)
+        node_records, route_params, tile_layout, wp_e2e_scan,
+        wp_e2e_scan_compact, wp_e2e_scan_compact_ref, wp_e2e_scan_ref)
     dev = torch.device(DEVICE)
 
     # ---- phase 1: builds
@@ -2973,32 +3001,43 @@ def main() -> int:
           f"{t_cuda:.2f} s (sm_90a); ptxas: {' | '.join(ptxas)}")
 
     # ---- phase 2: each kernel against its plain version, on the card
-    errs = {"wp_e2e_scan": 0, "compact_ids": 0}
+    scan_kernels = {"wp_e2e_scan": wp_e2e_scan, "compact_ids": compact_ids,
+                    "wp_e2e_scan_compact": wp_e2e_scan_compact}
+    errs = dict.fromkeys(scan_kernels, 0)
     n_cases = 0
     flag_rows = np.zeros(4, dtype=np.int64)
 
     def check(chars, slen, tables, roots, cap, max_steps, unk_ovf):
+        """Kernel 1's rows form, kernel 2 over its rows and the fused
+        launch, each against the plain versions on the same inputs."""
         nonlocal n_cases
         goto, fail, pops_off, pops_flat, sharp = tables
         args = (chars, slen, goto, fail, pops_off, pops_flat,
                 roots["root_p"], roots["root_sharp"], roots["unk_id"],
                 sharp)
-        got = wp_e2e_scan(*args, cap=cap, max_steps=max_steps,
-                          unk_ovf=unk_ovf)
+        kw = dict(cap=cap, max_steps=max_steps, unk_ovf=unk_ovf,
+                  rec=node_records(fail, pops_off, pops_flat))
+        got = wp_e2e_scan(*args, **kw)
         want = wp_e2e_scan_ref(*args, cap, max_steps, unk_ovf)
         for g, w in zip(got, want):
             errs["wp_e2e_scan"] = max(errs["wp_e2e_scan"], max_err(g, w))
-        ids, head = compact_ids(*got)
         ids_r, head_r = compact_ids_ref(*want)
-        errs["compact_ids"] = max(
-            errs["compact_ids"], max_err(head, head_r),
-            max_err(emitted(ids, head, got[1], cap),
-                    emitted(ids_r, head_r, want[1], cap)))
+        want_ids = emitted(ids_r, head_r, want[1], cap)
+        for name, (ids, head) in (
+                ("compact_ids", compact_ids(*got)),
+                ("wp_e2e_scan_compact", wp_e2e_scan_compact(*args, **kw))):
+            errs[name] = max(errs[name], max_err(head, head_r),
+                             max_err(emitted(ids, head, want[1], cap),
+                                     want_ids))
         flags = head_r[chars.shape[0] + 1:].cpu().numpy()
         for b in range(4):
             flag_rows[b] += int((flags >> b & 1).sum())
         n_cases += 1
-        return got, want, ids, head
+        return got, want, ids_r, head_r
+
+    def u16_words(words):
+        return ((words & 0x1FFF) | ((words >> 9) & 0xE000)).astype(
+            np.uint16).view(np.int16)
 
     rng = np.random.default_rng(SEED)
     for k in range(6):
@@ -3007,14 +3046,53 @@ def main() -> int:
             max_pops=11 if k < 2 else 3, hang_sharp=k % 2 == 1)
         tables = [torch.from_numpy(t).to(dev) for t in tables]
         slen_d = torch.from_numpy(slen).to(dev)
-        u16 = ((words & 0x1FFF) | ((words >> 9) & 0xE000)).astype(np.uint16)
         for chars in (torch.from_numpy(words).to(dev),
-                      torch.from_numpy(u16.view(np.int16)).to(dev)):
+                      torch.from_numpy(u16_words(words)).to(dev)):
             for general in (False, True):
                 check(chars, slen_d, tables, roots,
                       *route_params(chars.shape[1], general))
+        if k < 2:  # batches across the tiles' edges (128 and 256 rows)
+            chars = torch.from_numpy(u16_words(words)).to(dev)
+            for R in TILE_EDGE_ROWS:
+                check(chars[:R], slen_d[:R], tables, roots,
+                      *route_params(24, k == 1))
+    # rows staged 96 and 32 a block, and rows too wide to stage in
+    # shared memory (staged in device memory)
+    stage_rows = {}
+    for W in STAGE_WIDTHS:
+        words, slen, tables, roots = random_case(
+            rng, S=100, W=W, n_nodes=96, A=40, max_pops=6,
+            hang_sharp=False)
+        tables = [torch.from_numpy(t).to(dev) for t in tables]
+        slen_d = torch.from_numpy(slen).to(dev)
+        for chars in (torch.from_numpy(words).to(dev),
+                      torch.from_numpy(u16_words(words)).to(dev)):
+            cap = route_params(W, False)[0]
+            stage_rows[f"{W}x{chars.element_size()}"] = tile_layout(
+                W, cap, chars.element_size())[0]
+            check(chars, slen_d, tables, roots, *route_params(W, False))
+    assert 0 in stage_rows.values() and 96 in stage_rows.values(), \
+        stage_rows
     if not all(flag_rows):
         raise AssertionError(f"random cases left a flag unset: {flag_rows}")
+    # kernel 2 alone across its tiles of 256 rows, overflowing rows on
+    # both sides of a boundary, flags given and absent
+    for R in TILE_EDGE_ROWS + (5000,):
+        out2d = torch.from_numpy(rng.integers(
+            -3, 5000, size=(R, 9)).astype(np.int32)).to(dev)
+        n_np = rng.integers(0, 10, size=R).astype(np.int32)
+        n_np[[r for r in (254, 255, 256, 257, R - 1) if r < R]] = 14
+        out_n = torch.from_numpy(n_np).to(dev)
+        bits = [torch.from_numpy(rng.random(R) < 0.2).to(dev)
+                for _ in range(3)]
+        for flags in (bits, [None, bits[1], None]):
+            ids, head = compact_ids(out2d, out_n, *flags)
+            ids_r, head_r = compact_ids_ref(out2d, out_n, *flags)
+            errs["compact_ids"] = max(
+                errs["compact_ids"], max_err(head, head_r),
+                max_err(emitted(ids, head, out_n, 9),
+                        emitted(ids_r, head_r, out_n, 9)))
+            n_cases += 1
 
     # the general-pops route on a real trie: max_pops = 11
     gen = FastWP(device=dev)
@@ -3070,50 +3148,77 @@ def main() -> int:
     total = int(head[R])
     assert total == int(want[1].sum()) and total > 0, total
     assert not bool(head[R + 1:].any()), "real chunks raised a flag"
-    assert errs["wp_e2e_scan"] == 0 and errs["compact_ids"] == 0, errs
+    assert not any(errs.values()), errs
     scan_args = (chars, slen_d, st.goto, st.fail, st.pops_off,
                  st.pops_flat, st.root_p, st.root_sharp, st.unk_id, st.sharp)
+    scan_kw = dict(cap=params[0], max_steps=params[1], unk_ovf=params[2],
+                   rec=st.rec)
     timing = {
+        "wp_e2e_scan_compact": (
+            cuda_ms(lambda: wp_e2e_scan_compact(*scan_args, **scan_kw), 200,
+                    True),
+            cuda_ms(lambda: wp_e2e_scan_compact_ref(*scan_args, *params),
+                    3)),
         "wp_e2e_scan": (
-            cuda_ms(lambda: wp_e2e_scan(*scan_args, *params), 50, True),
+            cuda_ms(lambda: wp_e2e_scan(*scan_args, **scan_kw), 200, True),
             cuda_ms(lambda: wp_e2e_scan_ref(*scan_args, *params), 3)),
         "compact_ids": (
             cuda_ms(lambda: compact_ids(*got), 200, True),
             cuda_ms(lambda: compact_ids_ref(*got), 20)),
     }
     gen_params = route_params(40, general=True)
+    gen_kw = dict(cap=gen_params[0], max_steps=gen_params[1],
+                  unk_ovf=gen_params[2], rec=gen._device_state().rec)
     timing["wp_e2e_general"] = (
-        cuda_ms(lambda: wp_e2e_scan(*gen_args, *gen_params), 50, True),
+        cuda_ms(lambda: wp_e2e_scan(*gen_args, **gen_kw), 50, True),
         cuda_ms(lambda: wp_e2e_scan_ref(*gen_args, *gen_params), 3))
+    # kernel 2's library yardstick: the stream alone (no offsets, no
+    # flags), one masked_select over the rows' emitted prefixes
+    cols = torch.arange(params[0], device=dev)[None, :]
+    library = {"compact_ids": cuda_ms(
+        lambda: torch.masked_select(got[0], cols < got[1][:, None]), 200,
+        True)}
     # Operations, counted low: a trie step per character (4 integer
     # operations); an add per row and a copy per emitted id. Bytes: of the
-    # trie, one goto entry per character.
+    # trie, one goto entry per character; a stream's tokens once each.
     n_chars = int(slen_d.sum())
     n_gen = int(gen_args[1].sum())
+    head_bytes = 4 * (2 * R + 1)
     bounds = {
         "wp_e2e_scan": bound(nbytes(chars, slen_d, *got)
                              + visited(n_chars, 4, st.goto), 4 * n_chars),
         "wp_e2e_general": bound(nbytes(gen_args[0], gen_args[1], *gen_out)
                                 + visited(n_gen, 4, gen_args[2]),
                                 4 * n_gen),
-        "compact_ids": bound(nbytes(*got) + 4 * (total + 2 * R + 1),
-                             2 * (R + total)),
+        "wp_e2e_scan_compact": bound(
+            nbytes(chars, slen_d) + visited(n_chars, 4, st.goto)
+            + 4 * total + head_bytes, 4 * n_chars + 2 * (R + total)),
+        "compact_ids": bound(nbytes(got[1], *got[2:]) + 8 * total
+                             + head_bytes, 2 * (R + total)),
     }
     torch.cuda.synchronize()
     print(f"phase 2: kernels equal their plain versions exactly on "
           f"{n_cases} cases (rows flagged ovf/stuck/crash/##: "
-          f"{flag_rows.tolist()}); at {R} x {Lc}: scan "
-          f"{timing['wp_e2e_scan'][0]:.3f} ms (plain "
-          f"{timing['wp_e2e_scan'][1]:.3f} ms), compact "
-          f"{timing['compact_ids'][0]:.3f} ms (plain "
-          f"{timing['compact_ids'][1]:.3f} ms); the general-pops route at "
-          f"512 x 40: {timing['wp_e2e_general'][0]:.3f} ms (plain "
+          f"{flag_rows.tolist()}; batches of {TILE_EDGE_ROWS} rows; rows "
+          f"a block by width x word bytes {stage_rows}); at {R} x {Lc}: "
+          f"the fused scan {timing['wp_e2e_scan_compact'][0]:.4f} ms "
+          f"(plain {timing['wp_e2e_scan_compact'][1]:.3f}, bound "
+          f"{bounds['wp_e2e_scan_compact'][0]:.4f}), the rows form "
+          f"{timing['wp_e2e_scan'][0]:.4f} ms (plain "
+          f"{timing['wp_e2e_scan'][1]:.3f}), kernel 2 "
+          f"{timing['compact_ids'][0]:.4f} ms (plain "
+          f"{timing['compact_ids'][1]:.3f}, masked_select "
+          f"{library['compact_ids']:.4f}, bound "
+          f"{bounds['compact_ids'][0]:.4f}); the general-pops route at "
+          f"512 x 40: {timing['wp_e2e_general'][0]:.4f} ms (plain "
           f"{timing['wp_e2e_general'][1]:.3f} ms); {smi}")
 
     # ---- phase 3: the main path
     n_bytes = sum(len(s.encode("utf-8")) for s in corpus)
-    wp_e2e_scan.launches = 0
-    compact_ids.launches = 0
+    # each call: one fused launch, no rows form, no kernel 2
+    per_call = {"wp_e2e_scan_compact": 1, "wp_e2e_scan": 0,
+                "compact_ids": 0}
+    zero_counts(scan_kernels)
     # run 0 is cold, runs 1-3 warm, run 4 warm with the phase profiler on
     # (it synchronises after each device phase)
     walls = []
@@ -3121,10 +3226,16 @@ def main() -> int:
         profiling.enable(run == 4)
         profiling.reset()
         out = None
+        before = read_counts(scan_kernels)
         t0 = time.perf_counter()
         out = tok.tokenize_batch(corpus)
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
+        counts = {k: n - before[k]
+                  for k, n in read_counts(scan_kernels).items()}
+        if counts != per_call:
+            raise AssertionError(f"run {run} launched {counts}, not "
+                                 f"{per_call}")
         if digest(out) != expect["full_sha256"]:
             raise AssertionError(f"run {run}: output differs from the JAX "
                                  "package's")
@@ -3132,15 +3243,13 @@ def main() -> int:
                 for name, v in profiling.report().items()}
     profiling.enable(False)
     warm = sorted(walls[1:4])[1]
-    launches = {"wp_e2e_scan": wp_e2e_scan.launches,
-                "compact_ids": compact_ids.launches}
-    if not all(launches.values()):
-        raise AssertionError(f"a kernel was not launched: {launches}")
+    launches = read_counts(scan_kernels)
     n_tokens = sum(map(len, out))
     assert n_tokens == expect["full_tokens"], n_tokens
     print(f"phase 3: tokenize_batch of {len(corpus)} sentences "
           f"({n_bytes} bytes, {n_tokens} tokens) equals the JAX sha256; "
-          f"launches {launches}; cold {walls[0]*1e3:.3f} ms, warm "
+          f"launches {launches} ({per_call} a call); cold "
+          f"{walls[0]*1e3:.3f} ms, warm "
           f"{[round(w * 1e3, 3) for w in walls[1:4]]} ms, median "
           f"{warm*1e3:.3f} ms = {n_bytes/warm/1e6:.3f} MB/s; "
           f"profiled {walls[4]*1e3:.3f} ms, phases (ms) "
@@ -3160,13 +3269,43 @@ def main() -> int:
         lambda: tok.tokenize_batch(corpus),
         os.path.join(ROOT, "chiprun_out", "chip_smoke_trace.json"))
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])
+    n_kernels, n_memsets = kernel_launches(by_name), memsets(by_name)
+    if by_name and (n_kernels != 1 or n_memsets or not any(
+            "scan_compact_kernel" in n for n in by_name)):
+        raise AssertionError(f"the traced call made {n_kernels} kernel "
+                             f"launches and {n_memsets} memsets: {by_name}")
     dev_line = ("not measured (the trace holds no device events)"
                 if not by_name else
                 f"device busy {busy:.3f} ms of {wall:.1f} ms "
-                f"(idle share {1 - busy / wall:.4f}); "
-                + "; ".join(f"{n} x{c} {ms:.3f} ms" for n, (c, ms) in top))
+                f"(idle share {1 - busy / wall:.4f}); {n_kernels} kernel "
+                f"launch, {n_memsets} memsets; "
+                + "; ".join(f"{n} x{c} {ms:.4f} ms" for n, (c, ms) in top))
     print(f"phase 3c: one warm tokenize_batch under torch.profiler: "
           f"{dev_line}; {smi}")
+
+    # the whole-sentence route (a vocab token holds a space): the rows
+    # form and kernel 2, against the CPU path
+    ws = {"a b", "a", "b", "##a", "##b", "##c", "!", "c"}
+    ws_tok = {d: FastWP(device=d) for d in (dev, "cpu")}
+    for t in ws_tok.values():
+        t.vocab = set(ws)
+        t._build_e2e()
+    # each sentence ends in punctuation: a match of "a b" then never eats
+    # the trailing space (the reference would crash there)
+    ws_batch = ["".join(rng.choice(list("ab c"), size=rng.integers(0, 30)))
+                + "!" for _ in range(3000)]
+    ws_want = ws_tok["cpu"].tokenize_batch(ws_batch)
+    zero_counts(scan_kernels)
+    if ws_tok[dev].tokenize_batch(ws_batch) != ws_want:
+        raise AssertionError("the whole-sentence route differs from the "
+                             "CPU path")
+    ws_launches = read_counts(scan_kernels)
+    if ws_launches != {"wp_e2e_scan": 1, "compact_ids": 1,
+                       "wp_e2e_scan_compact": 0}:
+        raise AssertionError(f"the whole-sentence route launched "
+                             f"{ws_launches}")
+    print(f"phase 3d: the whole-sentence route ({len(ws_batch)} sentences) "
+          f"equals the CPU path; launches {ws_launches}")
 
     # ---- phase 4: an input on which the reference hangs
     hang = FastWP(device=dev)
@@ -3698,10 +3837,10 @@ def main() -> int:
     # One PyTorch call computes K4's function: index_add_ of the weights
     # at the symbol ids (padding slots sent to the trash bucket first).
     sf_index = torch.where(fs >= 0, fs, cap).to(torch.int64)
-    library = {"symbol_freqs": cuda_ms(
+    library["symbol_freqs"] = cuda_ms(
         lambda: torch.zeros(cap + 1, dtype=torch.int64,
                             device=dev).index_add_(0, sf_index, wgt), 200,
-        True)}
+        True)
     assert max_err(torch.zeros(cap + 1, dtype=torch.int64, device=dev)
                    .index_add_(0, sf_index, wgt), sf0) == 0
     # Operations, counted low: an add per slot (2); one correctly
@@ -4285,21 +4424,44 @@ def main() -> int:
     by_cli = phase17(dev, corpus, golden, wp_vocab, want_sha, fast_vocab,
                      smi)
 
+    # the main path's launches (phase 3); the rows form's and kernel 2's
+    # on FastWP's whole-sentence route (phase 3d)
+    launches.update(wp_e2e_scan=ws_launches["wp_e2e_scan"],
+                    compact_ids=ws_launches["compact_ids"])
+    k1_latency = notes16["k1_steps"] * notes16["per_iter_ms"]["gather_loop"]
     record = {"kernels": [
+        {"name": "wp_e2e_scan_compact", "route": "cuda",
+         "source": "subword_tokenizers_tpu_torch/csrc/wp_e2e_scan.cu",
+         "replaces": "subword_tokenizers_tpu/ops/wp_encode_e2e.py:236",
+         "launches": launches["wp_e2e_scan_compact"],
+         "max_abs_err": errs["wp_e2e_scan_compact"],
+         "ms": timing["wp_e2e_scan_compact"][0],
+         "plain_ms": timing["wp_e2e_scan_compact"][1],
+         "latency_bound_ms": k1_latency,
+         "latency_note": "the slowest row's steps x one dependent gather "
+                         "through L1/L2 (phase 16's gather_loop, per "
+                         "iteration)",
+         "note": "kernel 1's walk with kernel 2's tile epilogue in one "
+                 "launch (swt_wp_e2e_scan_compact_u16)"},
         {"name": "wp_e2e_scan", "route": "cuda",
          "source": "subword_tokenizers_tpu_torch/csrc/wp_e2e_scan.cu",
          "replaces": "subword_tokenizers_tpu/ops/wp_encode_e2e.py:109",
          "launches": launches["wp_e2e_scan"],
          "max_abs_err": errs["wp_e2e_scan"],
          "ms": timing["wp_e2e_scan"][0],
-         "plain_ms": timing["wp_e2e_scan"][1]},
+         "plain_ms": timing["wp_e2e_scan"][1],
+         "latency_bound_ms": k1_latency,
+         "note": "the rows form; launches: FastWP's whole-sentence route "
+                 "(phase 3d), as the main path makes none"},
         {"name": "compact_ids", "route": "cuda",
          "source": "subword_tokenizers_tpu_torch/csrc/compact.cu",
          "replaces": "subword_tokenizers_tpu/ops/fetch.py:31",
          "launches": launches["compact_ids"],
          "max_abs_err": errs["compact_ids"],
          "ms": timing["compact_ids"][0],
-         "plain_ms": timing["compact_ids"][1]},
+         "plain_ms": timing["compact_ids"][1],
+         "library_note": "masked_select over the rows' emitted prefixes: "
+                         "the stream alone, no offsets, total or flags"},
     ] + [
         {"name": k, "route": "cuda",
          "source": f"subword_tokenizers_tpu_torch/csrc/{k}.cu",
@@ -4367,8 +4529,9 @@ def main() -> int:
         general_plain_ms=timing["wp_e2e_general"][1],
         general_bound_ms=bounds["wp_e2e_general"][0],
         general_bound_by=bounds["wp_e2e_general"][1])
-    # each encode path's launches (phase 3: FastWP; phase 10: the others)
-    by_path = {"FastWP": {"compact_ids": launches["compact_ids"]},
+    # each encode path's launches (phase 3d: FastWP's whole-sentence
+    # route; phase 10: the others)
+    by_path = {"FastWP_sentences": {"compact_ids": launches["compact_ids"]},
                **enc_launches}
     for k in ("compact_ids", "bpe_encode", "wp_match_encode"):
         launches[k] = sum(p.get(k, 0) for p in by_path.values())
@@ -4692,12 +4855,12 @@ def main() -> int:
         by_name[k]["cli_launches"] = {s: c[k] for s, c in by_cli.items()
                                       if c.get(k)}
     for k in ("pair_stats", "select_unify", "merge_rows", "symbol_freqs",
-              "wp_score", "wp_e2e_scan", "compact_ids"):
+              "wp_score", "wp_e2e_scan", "compact_ids",
+              "wp_e2e_scan_compact"):
         by_name[k]["mesh_launches"] = mesh_of(k)
     no_library = {
         "wp_e2e_scan": "no PyTorch call walks a trie",
-        "compact_ids": "no one call gives the offsets, the stream and the "
-                       "flags",
+        "wp_e2e_scan_compact": "no PyTorch call walks a trie",
         "pair_stats": "no one call builds the weighted pair table",
         "select_unify": "no one call selects and unifies by string hash",
         "merge_apply": "no one call merges pairs with the parity rule",

@@ -1,25 +1,25 @@
-// Flags byte and dense token stream of a batch of scanned rows.
+// Flags byte and dense token stream of a batch of scanned rows (kernel 2).
 //
 // Replaces the JAX package's jitted XLA programs
 //   subword_tokenizers_tpu/ops/fetch.py: compact_ids, and
 //   subword_tokenizers_tpu/ops/wp_encode_e2e.py: the tail of
 //     wp_e2e_scan_u16_stacked (the flags byte and the compaction).
-// The XLA programs sort nothing here but write a u16 stream for the
-// TPU's remote link; on the card the stream is i32 and in the caller's
-// row order, which the host stitches by (offset, count).
+// The XLA programs write a u16 stream for the TPU's remote link; on the
+// card the stream is i32 and in the caller's row order, which the host
+// stitches by (offset, count).
 //
-// Two launches on the caller's stream:
-// - Pass A, one block of 1024 threads: the exclusive prefix sum of the
-//   per-row counts. Each thread sums a contiguous stretch serially, a
-//   block scan in shared memory joins the stretches, and each thread
-//   writes its stretch's offsets. One block is enough for the tens of
-//   thousands of rows a batch holds; it is bound by one SM's latency, and
-//   a multi-block scan is later work.
-// - Pass B, one thread per row: copies out[r, :min(out_n[r], cap)] to
-//   ids[off[r]:] (positions at or past R*cap are dropped, as in JAX) and
-//   writes the row's flags byte ovf | stuck<<1 | crash<<2 | sawneg2<<3,
-//   where sawneg2 marks a -2 ("'##' would hang") in the emitted prefix.
-//   It is bound by uncoalesced row reads of R*cap*4 bytes.
+// One launch over tiles of 256 rows (compact_tile.cuh): a block takes a
+// tile from a ticket, reads its rows' counts and flags coalesced, scans
+// the counts with warp shuffles, finds the tile's place in the stream by
+// a decoupled look-back over the caller's scratch (epochs from the host,
+// so nothing is cleared between calls), copies the tile's emitted
+// prefixes (the tile's rows are contiguous in out, its tokens one
+// stretch of the stream) and writes the offsets and flags; the last tile
+// writes the total.
+//
+// Bound on this card: the bytes, each row's count and flags read and its
+// offset and flags written, the emitted tokens read and written once;
+// at the main path's shapes the look-back and the launch take longer.
 //
 // head (i32[2R+1]) = [offsets (R), total, flags (R)], so the host reads
 // counts, flags and total with one copy.
@@ -28,81 +28,58 @@
 
 #include <cuda_runtime.h>
 
+#include "compact_tile.cuh"
+
 namespace {
 
-constexpr int kScanThreads = 1024;
-constexpr int kRowThreads = 256;
+constexpr int kTileRows = kMaxTileRows;
 
-__global__ void exclusive_scan_kernel(const int32_t* __restrict__ out_n,
-                                      int64_t R, int32_t* __restrict__ head) {
-  __shared__ int64_t part[kScanThreads];
-  const int t = threadIdx.x;
-  const int64_t per = (R + kScanThreads - 1) / kScanThreads;
-  const int64_t b = t * per;
-  const int64_t e = b + per < R ? b + per : R;
-  int64_t sum = 0;
-  for (int64_t k = b; k < e; ++k) sum += out_n[k];
-  part[t] = sum;
-  __syncthreads();
-  // Hillis-Steele inclusive scan over the stretch sums.
-  for (int d = 1; d < kScanThreads; d <<= 1) {
-    const int64_t v = t >= d ? part[t - d] : 0;
-    __syncthreads();
-    part[t] += v;
-    __syncthreads();
+__global__ void __launch_bounds__(kTileRows)
+    compact_rows_kernel(const int32_t* __restrict__ out, int64_t R, int cap,
+                        const int32_t* __restrict__ out_n,
+                        const uint8_t* __restrict__ ovf,
+                        const uint8_t* __restrict__ stuck,
+                        const uint8_t* __restrict__ crash, int32_t* ids,
+                        int32_t* head, long long* scratch, unsigned epoch,
+                        int n_tiles) {
+  const int tile = take_tile(scratch, n_tiles);
+  const int64_t row0 = static_cast<int64_t>(tile) * kTileRows;
+  const int nrows =
+      static_cast<int>(R - row0 < kTileRows ? R - row0 : kTileRows);
+  const int64_t r = row0 + threadIdx.x;
+  int n = 0, bits = 0;
+  if (static_cast<int>(threadIdx.x) < nrows) {
+    n = out_n[r];
+    if (ovf) bits |= ovf[r] != 0;
+    if (stuck) bits |= (stuck[r] != 0) << 1;
+    if (crash) bits |= (crash[r] != 0) << 2;
   }
-  int64_t run = part[t] - sum;
-  for (int64_t k = b; k < e; ++k) {
-    head[k] = static_cast<int32_t>(run);
-    run += out_n[k];
-  }
-  if (t == kScanThreads - 1) head[R] = static_cast<int32_t>(part[t]);
-}
-
-__global__ void scatter_rows_kernel(
-    const int32_t* __restrict__ out, int64_t R, int cap,
-    const int32_t* __restrict__ out_n, const uint8_t* __restrict__ ovf,
-    const uint8_t* __restrict__ stuck, const uint8_t* __restrict__ crash,
-    const int32_t* __restrict__ offs, int32_t* __restrict__ ids,
-    int32_t* __restrict__ flags) {
-  const int64_t r = blockIdx.x * static_cast<int64_t>(blockDim.x) +
-                    threadIdx.x;
-  if (r >= R) return;
-  const int n = out_n[r] < cap ? out_n[r] : cap;
-  const int32_t* orow = out + r * cap;
-  const int64_t off = offs[r];
-  const int64_t lim = R * cap;
-  bool neg2 = false;
-  for (int j = 0; j < n; ++j) {
-    const int32_t v = orow[j];
-    neg2 |= v == -2;
-    if (off + j < lim) ids[off + j] = v;
-  }
-  flags[r] = (ovf[r] != 0) | ((stuck[r] != 0) << 1) |
-             ((crash[r] != 0) << 2) | (static_cast<int>(neg2) << 3);
+  compact_tile(tile, n_tiles, row0, nrows, R, cap, n, bits, out + row0 * cap,
+               cap, ids, head, tile_status(scratch), epoch);
 }
 
 }  // namespace
 
 extern "C" {
 
-// out i32[R, cap], out_n i32[R], ovf/stuck/crash u8[R] -> ids i32[R*cap],
-// head i32[2R+1]. R >= 1. Returns the cudaError_t of the launches.
+// out i32[R, cap], out_n i32[R], ovf/stuck/crash u8[R] (each may be null:
+// false on every row) -> ids i32[R*cap], head i32[2R+1]; scratch: the
+// ticket (0 between calls) and a 16-byte look-back word for each of the
+// ceil(R / 256) tiles; epoch in [1, 2^30), new a call. R >= 1. Returns
+// the cudaError_t of the launch.
 int swt_compact(const void* out, int64_t R, int cap, const void* out_n,
                 const void* ovf, const void* stuck, const void* crash,
-                void* ids, void* head, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int32_t* h = static_cast<int32_t*>(head);
-  exclusive_scan_kernel<<<1, kScanThreads, 0, s>>>(
-      static_cast<const int32_t*>(out_n), R, h);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int64_t blocks = (R + kRowThreads - 1) / kRowThreads;
-  scatter_rows_kernel<<<static_cast<unsigned>(blocks), kRowThreads, 0, s>>>(
+                void* ids, void* head, void* scratch, int epoch,
+                void* stream) {
+  const int64_t n_tiles = (R + kTileRows - 1) / kTileRows;
+  compact_rows_kernel<<<static_cast<unsigned>(n_tiles), kTileRows, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(out), R, cap,
       static_cast<const int32_t*>(out_n), static_cast<const uint8_t*>(ovf),
       static_cast<const uint8_t*>(stuck), static_cast<const uint8_t*>(crash),
-      h, static_cast<int32_t*>(ids), h + R + 1);
+      static_cast<int32_t*>(ids), static_cast<int32_t*>(head),
+      static_cast<long long*>(scratch), static_cast<unsigned>(epoch),
+      static_cast<int>(n_tiles));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -41,12 +41,17 @@ def fetch_stream(out2d, out_n, ovf=None, stuck=None, crash=None):
     offsets int64[R+1], flags int32[R]), the flags byte of
     ops/fetch.compact_ids. A flag passed as None is false on every row."""
     dev = out2d.device
-    R = out2d.shape[0]
     with profiling.phase("encode.compact", dev):
-        no = torch.zeros(R, dtype=torch.bool, device=dev)
-        ids_d, head_d = compact_ids(out2d, out_n, *(
-            no if f is None else f for f in (ovf, stuck, crash)))
-    with profiling.phase("encode.d2h", dev):
+        ids_d, head_d = compact_ids(out2d, out_n, ovf, stuck, crash)
+    return fetch_head(ids_d, head_d)
+
+
+def fetch_head(ids_d, head_d):
+    """The two copies back of a compacted stream (``encode.d2h``): numpy
+    (ids int32[total], offsets int64[R+1], flags int32[R]) from the
+    (ids, head) of ops/fetch.compact_ids."""
+    R = (head_d.shape[0] - 1) // 2
+    with profiling.phase("encode.d2h", head_d.device):
         head = head_d.cpu().numpy()
         offs = head[:R + 1].astype(np.int64)
         ids = ids_d[:int(offs[R])].cpu().numpy()

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from ..core.symbols import SymbolTable
+from ..ops.wp_encode_e2e import node_records
 
 
 def _put(a, device) -> torch.Tensor:
@@ -65,6 +66,7 @@ class E2EState:
     fail: torch.Tensor       # int32[n_nodes]
     pops_off: torch.Tensor   # int32[n_nodes+1]
     pops_flat: torch.Tensor  # int32[total_pops]
+    rec: torch.Tensor        # int32[n_nodes, 8]: ops/wp_encode_e2e.node_records
     sharp: torch.Tensor      # int32[k]: encode_word("##"), or [-2]
     alpha: np.ndarray        # int32[0x110000] codepoint -> alphabet id, host
     root_p: int
@@ -82,15 +84,19 @@ def e2e_state_from_numpy(goto, alpha, fail, pops_off, pops_flat, root_p,
     it needs it, and the caller raises."""
     device = torch.device(device)
 
+    def put_cpu(a):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32))
+
     def put(a):
-        return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)
-                                ).to(device)
+        return put_cpu(a).to(device)
 
     pops_off = np.asarray(pops_off)
     sharp = [-2] if sharp_seq is None else list(sharp_seq)
+    rec = node_records(*(put_cpu(a) for a in (fail, pops_off, pops_flat)))
     return E2EState(
         goto=put(goto), fail=put(fail), pops_off=put(pops_off),
-        pops_flat=put(pops_flat), sharp=put(np.asarray(sharp)),
+        pops_flat=put(pops_flat), rec=rec.to(device),
+        sharp=put(np.asarray(sharp)),
         alpha=np.asarray(alpha, dtype=np.int32), root_p=int(root_p),
         root_sharp=int(root_sharp), unk_id=int(unk_id),
         max_pops=int(np.diff(pops_off).max()))

@@ -36,13 +36,17 @@ FastWP's batched encode:
    sentences, and packs the unique chunks into u16 char words
    (``encode.native_prep``, ``encode.pack_u16``);
 2. one host-to-device copy (``encode.h2d``);
-3. kernel 1 scans every unique chunk (``encode.scan``,
-   ops/wp_encode_e2e.wp_e2e_scan);
-4. kernel 2 writes each row's flags byte and the dense token stream
-   (``encode.compact``, ops/fetch.compact_ids);
-5. two device-to-host copies, of (offsets, total, flags) and then of the
+3. one launch scans every unique chunk and writes each row's flags byte
+   and the dense token stream (``encode.scan``,
+   ops/wp_encode_e2e.wp_e2e_scan_compact: kernel 1 with kernel 2's
+   compaction in its epilogue);
+4. two device-to-host copies, of (offsets, total, flags) and then of the
    stream (``encode.d2h``); a set flag raises here;
-6. the C++ stitch builds the token lists (``encode.stitch``).
+5. the C++ stitch builds the token lists (``encode.stitch``).
+
+The general route (whole sentences, for a vocab with whitespace in a
+token) scans into dense rows (ops/wp_encode.wp_e2e_encode) and compacts
+them with kernel 2 (``encode.compact``).
 
 Every batch goes to the kernels, whatever its size. ``device="cpu"``
 runs the kernels' plain PyTorch versions.
@@ -78,9 +82,10 @@ from ..frontend.charclass import PUNC_PY, WS_PY, codepoints, \
 from ..ops import train_loop
 from ..ops.flat import build_flat
 from ..ops.wp_encode import wp_e2e_encode, wp_match_encode
-from ..ops.wp_encode_e2e import pack_chars, route_params, wp_e2e_scan
-from .base import (SubwordTokenizer, fetch_stream, resolve_device,
-                   resolve_mesh)
+from ..ops.wp_encode_e2e import (pack_chars, route_params,
+                                 wp_e2e_scan_compact)
+from .base import (SubwordTokenizer, fetch_head, fetch_stream,
+                   resolve_device, resolve_mesh)
 from .state import E2EState, MatchState, e2e_state_from_numpy
 from .trie import E2ETrie, MatchTrie
 
@@ -588,18 +593,16 @@ class FastWP(NaiveWP):
                 "encode_word('##') does not terminate with this vocabulary "
                 "(reference would hang on this input)")
 
-    def _compact(self, out, out_n, ovf, stuck, crash):
-        """Kernel 2 and the copies back: (ids int32[total], starts
-        int64[R], counts int32[R]) of the scanned rows, or the scan's
-        error."""
-        ids, offs, flags = fetch_stream(out, out_n, ovf, stuck, crash)
+    def _finish_stream(self, ids, offs, flags):
+        """(ids int32[total], starts int64[R], counts int32[R]) of a
+        fetched stream, or the scan's error."""
         self._finish_e2e(flags)
         return ids, offs[:-1], np.diff(offs).astype(np.int32)
 
     def _run_e2e_packed(self, chars: np.ndarray, slen: np.ndarray):
         """Scan rows of packed char words (u16 or i32 [R, Lc]) and
-        compact them; see :meth:`_compact`. Pops wider than 8 take the
-        general route's parameters."""
+        compact them in one launch, then fetch; see :meth:`_finish_stream`.
+        Pops wider than 8 take the general route's parameters."""
         st = self._device_state()
         dev = self.device
         cap, max_steps, unk_ovf = route_params(
@@ -613,16 +616,16 @@ class FastWP(NaiveWP):
             chars_d = torch.from_numpy(chars).to(dev)
             slen_d = torch.from_numpy(slen.astype(np.int32)).to(dev)
         with profiling.phase("encode.scan", dev):
-            res = wp_e2e_scan(chars_d, slen_d, st.goto, st.fail, st.pops_off,
-                              st.pops_flat, st.root_p, st.root_sharp,
-                              st.unk_id, st.sharp, cap=cap,
-                              max_steps=max_steps, unk_ovf=unk_ovf)
-        return self._compact(*res)
+            ids_d, head_d = wp_e2e_scan_compact(
+                chars_d, slen_d, st.goto, st.fail, st.pops_off, st.pops_flat,
+                st.root_p, st.root_sharp, st.unk_id, st.sharp, cap=cap,
+                max_steps=max_steps, unk_ovf=unk_ovf, rec=st.rec)
+        return self._finish_stream(*fetch_head(ids_d, head_d))
 
     def _run_e2e_sharded(self, chars, slen, cap, max_steps, unk_ovf):
         """The packed scan over ``self.mesh``: rows length-sorted
         (stably) so that each shard's block holds rows of like length,
-        kernels 1 and 2 per shard (parallel/encode.py), then each row's
+        one fused scan a shard (parallel/encode.py), then each row's
         (start, count) and flags back in the caller's order."""
         from ..parallel.encode import sharded_e2e_scan
         order = np.argsort(slen, kind="stable")
@@ -636,8 +639,8 @@ class FastWP(NaiveWP):
         return ids, offs[:-1][inv], np.diff(offs).astype(np.int32)[inv]
 
     def _run_e2e(self, cps: np.ndarray, slen: np.ndarray):
-        """General route over padded codepoint rows [S, T]; see
-        :meth:`_compact`."""
+        """General route over padded codepoint rows [S, T]: the rows
+        form, then kernel 2; see :meth:`_finish_stream`."""
         st = self._device_state()
         dev = self.device
         with profiling.phase("encode.h2d", dev):
@@ -648,8 +651,9 @@ class FastWP(NaiveWP):
         with profiling.phase("encode.scan", dev):
             res = wp_e2e_encode(acp, is_sp, is_pc, slen_d, st.goto, st.fail,
                                 st.pops_off, st.pops_flat, st.root_p,
-                                st.root_sharp, st.unk_id, st.sharp)
-        return self._compact(*res)
+                                st.root_sharp, st.unk_id, st.sharp,
+                                rec=st.rec)
+        return self._finish_stream(*fetch_stream(*res))
 
     def _tokenize_batch_chunked(self, corpus: List[str]) -> List[List[str]]:
         if len(corpus) == 0:

@@ -32,15 +32,22 @@ FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _I = ctypes.c_int
-_SCAN_ARGS = [_P, _I64, _I64, _P, _P, _I64, _P, _P, _P, _P, _I, _I, _I, _I,
-              _I, _I, _I, _P, _P, _P, _P, _P, _P]
+# kernel 1's arguments (chars, S, W, slen, goto, A1, rec, pops_flat, sharp,
+# n_sharp, root_p, root_sharp, unk_id, cap, max_steps, unk_ovf,
+# rows_per_block, ws, st), then each form's outputs and the stream
+_SCAN = [_P, _I64, _I64, _P, _P, _I64, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+         _I, _I, _I]
+_SCAN_ARGS = [*_SCAN, _P, _P, _P, _P, _P, _P]
+_SCAN_COMPACT_ARGS = [*_SCAN, _P, _P, _P, _P, _I, _P]
 # K1's table to fill (keys, counts, pos, T, claims, two counters) and the
 # one to empty (keys, counts, pos, claims, its counter)
 _TABLE_ARGS = [_P, _P, _P, _I64, _P, _P, _P, _P, _P, _P, _P, _P]
 SIGNATURES = {
     "swt_wp_e2e_scan_u16": _SCAN_ARGS,
     "swt_wp_e2e_scan_i32": _SCAN_ARGS,
-    "swt_compact": [_P, _I64, _I, _P, _P, _P, _P, _P, _P, _P],
+    "swt_wp_e2e_scan_compact_u16": _SCAN_COMPACT_ARGS,
+    "swt_wp_e2e_scan_compact_i32": _SCAN_COMPACT_ARGS,
+    "swt_compact": [_P, _I64, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P],
     "swt_pair_stats": [_P, _P, _P, _I64, *_TABLE_ARGS, _I, _P],
     "swt_pair_stats_runs": [_P, _P, _P, _I64, *_TABLE_ARGS, _P],
     "swt_pair_rows": [_P, _P, _I64, _I64, _I64, _P, _P, _I64, _I64, _P],

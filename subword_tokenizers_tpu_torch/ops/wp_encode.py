@@ -162,13 +162,13 @@ def pack_words(acp, is_space, is_punc):
 
 
 def wp_e2e_encode(acp, is_space, is_punc, slen, goto, fail, pops_off,
-                  pops_flat, root_p, root_sharp, unk_id, sharp):
+                  pops_flat, root_p, root_sharp, unk_id, sharp, rec=None):
     """End-to-end scan over padded sentences.
 
     acp: int32[S, T] alphabet ids (OOV = A), positions >= slen padded;
     is_space/is_punc: bool[S, T] Python str.isspace / FastWP ispunc;
-    slen: int32[S] lengths with the trailing space (<= T); the trie and
-    ``sharp`` as in ops/wp_encode_e2e.wp_e2e_scan.
+    slen: int32[S] lengths with the trailing space (<= T); the trie,
+    ``sharp`` and ``rec`` as in ops/wp_encode_e2e.wp_e2e_scan.
 
     Returns (out int32[S, 2T+4], out_n int32[S], ovf, stuck, crash bool[S]).
     """
@@ -176,4 +176,4 @@ def wp_e2e_encode(acp, is_space, is_punc, slen, goto, fail, pops_off,
     return wp_e2e_scan(pack_words(acp, is_space, is_punc), slen, goto,
                        fail, pops_off, pops_flat, root_p, root_sharp,
                        unk_id, sharp, cap=cap, max_steps=max_steps,
-                       unk_ovf=unk_ovf)
+                       unk_ovf=unk_ovf, rec=rec)

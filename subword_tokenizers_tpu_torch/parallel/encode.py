@@ -1,10 +1,10 @@
 """Data-parallel batched encode: rows shard across a mesh, the trie's
-tables are replicated on every shard's device, and each shard runs kernel
-1 (the end-to-end scan) and kernel 2 (the compaction) on its own block of
-rows, with no traffic between shards (the JAX package's
-``parallel/encode.py``; its ``sharded_e2e_scan`` and
-``sharded_e2e_scan_u16`` are one function here, as the port's kernel 1
-takes both char-word widths).
+tables are replicated on every shard's device, and each shard runs the
+end-to-end scan with the compaction in its epilogue (one launch,
+ops/wp_encode_e2e.wp_e2e_scan_compact) on its own block of rows, with no
+traffic between shards (the JAX package's ``parallel/encode.py``; its
+``sharded_e2e_scan`` and ``sharded_e2e_scan_u16`` are one function
+here, as the port's kernel 1 takes both char-word widths).
 """
 from __future__ import annotations
 
@@ -12,8 +12,8 @@ from typing import List, Tuple
 
 import numpy as np
 
-from ..models.base import fetch_stream
-from ..ops.wp_encode_e2e import wp_e2e_scan
+from ..models.base import fetch_head
+from ..ops.wp_encode_e2e import wp_e2e_scan_compact
 from .mesh import DataMesh
 
 
@@ -46,7 +46,7 @@ def put_sharded(mesh: DataMesh, *arrays) -> List[Tuple]:
 
 def sharded_e2e_scan(mesh: DataMesh, chars: np.ndarray, slen: np.ndarray,
                      state_of, cap: int, max_steps: int, unk_ovf: bool):
-    """Kernels 1 and 2 on every shard of a one-process mesh over char
+    """The fused scan on every shard of a one-process mesh over char
     words ``chars`` (int16 or int32 [R, Lc]) and their lengths: (ids
     int32[total], offsets int64[R + 1], flags int32[R]) for all R rows in
     order, as ops/fetch.compact_ids gives them for one device.
@@ -62,11 +62,10 @@ def sharded_e2e_scan(mesh: DataMesh, chars: np.ndarray, slen: np.ndarray,
     for (chars_d, slen_d), dev in zip(put_sharded(mesh, chars_p, slen_p),
                                       mesh.devices):
         st = state_of(dev)
-        res = wp_e2e_scan(chars_d, slen_d, st.goto, st.fail, st.pops_off,
-                          st.pops_flat, st.root_p, st.root_sharp, st.unk_id,
-                          st.sharp, cap=cap, max_steps=max_steps,
-                          unk_ovf=unk_ovf)
-        i, o, f = fetch_stream(*res)
+        i, o, f = fetch_head(*wp_e2e_scan_compact(
+            chars_d, slen_d, st.goto, st.fail, st.pops_off, st.pops_flat,
+            st.root_p, st.root_sharp, st.unk_id, st.sharp, cap=cap,
+            max_steps=max_steps, unk_ovf=unk_ovf, rec=st.rec))
         ids.append(i)
         offs.append(o[1:] + offs[-1][-1])
         flags.append(f)

@@ -2,8 +2,8 @@
 in a process of its own in the order parent, change, change, parent.
 
     python3 -m subword_tokenizers_tpu_torch.tools.ab_sharded_train \\
-        PARENT_DIR CHANGE_DIR [compact] [kernels] [topk] [encode] [single] \
-        [NaiveBPE] [NaiveWP]
+        PARENT_DIR CHANGE_DIR [compact] [kernels] [topk] [encode] [fastwp] \
+        [single] [NaiveBPE] [NaiveWP]
 
 - ``NaiveBPE`` / ``NaiveWP``: the model under the one-card mesh
   ``make_data_mesh(8, devices=["cuda:0"] * 8)``, trained on all of
@@ -38,6 +38,18 @@ in a process of its own in the order parent, change, change, parent.
   (it waits for its answer) over 50 calls, and the device time a call of
   the kernels whose names hold "encode", from a ``torch.profiler`` trace
   of 20 calls (10-20 s a run).
+- ``fastwp``: FastWP's batched encode of all of ``data/train-85k.json``
+  with the 8,043-token vocab (``tests/golden/port_t85k_fastwp_vocab.json``,
+  checked against ``port_t85k_fastwp_expect.json``): six warm
+  ``tokenize_batch`` walls after a warm-up call, then the device time a
+  call of the scan and compaction kernels (names holding "scan" or
+  "scatter": kernel 1 and kernel 2's two passes, or the fused launch)
+  and their launches and memsets a call, from a ``torch.profiler`` trace
+  of 5 calls; then, at the corpus's unique chunks, 200 calls of each
+  kernel queued back to back: kernel 1's rows form at the route's step
+  cap and at 0 steps (all it does besides the walk), kernel 2 over its
+  rows and the fused launch where the checkout has one (about 20 s a
+  run).
 - ``single``: ``NaiveBPE`` and then ``NaiveWP(device="cuda")`` on one
   device (the default flat route), each trained on all of
   ``data/train-85k.json`` to 8,000 and checked against the JAX goldens,
@@ -358,6 +370,80 @@ for mode, monotone in (("monotone", True), ("greedy", False)):
 print(json.dumps(out))
 '''
 
+FASTWP = r'''
+import hashlib, json, os, sys, tempfile, time
+import torch
+from torch.profiler import ProfilerActivity, profile
+sys.path.insert(0, os.getcwd())
+from subword_tokenizers_tpu_torch import FastWP
+from subword_tokenizers_tpu_torch.ops import _cuda
+corpus = json.load(open("data/train-85k.json", encoding="utf-8"))
+vocab = json.load(open("tests/golden/port_t85k_fastwp_vocab.json",
+                       encoding="utf-8"))
+expect = json.load(open("tests/golden/port_t85k_fastwp_expect.json",
+                        encoding="utf-8"))
+dev = torch.device("cuda:0")
+_cuda.lib()
+tok = FastWP(device=dev)
+with tempfile.TemporaryDirectory() as d:
+    with open(os.path.join(d, "vocab.json"), "w", encoding="utf-8") as f:
+        json.dump(vocab, f, ensure_ascii=False)
+    tok.load_resources(d, strict=True)
+res = tok.tokenize_batch(corpus)  # warm-up
+sha = hashlib.sha256(json.dumps(res, ensure_ascii=False).encode("utf-8"))
+assert sha.hexdigest() == expect["full_sha256"]
+walls = []
+for _ in range(6):
+    t0 = time.perf_counter()
+    tok.tokenize_batch(corpus)
+    torch.cuda.synchronize()
+    walls.append((time.perf_counter() - t0) * 1e3)
+with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    for _ in range(5):
+        tok.tokenize_batch(corpus)
+    torch.cuda.synchronize()
+ev = prof.key_averages()
+kern = [e for e in ev if "scan" in e.key or "scatter" in e.key]
+out = {"walls_ms": walls, "median_wall_ms": sorted(walls)[3],
+       "kernel_ms": sum(
+           getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0))
+           for e in kern) / 1e3 / 5,
+       "kernel_launches": sum(e.count for e in kern) / 5,
+       "memsets": sum(e.count for e in ev if "memset" in e.key.lower()) / 5,
+       "kernels": [e.key[:60] for e in kern]}
+# the kernels alone at the corpus's unique chunks, 200 calls queued back
+# to back: the rows form at the route's step cap and at a cap of 0 steps
+# (what the kernel does besides the walk: the parent's zero-fill), kernel
+# 2 over its rows, and the fused launch where the checkout has it
+import numpy as np
+from chip_smoke import cuda_ms
+from subword_tokenizers_tpu_torch._native import binding
+from subword_tokenizers_tpu_torch.ops import wp_encode_e2e as e2e
+from subword_tokenizers_tpu_torch.ops.fetch import compact_ids
+st = tok._device_state()
+_, _, buf, off, ln = binding.encode_prep(corpus)
+Lc = -(-(int(ln.max()) + 2) // 8) * 8
+m16 = binding.pack_u16_rows(buf, off, ln, Lc, st.alpha)
+args = (torch.from_numpy(m16.view("int16")).to(dev),
+        torch.from_numpy((ln + 1).astype("int32")).to(dev), st.goto,
+        st.fail, st.pops_off, st.pops_flat, st.root_p, st.root_sharp,
+        st.unk_id, st.sharp)
+cap, steps, unk = e2e.route_params(Lc, general=False)
+kw = {"rec": st.rec} if hasattr(st, "rec") else {}
+out["rows_ms"] = cuda_ms(lambda: e2e.wp_e2e_scan(*args, cap, steps, unk,
+                                                 **kw), 200, True)
+out["rows_0_steps_ms"] = cuda_ms(
+    lambda: e2e.wp_e2e_scan(*args, cap, 0, unk, **kw), 200, True)
+rows = e2e.wp_e2e_scan(*args, cap, steps, unk, **kw)
+out["compact_ms"] = cuda_ms(lambda: compact_ids(*rows), 200, True)
+if hasattr(e2e, "wp_e2e_scan_compact"):
+    out["fused_ms"] = cuda_ms(lambda: e2e.wp_e2e_scan_compact(
+        *args, cap, steps, unk, **kw), 200, True)
+    out["fused_0_steps_ms"] = cuda_ms(lambda: e2e.wp_e2e_scan_compact(
+        *args, cap, 0, unk, **kw), 200, True)
+print(json.dumps(out))
+'''
+
 SINGLE = r'''
 import json, os, sys, time
 import torch
@@ -404,6 +490,7 @@ def main(argv) -> int:
                 [KERNELS] if mode == "kernels" else
                 [TOPK] if mode == "topk" else
                 [ENCODE] if mode == "encode" else
+                [FASTWP] if mode == "fastwp" else
                 [SINGLE] if mode == "single" else [TRAIN, mode])
         for name, d in (("parent", parent), ("change", change),
                         ("change", change), ("parent", parent)):

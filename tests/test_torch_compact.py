@@ -50,6 +50,41 @@ def test_compact_equals_jax(R, cap, hi):
     assert not head[R + 1:].any()
 
 
+@pytest.mark.parametrize("R", [1, 255, 256, 257, 3 * 256 + 7])
+def test_compact_tile_edges_equal_jax(R):
+    """Row counts at and across kernel 2's tiles of 256 rows
+    (ops/fetch.TILE_ROWS), with rows that overflow their cap on both
+    sides of a tile boundary: offsets, total and the emitted stream
+    against JAX, the flags byte from the flags passed (None is false)."""
+    cap = 7
+    rng = np.random.default_rng(1000 + R)
+    out2d = rng.integers(-3, 5000, size=(R, cap)).astype(np.int32)
+    out_n = rng.integers(0, cap + 1, size=R).astype(np.int32)
+    for r in (254, 255, 256, 257, 511, 512, R - 1):
+        if 0 <= r < R:
+            out_n[r] = cap + 5  # leaves a gap in the stream
+    j_ids, j_total = jfetch.compact_ids(jnp.asarray(out2d),
+                                        jnp.asarray(out_n))
+    flags = [rng.random(R) < 0.3 for _ in range(3)]
+    n_t = torch.from_numpy(out_n)
+    j_ids = torch.from_numpy(np.asarray(j_ids).astype(np.int32))
+    for passed in (flags, [None, flags[1], None]):
+        ids, head = tfetch.compact_ids(
+            torch.from_numpy(out2d), n_t,
+            *(None if f is None else torch.from_numpy(f) for f in passed))
+        assert int(head[R]) == int(j_total) == int(out_n.sum())
+        assert torch.equal(head[:R], torch.from_numpy(np.concatenate(
+            [[0], np.cumsum(out_n)[:-1]]).astype(np.int32)))
+        assert torch.equal(emitted(ids, head, n_t, cap) & 0xFFFF,
+                           emitted(j_ids, head, n_t, cap))
+        want = sum((np.zeros(R, np.int32) if f is None else
+                    f.astype(np.int32)) << b for b, f in enumerate(passed))
+        cols = np.arange(cap)[None, :]
+        want |= (((cols < out_n[:, None]) & (out2d == -2)).any(axis=1)
+                 .astype(np.int32) << 3)
+        assert np.array_equal(head[R + 1:].numpy(), want)
+
+
 def test_compact_empty_batch():
     j_ids, j_total = jfetch.compact_ids(jnp.zeros((0, 8), jnp.int32),
                                         jnp.zeros((0,), jnp.int32))
@@ -123,3 +158,22 @@ def test_compact_rejects_bad_input():
         tfetch.compact_ids(out2d.to(torch.int64), n, b, b, b)
     with pytest.raises(ValueError):
         tfetch.compact_ids(out2d, n[:3], b, b, b)
+
+
+def test_stream_scratch_epochs():
+    """The look-back words of the stream kernels: one scratch a device,
+    grown (and zeroed) when a call has more tiles, its epoch new a call
+    and back to 1, with the words zeroed, when it wraps."""
+    sc = tfetch.stream_scratch(torch.device("cpu"))
+    assert tfetch.stream_scratch(torch.device("cpu")) is sc
+    words, e1 = sc.take(3)
+    assert words.shape[0] >= 2 + 2 * 3
+    _, e2 = sc.take(3)
+    assert e2 == e1 + 1
+    words, e3 = sc.take(500)
+    assert words.shape[0] >= 2 + 2 * 500 and e3 == 1
+    assert not words.any()
+    words[5] = 7
+    sc.epoch = tfetch.EPOCH_MAX
+    words, e4 = sc.take(500)
+    assert e4 == 1 and not words.any()
