@@ -87,10 +87,13 @@ WordPiece vocab ``tests/golden/port_t85k_fastwp_vocab.json``:
    kernel launch), ``tokenize_stream`` and small batches against the
    host ``tokenize``, and the WordPiece overflow error on the card;
 11. holds the kernels of the training loop's other routes against their
-   plain versions, exactly: K1 and K3 in skip mode (deferred compaction)
-   and the overflow guard on seeded flat states with holes, runs and
-   gaps wider than the window (windows 2, 3, 8, 12 and 64) and on the
-   corpus's state after 1,000 skip-mode merges; K3p (the padded layout's
+   plain versions, exactly: K1 and K3 in skip mode (deferred compaction,
+   K3's gate word too) and the overflow guard on seeded flat states with
+   holes, runs and gaps wider than the window (windows 1-64), on states
+   cut at the skip kernels' tile edges (runs longer than a tile, gaps at
+   an edge and in the slots a tile stages from its neighbours; 2,048
+   tiles) and on the corpus's state after 1,000 skip-mode merges; K3p
+   (the padded layout's
    merge) and K1 over padded rows on seeded rows (lengths 0, 1 and L,
    PADs inside) and the corpus's 22,971 x 22 tensor; K2's tournament
    mode on the Bezout near tie (which must be redone), an exact tie, a
@@ -100,9 +103,12 @@ WordPiece vocab ``tests/golden/port_t85k_fastwp_vocab.json``:
    ``run_fused`` (``SWT_SKIP_COMPACT=12`` and ``=2`` for BPE, ``=12``
    for WordPiece, ``SWT_WP_TOURNAMENT=1``, and
    ``run_fused(flat=False)`` for both): every run equals the JAX golden,
-   each route launches its kernels (``=2`` must compact on overflow),
-   with cold and warm times, the phase split and (12c) the idle share of
-   the skip route;
+   each route launches its kernels (``=2`` must compact on overflow) and
+   the skip routes compact as often as the JAX package
+   (``tests/golden/port_t85k_skip_overflows.json``), with cold and warm
+   times, the phase split and (12c) the skip route traced: its idle
+   share, at most 4 kernel launches a step, no memset and no allocation
+   in a device block after the first;
 13. holds the kernels of the data-parallel selection against their
    plain versions, exactly: the nomination (each shard's 256 best pairs
    and its K-th row), the candidate lookup and the table
@@ -541,6 +547,39 @@ def skip_random_state(rng, n_words, max_len, n_sym, holes, gaps):
     return fs, wid, wgt
 
 
+def skip_tile_state(rng, kind, F):
+    """A seeded flat state (numpy fs, wid, wgt) of width ``F`` cut at the
+    skip kernels' tiles of 2,048 slots: ``runs``, every third word 3,000
+    slots of one symbol (a twentieth of them another) across the tile
+    edges; ``edge``, 70 dead slots ending at each edge and 70 starting
+    right after it; ``halo``, 30 dead slots inside the 68 a tile stages
+    from each neighbour; and a share of the live slots dead elsewhere."""
+    import numpy as np
+    from subword_tokenizers_tpu_torch.ops.flat import WID_PAD
+    n = F - 40
+    lens = rng.integers(1, 12, size=n // 2 + 1)
+    if kind == "runs":
+        lens[1::3] = 3000
+    word = np.searchsorted(np.cumsum(lens), np.arange(n), side="right")
+    fs = np.full(F, -1, np.int32)
+    fs[:n] = rng.integers(0, 3, size=n)
+    if kind == "runs":
+        long_ = lens[word] == 3000
+        fs[:n][long_] = np.where(rng.random(int(long_.sum())) < 0.05, 1, 0)
+    wid = np.full(F, WID_PAD, np.int32)
+    wid[:n] = word
+    dead = rng.random(F) < (0.05 if kind == "runs" else 0.1)
+    offs = {"edge": np.r_[-70:0, 1:71], "halo": np.r_[-50:-20, 20:50]}.get(
+        kind)
+    if offs is not None:
+        at = (np.arange(2048, F, 2048)[:, None] + offs).ravel()
+        dead[at[at < F]] = True
+    dead &= fs >= 0
+    fs[dead], wid[dead] = -1, WID_PAD
+    wgt = np.where(fs >= 0, 1 + wid.astype(np.int64) % 5, 0)
+    return fs, wid, wgt
+
+
 def skip_steps(state, table, n_steps, skip, max_len, dev,
                wordpiece=False):
     """``n_steps`` merges of the skip route on a FlatState, as
@@ -556,7 +595,7 @@ def skip_steps(state, table, n_steps, skip, max_len, dev,
     stats = torch.zeros(2, dtype=torch.int32, device=dev)
     rec = torch.zeros(6, dtype=torch.int32, device=dev)
     for _ in range(n_steps):
-        state.guard(skip, stats[1:])
+        state.guard(stats[1:])
         train_loop.select_unify(*state.pairs(skip), h1, h2, sl, ctrl, pw1,
                                 pw2, len(table) + n_steps, rec,
                                 wordpiece=wordpiece,
@@ -574,7 +613,8 @@ def phase11(dev, rng, flat_bpe, table, flat_wp, table_wp, sym_pad, max_len,
     import numpy as np
     import torch
     from subword_tokenizers_tpu_torch.ops import train_loop
-    from subword_tokenizers_tpu_torch.ops.flat import (merge_skip,
+    from subword_tokenizers_tpu_torch.ops.flat import (GATE, MergeScratch,
+                                                       merge_skip,
                                                        merge_skip_ref,
                                                        skip_guard,
                                                        skip_guard_ref)
@@ -599,28 +639,38 @@ def phase11(dev, rng, flat_bpe, table, flat_wp, table_wp, sym_pad, max_len,
         return [t.clone() for t in ts]
 
     def check_skip(fs, wid, wgt, S, recs):
-        """K1 and K3 in skip mode and the guard, on one state."""
+        """K1 and K3 in skip mode and the guard, on one state: K3 with an
+        inactive record (the gate of the state as it stands), then with
+        each record, each followed by the guard reading its gate; the
+        kernels' scratch words (the weight and the gate) against the
+        plain versions' under the same epochs."""
         errs["pair_stats_skip"] = max(errs["pair_stats_skip"], err_all(
             canonical(*pair_stats(fs, wid, wgt, skip=S)),
             pair_stats_ref(fs, wid, wgt, S)))
-        cnt_k = torch.zeros(1, dtype=torch.int32, device=dev)
-        cnt_r = cnt_k.clone()
-        got, want = clone(fs, wid, wgt), clone(fs, wid, wgt)
-        skip_guard(*got, S, cnt_k)
-        skip_guard_ref(*want, S, cnt_r)
-        errs["skip_guard"] = max(errs["skip_guard"],
-                                 err_all([*got, cnt_k], [*want, cnt_r]))
-        notes["guard_fired"] += int(cnt_k)
+        sc_k, sc_r = MergeScratch(fs.shape[0], dev), MergeScratch(
+            fs.shape[0], dev)
         cap = int(fs.max()) + 2
         sf = symbol_freqs(fs, wgt, cap)
-        for row in recs:
+        for row in [[0] * 6] + recs:
             rec = torch.tensor(row, dtype=torch.int32, device=dev)
             got, want = clone(fs, wid, wgt, sf), clone(fs, wid, wgt, sf)
-            merge_skip(*got[:3], rec, S, got[3])
-            merge_skip_ref(*want[:3], rec, S, want[3])
-            errs["merge_skip"] = max(errs["merge_skip"], err_all(got, want),
-                                     max_err(got[3], symbol_freqs(
-                                         got[0], got[2], cap)))
+            merge_skip(*got[:3], rec, S, got[3], scratch=sc_k)
+            merge_skip_ref(*want[:3], rec, S, want[3], sc_r.words,
+                           sc_r.next_epoch())
+            sc_r.gate = sc_r.epoch
+            errs["merge_skip"] = max(
+                errs["merge_skip"], err_all(got, want),
+                max_err(got[3], symbol_freqs(got[0], got[2], cap)),
+                max_err(sc_k.words[[0, GATE]], sc_r.words[[0, GATE]]))
+            cnt_k = torch.zeros(1, dtype=torch.int32, device=dev)
+            cnt_r = cnt_k.clone()
+            skip_guard(*got[:3], cnt_k, sc_k)
+            skip_guard_ref(*want[:3], cnt_r, sc_r.words, sc_r.gate << 1 | 1)
+            sc_r.next_epoch()
+            sc_r.gate = 0
+            errs["skip_guard"] = max(errs["skip_guard"], err_all(
+                [*got[:3], cnt_k], [*want[:3], cnt_r]))
+            notes["guard_fired"] += int(cnt_k)
         notes["skip_states"] += 1
 
     def records(fs, wid, wgt, S):
@@ -638,6 +688,17 @@ def phase11(dev, rng, flat_bpe, table, flat_wp, table_wp, sym_pad, max_len,
         fs, wid, wgt = (torch.from_numpy(x).to(dev) for x in
                         skip_random_state(rng, 4000, 12, 3, holes, gaps))
         check_skip(fs, wid, wgt, S, records(fs, wid, wgt, S))
+    # the kernels' tile edges: self-merge runs longer than a tile across
+    # them, gaps at an edge and inside the slots a tile stages from its
+    # neighbours; and 2,048 tiles, more than the card holds at once
+    for kind, S in (("runs", 1), ("runs", 12), ("runs", 64), ("edge", 2),
+                    ("edge", 64), ("halo", 12), ("halo", 64)):
+        fs, wid, wgt = (torch.from_numpy(x).to(dev) for x in
+                        skip_tile_state(rng, kind, 4 * 2048 + 640))
+        check_skip(fs, wid, wgt, S, records(fs, wid, wgt, S))
+    fs, wid, wgt = (torch.from_numpy(x).to(dev) for x in
+                    skip_tile_state(rng, "halo", 2048 * 2048))
+    check_skip(fs, wid, wgt, 12, records(fs, wid, wgt, 12))
     # the train-85k state after 1,000 skip-mode merges (window 12)
     state = train_loop.FlatState(*flat_bpe, dev)
     t1000 = type(table)(table.strings())
@@ -756,35 +817,66 @@ def phase11(dev, rng, flat_bpe, table, flat_wp, table_wp, sym_pad, max_len,
     rec = torch.tensor(rec, dtype=torch.int32, device=dev)
     cnt = torch.zeros(1, dtype=torch.int32, device=dev)
     work = clone(fs, wid, wgt)
-    out = clone(fs, wid, wgt)
     ovf = skip_random_state(rng, 40000, 12, 3, 0.3, 4)
     ovf = [torch.from_numpy(x).to(dev) for x in ovf]
-    ovf_out = clone(*ovf)
     F = fs.shape[0]
     n_live = int((fs >= 0).sum())
     timing["pair_stats_skip"] = (
         cuda_ms(lambda: k1.pairs(fs, wid, wgt, skip=12), 200, True),
         cuda_ms(lambda: pair_stats_ref(fs, wid, wgt, 12), 5))
+    # K3 with the record's matches: the state restored before each call
+    # (three copies, timed alone and taken off); then passes with no
+    # match left, as most of a step's tiles are
+    sc = MergeScratch(F, dev)
+    work0 = clone(*work)
+
+    def restore_work():
+        for dst, src in zip(work, work0):
+            dst.copy_(src)
+
+    t_restore = cuda_ms(restore_work, 100, True)
+    timing["merge_skip_merging"] = (
+        cuda_ms(lambda: (restore_work(), merge_skip(*work, rec, 12,
+                                                    scratch=sc)), 100, True)
+        - t_restore,
+        cuda_ms(lambda: (restore_work(), merge_skip_ref(*work, rec, 12)), 5)
+        - t_restore)
+    changed = [int((w != w0).sum()) for w, w0 in zip(work, work0)]
+    timing["merge_skip"] = (
+        cuda_ms(lambda: merge_skip(*work, rec, 12, scratch=sc), 200, True),
+        cuda_ms(lambda: merge_skip_ref(*work, rec, 12), 5))
+    # the guard with its gate closed (each call closes it)
     timing["skip_guard"] = (
-        cuda_ms(lambda: skip_guard(*work, 12, cnt, out), 200, True),
-        cuda_ms(lambda: skip_guard_ref(*work, 12, cnt), 5))
-    # A compaction ends the overflow, so each timed call first restores
-    # the state (three copies, timed alone and taken off).
+        cuda_ms(lambda: skip_guard(*work, cnt, sc), 200, True),
+        cuda_ms(lambda: skip_guard_ref(*work, cnt, sc.words, 1), 5))
+    # The guard fired: a state with 70-slot gaps at window 2, its gate
+    # opened by an inactive K3 and kept open across calls (the guard
+    # reads the gate word and never writes it); a compaction ends the
+    # overflow, so each timed call first restores the state, as above.
+    sc_o = MergeScratch(ovf[0].shape[0], dev)
+    merge_skip(*ovf, torch.zeros(6, dtype=torch.int32, device=dev), 2,
+               scratch=sc_o)
+    opened = sc_o.gate
+    if not int(sc_o.words[GATE]) & 1:
+        raise AssertionError("the gapped state does not overflow")
     ovf0 = clone(*ovf)
 
     def restore():
         for dst, src in zip(ovf, ovf0):
             dst.copy_(src)
+        sc_o.gate = opened
 
     t_restore = cuda_ms(restore, 100, True)
+    fired0 = int(cnt)
     timing["skip_guard_fired"] = (
-        cuda_ms(lambda: (restore(), skip_guard(*ovf, 2, cnt, ovf_out)), 100,
-                True) - t_restore,
-        cuda_ms(lambda: (restore(), skip_guard_ref(*ovf, 2, cnt)), 5)
+        cuda_ms(lambda: (restore(), skip_guard(*ovf, cnt, sc_o)), 100, True)
+        - t_restore,
+        cuda_ms(lambda: (restore(), skip_guard_ref(*ovf, cnt, sc_o.words,
+                                                   opened << 1 | 1)), 5)
         - t_restore)
-    timing["merge_skip"] = (
-        cuda_ms(lambda: merge_skip(*work, rec, 12), 200, True),
-        cuda_ms(lambda: merge_skip_ref(*work, rec, 12), 5))
+    if int(cnt) - fired0 != 101 + 6:  # every call compacted
+        raise AssertionError(f"the timed guard fired {int(cnt) - fired0} "
+                             f"times of 107")
     sym_t = sym85.clone()
     rec_p = check_rows(sym85)
     rec_p = torch.tensor([int(rec_p[0]), int(rec_p[1]), 9000, 0, 1, 0],
@@ -821,15 +913,22 @@ def phase11(dev, rng, flat_bpe, table, flat_wp, table_wp, sym_pad, max_len,
     # (6), a move per row slot (2), a 128-bit compare per live entry (12).
     bounds["pair_stats_skip"] = bound(nbytes(fs, wid, wgt, *tab),
                                       10 * n_live)
-    bounds["skip_guard"] = bound(nbytes(fs), 2 * F)
+    # The guard: the gate word (closed), or every slot read and written
+    # (fired); K3 in skip mode: fs and wid read, the record, the weight and
+    # gate words written, and, merging, the changed words and the matches'
+    # weights (changed: fs, wid and wgt words that differ after the merge)
+    bounds["skip_guard"] = bound(8, 1)
     bounds["skip_guard_fired"] = bound(2 * nbytes(*ovf), 8 * ovf[0].shape[0])
-    bounds["merge_skip"] = bound(nbytes(fs, wid, wgt, rec), 6 * F)
+    bounds["merge_skip"] = bound(nbytes(fs, wid, rec) + 16, 6 * F)
+    bounds["merge_skip_merging"] = bound(
+        nbytes(fs, wid, rec) + 16 + 4 * changed[0] + 4 * changed[1]
+        + 16 * changed[2], 6 * F)
     bounds["merge_rows"] = bound(nbytes(sym85, rec_p), 2 * n_rows * L)
     bounds["select_unify_tournament"] = bound(
         40 * n_pairs_w + 8 * int(ctrl[0]) + nbytes(ctrl, rec_w),
         12 * n_pairs_w)
     notes.update(fired_1000=fired, dead_1000=n_dead, F=F, n_live=n_live,
-                 rows=(n_rows, L))
+                 rows=(n_rows, L), merge_skip_changed=changed)
     torch.cuda.synchronize()
     print(f"phase 11: the slice's kernels equal their plain versions "
           f"exactly: K1 and K3 in skip mode and the guard on "
@@ -837,7 +936,9 @@ def phase11(dev, rng, flat_bpe, table, flat_wp, table_wp, sym_pad, max_len,
           f"holes, runs and 70-slot gaps; the 85k state after 1,000 "
           f"skip-mode merges, {n_dead} dead slots, at windows 2 and 12; the "
           f"guard compacted {notes['guard_fired']} of them, and {fired} "
-          f"times in the 1,000 merges), K1 and K3p on "
+          f"times in the 1,000 merges; tile edges: runs longer than a "
+          f"tile, gaps at the edges and in the staged neighbours, windows "
+          f"1-64; 2,048 tiles at window 12), K1 and K3p on "
           f"{notes['rows_states']} padded states (lengths 0, 1, L, PADs "
           f"inside, the {n_rows} x {L} train-85k tensor), K2's tournament "
           f"on {notes['tournament_tables']} tables (the Bezout near tie "
@@ -845,9 +946,13 @@ def phase11(dev, rng, flat_bpe, table, flat_wp, table_wp, sym_pad, max_len,
           f"clear order, 8 random, the 85k WordPiece tables: redos "
           f"{notes['redos']}); at F = {F} ({n_live} live): " + ", ".join(
               f"{k} {timing[k][0]:.4f} ms (plain {timing[k][1]:.3f}, bound "
-              f"{bounds[k][0]:.4f})" for k in (
+              f"{bounds[k][0]:.6f})" for k in (
                   "pair_stats_skip", "skip_guard", "skip_guard_fired",
-                  "merge_skip", "merge_rows", "select_unify_tournament"))
+                  "merge_skip", "merge_skip_merging", "merge_rows",
+                  "select_unify_tournament"))
+          + f"; ptxas merge_skip_kernel: {ptxas_lines('merge_skip_kernel')}"
+          + f"; merge_tiles_kernel<true>: "
+          f"{ptxas_lines('merge_tiles_kernelILb1')}"
           + f"; exact WordPiece K2 on the same table "
           f"{timing['select_unify_exact_wp'][0]:.4f} ms; {smi}")
     return errs, timing, bounds, notes
@@ -904,17 +1009,24 @@ ROUTE_KERNELS = {
 
 
 def phase12(dev, corpus, check_bpe, check_wp, smi, trace_dir,
-            max_vocab=8000):
+            max_vocab=8000, overflows=None):
     """Phase 12: each route of this slice trains all of ``corpus`` to
     ``max_vocab`` (a cold, a warm and a profiled run), each run checked against
-    the JAX golden by ``check_bpe`` / ``check_wp``; then one skip-route
-    run under torch.profiler. Returns {route: launches of its three
-    runs}."""
+    the JAX golden by ``check_bpe`` / ``check_wp``, the skip routes' overflow
+    compactions against the JAX package's count a run (``overflows``:
+    {route: count}, None to skip that check); then (12c) one skip-route
+    run under torch.profiler, its device blocks counted: the kernel
+    launches a step (the wrappers' counts), the allocations a block
+    (``torch.cuda.memory_stats``), and from the trace the memsets and
+    the kernels it holds once a step. Returns ({route: launches of its
+    three runs}, 12c's numbers)."""
+    import contextlib
     import functools
     import torch
     from subword_tokenizers_tpu_torch import NaiveBPE, NaiveWP
     from subword_tokenizers_tpu_torch.benchmarks import profiling
-    from subword_tokenizers_tpu_torch.ops import train_loop
+    from subword_tokenizers_tpu_torch.ops import flat as flat_ops
+    from subword_tokenizers_tpu_torch.ops import pairstats, train_loop
     models = {"NaiveBPE": NaiveBPE, "NaiveWP": NaiveWP}
     counters = route_counters()
     real_run = train_loop.run_fused
@@ -952,6 +1064,12 @@ def phase12(dev, corpus, check_bpe, check_wp, smi, trace_dir,
             if missing:
                 raise AssertionError(f"{name}: nothing counted for "
                                      f"{missing}: {counts}")
+            if overflows is not None and name in overflows and counts[
+                    "overflow_compactions"] != 3 * overflows[name]:
+                raise AssertionError(
+                    f"{name}: {counts['overflow_compactions']} overflow "
+                    f"compactions in 3 runs, the JAX package's "
+                    f"{overflows[name]} a run")
             by_route[name] = counts
             lines.append(
                 f"{name} cold {walls[0]:.3f} s, warm {walls[1]:.3f} s, "
@@ -961,27 +1079,81 @@ def phase12(dev, corpus, check_bpe, check_wp, smi, trace_dir,
         os.environ.pop("SWT_WP_TOURNAMENT", None)
         os.environ["SWT_SKIP_COMPACT"] = "12"
         train_loop.run_fused = real_run
-        wall, busy, by_name = device_trace(
-            lambda: NaiveBPE(device=dev).train(corpus, max_vocab),
-            os.path.join(trace_dir, "skip_train_trace.json"))
+        # each device block's allocations and kernel launches (the
+        # wrappers' counts)
+        wrappers = (pairstats.pair_stats, train_loop.select_unify,
+                    flat_ops.merge_skip, flat_ops.skip_guard,
+                    flat_ops.merge_apply)
+        inside = []
+        real_phase = profiling.phase
+
+        @contextlib.contextmanager
+        def counted_phase(name, device=None):
+            allocated = torch.cuda.memory_stats(dev)[
+                "allocation.all.allocated"]
+            launched = sum(w.launches for w in wrappers)
+            with real_phase(name, device):
+                yield
+            if name == "train.device_block":
+                inside.append((torch.cuda.memory_stats(dev)[
+                    "allocation.all.allocated"] - allocated,
+                    sum(w.launches for w in wrappers) - launched))
+
+        profiling.phase = counted_phase
+        try:
+            wall, busy, by_name = device_trace(
+                lambda: NaiveBPE(device=dev).train(corpus, max_vocab),
+                os.path.join(trace_dir, "skip_train_trace.json"))
+        finally:
+            profiling.phase = real_phase
     finally:
         train_loop.run_fused = real_run
         for k, v in saved.items():
             os.environ.pop(k, None)
             if v is not None:
                 os.environ[k] = v
+    steps = 256 * len(inside)
+    allocs = [a for a, _ in inside]
+    per_step = sum(n for _, n in inside) / steps
+    step_kernels = {n: c for n, (c, _) in by_name.items()
+                    if "memcpy" not in n.lower() and "memset" not in n.lower()
+                    and c >= steps // 2}
+    skip_ms = sum(ms for n, (_, ms) in by_name.items()
+                  if "merge_skip_kernel" in n
+                  or "merge_tiles_kernel<true>" in n)
+    notes = dict(blocks=len(inside), launches_a_step=per_step,
+                 allocations_first_block=allocs[0] if allocs else None,
+                 allocations_later_blocks=sum(allocs[1:]),
+                 memsets=memsets(by_name) if by_name else None,
+                 traced_step_kernels=step_kernels if by_name else None,
+                 guard_and_merge_skip_device_ms=skip_ms if by_name else None,
+                 wall_ms=wall, busy_ms=busy)
+    if (not inside or sum(allocs[1:]) or per_step > 4 + 1 / 256
+            or (by_name and (notes["memsets"] or len(step_kernels) > 4))):
+        raise AssertionError(f"the traced skip train: {notes}")
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
     dev_line = ("not measured (the trace holds no device events)"
                 if not by_name else
                 f"device busy {busy:.3f} ms of {wall:.1f} ms (idle share "
                 f"{1 - busy / wall:.4f}); "
-                + "; ".join(f"{n} x{c} {ms:.3f} ms" for n, (c, ms) in top))
+                + "; ".join(f"{n} x{c} {ms:.3f} ms" for n, (c, ms) in top)
+                + f"; the guard and K3 skip together {skip_ms:.3f} ms; "
+                f"{notes['memsets']} memsets; the kernels once a step "
+                f"{sorted(step_kernels.values())}")
     print(f"phase 12: all of {len(corpus)} sentences to {max_vocab} through "
-          f"each route equal the JAX golden (merges; WordPiece's vocab too): "
-          + "; ".join(lines) + f"; {smi}")
+          f"each route equal the JAX golden (merges; WordPiece's vocab too)"
+          + ("" if overflows is None else
+             f", the skip routes' overflow compactions the JAX package's "
+             f"{overflows} a run")
+          + ": " + "; ".join(lines) + f"; {smi}")
     print(f"phase 12c: one warm NaiveBPE train with SWT_SKIP_COMPACT=12 "
-          f"under torch.profiler: {dev_line}; {smi}")
-    return by_route
+          f"under torch.profiler: {len(inside)} device blocks, "
+          f"{per_step:.4f} kernel launches a step (4 a step and the block's "
+          f"closing compaction), allocations a block: {allocs[0]} in the "
+          f"first (K1's tables, made by the first count), "
+          f"{sum(allocs[1:])} in the {len(inside) - 1} others; {dev_line}; "
+          f"{smi}")
+    return by_route, notes
 
 
 def padded_random(rng, n, L, n_sym, wscale=1):
@@ -2263,7 +2435,7 @@ def phase13c(dev, rng, flat_bpe, table, arrays, arrays_wp, table_wp,
             if step == shrink_at:
                 st.F //= 2
             if skip:
-                st.guard(skip, stats[1:])
+                st.guard(stats[1:])
             got = st.pairs(skip)
             arrays_now = ((st.sym.view(-1), st._wid, st._wgt)
                           if isinstance(st, train_loop.PaddedState)
@@ -4368,7 +4540,12 @@ def main() -> int:
 
     # ---- phase 12: the routes of run_fused, the whole corpus to 8,000
     with tempfile.TemporaryDirectory() as d:
-        by_route = phase12(dev, corpus, check_train, check_wp_train, smi, d)
+        with open(os.path.join(GOLDEN, "port_t85k_skip_overflows.json"),
+                  encoding="utf-8") as f:
+            overflows = json.load(f)
+        by_route, notes12c = phase12(dev, corpus, check_train,
+                                     check_wp_train, smi, d,
+                                     overflows=overflows)
 
     # ---- phase 13: the shard kernels against their plain versions
     with tempfile.TemporaryDirectory() as d:
@@ -4601,18 +4778,34 @@ def main() -> int:
              "ms": timing[k][0], "plain_ms": timing[k][1]})
     by_name = {k["name"]: k for k in record["kernels"]}
     by_name["skip_guard"].update(
-        note="ms: the overflow test with the gate closed (the usual "
-             "step); fired_ms: with the compaction it gates",
+        note="ms: one launch with the gate closed (the usual step: each "
+             "block reads the gate word merge_skip wrote and returns); "
+             "fired_ms: the gate open, the state compacted in place "
+             "(merge_tiles_kernel<true>, a state with 70-slot gaps at "
+             "window 2)",
+        bound_note="bytes: the gate word (closed); every slot read and "
+                   "written (fired)",
         fired_ms=timing["skip_guard_fired"][0],
         fired_plain_ms=timing["skip_guard_fired"][1],
         fired_bound_ms=bounds["skip_guard_fired"][0],
-        overflow_compactions=routes_of("overflow_compactions"))
+        overflow_compactions=routes_of("overflow_compactions"),
+        traced_skip_train=notes12c)
     by_name["select_unify_tournament"].update(
         risky_redos=routes_of("risky_redos") or {"wp_tournament": 0},
         exact_wp_ms=timing["select_unify_exact_wp"][0])
-    by_name["merge_skip"]["note"] = (
-        "ms: a pass with no match left (the timed record's pairs merge on "
-        "its first call)")
+    by_name["merge_skip"].update(
+        note="ms: one launch over the 85k state after 1,000 skip-mode "
+             "merges with no match left (as most of a step's tiles are), "
+             "the overflow test and the gate word included; merging_ms: "
+             "the record's pairs merged (the state restored between "
+             "calls)",
+        bound_note="bytes: fs and wid read (8 a slot), the record, the "
+                   "weight and gate words written; merging: the changed "
+                   "words and the matches' weights besides",
+        merging_ms=timing["merge_skip_merging"][0],
+        merging_plain_ms=timing["merge_skip_merging"][1],
+        merging_bound_ms=bounds["merge_skip_merging"][0],
+        merging_changed=notes11["merge_skip_changed"])
     by_name["merge_rows"]["note"] = (
         "ms: a pass with no match left over the rows, each read and "
         "rewritten (the timed record's pairs merge on its first call)")

@@ -61,37 +61,65 @@
 // block counts, scatter) cost about three launch latencies and read every
 // slot twice, with a flag byte a slot in between; this one costs one.
 //
-// The skip route's overflow guard keeps that design (below): mark_kernel,
-// a thread a slot, writes each slot's kind (0 dropped, 1 kept, 2 kept as
-// new_id) to a flag byte and each block's kept count to its own word;
-// scan_kernel, one block, scans the block counts; scatter_kernel places
-// each kept slot at its block's offset plus its rank (warp ballots) and
-// pads from the total.
-//
 // Skip mode (deferred compaction, window S), which replaces
-//   subword_tokenizers_tpu/ops/flat.py: skip_overflow, skip_prev_select,
-//     flat_skip_apply, and the lax.cond compaction of flat_train_steps
-//     (ops/train_loop.py:223-258):
-// - swt_skip_guard, before each step's pair count: skip_check_kernel finds
-//   whether a live slot has no live successor within S + 1 slots while a
-//   later live slot exists (JAX's skip_overflow, exact and as
-//   conservative across words), as max(F - i) over such slots and max(i +
-//   1) over live slots, two atomicMax after a warp reduction; mark, scan
-//   and scatter then compact into the second buffer, gated on that
-//   flag on the device (each block returns at once when it is clear), and
-//   copy_kernel, gated the same way, copies the result back and counts
-//   the compaction. No host sync: the state stays in the caller's buffer.
-// - swt_merge_skip: mark_skip_kernel decides each slot from reads only --
-//   a match when it is live, holds a, and its nearest live successor
-//   within S + 1 holds b in the same word; for a == b only at an even
-//   count of equal live predecessors back through the run (each found
-//   within S + 1, as JAX's cpos parity counts them); dead when its
-//   nearest live predecessor within S + 1 matched -- and applies the
-//   carried weights by three atomicAdd a block (exact in any order);
-//   apply_skip_kernel then writes new_id into matches and (-1, WID_PAD,
-//   0) into the dead slots, in place: no scan and no scatter.
-// Bound on this card: latency; each skip-mode launch reads each slot's
-// window of S + 1 neighbours (12 at the default), a few MB.
+//   subword_tokenizers_tpu/ops/flat.py:94 skip_overflow, :115 skip_next,
+//     :133 skip_prev_select, :168 flat_skip_apply, and the lax.cond
+//     compaction of flat_train_steps (ops/train_loop.py:223-236),
+// is two launches a step, each over the same tiles, with no memset and
+// nothing allocated (the scratch is the state's ops/flat.MergeScratch,
+// built once, its word [3] the gate):
+// - swt_merge_skip, merge_skip_kernel: the merge in place. A match is a
+//   live slot holding a whose nearest live successor within S + 1 holds
+//   b in the same word; for a == b only at an even offset in its run of
+//   equal live symbols (a run breaks where a live slot's nearest live
+//   predecessor within S + 1 differs in symbol or word, or there is
+//   none: JAX's cpos parity). A match takes new_id; the live slot after
+//   it dies where it stands (-1, WID_PAD, 0). A tile stages its slots and
+//   68 on each side (S + 1 <= 65) in shared memory by 16-byte loads, and
+//   each slot is decided once: the nearest live slot before and after
+//   each from block scans (a prefix maximum and a suffix minimum of the
+//   threads' live positions), seeded from the staged neighbours.
+//   *Writes in place*: a tile's neighbours read its edge slots as their
+//   halo, so no tile writes before both neighbours have staged: each
+//   tile publishes a 16-byte word with the call's epoch once staged and
+//   waits for its neighbours' words before it writes (tiles with nothing
+//   to write do not wait). A self-merge's run may cross any number of
+//   tiles; rather than walk back through slots a tile before may already
+//   have rewritten, each tile carries the run's parity: its word holds
+//   (the tile has a run start, parity of the live slots after its last
+//   one), a segmented scan whose decoupled look-back (lookback.cuh's
+//   words, read back until a run start or an inclusive word) gives the
+//   parity at its left edge; only a tile whose first live slot continues
+//   a run looks back. That look-back was chosen over a grid-wide barrier
+//   between deciding and writing because a barrier needs every tile
+//   resident at once, or the decisions of several tiles kept a block,
+//   and makes every step wait for the slowest tile; the neighbours'
+//   words cost a tile one wait.
+//   The same launch computes the overflow test for the state it leaves
+//   (JAX's skip_overflow: a live slot with no live successor within S +
+//   1 while a later live slot exists, as conservative across words):
+//   once done, a tile rewrites its word with its summary beside the run
+//   state (its first and last live slot after the merge, whether a gap
+//   inside it is wider than S + 1, and its match weight as the value);
+//   the block of the last tile reads every word once done, tests the
+//   gaps between tiles, and writes the gate word, epoch << 1 | overflow,
+//   n_rep and the carried weights (a, then b, then new_id, as above). No
+//   fence and no ticket: each word is one 16-byte volatile store.
+// - swt_skip_guard, merge_tiles_kernel<true>, before the next step's
+//   pair count: each block reads the gate word and returns at once
+//   unless it holds the epoch of the merge_skip the host names with the
+//   overflow bit set; then it compacts the state in place as K3 with an
+//   inactive record, and its last tile counts the compaction. In place
+//   is safe: a compaction only moves slots left, a tile writes only
+//   after the look-back has seen every tile before it staged, and no
+//   slot is read after that. The host names no epoch (the gate reads as
+//   closed) on a state that a merge_apply compacted, such as a block's
+//   start, where JAX's block close has compacted instead.
+// Bound on this card: latency. merge_skip reads 8 bytes a slot (fs and
+// wid) and writes only the slots it changes; its time is the launch, the
+// staging, two block scans (a third in a tile that changes) and the last
+// tile's pass over the words; the guard with its gate closed is one
+// launch that reads one word a block.
 #include <cstdint>
 
 #include <cuda_runtime.h>
@@ -102,157 +130,7 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kScanThreads = 1024;
 constexpr int32_t kWidPad = 1 << 30;
-
-// The skip guard's flag: gate[0] = max(F - i) over live slots with no live
-// successor in the window, gate[1] = max(i + 1) over live slots; a null
-// gate is always open.
-__device__ __forceinline__ bool gate_open(const int32_t* gate, int64_t F) {
-  return gate == nullptr ||
-         (gate[0] > 0 && F - gate[0] < static_cast<int64_t>(gate[1]) - 1);
-}
-
-__device__ __forceinline__ bool is_match(const int32_t* fs,
-                                         const int32_t* wid, int64_t F,
-                                         int64_t i, int32_t a, int32_t b) {
-  if (i < 0 || i + 1 >= F) return false;
-  const int32_t s = fs[i];
-  if (s != a || fs[i + 1] != b || wid[i] != wid[i + 1]) return false;
-  if (a != b) return true;
-  const int32_t w = wid[i];
-  int64_t j = i - 1;
-  while (j >= 0 && fs[j] == s && wid[j] == w) --j;
-  return ((i - 1 - j) & 1) == 0;
-}
-
-__global__ void mark_kernel(const int32_t* __restrict__ fs,
-                            const int32_t* __restrict__ wid,
-                            const int64_t* __restrict__ wgt, int64_t F,
-                            const int32_t* __restrict__ rec,
-                            uint8_t* __restrict__ flags,
-                            int32_t* __restrict__ block_cnt,
-                            long long* __restrict__ block_rep,
-                            const int32_t* gate) {
-  if (!gate_open(gate, F)) return;
-  __shared__ int s_cnt[kWarps];
-  __shared__ long long s_rep[kWarps];
-  const int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) +
-                    threadIdx.x;
-  const bool active = rec[4] != 0;
-  const int32_t a = active ? rec[0] : -3;
-  const int32_t b = active ? rec[1] : -3;
-  bool keep = false;
-  long long rep = 0;
-  if (i < F) {
-    const bool m = is_match(fs, wid, F, i, a, b);
-    const bool dead = is_match(fs, wid, F, i - 1, a, b);
-    keep = fs[i] >= 0 && !dead;
-    flags[i] = keep ? (m ? 2 : 1) : 0;
-    if (m) rep = wgt[i];
-  }
-  const unsigned ballot = __ballot_sync(0xffffffffu, keep);
-  for (int off = 16; off > 0; off >>= 1)
-    rep += __shfl_down_sync(0xffffffffu, rep, off);
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  if (lane == 0) {
-    s_cnt[warp] = __popc(ballot);
-    s_rep[warp] = rep;
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    int cnt = 0;
-    long long r = 0;
-    for (int w = 0; w < kWarps; ++w) {
-      cnt += s_cnt[w];
-      r += s_rep[w];
-    }
-    block_cnt[blockIdx.x] = cnt;
-    block_rep[blockIdx.x] = r;
-  }
-}
-
-// n_rep[0] gets the sum of the blocks' match weights n_rep[1 .. n].
-__global__ void scan_kernel(const int32_t* __restrict__ cnt, int64_t n,
-                            int32_t* __restrict__ off, int32_t* rec,
-                            long long* n_rep, const int32_t* gate,
-                            int64_t F) {
-  if (!gate_open(gate, F)) return;
-  __shared__ int64_t part[kScanThreads];
-  __shared__ long long reps[kScanThreads];
-  const int t = threadIdx.x;
-  const int64_t per = (n + kScanThreads - 1) / kScanThreads;
-  const int64_t b = t * per;
-  const int64_t e = b + per < n ? b + per : n;
-  int64_t sum = 0;
-  long long rep = 0;
-  for (int64_t k = b; k < e; ++k) {
-    sum += cnt[k];
-    rep += n_rep[1 + k];
-  }
-  part[t] = sum;
-  reps[t] = rep;
-  __syncthreads();
-  for (int d = kScanThreads / 2; d > 0; d >>= 1) {
-    if (t < d) reps[t] += reps[t + d];
-    __syncthreads();
-  }
-  if (t == 0) n_rep[0] = reps[0];
-  // Hillis-Steele inclusive scan over the stretch sums.
-  for (int d = 1; d < kScanThreads; d <<= 1) {
-    const int64_t v = t >= d ? part[t - d] : 0;
-    __syncthreads();
-    part[t] += v;
-    __syncthreads();
-  }
-  int64_t run = part[t] - sum;
-  for (int64_t k = b; k < e; ++k) {
-    off[k] = static_cast<int32_t>(run);
-    run += cnt[k];
-  }
-  if (t == kScanThreads - 1) {
-    off[n] = static_cast<int32_t>(part[t]);
-    rec[5] = static_cast<int32_t>(part[t]);
-  }
-}
-
-__global__ void scatter_kernel(const int32_t* __restrict__ fs,
-                               const int32_t* __restrict__ wid,
-                               const int64_t* __restrict__ wgt, int64_t F,
-                               const int32_t* __restrict__ rec,
-                               const uint8_t* __restrict__ flags,
-                               const int32_t* __restrict__ off, int64_t nb,
-                               int32_t* __restrict__ out_fs,
-                               int32_t* __restrict__ out_wid,
-                               int64_t* __restrict__ out_wgt,
-                               const int32_t* gate) {
-  if (!gate_open(gate, F)) return;
-  __shared__ int s_warp[kWarps];
-  const int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) +
-                    threadIdx.x;
-  const int kind = i < F ? flags[i] : 0;
-  const unsigned ballot = __ballot_sync(0xffffffffu, kind != 0);
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  if (lane == 0) s_warp[warp] = __popc(ballot);
-  __syncthreads();
-  int base = 0;
-  for (int w = 0; w < warp; ++w) base += s_warp[w];
-  if (kind != 0) {
-    const int64_t d = off[blockIdx.x] + base +
-                      __popc(ballot & ((1u << lane) - 1u));
-    out_fs[d] = kind == 2 ? rec[2] : fs[i];
-    out_wid[d] = wid[i];
-    out_wgt[d] = wgt[i];
-  }
-  if (i < F && i >= off[nb]) {
-    out_fs[i] = -1;
-    out_wid[i] = kWidPad;
-    out_wgt[i] = 0;
-  }
-}
-
 constexpr int kPer = 8;                 // slots a thread of a tile
 constexpr int kTile = kThreads * kPer;  // slots a tile (2,048)
 constexpr int kLead = 4;  // shared slots before a tile's; kLead - 1 holds
@@ -275,17 +153,22 @@ __device__ __forceinline__ bool even_run(const int32_t* s_fs,
   return ((k + base - 1 - g) & 1) == 0;
 }
 
-// scratch: [0] n_rep, [1] the tile ticket (0 between calls), [2, 3]
-// unused, then a 16-byte look-back word a tile (lookback.cuh: its kept
-// count, and its match weight beside it).
+// scratch (ops/flat.MergeScratch): [0] n_rep, [1] the tile ticket (0
+// between calls), [2] unused, [3] skip mode's gate word, then a 16-byte
+// look-back word a tile (lookback.cuh: its kept count, and its match
+// weight beside it).
+// kGuard (the skip route's overflow guard): rec, out_* and sym_freq are
+// unused and the state is compacted in place (out_* are fs, wid and wgt);
+// every block returns at once unless scratch[3] == gate; the last tile
+// adds one to *count.
+template <bool kGuard>
 __global__ void __launch_bounds__(kThreads)
-    merge_tiles_kernel(const int32_t* __restrict__ fs,
-                       const int32_t* __restrict__ wid,
-                       const int64_t* __restrict__ wgt, int64_t F,
-                       int32_t* rec, int32_t* __restrict__ out_fs,
-                       int32_t* __restrict__ out_wid,
-                       int64_t* __restrict__ out_wgt, long long* scratch,
-                       int n_tiles, unsigned epoch, long long* sym_freq) {
+    merge_tiles_kernel(const int32_t* fs, const int32_t* wid,
+                       const int64_t* wgt, int64_t F, int32_t* rec,
+                       int32_t* out_fs, int32_t* out_wid, int64_t* out_wgt,
+                       long long* scratch, int n_tiles, unsigned epoch,
+                       long long* sym_freq, long long gate, int32_t* count) {
+  if (kGuard && scratch[3] != gate) return;  // the gate is closed
   __shared__ __align__(16) int32_t s_fs[kLead + kTile + 4];
   __shared__ __align__(16) int32_t s_wid[kLead + kTile + 4];
   __shared__ __align__(16) int64_t s_wgt[kTile];
@@ -299,10 +182,10 @@ __global__ void __launch_bounds__(kThreads)
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-  const bool active = rec[4] != 0;
+  const bool active = !kGuard && rec[4] != 0;
   const int32_t a = active ? rec[0] : -3;
   const int32_t b = active ? rec[1] : -3;
-  const int32_t new_id = rec[2];
+  const int32_t new_id = kGuard ? -3 : rec[2];
   // A block's first tile is its own index: the grid is no larger than
   // the card holds at once, so every block runs while any waits. Further
   // tiles, when the state has more tiles than the grid, come from the
@@ -328,7 +211,8 @@ __global__ void __launch_bounds__(kThreads)
         s_wgt[k] = in ? wgt[base + k] : 0;
       }
     }
-    if (tid == 0) {  // the slot before the tile
+    if (kGuard) {  // no match: the neighbours are not read
+    } else if (tid == 0) {  // the slot before the tile
       s_fs[kLead - 1] = base > 0 ? fs[base - 1] : -1;
       s_wid[kLead - 1] = base > 0 ? wid[base - 1] : kWidPad;
     } else if (tid == kThreads - 1) {  // the slot after it
@@ -361,28 +245,30 @@ __global__ void __launch_bounds__(kThreads)
       g[h] = gv.x;
       g[h + 1] = gv.y;
     }
-    const int32_t f_next = s_fs[kLead + k0 + kPer];
-    const int32_t w_next = s_wid[kLead + k0 + kPer];
     unsigned m = 0;
-#pragma unroll
-    for (int j = 0; j < kPer; ++j) {
-      const int32_t nf = j + 1 < kPer ? f[j + 1] : f_next;
-      const int32_t nw = j + 1 < kPer ? w[j + 1] : w_next;
-      if (f[j] == a && nf == b && w[j] == nw &&
-          (a != b || even_run(s_fs, s_wid, fs, wid, base, k0 + j, f[j],
-                              w[j])))
-        m |= 1u << j;
-    }
-    // thread 0's first slot dies when the slot before the tile matched
     bool dead0 = false;
-    if (tid == 0) {
-      const int32_t p = s_fs[kLead - 1];
-      const int32_t pw = s_wid[kLead - 1];
-      dead0 = p == a && f[0] == b && pw == w[0];
-      if (dead0 && a == b) {
-        int64_t q = base - 2;
-        while (q >= 0 && fs[q] == p && wid[q] == pw) --q;
-        dead0 = ((base - 2 - q) & 1) == 0;
+    if (!kGuard) {
+      const int32_t f_next = s_fs[kLead + k0 + kPer];
+      const int32_t w_next = s_wid[kLead + k0 + kPer];
+#pragma unroll
+      for (int j = 0; j < kPer; ++j) {
+        const int32_t nf = j + 1 < kPer ? f[j + 1] : f_next;
+        const int32_t nw = j + 1 < kPer ? w[j + 1] : w_next;
+        if (f[j] == a && nf == b && w[j] == nw &&
+            (a != b || even_run(s_fs, s_wid, fs, wid, base, k0 + j, f[j],
+                                w[j])))
+          m |= 1u << j;
+      }
+      // thread 0's first slot dies when the slot before the tile matched
+      if (tid == 0) {
+        const int32_t p = s_fs[kLead - 1];
+        const int32_t pw = s_wid[kLead - 1];
+        dead0 = p == a && f[0] == b && pw == w[0];
+        if (dead0 && a == b) {
+          int64_t q = base - 2;
+          while (q >= 0 && fs[q] == p && wid[q] == pw) --q;
+          dead0 = ((base - 2 - q) & 1) == 0;
+        }
       }
     }
     s_last[tid] = static_cast<unsigned char>(m >> (kPer - 1));
@@ -443,13 +329,17 @@ __global__ void __launch_bounds__(kThreads)
       if (lane == 0) {
         s_before = pre;
         if (tile == n_tiles - 1) {  // the state's totals: the step's results
-          const long long n_rep = pre_w + weight;
-          scratch[0] = n_rep;
-          rec[5] = static_cast<int32_t>(pre + total);
-          if (sym_freq != nullptr && active) {
-            sym_freq[a] -= n_rep;
-            sym_freq[b] -= n_rep;
-            sym_freq[new_id] += n_rep;
+          if (kGuard) {
+            ++*count;
+          } else {
+            const long long n_rep = pre_w + weight;
+            scratch[0] = n_rep;
+            rec[5] = static_cast<int32_t>(pre + total);
+            if (sym_freq != nullptr && active) {
+              sym_freq[a] -= n_rep;
+              sym_freq[b] -= n_rep;
+              sym_freq[new_id] += n_rep;
+            }
           }
         }
       }
@@ -489,138 +379,469 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-__global__ void skip_check_kernel(const int32_t* __restrict__ fs, int64_t F,
-                                  int skip, int32_t* gate) {
-  const int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) +
-                    threadIdx.x;
-  int empty = 0, last = 0;
-  if (i < F && fs[i] >= 0) {
-    last = static_cast<int>(i + 1);
-    bool found = false;
-    for (int64_t j = i + 1; j <= i + 1 + skip && j < F; ++j) {
-      if (fs[j] >= 0) {
-        found = true;
-        break;
-      }
+// ---- skip mode's merge (merge_skip_kernel) ----
+
+constexpr int kHalo = 68;      // staged slots each side: S + 1 <= 65,
+                               // rounded up to 16 bytes
+constexpr int kFar = 1 << 24;  // a position no window reaches
+
+// The nearest slot of the warp's halo at distance 1 .. win from the tile
+// (left: slots before it, right: slots after it) that is live, as a tile
+// position, or -kFar / kFar when there is none. Every lane gets it.
+__device__ __forceinline__ int halo_live(const int32_t* s_fs, int win,
+                                         bool left) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int q = 0; q < 3; ++q) {
+    const int d = lane + 1 + 32 * q;
+    const bool lv =
+        d <= win &&
+        s_fs[left ? kHalo - d : kHalo + kTile - 1 + d] >= 0;
+    const unsigned bal = __ballot_sync(~0u, lv);
+    if (bal) {
+      const int dn = 32 * q + __ffs(bal);
+      return left ? -dn : kTile - 1 + dn;
     }
-    if (!found) empty = static_cast<int>(F - i);
   }
-  empty = __reduce_max_sync(0xffffffffu, empty);
-  last = __reduce_max_sync(0xffffffffu, last);
-  if ((threadIdx.x & 31) == 0) {
-    if (empty) atomicMax(&gate[0], empty);
-    if (last) atomicMax(&gate[1], last);
+  return left ? -kFar : kFar;
+}
+
+// Over the block's threads in order: the exclusive prefix maximum of p,
+// seeded with seed_p before thread 0, and the exclusive suffix minimum of
+// n, seeded with seed_n after the last thread; all_p and all_n get the
+// whole block's (no seed). s: 2 kWarps ints of shared memory, not
+// written again before the block's next barrier. Every thread calls it.
+__device__ __forceinline__ void scan_prev_next(int p, int n, int seed_p,
+                                               int seed_n, int* s,
+                                               int& ex_p, int& ex_n,
+                                               int& all_p, int& all_n) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int up = __shfl_up_sync(~0u, p, d);
+    const int dn = __shfl_down_sync(~0u, n, d);
+    if (lane >= d) p = max(p, up);
+    if (lane + d < 32) n = min(n, dn);
+  }
+  if (lane == 31) s[warp] = p;
+  if (lane == 0) s[kWarps + warp] = n;
+  __syncthreads();
+  int pre = seed_p, post = seed_n;
+  all_p = s[0];
+  all_n = s[kWarps + kWarps - 1];
+#pragma unroll
+  for (int q = 0; q < kWarps; ++q) {
+    if (q < warp) pre = max(pre, s[q]);
+    if (q > warp) post = min(post, s[kWarps + q]);
+    all_p = max(all_p, s[q]);
+    all_n = min(all_n, s[kWarps + q]);
+  }
+  const int up = __shfl_up_sync(~0u, p, 1);
+  const int dn = __shfl_down_sync(~0u, n, 1);
+  ex_p = lane ? max(up, pre) : pre;
+  ex_n = lane < 31 ? min(dn, post) : post;
+}
+
+// A self-merge's run state over a stretch of slots: bit 1 whether a run
+// starts in it, bit 0 the parity of the live slots after its last run
+// start (of all its live slots when none starts). seg(x, y): x, then y.
+__device__ __forceinline__ int seg(int x, int y) {
+  return (y & 2) ? y : (x & 2) | ((x ^ y) & 1);
+}
+
+// The exclusive seg-scan of v over the block's threads in order (0
+// before thread 0); total gets the whole block's. s: kWarps ints, as
+// scan_prev_next's.
+__device__ __forceinline__ int scan_seg(int v, int* s, int& total) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int up = __shfl_up_sync(~0u, v, d);
+    if (lane >= d) v = seg(up, v);
+  }
+  if (lane == 31) s[warp] = v;
+  __syncthreads();
+  int pre = 0;
+  total = 0;
+#pragma unroll
+  for (int q = 0; q < kWarps; ++q) {
+    if (q < warp) pre = seg(pre, s[q]);
+    total = seg(total, s[q]);
+  }
+  const int up = __shfl_up_sync(~0u, v, 1);
+  return lane ? seg(pre, up) : pre;
+}
+
+// The run state at the left edge of tile t: the words of the tiles
+// before it, read back until one holds a run start or is inclusive.
+__device__ int run_before(const ulonglong2* status, int t,
+                          unsigned epoch) {
+  int acc = 0;
+  for (int p = t - 1; p >= 0; --p) {
+    ulonglong2 w;
+    do {
+      w = load2(status + p);
+    } while (!written(w.x, epoch));
+    const int v = static_cast<int>(w.x & 3);
+    acc = seg(v, acc);
+    if ((v & 2) || (w.x >> 62) == (kInclusive >> 62)) break;
+  }
+  return acc;
+}
+
+// Waits until the word of tile t holds this call's epoch: the tile has
+// staged its slots.
+__device__ __forceinline__ void wait_staged(const ulonglong2* status, int t,
+                                            unsigned epoch) {
+  while (!written(load2(status + t).x, epoch)) {
   }
 }
 
-__global__ void copy_kernel(const int32_t* gate, int64_t F,
-                            const int32_t* __restrict__ src_fs,
-                            const int32_t* __restrict__ src_wid,
-                            const int64_t* __restrict__ src_wgt,
-                            int32_t* __restrict__ fs,
-                            int32_t* __restrict__ wid,
-                            int64_t* __restrict__ wgt, int32_t* count) {
-  if (!gate_open(gate, F)) return;
-  const int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) +
-                    threadIdx.x;
-  if (i == 0) ++*count;
-  if (i >= F) return;
-  fs[i] = src_fs[i];
-  wid[i] = src_wid[i];
-  wgt[i] = src_wgt[i];
+// A tile's word once it is done (bits of its count, beside the run state
+// in bits 0-1): its first live slot after the merge + 1 (0 for none) and
+// its last + 1, tile positions; a gap inside it wider than the window;
+// done. Its value: the tile's match weight.
+constexpr int kFirstShift = 2;
+constexpr int kLastShift = 14;
+constexpr unsigned kGap = 1u << 26;
+constexpr unsigned kDone = 1u << 27;
+
+// The call's results, by the block of the last tile: every tile's word
+// read in order once it is done, the gaps between tiles tested, and the
+// gate word, n_rep and the carried weights written.
+__device__ void close_call(const ulonglong2* status, int n_tiles, int win,
+                           long long* scratch, unsigned epoch, bool active,
+                           int32_t a, int32_t b, int32_t new_id,
+                           long long* sym_freq, int* s_scan,
+                           long long* s_rep) {
+  const int tid = threadIdx.x;
+  const int per = (n_tiles + kThreads - 1) / kThreads;
+  const int t0 = tid * per;
+  const int t1 = min(t0 + per, n_tiles);
+  int first = -1, last = -1;
+  bool ovf = false;
+  long long rep = 0;
+  for (int t = t0; t < t1; ++t) {
+    ulonglong2 w;
+    do {
+      w = load2(status + t);
+    } while (!written(w.x, epoch) || !(w.x & kDone));
+    rep += static_cast<long long>(w.y);
+    const unsigned c = static_cast<unsigned>(w.x);
+    ovf |= (c & kGap) != 0;
+    const int lo = static_cast<int>(c >> kFirstShift & 0xfff);
+    if (lo) {
+      const int base = t * kTile;
+      if (last >= 0 && base + lo - 1 - last > win) ovf = true;
+      if (first < 0) first = base + lo - 1;
+      last = base + static_cast<int>(c >> kLastShift & 0xfff) - 1;
+    }
+  }
+  int before, unused[3];
+  scan_prev_next(last, 0, -1, 0, s_scan, before, unused[0], unused[1],
+                 unused[2]);
+  if (first >= 0 && before >= 0 && first - before > win) ovf = true;
+  ovf = __syncthreads_or(ovf);
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1) rep += __shfl_xor_sync(~0u, rep, d);
+  if ((tid & 31) == 0) s_rep[tid >> 5] = rep;
+  __syncthreads();
+  if (tid == 0) {
+    long long n_rep = 0;
+    for (int q = 0; q < kWarps; ++q) n_rep += s_rep[q];
+    scratch[0] = n_rep;
+    scratch[3] = static_cast<long long>(epoch) << 1 | (ovf ? 1 : 0);
+    if (sym_freq != nullptr && active) {
+      sym_freq[a] -= n_rep;
+      sym_freq[b] -= n_rep;
+      sym_freq[new_id] += n_rep;
+    }
+  }
 }
 
-// Nearest live slot in (i, i + S + 1], or -1.
-__device__ __forceinline__ int64_t live_next(const int32_t* fs, int64_t F,
-                                             int64_t i, int skip) {
-  for (int64_t j = i + 1; j <= i + 1 + skip && j < F; ++j)
-    if (fs[j] >= 0) return j;
-  return -1;
-}
-
-// Nearest live slot in [i - S - 1, i), or -1.
-__device__ __forceinline__ int64_t live_prev(const int32_t* fs, int64_t i,
-                                             int skip) {
-  for (int64_t j = i - 1; j >= i - 1 - skip && j >= 0; --j)
-    if (fs[j] >= 0) return j;
-  return -1;
-}
-
-__device__ bool is_match_skip(const int32_t* fs, const int32_t* wid,
-                              int64_t F, int64_t i, int skip, int32_t a,
-                              int32_t b) {
-  if (i < 0) return false;
-  const int32_t s = fs[i];
-  if (s < 0 || s != a) return false;
-  const int64_t j = live_next(fs, F, i, skip);
-  if (j < 0 || fs[j] != b || wid[j] != wid[i]) return false;
-  if (a != b) return true;
-  const int32_t w = wid[i];
-  int k = 0;
-  for (int64_t p = live_prev(fs, i, skip);
-       p >= 0 && fs[p] == s && wid[p] == w; p = live_prev(fs, p, skip))
-    ++k;
-  return (k & 1) == 0;
-}
-
-__global__ void mark_skip_kernel(const int32_t* __restrict__ fs,
-                                 const int32_t* __restrict__ wid,
-                                 const int64_t* __restrict__ wgt, int64_t F,
-                                 int skip, const int32_t* __restrict__ rec,
-                                 uint8_t* __restrict__ flags,
-                                 unsigned long long* sym_freq) {
+// scratch as merge_tiles_kernel's ([1] 0 between calls; [0] and [3]
+// written), a status word a tile after it.
+__global__ void __launch_bounds__(kThreads)
+    merge_skip_kernel(int32_t* fs, int32_t* wid, int64_t* wgt, int64_t F,
+                      int skip, const int32_t* rec, long long* scratch,
+                      int n_tiles, unsigned epoch, long long* sym_freq) {
+  __shared__ __align__(16) int32_t s_fs[kHalo + kTile + kHalo];
+  __shared__ __align__(16) int32_t s_wid[kHalo + kTile + kHalo];
+  __shared__ unsigned char s_match[kThreads];  // a thread's match bits
+  // each scan its own words, so none waits for the others' reads
+  __shared__ int s_live[2 * kWarps], s_runs[kWarps], s_post[2 * kWarps];
+  __shared__ int s_first[kWarps], s_last[kWarps], s_ovf[kWarps];
   __shared__ long long s_rep[kWarps];
-  const int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) +
-                    threadIdx.x;
+  __shared__ int s_tile, s_cin;
+  unsigned* ticket = reinterpret_cast<unsigned*>(scratch + 1);
+  ulonglong2* status = reinterpret_cast<ulonglong2*>(scratch + 4);
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
   const bool active = rec[4] != 0;
   const int32_t a = active ? rec[0] : -3;
   const int32_t b = active ? rec[1] : -3;
-  long long rep = 0;
-  if (i < F) {
-    uint8_t f = 0;
-    if (fs[i] >= 0) {
-      if (is_match_skip(fs, wid, F, live_prev(fs, i, skip), skip, a, b)) {
-        f = 2;
-      } else if (is_match_skip(fs, wid, F, i, skip, a, b)) {
-        f = 1;
-        rep = wgt[i];
+  const int32_t new_id = rec[2];
+  const bool self = active && a == b;  // the parity rule applies
+  const int win = skip + 1;
+  for (int tile = blockIdx.x; tile < n_tiles;) {
+    const int64_t base = static_cast<int64_t>(tile) * kTile;
+    // stage the tile and kHalo slots each side (dead outside the state)
+    if (base + kTile <= F) {
+      const int4* f4 = reinterpret_cast<const int4*>(fs + base);
+      const int4* w4 = reinterpret_cast<const int4*>(wid + base);
+      for (int v = tid; v < kTile / 4; v += kThreads) {
+        reinterpret_cast<int4*>(s_fs + kHalo)[v] = f4[v];
+        reinterpret_cast<int4*>(s_wid + kHalo)[v] = w4[v];
+      }
+    } else {
+      for (int k = tid; k < kTile; k += kThreads) {
+        const bool in = base + k < F;
+        s_fs[kHalo + k] = in ? fs[base + k] : -1;
+        s_wid[kHalo + k] = in ? wid[base + k] : kWidPad;
       }
     }
-    flags[i] = f;
-  }
-  if (sym_freq == nullptr || !active) return;
-  for (int off = 16; off > 0; off >>= 1)
-    rep += __shfl_down_sync(0xffffffffu, rep, off);
-  if ((threadIdx.x & 31) == 0) s_rep[threadIdx.x >> 5] = rep;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    long long r = 0;
-    for (int w = 0; w < kWarps; ++w) r += s_rep[w];
-    if (r) {
-      const unsigned long long neg = static_cast<unsigned long long>(-r);
-      atomicAdd(&sym_freq[a], neg);
-      atomicAdd(&sym_freq[b], neg);
-      atomicAdd(&sym_freq[rec[2]], static_cast<unsigned long long>(r));
+    if (tid < kHalo) {
+      const int64_t q = base - kHalo + tid;
+      s_fs[tid] = q >= 0 ? fs[q] : -1;
+      s_wid[tid] = q >= 0 ? wid[q] : kWidPad;
+    } else if (tid < 2 * kHalo) {
+      const int k = tid - kHalo;
+      const int64_t q = base + kTile + k;
+      s_fs[kHalo + kTile + k] = q < F ? fs[q] : -1;
+      s_wid[kHalo + kTile + k] = q < F ? wid[q] : kWidPad;
     }
+    __syncthreads();
+    const int k0 = tid * kPer;
+    int32_t f[kPer], w[kPer];
+#pragma unroll
+    for (int h = 0; h < kPer; h += 4) {
+      const int4 fv = *reinterpret_cast<const int4*>(s_fs + kHalo + k0 + h);
+      const int4 wv = *reinterpret_cast<const int4*>(s_wid + kHalo + k0 + h);
+      f[h] = fv.x;
+      f[h + 1] = fv.y;
+      f[h + 2] = fv.z;
+      f[h + 3] = fv.w;
+      w[h] = wv.x;
+      w[h + 1] = wv.y;
+      w[h + 2] = wv.z;
+      w[h + 3] = wv.w;
+    }
+    unsigned live = 0;
+#pragma unroll
+    for (int j = 0; j < kPer; ++j)
+      if (f[j] >= 0) live |= 1u << j;
+    // each slot's nearest live slot before and after it (tile positions)
+    const int seed_p = halo_live(s_fs, win, true);
+    const int seed_n = halo_live(s_fs, win, false);
+    int ex_p, ex_n, t_last, t_first;
+    scan_prev_next(live ? k0 + 31 - __clz(live) : -kFar,
+                   live ? k0 + __ffs(live) - 1 : kFar, seed_p, seed_n,
+                   s_live, ex_p, ex_n, t_last, t_first);
+    int prv[kPer], nxt[kPer];
+    {
+      int p = ex_p, n = ex_n;
+#pragma unroll
+      for (int j = 0; j < kPer; ++j) {
+        prv[j] = p;
+        if (live >> j & 1) p = k0 + j;
+        const int jr = kPer - 1 - j;
+        nxt[jr] = n;
+        if (live >> jr & 1) n = k0 + jr;
+      }
+    }
+    // matches before the parity rule
+    unsigned m = 0;
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) {
+      const int n = nxt[j];
+      if ((live >> j & 1) && f[j] == a && n - (k0 + j) <= win &&
+          s_fs[kHalo + n] == b && s_wid[kHalo + n] == w[j])
+        m |= 1u << j;
+    }
+    // The tile's word: staged (every tile), with its run state; a tile
+    // whose first live slot continues a run reads the state before it.
+    // Thread 0 keeps the state it published, which its final word (done,
+    // with the summary) repeats for the look-backs that read it.
+    int cin = 0;
+    unsigned long long st = kInclusive;
+    int run = 0;
+    if (self) {
+      unsigned start = 0;  // the live slots where a run starts
+      int v = 0;
+#pragma unroll
+      for (int j = 0; j < kPer; ++j) {
+        if (!(live >> j & 1)) continue;
+        const int p = prv[j];
+        if (!(k0 + j - p <= win && s_fs[kHalo + p] == f[j] &&
+              s_wid[kHalo + p] == w[j]))
+          start |= 1u << j;
+        v = (start >> j & 1) ? 2 : v ^ 1;
+      }
+      int total;
+      const int ex = scan_seg(v, s_runs, total);
+      const bool cont = __syncthreads_or(
+          live && ex_p < 0 && !(start >> (__ffs(live) - 1) & 1));
+      if (tid == 0) {
+        st = (total & 2) || tile == 0 ? kInclusive : kAggregate;
+        run = total;
+        publish2(status + tile, st, epoch, run, 0);
+        int before = 0;
+        if (cont) {
+          before = run_before(status, tile, epoch);
+          st = kInclusive;
+          run = seg(before, total);
+          publish2(status + tile, st, epoch, run, 0);
+        }
+        s_cin = before & 1;
+      }
+      __syncthreads();
+      cin = s_cin;
+      // the offset parity of each live slot in its run: even merges
+      int par = seg(2 | cin, ex) & 1;
+#pragma unroll
+      for (int j = 0; j < kPer; ++j) {
+        if (!(live >> j & 1)) continue;
+        par = (start >> j & 1) ? 0 : par ^ 1;
+        if (par) m &= ~(1u << j);
+      }
+    } else if (tid == 0) {
+      publish2(status + tile, st, epoch, run, 0);
+    }
+    s_match[tid] = static_cast<unsigned char>(m);
+    __syncthreads();
+    // a live slot dies when its nearest live slot before it, within the
+    // window, matched (before the tile: only the tile's first live slot)
+    unsigned dead = 0;
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) {
+      if (!(live >> j & 1)) continue;
+      const int k = k0 + j;
+      const int p = prv[j];
+      if (k - p > win) continue;
+      const bool pm =
+          p >= 0 ? (s_match[p >> 3] >> (p & 7) & 1) != 0
+                 : s_fs[kHalo + p] == a && f[j] == b &&
+                       s_wid[kHalo + p] == w[j] && (!self || cin == 0);
+      if (pm) dead |= 1u << j;
+    }
+    // The tile's summary: its first and last live slot after the merge, a
+    // gap wider than the window inside it, its match weight. A tile that
+    // changes nothing has them from the scan above.
+    int first = t_first, last = t_last, ovf = 0;
+    long long rep = 0;
+    if (!__syncthreads_or(m | dead)) {
+#pragma unroll
+      for (int j = 0; j < kPer; ++j)
+        if ((live >> j & 1) && prv[j] >= 0 && k0 + j - prv[j] > win) ovf = 1;
+      ovf = __syncthreads_or(ovf);
+    } else {
+#pragma unroll
+      for (int j = 0; j < kPer; ++j)
+        if (m >> j & 1) rep += wgt[base + k0 + j];
+      // nothing is written before both neighbours have staged
+      if (tid == 0) {
+        if (tile > 0) wait_staged(status, tile - 1, epoch);
+        if (tile + 1 < n_tiles) wait_staged(status, tile + 1, epoch);
+      }
+      __syncthreads();
+#pragma unroll
+      for (int j = 0; j < kPer; ++j) {
+        const int64_t q = base + k0 + j;
+        if (m >> j & 1) {
+          fs[q] = new_id;
+        } else if (dead >> j & 1) {
+          fs[q] = -1;
+          wid[q] = kWidPad;
+          wgt[q] = 0;
+        }
+      }
+      const unsigned post = live & ~dead;
+      int q, unused[3];
+      scan_prev_next(post ? k0 + 31 - __clz(post) : -kFar, 0, -kFar, 0,
+                     s_post, q, unused[0], unused[1], unused[2]);
+#pragma unroll
+      for (int j = 0; j < kPer; ++j) {
+        if (!(post >> j & 1)) continue;
+        if (q >= 0 && k0 + j - q > win) ovf = 1;
+        q = k0 + j;
+      }
+      first = __reduce_min_sync(~0u, post ? k0 + __ffs(post) - 1 : kFar);
+      last = __reduce_max_sync(~0u, post ? k0 + 31 - __clz(post) : -1);
+      ovf = static_cast<int>(
+          __reduce_or_sync(~0u, static_cast<unsigned>(ovf)));
+#pragma unroll
+      for (int d = 16; d > 0; d >>= 1) rep += __shfl_xor_sync(~0u, rep, d);
+      if (lane == 0) {
+        s_first[warp] = first;
+        s_last[warp] = last;
+        s_ovf[warp] = ovf;
+        s_rep[warp] = rep;
+      }
+      __syncthreads();
+      if (tid == 0) {
+        for (int q2 = 0; q2 < kWarps; ++q2) {
+          first = min(first, s_first[q2]);
+          last = max(last, s_last[q2]);
+          ovf |= s_ovf[q2];
+          rep += q2 ? s_rep[q2] : 0;
+        }
+      }
+    }
+    if (tid == 0) {
+      const unsigned sum = static_cast<unsigned>(run) |
+                           (first < kTile ? first + 1 : 0) << kFirstShift |
+                           (last >= 0 ? last + 1 : 0) << kLastShift |
+                           (ovf ? kGap : 0u) | kDone;
+      publish2(status + tile, st, epoch, sum, rep);
+    }
+    if (tile == n_tiles - 1) {  // the last tile: the call's results
+      __syncthreads();
+      close_call(status, n_tiles, win, scratch, epoch, active, a, b, new_id,
+                 sym_freq, s_live, s_rep);
+    }
+    if (static_cast<int>(gridDim.x) >= n_tiles) break;
+    __syncthreads();  // the staged slots are read before the next tile
+    if (tid == 0)
+      s_tile = static_cast<int>(gridDim.x + atomicInc(ticket, n_tiles - 1));
+    __syncthreads();
+    tile = s_tile;
   }
 }
 
-__global__ void apply_skip_kernel(int32_t* __restrict__ fs,
-                                  int32_t* __restrict__ wid,
-                                  int64_t* __restrict__ wgt, int64_t F,
-                                  const int32_t* __restrict__ rec,
-                                  const uint8_t* __restrict__ flags) {
-  const int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) +
-                    threadIdx.x;
-  if (i >= F) return;
-  const uint8_t f = flags[i];
-  if (f == 1) {
-    fs[i] = rec[2];
-  } else if (f == 2) {
-    fs[i] = -1;
-    wid[i] = kWidPad;
-    wgt[i] = 0;
+// The blocks of kernel the card holds at once on the current device,
+// found once a device into resident[]; 0 on an error (err set).
+template <class Kernel>
+int resident_blocks(Kernel kernel, int* resident, cudaError_t& err) {
+  int dev = 0;
+  err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return 0;
+  if (dev >= 64) {
+    err = cudaErrorInvalidDevice;
+    return 0;
   }
+  if (resident[dev] == 0) {
+    int sms = 0, per_sm = 0;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        kThreads, 0);
+    if (err != cudaSuccess) return 0;
+    if (sms * per_sm < 2) {
+      err = cudaErrorInvalidValue;
+      return 0;
+    }
+    resident[dev] = sms * per_sm;
+  }
+  return resident[dev];
+}
+
+// The grid of a tile kernel: one block a tile, at most the resident
+// blocks.
+unsigned tile_grid(int64_t n_tiles, int resident) {
+  return static_cast<unsigned>(n_tiles < resident ? n_tiles : resident);
 }
 
 }  // namespace
@@ -638,108 +859,65 @@ int swt_merge_apply(const void* fs, const void* wid, const void* wgt,
                     int64_t F, void* rec, void* out_fs, void* out_wid,
                     void* out_wgt, void* scratch, int epoch, void* sym_freq,
                     void* stream) {
-  // the blocks the card holds at once, for each device (found once)
   static int resident[64];
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
-  if (resident[dev] == 0) {
-    int sms = 0, per_sm = 0;
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, merge_tiles_kernel, kThreads, 0);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    if (sms * per_sm < 1) return static_cast<int>(cudaErrorInvalidValue);
-    resident[dev] = sms * per_sm;
-  }
+  cudaError_t err;
+  const int res = resident_blocks(merge_tiles_kernel<false>, resident, err);
+  if (res == 0) return static_cast<int>(err);
   const int64_t n_tiles = (F + kTile - 1) / kTile;
-  const unsigned grid = static_cast<unsigned>(
-      n_tiles < resident[dev] ? n_tiles : resident[dev]);
-  merge_tiles_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(
-                                              stream)>>>(
+  merge_tiles_kernel<false><<<tile_grid(n_tiles, res), kThreads, 0,
+                              static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(fs), static_cast<const int32_t*>(wid),
       static_cast<const int64_t*>(wgt), F, static_cast<int32_t*>(rec),
       static_cast<int32_t*>(out_fs), static_cast<int32_t*>(out_wid),
       static_cast<int64_t*>(out_wgt), static_cast<long long*>(scratch),
       static_cast<int>(n_tiles), static_cast<unsigned>(epoch),
+      static_cast<long long*>(sym_freq), 0, nullptr);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Skip mode's merge, in place: fs/wid/wgt as above (fs and wid 16-byte
+// aligned), rec i32[6] (columns 0-4 read); scratch as swt_merge_apply's:
+// [0] gets the merge's weight, [3] the gate word epoch << 1 | overflow;
+// epoch in [1, 2^30), new a call; sym_freq as in swt_merge_apply, or
+// null. 0 < skip <= 64, 2 <= F < 2^31. Returns the cudaError_t.
+int swt_merge_skip(void* fs, void* wid, void* wgt, int64_t F, int skip,
+                   const void* rec, void* scratch, int epoch, void* sym_freq,
+                   void* stream) {
+  static int resident[64];
+  cudaError_t err;
+  const int res = resident_blocks(merge_skip_kernel, resident, err);
+  if (res == 0) return static_cast<int>(err);
+  if (skip < 1 || skip + 1 > kHalo) return cudaErrorInvalidValue;
+  const int64_t n_tiles = (F + kTile - 1) / kTile;
+  merge_skip_kernel<<<tile_grid(n_tiles, res), kThreads, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<int32_t*>(fs), static_cast<int32_t*>(wid),
+      static_cast<int64_t*>(wgt), F, skip, static_cast<const int32_t*>(rec),
+      static_cast<long long*>(scratch), static_cast<int>(n_tiles),
+      static_cast<unsigned>(epoch),
       static_cast<long long*>(sym_freq));
   return static_cast<int>(cudaGetLastError());
 }
 
-// Skip mode's overflow guard before a step: fs/wid/wgt as above (the
-// state, compacted in place when the window overflows); out_* a second
-// buffer of width F; scratch flags u8[F], blocks i32[2 NB + 1] and n_rep
-// i64[NB + 1] with NB = ceil(F / 256); crec i32[6] an inactive record
-// (its [5] becomes the live count when it compacts); gate i32[2]
-// scratch; count i32[1] is incremented per compaction.
-// 0 <= skip, 2 <= F < 2^31. Returns the cudaError_t.
-int swt_skip_guard(void* fs, void* wid, void* wgt, int64_t F, int skip,
-                   void* out_fs, void* out_wid, void* out_wgt, void* flags,
-                   void* blocks, void* n_rep, void* crec, void* gate,
-                   void* count, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int64_t nb = (F + kThreads - 1) / kThreads;
-  int32_t* cnt = static_cast<int32_t*>(blocks);
-  int32_t* off = cnt + nb;
-  int32_t* g = static_cast<int32_t*>(gate);
-  cudaError_t err = cudaMemsetAsync(gate, 0, 2 * sizeof(int32_t), s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const unsigned grid = static_cast<unsigned>(nb);
-  skip_check_kernel<<<grid, kThreads, 0, s>>>(
-      static_cast<const int32_t*>(fs), F, skip, g);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  mark_kernel<<<grid, kThreads, 0, s>>>(
+// Skip mode's overflow guard before a step: fs/wid/wgt as above, compacted
+// in place when scratch[3] (swt_merge_skip's gate word) equals gate, and
+// count i32[1] then incremented; else nothing changes. epoch in
+// [1, 2^30), new a call. 2 <= F < 2^31. Returns the cudaError_t.
+int swt_skip_guard(void* fs, void* wid, void* wgt, int64_t F, void* scratch,
+                   int epoch, long long gate, void* count, void* stream) {
+  static int resident[64];
+  cudaError_t err;
+  const int res = resident_blocks(merge_tiles_kernel<true>, resident, err);
+  if (res == 0) return static_cast<int>(err);
+  const int64_t n_tiles = (F + kTile - 1) / kTile;
+  merge_tiles_kernel<true><<<tile_grid(n_tiles, res), kThreads, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(fs), static_cast<const int32_t*>(wid),
-      static_cast<const int64_t*>(wgt), F, static_cast<const int32_t*>(crec),
-      static_cast<uint8_t*>(flags), cnt, static_cast<long long*>(n_rep) + 1,
-      g);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  scan_kernel<<<1, kScanThreads, 0, s>>>(
-      cnt, nb, off, static_cast<int32_t*>(crec),
-      static_cast<long long*>(n_rep), g, F);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  scatter_kernel<<<grid, kThreads, 0, s>>>(
-      static_cast<const int32_t*>(fs), static_cast<const int32_t*>(wid),
-      static_cast<const int64_t*>(wgt), F, static_cast<const int32_t*>(crec),
-      static_cast<const uint8_t*>(flags), off, nb,
-      static_cast<int32_t*>(out_fs), static_cast<int32_t*>(out_wid),
-      static_cast<int64_t*>(out_wgt), g);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  copy_kernel<<<grid, kThreads, 0, s>>>(
-      g, F, static_cast<const int32_t*>(out_fs),
-      static_cast<const int32_t*>(out_wid),
-      static_cast<const int64_t*>(out_wgt), static_cast<int32_t*>(fs),
-      static_cast<int32_t*>(wid), static_cast<int64_t*>(wgt),
-      static_cast<int32_t*>(count));
-  return static_cast<int>(cudaGetLastError());
-}
-
-// Skip mode's merge, in place: fs/wid/wgt as above, rec i32[6] (columns
-// 0-4 read), flags u8[F] scratch, sym_freq i64 updated as in
-// swt_merge_apply, or null. 0 <= skip, 2 <= F < 2^31. Returns the
-// cudaError_t.
-int swt_merge_skip(void* fs, void* wid, void* wgt, int64_t F, int skip,
-                   const void* rec, void* flags, void* sym_freq,
-                   void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const unsigned grid = static_cast<unsigned>((F + kThreads - 1) / kThreads);
-  mark_skip_kernel<<<grid, kThreads, 0, s>>>(
-      static_cast<const int32_t*>(fs), static_cast<const int32_t*>(wid),
-      static_cast<const int64_t*>(wgt), F, skip,
-      static_cast<const int32_t*>(rec), static_cast<uint8_t*>(flags),
-      static_cast<unsigned long long*>(sym_freq));
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  apply_skip_kernel<<<grid, kThreads, 0, s>>>(
+      static_cast<const int64_t*>(wgt), F, nullptr,
       static_cast<int32_t*>(fs), static_cast<int32_t*>(wid),
-      static_cast<int64_t*>(wgt), F, static_cast<const int32_t*>(rec),
-      static_cast<const uint8_t*>(flags));
+      static_cast<int64_t*>(wgt), static_cast<long long*>(scratch),
+      static_cast<int>(n_tiles), static_cast<unsigned>(epoch), nullptr, gate,
+      static_cast<int32_t*>(count));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -17,10 +17,12 @@ layout served its TPU's sort and never changes a result.
 Deferred compaction (``skip`` = S > 0, the JAX package's
 ``SWT_SKIP_COMPACT``): a merge leaves the consumed slot dead (-1) where
 it stands (:func:`merge_skip`), and a slot pairs with its nearest live
-successor within S + 1 slots (:func:`skip_next`). Before each step,
-:func:`skip_guard` compacts the state when a live gap is wider than the
-window (:func:`skip_overflow`), so no pair is missed; the training loop
-compacts at the end of each block.
+successor within S + 1 slots (:func:`skip_next`). Each merge also tests
+the state it leaves for a live gap wider than the window
+(:func:`skip_overflow`) into a gate word; before the next step,
+:func:`skip_guard` compacts the state when the gate is open, so no pair
+is missed; the training loop compacts at the end of each block, which
+closes the gate.
 """
 from __future__ import annotations
 
@@ -39,6 +41,7 @@ NEW_ID, ACTIVE, N_LIVE = 2, 4, 5
 TILE = 2048  # slots of one tile of K3's kernel (csrc/merge_apply.cu)
 # the look-back epochs (csrc/lookback.cuh) of K3 and the table compaction
 EPOCH_MAX = (1 << 30) - 1
+GATE = 3  # a MergeScratch's gate word: merge_skip's epoch << 1 | overflow
 
 
 def build_flat(sym2d: np.ndarray, freq: np.ndarray, pad_to: int = 1024
@@ -61,15 +64,17 @@ def build_flat(sym2d: np.ndarray, freq: np.ndarray, pad_to: int = 1024
 
 def _check_state(what, fs, wid, wgt, rec, sym_freq) -> None:
     """Raise unless (fs, wid, wgt) is a flat state of one width in [2,
-    2**31) on one device, with an int32[6] record and an optional int64
-    ``sym_freq`` there."""
+    2**31) on one device, with an int32[6] record (or None) and an
+    optional int64 ``sym_freq`` there."""
     dev = fs.device
     check_tensor("fs", fs, (torch.int32,), 1, dev)
     check_tensor("wid", wid, (torch.int32,), 1, dev)
     check_tensor("wgt", wgt, (torch.int64,), 1, dev)
-    check_tensor("rec", rec, (torch.int32,), 1, dev)
+    if rec is not None:
+        check_tensor("rec", rec, (torch.int32,), 1, dev)
     F = fs.shape[0]
-    if wid.shape[0] != F or wgt.shape[0] != F or rec.shape[0] != 6:
+    if wid.shape[0] != F or wgt.shape[0] != F or (
+            rec is not None and rec.shape[0] != 6):
         raise ValueError(f"{what}: inconsistent shapes")
     if F < 2 or F >= 2 ** 31:
         raise ValueError(f"{what}: width {F} outside [2, 2**31)")
@@ -95,17 +100,24 @@ def _out_buffers(what, fs, wid, wgt, out):
 class MergeScratch:
     """K3's scratch for a flat state of width up to ``F`` on ``device``,
     built once by the state's owner (ops/train_loop.FlatState), so a
-    merge allocates and clears nothing: ``words`` int64[4 + 2 ceil(F /
-    TILE)] holds the merge's weight (``n_rep``, written by every call)
-    and the tile ticket (0 between calls), then two words a tile (its
-    look-back status and weight); ``epoch`` counts the calls on the host,
-    and each call's words carry it, so a word of an earlier call is never
-    read as this call's."""
+    merge, a skip merge or the skip route's guard allocates and clears
+    nothing: ``words`` int64[4 + 2 ceil(F / TILE)] holds the merge's
+    weight (``n_rep``, written by every merge), the tile ticket (0
+    between calls), an unused word and the gate word (``GATE``: the last
+    :func:`merge_skip`'s epoch << 1 | whether the state it left overflows
+    its window), then two words a tile (its look-back status and value);
+    ``epoch`` counts the calls on the host, and each call's words carry
+    it, so a word of an earlier call is never read as this call's.
+    ``gate`` is the epoch of the :func:`merge_skip` whose gate word
+    describes the state, 0 when none does, and :func:`skip_guard` then
+    reads the gate as closed: :func:`merge_apply` (a compaction) and the
+    guard close it. A scratch serves one state."""
 
     def __init__(self, F: int, device) -> None:
         self.words = torch.zeros(_scratch_words(F), dtype=torch.int64,
                                  device=device)
         self.epoch = 0
+        self.gate = 0
 
     @property
     def n_rep(self) -> torch.Tensor:
@@ -115,7 +127,8 @@ class MergeScratch:
     def next_epoch(self) -> int:
         """The epoch of the next call, 1 .. EPOCH_MAX in turn; on the wrap
         the status words are zeroed, so no word of an earlier call carries
-        the new epoch."""
+        the new epoch. The gate word is kept: the guard reads it only
+        under the epoch of the merge that wrote it."""
         self.epoch += 1
         if self.epoch > EPOCH_MAX:
             self.words[4:].zero_()
@@ -194,7 +207,8 @@ def merge_apply(fs, wid, wgt, rec, out: Optional[tuple] = None,
     tensors like the inputs, none of them an input), and int64 ``n_rep``,
     the total weight of the replacements: with ``scratch`` (a
     :class:`MergeScratch` for a width of at least F on the same device,
-    kept by the caller) its ``n_rep`` word, rewritten by the next call.
+    kept by the caller) its ``n_rep`` word, rewritten by the next call;
+    the new state is compacted, so the scratch's gate closes.
 
     ``sym_freq`` (int64, WordPiece's per-symbol weights, or None) is
     updated in place when the step is active: ``n_rep`` off ``a`` and
@@ -217,6 +231,7 @@ def merge_apply(fs, wid, wgt, rec, out: Optional[tuple] = None,
         nfs, nwid, nwgt, n_rep = merge_apply_ref(fs, wid, wgt, rec, sym_freq)
         if scratch is not None:
             scratch.words[0] = n_rep
+            scratch.gate = 0
             n_rep = scratch.n_rep
         if out is None:
             return nfs, nwid, nwgt, n_rep
@@ -241,6 +256,7 @@ def merge_apply(fs, wid, wgt, rec, out: Optional[tuple] = None,
     merge_apply.launches += 1
     if sym_freq is not None:
         merge_apply.wp_launches += 1
+    scratch.gate = 0
     return (*out, scratch.n_rep)
 
 
@@ -297,9 +313,13 @@ def skip_overflow(fs, wid, S: int) -> bool:
     return bool((live & later & ~found).any())
 
 
-def merge_skip_ref(fs, wid, wgt, rec, S: int, sym_freq=None):
+def merge_skip_ref(fs, wid, wgt, rec, S: int, sym_freq=None,
+                   words=None, epoch: int = 0):
     """Plain PyTorch version of :func:`merge_skip` (the JAX package's
-    ``flat_skip_apply``); returns the int64 ``n_rep``."""
+    ``flat_skip_apply``, then ``skip_overflow`` of the state it leaves);
+    returns the int64 ``n_rep``. With ``words`` (a :class:`MergeScratch`'s)
+    it writes ``n_rep`` and the gate word under ``epoch`` there, as the
+    kernel does."""
     ra, rb, new_id, _, active = rec[:N_LIVE].tolist()
     a, b = (ra, rb) if active else (-3, -3)
     live = fs >= 0
@@ -323,11 +343,16 @@ def merge_skip_ref(fs, wid, wgt, rec, S: int, sym_freq=None):
         sym_freq[ra] -= n_rep
         sym_freq[rb] -= n_rep
         sym_freq[new_id] += n_rep
+    if words is not None:
+        words[0] = n_rep
+        words[GATE] = epoch << 1 | int(skip_overflow(fs, wid, S))
     return n_rep
 
 
-def merge_skip(fs, wid, wgt, rec, S: int, sym_freq=None) -> None:
-    """Apply one merge to the flat state in place, with window ``S``.
+def merge_skip(fs, wid, wgt, rec, S: int, sym_freq=None,
+               scratch: Optional[MergeScratch] = None):
+    """Apply one merge to the flat state in place, with window ``S``, and
+    test the state it leaves for an overflow.
 
     Slot i matches when it is live, holds a, and its nearest live
     successor within ``S + 1`` slots (:func:`skip_next`) holds b in the
@@ -336,77 +361,100 @@ def merge_skip(fs, wid, wgt, rec, S: int, sym_freq=None) -> None:
     it stands (-1, ``WID_PAD``, 0). ``rec`` and ``sym_freq`` are as for
     :func:`merge_apply`; ``rec[N_LIVE]`` is not written.
 
-    Launches the CUDA kernel for CUDA tensors, runs the PyTorch version
-    for CPU tensors, and raises for any other device.
+    ``scratch`` (a :class:`MergeScratch` for a width of at least F on
+    the same device, kept by the caller; without it one is built for the
+    call) gets the gate word, :func:`skip_overflow` of the new state
+    under this call's epoch, and its ``gate`` becomes that epoch, so the
+    next :func:`skip_guard` with it compacts exactly when the state
+    overflows. Returns ``n_rep``, the total weight of the replacements:
+    the scratch's word, rewritten by the next call.
+
+    On the card the call is one kernel launch (tiles of 2,048 slots, each
+    staged once with 68 slots either side) and allocates nothing. Launches
+    the CUDA kernel for CUDA tensors, runs the PyTorch version for CPU
+    tensors, and raises for any other device.
     """
     dev = fs.device
     _check_state("merge_skip", fs, wid, wgt, rec, sym_freq)
     F = fs.shape[0]
-    if not 0 < S < F - 1:
-        raise ValueError(f"merge_skip: window {S} outside [1, {F - 1})")
+    if not 0 < S <= min(F - 2, 64):
+        raise ValueError(f"merge_skip: window {S} outside [1, "
+                         f"{min(F - 2, 64)}]")
+    if scratch is None:
+        scratch = MergeScratch(F, dev)
+    _check_scratch("merge_skip", scratch, F, dev)
+    epoch = scratch.next_epoch()
     if dev.type == "cpu":
-        merge_skip_ref(fs, wid, wgt, rec, S, sym_freq)
-        return
-    if dev.type != "cuda":
+        merge_skip_ref(fs, wid, wgt, rec, S, sym_freq, scratch.words, epoch)
+    elif dev.type == "cuda":
+        if any(t.data_ptr() % 16 for t in (fs, wid)):
+            raise ValueError("merge_skip: fs and wid must be 16-byte "
+                             "aligned")
+        from . import _cuda
+        with torch.cuda.device(dev):
+            _cuda.launch("swt_merge_skip", fs.data_ptr(), wid.data_ptr(),
+                         wgt.data_ptr(), F, S, rec.data_ptr(),
+                         scratch.words.data_ptr(), epoch,
+                         None if sym_freq is None else sym_freq.data_ptr())
+        merge_skip.launches += 1
+    else:
         raise ValueError(f"merge_skip: no kernel for device {dev}")
-    flags = torch.empty(F, dtype=torch.uint8, device=dev)
-    from . import _cuda
-    with torch.cuda.device(dev):
-        _cuda.launch("swt_merge_skip", fs.data_ptr(), wid.data_ptr(),
-                     wgt.data_ptr(), F, S, rec.data_ptr(), flags.data_ptr(),
-                     None if sym_freq is None else sym_freq.data_ptr())
-    merge_skip.launches += 1
+    scratch.gate = epoch
+    return scratch.n_rep
 
 
 merge_skip.launches = 0
 
 
-def skip_guard_ref(fs, wid, wgt, S: int, count) -> None:
-    """Plain PyTorch version of :func:`skip_guard`."""
-    if skip_overflow(fs, wid, S):
-        idle = torch.zeros(6, dtype=torch.int32, device=fs.device)
-        for dst, src in zip((fs, wid, wgt),
-                            merge_apply_ref(fs, wid, wgt, idle)):
-            dst.copy_(src)
-        count += 1
+def skip_guard_ref(fs, wid, wgt, count, words, gate: int) -> None:
+    """Plain PyTorch version of :func:`skip_guard`: when the gate word
+    ``words[GATE]`` equals ``gate``, compact (fs, wid, wgt) in place and
+    add one to ``count``."""
+    if int(words[GATE]) != gate:
+        return
+    keep = fs >= 0
+    n = int(keep.sum())
+    for x, pad in ((fs, -1), (wid, WID_PAD), (wgt, 0)):
+        x[:n] = x[keep]
+        x[n:] = pad
+    count += 1
 
 
-def skip_guard(fs, wid, wgt, S: int, count, out: Optional[tuple] = None):
-    """Before a step with window ``S``: when :func:`skip_overflow` holds,
-    compact the state in place (live slots to the front, in order) and
-    add one to ``count`` (int32[1]); else change nothing. On the card the
-    test and the compaction are gated on the device, with no host sync;
-    ``out`` is a second buffer like :func:`merge_apply`'s.
+def skip_guard(fs, wid, wgt, count, scratch: MergeScratch) -> None:
+    """Before a step of the skip route: when the gate word of ``scratch``
+    holds the epoch of the last :func:`merge_skip` (``scratch.gate``) with
+    the overflow bit set, compact the state in place (live slots to the
+    front, in order; padding after) and add one to ``count`` (int32[1]);
+    else change nothing. The gate is closed afterwards (``scratch.gate``
+    = 0): the state no longer overflows.
 
-    Launches the CUDA kernels for CUDA tensors, runs the PyTorch version
-    for CPU tensors, and raises for any other device.
+    On the card the call is one kernel launch, with no host sync: each
+    block returns at once while the gate is closed, else the launch
+    compacts as :func:`merge_apply` does, in place. Launches the CUDA
+    kernel for CUDA tensors, runs the PyTorch version for CPU tensors,
+    and raises for any other device.
     """
     dev = fs.device
-    idle = torch.zeros(6, dtype=torch.int32, device=dev)
-    _check_state("skip_guard", fs, wid, wgt, idle, None)
+    _check_state("skip_guard", fs, wid, wgt, None, None)
     check_tensor("count", count, (torch.int32,), 1, dev)
     F = fs.shape[0]
-    if not 0 < S < F - 1:
-        raise ValueError(f"skip_guard: window {S} outside [1, {F - 1})")
+    _check_scratch("skip_guard", scratch, F, dev)
+    gate = scratch.gate << 1 | 1  # never the word when no merge names it
+    epoch = scratch.next_epoch()
     if dev.type == "cpu":
-        skip_guard_ref(fs, wid, wgt, S, count)
-        return
-    if dev.type != "cuda":
+        skip_guard_ref(fs, wid, wgt, count, scratch.words, gate)
+    elif dev.type == "cuda":
+        if any(t.data_ptr() % 16 for t in (fs, wid, wgt)):
+            raise ValueError("skip_guard: the state must be 16-byte aligned")
+        from . import _cuda
+        with torch.cuda.device(dev):
+            _cuda.launch("swt_skip_guard", fs.data_ptr(), wid.data_ptr(),
+                         wgt.data_ptr(), F, scratch.words.data_ptr(), epoch,
+                         gate, count.data_ptr())
+        skip_guard.launches += 1
+    else:
         raise ValueError(f"skip_guard: no kernel for device {dev}")
-    out = _out_buffers("skip_guard", fs, wid, wgt, out)
-    nb = -(-F // 256)
-    flags = torch.empty(F, dtype=torch.uint8, device=dev)
-    blocks = torch.empty(2 * nb + 1, dtype=torch.int32, device=dev)
-    n_rep = torch.empty(nb + 1, dtype=torch.int64, device=dev)
-    gate = torch.empty(2, dtype=torch.int32, device=dev)
-    from . import _cuda
-    with torch.cuda.device(dev):
-        _cuda.launch("swt_skip_guard", fs.data_ptr(), wid.data_ptr(),
-                     wgt.data_ptr(), F, S, out[0].data_ptr(),
-                     out[1].data_ptr(), out[2].data_ptr(), flags.data_ptr(),
-                     blocks.data_ptr(), n_rep.data_ptr(), idle.data_ptr(),
-                     gate.data_ptr(), count.data_ptr())
-    skip_guard.launches += 1
+    scratch.gate = 0
 
 
 skip_guard.launches = 0

@@ -327,8 +327,9 @@ class HashCollision(Exception):
 class FlatState:
     """The flat training state on ``device`` (ops/flat.py layout) with a
     second buffer of each array for K3 to write into, K3's scratch
-    (``scratch``, built once: a merge allocates nothing), and K1's two
-    tables (on CUDA), each call filling one and emptying the other.
+    (``scratch``, built once: a merge, a skip merge or the skip route's
+    guard allocates nothing), and K1's two tables (on CUDA), each call
+    filling one and emptying the other.
 
     ``F`` is the width the kernels see; the caller may lower it to cut a
     dead tail off (merges only consume slots, and K3 compacts to the
@@ -382,18 +383,22 @@ class FlatState:
     def merge(self, rec, skip: int = 0) -> None:
         """K3 with the step record ``rec`` (on the device); the state
         becomes the result, and ``sym_freq`` follows it. With a window
-        ``skip`` the merge is in place and nothing is compacted."""
+        ``skip`` the merge is in place, nothing is compacted, and the
+        scratch's gate tells the next :meth:`guard` whether the state
+        overflows; a compacting merge closes that gate."""
         if skip:
-            merge_skip(*self.arrays(), rec, skip, self.sym_freq)
+            merge_skip(*self.arrays(), rec, skip, self.sym_freq,
+                       scratch=self.scratch)
             return
         merge_apply(*self.arrays(), rec, out=self._other(),
                     sym_freq=self.sym_freq, scratch=self.scratch)
         self._cur = 1 - self._cur
 
-    def guard(self, skip: int, count) -> None:
-        """Before a step with window ``skip``: compact the state when the
-        window would miss a pair, counting it in ``count`` (int32[1])."""
-        skip_guard(*self.arrays(), skip, count, out=self._other())
+    def guard(self, count) -> None:
+        """Before a step of the skip route: compact the state in place
+        when the last skip merge left a gap wider than its window,
+        counting it in ``count`` (int32[1])."""
+        skip_guard(*self.arrays(), count, self.scratch)
 
     def host(self) -> Tuple[np.ndarray, np.ndarray]:
         """(fs, wid) on the host, in one copy."""
@@ -620,7 +625,7 @@ def run_fused(state: FlatState, table, max_vocab: int, max_len: int,
             for k in range(K):
                 rec = recs[k]
                 if skip:
-                    state.guard(skip, stats[1:])
+                    state.guard(stats[1:])
                 keys, counts, pos = state.pairs(skip)
                 if wordpiece and not flat:
                     state.count_symbols(sym_cap)

@@ -3,7 +3,7 @@ in a process of its own in the order parent, change, change, parent.
 
     python3 -m subword_tokenizers_tpu_torch.tools.ab_sharded_train \\
         PARENT_DIR CHANGE_DIR [compact] [kernels] [topk] [encode] [fastwp] \
-        [single] [NaiveBPE] [NaiveWP]
+        [single] [skip] [NaiveBPE] [NaiveWP]
 
 - ``NaiveBPE`` / ``NaiveWP``: the model under the one-card mesh
   ``make_data_mesh(8, devices=["cuda:0"] * 8)``, trained on all of
@@ -54,6 +54,15 @@ in a process of its own in the order parent, change, change, parent.
   device (the default flat route), each trained on all of
   ``data/train-85k.json`` to 8,000 and checked against the JAX goldens,
   after a warm-up train to 300 (about 20 s a run).
+
+- ``skip``: single-device ``NaiveBPE`` and then ``NaiveWP`` trained on
+  all of ``data/train-85k.json`` to 8,000 with ``SWT_SKIP_COMPACT=12``
+  (deferred compaction), then both again on the default flat route in
+  the same process, each after a warm-up train to 300 and checked
+  against the JAX goldens; then one ``NaiveBPE`` skip-route train under
+  ``torch.profiler``: the device time and launches of the skip route's
+  guard and K3 kernels (the kernels of either design, by name), the
+  kernel launches and the memsets of the whole train (about 35 s a run).
 
 Each checkout builds its own kernels. Prints one JSON line a run and a
 last line with all of them and the card's name and power limit.
@@ -472,6 +481,64 @@ for name, cls, golden in (("NaiveBPE", NaiveBPE, bpe),
 print(json.dumps(out))
 '''
 
+SKIP = r'''
+import json, os, sys, time
+import torch
+from torch.profiler import ProfilerActivity, profile
+sys.path.insert(0, os.getcwd())
+from subword_tokenizers_tpu_torch import NaiveBPE, NaiveWP
+from subword_tokenizers_tpu_torch.ops import _cuda
+corpus = json.load(open("data/train-85k.json", encoding="utf-8"))
+bpe = [tuple(p) for p in json.load(open(
+    "tests/golden/port_t85k_v8000_bpe_merges.json", encoding="utf-8"))]
+wp = [tuple(p) for p in json.load(open(
+    "tests/golden/port_t85k_v8000_wp_vocab.json",
+    encoding="utf-8"))["merges"]]
+dev = torch.device("cuda:0")
+_cuda.lib()
+out = {}
+for route, skip in (("skip12", "12"), ("flat", None)):
+    if skip is None:
+        os.environ.pop("SWT_SKIP_COMPACT", None)
+    else:
+        os.environ["SWT_SKIP_COMPACT"] = skip
+    for name, cls, golden in (("NaiveBPE", NaiveBPE, bpe),
+                              ("NaiveWP", NaiveWP, wp)):
+        cls(device=dev).train(corpus, 300)  # warm-up
+        tok = cls(device=dev)
+        t0 = time.perf_counter()
+        tok.train(corpus, 8000)
+        torch.cuda.synchronize()
+        out[f"{name}_{route}"] = time.perf_counter() - t0
+        got = tok.merges_list if name == "NaiveBPE" else tok._merge_log
+        assert got == golden, (name, route)
+# the skip route's guard and K3 kernels, either design's, over one train
+os.environ["SWT_SKIP_COMPACT"] = "12"
+with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    NaiveBPE(device=dev).train(corpus, 8000)
+    torch.cuda.synchronize()
+ev = prof.key_averages()
+NAMES = ("skip_check_kernel(", "mark_kernel(", "scan_kernel(",
+         "scatter_kernel(", "copy_kernel(", "mark_skip_kernel(",
+         "apply_skip_kernel(", "merge_skip_kernel(",
+         "merge_tiles_kernel<true>(")
+
+
+def dev_ms(e):
+    return getattr(e, "device_time_total",
+                   getattr(e, "cuda_time_total", 0)) / 1e3
+
+
+kern = {n[:-1]: e for e in ev for n in NAMES if "::" + n in e.key}
+out["skip_kernels_ms"] = sum(dev_ms(e) for e in kern.values())
+out["skip_kernels"] = {n: [e.count, dev_ms(e)] for n, e in kern.items()}
+out["kernel_launches"] = sum(e.count for e in ev
+                             if "memcpy" not in e.key.lower()
+                             and "memset" not in e.key.lower())
+out["memsets"] = sum(e.count for e in ev if "memset" in e.key.lower())
+print(json.dumps(out))
+'''
+
 
 def main(argv) -> int:
     if len(argv) < 2:
@@ -491,7 +558,8 @@ def main(argv) -> int:
                 [TOPK] if mode == "topk" else
                 [ENCODE] if mode == "encode" else
                 [FASTWP] if mode == "fastwp" else
-                [SINGLE] if mode == "single" else [TRAIN, mode])
+                [SINGLE] if mode == "single" else
+                [SKIP] if mode == "skip" else [TRAIN, mode])
         for name, d in (("parent", parent), ("change", change),
                         ("change", change), ("parent", parent)):
             t0 = time.perf_counter()

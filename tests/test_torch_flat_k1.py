@@ -144,7 +144,7 @@ def _merge_steps(st, table, n_steps, skip=0, shrink_at=None, check=None):
         if step == shrink_at:
             st.F //= 2
         if skip:
-            st.guard(skip, stats[1:])
+            st.guard(stats[1:])
         got = st.pairs(skip)
         check(st, got, skip)
         train_loop.select_unify(*got, h1, h2, sl, ctrl, pw1, pw2, max_vocab,

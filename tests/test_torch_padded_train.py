@@ -220,7 +220,8 @@ def test_new_wrappers_raise_off_the_cpu_and_cuda():
     calls = [
         lambda: merge.apply_merge(fs.view(8, 8), rec),
         lambda: flat.merge_skip(fs, fs, wgt, rec, 4),
-        lambda: flat.skip_guard(fs, fs, wgt, 4, count),
+        lambda: flat.skip_guard(fs, fs, wgt, count,
+                                flat.MergeScratch(64, meta)),
         lambda: pair_stats(fs, fs, wgt, skip=4),
         lambda: train_loop.select_unify(
             wgt, wgt, fs, wgt, wgt, wgt, rec[:3], wgt, wgt, 10, rec,

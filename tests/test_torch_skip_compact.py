@@ -151,11 +151,15 @@ def test_merge_skip_matches_jax(seed, S, gaps):
 @pytest.mark.parametrize("seed,S,gaps", CASES)
 def test_skip_guard_is_the_jax_cond(seed, S, gaps):
     """The overflow guard compacts exactly when skip_overflow holds, as
-    compact_flat does inside the JAX package's lax.cond, and counts it."""
+    compact_flat does inside the JAX package's lax.cond, and counts it;
+    the test is the gate an inactive skip merge leaves on the state."""
     fs, wid, wgt = random_state(seed, gaps=gaps)
     arrays = _t(fs, wid, wgt)
     count = torch.zeros(1, dtype=torch.int32)
-    flat.skip_guard(*arrays, S, count)
+    sc = flat.MergeScratch(fs.shape[0], "cpu")
+    flat.merge_skip(*arrays, torch.zeros(6, dtype=torch.int32), S,
+                    scratch=sc)
+    flat.skip_guard(*arrays, count, sc)
     ovf = bool(jflat.skip_overflow(*_j(fs, wid), S))
     want = jflat.compact_flat(*_j(fs, wid, wgt)) if ovf else (fs, wid, wgt)
     for got, w in zip(arrays, want):
