@@ -70,18 +70,22 @@ WordPiece vocab ``tests/golden/port_t85k_fastwp_vocab.json``:
    row in registers, in shared memory and in place), on self-pair runs
    longer than 32, and on the corpus's 22,971 word types with the
    trained and the shuffled merges, and the kernel's own layout check
-   raising on each bad row; the WordPiece greedy match on seeded random
-   vocabs, on the word types
-   with the trained vocab, on a vocab with "#" and no "##" (overflow) and
-   on a word forced to [UNK]; times each at the word types' shapes (the
-   BPE kernel alone, its plain version and its wrapper, in both modes,
-   and the trips of its slowest word);
+   raising on each bad row; the WordPiece greedy match (kernel 6's fused
+   form, the match with kernel 2's compaction in one launch, and its rows
+   form) on seeded random vocabs, batches across its tiles' edges, words
+   staged 96 and 32 a block and words too wide to stage, words at the
+   step cap, a vocab with "#" and no "##" (overflow), a word forced to
+   [UNK] and the word types with the trained vocab; times each at the
+   word types' shapes (the BPE kernel alone, its plain version and its
+   wrapper, in both modes, and the trips of its slowest word; both forms
+   of kernel 6, and the steps of its slowest word);
 10. encodes the whole corpus with ``FastBPE``, ``NaiveBPE`` (the trained
    merges) and ``NaiveWP`` (the trained vocab) on the card: a cold and
    three warm runs, each equal to the JAX package's digest
    (``tests/golden/port_t85k_encode_expect.json``), each call with its
-   own launch counts (its encode kernel and kernel 2 once each), the
-   phase split, and the idle share under ``torch.profiler``;
+   own launch counts (K5 and kernel 2 once each; one fused kernel 6), the
+   phase split, and (10c) the idle share under ``torch.profiler``, each
+   trace holding the encoder's own kernel;
 10b. the other encode routes: the shuffled merges through both BPE
    encoders, NaiveBPE with a merge listed twice (the host route, no
    kernel launch), ``tokenize_stream`` and small batches against the
@@ -179,7 +183,8 @@ WordPiece vocab ``tests/golden/port_t85k_fastwp_vocab.json``:
    dependent gathers through the caches and from shared memory) against
    their plain versions, exactly, with their times, the marginal time of
    one dependent iteration, the loops' latency bound, and kernel 1's
-   slowest row on the corpus at each mode's iteration time;
+   slowest row on the corpus at each mode's iteration time; (16b) kernel
+   6's latency bound at that time;
 17. the CLI (``python3 -m subword_tokenizers_tpu_torch.cli``) at full
    width in a temporary directory: ``--train`` of the four models on the
    whole corpus to 8,000 (the saved merges and vocabs equal the goldens),
@@ -227,6 +232,16 @@ TOPK_KERNEL_WORDS = ("topk", "radixfindkth", "kthcounts", "withinkcounts")
 # batch sizes at the edges of kernel 1's tiles (128 rows) and kernel 2's
 # (256 rows)
 TILE_EDGE_ROWS = (1, 127, 128, 129, 255, 256, 257, 3 * 256 + 7)
+# each word-level encoder: the wrappers it launches once a call (phase
+# 10's launch counts) and the names of their kernels, one of which its
+# traced call must hold (phase 10c)
+ENCODE_KERNELS = {
+    "FastBPE": (("bpe_encode", "compact_ids"),
+                ("encode_regs_kernel", "encode_wide_kernel")),
+    "NaiveBPE": (("bpe_encode", "compact_ids"),
+                 ("encode_regs_kernel", "encode_wide_kernel")),
+    "NaiveWP": (("wp_match_compact",), ("match_compact_kernel",)),
+}
 # row widths whose staging takes 96 and 32 rows a block, and one too wide
 # to stage in shared memory at all (ops/wp_encode_e2e.tile_layout)
 STAGE_WIDTHS = (300, 700, 1100)
@@ -338,11 +353,17 @@ def device_trace(fn, path, warmup=False):
     busy ms, {kernel or copy name: [count, device ms]}) read from the
     Chrome trace, which is kept at ``path``. ``warmup`` runs ``fn`` once
     more first, as the profiler's untraced warm-up step: a short call
-    traced alone can come back without its kernels."""
+    traced alone can come back without its kernels. The first device
+    events of the traced step can be missing from its trace too (the
+    copies and the kernel of an encode call before its first wait), so
+    with ``warmup`` a primer of small copies and a pause run first, and
+    only the device events from the start of ``fn`` on are counted."""
     import torch
-    from torch.profiler import ProfilerActivity, profile, schedule
+    from torch.profiler import (ProfilerActivity, profile, record_function,
+                                schedule)
     os.makedirs(os.path.dirname(path), exist_ok=True)
     activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    mark = "device_trace.fn"
     if warmup:
         with profile(activities=activities,
                      schedule=schedule(wait=0, warmup=1, active=1),
@@ -351,10 +372,14 @@ def device_trace(fn, path, warmup=False):
             fn()
             torch.cuda.synchronize()
             prof.step()
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
+            for _ in range(8):
+                torch.ones(1, device="cuda").cpu()
+            time.sleep(0.2)
+            with record_function(mark):
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
             prof.step()
     else:
         with profile(activities=activities) as prof:
@@ -365,10 +390,13 @@ def device_trace(fn, path, warmup=False):
         prof.export_chrome_trace(path)
     with open(path, encoding="utf-8") as f:
         events = json.load(f)["traceEvents"]
+    start = min((e["ts"] for e in events if e.get("name") == mark
+                 and e.get("cat") == "user_annotation"),
+                default=float("-inf"))
     spans, by_name = [], {}
     for e in events:
-        if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy",
-                                                   "gpu_memset"):
+        if e.get("ph") == "X" and e.get("cat") in (
+                "kernel", "gpu_memcpy", "gpu_memset") and e["ts"] >= start:
             spans.append((e["ts"], e["ts"] + e["dur"]))
             rec = by_name.setdefault(e["name"][:60], [0, 0.0])
             rec[0] += 1
@@ -2976,7 +3004,8 @@ def phase16(dev, scan_args, scan_params, smi, seed=SEED):
 
 def cli_kernels():
     """{name: wrapper} of the encode and training kernels of slices 1-4,
-    which the CLI's steps launch: FastWP's fused scan, kernel 2, K1-K6.
+    which the CLI's steps launch: FastWP's fused scan, kernel 2, K1-K5
+    and K6's fused form.
     Each wrapper's ``launches`` counts its kernel's launches."""
     from subword_tokenizers_tpu_torch.ops.bpe_encode import bpe_encode
     from subword_tokenizers_tpu_torch.ops.fetch import compact_ids
@@ -2984,14 +3013,14 @@ def cli_kernels():
     from subword_tokenizers_tpu_torch.ops.pairstats import (pair_stats,
                                                             symbol_freqs)
     from subword_tokenizers_tpu_torch.ops.train_loop import select_unify
-    from subword_tokenizers_tpu_torch.ops.wp_encode import wp_match_encode
+    from subword_tokenizers_tpu_torch.ops.wp_encode import wp_match_compact
     from subword_tokenizers_tpu_torch.ops.wp_encode_e2e import \
         wp_e2e_scan_compact
     return {"wp_e2e_scan_compact": wp_e2e_scan_compact,
             "compact_ids": compact_ids,
             "pair_stats": pair_stats, "select_unify": select_unify,
             "merge_apply": merge_apply, "symbol_freqs": symbol_freqs,
-            "bpe_encode": bpe_encode, "wp_match_encode": wp_match_encode}
+            "bpe_encode": bpe_encode, "wp_match_compact": wp_match_compact}
 
 
 CLI_MODELS = ("NaiveBPE", "FastBPE", "NaiveWordPiece", "FastWordPiece")
@@ -2999,9 +3028,9 @@ CLI_MODELS = ("NaiveBPE", "FastBPE", "NaiveWordPiece", "FastWordPiece")
 CLI_MUST = {
     "train": ("pair_stats", "select_unify", "merge_apply", "symbol_freqs"),
     "tokenize": ("wp_e2e_scan_compact", "compact_ids", "bpe_encode",
-                 "wp_match_encode"),
+                 "wp_match_compact"),
     "benchmark": ("wp_e2e_scan_compact", "compact_ids", "bpe_encode",
-                  "wp_match_encode"),
+                  "wp_match_compact"),
 }
 
 
@@ -4214,8 +4243,10 @@ def main() -> int:
     from subword_tokenizers_tpu_torch.ops.bpe_encode import (
         bpe_encode, bpe_encode_ref, bpe_encode_trips, build_rank_hash)
     from subword_tokenizers_tpu_torch.ops.wp_encode import (
-        wp_match_encode, wp_match_encode_ref)
-    errs.update(bpe_encode=0, wp_match_encode=0)
+        match_jumps, match_params, match_records, wp_match_compact,
+        wp_match_compact_ref, wp_match_encode, wp_match_encode_ref,
+        wp_match_steps)
+    errs.update(bpe_encode=0, wp_match_encode=0, wp_match_compact=0)
     flags9 = np.zeros(4, dtype=np.int64)  # rows: merged, unk, ovf, empty
     n_bpe9 = n_wp9 = 0
 
@@ -4229,15 +4260,28 @@ def main() -> int:
             n_bpe9 += 1
 
     def check_wp9(words9, wlen9, trie):
+        """Kernel 6's rows form and fused form against their plain
+        versions on one batch, the step records and '#' jumps built on
+        the card."""
         nonlocal n_wp9
-        args = (words9, wlen9, *(torch.from_numpy(a).to(dev)
-                                 for a in (trie.goto, trie.accept)),
-                int(trie.alpha[ord("#")]))
-        got = wp_match_encode(*args)
+        goto9, acc9 = (torch.from_numpy(a).to(dev)
+                       for a in (trie.goto, trie.accept))
+        hash9 = int(trie.alpha[ord("#")])
+        args = (words9, wlen9, goto9, acc9, hash9)
+        tables9 = dict(rec=match_records(goto9, acc9),
+                       jumps=match_jumps(goto9, acc9, hash9))
+        got = wp_match_encode(*args, **tables9)
         want = wp_match_encode_ref(*args)
         errs["wp_match_encode"] = max(errs["wp_match_encode"],
                                       err_all(got, want))
-        flags9[1:] += [int(got[2].sum()), int(got[3].sum()),
+        ids9, head9 = wp_match_compact(*args, **tables9)
+        ids_r, head_r = wp_match_compact_ref(*args)
+        cap9 = match_params(words9.shape[1])[0]
+        errs["wp_match_compact"] = max(
+            errs["wp_match_compact"], max_err(head9, head_r),
+            max_err(emitted(ids9, head9, want[1], cap9),
+                    emitted(ids_r, head_r, want[1], cap9)))
+        flags9[1:] += [int(want[2].sum()), int(want[3].sum()),
                        int((wlen9 == 0).sum())]
         n_wp9 += 1
         return got
@@ -4291,13 +4335,44 @@ def main() -> int:
         check_bpe9(*(torch.from_numpy(a).to(dev)
                      for a in (sym9, hk9, hr9, ho9)), mp9)
         widths9.append(L9)
+    def wp_rows9(trie, words_r, L):
+        return (torch.from_numpy(a).to(dev) for a in match_rows(
+            trie.alpha, trie.n_alpha, words_r, L))
+
     for alpha9, n_tok9, L9 in [("abc", 12, 8), ("abcd", 40, 16),
                                ("ab#", 15, 9), ("a#", 6, 33),
                                ("abcdefgh", 120, 24)]:
         vocab9, words_r = wp_random_case(rng, 3000, L9, alpha9, n_tok9)
         trie9 = match_trie(vocab9)
-        check_wp9(*(torch.from_numpy(a).to(dev) for a in match_rows(
-            trie9.alpha, trie9.n_alpha, words_r, L9)), trie9)
+        check_wp9(*wp_rows9(trie9, words_r, L9), trie9)
+    # kernel 6's tiles of 128 words: batches at their edges; words staged
+    # 96 and 32 a block, and words too wide to stage in shared memory
+    vocab9, words_r = wp_random_case(rng, 3 * 128 + 7, 12, "abcd", 30)
+    trie9 = match_trie(vocab9)
+    for W9 in (1, 127, 128, 129, 257, 3 * 128 + 7):
+        check_wp9(*wp_rows9(trie9, words_r[:W9], 16), trie9)
+    stage9 = {}
+    for W9, L9 in ((300, 200), (100, 700), (64, 1000)):
+        vocab9, words_r = wp_random_case(rng, W9, L9, "abcd", 40)
+        words_r[0] = "abcd" * (L9 // 4)
+        trie9 = match_trie(vocab9)
+        stage9[L9] = tile_layout(L9, L9 + 4, 4)[0]
+        check_wp9(*wp_rows9(trie9, words_r, L9), trie9)
+    assert list(stage9.values()) == [96, 32, 0], stage9
+    # words that run to the step cap: "#" and "##" without "##a" restart
+    # a word from "a" forever in cycles of three steps, two of them the
+    # '#' jump, so the cap falls inside the jump for some words
+    trie9 = match_trie({"a", "b", "#", "##", "ab"})
+    words_r = ["".join(rng.choice(list("ab"), size=int(n)))
+               for n in rng.integers(0, 9, size=3000)]
+    w9, l9 = wp_rows9(trie9, words_r, 8)
+    check_wp9(w9, l9, trie9)
+    cap_steps9, _ = wp_match_steps(
+        w9, l9, *(torch.from_numpy(a).to(dev)
+                  for a in (trie9.goto, trie9.accept)),
+        int(trie9.alpha[ord("#")]))
+    n_capped9 = int((cap_steps9 == match_params(8)[1]).sum())
+    assert 0 < n_capped9 < 3000, n_capped9
     # '#' without '##': the word ends exactly at the cap of 16 pending
     # '#' with a token of 16 '#', and overflows with 17; "q" is [UNK]
     for tail in (16, 17):
@@ -4321,7 +4396,8 @@ def main() -> int:
     trie_w, _, wmat_w, wlen_w = wp_tok._match_inputs(words)
     wmat_w, wlen_w = (torch.from_numpy(a).to(dev) for a in (wmat_w, wlen_w))
     got_w = check_wp9(wmat_w, wlen_w, trie_w)
-    if errs["bpe_encode"] or errs["wp_match_encode"]:
+    if errs["bpe_encode"] or errs["wp_match_encode"] or \
+            errs["wp_match_compact"]:
         raise AssertionError(f"an encode kernel differs: {errs}")
     if not flags9.all():
         raise AssertionError(f"phase 9 left a case unmet: {flags9}")
@@ -4330,8 +4406,8 @@ def main() -> int:
     W_w, L_w = sym_w.shape
     bpe_args = (sym_w, st9.hkeys, st9.hrank, st9.hout)
     mst = wp_tok._match_device()
-    wp_args = (wmat_w, wlen_w, mst.goto, mst.accept,
-               int(trie_w.alpha[ord("#")]))
+    wp_args = (wmat_w, wlen_w, mst.goto, mst.accept, mst.hash_aid)
+    wp_tables = dict(rec=mst.rec, jumps=mst.jumps)
     k5_out = (torch.empty_like(sym_w),
               torch.empty(W_w, dtype=torch.int32, device=dev))
     k5_flag = torch.zeros(1, dtype=torch.int32, device=dev)
@@ -4363,8 +4439,25 @@ def main() -> int:
             cuda_ms(lambda: bpe_encode(*bpe_args, monotone, st9.max_probe),
                     20))
     timing["wp_match_encode"] = (
-        cuda_ms(lambda: wp_match_encode(*wp_args), 100, True),
+        cuda_ms(lambda: wp_match_encode(*wp_args, **wp_tables), 100, True),
         cuda_ms(lambda: wp_match_encode_ref(*wp_args), 3))
+    timing["wp_match_compact"] = (
+        cuda_ms(lambda: wp_match_compact(*wp_args, **wp_tables), 100, True),
+        cuda_ms(lambda: wp_match_compact_ref(*wp_args), 3))
+    # each word's steps as the JAX program counts them, and those the
+    # '#' jumps take in one move: the slowest word's other steps are the
+    # kernel's chain of dependent gathers
+    steps_w, hashed_w = wp_match_steps(*wp_args)
+    walk_w = steps_w - hashed_w
+    steps9 = {"max": int(steps_w.max()), "total": int(steps_w.sum()),
+              "walk_max": int(walk_w.max()), "walk_total": int(walk_w.sum())}
+    # the slowest word alone, one block: its chain of dependent gathers
+    # through the records as they sit in the caches, the launch hidden
+    slow9 = int(walk_w.argmax())
+    slow_args = (wmat_w[slow9:slow9 + 1], wlen_w[slow9:slow9 + 1],
+                 *wp_args[2:])
+    timing["wp_match_slowest"] = cuda_ms(
+        lambda: wp_match_compact(*slow_args, **wp_tables), 100, True)
     # Operations, counted low: a probe of 8 integer operations per pair a
     # word starts with and two per merge after (each merge removes a
     # symbol); a trie step of 4 per character. Bytes, of the tables: a
@@ -4377,8 +4470,12 @@ def main() -> int:
         8 * n_probes)
     n_chars = int(wlen_w.sum())
     bounds["wp_match_encode"] = bound(
-        nbytes(wmat_w, wlen_w, *got_w) + visited(n_chars, 4, mst.goto)
-        + visited(n_chars, 4, mst.accept), 4 * n_chars)
+        nbytes(wmat_w, wlen_w, *got_w) + visited(n_chars, 8, mst.rec),
+        4 * n_chars)
+    total_w = int(got_w[1].sum())
+    bounds["wp_match_compact"] = bound(
+        nbytes(wmat_w, wlen_w) + visited(n_chars, 8, mst.rec) + 4 * total_w
+        + 4 * (2 * W_w + 1), 4 * n_chars + 2 * (W_w + total_w))
     torch.cuda.synchronize()
     print(f"phase 9: encode kernels equal their plain versions exactly: "
           f"the BPE merge loop on {n_bpe9} cases (greedy and monotone: "
@@ -4386,10 +4483,12 @@ def main() -> int:
           f"random width again after each of {bad9} bad layouts the kernel "
           f"refused, the {W_w} word types with the trained and the "
           f"shuffled merges; the word types' trips, the slowest word's and "
-          f"in all, {trips9}), the "
-          f"WordPiece match on {n_wp9} cases (5 random vocabs, "
-          f"the '#' cap at 16 and 17, the word types with the trained "
-          f"vocab); rows merged/unk/ovf/empty {flags9.tolist()}; at "
+          f"in all, {trips9}), the WordPiece match, rows and fused forms, "
+          f"on {n_wp9} cases (5 random vocabs, the '#' cap at 16 and 17, "
+          f"batches of 1-391 words across the tiles' edges, words staged "
+          f"a block by width {stage9}, {n_capped9} of 3000 words at the "
+          f"step cap, the word types with the trained vocab); rows "
+          f"merged/unk/ovf/empty {flags9.tolist()}; at "
           f"{W_w} x {L_w}: bpe_encode monotone "
           f"{timing['bpe_encode'][0]:.4f} ms (plain "
           f"{timing['bpe_encode'][1]:.3f}, the wrapper with its layout "
@@ -4398,10 +4497,17 @@ def main() -> int:
           f"{timing['bpe_encode_greedy'][1]:.3f}, wrapper "
           f"{timing['bpe_encode_greedy'][2]:.4f}), bound "
           f"{bounds['bpe_encode'][0]:.4f} ms ({bounds['bpe_encode'][1]}); "
-          f"wp_match_encode {timing['wp_match_encode'][0]:.3f} ms (plain "
+          f"wp_match_compact {timing['wp_match_compact'][0]:.4f} ms "
+          f"(plain {timing['wp_match_compact'][1]:.3f}), bound "
+          f"{bounds['wp_match_compact'][0]:.4f} ms "
+          f"({bounds['wp_match_compact'][1]}), the slowest word alone "
+          f"{timing['wp_match_slowest']:.4f} ms, the rows form "
+          f"wp_match_encode {timing['wp_match_encode'][0]:.4f} ms (plain "
           f"{timing['wp_match_encode'][1]:.3f}), bound "
           f"{bounds['wp_match_encode'][0]:.4f} ms "
-          f"({bounds['wp_match_encode'][1]}); {smi}")
+          f"({bounds['wp_match_encode'][1]}); the word types' steps "
+          f"(slowest word, all words; walk: without the '#' jumps) "
+          f"{steps9}; {smi}")
 
     # ---- phase 10: the encode path, the whole corpus, three encoders
     with open(os.path.join(ROOT, "tests", "golden",
@@ -4415,14 +4521,13 @@ def main() -> int:
                          lists["golden"]),
         "NaiveWP": load(NaiveWP(device=dev), "vocab.json", wp_vocab)}
     enc_lines = []
-    enc_kernels = (bpe_encode, wp_match_encode, compact_ids)
-    # each call's launches: its encode kernel and kernel 2, once each
-    per_call = {
-        "FastBPE": {"bpe_encode": 1, "wp_match_encode": 0, "compact_ids": 1},
-        "NaiveBPE": {"bpe_encode": 1, "wp_match_encode": 0,
-                     "compact_ids": 1},
-        "NaiveWP": {"bpe_encode": 0, "wp_match_encode": 1,
-                    "compact_ids": 1}}
+    enc_kernels = (bpe_encode, wp_match_encode, wp_match_compact,
+                   compact_ids)
+    # each call's launches: the BPE encoders' K5 and kernel 2, NaiveWP's
+    # fused kernel 6, once each (ENCODE_KERNELS)
+    per_call = {name: {k.__name__: int(k.__name__ in own[0])
+                       for k in enc_kernels}
+                for name, own in ENCODE_KERNELS.items()}
     enc_launches = {name: dict.fromkeys(per_call[name], 0)
                     for name in encoders}
     for name, tok in encoders.items():
@@ -4468,27 +4573,27 @@ def main() -> int:
           + "; ".join(enc_lines) + f"; {smi}")
     # A short traced call came back without its kernels on the card,
     # even traced alone three times: trace after a warm-up step, and
-    # again, up to three times, until the encoder's kernel is there.
-    own = {"FastBPE": "bpe_encode_kernel", "NaiveBPE": "bpe_encode_kernel",
-           "NaiveWP": "wp_match_kernel"}
+    # again, up to three times, until the encoder's own kernel is there;
+    # a trace without it fails the phase.
     for name, tok in encoders.items():
+        own = ENCODE_KERNELS[name][1]
         for attempt in range(1, 4):
             with tempfile.TemporaryDirectory() as d:
                 wall, busy, by_name = device_trace(
                     lambda: tok.tokenize_batch(corpus),
                     os.path.join(d, "encode_trace.json"), warmup=True)
-            if any(own[name] in k for k in by_name):
+            if any(k in n for n in by_name for k in own):
                 break
+        else:
+            raise AssertionError(f"phase 10c: none of three traces of "
+                                 f"{name} holds {own}: {by_name}")
         top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
-        dev_line = ("not measured (the trace holds no device events)"
-                    if not any(own[name] in k for k in by_name) else
-                    f"device busy {busy:.3f} ms of {wall:.1f} ms (idle "
-                    f"share {1 - busy / wall:.4f}); "
-                    + "; ".join(f"{n} x{c} {ms:.3f} ms"
-                                for n, (c, ms) in top))
         print(f"phase 10c: one warm {name}.tokenize_batch under "
-              f"torch.profiler (trace {attempt} of up to 3): {dev_line}; "
-              f"{smi}")
+              f"torch.profiler (trace {attempt} of up to 3): device busy "
+              f"{busy:.3f} ms of {wall:.1f} ms (idle share "
+              f"{1 - busy / wall:.4f}); "
+              + "; ".join(f"{n} x{c} {ms:.4f} ms" for n, (c, ms) in top)
+              + f"; {smi}")
 
     # ---- phase 10b: the other encode routes
     for name in ("FastBPE", "NaiveBPE"):
@@ -4584,6 +4689,15 @@ def main() -> int:
     # ---- phase 16: the gather probe (the TPU probe's port)
     (errs16, timing16, bounds16, library16, probe_launches,
      notes16) = phase16(dev, scan_args, params, smi)
+    gather_ms = notes16["per_iter_ms"]["gather_loop"]
+    print(f"phase 16b: kernel 6's latency bound at the gather_loop rate "
+          f"({gather_ms * 1e6:.2f} ns a dependent gather): the slowest "
+          f"word's {steps9['walk_max']} steps besides its '#' jumps, "
+          f"{steps9['walk_max'] * gather_ms * 1e3:.3f} us ({steps9['max']} "
+          f"steps with them, {steps9['max'] * gather_ms * 1e3:.3f} us), "
+          f"against the fused launch's "
+          f"{timing['wp_match_compact'][0] * 1e3:.3f} us and the slowest "
+          f"word's alone {timing['wp_match_slowest'] * 1e3:.3f} us; {smi}")
     errs.update(errs16)
     timing.update(timing16)
     bounds.update(bounds16)
@@ -4710,7 +4824,8 @@ def main() -> int:
     # route; phase 10: the others)
     by_path = {"FastWP_sentences": {"compact_ids": launches["compact_ids"]},
                **enc_launches}
-    for k in ("compact_ids", "bpe_encode", "wp_match_encode"):
+    for k in ("compact_ids", "bpe_encode", "wp_match_encode",
+              "wp_match_compact"):
         launches[k] = sum(p.get(k, 0) for p in by_path.values())
     by_name["compact_ids"]["launches"] = launches["compact_ids"]
     by_name["compact_ids"]["launches_by_path"] = {
@@ -4740,15 +4855,37 @@ def main() -> int:
          "note": "ms: the kernel launched alone, back to back (a warp a "
                  "word); wrapper_ms: the wrapper, with the read-back of "
                  "the layout flag the kernel sets on a bad row"},
-        {"name": "wp_match_encode", "route": "cuda",
+        {"name": "wp_match_compact", "route": "cuda",
          "source": "subword_tokenizers_tpu_torch/csrc/wp_match.cu",
-         "replaces": "subword_tokenizers_tpu/ops/wp_encode.py:47",
-         "launches": launches["wp_match_encode"],
+         "replaces": "subword_tokenizers_tpu/ops/wp_encode.py:279",
+         "launches": launches["wp_match_compact"],
          "launches_by_path": {"NaiveWP":
-                              enc_launches["NaiveWP"]["wp_match_encode"]},
-         "max_abs_err": errs["wp_match_encode"],
-         "ms": timing["wp_match_encode"][0],
-         "plain_ms": timing["wp_match_encode"][1]}]
+                              enc_launches["NaiveWP"]["wp_match_compact"]},
+         "max_abs_err": errs["wp_match_compact"],
+         "ms": timing["wp_match_compact"][0],
+         "plain_ms": timing["wp_match_compact"][1],
+         "steps": steps9,
+         "slowest_word_ms": timing["wp_match_slowest"],
+         "latency_bound_ms": steps9["walk_max"]
+         * notes16["per_iter_ms"]["gather_loop"],
+         "latency_note": "the slowest word's steps less those its '#' "
+                         "jumps take (walk_max) x one dependent gather "
+                         "through L1/L2 (phase 16's gather_loop, per "
+                         "iteration)",
+         "note": "ms: kernel 6 with kernel 2's tile epilogue in one launch "
+                 "(swt_wp_match_compact), back to back; rows_form: its "
+                 "rows form (swt_wp_match, the counterpart of "
+                 "subword_tokenizers_tpu/ops/wp_encode.py:47), which no "
+                 "encode path launches; phase 9 holds it against its "
+                 "plain version",
+         "rows_form": {
+             "name": "wp_match_encode", "launches": launches[
+                 "wp_match_encode"],
+             "max_abs_err": errs["wp_match_encode"],
+             "ms": timing["wp_match_encode"][0],
+             "plain_ms": timing["wp_match_encode"][1],
+             "bound_ms": bounds["wp_match_encode"][0],
+             "bound_by": bounds["wp_match_encode"][1]}}]
     # the routes of phase 12: each new kernel's launches by route
     def routes_of(key):
         return {r: c[key] for r, c in by_route.items() if c[key]}
@@ -5065,7 +5202,7 @@ def main() -> int:
         "merge_rows": "no one call merges pairs with the parity rule",
         "select_unify_tournament": "no one call selects and unifies by "
                                    "string hash",
-        "wp_match_encode": "no PyTorch call walks a trie",
+        "wp_match_compact": "no PyTorch call walks a trie",
         "lookup_reduce": "no PyTorch call probes a hash table",
         "pair_rows": "no one call builds each shard's weighted pair table",
         "pair_stats_runs": "no one call sums counts and takes least "

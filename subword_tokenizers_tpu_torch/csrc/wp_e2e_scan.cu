@@ -51,6 +51,7 @@
 #include <cuda_runtime.h>
 
 #include "compact_tile.cuh"
+#include "stage_rows.cuh"
 #include "wp_scan_walk.cuh"
 
 namespace {
@@ -65,60 +66,6 @@ struct Rows {
   int ws;  // a staged char row's stride, in words
   int st;  // a staged token row's stride
 };
-
-// Copies a tile's nrows rows of W char words (contiguous at src) into
-// shared memory at a stride of ws words. Each thread first loads a batch
-// of kBatch units, then stores them, so its loads are in flight together:
-// 16-byte units where a row is a whole number of them, else single words.
-template <typename Word>
-__device__ __forceinline__ void stage_chars(const Word* src, int nrows,
-                                            int W, int ws, Word* dst) {
-  constexpr int kBatch = 4;
-  const int tid = threadIdx.x;
-  const int row_bytes = W * static_cast<int>(sizeof(Word));
-  if (row_bytes % 16 == 0 && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
-    constexpr int kPer = 16 / sizeof(Word);  // words a unit
-    const int upr = row_bytes / 16;          // units a row
-    const int n = nrows * upr;
-    const int4* s4 = reinterpret_cast<const int4*>(src);
-    for (int b = tid; b < n; b += kBatch * blockDim.x) {
-      int4 v[kBatch];
-#pragma unroll
-      for (int k = 0; k < kBatch; ++k) {
-        const int u = b + k * blockDim.x;
-        if (u < n) v[k] = __ldg(s4 + u);
-      }
-#pragma unroll
-      for (int k = 0; k < kBatch; ++k) {
-        const int u = b + k * blockDim.x;
-        if (u < n) {
-          const int j = u / upr;
-          uint32_t* d = reinterpret_cast<uint32_t*>(
-              dst + j * ws + (u - j * upr) * kPer);
-          d[0] = v[k].x;
-          d[1] = v[k].y;
-          d[2] = v[k].z;
-          d[3] = v[k].w;
-        }
-      }
-    }
-    return;
-  }
-  const int n = nrows * W;
-  for (int b = tid; b < n; b += 4 * kBatch * blockDim.x) {
-    Word v[4 * kBatch];
-#pragma unroll
-    for (int k = 0; k < 4 * kBatch; ++k) {
-      const int e = b + k * blockDim.x;
-      if (e < n) v[k] = src[e];
-    }
-#pragma unroll
-    for (int k = 0; k < 4 * kBatch; ++k) {
-      const int e = b + k * blockDim.x;
-      if (e < n) dst[(e / W) * ws + e % W] = v[k];
-    }
-  }
-}
 
 // Stages the tile's chars (kStaged), then walks this thread's row; its
 // tokens go to stage[tid * stride + pos]. Every thread of the block calls
@@ -226,14 +173,6 @@ int prepare(const void* chars, int64_t S, int64_t W, const void* slen,
                    (r.st * sizeof(int32_t) + r.ws * sizeof(Word))
              : 0;
   return 0;
-}
-
-template <typename Kernel>
-int allow_smem(Kernel kernel, size_t smem) {
-  if (smem <= 48 * 1024) return 0;
-  return static_cast<int>(cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem)));
 }
 
 template <typename Word>

@@ -9,7 +9,8 @@ once per vocabulary and dropped with it (``reset``, ``load_resources``,
   or from the JAX package's (the two build equal arrays);
 - NaiveBPE and FastBPE: the rank hash of ``ops/bpe_encode.build_rank_hash``
   (:class:`BPEState`);
-- NaiveWP: the match trie's ``goto`` and ``accept`` (:class:`MatchState`).
+- NaiveWP: the match trie's ``goto`` and ``accept``, and kernel 6's step
+  records and '#' jumps (:class:`MatchState`).
 """
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ import numpy as np
 import torch
 
 from ..core.symbols import SymbolTable
+from ..ops.wp_encode import match_jumps, match_records
 from ..ops.wp_encode_e2e import node_records
 
 
@@ -48,14 +50,24 @@ class BPEState:
 
 @dataclass
 class MatchState:
-    """NaiveWP's match trie on the device."""
+    """NaiveWP's match trie on the device: its tables, and the step
+    records and '#' jumps kernel 6 reads (ops/wp_encode.match_records,
+    match_jumps), built once per vocabulary."""
 
     goto: torch.Tensor    # int32[n_nodes, A+1]
     accept: torch.Tensor  # int32[n_nodes]
+    rec: torch.Tensor     # int32[n_nodes, A+1, 2]: (child, accept[child])
+    jumps: torch.Tensor   # int32[MAX_INJECT+1, 4]
+    hash_aid: int         # the alphabet id of '#'
 
     @classmethod
     def build(cls, trie, device) -> "MatchState":
-        return cls(_put(trie.goto, device), _put(trie.accept, device))
+        goto = torch.from_numpy(np.ascontiguousarray(trie.goto))
+        accept = torch.from_numpy(np.ascontiguousarray(trie.accept))
+        hash_aid = int(trie.alpha[ord("#")])
+        return cls(goto.to(device), accept.to(device),
+                   match_records(goto, accept).to(device),
+                   match_jumps(goto, accept, hash_aid).to(device), hash_aid)
 
 
 @dataclass

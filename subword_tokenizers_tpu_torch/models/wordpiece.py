@@ -20,12 +20,14 @@ NaiveWP's batched encode (``tokenize_batch``):
 1. the C++ front end lowers and pre-splits the corpus, word types are
    deduplicated, and each becomes a row of the match trie's alphabet ids
    (``encode.frontend``);
-2. one host-to-device copy (``encode.h2d``); the trie's ``goto`` and
-   ``accept`` are moved once per vocabulary (models/state.MatchState);
-3. kernel 6 matches every word type, writing ``[UNK]`` (token 0) for a
-   word with an unmatched segment (``encode.wp_match``,
-   ops/wp_encode.wp_match_encode), and kernel 2 writes the flags byte
-   and the dense token stream (``encode.compact``, ops/fetch.compact_ids);
+2. one host-to-device copy (``encode.h2d``); the trie's tables and
+   kernel 6's step records and '#' jumps are moved once per vocabulary
+   (models/state.MatchState);
+3. one launch matches every word type, writing ``[UNK]`` (token 0) for
+   a word with an unmatched segment, and writes each word's flags byte
+   and the dense token stream (``encode.wp_match``,
+   ops/wp_encode.wp_match_compact: kernel 6 with kernel 2's compaction
+   in its epilogue);
 4. two device-to-host copies (``encode.d2h``); a word that overflowed
    raises here;
 5. the C++ stitch builds the token lists (``encode.stitch``).
@@ -81,7 +83,7 @@ from ..frontend.charclass import PUNC_PY, WS_PY, codepoints, \
     lower_codepoints
 from ..ops import train_loop
 from ..ops.flat import build_flat
-from ..ops.wp_encode import wp_e2e_encode, wp_match_encode
+from ..ops.wp_encode import wp_e2e_encode, wp_match_compact
 from ..ops.wp_encode_e2e import (pack_chars, route_params,
                                  wp_e2e_scan_compact)
 from .base import (SubwordTokenizer, fetch_head, fetch_stream,
@@ -371,7 +373,7 @@ class NaiveWP(SubwordTokenizer):
             wb = self.preprocessing_batch(corpus)
             words, _, inverse = unique_words(wb)
             if words:
-                trie, out_table, wmat, wlen = self._match_inputs(words)
+                _, out_table, wmat, wlen = self._match_inputs(words)
         if not words:
             return [[] for _ in range(S)]
         st = self._match_device()
@@ -379,10 +381,10 @@ class NaiveWP(SubwordTokenizer):
             wmat_d = torch.from_numpy(wmat).to(dev)
             wlen_d = torch.from_numpy(wlen).to(dev)
         with profiling.phase("encode.wp_match", dev):
-            out, out_n, _, ovf = wp_match_encode(
-                wmat_d, wlen_d, st.goto, st.accept,
-                int(trie.alpha[ord("#")]))
-        ids, offs, flags = fetch_stream(out, out_n, ovf)
+            ids_d, head_d = wp_match_compact(
+                wmat_d, wlen_d, st.goto, st.accept, st.hash_aid,
+                rec=st.rec, jumps=st.jumps)
+        ids, offs, flags = fetch_head(ids_d, head_d)
         if flags.any():
             raise RuntimeError(
                 "wp_match_encode overflow: vocabulary drives the greedy "

@@ -39,6 +39,9 @@ _SCAN = [_P, _I64, _I64, _P, _P, _I64, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
          _I, _I, _I]
 _SCAN_ARGS = [*_SCAN, _P, _P, _P, _P, _P, _P]
 _SCAN_COMPACT_ARGS = [*_SCAN, _P, _P, _P, _P, _I, _P]
+# kernel 6's arguments (ids, W, L, wlen, rec, A1, jump, hash_aid, cap,
+# max_iter, rows_per_block, ws, st), then each form's outputs and the stream
+_MATCH = [_P, _I64, _I64, _P, _P, _I64, _P, _I, _I, _I64, _I, _I, _I]
 # K1's table to fill (keys, counts, pos, T, claims, two counters) and the
 # one to empty (keys, counts, pos, claims, its counter)
 _TABLE_ARGS = [_P, _P, _P, _I64, _P, _P, _P, _P, _P, _P, _P, _P]
@@ -67,8 +70,8 @@ SIGNATURES = {
     "swt_symbol_freqs": [_P, _P, _I64, _I64, _I64, _P, _P, _I64, _P],
     "swt_bpe_encode": [_P, _I64, _I64, _P, _P, _P, _I64, _I, _I, _P, _P,
                        _P, _I, _P],
-    "swt_wp_match": [_P, _I64, _I64, _P, _P, _I64, _P, _I, _I, _I64, _P, _P,
-                     _P, _P, _P],
+    "swt_wp_match": [*_MATCH, _P, _P, _P, _P, _P],
+    "swt_wp_match_compact": [*_MATCH, _P, _P, _P, _P, _I, _P],
     "swt_gather_take2d": [_P, _I64, _I64, _P, _P, _I64, _P, _P],
     "swt_gather_loop": [_P, _I64, _P, _I64, _I, _I, _P, _P],
 }

@@ -3,7 +3,7 @@ in a process of its own in the order parent, change, change, parent.
 
     python3 -m subword_tokenizers_tpu_torch.tools.ab_sharded_train \\
         PARENT_DIR CHANGE_DIR [compact] [kernels] [topk] [encode] [fastwp] \
-        [single] [skip] [NaiveBPE] [NaiveWP]
+        [match] [single] [skip] [NaiveBPE] [NaiveWP]
 
 - ``NaiveBPE`` / ``NaiveWP``: the model under the one-card mesh
   ``make_data_mesh(8, devices=["cuda:0"] * 8)``, trained on all of
@@ -50,6 +50,16 @@ in a process of its own in the order parent, change, change, parent.
   cap and at 0 steps (all it does besides the walk), kernel 2 over its
   rows and the fused launch where the checkout has one (about 20 s a
   run).
+- ``match``: NaiveWP's batched encode of all of ``data/train-85k.json``
+  with the 8,000-token golden vocab (checked against
+  ``port_t85k_encode_expect.json``): six warm ``tokenize_batch`` walls
+  after a warm-up call, then the device time a call of the kernels whose
+  names hold "match" or "compact" (kernel 6 and kernel 2, or the fused
+  launch) and their launches and memsets a call, from a
+  ``torch.profiler`` trace of 5 calls; then, at the corpus's 22,971 word
+  types, 200 calls of each kernel queued back to back: kernel 6's rows
+  form, kernel 2 over its rows and the fused launch where the checkout
+  has one (about 20 s a run).
 - ``single``: ``NaiveBPE`` and then ``NaiveWP(device="cuda")`` on one
   device (the default flat route), each trained on all of
   ``data/train-85k.json`` to 8,000 and checked against the JAX goldens,
@@ -453,6 +463,68 @@ if hasattr(e2e, "wp_e2e_scan_compact"):
 print(json.dumps(out))
 '''
 
+MATCH = r'''
+import hashlib, json, os, sys, time
+import torch
+from torch.profiler import ProfilerActivity, profile
+sys.path.insert(0, os.getcwd())
+from chip_smoke import cuda_ms
+from subword_tokenizers_tpu_torch import NaiveWP
+from subword_tokenizers_tpu_torch.core.corpus import unique_words
+from subword_tokenizers_tpu_torch.ops import _cuda
+from subword_tokenizers_tpu_torch.ops import wp_encode as we
+from subword_tokenizers_tpu_torch.ops.fetch import compact_ids
+corpus = json.load(open("data/train-85k.json", encoding="utf-8"))
+vocab = json.load(open("tests/golden/port_t85k_v8000_wp_vocab.json",
+                       encoding="utf-8"))["vocab"]
+expect = json.load(open("tests/golden/port_t85k_encode_expect.json",
+                        encoding="utf-8"))["NaiveWP_golden"]
+dev = torch.device("cuda:0")
+_cuda.lib()
+tok = NaiveWP(device=dev)
+tok.vocab = set(vocab)
+res = tok.tokenize_batch(corpus)  # warm-up
+sha = hashlib.sha256(json.dumps(res, ensure_ascii=False).encode("utf-8"))
+assert sha.hexdigest() == expect["full_sha256"]
+walls = []
+for _ in range(6):
+    t0 = time.perf_counter()
+    tok.tokenize_batch(corpus)
+    torch.cuda.synchronize()
+    walls.append((time.perf_counter() - t0) * 1e3)
+with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    for _ in range(5):
+        tok.tokenize_batch(corpus)
+    torch.cuda.synchronize()
+ev = prof.key_averages()
+kern = [e for e in ev if "match" in e.key or "compact" in e.key]
+out = {"walls_ms": walls, "median_wall_ms": sorted(walls)[3],
+       "kernel_ms": sum(
+           getattr(e, "device_time_total", getattr(e, "cuda_time_total", 0))
+           for e in kern) / 1e3 / 5,
+       "kernel_launches": sum(e.count for e in kern) / 5,
+       "memsets": sum(e.count for e in ev if "memset" in e.key.lower()) / 5,
+       "kernels": [e.key[:60] for e in kern]}
+# the kernels alone at the corpus's word types, 200 calls queued back to
+# back: kernel 6's rows form, kernel 2 over its rows, and the fused launch
+# where the checkout has it
+words = unique_words(tok.preprocessing_batch(corpus))[0]
+trie, _, wmat, wlen = tok._match_inputs(words)
+st = tok._match_device()
+args = (torch.from_numpy(wmat).to(dev), torch.from_numpy(wlen).to(dev),
+        st.goto, st.accept, int(trie.alpha[ord("#")]))
+kw = {"rec": st.rec, "jumps": st.jumps} if hasattr(st, "rec") else {}
+out["rows_ms"] = cuda_ms(lambda: we.wp_match_encode(*args, **kw), 200,
+                         True)
+rows = we.wp_match_encode(*args, **kw)
+out["compact_ms"] = cuda_ms(lambda: compact_ids(rows[0], rows[1], rows[3]),
+                            200, True)
+if hasattr(we, "wp_match_compact"):
+    out["fused_ms"] = cuda_ms(lambda: we.wp_match_compact(*args, **kw),
+                              200, True)
+print(json.dumps(out))
+'''
+
 SINGLE = r'''
 import json, os, sys, time
 import torch
@@ -558,6 +630,7 @@ def main(argv) -> int:
                 [TOPK] if mode == "topk" else
                 [ENCODE] if mode == "encode" else
                 [FASTWP] if mode == "fastwp" else
+                [MATCH] if mode == "match" else
                 [SINGLE] if mode == "single" else
                 [SKIP] if mode == "skip" else [TRAIN, mode])
         for name, d in (("parent", parent), ("change", change),
