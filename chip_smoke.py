@@ -42,10 +42,18 @@ WordPiece vocab ``tests/golden/port_t85k_fastwp_vocab.json``:
    8,000-symbol vocab: every merge must equal the JAX package's
    (``tests/golden/port_t85k_v8000_bpe_merges.json``, whose first 500
    are the reference trainer's ``t85k_v578_merges.json``) and every
-   kernel must have been launched; cold and warm times, the phase split
-   and the device's idle share under ``torch.profiler``;
+   kernel must have been launched; each run's first block is queued step
+   by step and every later one is a CUDA graph replay (ops/train_loop.py
+   ``BlockRunner``), with a replay at every width, and each kernel's count
+   is 256 a block; cold and warm times, the phase split and the device's
+   idle share under ``torch.profiler``, with the trace's graph launches;
 6b. the other training routes: a checkpoint at 1,400 resumed to 8,000,
-   the exact per-step path to 578, and a forced hash collision;
+   the exact per-step path to 578, and a forced hash collision, each
+   through graphs;
+6d. one block captured at the corpus's initial state and replayed 50
+   times, each from a copy of that state: every replay's records equal
+   the block queued step by step, two replays back to back equal 512
+   steps queued step by step;
 7. holds the WordPiece training kernels against their plain versions,
    exactly: the exact scorer on about 10^6 seeded cases up to d = 2^104,
    symbol weights (K4), selection by score with "##"-stripping
@@ -59,7 +67,8 @@ WordPiece vocab ``tests/golden/port_t85k_fastwp_vocab.json``:
    8,000-token vocab: every merge and the vocab must equal the JAX
    package's (``tests/golden/port_t85k_v8000_wp_vocab.json``), the
    carried weights a recount, and every kernel must have been launched;
-   cold and warm times, the phase split, and (8c) the idle share;
+   every block after a run's first a graph replay, as in phase 6; cold
+   and warm times, the phase split, and (8c) the idle share;
 8b. the other WordPiece routes: a checkpoint at 1,400 merges resumed to
    8,000, the per-step path to 1,000, a forced hash collision, and
    ``FastWP.train`` then ``tokenize_batch`` against the golden vocab;
@@ -110,9 +119,10 @@ WordPiece vocab ``tests/golden/port_t85k_fastwp_vocab.json``:
    each route launches its kernels (``=2`` must compact on overflow) and
    the skip routes compact as often as the JAX package
    (``tests/golden/port_t85k_skip_overflows.json``), with cold and warm
-   times, the phase split and (12c) the skip route traced: its idle
-   share, at most 4 kernel launches a step, no memset and no allocation
-   in a device block after the first;
+   times, the captures and replays, the phase split and (12c) the skip
+   route traced: its idle share and graph launches, at most 4 kernel
+   launches a step, no memset and no allocation in a block after the
+   first;
 13. holds the kernels of the data-parallel selection against their
    plain versions, exactly: the nomination (each shard's 256 best pairs
    and its K-th row), the candidate lookup and the table
@@ -155,9 +165,9 @@ WordPiece vocab ``tests/golden/port_t85k_fastwp_vocab.json``:
    three padded, each table emptied whole, timed at the initial state
    beside its bound as the function needs and with a full clear;
    WordPiece's scorer alone at a shard's table; and a traced 256-step
-   block of the flat route (BPE and WordPiece: 3 kernels a step, no
-   memset, no allocation inside the block) and of the padded route (no
-   memset);
+   block, one graph replay, of the flat route (BPE and WordPiece: one
+   graph launch, 3 kernels a step, no memset, no allocation inside the
+   block) and of the padded route (no memset);
 14. trains ``NaiveBPE`` and ``NaiveWP(mesh=make_data_mesh(8,
    devices=["cuda:0"] * 8))`` on the whole corpus to 8,000, each equal to
    its golden, with the tiers that settled each step and the shard
@@ -348,6 +358,61 @@ def emitted(ids, head, out_n, cap):
     return ids[dest[keep]]
 
 
+# The host's CUDA calls of the last trace device_trace read: its graph
+# launches (cudaGraphLaunch) and its kernel launches (cudaLaunchKernel).
+TRACE_API = {}
+
+
+def graph_counts():
+    """The training driver's graph counts so far (ops/train_loop.py
+    BlockRunner's class attributes), copied."""
+    from collections import Counter
+
+    from subword_tokenizers_tpu_torch.ops.train_loop import BlockRunner
+    return dict(captures=BlockRunner.captures, replays=BlockRunner.replays,
+                eager_blocks=BlockRunner.eager_blocks,
+                capture_s=BlockRunner.capture_s,
+                blocks=Counter(BlockRunner.blocks_by_width),
+                replayed=Counter(BlockRunner.replays_by_width))
+
+
+def graph_check(before, runs: int, what: str, K: int = 256):
+    """The graph counts since ``before`` (:func:`graph_counts`) of ``runs``
+    calls of run_fused. Raises unless each call queued only its first
+    block step by step, every other block was a graph replay, and every
+    width a call ran at had a replay. Returns (blocks, a line)."""
+    now = graph_counts()
+    d = {k: now[k] - before[k] for k in ("captures", "replays",
+                                         "eager_blocks", "capture_s")}
+    blocks = now["blocks"] - before["blocks"]
+    replayed = now["replayed"] - before["replayed"]
+    n_blocks = sum(blocks.values())
+    if (d["eager_blocks"] != runs or d["replays"] + runs != n_blocks
+            or set(blocks) != set(replayed) or not d["captures"]):
+        raise AssertionError(f"{what}: {runs} runs, graph counts {d}, "
+                             f"blocks by width {dict(blocks)}, replays by "
+                             f"width {dict(replayed)}")
+    return n_blocks, (
+        f"{n_blocks} blocks of {K} steps in {runs} runs: {runs} queued "
+        f"step by step (each run's first), {d['replays']} graph replays of "
+        f"{d['captures']} captures ({d['capture_s'] * 1e3:.1f} ms "
+        f"capturing), replays by width {dict(sorted(replayed.items()))}")
+
+
+def trace_graph_line(by_name):
+    """How the last trace's kernels were launched: its graph launches, the
+    kernels the host launched and the kernel spans on the device."""
+    spans = kernel_launches(by_name)
+    if by_name and (not TRACE_API.get("graph_launches")
+                    or spans <= TRACE_API.get("kernel_launches", 0)):
+        raise AssertionError(f"the traced train ran no kernel from a graph "
+                             f"launch: {TRACE_API}, {spans} kernel spans")
+    return (f"{TRACE_API.get('graph_launches')} cudaGraphLaunch, "
+            f"{TRACE_API.get('kernel_launches')} kernels launched by the "
+            f"host, {spans} kernel spans on the device (the rest from "
+            f"graph launches)")
+
+
 def device_trace(fn, path, warmup=False):
     """Run ``fn`` once under torch.profiler; return (host wall ms, device
     busy ms, {kernel or copy name: [count, device ms]}) read from the
@@ -394,7 +459,16 @@ def device_trace(fn, path, warmup=False):
                  and e.get("cat") == "user_annotation"),
                 default=float("-inf"))
     spans, by_name = [], {}
+    TRACE_API.clear()
+    TRACE_API.update(graph_launches=0, kernel_launches=0)
     for e in events:
+        if e.get("ph") == "X" and e.get("cat") in (
+                "cuda_runtime", "cuda_driver") and e["ts"] >= start:
+            n = e.get("name", "")
+            if "GraphLaunch" in n:
+                TRACE_API["graph_launches"] += 1
+            elif "LaunchKernel" in n:
+                TRACE_API["kernel_launches"] += 1
         if e.get("ph") == "X" and e.get("cat") in (
                 "kernel", "gpu_memcpy", "gpu_memset") and e["ts"] >= start:
             spans.append((e["ts"], e["ts"] + e["dur"]))
@@ -632,6 +706,90 @@ def skip_steps(state, table, n_steps, skip, max_len, dev,
     return int(stats[1])
 
 
+def replay_check(dev, arrays, table, max_len, smi, reps=50, K=256):
+    """Phase 6d: one block of the flat BPE route captured as a CUDA graph
+    (ops/train_loop.BlockRunner) and replayed ``reps`` times, each from a
+    copy of train-85k's initial state (the state's slots, the hash tables
+    and the control words restored; K1's tables, K2's and K3's scratch
+    and K3's epoch word as the last block left them). Every replay's
+    records [K + 1, 6] must equal those of the same block queued step by
+    step from that state, and two replays back to back the 2K steps
+    queued step by step: a replay that took a stale look-back epoch or
+    gate, or a host value of its capture, would differ. Also the host
+    time to queue a block step by step and to replay it, and a block's
+    device time."""
+    import numpy as np
+    import torch
+    from subword_tokenizers_tpu_torch.ops import train_loop
+    from subword_tokenizers_tpu_torch.ops.flat import EPOCH, build_flat
+    st = train_loop.FlatState(*build_flat(arrays.sym, arrays.freq), dev)
+    t = type(table)(table.strings())
+    run = train_loop.BlockRunner(st, t, 8000, max_len, K, False, True, 0,
+                                 False)
+    kept = [*st._bufs[st._cur], run.h1, run.h2, run.sl, run.ctrl, run.recs]
+    initial = [x.clone() for x in kept]
+
+    def restore():
+        for x, x0 in zip(kept, initial):
+            x.copy_(x0)
+
+    # 2K steps queued step by step: the run's first block, then K more
+    run.dispatch(0)
+    eager = [run.fetch(0)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run.queue_steps()
+    t_queue = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    eager.append(run.recs.cpu().numpy())
+    if not eager[0][:K, 4].all() or not eager[1][:K, 4].all():
+        raise AssertionError("phase 6d: a reference block has an inactive "
+                             "step")
+    epoch0 = int(st.scratch.words[EPOCH])
+    bad, host_ms, dev_ms = [], [], []
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    for r in range(reps):
+        restore()
+        start.record()
+        t0 = time.perf_counter()
+        run.dispatch(r % 2)
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        end.record()
+        got = run.fetch(r % 2)
+        dev_ms.append(start.elapsed_time(end))
+        if not np.array_equal(got[:K + 1], eager[0][:K + 1]):
+            bad.append(r)
+    restore()
+    run.dispatch(0)
+    run.dispatch(1)
+    pair = [run.fetch(0), run.fetch(1)]
+    epochs = int(st.scratch.words[EPOCH]) - epoch0
+    captures = len(run.graphs)
+    run.close()
+    if bad or any(not np.array_equal(g[:K + 1], e[:K + 1])
+                  for g, e in zip(pair, eager)) or captures != 1:
+        raise AssertionError(f"phase 6d: replays {bad} of {reps} differ "
+                             f"from the block queued step by step, or the "
+                             f"pair differs, or {captures} captures")
+    if epochs != K * (reps + 2):
+        raise AssertionError(f"phase 6d: K3's epoch word advanced {epochs} "
+                             f"times in {reps + 2} replays of {K} steps")
+    host_ms.sort()
+    dev_ms.sort()
+    print(f"phase 6d: one block of {K} flat BPE steps captured once and "
+          f"replayed {reps} times, each from a copy of train-85k's initial "
+          f"state: every replay's records [{K + 1}, 6] equal the block "
+          f"queued step by step, two replays back to back equal {2 * K} "
+          f"steps queued step by step, K3's epoch word advanced once a "
+          f"step on the device ({epochs}); the host queues a block step "
+          f"by step in {t_queue * 1e3:.3f} ms, a replay (records' copy "
+          f"included) in median {host_ms[len(host_ms) // 2]:.3f} ms (max "
+          f"{host_ms[-1]:.3f}); a replayed block's device time median "
+          f"{dev_ms[len(dev_ms) // 2]:.3f} ms (CUDA events, the first "
+          f"replay's capture included in its host time); {smi}")
+
+
 def phase11(dev, rng, flat_bpe, table, flat_wp, table_wp, sym_pad, max_len,
             smi):
     """Phase 11: the slice's kernels against their plain versions, exactly
@@ -641,7 +799,8 @@ def phase11(dev, rng, flat_bpe, table, flat_wp, table_wp, sym_pad, max_len,
     import numpy as np
     import torch
     from subword_tokenizers_tpu_torch.ops import train_loop
-    from subword_tokenizers_tpu_torch.ops.flat import (GATE, MergeScratch,
+    from subword_tokenizers_tpu_torch.ops.flat import (EPOCH, GATE,
+                                                       MergeScratch,
                                                        merge_skip,
                                                        merge_skip_ref,
                                                        skip_guard,
@@ -670,8 +829,9 @@ def phase11(dev, rng, flat_bpe, table, flat_wp, table_wp, sym_pad, max_len,
         """K1 and K3 in skip mode and the guard, on one state: K3 with an
         inactive record (the gate of the state as it stands), then with
         each record, each followed by the guard reading its gate; the
-        kernels' scratch words (the weight and the gate) against the
-        plain versions' under the same epochs."""
+        kernels' scratch words (the weight, the epoch word and the gate)
+        against the plain versions', which take the epoch and the gate
+        from the same words."""
         errs["pair_stats_skip"] = max(errs["pair_stats_skip"], err_all(
             canonical(*pair_stats(fs, wid, wgt, skip=S)),
             pair_stats_ref(fs, wid, wgt, S)))
@@ -683,21 +843,19 @@ def phase11(dev, rng, flat_bpe, table, flat_wp, table_wp, sym_pad, max_len,
             rec = torch.tensor(row, dtype=torch.int32, device=dev)
             got, want = clone(fs, wid, wgt, sf), clone(fs, wid, wgt, sf)
             merge_skip(*got[:3], rec, S, got[3], scratch=sc_k)
-            merge_skip_ref(*want[:3], rec, S, want[3], sc_r.words,
-                           sc_r.next_epoch())
-            sc_r.gate = sc_r.epoch
+            merge_skip_ref(*want[:3], rec, S, want[3], sc_r.words)
             errs["merge_skip"] = max(
                 errs["merge_skip"], err_all(got, want),
                 max_err(got[3], symbol_freqs(got[0], got[2], cap)),
-                max_err(sc_k.words[[0, GATE]], sc_r.words[[0, GATE]]))
+                max_err(sc_k.words[[0, EPOCH, GATE]],
+                        sc_r.words[[0, EPOCH, GATE]]))
             cnt_k = torch.zeros(1, dtype=torch.int32, device=dev)
             cnt_r = cnt_k.clone()
             skip_guard(*got[:3], cnt_k, sc_k)
-            skip_guard_ref(*want[:3], cnt_r, sc_r.words, sc_r.gate << 1 | 1)
-            sc_r.next_epoch()
-            sc_r.gate = 0
+            skip_guard_ref(*want[:3], cnt_r, sc_r.words)
             errs["skip_guard"] = max(errs["skip_guard"], err_all(
-                [*got[:3], cnt_k], [*want[:3], cnt_r]))
+                [*got[:3], cnt_k, sc_k.words[[EPOCH, GATE]]],
+                [*want[:3], cnt_r, sc_r.words[[EPOCH, GATE]]]))
             notes["guard_fired"] += int(cnt_k)
         notes["skip_states"] += 1
 
@@ -876,31 +1034,31 @@ def phase11(dev, rng, flat_bpe, table, flat_wp, table_wp, sym_pad, max_len,
     # the guard with its gate closed (each call closes it)
     timing["skip_guard"] = (
         cuda_ms(lambda: skip_guard(*work, cnt, sc), 200, True),
-        cuda_ms(lambda: skip_guard_ref(*work, cnt, sc.words, 1), 5))
+        cuda_ms(lambda: skip_guard_ref(*work, cnt, sc.words), 5))
     # The guard fired: a state with 70-slot gaps at window 2, its gate
-    # opened by an inactive K3 and kept open across calls (the guard
-    # reads the gate word and never writes it); a compaction ends the
-    # overflow, so each timed call first restores the state, as above.
+    # opened by an inactive K3; a compaction ends the overflow and closes
+    # the gate, so each timed call first restores the state and the gate
+    # word, as above.
     sc_o = MergeScratch(ovf[0].shape[0], dev)
     merge_skip(*ovf, torch.zeros(6, dtype=torch.int32, device=dev), 2,
                scratch=sc_o)
-    opened = sc_o.gate
-    if not int(sc_o.words[GATE]) & 1:
+    opened = sc_o.words[GATE:GATE + 1].clone()
+    if not int(opened) & 1:
         raise AssertionError("the gapped state does not overflow")
     ovf0 = clone(*ovf)
 
     def restore():
         for dst, src in zip(ovf, ovf0):
             dst.copy_(src)
-        sc_o.gate = opened
+        sc_o.words[GATE:GATE + 1].copy_(opened)
 
     t_restore = cuda_ms(restore, 100, True)
     fired0 = int(cnt)
     timing["skip_guard_fired"] = (
         cuda_ms(lambda: (restore(), skip_guard(*ovf, cnt, sc_o)), 100, True)
         - t_restore,
-        cuda_ms(lambda: (restore(), skip_guard_ref(*ovf, cnt, sc_o.words,
-                                                   opened << 1 | 1)), 5)
+        cuda_ms(lambda: (restore(), skip_guard_ref(*ovf, cnt, sc_o.words)),
+                5)
         - t_restore)
     if int(cnt) - fired0 != 101 + 6:  # every call compacted
         raise AssertionError(f"the timed guard fired {int(cnt) - fired0} "
@@ -1070,6 +1228,7 @@ def phase12(dev, corpus, check_bpe, check_wp, smi, trace_dir,
                 real_run, flat=False)
             for obj, attr in counters.values():
                 setattr(obj, attr, 0)
+            g = graph_counts()
             walls = []
             # run 0 is cold (the route's first), run 1 warm, run 2 warm
             # with the phase profiler on
@@ -1092,6 +1251,12 @@ def phase12(dev, corpus, check_bpe, check_wp, smi, trace_dir,
             if missing:
                 raise AssertionError(f"{name}: nothing counted for "
                                      f"{missing}: {counts}")
+            # every block, queued or replayed, runs K1 and K2 256 times
+            blocks, graphs = graph_check(g, 3, name)
+            if counts["pair_stats"] != 256 * blocks or \
+                    counts["select_unify"] != 256 * blocks:
+                raise AssertionError(f"{name}: {counts} for {blocks} "
+                                     f"blocks of 256 steps")
             if overflows is not None and name in overflows and counts[
                     "overflow_compactions"] != 3 * overflows[name]:
                 raise AssertionError(
@@ -1101,32 +1266,35 @@ def phase12(dev, corpus, check_bpe, check_wp, smi, trace_dir,
             by_route[name] = counts
             lines.append(
                 f"{name} cold {walls[0]:.3f} s, warm {walls[1]:.3f} s, "
-                f"profiled {walls[2]:.3f} s, phases (ms) "
+                f"profiled {walls[2]:.3f} s, {graphs}, phases (ms) "
                 f"{json.dumps(phases)}, counts of 3 runs "
                 f"{ {k: v for k, v in counts.items() if v} }")
         os.environ.pop("SWT_WP_TOURNAMENT", None)
         os.environ["SWT_SKIP_COMPACT"] = "12"
         train_loop.run_fused = real_run
-        # each device block's allocations and kernel launches (the
-        # wrappers' counts)
+        # each device block's allocations (a capture checks its own
+        # steps: capture_begin may allocate PyTorch's RNG state for
+        # graphs, which is counted apart), and the kernel launches (the
+        # wrappers' counts, replays included)
         wrappers = (pairstats.pair_stats, train_loop.select_unify,
                     flat_ops.merge_skip, flat_ops.skip_guard,
                     flat_ops.merge_apply)
-        inside = []
+        inside, captured = [], []
         real_phase = profiling.phase
 
         @contextlib.contextmanager
         def counted_phase(name, device=None):
             allocated = torch.cuda.memory_stats(dev)[
                 "allocation.all.allocated"]
-            launched = sum(w.launches for w in wrappers)
             with real_phase(name, device):
                 yield
-            if name == "train.device_block":
-                inside.append((torch.cuda.memory_stats(dev)[
-                    "allocation.all.allocated"] - allocated,
-                    sum(w.launches for w in wrappers) - launched))
+            if name in ("train.device_block", "train.capture"):
+                (inside if name == "train.device_block" else
+                 captured).append(torch.cuda.memory_stats(dev)[
+                     "allocation.all.allocated"] - allocated)
 
+        launched = sum(w.launches for w in wrappers)
+        g = graph_counts()
         profiling.phase = counted_phase
         try:
             wall, busy, by_name = device_trace(
@@ -1134,24 +1302,28 @@ def phase12(dev, corpus, check_bpe, check_wp, smi, trace_dir,
                 os.path.join(trace_dir, "skip_train_trace.json"))
         finally:
             profiling.phase = real_phase
+        blocks, graphs = graph_check(g, 1, "phase 12c")
+        launched = sum(w.launches for w in wrappers) - launched
+        api_line = trace_graph_line(by_name)
     finally:
         train_loop.run_fused = real_run
         for k, v in saved.items():
             os.environ.pop(k, None)
             if v is not None:
                 os.environ[k] = v
-    steps = 256 * len(inside)
-    allocs = [a for a, _ in inside]
-    per_step = sum(n for _, n in inside) / steps
+    steps = 256 * blocks
+    allocs = inside
+    per_step = launched / steps
     step_kernels = {n: c for n, (c, _) in by_name.items()
                     if "memcpy" not in n.lower() and "memset" not in n.lower()
                     and c >= steps // 2}
     skip_ms = sum(ms for n, (_, ms) in by_name.items()
                   if "merge_skip_kernel" in n
                   or "merge_tiles_kernel<true>" in n)
-    notes = dict(blocks=len(inside), launches_a_step=per_step,
+    notes = dict(blocks=blocks, launches_a_step=per_step,
                  allocations_first_block=allocs[0] if allocs else None,
                  allocations_later_blocks=sum(allocs[1:]),
+                 allocations_captures=captured,
                  memsets=memsets(by_name) if by_name else None,
                  traced_step_kernels=step_kernels if by_name else None,
                  guard_and_merge_skip_device_ms=skip_ms if by_name else None,
@@ -1167,7 +1339,7 @@ def phase12(dev, corpus, check_bpe, check_wp, smi, trace_dir,
                 + "; ".join(f"{n} x{c} {ms:.3f} ms" for n, (c, ms) in top)
                 + f"; the guard and K3 skip together {skip_ms:.3f} ms; "
                 f"{notes['memsets']} memsets; the kernels once a step "
-                f"{sorted(step_kernels.values())}")
+                f"{sorted(step_kernels.values())}; {api_line}")
     print(f"phase 12: all of {len(corpus)} sentences to {max_vocab} through "
           f"each route equal the JAX golden (merges; WordPiece's vocab too)"
           + ("" if overflows is None else
@@ -1175,12 +1347,13 @@ def phase12(dev, corpus, check_bpe, check_wp, smi, trace_dir,
              f"{overflows} a run")
           + ": " + "; ".join(lines) + f"; {smi}")
     print(f"phase 12c: one warm NaiveBPE train with SWT_SKIP_COMPACT=12 "
-          f"under torch.profiler: {len(inside)} device blocks, "
-          f"{per_step:.4f} kernel launches a step (4 a step and the block's "
-          f"closing compaction), allocations a block: {allocs[0]} in the "
-          f"first (K1's tables, made by the first count), "
-          f"{sum(allocs[1:])} in the {len(inside) - 1} others; {dev_line}; "
-          f"{smi}")
+          f"under torch.profiler: {graphs}; {per_step:.4f} kernel launches "
+          f"a step (4 a step and the block's closing compaction), "
+          f"allocations: {allocs[0]} in the first block (K1's tables, made "
+          f"by the first count), {sum(allocs[1:])} in the {blocks - 1} "
+          f"replays after it, {captured} in the captures' spans (none in "
+          f"their steps, which each capture checks: PyTorch's RNG state "
+          f"for graphs at its first capture_begin); {dev_line}; {smi}")
     return by_route, notes
 
 
@@ -2199,18 +2372,18 @@ def kernel_launches(by_name) -> int:
 def trace_blocks(dev, flat_bpe, table, arrays_wp, table_wp, max_len,
                  trace_dir, steps=256):
     """A traced block of ``steps`` steps of the flat route (BPE and
-    WordPiece) and of the padded route (WordPiece), the states made before
-    the trace (the flat state's K1 tables by a first count): per route the
-    kernel launches a step inside the block (the wrappers' counts), the
-    kernels the trace shows once a step (those it holds at least
-    ``steps`` / 2 times: a trace may lose a few events at its start, the
-    rest is the run's set-up), the memsets and the allocations inside the
-    block. Raises on a memset, and unless a flat block makes 3 launches a
-    step of 3 kernels and no allocation. Returns {route: numbers}."""
-    import contextlib
-
+    WordPiece) and of the padded route (WordPiece), each a replay of the
+    block's CUDA graph: a BlockRunner (ops/train_loop.py) runs a first
+    block step by step (K1's tables made, the launchers warm) and a
+    second, captured and replayed, before the trace; the traced block is
+    the third, one replay. Per route: the kernel launches a step the
+    replay adds to the wrappers' counts, the graph launches and the
+    kernels the host launched in the trace, the kernels the trace shows
+    once a step (those it holds at least ``steps`` / 2 times), the
+    memsets and the allocations inside the block. Raises on a memset, and
+    unless a flat block is one graph launch of 3 kernels a step with no
+    other launch and no allocation. Returns {route: numbers}."""
     import torch
-    from subword_tokenizers_tpu_torch.benchmarks import profiling
     from subword_tokenizers_tpu_torch.ops import flat as flat_ops
     from subword_tokenizers_tpu_torch.ops import merge, pairstats, train_loop
     from subword_tokenizers_tpu_torch.ops.flat import build_flat
@@ -2219,51 +2392,51 @@ def trace_blocks(dev, flat_bpe, table, arrays_wp, table_wp, max_len,
                 train_loop.select_unify, flat_ops.merge_apply,
                 flat_ops.merge_skip, flat_ops.skip_guard, merge.apply_merge)
 
-    def block(flat, wordpiece):
+    def runner(flat, wordpiece):
         arr, tab = (flat_bpe, table) if not wordpiece else (
             build_flat(arrays_wp.sym, arrays_wp.freq), table_wp)
         st = train_loop.FlatState(*(x.copy() for x in arr), dev)
-        if flat:
-            st.pairs()
+        if not flat:
+            st = train_loop.PaddedState.from_flat(st)
         t = type(tab)(tab.strings())
-        return lambda: train_loop.run_fused(
-            st, t, len(t) + steps, max_len, lambda *m: None,
-            wordpiece=wordpiece, flat=flat)
-
-    inside = []  # (allocations, launches) of each device block
-    real_phase = profiling.phase
-
-    @contextlib.contextmanager
-    def counted_phase(name, device=None):
-        allocated = torch.cuda.memory_stats(dev)["allocation.all.allocated"]
-        launched = sum(w.launches for w in wrappers)
-        with real_phase(name, device):
-            yield
-        if name == "train.device_block":
-            inside.append((torch.cuda.memory_stats(dev)[
-                "allocation.all.allocated"] - allocated,
-                sum(w.launches for w in wrappers) - launched))
+        run = train_loop.BlockRunner(st, t, len(t) + 100 * steps, max_len,
+                                     steps, wordpiece, flat, 0, False)
+        for slot in (0, 1):  # step by step, then captured and replayed
+            run.dispatch(slot)
+            run.fetch(slot)
+        return run
 
     traced = {}
     for name, flat, wordpiece in (("flat_bpe", True, False),
                                   ("flat_wp", True, True),
                                   ("padded_wp", False, True)):
-        block(flat, wordpiece)()  # warm: the kernels loaded
-        fn = block(flat, wordpiece)
-        inside.clear()
-        profiling.phase = counted_phase
-        try:
-            wall, busy, by_name = device_trace(
-                fn, os.path.join(trace_dir, f"block_{name}.json"))
-        finally:
-            profiling.phase = real_phase
+        run = runner(flat, wordpiece)
+        captures = len(run.graphs)
+        torch.cuda.synchronize()
+        allocated = torch.cuda.memory_stats(dev)["allocation.all.allocated"]
+        launched = sum(w.launches for w in wrappers)
+        replays = train_loop.BlockRunner.replays
+
+        def block():
+            run.dispatch(0)
+            run.fetch(0)
+
+        wall, busy, by_name = device_trace(
+            block, os.path.join(trace_dir, f"block_{name}.json"))
+        api = dict(TRACE_API)
+        run.close()
         step_kernels = {n: c for n, (c, _) in by_name.items()
                         if "memcpy" not in n.lower()
                         and "memset" not in n.lower() and c >= steps // 2}
-        allocations = sum(a for a, _ in inside)
-        per_step = sum(n for _, n in inside) / steps
+        allocations = torch.cuda.memory_stats(dev)[
+            "allocation.all.allocated"] - allocated
+        per_step = (sum(w.launches for w in wrappers) - launched) / steps
         traced[name] = dict(
             launches_a_step=per_step, allocations=allocations,
+            graph_launches=api.get("graph_launches"),
+            host_kernel_launches=api.get("kernel_launches"),
+            replays=train_loop.BlockRunner.replays - replays,
+            captures=captures,
             memsets=memsets(by_name) if by_name else None,
             traced_step_kernels=step_kernels if by_name else None,
             wall_ms=wall, busy_ms=busy)
@@ -2271,11 +2444,16 @@ def trace_blocks(dev, flat_bpe, table, arrays_wp, table_wp, max_len,
             raise AssertionError(f"the {name} block made "
                                  f"{traced[name]['memsets']} memsets: "
                                  f"{by_name}")
-        if flat and (allocations or len(inside) != 1 or per_step != 3 or (
-                by_name and len(step_kernels) != 3)):
+        if traced[name]["replays"] != 1 or captures != 1:
+            raise AssertionError(f"the {name} block was not one replay of "
+                                 f"the graph captured before: "
+                                 f"{traced[name]}")
+        if flat and (allocations or per_step != 3 or (by_name and (
+                len(step_kernels) != 3 or api.get("graph_launches") != 1
+                or api.get("kernel_launches")))):
             raise AssertionError(f"the {name} block: {per_step} launches a "
-                                 f"step, {allocations} allocations, traced "
-                                 f"{by_name}")
+                                 f"step, {allocations} allocations, trace "
+                                 f"API {api}, traced {by_name}")
     return traced
 
 
@@ -2547,7 +2725,9 @@ def phase13c(dev, rng, flat_bpe, table, arrays, arrays_wp, table_wp,
             f" ({', '.join(parts)})" if parts else "")
 
     trace_line = "; ".join(
-        f"{k}: {v['launches_a_step']:.3f} launches a step, "
+        f"{k}: one replay ({v['graph_launches']} cudaGraphLaunch, "
+        f"{v['host_kernel_launches']} kernels launched by the host), "
+        f"{v['launches_a_step']:.3f} launches a step, "
         f"{v['allocations']} allocations in the block's 256 steps, "
         + (f"{v['memsets']} memsets, the trace's kernels once a step "
            f"{sorted(v['traced_step_kernels'].values())}, device busy "
@@ -2581,7 +2761,9 @@ def phase13c(dev, rng, flat_bpe, table, arrays, arrays_wp, table_wp,
                             f"{bounds['pair_stats_full_clear'][0]:.5f}")
           + f"; WordPiece's scorer alone over a shard's {T_shard} entries "
           f"({notes['shard_live']} live): " + line("wp_score_shard")
-          + f"; 256-step blocks traced: {trace_line}; {smi}")
+          + f"; 256-step blocks traced, each the third of its BlockRunner "
+          f"(the first queued step by step, the second captured): "
+          f"{trace_line}; {smi}")
     return errs, timing, bounds, library, notes
 
 
@@ -3666,7 +3848,8 @@ def main() -> int:
     fs, wid, wgt = (torch.from_numpy(x).to(dev) for x in flat0)
     check_bpe(fs, wid, wgt, table.strings(), 8000, max_len)
     # the state after 1,000 merges, from the kernel path, counted into the
-    # loop's own tables: its width halved after the second block
+    # loop's own tables: its width halved after the third block (the
+    # shrink reads the records a block late, two blocks being in flight)
     state = train_loop.FlatState(*flat0, dev)
     t1000 = SymbolTable(table.strings())
     train_loop.run_fused(state, t1000, len(table) + 1000, max_len,
@@ -3770,6 +3953,7 @@ def main() -> int:
             raise AssertionError(f"{what}: corpus_as_symbols is wrong")
 
     pair_stats.launches = select_unify.launches = merge_apply.launches = 0
+    g6 = graph_counts()
     # run 0 is cold (the process's first training), runs 1-2 warm, run 3
     # warm with the phase profiler on (it synchronises after each device
     # phase)
@@ -3791,10 +3975,17 @@ def main() -> int:
                     merge_apply=merge_apply.launches)
     if not all(launches[k] for k in bpe_kernels):
         raise AssertionError(f"a BPE kernel was not launched: {launches}")
+    # each block, queued or replayed, runs 256 steps of K1, K2 and K3:
+    # the counters count the replays' kernels
+    blocks6, graphs6 = graph_check(g6, 4, "phase 6")
+    if any(launches[k] != 256 * blocks6 for k in bpe_kernels):
+        raise AssertionError(f"phase 6: launches {launches} for {blocks6} "
+                             f"blocks of 256 steps")
     print(f"phase 6: NaiveBPE(device='cuda').train of all {len(corpus)} "
           f"sentences ({len(words)} word types, {n_slots} slots) to 8000: "
           f"{len(golden)} merges equal the JAX golden (first "
-          f"{len(anchor)} = the reference anchor); launches "
+          f"{len(anchor)} = the reference anchor); {graphs6}; launches "
+          f"(256 a block of each) "
           f"{ {k: launches[k] for k in bpe_kernels} }; cold "
           f"{train_walls[0]:.3f} s, warm {train_walls[1]:.3f} / "
           f"{train_walls[2]:.3f} s; profiled {train_walls[3]:.3f} s, phases "
@@ -3809,11 +4000,13 @@ def main() -> int:
                 if not by_name else
                 f"device busy {busy:.3f} ms of {wall:.1f} ms "
                 f"(idle share {1 - busy / wall:.4f}); "
-                + "; ".join(f"{n} x{c} {ms:.3f} ms" for n, (c, ms) in top))
+                + "; ".join(f"{n} x{c} {ms:.3f} ms" for n, (c, ms) in top)
+                + "; " + trace_graph_line(by_name))
     print(f"phase 6c: one warm train under torch.profiler: {dev_line}; "
           f"{smi}")
 
     # ---- phase 6b: the other training routes
+    g6b = graph_counts()
     with tempfile.TemporaryDirectory() as d:
         part = NaiveBPE(device=dev)
         part.train(corpus, 1400, checkpoint_dir=d, checkpoint_every=500)
@@ -3848,11 +4041,19 @@ def main() -> int:
     assert len(raised) == 1, "the forced collision did not fall back"
     assert (forced.merges_list, forced.corpus_as_symbols) == \
         (plain.merges_list, plain.corpus_as_symbols)
+    # run_fused four times: the checkpointed run, the resumed one, the
+    # plain one and the one that raised (the per-step path runs none)
+    _, graphs6b = graph_check(g6b, 4, "phase 6b")
     print(f"phase 6b: a checkpoint at {len(part.merges_list)} merges "
           f"resumed to 8000 equals the golden; the per-step path to 578 "
           f"equals the reference anchor; a forced hash collision on 500 "
           f"sentences fell back and equals the fused run "
-          f"({len(plain.merges_list)} merges)")
+          f"({len(plain.merges_list)} merges), raised once the block in "
+          f"flight had run; {graphs6b}")
+
+    # ---- phase 6d: one captured block replayed from a copy of the
+    # initial state
+    replay_check(dev, arrays, table, arrays.sym.shape[1], smi)
 
     # ---- phase 7: the WordPiece training kernels against their plain
     # versions
@@ -4123,6 +4324,7 @@ def main() -> int:
     pair_stats.launches = select_unify.launches = merge_apply.launches = 0
     select_unify.wp_launches = merge_apply.wp_launches = 0
     symbol_freqs.launches = 0
+    g8 = graph_counts()
     # run 0 is cold (the process's first WordPiece training), runs 1-2
     # warm, run 3 warm with the phase profiler on
     wp_walls = []
@@ -4150,6 +4352,12 @@ def main() -> int:
             select_unify.launches != select_unify.wp_launches:
         raise AssertionError(f"a WordPiece kernel was not launched: "
                              f"{wp_launches}")
+    blocks8, graphs8 = graph_check(g8, 4, "phase 8")
+    if wp_launches != {"pair_stats": 256 * blocks8,
+                       "select_unify": 256 * blocks8,
+                       "merge_apply": 256 * blocks8, "symbol_freqs": 4}:
+        raise AssertionError(f"phase 8: launches {wp_launches} for "
+                             f"{blocks8} blocks of 256 steps in 4 runs")
     st = states[-1]
     fs_end, _, wgt_end = st.arrays()
     cap = st.sym_freq.shape[0] - 1
@@ -4164,7 +4372,8 @@ def main() -> int:
           f"{len(table_wp)} initial symbols) to 8000: {len(wp_merges)} "
           f"merges and the vocab equal the JAX golden, corpus_as_symbols "
           f"rebuilds the words, the carried weights equal a recount; "
-          f"launches {wp_launches}; cold {wp_walls[0]:.3f} s, warm "
+          f"{graphs8}; launches (256 a block, K4 one a run) {wp_launches}; "
+          f"cold {wp_walls[0]:.3f} s, warm "
           f"{wp_walls[1]:.3f} / {wp_walls[2]:.3f} s; profiled "
           f"{wp_walls[3]:.3f} s, phases (ms) {json.dumps(wp_phase_ms)}; "
           f"{smi}")
@@ -4178,11 +4387,13 @@ def main() -> int:
                 if not by_name else
                 f"device busy {busy:.3f} ms of {wall:.1f} ms "
                 f"(idle share {1 - busy / wall:.4f}); "
-                + "; ".join(f"{n} x{c} {ms:.3f} ms" for n, (c, ms) in top))
+                + "; ".join(f"{n} x{c} {ms:.3f} ms" for n, (c, ms) in top)
+                + "; " + trace_graph_line(by_name))
     print(f"phase 8c: one warm WordPiece train under torch.profiler: "
           f"{dev_line}; {smi}")
 
     # ---- phase 8b: the other WordPiece routes
+    g8b = graph_counts()
     with tempfile.TemporaryDirectory() as d:
         part = NaiveWP(device=dev)
         part.train(corpus, n_alpha + 1400, checkpoint_dir=d,
@@ -4221,6 +4432,8 @@ def main() -> int:
     fast = FastWP(device=dev)
     fast.train(corpus, 8000)
     check_wp_train(fast, "FastWP run")
+    # run_fused five times: checkpointed, resumed, plain, raised, FastWP
+    _, graphs8b = graph_check(g8b, 5, "phase 8b")
     loaded = FastWP(device=dev)
     with tempfile.TemporaryDirectory() as d:
         with open(os.path.join(d, "vocab.json"), "w", encoding="utf-8") as f:
@@ -4235,7 +4448,7 @@ def main() -> int:
           f"prefix; a forced hash collision on 500 sentences fell back and "
           f"equals the fused run ({len(plain._merge_log)} merges); "
           f"FastWP.train then tokenize_batch ({sum(map(len, encoded))} "
-          f"tokens) equals a FastWP loading the golden vocab")
+          f"tokens) equals a FastWP loading the golden vocab; {graphs8b}")
 
     # ---- phase 9: the encode kernels against their plain versions
     from subword_tokenizers_tpu_torch import FastBPE

@@ -10,9 +10,11 @@ ids), ``encode.h2d``, ``encode.bpe_merge`` or ``encode.wp_match``,
 host route for a merge list with a pair listed twice is
 ``encode.host``. BPE and WordPiece training: ``train.frontend``,
 ``train.corpus`` (symbol interning, flat state, host-to-device copy),
-``train.resume``, ``train.device_block`` (K steps queued and, while
-profiling, run), ``train.fetch_records``, ``train.verify``,
-``train.per_step`` and ``train.final_fetch``. Off by default (one
+``train.resume``, ``train.device_block`` (a block of K steps queued
+step by step or replayed as one CUDA graph and, while profiling, run),
+``train.capture`` (a block's graph captured), ``train.fetch_records``
+(the wait for a block's records), ``train.verify``, ``train.per_step``
+and ``train.final_fetch``. Off by default (one
 module-bool check per block);
 on with ``SWT_PROFILE=1`` or :func:`enable`. Kernels launch
 asynchronously, so while profiling is on a device phase ends with

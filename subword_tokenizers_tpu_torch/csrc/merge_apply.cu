@@ -37,14 +37,19 @@
 //   the threads' counts; the tile's offset, and the match weight before
 //   it, from a decoupled look-back over a 16-byte word a tile (its kept
 //   count and its weight; lookback.cuh, one warp reading 32 words a
-//   round), each word carrying the call's epoch (a host counter), so no
-//   word is cleared between calls;
+//   round), each word carrying the call's epoch, so no word is cleared
+//   between calls. The epoch comes from the device (scratch word [2],
+//   the last call's epoch, read by every block before its first tile
+//   publishes and advanced by the last tile once every tile has
+//   published), so a CUDA graph that replays the launch takes a new
+//   epoch each time;
 // - the kept slots are compacted in shared memory and written out as one
 //   contiguous run; once the last tile's inclusive word gives the live
 //   count n_live, every block pads [n_live, F) in a grid stride (no kept
 //   slot lands there, so any block may write it, in any order);
 // - the last tile's look-back gives the state's totals: it writes n_rep
-//   and rec[5] = n_live and, with a sym_freq table (WordPiece; null for
+//   and rec[5] = n_live, advances the epoch word, closes skip mode's gate
+//   (the state is compacted) and, with a sym_freq table (WordPiece; null for
 //   BPE) and an active step, applies the carried update: sym_freq[a] -=
 //   n_rep, sym_freq[b] -= n_rep, sym_freq[new_id] += n_rep, in that
 //   order, so a self-merge subtracts twice as JAX's chained .at[].add
@@ -103,18 +108,21 @@
 //   inside it is wider than S + 1, and its match weight as the value);
 //   the block of the last tile reads every word once done, tests the
 //   gaps between tiles, and writes the gate word, epoch << 1 | overflow,
-//   n_rep and the carried weights (a, then b, then new_id, as above). No
-//   fence and no ticket: each word is one 16-byte volatile store.
+//   the epoch word, n_rep and the carried weights (a, then b, then
+//   new_id, as above). No fence and no ticket: each word is one 16-byte
+//   volatile store.
 // - swt_skip_guard, merge_tiles_kernel<true>, before the next step's
 //   pair count: each block reads the gate word and returns at once
-//   unless it holds the epoch of the merge_skip the host names with the
-//   overflow bit set; then it compacts the state in place as K3 with an
-//   inactive record, and its last tile counts the compaction. In place
-//   is safe: a compaction only moves slots left, a tile writes only
-//   after the look-back has seen every tile before it staged, and no
-//   slot is read after that. The host names no epoch (the gate reads as
-//   closed) on a state that a merge_apply compacted, such as a block's
-//   start, where JAX's block close has compacted instead.
+//   unless its overflow bit is set; then it compacts the state in place
+//   as K3 with an inactive record, and its last tile counts the
+//   compaction and closes the gate (writes 0). In place is safe: a
+//   compaction only moves slots left, a tile writes only after the
+//   look-back has seen every tile before it staged, and no slot is read
+//   after that. swt_merge_apply closes the gate too, so a state that it
+//   compacted, such as a block's start (where JAX's block close has
+//   compacted instead), reads as closed. The gate is never a host
+//   argument: a CUDA graph of a block replays with the gate the device
+//   holds.
 // Bound on this card: latency. merge_skip reads 8 bytes a slot (fs and
 // wid) and writes only the slots it changes; its time is the launch, the
 // staging, two block scans (a third in a tile that changes) and the last
@@ -129,12 +137,26 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kEpochWord = 2;  // scratch words (ops/flat.py EPOCH, GATE)
+constexpr int kGateWord = 3;
 constexpr int kWarps = kThreads / 32;
 constexpr int32_t kWidPad = 1 << 30;
 constexpr int kPer = 8;                 // slots a thread of a tile
 constexpr int kTile = kThreads * kPer;  // slots a tile (2,048)
 constexpr int kLead = 4;  // shared slots before a tile's; kLead - 1 holds
                           // the slot before the tile
+
+__device__ __forceinline__ long long load_word(const long long* word) {
+  return *reinterpret_cast<const volatile long long*>(word);
+}
+
+// This call's epoch: one past the last call's, from the epoch word. The
+// host restarts the epochs (zeroes the epoch word and the status words)
+// before a call would pass 2^30 - 1 (ops/flat.MergeScratch.advance).
+__device__ __forceinline__ unsigned call_epoch(const long long* scratch) {
+  return (static_cast<unsigned>(load_word(scratch + kEpochWord)) + 1u) &
+         kEpochMask;
+}
 
 // Whether tile slot k (at shared index kLead + k, the tile starting at
 // global slot base) meets a self-merge's parity: an even count of equal
@@ -154,21 +176,25 @@ __device__ __forceinline__ bool even_run(const int32_t* s_fs,
 }
 
 // scratch (ops/flat.MergeScratch): [0] n_rep, [1] the tile ticket (0
-// between calls), [2] unused, [3] skip mode's gate word, then a 16-byte
-// look-back word a tile (lookback.cuh: its kept count, and its match
-// weight beside it).
+// between calls), [2] the epoch word (the last call's epoch), [3] skip
+// mode's gate word, then a 16-byte look-back word a tile (lookback.cuh:
+// its kept count, and its match weight beside it).
 // kGuard (the skip route's overflow guard): rec, out_* and sym_freq are
 // unused and the state is compacted in place (out_* are fs, wid and wgt);
-// every block returns at once unless scratch[3] == gate; the last tile
-// adds one to *count.
+// every block returns at once unless the gate word's bit 0 is set; the
+// last tile adds one to *count.
 template <bool kGuard>
 __global__ void __launch_bounds__(kThreads)
     merge_tiles_kernel(const int32_t* fs, const int32_t* wid,
                        const int64_t* wgt, int64_t F, int32_t* rec,
                        int32_t* out_fs, int32_t* out_wid, int64_t* out_wgt,
-                       long long* scratch, int n_tiles, unsigned epoch,
-                       long long* sym_freq, long long gate, int32_t* count) {
-  if (kGuard && scratch[3] != gate) return;  // the gate is closed
+                       long long* scratch, int n_tiles, long long* sym_freq,
+                       int32_t* count) {
+  // The gate and the epoch are read before this block's first tile
+  // publishes, so before the last tile, which waits for every tile's
+  // word, closes the one and advances the other.
+  if (kGuard && !(load_word(scratch + kGateWord) & 1)) return;  // closed
+  const unsigned epoch = call_epoch(scratch);
   __shared__ __align__(16) int32_t s_fs[kLead + kTile + 4];
   __shared__ __align__(16) int32_t s_wid[kLead + kTile + 4];
   __shared__ __align__(16) int64_t s_wgt[kTile];
@@ -329,6 +355,8 @@ __global__ void __launch_bounds__(kThreads)
       if (lane == 0) {
         s_before = pre;
         if (tile == n_tiles - 1) {  // the state's totals: the step's results
+          scratch[kEpochWord] = epoch;
+          scratch[kGateWord] = 0;  // compacted: no overflow
           if (kGuard) {
             ++*count;
           } else {
@@ -552,7 +580,8 @@ __device__ void close_call(const ulonglong2* status, int n_tiles, int win,
     long long n_rep = 0;
     for (int q = 0; q < kWarps; ++q) n_rep += s_rep[q];
     scratch[0] = n_rep;
-    scratch[3] = static_cast<long long>(epoch) << 1 | (ovf ? 1 : 0);
+    scratch[kEpochWord] = epoch;
+    scratch[kGateWord] = static_cast<long long>(epoch) << 1 | (ovf ? 1 : 0);
     if (sym_freq != nullptr && active) {
       sym_freq[a] -= n_rep;
       sym_freq[b] -= n_rep;
@@ -561,12 +590,15 @@ __device__ void close_call(const ulonglong2* status, int n_tiles, int win,
   }
 }
 
-// scratch as merge_tiles_kernel's ([1] 0 between calls; [0] and [3]
+// scratch as merge_tiles_kernel's ([1] 0 between calls; [0], [2] and [3]
 // written), a status word a tile after it.
 __global__ void __launch_bounds__(kThreads)
     merge_skip_kernel(int32_t* fs, int32_t* wid, int64_t* wgt, int64_t F,
                       int skip, const int32_t* rec, long long* scratch,
-                      int n_tiles, unsigned epoch, long long* sym_freq) {
+                      int n_tiles, long long* sym_freq) {
+  // read before this block's first tile publishes; the last tile's block
+  // advances it once every tile is done (close_call)
+  const unsigned epoch = call_epoch(scratch);
   __shared__ __align__(16) int32_t s_fs[kHalo + kTile + kHalo];
   __shared__ __align__(16) int32_t s_wid[kHalo + kTile + kHalo];
   __shared__ unsigned char s_match[kThreads];  // a thread's match bits
@@ -851,13 +883,15 @@ extern "C" {
 // fs i32[F], wid i32[F], wgt i64[F], rec i32[6] -> out_fs/out_wid/out_wgt
 // (same shapes, separate buffers), rec[5] = live slots; scratch i64[4 +
 // 2 ceil(F / 2048)], 16-byte aligned (see merge_tiles_kernel:
-// scratch[0] gets the merge's weight, scratch[1] is 0 between calls);
-// epoch in [1, 2^30), new a call; sym_freq i64[> every symbol id] updated
-// in place, or null. Every array 16-byte aligned, 2 <= F < 2^31. Returns
-// the cudaError_t.
+// scratch[0] gets the merge's weight, scratch[1] is 0 between calls,
+// scratch[2] the epoch word, below 2^30 - 1, advanced; scratch[3], the
+// gate, closed); sym_freq i64[> every symbol id] updated in place, or
+// null. Every array 16-byte aligned, 2 <= F < 2^31. No argument changes
+// from call to call but the state's, so a CUDA graph may replay the
+// launch. Returns the cudaError_t.
 int swt_merge_apply(const void* fs, const void* wid, const void* wgt,
                     int64_t F, void* rec, void* out_fs, void* out_wid,
-                    void* out_wgt, void* scratch, int epoch, void* sym_freq,
+                    void* out_wgt, void* scratch, void* sym_freq,
                     void* stream) {
   static int resident[64];
   cudaError_t err;
@@ -870,18 +904,17 @@ int swt_merge_apply(const void* fs, const void* wid, const void* wgt,
       static_cast<const int64_t*>(wgt), F, static_cast<int32_t*>(rec),
       static_cast<int32_t*>(out_fs), static_cast<int32_t*>(out_wid),
       static_cast<int64_t*>(out_wgt), static_cast<long long*>(scratch),
-      static_cast<int>(n_tiles), static_cast<unsigned>(epoch),
-      static_cast<long long*>(sym_freq), 0, nullptr);
+      static_cast<int>(n_tiles), static_cast<long long*>(sym_freq), nullptr);
   return static_cast<int>(cudaGetLastError());
 }
 
 // Skip mode's merge, in place: fs/wid/wgt as above (fs and wid 16-byte
 // aligned), rec i32[6] (columns 0-4 read); scratch as swt_merge_apply's:
-// [0] gets the merge's weight, [3] the gate word epoch << 1 | overflow;
-// epoch in [1, 2^30), new a call; sym_freq as in swt_merge_apply, or
-// null. 0 < skip <= 64, 2 <= F < 2^31. Returns the cudaError_t.
+// [0] gets the merge's weight, [2] the epoch word, advanced, [3] the gate
+// word epoch << 1 | overflow; sym_freq as in swt_merge_apply, or null.
+// 0 < skip <= 64, 2 <= F < 2^31. Returns the cudaError_t.
 int swt_merge_skip(void* fs, void* wid, void* wgt, int64_t F, int skip,
-                   const void* rec, void* scratch, int epoch, void* sym_freq,
+                   const void* rec, void* scratch, void* sym_freq,
                    void* stream) {
   static int resident[64];
   cudaError_t err;
@@ -894,17 +927,17 @@ int swt_merge_skip(void* fs, void* wid, void* wgt, int64_t F, int skip,
       static_cast<int32_t*>(fs), static_cast<int32_t*>(wid),
       static_cast<int64_t*>(wgt), F, skip, static_cast<const int32_t*>(rec),
       static_cast<long long*>(scratch), static_cast<int>(n_tiles),
-      static_cast<unsigned>(epoch),
       static_cast<long long*>(sym_freq));
   return static_cast<int>(cudaGetLastError());
 }
 
 // Skip mode's overflow guard before a step: fs/wid/wgt as above, compacted
-// in place when scratch[3] (swt_merge_skip's gate word) equals gate, and
-// count i32[1] then incremented; else nothing changes. epoch in
-// [1, 2^30), new a call. 2 <= F < 2^31. Returns the cudaError_t.
+// in place when bit 0 of scratch[3] (swt_merge_skip's gate word) is set,
+// then the gate closed, the epoch word advanced and count i32[1]
+// incremented; else nothing changes. 2 <= F < 2^31. Returns the
+// cudaError_t.
 int swt_skip_guard(void* fs, void* wid, void* wgt, int64_t F, void* scratch,
-                   int epoch, long long gate, void* count, void* stream) {
+                   void* count, void* stream) {
   static int resident[64];
   cudaError_t err;
   const int res = resident_blocks(merge_tiles_kernel<true>, resident, err);
@@ -916,8 +949,7 @@ int swt_skip_guard(void* fs, void* wid, void* wgt, int64_t F, void* scratch,
       static_cast<const int64_t*>(wgt), F, nullptr,
       static_cast<int32_t*>(fs), static_cast<int32_t*>(wid),
       static_cast<int64_t*>(wgt), static_cast<long long*>(scratch),
-      static_cast<int>(n_tiles), static_cast<unsigned>(epoch), nullptr, gate,
-      static_cast<int32_t*>(count));
+      static_cast<int>(n_tiles), nullptr, static_cast<int32_t*>(count));
   return static_cast<int>(cudaGetLastError());
 }
 

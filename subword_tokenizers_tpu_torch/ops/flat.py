@@ -41,6 +41,7 @@ NEW_ID, ACTIVE, N_LIVE = 2, 4, 5
 TILE = 2048  # slots of one tile of K3's kernel (csrc/merge_apply.cu)
 # the look-back epochs (csrc/lookback.cuh) of K3 and the table compaction
 EPOCH_MAX = (1 << 30) - 1
+EPOCH = 2  # a MergeScratch's epoch word: the last call's epoch
 GATE = 3  # a MergeScratch's gate word: merge_skip's epoch << 1 | overflow
 
 
@@ -103,37 +104,66 @@ class MergeScratch:
     merge, a skip merge or the skip route's guard allocates and clears
     nothing: ``words`` int64[4 + 2 ceil(F / TILE)] holds the merge's
     weight (``n_rep``, written by every merge), the tile ticket (0
-    between calls), an unused word and the gate word (``GATE``: the last
-    :func:`merge_skip`'s epoch << 1 | whether the state it left overflows
-    its window), then two words a tile (its look-back status and value);
-    ``epoch`` counts the calls on the host, and each call's words carry
-    it, so a word of an earlier call is never read as this call's.
-    ``gate`` is the epoch of the :func:`merge_skip` whose gate word
-    describes the state, 0 when none does, and :func:`skip_guard` then
-    reads the gate as closed: :func:`merge_apply` (a compaction) and the
-    guard close it. A scratch serves one state."""
+    between calls), the epoch word (``EPOCH``: the last call's epoch)
+    and the gate word (``GATE``: the last :func:`merge_skip`'s epoch << 1
+    | whether the state it left overflows its window; 0, closed, once a
+    compaction has run), then two words a tile (its look-back status and
+    value).
+
+    Both words live on the device and no call takes them from the host:
+    each call's epoch is one past the epoch word, which the call
+    advances, and each call's look-back words carry it, so a word of an
+    earlier call is never read as this call's; :func:`skip_guard` reads
+    the gate word itself, and :func:`merge_apply` and a guard that fired
+    close it. So a CUDA graph of a training block (ops/train_loop.py)
+    replays with the epochs and the gate the device holds. ``calls``
+    counts on the host the calls queued since the epochs last restarted,
+    at least the epoch word: :meth:`advance` restarts them before they
+    would pass ``EPOCH_MAX``. A scratch serves one state."""
 
     def __init__(self, F: int, device) -> None:
         self.words = torch.zeros(_scratch_words(F), dtype=torch.int64,
                                  device=device)
-        self.epoch = 0
-        self.gate = 0
+        self.calls = 0
 
     @property
     def n_rep(self) -> torch.Tensor:
         """The last merge's weight (int64, 0-d, rewritten by each call)."""
         return self.words[0]
 
-    def next_epoch(self) -> int:
-        """The epoch of the next call, 1 .. EPOCH_MAX in turn; on the wrap
-        the status words are zeroed, so no word of an earlier call carries
-        the new epoch. The gate word is kept: the guard reads it only
-        under the epoch of the merge that wrote it."""
-        self.epoch += 1
-        if self.epoch > EPOCH_MAX:
-            self.words[4:].zero_()
-            self.epoch = 1
-        return self.epoch
+    @property
+    def epoch(self) -> int:
+        """The epoch word: the last call's epoch (a read of the device)."""
+        return int(self.words[EPOCH])
+
+    def room(self, n: int) -> None:
+        """Make room for ``n`` more calls: when they could take the epoch
+        word past ``EPOCH_MAX``, restart the epochs now (the epoch word
+        and the look-back words zeroed on the device, queued before the
+        calls), so no word of an earlier call carries a new epoch. The
+        gate word is kept. A restart inside a CUDA graph's capture would
+        be replayed with it, so it raises there: make room before one."""
+        if self.calls + n <= EPOCH_MAX:
+            return
+        if (self.words.device.type == "cuda"
+                and torch.cuda.is_current_stream_capturing()):
+            raise RuntimeError("MergeScratch: the epochs would restart "
+                               "inside a capture")
+        self.words[EPOCH] = 0
+        self.words[4:].zero_()
+        self.calls = 0
+
+    def advance(self, n: int = 1) -> None:
+        """Count ``n`` calls about to be queued (one call, or a replayed
+        block's calls of K3's family), after :meth:`room` for them."""
+        self.room(n)
+        self.calls += n
+
+
+def call_epoch(words) -> int:
+    """The plain versions' epoch of a call with the scratch ``words``:
+    one past the epoch word, as the kernels read it."""
+    return (int(words[EPOCH]) + 1) & EPOCH_MAX
 
 
 def _scratch_words(F: int) -> int:
@@ -208,7 +238,8 @@ def merge_apply(fs, wid, wgt, rec, out: Optional[tuple] = None,
     the total weight of the replacements: with ``scratch`` (a
     :class:`MergeScratch` for a width of at least F on the same device,
     kept by the caller) its ``n_rep`` word, rewritten by the next call;
-    the new state is compacted, so the scratch's gate closes.
+    the call advances the scratch's epoch word and, the new state being
+    compacted, closes its gate.
 
     ``sym_freq`` (int64, WordPiece's per-symbol weights, or None) is
     updated in place when the step is active: ``n_rep`` off ``a`` and
@@ -230,8 +261,9 @@ def merge_apply(fs, wid, wgt, rec, out: Optional[tuple] = None,
     if dev.type == "cpu":
         nfs, nwid, nwgt, n_rep = merge_apply_ref(fs, wid, wgt, rec, sym_freq)
         if scratch is not None:
-            scratch.words[0] = n_rep
-            scratch.gate = 0
+            scratch.advance()
+            words = scratch.words
+            words[0], words[EPOCH], words[GATE] = n_rep, call_epoch(words), 0
             n_rep = scratch.n_rep
         if out is None:
             return nfs, nwid, nwgt, n_rep
@@ -246,17 +278,17 @@ def merge_apply(fs, wid, wgt, rec, out: Optional[tuple] = None,
                          "be 16-byte aligned")
     if scratch is None:
         scratch = MergeScratch(F, dev)
+    scratch.advance()
     from . import _cuda
     with torch.cuda.device(dev):
         _cuda.launch("swt_merge_apply", fs.data_ptr(), wid.data_ptr(),
                      wgt.data_ptr(), F, rec.data_ptr(), out[0].data_ptr(),
                      out[1].data_ptr(), out[2].data_ptr(),
-                     scratch.words.data_ptr(), scratch.next_epoch(),
+                     scratch.words.data_ptr(),
                      None if sym_freq is None else sym_freq.data_ptr())
     merge_apply.launches += 1
     if sym_freq is not None:
         merge_apply.wp_launches += 1
-    scratch.gate = 0
     return (*out, scratch.n_rep)
 
 
@@ -313,13 +345,13 @@ def skip_overflow(fs, wid, S: int) -> bool:
     return bool((live & later & ~found).any())
 
 
-def merge_skip_ref(fs, wid, wgt, rec, S: int, sym_freq=None,
-                   words=None, epoch: int = 0):
+def merge_skip_ref(fs, wid, wgt, rec, S: int, sym_freq=None, words=None):
     """Plain PyTorch version of :func:`merge_skip` (the JAX package's
     ``flat_skip_apply``, then ``skip_overflow`` of the state it leaves);
     returns the int64 ``n_rep``. With ``words`` (a :class:`MergeScratch`'s)
-    it writes ``n_rep`` and the gate word under ``epoch`` there, as the
-    kernel does."""
+    it takes the call's epoch from the epoch word and writes ``n_rep``,
+    the advanced epoch word and the gate word there, as the kernel
+    does."""
     ra, rb, new_id, _, active = rec[:N_LIVE].tolist()
     a, b = (ra, rb) if active else (-3, -3)
     live = fs >= 0
@@ -344,7 +376,8 @@ def merge_skip_ref(fs, wid, wgt, rec, S: int, sym_freq=None,
         sym_freq[rb] -= n_rep
         sym_freq[new_id] += n_rep
     if words is not None:
-        words[0] = n_rep
+        epoch = call_epoch(words)
+        words[0], words[EPOCH] = n_rep, epoch
         words[GATE] = epoch << 1 | int(skip_overflow(fs, wid, S))
     return n_rep
 
@@ -364,10 +397,10 @@ def merge_skip(fs, wid, wgt, rec, S: int, sym_freq=None,
     ``scratch`` (a :class:`MergeScratch` for a width of at least F on
     the same device, kept by the caller; without it one is built for the
     call) gets the gate word, :func:`skip_overflow` of the new state
-    under this call's epoch, and its ``gate`` becomes that epoch, so the
-    next :func:`skip_guard` with it compacts exactly when the state
-    overflows. Returns ``n_rep``, the total weight of the replacements:
-    the scratch's word, rewritten by the next call.
+    under this call's epoch (one past its epoch word, which the call
+    advances), so the next :func:`skip_guard` with it compacts exactly
+    when the state overflows. Returns ``n_rep``, the total weight of the
+    replacements: the scratch's word, rewritten by the next call.
 
     On the card the call is one kernel launch (tiles of 2,048 slots, each
     staged once with 68 slots either side) and allocates nothing. Launches
@@ -383,34 +416,32 @@ def merge_skip(fs, wid, wgt, rec, S: int, sym_freq=None,
     if scratch is None:
         scratch = MergeScratch(F, dev)
     _check_scratch("merge_skip", scratch, F, dev)
-    epoch = scratch.next_epoch()
-    if dev.type == "cpu":
-        merge_skip_ref(fs, wid, wgt, rec, S, sym_freq, scratch.words, epoch)
-    elif dev.type == "cuda":
-        if any(t.data_ptr() % 16 for t in (fs, wid)):
-            raise ValueError("merge_skip: fs and wid must be 16-byte "
-                             "aligned")
-        from . import _cuda
-        with torch.cuda.device(dev):
-            _cuda.launch("swt_merge_skip", fs.data_ptr(), wid.data_ptr(),
-                         wgt.data_ptr(), F, S, rec.data_ptr(),
-                         scratch.words.data_ptr(), epoch,
-                         None if sym_freq is None else sym_freq.data_ptr())
-        merge_skip.launches += 1
-    else:
+    if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"merge_skip: no kernel for device {dev}")
-    scratch.gate = epoch
+    scratch.advance()
+    if dev.type == "cpu":
+        merge_skip_ref(fs, wid, wgt, rec, S, sym_freq, scratch.words)
+        return scratch.n_rep
+    if any(t.data_ptr() % 16 for t in (fs, wid)):
+        raise ValueError("merge_skip: fs and wid must be 16-byte aligned")
+    from . import _cuda
+    with torch.cuda.device(dev):
+        _cuda.launch("swt_merge_skip", fs.data_ptr(), wid.data_ptr(),
+                     wgt.data_ptr(), F, S, rec.data_ptr(),
+                     scratch.words.data_ptr(),
+                     None if sym_freq is None else sym_freq.data_ptr())
+    merge_skip.launches += 1
     return scratch.n_rep
 
 
 merge_skip.launches = 0
 
 
-def skip_guard_ref(fs, wid, wgt, count, words, gate: int) -> None:
+def skip_guard_ref(fs, wid, wgt, count, words) -> None:
     """Plain PyTorch version of :func:`skip_guard`: when the gate word
-    ``words[GATE]`` equals ``gate``, compact (fs, wid, wgt) in place and
-    add one to ``count``."""
-    if int(words[GATE]) != gate:
+    ``words[GATE]`` is open (bit 0 set), compact (fs, wid, wgt) in place,
+    add one to ``count``, advance the epoch word and close the gate."""
+    if not int(words[GATE]) & 1:
         return
     keep = fs >= 0
     n = int(keep.sum())
@@ -418,15 +449,16 @@ def skip_guard_ref(fs, wid, wgt, count, words, gate: int) -> None:
         x[:n] = x[keep]
         x[n:] = pad
     count += 1
+    words[EPOCH], words[GATE] = call_epoch(words), 0
 
 
 def skip_guard(fs, wid, wgt, count, scratch: MergeScratch) -> None:
     """Before a step of the skip route: when the gate word of ``scratch``
-    holds the epoch of the last :func:`merge_skip` (``scratch.gate``) with
-    the overflow bit set, compact the state in place (live slots to the
-    front, in order; padding after) and add one to ``count`` (int32[1]);
-    else change nothing. The gate is closed afterwards (``scratch.gate``
-    = 0): the state no longer overflows.
+    is open (the last :func:`merge_skip` left the state overflowing its
+    window, and no compaction ran since), compact the state in place
+    (live slots to the front, in order; padding after), add one to
+    ``count`` (int32[1]) and close the gate; else change nothing. The
+    gate is read on the device: the host names no epoch and no gate.
 
     On the card the call is one kernel launch, with no host sync: each
     block returns at once while the gate is closed, else the launch
@@ -439,22 +471,20 @@ def skip_guard(fs, wid, wgt, count, scratch: MergeScratch) -> None:
     check_tensor("count", count, (torch.int32,), 1, dev)
     F = fs.shape[0]
     _check_scratch("skip_guard", scratch, F, dev)
-    gate = scratch.gate << 1 | 1  # never the word when no merge names it
-    epoch = scratch.next_epoch()
-    if dev.type == "cpu":
-        skip_guard_ref(fs, wid, wgt, count, scratch.words, gate)
-    elif dev.type == "cuda":
-        if any(t.data_ptr() % 16 for t in (fs, wid, wgt)):
-            raise ValueError("skip_guard: the state must be 16-byte aligned")
-        from . import _cuda
-        with torch.cuda.device(dev):
-            _cuda.launch("swt_skip_guard", fs.data_ptr(), wid.data_ptr(),
-                         wgt.data_ptr(), F, scratch.words.data_ptr(), epoch,
-                         gate, count.data_ptr())
-        skip_guard.launches += 1
-    else:
+    if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"skip_guard: no kernel for device {dev}")
-    scratch.gate = 0
+    scratch.advance()
+    if dev.type == "cpu":
+        skip_guard_ref(fs, wid, wgt, count, scratch.words)
+        return
+    if any(t.data_ptr() % 16 for t in (fs, wid, wgt)):
+        raise ValueError("skip_guard: the state must be 16-byte aligned")
+    from . import _cuda
+    with torch.cuda.device(dev):
+        _cuda.launch("swt_skip_guard", fs.data_ptr(), wid.data_ptr(),
+                     wgt.data_ptr(), F, scratch.words.data_ptr(),
+                     count.data_ptr())
+    skip_guard.launches += 1
 
 
 skip_guard.launches = 0

@@ -1,6 +1,10 @@
 """The training merge loop on the device, for BPE and WordPiece:
 selection and string unification (kernel K2), and the host loop that
-queues K steps of K1 -> K2 -> K3 with no host sync between them.
+runs blocks of K steps of K1 -> K2 -> K3 with no host sync between
+them. On the card each block after a run's first is one replay of a
+CUDA graph of its launches (:class:`BlockRunner`), and the loop keeps
+two blocks in flight, as the JAX package's ``run_fused`` keeps two
+dispatches.
 
 The only host dependency of a merge step is interning the merged string
 (two merges that spell the same string are one symbol). As in the JAX
@@ -31,6 +35,8 @@ K3 in skip mode behind an overflow guard), the padded layout
 from __future__ import annotations
 
 import os
+import time
+from collections import Counter
 from typing import Optional, Tuple
 
 import numpy as np
@@ -400,6 +406,13 @@ class FlatState:
         counting it in ``count`` (int32[1])."""
         skip_guard(*self.arrays(), count, self.scratch)
 
+    def host_fields(self):
+        """(object, attribute, counted) of the host values a block's
+        launches read beyond the width: which buffer holds the state and
+        K1's tables' (:meth:`~.pairstats.TablePair.host_fields`). K3's
+        epochs and gate are the scratch's device words."""
+        return [(self, "_cur", False)] + self._tables.host_fields()
+
     def host(self) -> Tuple[np.ndarray, np.ndarray]:
         """(fs, wid) on the host, in one copy."""
         fs, wid, _ = self.arrays()
@@ -504,6 +517,13 @@ class PaddedState:
         """K3p with the step record ``rec``, in place."""
         apply_merge(self.sym, rec)
 
+    def host_fields(self):
+        """(object, attribute, counted) of the host values a block's
+        launches read: the order of K4's two outputs, the weights K2
+        reads, and K1's tables'."""
+        return [(self, "_freqs", False), (self, "sym_freq", False)] + \
+            self._tables.host_fields()
+
     def padded(self) -> np.ndarray:
         return self.sym.cpu().numpy()
 
@@ -567,6 +587,249 @@ def use_tournament(wordpiece: bool, wide_score: bool) -> bool:
     return t == "1" and wordpiece
 
 
+# The wrappers a block calls; every counter of theirs whose name ends in
+# "launches" counts a captured block's launches at each replay.
+_BLOCK_WRAPPERS = (pair_stats, select_unify, merge_apply, merge_skip,
+                   skip_guard, symbol_rows, apply_merge)
+
+
+def _launch_counters():
+    return [(fn, name) for fn in _BLOCK_WRAPPERS for name in vars(fn)
+            if name.endswith("launches")]
+
+
+def _copy(v):
+    """A host value as a graph keeps it: a list (K4's outputs in order)
+    copied, anything else as it is."""
+    return list(v) if isinstance(v, list) else v
+
+
+def _key_value(v, counted: bool):
+    """A host value as a graph key holds it: a counter by its parity, an
+    object by its identity, a list by its items'."""
+    if counted:
+        return v & 1
+    if v is None or isinstance(v, (bool, int)):
+        return v
+    if isinstance(v, list):
+        return tuple(id(x) for x in v)
+    return id(v)
+
+
+class _BlockGraph:
+    """A captured block: its CUDA graph, the host values the capture left
+    (counters as the change the block makes), the launches it holds by
+    counter, and its calls of K3's family (their epochs)."""
+
+    def __init__(self, graph, after, launches, k3_calls: int) -> None:
+        self.graph = graph
+        self.after = after
+        self.launches = launches
+        self.k3_calls = k3_calls
+
+
+class BlockRunner:
+    """The blocks of one training run on ``state`` (a :class:`FlatState`
+    or :class:`PaddedState`): K steps of K1 -> K2 -> K3 (the skip route:
+    the guard, K1 and K2, K3's skip mode, then the block's closing
+    compaction; the padded route: K4 for WordPiece, K1, K2, K3p), their
+    records in ``recs``, int32[K + 2, 6]: row K the closing compaction's,
+    row K + 1 the run's counts (K2's tournament redos, the guard's
+    compactions) in its first two columns.
+
+    :meth:`dispatch` queues a block and a copy of its records into one
+    of two host buffers; :meth:`fetch` waits for that copy. On the CPU a
+    block runs the kernels' plain versions step by step
+    (:meth:`queue_steps`). On the card a run's first block is queued
+    step by step too (it builds K1's tables and warms every launcher);
+    every later block is one replay of a ``torch.cuda.CUDAGraph`` of
+    :meth:`queue_steps`, captured once for each key: the width ``F`` and
+    the host values its launches read (``state.host_fields()``: the
+    state's buffer, K1's tables and counters, K4's outputs). After a
+    replay those host values become what the capture left, and every
+    launch counter gains the launches the graph holds, so each stays the
+    true number of kernels run. Nothing a launch takes from the host
+    changes between two blocks of one key: K3's epochs and the skip
+    route's gate are device words (ops/flat.MergeScratch). A capture
+    that allocates, or fails, raises; nothing falls back to queuing
+    steps. :meth:`close` releases the graphs.
+
+    ``BlockRunner.captures``, ``replays``, ``eager_blocks`` and
+    ``capture_s`` count over every run (class attributes), and
+    ``blocks_by_width`` and ``replays_by_width`` count the blocks and the
+    replays at each width (``F``; 0 for the padded layout).
+    """
+
+    captures = 0
+    replays = 0
+    eager_blocks = 0
+    capture_s = 0.0
+    blocks_by_width: Counter = Counter()
+    replays_by_width: Counter = Counter()
+
+    def __init__(self, state, table, max_vocab: int, max_len: int, K: int,
+                 wordpiece: bool, flat: bool, skip: int,
+                 tournament: bool) -> None:
+        dev = state.device
+        self.state, self.K, self.dev = state, K, dev
+        self.max_vocab, self.wordpiece, self.flat = max_vocab, wordpiece, flat
+        self.skip, self.tournament = skip, tournament
+        (self.h1, self.h2, self.sl, self.ctrl, self.pw1, self.pw2,
+         self.sharp) = init_tables(table, max_vocab, max_len, dev)
+        self.sym_cap = sym_capacity(table, max_vocab)
+        if wordpiece and flat:
+            state.count_symbols(self.sym_cap)
+        self.recs = torch.zeros((K + 2, 6), dtype=torch.int32, device=dev)
+        self.stats = self.recs[K + 1, :2]  # redos, overflow compactions
+        self.k2_scratch = select_scratch(dev)
+        cuda = dev.type == "cuda"
+        self.host = [torch.empty((K + 2, 6), dtype=torch.int32,
+                                 pin_memory=cuda) for _ in range(2)]
+        self.events = [torch.cuda.Event() for _ in range(2)] if cuda \
+            else None
+        self.graphs = {} if cuda else None
+        self._stream = None
+        self.blocks = 0
+
+    def queue_steps(self) -> None:
+        """One block's launches, queued step by step."""
+        st, recs = self.state, self.recs
+        for k in range(self.K):
+            rec = recs[k]
+            if self.skip:
+                st.guard(self.stats[1:])
+            keys, counts, pos = st.pairs(self.skip)
+            if self.wordpiece and not self.flat:
+                st.count_symbols(self.sym_cap)
+            select_unify(keys, counts, pos, self.h1, self.h2, self.sl,
+                         self.ctrl, self.pw1, self.pw2, self.max_vocab, rec,
+                         wordpiece=self.wordpiece, sym_freq=st.sym_freq,
+                         sharp=self.sharp, tournament=self.tournament,
+                         redo=self.stats[:1], claims=st.claims(),
+                         scratch=self.k2_scratch)
+            st.merge(rec, self.skip)
+        if self.skip:
+            st.merge(recs[self.K])
+
+    def dispatch(self, slot: int) -> None:
+        """Queue the next block, then the copy of its records into host
+        buffer ``slot`` (0 or 1), which :meth:`fetch` waits for."""
+        if self.graphs is None:
+            with profiling.phase("train.device_block"):
+                self.queue_steps()
+            BlockRunner.eager_blocks += 1
+            self.host[slot].copy_(self.recs)
+        else:
+            with torch.cuda.device(self.dev):
+                if self.blocks == 0:
+                    with profiling.phase("train.device_block", self.dev):
+                        self.queue_steps()
+                    BlockRunner.eager_blocks += 1
+                else:
+                    self._replay()
+                    BlockRunner.replays_by_width[self._width()] += 1
+                self.host[slot].copy_(self.recs, non_blocking=True)
+                self.events[slot].record()
+        BlockRunner.blocks_by_width[self._width()] += 1
+        self.blocks += 1
+
+    def _width(self) -> int:
+        return getattr(self.state, "F", 0)
+
+    def fetch(self, slot: int) -> np.ndarray:
+        """The records of the block whose copy went to ``slot``, once
+        they are on the host: int32[K + 2, 6]."""
+        with profiling.phase("train.fetch_records"):
+            if self.events is not None:
+                self.events[slot].synchronize()
+            return self.host[slot].numpy().copy()
+
+    def drain(self) -> None:
+        """Wait until every queued block has run."""
+        if self.events is not None:
+            torch.cuda.current_stream(self.dev).synchronize()
+
+    def close(self) -> None:
+        """Release the graphs (after the blocks that replay them)."""
+        if self.graphs:
+            self.drain()
+            for g in self.graphs.values():
+                g.graph.reset()
+            self.graphs.clear()
+
+    def _key(self, fields):
+        return (self._width(),) + tuple(
+            _key_value(getattr(o, a), c) for o, a, c in fields)
+
+    def _replay(self) -> None:
+        fields = self.state.host_fields()
+        key = self._key(fields)
+        g = self.graphs.get(key)
+        if g is None:
+            g = self._capture(fields, key)
+        else:
+            scratch = getattr(self.state, "scratch", None)
+            if scratch is not None:
+                scratch.advance(g.k3_calls)
+            with profiling.phase("train.device_block", self.dev):
+                g.graph.replay()
+            for (o, a, counted), v in zip(fields, g.after):
+                setattr(o, a, getattr(o, a) + v if counted else _copy(v))
+            for (fn, name), n in g.launches:
+                setattr(fn, name, getattr(fn, name) + n)
+        BlockRunner.replays += 1
+
+    def _capture(self, fields, key) -> _BlockGraph:
+        """Capture :meth:`queue_steps` on a side stream and replay it
+        once. The capture queues nothing to run, but the wrappers it calls
+        move the host values and counters as the block moves them."""
+        t0 = time.perf_counter()
+        with profiling.phase("train.capture"):
+            before = [getattr(o, a) for o, a, _ in fields]
+            counters = _launch_counters()
+            launched = [getattr(fn, name) for fn, name in counters]
+            scratch = getattr(self.state, "scratch", None)
+            if scratch is not None:  # no restart of the epochs inside
+                scratch.room(2 * self.K + 1)
+            calls = scratch.calls if scratch is not None else 0
+            if self._stream is None:
+                self._stream = torch.cuda.Stream(self.dev)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.stream(self._stream):
+                # (capture_begin itself may allocate PyTorch's RNG state
+                # for graphs, once: not the block's)
+                graph.capture_begin(capture_error_mode="thread_local")
+                try:
+                    allocated = _allocations(self.dev)
+                    self.queue_steps()
+                    allocated = _allocations(self.dev) - allocated
+                finally:
+                    graph.capture_end()
+            if allocated:
+                raise RuntimeError(f"BlockRunner: the capture of a block "
+                                   f"allocated device memory {allocated} "
+                                   f"times")
+            after = [getattr(o, a) - b if c else _copy(getattr(o, a))
+                     for (o, a, c), b in zip(fields, before)]
+            launches = [((fn, name), getattr(fn, name) - n)
+                        for (fn, name), n in zip(counters, launched)
+                        if getattr(fn, name) != n]
+            g = _BlockGraph(graph, after, launches,
+                            0 if scratch is None else scratch.calls - calls)
+        with profiling.phase("train.device_block", self.dev):
+            graph.replay()
+        self.graphs[key] = g
+        BlockRunner.captures += 1
+        BlockRunner.capture_s += time.perf_counter() - t0
+        return g
+
+
+def _allocations(dev) -> int:
+    """Device allocations made so far on ``dev`` (the caching
+    allocator's count)."""
+    return torch.cuda.memory_stats(dev).get("allocation.all.allocated", 0)
+
+
 def run_fused(state: FlatState, table, max_vocab: int, max_len: int,
               on_merge, K: int = 256, checkpoint_cb=None,
               progress_cb=None, wordpiece: bool = False, flat: bool = True,
@@ -575,15 +838,22 @@ def run_fused(state: FlatState, table, max_vocab: int, max_len: int,
     """Train on ``state`` until ``max_vocab`` symbols or no pair is left;
     return the final state as a padded host tensor [word types, L].
 
-    Each block queues K steps (K1, K2, K3) with no host sync between
-    them; every stop condition is enforced on the device, so steps past
-    the end are no-ops. The block's [K, 6] records then come back in one
-    copy, and each active record is checked against ``table.intern``
-    (raising :class:`HashCollision` on a disagreement) and reported with
-    ``on_merge(sa, sb, merged)``. ``progress_cb(steps)`` and
-    ``checkpoint_cb(steps)`` run after each block that merged; the
-    caller keeps its own cadence. Between blocks the state shrinks to
-    half its width while its live slots fit.
+    Each block runs K steps (K1, K2, K3) with no host sync between them
+    (:class:`BlockRunner`: on the card a run's first block step by step,
+    every later one as one CUDA graph replay); every stop condition is
+    enforced on the device, so steps past the end are no-ops. As in the
+    JAX package's ``run_fused``, two blocks are in flight: block k + 1 is
+    queued before block k's records are read. The block's [K, 6] records
+    come back in one copy, and each active record is checked against
+    ``table.intern`` (raising :class:`HashCollision` on a disagreement,
+    once the block in flight has run) and reported with ``on_merge(sa,
+    sb, merged)``. ``progress_cb(steps)`` and ``checkpoint_cb(steps)`` run
+    after each block that merged; the caller keeps its own cadence. Once a
+    record is inactive or ``max_vocab`` is reached, the block in flight is
+    drained and never read. Before a block is queued the state shrinks to
+    half its width while the live slots of the newest records read fit
+    (a block later than the JAX package's host would see them, as there:
+    the shrink only cuts a dead tail, and positions are unchanged).
 
     With ``wordpiece`` the run first counts ``state.sym_freq`` with K4,
     selects by score, and merges into ``a + b[2:]``; the tournament
@@ -604,71 +874,64 @@ def run_fused(state: FlatState, table, max_vocab: int, max_len: int,
     tournament = use_tournament(wordpiece, wide_score)
     if len(table) >= max_vocab:
         return state.padded()
-    dev = state.device
     if flat:
         skip = min(skip, 64, max(min(state.F, _FLAT_MIN) - 2, 0))
     else:
         state, skip = PaddedState.from_flat(state), 0
-    h1, h2, sl, ctrl, pw1, pw2, sharp = init_tables(table, max_vocab,
-                                                    max_len, dev)
-    sym_cap = sym_capacity(table, max_vocab)
-    if wordpiece and flat:
-        state.count_symbols(sym_cap)
-    # Row K is the record of the block's closing compaction (skip mode):
-    # inactive, its N_LIVE column the live slots after it.
-    recs = torch.zeros((K + 1, 6), dtype=torch.int32, device=dev)
-    k2_scratch = select_scratch(dev)
-    stats = torch.zeros(2, dtype=torch.int32, device=dev)  # redos, overflows
-    done = False
-    while not done:
-        with profiling.phase("train.device_block", dev):
-            for k in range(K):
-                rec = recs[k]
-                if skip:
-                    state.guard(stats[1:])
-                keys, counts, pos = state.pairs(skip)
-                if wordpiece and not flat:
-                    state.count_symbols(sym_cap)
-                select_unify(keys, counts, pos, h1, h2, sl, ctrl, pw1, pw2,
-                             max_vocab, rec, wordpiece=wordpiece,
-                             sym_freq=state.sym_freq, sharp=sharp,
-                             tournament=tournament, redo=stats[:1],
-                             claims=state.claims(), scratch=k2_scratch)
-                state.merge(rec, skip)
-            if skip:
-                state.merge(recs[K])
-        with profiling.phase("train.fetch_records"):
-            recs_np = recs.cpu().numpy()
-        with profiling.phase("train.verify"):
-            steps = 0
-            for a, b, new_id, _, active, _ in recs_np[:K].tolist():
-                if not active:
-                    done = True
-                    break
-                sa, sb = table.string(a), table.string(b)
-                merged = sa + (sb[2:] if wordpiece else sb)
-                nid = table.intern(merged)
-                if nid != new_id:
-                    raise HashCollision(
-                        f"step {len(table)}: device id {new_id} != host id "
-                        f"{nid} for {merged!r}")
-                on_merge(sa, sb, merged)
-                steps += 1
-        if progress_cb is not None and steps:
-            progress_cb(steps)
-        if checkpoint_cb is not None and steps:
-            checkpoint_cb(steps)
-        if len(table) >= max_vocab:
-            done = True
-        if steps and not done and flat:
-            n_live = int(recs_np[K if skip else steps - 1, N_LIVE])
-            if state.F >= 2 * _FLAT_MIN and n_live <= state.F // 2:
-                state.F //= 2
-    redos, overflows = stats.tolist()
-    select_unify.risky_redos += redos
-    skip_guard.overflow_compactions += overflows
-    with profiling.phase("train.final_fetch"):
-        return state.padded()
+    run = BlockRunner(state, table, max_vocab, max_len, K, wordpiece, flat,
+                      skip, tournament)
+    try:
+        run.dispatch(0)
+        pending = [0]  # host buffers of the blocks in flight, oldest first
+        shrink_live = None  # the newest n_live read (it only decreases)
+        stats = (0, 0)
+        done = False
+        while pending:
+            if not done:
+                if flat and shrink_live is not None and \
+                        state.F >= 2 * _FLAT_MIN and \
+                        shrink_live <= state.F // 2:
+                    state.F //= 2
+                run.dispatch(1 - pending[0])
+                pending.append(1 - pending[0])
+            recs_np = run.fetch(pending.pop(0))
+            with profiling.phase("train.verify"):
+                steps = 0
+                for a, b, new_id, _, active, _ in recs_np[:K].tolist():
+                    if not active:
+                        done = True
+                        break
+                    sa, sb = table.string(a), table.string(b)
+                    merged = sa + (sb[2:] if wordpiece else sb)
+                    nid = table.intern(merged)
+                    if nid != new_id:
+                        run.drain()
+                        raise HashCollision(
+                            f"step {len(table)}: device id {new_id} != "
+                            f"host id {nid} for {merged!r}")
+                    on_merge(sa, sb, merged)
+                    steps += 1
+            stats = tuple(int(x) for x in recs_np[K + 1, :2])
+            if progress_cb is not None and steps:
+                progress_cb(steps)
+            if checkpoint_cb is not None and steps:
+                checkpoint_cb(steps)
+            if len(table) >= max_vocab:
+                done = True
+            if steps and flat:
+                shrink_live = int(recs_np[K if skip else steps - 1, N_LIVE])
+            if done:
+                # the block in flight continues a finished run: no-ops,
+                # never read
+                run.drain()
+                pending.clear()
+        redos, overflows = stats
+        select_unify.risky_redos += redos
+        skip_guard.overflow_compactions += overflows
+        with profiling.phase("train.final_fetch"):
+            return state.padded()
+    finally:
+        run.close()
 
 
 # device -> (empty, ctrl) for select_host_ids: host_ids mode never writes

@@ -3,7 +3,7 @@ in a process of its own in the order parent, change, change, parent.
 
     python3 -m subword_tokenizers_tpu_torch.tools.ab_sharded_train \\
         PARENT_DIR CHANGE_DIR [compact] [kernels] [topk] [encode] [fastwp] \
-        [match] [single] [skip] [NaiveBPE] [NaiveWP]
+        [match] [single] [skip] [block] [NaiveBPE] [NaiveWP]
 
 - ``NaiveBPE`` / ``NaiveWP``: the model under the one-card mesh
   ``make_data_mesh(8, devices=["cuda:0"] * 8)``, trained on all of
@@ -74,8 +74,17 @@ in a process of its own in the order parent, change, change, parent.
   guard and K3 kernels (the kernels of either design, by name), the
   kernel launches and the memsets of the whole train (about 35 s a run).
 
-Each checkout builds its own kernels. Prints one JSON line a run and a
-last line with all of them and the card's name and power limit.
+- ``block``: single-device ``NaiveBPE`` and ``NaiveWP`` trained on all
+  of ``data/train-85k.json`` to 8,000 on the default flat route, then
+  both with ``SWT_SKIP_COMPACT=12``, each after a warm-up train to 300
+  and checked against the JAX goldens; where the checkout runs its
+  blocks as CUDA graph replays (ops/train_loop.BlockRunner), also the
+  captures, replays and capture time of the timed trains (about 25 s a
+  run). Give the mode three times for six pairs.
+
+Each checkout builds its own kernels. Prints one JSON line a run, a line
+with all of them and the card's name and power limit, then for each mode
+the median and the range of each time over each side's runs.
 """
 import json
 import os
@@ -611,6 +620,62 @@ out["memsets"] = sum(e.count for e in ev if "memset" in e.key.lower())
 print(json.dumps(out))
 '''
 
+BLOCK = r'''
+import json, os, sys, time
+import torch
+sys.path.insert(0, os.getcwd())
+from subword_tokenizers_tpu_torch import NaiveBPE, NaiveWP
+from subword_tokenizers_tpu_torch.ops import _cuda, train_loop
+corpus = json.load(open("data/train-85k.json", encoding="utf-8"))
+bpe = [tuple(p) for p in json.load(open(
+    "tests/golden/port_t85k_v8000_bpe_merges.json", encoding="utf-8"))]
+wp = [tuple(p) for p in json.load(open(
+    "tests/golden/port_t85k_v8000_wp_vocab.json",
+    encoding="utf-8"))["merges"]]
+dev = torch.device("cuda:0")
+_cuda.lib()
+runner = getattr(train_loop, "BlockRunner", None)
+out = {}
+for route, skip in (("flat", None), ("skip12", "12")):
+    if skip is None:
+        os.environ.pop("SWT_SKIP_COMPACT", None)
+    else:
+        os.environ["SWT_SKIP_COMPACT"] = skip
+    for name, cls, golden in (("NaiveBPE", NaiveBPE, bpe),
+                              ("NaiveWP", NaiveWP, wp)):
+        cls(device=dev).train(corpus, 300)  # warm-up
+        before = None if runner is None else (
+            runner.captures, runner.replays, runner.capture_s)
+        tok = cls(device=dev)
+        t0 = time.perf_counter()
+        tok.train(corpus, 8000)
+        torch.cuda.synchronize()
+        out[f"{name}_{route}"] = time.perf_counter() - t0
+        got = tok.merges_list if name == "NaiveBPE" else tok._merge_log
+        assert got == golden, (name, route)
+        if runner is not None:
+            out[f"{name}_{route}_graphs"] = [
+                runner.captures - before[0], runner.replays - before[1],
+                runner.capture_s - before[2]]
+print(json.dumps(out))
+'''
+
+
+def summary(res):
+    """{mode: {side: {key: [median, min, max, n]}}} of every time a run
+    printed (numbers only)."""
+    import statistics
+    out = {}
+    for r in res:
+        side = out.setdefault(r["mode"], {}).setdefault(r["name"], {})
+        for k, v in r.items():
+            if isinstance(v, (int, float)) and not isinstance(v, bool) \
+                    and k != "process_s":
+                side.setdefault(k, []).append(v)
+    return {m: {n: {k: [statistics.median(v), min(v), max(v), len(v)]
+                    for k, v in side.items()} for n, side in sides.items()}
+            for m, sides in out.items()}
+
 
 def main(argv) -> int:
     if len(argv) < 2:
@@ -632,7 +697,8 @@ def main(argv) -> int:
                 [FASTWP] if mode == "fastwp" else
                 [MATCH] if mode == "match" else
                 [SINGLE] if mode == "single" else
-                [SKIP] if mode == "skip" else [TRAIN, mode])
+                [SKIP] if mode == "skip" else
+                [BLOCK] if mode == "block" else [TRAIN, mode])
         for name, d in (("parent", parent), ("change", change),
                         ("change", change), ("parent", parent)):
             t0 = time.perf_counter()
@@ -648,6 +714,7 @@ def main(argv) -> int:
             res.append(r)
             print(json.dumps(r), flush=True)
     print("AB", json.dumps(res), smi, flush=True)
+    print("SUMMARY", json.dumps(summary(res)), smi, flush=True)
     return 0
 
 

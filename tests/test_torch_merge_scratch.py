@@ -1,8 +1,9 @@
 """K3 (ops/flat.py ``merge_apply``) with the scratch its kernel keeps
 between calls: a :class:`MergeScratch` owned by the flat state (the
 merge's weight word, two tickets and a look-back status word a tile,
-each call's words carrying a new epoch), so that a training step
-allocates and clears nothing. The kernel runs only on the card; here the
+each call's words carrying a new epoch, one past the scratch's epoch
+word on the device, which the call advances), so that a training step
+allocates and clears nothing and a replayed block takes no host epoch. The kernel runs only on the card; here the
 wrapper's plain version runs with the same scratch (its ``n_rep`` word
 written each call) and is held against the JAX package's ``flat_apply``
 and the carried update of ``flat_train_steps``; the wrapper's checks, the
@@ -19,7 +20,8 @@ from subword_tokenizers_tpu import NaiveWP as JaxNaiveWP
 from subword_tokenizers_tpu.ops import flat as jax_flat
 from subword_tokenizers_tpu_torch import NaiveBPE, NaiveWP
 from subword_tokenizers_tpu_torch.ops import flat, train_loop
-from subword_tokenizers_tpu_torch.ops.flat import (EPOCH_MAX, N_LIVE, TILE,
+from subword_tokenizers_tpu_torch.ops.flat import (EPOCH, EPOCH_MAX, GATE,
+                                                   N_LIVE, TILE,
                                                    MergeScratch,
                                                    merge_apply)
 from subword_tokenizers_tpu_torch.ops.pairstats import symbol_freqs
@@ -126,16 +128,34 @@ def test_scratch_checks():
 
 
 def test_epochs_wrap_and_clear_status_words():
-    """Epochs run 1 .. EPOCH_MAX; on the wrap the status words are
-    zeroed (the weight word and the ticket are not touched)."""
+    """Each merge takes the epoch one past the device's epoch word and
+    advances it, 1 .. EPOCH_MAX, and closes the gate; the host counts the
+    calls, and before one could pass EPOCH_MAX the epochs restart: the
+    epoch word and the status words are zeroed (the weight word, the
+    ticket and the gate word are not touched)."""
     sc = MergeScratch(3 * TILE, "cpu")
-    assert [sc.next_epoch() for _ in range(3)] == [1, 2, 3]
-    sc.epoch = EPOCH_MAX - 1
+    fs = torch.full((3 * TILE,), -1, dtype=torch.int32)
+    state = (fs, torch.full_like(fs, flat.WID_PAD),
+             torch.zeros(3 * TILE, dtype=torch.int64))
+    rec = torch.zeros(6, dtype=torch.int32)
+    epochs = []
+    for _ in range(3):
+        merge_apply(*state, rec, scratch=sc)
+        epochs.append(sc.epoch)
+    assert epochs == [1, 2, 3] and sc.calls == 3
     sc.words[:] = 7
-    assert sc.next_epoch() == EPOCH_MAX and int(sc.words[4:].min()) == 7
-    assert sc.next_epoch() == 1
+    sc.words[EPOCH] = EPOCH_MAX - 1
+    sc.calls = EPOCH_MAX - 1
+    merge_apply(*state, rec, scratch=sc)
+    assert sc.epoch == EPOCH_MAX and sc.calls == EPOCH_MAX
+    assert int(sc.words[4:].min()) == 7 and int(sc.words[GATE]) == 0
+    sc.words[GATE] = 5
+    sc.advance()  # the next call could pass EPOCH_MAX: a restart first
+    assert sc.calls == 1 and sc.epoch == 0
     assert sc.words[4:].tolist() == [0] * 6
-    assert sc.words[:4].tolist() == [7, 7, 7, 7]
+    assert sc.words[:4].tolist() == [0, 7, 0, 5]
+    merge_apply(*state, rec, scratch=sc)
+    assert sc.epoch == 1
 
 
 def test_flat_state_merges_with_its_scratch(monkeypatch):

@@ -24,8 +24,9 @@ from subword_tokenizers_tpu.ops import flat as jflat
 from subword_tokenizers_tpu.ops import train_loop as jtrain_loop
 from subword_tokenizers_tpu_torch import NaiveBPE, NaiveWP
 from subword_tokenizers_tpu_torch.ops import flat, train_loop
-from subword_tokenizers_tpu_torch.ops.flat import (EPOCH_MAX, GATE, TILE,
-                                                   WID_PAD, MergeScratch)
+from subword_tokenizers_tpu_torch.ops.flat import (EPOCH, EPOCH_MAX, GATE,
+                                                   TILE, WID_PAD,
+                                                   MergeScratch)
 from subword_tokenizers_tpu_torch.ops.pairstats import pair_stats
 
 torch.set_num_threads(1)
@@ -118,7 +119,7 @@ def test_merge_gate_and_guard_match_jax(kind, S):
     new_id = 40
     sc = MergeScratch(fs.shape[0], "cpu")
     count = torch.zeros(1, dtype=torch.int32)
-    fired = 0
+    fired = epochs = 0
     for a, b, active in _records(fs, wgt, S):
         want = _jax_step(fs, wid, wgt, a, b, active, new_id, S)
         got = _t(fs, wid, wgt)
@@ -136,7 +137,8 @@ def test_merge_gate_and_guard_match_jax(kind, S):
             sf_want[b] -= int(want[3])
             sf_want[new_id] += int(want[3])
         assert torch.equal(sf, sf_want)
-        assert sc.gate == sc.epoch
+        epochs += 1  # the device's epoch word, advanced by the merge
+        assert sc.epoch == epochs
         assert int(sc.words[GATE]) == sc.epoch << 1 | int(want[4])
         before = int(count)
         flat.skip_guard(*got, count, sc)
@@ -144,7 +146,10 @@ def test_merge_gate_and_guard_match_jax(kind, S):
                 if want[4] else want[:3])
         for g, w in zip(got, comp):
             assert np.array_equal(g.numpy(), np.asarray(w))
-        assert int(count) - before == int(want[4]) and sc.gate == 0
+        assert int(count) - before == int(want[4])
+        assert not int(sc.words[GATE]) & 1  # closed
+        epochs += int(want[4])  # and by the guard when it fired
+        assert sc.epoch == epochs
         fired += int(want[4])
     if kind in ("edge", "halo") and S < 20:
         assert fired  # the gaps overflow a narrow window
@@ -178,10 +183,10 @@ def test_gate_closed_after_block_close():
     for close in (False, True):
         st = train_loop.FlatState(fs.copy(), wid.copy(), wgt.copy(), "cpu")
         st.merge(idle, skip=2)
-        assert st.scratch.gate and int(st.scratch.words[GATE]) & 1
+        assert int(st.scratch.words[GATE]) & 1
         if close:
             st.merge(idle)
-            assert st.scratch.gate == 0
+            assert int(st.scratch.words[GATE]) == 0
         count = torch.zeros(1, dtype=torch.int32)
         before = st.arrays()[0].clone()
         st.guard(count)
@@ -227,31 +232,35 @@ def test_narrower_state_with_the_same_scratch():
 
 
 def test_epoch_wrap_keeps_the_gate():
-    """Epochs run 1 .. EPOCH_MAX; on the wrap the look-back words are
-    zeroed and the gate word is kept, so a guard whose own epoch wraps
-    still reads the gate of the merge before it."""
+    """Each call's epoch is one past the device's epoch word, 1 ..
+    EPOCH_MAX; before the host's count of calls would pass EPOCH_MAX the
+    epochs restart: the epoch word and the look-back words are zeroed and
+    the gate word is kept, so a guard right after the restart still reads
+    the gate of the merge before it (and, having fired, closes it)."""
     fs, wid, wgt = tile_state("edge", seed=3)
     sc = MergeScratch(fs.shape[0], "cpu")
     tiles = -(-fs.shape[0] // TILE)
-    assert sc.words.shape == (4 + 2 * tiles,) and sc.gate == 0
-    sc.epoch = EPOCH_MAX - 1
+    assert sc.words.shape == (4 + 2 * tiles,) and sc.epoch == 0
+    assert int(sc.words[GATE]) == 0 and sc.calls == 0
+    sc.words[EPOCH] = EPOCH_MAX - 1
+    sc.calls = EPOCH_MAX - 1
     got = _t(fs, wid, wgt)
     idle = torch.zeros(6, dtype=torch.int32)
     flat.merge_skip(*got, idle, 2, scratch=sc)
-    assert sc.epoch == sc.gate == EPOCH_MAX
+    assert sc.epoch == sc.calls == EPOCH_MAX
     assert int(sc.words[GATE]) == EPOCH_MAX << 1 | 1
     sc.words[4:] = 7
     count = torch.zeros(1, dtype=torch.int32)
-    flat.skip_guard(*got, count, sc)  # its epoch wraps to 1
-    assert sc.epoch == 1 and int(count) == 1
+    flat.skip_guard(*got, count, sc)  # the epochs restart: it takes 1
+    assert sc.epoch == sc.calls == 1 and int(count) == 1
     assert sc.words[4:].tolist() == [0] * (2 * tiles)
-    assert int(sc.words[GATE]) == EPOCH_MAX << 1 | 1
+    assert int(sc.words[GATE]) == 0
     live = fs[fs >= 0]
     assert np.array_equal(got[0][:live.shape[0]].numpy(), live)
     flat.merge_skip(*got, idle, 2, scratch=sc)
-    assert sc.gate == 2 and int(sc.words[GATE]) == 2 << 1
+    assert sc.epoch == 2 and int(sc.words[GATE]) == 2 << 1
     flat.skip_guard(*got, count, sc)
-    assert int(count) == 1
+    assert int(count) == 1 and sc.epoch == 2
 
 
 @pytest.mark.parametrize("case", ["type", "window", "device", "shape"])
