@@ -45,8 +45,10 @@ WordPiece vocab ``tests/golden/port_t85k_fastwp_vocab.json``:
    kernel must have been launched; each run's first block is queued step
    by step and every later one is a CUDA graph replay (ops/train_loop.py
    ``BlockRunner``), with a replay at every width, and each kernel's count
-   is 256 a block; cold and warm times, the phase split and the device's
-   idle share under ``torch.profiler``, with the trace's graph launches;
+   is 256 a block; cold and warm times, the phase split and (6c) the
+   device's idle share under ``torch.profiler``, with the trace's graph
+   launches and each kernel's spans, which must equal the launches its
+   counter counted in that train, replays included;
 6b. the other training routes: a checkpoint at 1,400 resumed to 8,000,
    the exact per-step path to 578, and a forced hash collision, each
    through graphs;
@@ -68,7 +70,8 @@ WordPiece vocab ``tests/golden/port_t85k_fastwp_vocab.json``:
    package's (``tests/golden/port_t85k_v8000_wp_vocab.json``), the
    carried weights a recount, and every kernel must have been launched;
    every block after a run's first a graph replay, as in phase 6; cold
-   and warm times, the phase split, and (8c) the idle share;
+   and warm times, the phase split, and (8c) the idle share and the
+   kernels' spans against their counters, as in 6c;
 8b. the other WordPiece routes: a checkpoint at 1,400 merges resumed to
    8,000, the per-step path to 1,000, a forced hash collision, and
    ``FastWP.train`` then ``tokenize_batch`` against the golden vocab;
@@ -121,7 +124,8 @@ WordPiece vocab ``tests/golden/port_t85k_fastwp_vocab.json``:
    (``tests/golden/port_t85k_skip_overflows.json``), with cold and warm
    times, the captures and replays, the phase split and (12c) the skip
    route traced: its idle share and graph launches, at most 4 kernel
-   launches a step, no memset and no allocation in a block after the
+   launches a step (and the block's close), each kernel's spans equal to
+   its counter, no memset and no allocation in a block after the
    first;
 13. holds the kernels of the data-parallel selection against their
    plain versions, exactly: the nomination (each shard's 256 best pairs
@@ -361,6 +365,8 @@ def emitted(ids, head, out_n, cap):
 # The host's CUDA calls of the last trace device_trace read: its graph
 # launches (cudaGraphLaunch) and its kernel launches (cudaLaunchKernel).
 TRACE_API = {}
+# The names of the last trace's kernels, in the order they started.
+TRACE_KERNELS = []
 
 
 def graph_counts():
@@ -413,6 +419,82 @@ def trace_graph_line(by_name):
             f"graph launches)")
 
 
+# The kernels of a training block: the route_counters() name of each
+# wrapper's launch counter, and a part of its kernel's name in a trace.
+BLOCK_KERNELS = (("pair_stats", "pair_insert_kernel"),
+                 ("select_unify", "select_kernel"),
+                 ("merge_apply", "merge_tiles_kernel<false>"),
+                 ("skip_guard", "merge_tiles_kernel<true>"),
+                 ("merge_skip", "merge_skip_kernel"))
+
+
+def block_counters():
+    """{name: launches so far} of the kernels of ``BLOCK_KERNELS``, by
+    their wrappers' counters."""
+    counters = route_counters()
+    return {k: getattr(*counters[k]) for k, _ in BLOCK_KERNELS}
+
+
+def traced_launches(by_name, before, per_block, blocks, what):
+    """The launches of one traced train, measured: raises unless each
+    kernel of ``BLOCK_KERNELS`` ran as many times in the trace (its
+    kernel spans, ``by_name`` of :func:`device_trace`) as its wrapper's
+    counter counted since ``before`` (:func:`block_counters`, read as the
+    traced train started), replays included, and as ``per_block[name]``
+    (0 when absent) times the train's ``blocks``. Returns {name: spans}.
+    On a difference it names the steps (K1's spans in order) before
+    which the trace holds other kernels of the block than a step
+    should."""
+    if not by_name:
+        raise AssertionError(f"{what}: the trace holds no device events, "
+                             f"so the launches are not measured")
+    now = block_counters()
+    counted = {k: now[k] - before[k] for k in now}
+    spans = {k: sum(c for n, (c, _) in by_name.items() if part in n)
+             for k, part in BLOCK_KERNELS}
+    want = {k: per_block.get(k, 0) * blocks for k in counted}
+    if counted != spans or spans != want:
+        from collections import Counter
+        parts, skip = dict(BLOCK_KERNELS), bool(per_block.get("skip_guard"))
+        steps, since, odd = 0, Counter(), []
+        for n in TRACE_KERNELS:
+            k = next((k for k, part in parts.items() if part in n), None)
+            if k == "pair_stats":
+                # the step before's K2 and K3, a block's close, the guard
+                usual = Counter()
+                if steps:
+                    usual["select_unify"] = 1
+                    usual["merge_skip" if skip else "merge_apply"] = 1
+                if skip:
+                    usual["skip_guard"] = 1 + (steps > 0
+                                               and steps % 256 == 0)
+                if since != usual and len(odd) < 8:
+                    odd.append((steps, dict(since)))
+                steps, since = steps + 1, Counter()
+            elif k is not None:
+                since[k] += 1
+        raise AssertionError(
+            f"{what}: launches counted {counted}, kernel spans in the "
+            f"trace {spans}, {blocks} blocks want {want}; steps whose "
+            f"kernels before K1 differ (step, kernels) {odd}, after the "
+            f"last K1 {dict(since)}; the trace's first kernels "
+            f"{TRACE_KERNELS[:6]}")
+    return spans
+
+
+def traced_train(train):
+    """``train`` as :func:`device_trace` with ``warmup`` calls it (once
+    untraced, then traced), noting :func:`block_counters` and
+    :func:`graph_counts` as each call starts. Returns (fn, marks): the
+    traced call's are ``marks[-1]``."""
+    marks = []
+
+    def fn():
+        marks.append((block_counters(), graph_counts()))
+        train()
+    return fn, marks
+
+
 def device_trace(fn, path, warmup=False):
     """Run ``fn`` once under torch.profiler; return (host wall ms, device
     busy ms, {kernel or copy name: [count, device ms]}) read from the
@@ -458,7 +540,7 @@ def device_trace(fn, path, warmup=False):
     start = min((e["ts"] for e in events if e.get("name") == mark
                  and e.get("cat") == "user_annotation"),
                 default=float("-inf"))
-    spans, by_name = [], {}
+    spans, by_name, kernels = [], {}, []
     TRACE_API.clear()
     TRACE_API.update(graph_launches=0, kernel_launches=0)
     for e in events:
@@ -475,6 +557,9 @@ def device_trace(fn, path, warmup=False):
             rec = by_name.setdefault(e["name"][:60], [0, 0.0])
             rec[0] += 1
             rec[1] += e["dur"] / 1e3
+            if e["cat"] == "kernel":
+                kernels.append((e["ts"], e["name"]))
+    TRACE_KERNELS[:] = [n for _, n in sorted(kernels)]
     busy, end = 0.0, float("-inf")
     for a, b in sorted(spans):
         busy += max(0.0, b - max(a, end))
@@ -828,7 +913,8 @@ def phase11(dev, rng, flat_bpe, table, flat_wp, table_wp, sym_pad, max_len,
     def check_skip(fs, wid, wgt, S, recs):
         """K1 and K3 in skip mode and the guard, on one state: K3 with an
         inactive record (the gate of the state as it stands), then with
-        each record, each followed by the guard reading its gate; the
+        each record, each followed by the guard reading its gate, and by
+        the block's closing compaction (the guard with a record); the
         kernels' scratch words (the weight, the epoch word and the gate)
         against the plain versions', which take the epoch and the gate
         from the same words."""
@@ -857,6 +943,17 @@ def phase11(dev, rng, flat_bpe, table, flat_wp, table_wp, sym_pad, max_len,
                 [*got[:3], cnt_k, sc_k.words[[EPOCH, GATE]]],
                 [*want[:3], cnt_r, sc_r.words[[EPOCH, GATE]]]))
             notes["guard_fired"] += int(cnt_k)
+            # the block's closing compaction, in place whatever the gate
+            got, want = clone(fs, wid, wgt), clone(fs, wid, wgt)
+            merge_skip(*got, rec, S, scratch=sc_k)
+            merge_skip_ref(*want, rec, S, words=sc_r.words)
+            close_k = torch.zeros(6, dtype=torch.int32, device=dev)
+            close_r = close_k.clone()
+            skip_guard(*got, None, sc_k, close=close_k)
+            skip_guard_ref(*want, None, sc_r.words, close_r)
+            errs["skip_guard"] = max(errs["skip_guard"], err_all(
+                [*got, close_k, sc_k.words[[EPOCH, GATE]]],
+                [*want, close_r, sc_r.words[[EPOCH, GATE]]]))
         notes["skip_states"] += 1
 
     def records(fs, wid, wgt, S):
@@ -1173,6 +1270,7 @@ def route_counters():
             "merge_apply": (merge_apply, "launches"),
             "merge_skip": (merge_skip, "launches"),
             "skip_guard": (skip_guard, "launches"),
+            "skip_close": (skip_guard, "close_launches"),
             "merge_rows": (apply_merge, "launches"),
             "symbol_freqs": (symbol_freqs, "launches"),
             "symbol_rows": (symbol_rows, "launches"),
@@ -1182,12 +1280,12 @@ def route_counters():
 
 # The kernels each route must launch (phase 12).
 ROUTE_KERNELS = {
-    "bpe_skip12": ("pair_stats_skip", "skip_guard", "merge_skip",
-                   "select_unify"),
-    "bpe_skip2": ("pair_stats_skip", "skip_guard", "merge_skip",
-                  "overflow_compactions"),
-    "wp_skip12": ("pair_stats_skip", "skip_guard", "merge_skip",
-                  "symbol_freqs"),
+    "bpe_skip12": ("pair_stats_skip", "skip_guard", "skip_close",
+                   "merge_skip", "select_unify"),
+    "bpe_skip2": ("pair_stats_skip", "skip_guard", "skip_close",
+                  "merge_skip", "overflow_compactions"),
+    "wp_skip12": ("pair_stats_skip", "skip_guard", "skip_close",
+                  "merge_skip", "symbol_freqs"),
     "wp_tournament": ("select_unify_tournament", "pair_stats", "merge_apply"),
     "bpe_padded": ("pair_stats", "merge_rows", "select_unify"),
     "wp_padded": ("pair_stats", "merge_rows", "symbol_rows"),
@@ -1257,6 +1355,15 @@ def phase12(dev, corpus, check_bpe, check_wp, smi, trace_dir,
                     counts["select_unify"] != 256 * blocks:
                 raise AssertionError(f"{name}: {counts} for {blocks} "
                                      f"blocks of 256 steps")
+            # the skip routes: a guard and a skip merge a step, and the
+            # closing compaction (the guard's kernel) once a block
+            if "skip" in name and (
+                    counts["merge_skip"] != 256 * blocks
+                    or counts["skip_guard"] != 257 * blocks
+                    or counts["skip_close"] != blocks
+                    or counts["merge_apply"]):
+                raise AssertionError(f"{name}: {counts} for {blocks} "
+                                     f"blocks of 256 steps")
             if overflows is not None and name in overflows and counts[
                     "overflow_compactions"] != 3 * overflows[name]:
                 raise AssertionError(
@@ -1293,17 +1400,26 @@ def phase12(dev, corpus, check_bpe, check_wp, smi, trace_dir,
                  captured).append(torch.cuda.memory_stats(dev)[
                      "allocation.all.allocated"] - allocated)
 
-        launched = sum(w.launches for w in wrappers)
-        g = graph_counts()
+        def train():  # the traced call's blocks only
+            inside.clear()
+            captured.clear()
+            NaiveBPE(device=dev).train(corpus, max_vocab)
+
+        fn, marks = traced_train(train)
         profiling.phase = counted_phase
         try:
             wall, busy, by_name = device_trace(
-                lambda: NaiveBPE(device=dev).train(corpus, max_vocab),
-                os.path.join(trace_dir, "skip_train_trace.json"))
+                fn, os.path.join(trace_dir, "skip_train_trace.json"),
+                warmup=True)
         finally:
             profiling.phase = real_phase
+        before, g = marks[-1]
         blocks, graphs = graph_check(g, 1, "phase 12c")
-        launched = sum(w.launches for w in wrappers) - launched
+        launched = sum(w.launches for w in wrappers) - sum(before.values())
+        traced = traced_launches(
+            by_name, before, {"pair_stats": 256, "select_unify": 256,
+                              "merge_skip": 256, "skip_guard": 257},
+            blocks, "phase 12c")
         api_line = trace_graph_line(by_name)
     finally:
         train_loop.run_fused = real_run
@@ -1327,7 +1443,7 @@ def phase12(dev, corpus, check_bpe, check_wp, smi, trace_dir,
                  memsets=memsets(by_name) if by_name else None,
                  traced_step_kernels=step_kernels if by_name else None,
                  guard_and_merge_skip_device_ms=skip_ms if by_name else None,
-                 wall_ms=wall, busy_ms=busy)
+                 traced_launches=traced, wall_ms=wall, busy_ms=busy)
     if (not inside or sum(allocs[1:]) or per_step > 4 + 1 / 256
             or (by_name and (notes["memsets"] or len(step_kernels) > 4))):
         raise AssertionError(f"the traced skip train: {notes}")
@@ -1348,7 +1464,10 @@ def phase12(dev, corpus, check_bpe, check_wp, smi, trace_dir,
           + ": " + "; ".join(lines) + f"; {smi}")
     print(f"phase 12c: one warm NaiveBPE train with SWT_SKIP_COMPACT=12 "
           f"under torch.profiler: {graphs}; {per_step:.4f} kernel launches "
-          f"a step (4 a step and the block's closing compaction), "
+          f"a step (4 a step and the block's closing compaction), kernel "
+          f"spans in the trace {traced}, equal to the launches the "
+          f"counters counted in this train (the guard's kernel 256 a "
+          f"block and the closing compaction), "
           f"allocations: {allocs[0]} in the first block (K1's tables, made "
           f"by the first count), {sum(allocs[1:])} in the {blocks - 1} "
           f"replays after it, {captured} in the captures' spans (none in "
@@ -3991,19 +4110,24 @@ def main() -> int:
           f"{train_walls[2]:.3f} s; profiled {train_walls[3]:.3f} s, phases "
           f"(ms) {json.dumps(train_phase_ms)}; {smi}")
 
+    fn, marks = traced_train(lambda: NaiveBPE(device=dev).train(corpus,
+                                                                8000))
     with tempfile.TemporaryDirectory() as d:
         wall, busy, by_name = device_trace(
-            lambda: NaiveBPE(device=dev).train(corpus, 8000),
-            os.path.join(d, "train_trace.json"))
+            fn, os.path.join(d, "train_trace.json"), warmup=True)
+    before, g6c = marks[-1]
+    blocks6c, graphs6c = graph_check(g6c, 1, "phase 6c")
+    traced6 = traced_launches(by_name, before, dict.fromkeys(
+        bpe_kernels, 256), blocks6c, "phase 6c")
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
-    dev_line = ("not measured (the trace holds no device events)"
-                if not by_name else
-                f"device busy {busy:.3f} ms of {wall:.1f} ms "
+    dev_line = (f"device busy {busy:.3f} ms of {wall:.1f} ms "
                 f"(idle share {1 - busy / wall:.4f}); "
                 + "; ".join(f"{n} x{c} {ms:.3f} ms" for n, (c, ms) in top)
                 + "; " + trace_graph_line(by_name))
-    print(f"phase 6c: one warm train under torch.profiler: {dev_line}; "
-          f"{smi}")
+    print(f"phase 6c: one warm train under torch.profiler: {graphs6c}; "
+          f"kernel spans in the trace {traced6}, equal to the launches "
+          f"the counters counted in this train and to 256 a block; "
+          f"{dev_line}; {smi}")
 
     # ---- phase 6b: the other training routes
     g6b = graph_counts()
@@ -4378,19 +4502,25 @@ def main() -> int:
           f"{wp_walls[3]:.3f} s, phases (ms) {json.dumps(wp_phase_ms)}; "
           f"{smi}")
 
+    fn, marks = traced_train(lambda: NaiveWP(device=dev).train(corpus,
+                                                               8000))
     with tempfile.TemporaryDirectory() as d:
         wall, busy, by_name = device_trace(
-            lambda: NaiveWP(device=dev).train(corpus, 8000),
-            os.path.join(d, "wp_train_trace.json"))
+            fn, os.path.join(d, "wp_train_trace.json"), warmup=True)
+    before, g8c = marks[-1]
+    blocks8c, graphs8c = graph_check(g8c, 1, "phase 8c")
+    traced8 = traced_launches(by_name, before, dict.fromkeys(
+        ("pair_stats", "select_unify", "merge_apply"), 256), blocks8c,
+        "phase 8c")
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
-    dev_line = ("not measured (the trace holds no device events)"
-                if not by_name else
-                f"device busy {busy:.3f} ms of {wall:.1f} ms "
+    dev_line = (f"device busy {busy:.3f} ms of {wall:.1f} ms "
                 f"(idle share {1 - busy / wall:.4f}); "
                 + "; ".join(f"{n} x{c} {ms:.3f} ms" for n, (c, ms) in top)
                 + "; " + trace_graph_line(by_name))
     print(f"phase 8c: one warm WordPiece train under torch.profiler: "
-          f"{dev_line}; {smi}")
+          f"{graphs8c}; kernel spans in the trace {traced8}, equal to the "
+          f"launches the counters counted in this train and to 256 a "
+          f"block; {dev_line}; {smi}")
 
     # ---- phase 8b: the other WordPiece routes
     g8b = graph_counts()
@@ -4986,6 +5116,12 @@ def main() -> int:
             wp_mode=f"WordPiece mode, replaces {replaces}",
             wp_launches=wp_launches[k], wp_max_abs_err=errs[f"{k}_wp"],
             wp_ms=timing[f"{k}_wp"][0], wp_plain_ms=timing[f"{k}_wp"][1])
+    # the launches of phases 6 and 8 count the replays' kernels; their
+    # traced trains (6c, 8c) measured them: each kernel's spans equal its
+    # counter's launches in that train
+    for k in ("pair_stats", "select_unify", "merge_apply"):
+        by_name[k].update(traced_launches=traced6[k],
+                          wp_traced_launches=traced8[k])
     # K2's one launch over the claims of K1's fill (the main path) and over
     # every entry; K3's one launch with the state's scratch (phases 5, 7)
     by_name["select_unify"].update(

@@ -70,9 +70,9 @@
 //   subword_tokenizers_tpu/ops/flat.py:94 skip_overflow, :115 skip_next,
 //     :133 skip_prev_select, :168 flat_skip_apply, and the lax.cond
 //     compaction of flat_train_steps (ops/train_loop.py:223-236),
-// is two launches a step, each over the same tiles, with no memset and
-// nothing allocated (the scratch is the state's ops/flat.MergeScratch,
-// built once, its word [3] the gate):
+// is two launches a step, each over the same tiles, and one a block to
+// close it, with no memset and nothing allocated (the scratch is the
+// state's ops/flat.MergeScratch, built once, its word [3] the gate):
 // - swt_merge_skip, merge_skip_kernel: the merge in place. A match is a
 //   live slot holding a whose nearest live successor within S + 1 holds
 //   b in the same word; for a == b only at an even offset in its run of
@@ -118,11 +118,13 @@
 //   compaction and closes the gate (writes 0). In place is safe: a
 //   compaction only moves slots left, a tile writes only after the
 //   look-back has seen every tile before it staged, and no slot is read
-//   after that. swt_merge_apply closes the gate too, so a state that it
-//   compacted, such as a block's start (where JAX's block close has
-//   compacted instead), reads as closed. The gate is never a host
-//   argument: a CUDA graph of a block replays with the gate the device
-//   holds.
+//   after that. With a record (swt_skip_close, the block's closing
+//   compaction, JAX's block close) the same launch compacts whatever the
+//   gate, writes the live count to rec[5] and counts nothing, so a block
+//   of the skip route ends in the buffers it began in.
+//   swt_merge_apply closes the gate too, so a state that it compacted
+//   reads as closed. The gate is never a host argument: a CUDA graph of
+//   a block replays with the gate the device holds.
 // Bound on this card: latency. merge_skip reads 8 bytes a slot (fs and
 // wid) and writes only the slots it changes; its time is the launch, the
 // staging, two block scans (a third in a tile that changes) and the last
@@ -179,10 +181,12 @@ __device__ __forceinline__ bool even_run(const int32_t* s_fs,
 // between calls), [2] the epoch word (the last call's epoch), [3] skip
 // mode's gate word, then a 16-byte look-back word a tile (lookback.cuh:
 // its kept count, and its match weight beside it).
-// kGuard (the skip route's overflow guard): rec, out_* and sym_freq are
-// unused and the state is compacted in place (out_* are fs, wid and wgt);
-// every block returns at once unless the gate word's bit 0 is set; the
-// last tile adds one to *count.
+// kGuard (the skip route's overflow guard): out_* are fs, wid and wgt,
+// sym_freq is unused and the state is compacted in place. With rec null,
+// every block returns at once unless the gate word's bit 0 is set, and
+// the last tile adds one to *count; with a record (the block's closing
+// compaction) the state is compacted whatever the gate, the last tile
+// writes the live count to rec[5] and count is unused.
 template <bool kGuard>
 __global__ void __launch_bounds__(kThreads)
     merge_tiles_kernel(const int32_t* fs, const int32_t* wid,
@@ -193,7 +197,8 @@ __global__ void __launch_bounds__(kThreads)
   // The gate and the epoch are read before this block's first tile
   // publishes, so before the last tile, which waits for every tile's
   // word, closes the one and advances the other.
-  if (kGuard && !(load_word(scratch + kGateWord) & 1)) return;  // closed
+  if (kGuard && rec == nullptr && !(load_word(scratch + kGateWord) & 1))
+    return;  // closed
   const unsigned epoch = call_epoch(scratch);
   __shared__ __align__(16) int32_t s_fs[kLead + kTile + 4];
   __shared__ __align__(16) int32_t s_wid[kLead + kTile + 4];
@@ -357,7 +362,9 @@ __global__ void __launch_bounds__(kThreads)
         if (tile == n_tiles - 1) {  // the state's totals: the step's results
           scratch[kEpochWord] = epoch;
           scratch[kGateWord] = 0;  // compacted: no overflow
-          if (kGuard) {
+          if (kGuard && rec != nullptr) {
+            rec[5] = static_cast<int32_t>(pre + total);
+          } else if (kGuard) {
             ++*count;
           } else {
             const long long n_rep = pre_w + weight;
@@ -876,6 +883,25 @@ unsigned tile_grid(int64_t n_tiles, int resident) {
   return static_cast<unsigned>(n_tiles < resident ? n_tiles : resident);
 }
 
+// merge_tiles_kernel<true> over the state in place: the guard (rec null)
+// or the closing compaction (a record).
+int compact_in_place(void* fs, void* wid, void* wgt, int64_t F,
+                     void* scratch, void* rec, void* count, void* stream) {
+  static int resident[64];
+  cudaError_t err;
+  const int res = resident_blocks(merge_tiles_kernel<true>, resident, err);
+  if (res == 0) return static_cast<int>(err);
+  const int64_t n_tiles = (F + kTile - 1) / kTile;
+  merge_tiles_kernel<true><<<tile_grid(n_tiles, res), kThreads, 0,
+                             static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(fs), static_cast<const int32_t*>(wid),
+      static_cast<const int64_t*>(wgt), F, static_cast<int32_t*>(rec),
+      static_cast<int32_t*>(fs), static_cast<int32_t*>(wid),
+      static_cast<int64_t*>(wgt), static_cast<long long*>(scratch),
+      static_cast<int>(n_tiles), nullptr, static_cast<int32_t*>(count));
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -938,19 +964,15 @@ int swt_merge_skip(void* fs, void* wid, void* wgt, int64_t F, int skip,
 // cudaError_t.
 int swt_skip_guard(void* fs, void* wid, void* wgt, int64_t F, void* scratch,
                    void* count, void* stream) {
-  static int resident[64];
-  cudaError_t err;
-  const int res = resident_blocks(merge_tiles_kernel<true>, resident, err);
-  if (res == 0) return static_cast<int>(err);
-  const int64_t n_tiles = (F + kTile - 1) / kTile;
-  merge_tiles_kernel<true><<<tile_grid(n_tiles, res), kThreads, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(fs), static_cast<const int32_t*>(wid),
-      static_cast<const int64_t*>(wgt), F, nullptr,
-      static_cast<int32_t*>(fs), static_cast<int32_t*>(wid),
-      static_cast<int64_t*>(wgt), static_cast<long long*>(scratch),
-      static_cast<int>(n_tiles), nullptr, static_cast<int32_t*>(count));
-  return static_cast<int>(cudaGetLastError());
+  return compact_in_place(fs, wid, wgt, F, scratch, nullptr, count, stream);
+}
+
+// Skip mode's closing compaction of a block: fs/wid/wgt compacted in place
+// whatever the gate, rec[5] (rec i32[6]) = live slots, the gate closed and
+// the epoch word advanced. 2 <= F < 2^31. Returns the cudaError_t.
+int swt_skip_close(void* fs, void* wid, void* wgt, int64_t F, void* scratch,
+                   void* rec, void* stream) {
+  return compact_in_place(fs, wid, wgt, F, scratch, rec, nullptr, stream);
 }
 
 }  // extern "C"

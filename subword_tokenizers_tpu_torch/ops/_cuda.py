@@ -65,6 +65,7 @@ SIGNATURES = {
     "swt_score_bits": [_P, _P, _P, _I64, _P, _P],
     "swt_merge_apply": [_P, _P, _P, _I64, _P, _P, _P, _P, _P, _P, _P],
     "swt_skip_guard": [_P, _P, _P, _I64, _P, _P, _P],
+    "swt_skip_close": [_P, _P, _P, _I64, _P, _P, _P],
     "swt_merge_skip": [_P, _P, _P, _I64, _I, _P, _P, _P, _P],
     "swt_merge_rows": [_P, _I64, _I64, _P, _I, _I, _I, _P],
     "swt_symbol_freqs": [_P, _P, _I64, _I64, _I64, _P, _P, _I64, _P],

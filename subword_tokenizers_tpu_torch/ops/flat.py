@@ -21,8 +21,8 @@ successor within S + 1 slots (:func:`skip_next`). Each merge also tests
 the state it leaves for a live gap wider than the window
 (:func:`skip_overflow`) into a gate word; before the next step,
 :func:`skip_guard` compacts the state when the gate is open, so no pair
-is missed; the training loop compacts at the end of each block, which
-closes the gate.
+is missed; the training loop compacts in place at the end of each
+block (:func:`skip_guard` with ``close``), which closes the gate.
 """
 from __future__ import annotations
 
@@ -437,28 +437,40 @@ def merge_skip(fs, wid, wgt, rec, S: int, sym_freq=None,
 merge_skip.launches = 0
 
 
-def skip_guard_ref(fs, wid, wgt, count, words) -> None:
+def skip_guard_ref(fs, wid, wgt, count, words, close=None) -> None:
     """Plain PyTorch version of :func:`skip_guard`: when the gate word
-    ``words[GATE]`` is open (bit 0 set), compact (fs, wid, wgt) in place,
-    add one to ``count``, advance the epoch word and close the gate."""
-    if not int(words[GATE]) & 1:
+    ``words[GATE]`` is open (bit 0 set), or with ``close``, compact (fs,
+    wid, wgt) in place, advance the epoch word and close the gate; then
+    add one to ``count``, or with ``close`` write the live slots to
+    ``close[N_LIVE]``."""
+    if close is None and not int(words[GATE]) & 1:
         return
     keep = fs >= 0
     n = int(keep.sum())
     for x, pad in ((fs, -1), (wid, WID_PAD), (wgt, 0)):
         x[:n] = x[keep]
         x[n:] = pad
-    count += 1
+    if close is None:
+        count += 1
+    else:
+        close[N_LIVE] = n
     words[EPOCH], words[GATE] = call_epoch(words), 0
 
 
-def skip_guard(fs, wid, wgt, count, scratch: MergeScratch) -> None:
+def skip_guard(fs, wid, wgt, count, scratch: MergeScratch,
+               close=None) -> None:
     """Before a step of the skip route: when the gate word of ``scratch``
     is open (the last :func:`merge_skip` left the state overflowing its
     window, and no compaction ran since), compact the state in place
     (live slots to the front, in order; padding after), add one to
     ``count`` (int32[1]) and close the gate; else change nothing. The
     gate is read on the device: the host names no epoch and no gate.
+
+    With ``close``, an int32[6] record (``count`` is then unused, and may
+    be None), the call is a block's closing compaction: it compacts the
+    state in place whatever the gate, writes the live slots to
+    ``close[N_LIVE]``, closes the gate and counts nothing, so the state
+    stays in the buffers it was in.
 
     On the card the call is one kernel launch, with no host sync: each
     block returns at once while the gate is closed, else the launch
@@ -467,25 +479,33 @@ def skip_guard(fs, wid, wgt, count, scratch: MergeScratch) -> None:
     and raises for any other device.
     """
     dev = fs.device
-    _check_state("skip_guard", fs, wid, wgt, None, None)
-    check_tensor("count", count, (torch.int32,), 1, dev)
+    _check_state("skip_guard", fs, wid, wgt, close, None)
+    if close is None:
+        check_tensor("count", count, (torch.int32,), 1, dev)
     F = fs.shape[0]
     _check_scratch("skip_guard", scratch, F, dev)
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"skip_guard: no kernel for device {dev}")
     scratch.advance()
     if dev.type == "cpu":
-        skip_guard_ref(fs, wid, wgt, count, scratch.words)
+        skip_guard_ref(fs, wid, wgt, count, scratch.words, close)
         return
     if any(t.data_ptr() % 16 for t in (fs, wid, wgt)):
         raise ValueError("skip_guard: the state must be 16-byte aligned")
     from . import _cuda
     with torch.cuda.device(dev):
-        _cuda.launch("swt_skip_guard", fs.data_ptr(), wid.data_ptr(),
-                     wgt.data_ptr(), F, scratch.words.data_ptr(),
-                     count.data_ptr())
+        if close is None:
+            _cuda.launch("swt_skip_guard", fs.data_ptr(), wid.data_ptr(),
+                         wgt.data_ptr(), F, scratch.words.data_ptr(),
+                         count.data_ptr())
+        else:
+            _cuda.launch("swt_skip_close", fs.data_ptr(), wid.data_ptr(),
+                         wgt.data_ptr(), F, scratch.words.data_ptr(),
+                         close.data_ptr())
+            skip_guard.close_launches += 1
     skip_guard.launches += 1
 
 
 skip_guard.launches = 0
+skip_guard.close_launches = 0  # launches that closed a block
 skip_guard.overflow_compactions = 0  # compactions that fired, from run_fused

@@ -138,17 +138,15 @@ class TablePair:
         t = self.filled
         return t if t is not None and t.dirty else None
 
-    def host_fields(self):
-        """(object, attribute, counted) of the host values that choose a
-        call's tables and counters: which table is next and which was
-        last filled, each table's fills (``counted``: only its parity
-        chooses a counter) and whether it holds a count. A CUDA graph of
-        calls is valid for as long as these are as they were at its
-        capture (ops/train_loop.BlockRunner)."""
-        fields = [(self, "_next", False), (self, "filled", False)]
-        for t in self.tables:
-            fields += [(t, "fills", True), (t, "dirty", False)]
-        return fields
+    def host_key(self) -> tuple:
+        """The host values that choose a call's tables and counters:
+        which table is next and which was last filled, the parity of each
+        table's fills (it chooses a counter) and whether it holds a
+        count. A CUDA graph of calls is valid for as long as these are as
+        they were at its capture (ops/train_loop.BlockRunner)."""
+        return (self._next, None if self.filled is None else
+                self.tables.index(self.filled)) + tuple(
+                    (t.fills & 1, t.dirty) for t in self.tables)
 
     def pairs(self, fs, wid, wgt, skip: int = 0):
         """:func:`pair_stats` into this call's table."""

@@ -406,12 +406,17 @@ class FlatState:
         counting it in ``count`` (int32[1])."""
         skip_guard(*self.arrays(), count, self.scratch)
 
-    def host_fields(self):
-        """(object, attribute, counted) of the host values a block's
-        launches read beyond the width: which buffer holds the state and
-        K1's tables' (:meth:`~.pairstats.TablePair.host_fields`). K3's
-        epochs and gate are the scratch's device words."""
-        return [(self, "_cur", False)] + self._tables.host_fields()
+    def close(self, rec) -> None:
+        """The skip route's block end: compact the state in place (it
+        stays in its buffers), its live slots into ``rec[N_LIVE]``."""
+        skip_guard(*self.arrays(), None, self.scratch, close=rec)
+
+    def host_key(self) -> tuple:
+        """The host values a block's launches read beyond the width:
+        which buffer holds the state, and K1's tables'
+        (:meth:`~.pairstats.TablePair.host_key`). K3's epochs and gate
+        are the scratch's device words."""
+        return (self._cur,) + self._tables.host_key()
 
     def host(self) -> Tuple[np.ndarray, np.ndarray]:
         """(fs, wid) on the host, in one copy."""
@@ -517,12 +522,13 @@ class PaddedState:
         """K3p with the step record ``rec``, in place."""
         apply_merge(self.sym, rec)
 
-    def host_fields(self):
-        """(object, attribute, counted) of the host values a block's
-        launches read: the order of K4's two outputs, the weights K2
-        reads, and K1's tables'."""
-        return [(self, "_freqs", False), (self, "sym_freq", False)] + \
-            self._tables.host_fields()
+    def host_key(self) -> tuple:
+        """The host values a block's launches read: the order of K4's two
+        outputs, the weights K2 reads, and K1's tables'."""
+        return (None if self._freqs is None else
+                tuple(x.data_ptr() for x in self._freqs),
+                None if self.sym_freq is None else self.sym_freq.data_ptr()
+                ) + self._tables.host_key()
 
     def padded(self) -> np.ndarray:
         return self.sym.cpu().numpy()
@@ -598,32 +604,15 @@ def _launch_counters():
             if name.endswith("launches")]
 
 
-def _copy(v):
-    """A host value as a graph keeps it: a list (K4's outputs in order)
-    copied, anything else as it is."""
-    return list(v) if isinstance(v, list) else v
-
-
-def _key_value(v, counted: bool):
-    """A host value as a graph key holds it: a counter by its parity, an
-    object by its identity, a list by its items'."""
-    if counted:
-        return v & 1
-    if v is None or isinstance(v, (bool, int)):
-        return v
-    if isinstance(v, list):
-        return tuple(id(x) for x in v)
-    return id(v)
-
-
 class _BlockGraph:
-    """A captured block: its CUDA graph, the host values the capture left
-    (counters as the change the block makes), the launches it holds by
-    counter, and its calls of K3's family (their epochs)."""
+    """A captured block: its CUDA graph, the host values its launches
+    read (``state.host_key()``, the same before and after the block), the
+    launches it holds by counter, and its calls of K3's family (their
+    epochs)."""
 
-    def __init__(self, graph, after, launches, k3_calls: int) -> None:
+    def __init__(self, graph, host_key, launches, k3_calls: int) -> None:
         self.graph = graph
-        self.after = after
+        self.host_key = host_key
         self.launches = launches
         self.k3_calls = k3_calls
 
@@ -632,10 +621,10 @@ class BlockRunner:
     """The blocks of one training run on ``state`` (a :class:`FlatState`
     or :class:`PaddedState`): K steps of K1 -> K2 -> K3 (the skip route:
     the guard, K1 and K2, K3's skip mode, then the block's closing
-    compaction; the padded route: K4 for WordPiece, K1, K2, K3p), their
-    records in ``recs``, int32[K + 2, 6]: row K the closing compaction's,
-    row K + 1 the run's counts (K2's tournament redos, the guard's
-    compactions) in its first two columns.
+    compaction, in place; the padded route: K4 for WordPiece, K1, K2,
+    K3p), their records in ``recs``, int32[K + 2, 6]: row K the closing
+    compaction's, row K + 1 the run's counts (K2's tournament redos, the
+    guard's compactions) in its first two columns.
 
     :meth:`dispatch` queues a block and a copy of its records into one
     of two host buffers; :meth:`fetch` waits for that copy. On the CPU a
@@ -643,16 +632,18 @@ class BlockRunner:
     (:meth:`queue_steps`). On the card a run's first block is queued
     step by step too (it builds K1's tables and warms every launcher);
     every later block is one replay of a ``torch.cuda.CUDAGraph`` of
-    :meth:`queue_steps`, captured once for each key: the width ``F`` and
-    the host values its launches read (``state.host_fields()``: the
-    state's buffer, K1's tables and counters, K4's outputs). After a
-    replay those host values become what the capture left, and every
-    launch counter gains the launches the graph holds, so each stays the
-    true number of kernels run. Nothing a launch takes from the host
-    changes between two blocks of one key: K3's epochs and the skip
-    route's gate are device words (ops/flat.MergeScratch). A capture
-    that allocates, or fails, raises; nothing falls back to queuing
-    steps. :meth:`close` releases the graphs.
+    :meth:`queue_steps`, captured once for each width ``F``. A block of K
+    steps, K a multiple of 4, ends in the host state it began in: it
+    flips the state's buffers K times (the skip route's closing
+    compaction is in place), fills each of K1's two tables K / 2 times
+    and flips K4's outputs K times, so every block of one width launches
+    with the same host values (``state.host_key()``, checked at each
+    capture and replay). K3's epochs and the skip route's gate are
+    device words (ops/flat.MergeScratch). After a replay every launch
+    counter gains the launches the graph holds, so each stays the true
+    number of kernels run. A capture that allocates, or fails, raises;
+    nothing falls back to queuing steps. :meth:`close` releases the
+    graphs.
 
     ``BlockRunner.captures``, ``replays``, ``eager_blocks`` and
     ``capture_s`` count over every run (class attributes), and
@@ -671,6 +662,11 @@ class BlockRunner:
                  wordpiece: bool, flat: bool, skip: int,
                  tournament: bool) -> None:
         dev = state.device
+        cuda = dev.type == "cuda"
+        if cuda and K % 4:
+            raise ValueError(f"BlockRunner: K = {K} on the card must be a "
+                             f"multiple of 4 (a block then ends in the "
+                             f"buffers and table counters it began in)")
         self.state, self.K, self.dev = state, K, dev
         self.max_vocab, self.wordpiece, self.flat = max_vocab, wordpiece, flat
         self.skip, self.tournament = skip, tournament
@@ -682,12 +678,11 @@ class BlockRunner:
         self.recs = torch.zeros((K + 2, 6), dtype=torch.int32, device=dev)
         self.stats = self.recs[K + 1, :2]  # redos, overflow compactions
         self.k2_scratch = select_scratch(dev)
-        cuda = dev.type == "cuda"
         self.host = [torch.empty((K + 2, 6), dtype=torch.int32,
                                  pin_memory=cuda) for _ in range(2)]
         self.events = [torch.cuda.Event() for _ in range(2)] if cuda \
             else None
-        self.graphs = {} if cuda else None
+        self.graphs = {} if cuda else None  # width -> _BlockGraph
         self._stream = None
         self.blocks = 0
 
@@ -709,7 +704,7 @@ class BlockRunner:
                          scratch=self.k2_scratch)
             st.merge(rec, self.skip)
         if self.skip:
-            st.merge(recs[self.K])
+            st.close(recs[self.K])
 
     def dispatch(self, slot: int) -> None:
         """Queue the next block, then the copy of its records into host
@@ -757,35 +752,33 @@ class BlockRunner:
                 g.graph.reset()
             self.graphs.clear()
 
-    def _key(self, fields):
-        return (self._width(),) + tuple(
-            _key_value(getattr(o, a), c) for o, a, c in fields)
-
     def _replay(self) -> None:
-        fields = self.state.host_fields()
-        key = self._key(fields)
-        g = self.graphs.get(key)
+        key = self.state.host_key()
+        g = self.graphs.get(self._width())
         if g is None:
-            g = self._capture(fields, key)
+            self._capture(key)
+        elif key != g.host_key:
+            raise RuntimeError(f"BlockRunner: a block at width "
+                               f"{self._width()} starts from host values "
+                               f"{key}, its graph was captured at "
+                               f"{g.host_key}")
         else:
             scratch = getattr(self.state, "scratch", None)
             if scratch is not None:
                 scratch.advance(g.k3_calls)
             with profiling.phase("train.device_block", self.dev):
                 g.graph.replay()
-            for (o, a, counted), v in zip(fields, g.after):
-                setattr(o, a, getattr(o, a) + v if counted else _copy(v))
             for (fn, name), n in g.launches:
                 setattr(fn, name, getattr(fn, name) + n)
         BlockRunner.replays += 1
 
-    def _capture(self, fields, key) -> _BlockGraph:
+    def _capture(self, key) -> None:
         """Capture :meth:`queue_steps` on a side stream and replay it
         once. The capture queues nothing to run, but the wrappers it calls
-        move the host values and counters as the block moves them."""
+        count their launches and move the host values as the block moves
+        them, back to ``key``."""
         t0 = time.perf_counter()
         with profiling.phase("train.capture"):
-            before = [getattr(o, a) for o, a, _ in fields]
             counters = _launch_counters()
             launched = [getattr(fn, name) for fn, name in counters]
             scratch = getattr(self.state, "scratch", None)
@@ -809,19 +802,20 @@ class BlockRunner:
                 raise RuntimeError(f"BlockRunner: the capture of a block "
                                    f"allocated device memory {allocated} "
                                    f"times")
-            after = [getattr(o, a) - b if c else _copy(getattr(o, a))
-                     for (o, a, c), b in zip(fields, before)]
+            if self.state.host_key() != key:
+                raise RuntimeError(f"BlockRunner: a block began at host "
+                                   f"values {key} and ended at "
+                                   f"{self.state.host_key()}")
             launches = [((fn, name), getattr(fn, name) - n)
                         for (fn, name), n in zip(counters, launched)
                         if getattr(fn, name) != n]
-            g = _BlockGraph(graph, after, launches,
-                            0 if scratch is None else scratch.calls - calls)
+            self.graphs[self._width()] = _BlockGraph(
+                graph, key, launches,
+                0 if scratch is None else scratch.calls - calls)
         with profiling.phase("train.device_block", self.dev):
             graph.replay()
-        self.graphs[key] = g
         BlockRunner.captures += 1
         BlockRunner.capture_s += time.perf_counter() - t0
-        return g
 
 
 def _allocations(dev) -> int:

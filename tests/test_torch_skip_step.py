@@ -25,7 +25,7 @@ from subword_tokenizers_tpu.ops import train_loop as jtrain_loop
 from subword_tokenizers_tpu_torch import NaiveBPE, NaiveWP
 from subword_tokenizers_tpu_torch.ops import flat, train_loop
 from subword_tokenizers_tpu_torch.ops.flat import (EPOCH, EPOCH_MAX, GATE,
-                                                   TILE, WID_PAD,
+                                                   N_LIVE, TILE, WID_PAD,
                                                    MergeScratch)
 from subword_tokenizers_tpu_torch.ops.pairstats import pair_stats
 
@@ -173,10 +173,13 @@ def test_runs_cross_tile_edges():
 
 
 def test_gate_closed_after_block_close():
-    """A compacting merge (the block's close) closes the gate of the skip
-    merge before it, so the next block's first guard does nothing, as
-    JAX compacts at the block's end and tests the next step's dense
-    state; without the close the guard fires."""
+    """The block's close (a compaction in place, whatever the gate)
+    closes the gate of the skip merge before it, so the next block's
+    first guard does nothing, as JAX compacts at the block's end and
+    tests the next step's dense state; without the close the guard
+    fires. The close equals JAX's compact_flat, leaves the state in its
+    buffers and its live slots in its record; a compacting merge closes
+    the gate too."""
     fs, wid, wgt = tile_state("edge", seed=1)
     idle = torch.zeros(6, dtype=torch.int32)
     counts = []
@@ -185,8 +188,15 @@ def test_gate_closed_after_block_close():
         st.merge(idle, skip=2)
         assert int(st.scratch.words[GATE]) & 1
         if close:
-            st.merge(idle)
-            assert int(st.scratch.words[GATE]) == 0
+            rec = torch.zeros(6, dtype=torch.int32)
+            bufs = st._cur
+            want = jflat.compact_flat(*(jnp.asarray(x.numpy())
+                                        for x in st.arrays()))
+            st.close(rec)
+            assert int(st.scratch.words[GATE]) == 0 and st._cur == bufs
+            for g, w in zip(st.arrays(), want):
+                assert np.array_equal(g.numpy(), np.asarray(w))
+            assert int(rec[N_LIVE]) == int((st.arrays()[0] >= 0).sum())
         count = torch.zeros(1, dtype=torch.int32)
         before = st.arrays()[0].clone()
         st.guard(count)
@@ -195,6 +205,10 @@ def test_gate_closed_after_block_close():
         n = live.shape[0]
         assert torch.equal(st.arrays()[0][:n], live)
     assert counts == [1, 0]
+    st = train_loop.FlatState(fs.copy(), wid.copy(), wgt.copy(), "cpu")
+    st.merge(idle, skip=2)
+    st.merge(idle)
+    assert int(st.scratch.words[GATE]) == 0
 
 
 def test_narrower_state_with_the_same_scratch():
@@ -225,7 +239,7 @@ def test_narrower_state_with_the_same_scratch():
             assert int(sc.words[GATE]) == sc.epoch << 1 | int(want[4])
         count = torch.zeros(1, dtype=torch.int32)
         st.guard(count)
-        st.merge(torch.zeros(6, dtype=torch.int32))  # the block's close
+        st.close(torch.zeros(6, dtype=torch.int32))  # the block's close
     with pytest.raises(ValueError, match="scratch for a width below"):
         flat.merge_skip(*_t(*wide), torch.zeros(6, dtype=torch.int32), 12,
                         scratch=MergeScratch(F0 - TILE, "cpu"))

@@ -5,9 +5,10 @@ the newest records read (a block late, as JAX's host sees them), the
 block in flight drained and never read once the run stops. On the card
 each block after a run's first is a CUDA graph replay, which only the
 card runs; here the same driver steps each block through the plain
-versions, and a spy on the wrappers' scalar arguments stands in for
-replay safety: two blocks of one width pass the same scalars at every
-step, so a graph of one replays the other. K3's epochs and the skip
+versions, and a spy on the wrappers' arguments stands in for replay
+safety: every block of one width passes the same scalars, and the same
+addresses of the buffers the run keeps, at every step, so a graph of
+one replays the others. K3's epochs and the skip
 route's gate are device words (ops/flat.MergeScratch), and the plain
 versions that follow them stay equal to JAX's ``flat_apply``,
 ``flat_skip_apply`` and ``compact_flat`` across the epochs' restart.
@@ -204,22 +205,69 @@ def test_block_records_and_stats_rows():
     run.close()
 
 
-def _scalar(v):
-    """An argument as the spy keeps it: a tensor as a mark (its contents
-    and address are not host scalars), a tuple item by item, a Python
-    scalar as it is, any other object by type and identity."""
+def _tensors(v):
+    """The tensors in ``v``: itself, or those of a list or tuple's items."""
     if isinstance(v, torch.Tensor):
-        return "tensor"
-    if isinstance(v, tuple):
-        return tuple(_scalar(x) for x in v)
-    if v is None or isinstance(v, (bool, int, float, str)):
-        return v
-    return (type(v).__name__, id(v))
+        return [v]
+    if isinstance(v, (list, tuple)):
+        return [t for x in v for t in _tensors(x)]
+    return []
 
 
-def _scalars(args, kwargs):
-    return tuple((name, _scalar(v)) for name, v in
-                 [(None, a) for a in args] + sorted(kwargs.items()))
+def _reachable(*objs):
+    """The tensors objects hold in their attributes, directly or in lists
+    and tuples (the runner's, the state's, the scratch's)."""
+    return [t for obj in objs for v in vars(obj).values()
+            for t in _tensors(v)]
+
+
+class _Spy:
+    """Each spied call's arguments as the spy keeps them: a Python scalar
+    as it is, a tuple item by item, any other object by type and
+    identity, and a tensor by its address, of which the storage is
+    classified once the run is over. Every tensor seen is kept alive, so
+    no address is reused during the run."""
+
+    def __init__(self):
+        self.held = []
+        self.persistent = None  # storages the runner held at every block
+
+    def arg(self, v):
+        if isinstance(v, torch.Tensor):
+            self.held.append(v)
+            return ("tensor", v.untyped_storage().data_ptr(), v.data_ptr())
+        if isinstance(v, tuple):
+            return tuple(self.arg(x) for x in v)
+        if v is None or isinstance(v, (bool, int, float, str)):
+            return v
+        return (type(v).__name__, id(v))
+
+    def args(self, args, kwargs):
+        return tuple((name, self.arg(v)) for name, v in
+                     [(None, a) for a in args] + sorted(kwargs.items()))
+
+    def holding(self, runner):
+        """Note the storages ``runner`` and its state hold now."""
+        ts = _reachable(runner, runner.state, *(
+            [runner.state.scratch] if hasattr(runner.state, "scratch")
+            else []))
+        self.held += ts
+        now = {t.untyped_storage().data_ptr() for t in ts}
+        self.persistent = now if self.persistent is None else \
+            self.persistent & now
+
+    def final(self, rec):
+        """A recorded argument with each tensor as the launch takes it: a
+        buffer the run keeps (the state's two buffers, the records, the
+        scratch, the hash tables, WordPiece's weights) by its address,
+        and a tensor made in the block by a plain version (K1's table,
+        K4's count; on the card one of two buffers chosen by the parity
+        that ``state.host_key()`` holds) as such."""
+        if isinstance(rec, tuple) and rec and rec[0] == "tensor":
+            return ("at", rec[2]) if rec[1] in self.persistent else "made"
+        if isinstance(rec, tuple):
+            return tuple(self.final(x) for x in rec)
+        return rec
 
 
 SPIED = ("merge_apply", "merge_skip", "skip_guard", "select_unify",
@@ -229,20 +277,26 @@ SPIED = ("merge_apply", "merge_skip", "skip_guard", "select_unify",
 @pytest.mark.parametrize("model,route", [("bpe", "flat"),
                                          ("wp", "skip12"),
                                          ("bpe", "skip2"),
-                                         ("wp", "padded")])
+                                         ("wp", "padded"),
+                                         ("wp", "tournament")])
 def test_consecutive_blocks_pass_the_same_scalars(monkeypatch, model,
                                                   route):
-    """Every wrapper a block calls, spied: two consecutive blocks of one
-    width pass identical scalars at each step (no host epoch, gate or
-    counter that a replayed graph would repeat stale)."""
+    """Every wrapper a block calls, spied: every block of one width (the
+    key of a block's CUDA graph) passes identical scalars, and tensors at
+    identical addresses, at each step as the first block of that width
+    (no host epoch, gate or counter that a replayed graph would repeat
+    stale, and no buffer picked by a parity that moves between blocks)."""
     monkeypatch.setattr(train_loop, "_FLAT_MIN", FLAT_MIN)
+    monkeypatch.setenv("SWT_WP_TOURNAMENT",
+                       "1" if route == "tournament" else "0")
+    spy_log = _Spy()
     calls = []
     for name in SPIED:
         real = getattr(train_loop, name)
 
         @functools.wraps(real)  # its counters too, which run_fused adds to
         def spy(*args, _name=name, _real=real, **kwargs):
-            calls.append((_name, _scalars(args, kwargs)))
+            calls.append((_name, spy_log.args(args, kwargs)))
             return _real(*args, **kwargs)
 
         monkeypatch.setattr(train_loop, name, spy)
@@ -250,6 +304,7 @@ def test_consecutive_blocks_pass_the_same_scalars(monkeypatch, model,
     real_dispatch = train_loop.BlockRunner.dispatch
 
     def dispatch(self, slot):
+        spy_log.holding(self)
         start = len(calls)
         real_dispatch(self, slot)
         blocks.append((getattr(self.state, "F", -1), calls[start:]))
@@ -266,19 +321,26 @@ def test_consecutive_blocks_pass_the_same_scalars(monkeypatch, model,
                          flat=route != "padded",
                          skip=int(route[4:]) if route.startswith("skip")
                          else 0)
+    blocks = [(F, spy_log.final(tuple(c))) for F, c in blocks]
+    first = {}
     compared = 0
-    for (f0, c0), (f1, c1) in zip(blocks, blocks[1:]):
-        assert c0 and {n for n, _ in c0} >= {"select_unify", "pair_stats"}
-        if f0 == f1:
-            assert c0 == c1
+    for F, c in blocks:
+        assert c and {n for n, _ in c} >= {"select_unify", "pair_stats"}
+        if F in first:
+            assert c == first[F]
             compared += 1
+        first.setdefault(F, c)
     assert compared >= 3
+    # the state's buffers and the records are passed by address
+    assert any(a[0] == "at" for _, c in blocks for _, args in c
+               for _, a in args if isinstance(a, tuple) and a)
     names = {n for _, c in blocks for n, _ in c}
     want = {"flat": {"pair_stats", "select_unify", "merge_apply"},
+            "tournament": {"pair_stats", "select_unify", "merge_apply"},
             "skip12": {"pair_stats", "select_unify", "merge_skip",
-                       "skip_guard", "merge_apply"},
+                       "skip_guard"},
             "skip2": {"pair_stats", "select_unify", "merge_skip",
-                      "skip_guard", "merge_apply"},
+                      "skip_guard"},
             "padded": {"pair_stats", "select_unify", "symbol_rows",
                        "apply_merge"}}[route]
     assert names == want
