@@ -185,8 +185,15 @@ WordPiece vocab ``tests/golden/port_t85k_fastwp_vocab.json``:
    and K3p launches; FastWP's sharded encode (one fused launch a shard)
    and the other three encoders under the mesh against the JAX digests;
    and (14d) the idle share of
-   one warm sharded train, with the grouped kernels by name, no memset,
-   no ``torch.topk`` kernel and no ``certificate_kernel``;
+   one warm sharded train traced after an untraced one, with the grouped
+   kernels by name, their spans equal to the launch counters and its
+   graph launches to its replays, no memset, no ``torch.topk`` kernel
+   and no ``certificate_kernel``. On the one-card mesh each top-K or
+   compact tier of a step after a run's first is one CUDA graph replay
+   (parallel/train.ShardedTrainer; phase 14 asserts the counts and the
+   tiers); (14e) a captured top-K and compact tier replayed 50 times
+   from copies of one state, each equal to the tiers queued step by
+   step;
 15. the process-group route: ``torch.distributed`` with NCCL at world
    size 1 (NCCL takes one rank per GPU), a TCP store on localhost, an
    8-shard process-group mesh on the card, NaiveBPE to 578 equal to the
@@ -241,6 +248,20 @@ SCALAR_OPS_PER_S = 67e12   # H100 SXM float32 outside the tensor cores
 # host-to-device copies a sharded train may make in its set-up (the
 # corpus's blocks, the records); none a step
 H2D_SETUP_MAX = 50
+# the sharded BPE train's tiers on the whole corpus to 8,000, as the
+# step-by-step route counted them on the card (the certificate proves the
+# first 473 steps, as in the JAX package); WordPiece's certificate proves
+# every step
+SHARDED_BPE_TIERS = {"proven": 473, "compact": 7449, "full": 0}
+# the sharded step's kernels: each wrapper's launch counter (as
+# shard_kernels() names them) and a part of its kernel's name in a trace
+SHARD_TRACE_KERNELS = (("pair_rows", "pair_rows_kernel"),
+                       ("nominate_tables", "nominate_kernel"),
+                       ("lookup_reduce", "lookup_reduce_kernel"),
+                       ("compact_tables", "compact_tables_kernel"),
+                       ("pair_stats_runs", "runs_insert_kernel"),
+                       ("select_unify", "select_kernel"),
+                       ("merge_rows", "merge_rows_kernel"))
 # words in the names of torch.topk's CUDA kernels (sbtopk, mbtopk)
 TOPK_KERNEL_WORDS = ("topk", "radixfindkth", "kthcounts", "withinkcounts")
 # batch sizes at the edges of kernel 1's tiles (128 rows) and kernel 2's
@@ -2886,6 +2907,26 @@ def phase13c(dev, rng, flat_bpe, table, arrays, arrays_wp, table_wp,
     return errs, timing, bounds, library, notes
 
 
+def sharded_graph_check(tok, what, forced_full=False):
+    """The graph counts of one sharded train on the one-card mesh
+    (``tok._graph_stats``, parallel/train.ShardedTrainer): raises unless
+    its first step was queued step by step and every top-K or compact
+    tier of a later step was one graph replay (every step of the forced
+    full tier step by step, no replay), with at most two top-K graphs
+    (one a table set). Returns a line of the counts."""
+    g = tok._graph_stats
+    steps = sum(tok._sel_stats.values())
+    eager = steps if forced_full else 1
+    if (g["eager_steps"] != eager or g["replays"] + g["eager_tiers"]
+            != g["tiers"] or g["eager_tiers"] > 2
+            or g["graphs"].get("topk", 0) > 2
+            or (forced_full and (g["replays"] or g["captures"]))):
+        raise AssertionError(f"{what}: {steps} steps, graph counts {g}")
+    return (f"{g['replays']} replays of {g['captures']} graphs "
+            f"{g['graphs']} ({g['capture_s'] * 1e3:.1f} ms capturing), "
+            f"{g['eager_steps']} step(s) queued step by step")
+
+
 def phase14(dev, corpus, check_train, check_wp_train, lists, wp_merges,
             wp_vocab, expect, expect_enc, smi, trace_dir, max_vocab=8000,
             small_vocab=1000, trace_vocab=2000):
@@ -2914,7 +2955,7 @@ def phase14(dev, corpus, check_train, check_wp_train, lists, wp_merges,
     models = {"NaiveBPE": NaiveBPE, "NaiveWP": NaiveWP}
     by_path, lines = {}, []
     for name, cls in models.items():
-        walls = []
+        walls, graph_lines = [], []
         for run in range(2):  # cold, warm
             zero_counts(kernels)
             tok = cls(mesh=mesh, device=dev)
@@ -2924,6 +2965,17 @@ def phase14(dev, corpus, check_train, check_wp_train, lists, wp_merges,
             walls.append(time.perf_counter() - t0)
             counts = read_counts(kernels)
             checks[name](tok, f"{name} mesh of 8 run {run}")
+            n_merges = len(tok.merges_list if name == "NaiveBPE"
+                           else tok._merge_log)
+            tiers = SHARDED_BPE_TIERS if name == "NaiveBPE" else {
+                "proven": n_merges, "compact": 0, "full": 0}
+            if max_vocab == 8000 and (tok._sel_stats != tiers
+                                      or tok._topk_fallbacks != tiers[
+                                          "compact"] + tiers["full"]):
+                raise AssertionError(f"{name} run {run}: tiers "
+                                     f"{tok._sel_stats}, expected {tiers}")
+            graph_lines.append(sharded_graph_check(
+                tok, f"{name} mesh of 8 run {run}"))
         missing = [k for k in must[name] if not counts[k]]
         if missing:
             raise AssertionError(f"{name} under the mesh launched no "
@@ -2960,6 +3012,7 @@ def phase14(dev, corpus, check_train, check_wp_train, lists, wp_merges,
         counts.pop("calls", None)
         by_path[f"{name}_mesh8"] = {k: v for k, v in counts.items() if v}
         lines.append(f"{name} cold {walls[0]:.3f} s, warm {walls[1]:.3f} s, "
+                     f"graphs cold {graph_lines[0]}, warm {graph_lines[1]}, "
                      f"tiers {tok._sel_stats} ({tok._topk_fallbacks} "
                      f"fallbacks; 1 K1, 1 nomination and 1 lookup launch a "
                      f"step, the certificate in 1 K2 launch a step, 1 "
@@ -3005,8 +3058,10 @@ def phase14(dev, corpus, check_train, check_wp_train, lists, wp_merges,
                     len(got), 0 if tier else steps):
                 raise AssertionError(f"{name} tier {tier}: {st}, "
                                      f"launches {counts}")
+            graphs = sharded_graph_check(tok, f"{name} tier {tier}",
+                                         forced_full=tier == "full")
             tier_lines.append(f"{name} {tier or 'mesh of 1'} {wall:.3f} s "
-                              f"{st}")
+                              f"{st}, {graphs}")
     print(f"phase 14b: to {small_vocab}, each equal to the golden's "
           "prefix, tiers asserted: " + "; ".join(tier_lines) + f"; {smi}")
 
@@ -3046,14 +3101,19 @@ def phase14(dev, corpus, check_train, check_wp_train, lists, wp_merges,
     print("phase 14c: tokenize_batch of the whole corpus under the mesh "
           "equals the JAX digests: " + "; ".join(enc_lines) + f"; {smi}")
 
-    traced = []
+    traced, marks = [], []
 
     def traced_train():
+        marks.append(read_counts(kernels))
         traced.append(NaiveBPE(mesh=mesh, device=dev))
         traced[-1].train(corpus, trace_vocab)
 
+    # once untraced, then traced
     wall, busy, by_name = device_trace(
-        traced_train, os.path.join(trace_dir, "mesh_train_trace.json"))
+        traced_train, os.path.join(trace_dir, "mesh_train_trace.json"),
+        warmup=True)
+    spans14 = shard_spans(by_name, marks[-1], traced[-1], kernels,
+                          "phase 14d")
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
     grouped = {k: [sum(c for n, (c, _) in by_name.items() if k in n),
                    sum(ms for n, (_, ms) in by_name.items() if k in n)]
@@ -3097,10 +3157,196 @@ def phase14(dev, corpus, check_train, check_wp_train, lists, wp_merges,
                   f"included) {h2d}; memsets {n_memsets}, top-k library "
                   f"kernels {len(topk_kernels)}, certificate_kernel "
                   f"launches {cert_kernels}, nomination launches "
-                  f"{grouped['nominate_kernel'][0]} in {steps} steps")
+                  f"{grouped['nominate_kernel'][0]} in {steps} steps; "
+                  f"kernel spans equal to the launch counters {spans14}; "
+                  + trace_graph_line(by_name) + "; "
+                  + sharded_graph_check(traced[-1], "phase 14d"))
     print(f"phase 14d: one warm NaiveBPE train to {trace_vocab} on the mesh "
-          f"of 8 under torch.profiler: {dev_line}; {smi}")
+          f"of 8 under torch.profiler (after an untraced one): {dev_line}; "
+          f"{smi}")
     return by_path
+
+
+def shard_spans(by_name, before, tok, kernels, what):
+    """The sharded step's launches in one traced train, measured: raises
+    unless each kernel of ``SHARD_TRACE_KERNELS`` ran as many times in the
+    trace (its kernel spans) as its wrapper's counter counted since
+    ``before`` (read_counts as the traced train started), replays
+    included, and unless the trace's graph launches are the train's
+    replays. Returns {name: spans}."""
+    if not by_name:
+        raise AssertionError(f"{what}: the trace holds no device events, "
+                             f"so the launches are not measured")
+    now = read_counts(kernels)
+    counted = {k: now[k] - before[k] for k, _ in SHARD_TRACE_KERNELS}
+    spans = {k: sum(c for n, (c, _) in by_name.items() if part in n)
+             for k, part in SHARD_TRACE_KERNELS}
+    replays = tok._graph_stats["replays"]
+    if counted != spans or TRACE_API.get("graph_launches") != replays:
+        raise AssertionError(f"{what}: launches counted {counted}, kernel "
+                             f"spans in the trace {spans}; graph launches "
+                             f"{TRACE_API.get('graph_launches')} for "
+                             f"{replays} replays")
+    return spans
+
+
+def held_tensors(obj, seen=None, out=None):
+    """The tensors ``obj`` holds in its attributes, lists, tuples and
+    dicts, recursively over the port's objects."""
+    import torch
+    seen = set() if seen is None else seen
+    out = [] if out is None else out
+    if isinstance(obj, torch.Tensor):
+        out.append(obj)
+        return out
+    if id(obj) in seen or obj is None or isinstance(
+            obj, (int, float, str, bool, torch.device)):
+        return out
+    seen.add(id(obj))
+    if isinstance(obj, (list, tuple)):
+        items = obj
+    elif isinstance(obj, dict):
+        items = obj.values()
+    elif type(obj).__module__.startswith("subword_tokenizers_tpu_torch"):
+        items = vars(obj).values()
+    else:
+        return out
+    for v in items:
+        held_tensors(v, seen, out)
+    return out
+
+
+def phase14e(dev, arrays, table, golden, smi, reps=50):
+    """Phase 14e: a captured top-K tier and a captured compact tier of
+    the sharded step (parallel/train.ShardedTrainer), on the mesh of 8
+    and the mesh of 1 at the corpus's BPE state after the golden's first
+    1,000 merges, each replayed ``reps`` times from copies of that state
+    (every tensor the trainer holds and its host values restored, but
+    the TableSets' descriptors, whose epoch and look-back words go on as
+    a run's do): every replay's records, its K1 tables, its runs and its
+    runs table equal those of the same tiers queued step by step from
+    that state, and every compact replay advances the compaction's epoch
+    word by one (a replay that took a stale epoch, parity or buffer of its
+    capture would differ). Also a replayed tier's host and device time.
+    Returns {mesh: notes}."""
+    import torch
+    from subword_tokenizers_tpu_torch.ops.pairstats import canonical
+    from subword_tokenizers_tpu_torch.parallel import train as ptrain
+    from subword_tokenizers_tpu_torch.parallel.mesh import make_data_mesh
+    out, lines = {}, []
+    for n in (8, 1):
+        tr = ptrain.ShardedTrainer(make_data_mesh(n, devices=[dev] * n),
+                                   arrays.sym, arrays.freq)
+        t = type(table)(table.strings())
+        for sa, sb in golden[:1000]:
+            tr.merge(t.get(sa), t.get(sb), t.intern(sa + sb))
+        tr.select()  # the run's first step, step by step
+        tr._prepare("compact")
+        with torch.cuda.device(dev):
+            tr._queue("compact", False)  # its launchers warmed
+        torch.cuda.synchronize()
+        blk = tr.corpus.blocks[0]
+        descs = {ts.desc.data_ptr() for ts in blk.sets}
+        kept = [x for x in held_tensors(tr)
+                if x.data_ptr() not in descs and x.device.type == "cuda"]
+        initial = [x.clone() for x in kept]
+        slots, tables = tr._host_values()
+        host0 = [getattr(o, a) for o, a in slots]
+        fills0 = [x.fills for x in tables]
+
+        def restore():
+            for x, x0 in zip(kept, initial):
+                x.copy_(x0)
+            for (o, a), v in zip(slots, host0):
+                setattr(o, a, v)
+            for x, f in zip(tables, fills0):
+                x.fills = f
+
+        def outputs():
+            """Both table sets, the runs and the runs tables, each table
+            and each shard's runs in canonical form (K1's hash tables
+            place keys by atomics, so their layouts, and the runs' table
+            order, differ between runs of one step)."""
+            pair = tr.corpus._runs_tables
+            cap = min(tr.run_cap, tr.corpus.n_local_pairs)
+            rk, rc, rp, ovf = tr.corpus.run_buffers(0, cap)
+            got = [x for ts in blk.sets for tab in ts.tables
+                   for x in canonical(*tab)]
+            for i in range(len(blk.shards)):
+                seg = slice(i * cap, (i + 1) * cap)
+                got += canonical(rk[seg], rc[seg], rp[seg])
+            got.append(ovf.clone())
+            for p in (() if pair is None else pair.tables):
+                got += canonical(p.keys, p.counts, p.pos)
+            return got
+
+        def step(run):
+            """The top-K tier then the compact tier, each by ``run``;
+            their records and the outputs."""
+            recs = []
+            for tier, head in (("topk", True), ("compact", False)):
+                run(tier, head)
+                recs.append(tr._fetch())
+            torch.cuda.synchronize()
+            return recs, outputs()
+
+        def queued(tier, head):
+            with torch.cuda.device(dev):
+                tr._queue(tier, head)
+
+        restore()
+        want_recs, want = step(queued)
+        bad, host_ms, dev_ms = [], {"topk": [], "compact": []}, \
+            {"topk": [], "compact": []}
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+
+        def replayed(tier, head):
+            epoch = [ts.epoch for ts in blk.sets]
+            torch.cuda.synchronize()
+            start.record()
+            t0 = time.perf_counter()
+            tr._replay(tier, head)
+            host_ms[tier].append((time.perf_counter() - t0) * 1e3)
+            end.record()
+            end.synchronize()
+            dev_ms[tier].append(start.elapsed_time(end))
+            moved = [ts.epoch - e for ts, e in zip(blk.sets, epoch)]
+            if sorted(moved) != ([0, 1] if tier == "compact" else [0, 0]):
+                bad.append((tier, "epoch", moved))
+
+        for r in range(reps):
+            restore()
+            recs, got = step(replayed)
+            diff = [j for j, (g, w) in enumerate(zip(got, want))
+                    if not torch.equal(g, w)]
+            if recs != want_recs or diff:
+                bad.append((r, recs, diff[:6]))
+        graphs = len(tr.graphs)
+        tr.close()
+        if bad or graphs != 2 or not want_recs[0][4]:
+            raise AssertionError(f"phase 14e, mesh of {n}: replays {bad} "
+                                 f"differ from the tiers queued step by "
+                                 f"step ({want_recs}), or {graphs} graphs")
+        med = {k: sorted(v)[len(v) // 2] for k, v in host_ms.items()}
+        dmed = {k: sorted(v)[len(v) // 2] for k, v in dev_ms.items()}
+        out[n] = {"host_ms": med, "device_ms": dmed,
+                  "proven": want_recs[0][5], "exact": want_recs[1][5]}
+        lines.append(f"mesh of {n}: records {want_recs} (top-K, compact), "
+                     f"a replay's host time median top-K "
+                     f"{med['topk']:.3f} ms, compact {med['compact']:.3f} "
+                     f"ms (max {max(host_ms['topk']):.3f}, "
+                     f"{max(host_ms['compact']):.3f}; the first replays "
+                     f"include their captures), device time (CUDA events "
+                     f"around the replay) median top-K {dmed['topk']:.4f} "
+                     f"ms, compact {dmed['compact']:.4f} ms")
+    print(f"phase 14e: a top-K and a compact tier captured once each and "
+          f"replayed {reps} times from copies of one state (the BPE state "
+          f"after 1,000 golden merges): every replay's records, K1 tables, "
+          f"runs and runs tables equal the tiers queued step by step, each "
+          f"compact replay advanced the epoch word by one; "
+          + "; ".join(lines) + f"; {smi}")
+    return out
 
 
 def phase15(dev, corpus, golden, anchor, smi, max_vocab=578,
@@ -3148,6 +3394,12 @@ def phase15(dev, corpus, golden, anchor, smi, max_vocab=578,
                   "pair_rows", "merge_rows"):
             if not counts.get(k):
                 raise AssertionError(f"phase 15 launched no {k}: {counts}")
+        # a process group's mesh is not graphed: every step queued
+        g = tok._graph_stats
+        steps = sum(tok._sel_stats.values())
+        if g["replays"] or g["captures"] or g["eager_steps"] != steps:
+            raise AssertionError(f"phase 15: {steps} steps, graph counts "
+                                 f"{g}")
     finally:
         dist.destroy_process_group()
     print(f"phase 15: torch.distributed NCCL at world size 1 (TCP store on "
@@ -3155,7 +3407,9 @@ def phase15(dev, corpus, golden, anchor, smi, max_vocab=578,
           f"NaiveBPE to {max_vocab} gives {len(tok.merges_list)} merges equal "
           f"to the "
           f"golden (the first {len(anchor)} the reference anchor) in "
-          f"{wall:.3f} s, tiers {tok._sel_stats}; is_coordinator, "
+          f"{wall:.3f} s, tiers {tok._sel_stats}, the per-step route (a "
+          f"process group's mesh is not graphed: {g['eager_steps']} steps "
+          f"queued step by step, 0 replays); is_coordinator, "
           f"process_count 1 and fetch_global checked; launches {counts}; "
           f"{smi}")
     return counts
@@ -5025,6 +5279,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as d:
         by_mesh = phase14(dev, corpus, check_train, check_wp_train, lists,
                           wp_merges, wp_vocab, expect, expect_enc, smi, d)
+    # ---- phase 14e: captured tiers replayed from copies of one state
+    phase14e(dev, arrays, table, golden, smi)
 
     # ---- phase 15: torch.distributed, NCCL at world size 1
     by_group = phase15(dev, corpus, golden, anchor, smi)

@@ -14,7 +14,11 @@ host route for a merge list with a pair listed twice is
 step by step or replayed as one CUDA graph and, while profiling, run),
 ``train.capture`` (a block's graph captured), ``train.fetch_records``
 (the wait for a block's records), ``train.verify``, ``train.per_step``
-and ``train.final_fetch``. Off by default (one
+and ``train.final_fetch``; under a mesh ``train.sharded`` (the step
+loop) holds ``train.device_step`` (a tier queued step by step),
+``train.capture`` (a tier's graph captured), ``train.step_replay`` (a
+tier's graph replayed) and ``train.fetch_records`` (the wait for a
+tier's record). Off by default (one
 module-bool check per block);
 on with ``SWT_PROFILE=1`` or :func:`enable`. Kernels launch
 asynchronously, so while profiling is on a device phase ends with

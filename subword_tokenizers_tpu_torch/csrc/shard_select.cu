@@ -14,12 +14,13 @@
 // so positions order pairs across shards as one device's would.
 //
 // The lookup and the compaction take every shard of one device in one
-// launch: a descriptor int64[6 * D + 1 + D + C * D] in device memory
+// launch: a descriptor int64[6 * D + 1 + D + C * D + 1] in device memory
 // (ops/shard_select.py's TableSet, built once for a set of tables and
 // reused every step) gives per shard its table's keys, counts and pos
 // pointers, T and base, and a slot for the compaction's overflow flag;
-// then the compaction's ticket, a cluster counter a shard, and C status
-// words a shard for its look-back.
+// then the compaction's ticket, a cluster counter a shard, C status
+// words a shard for its look-back, and the epoch word (the last
+// compaction's epoch).
 //
 // - lookup_reduce_kernel: one thread per gathered candidate key (blocks
 //   of one warp, so the probes spread over many SMs) hashes it once
@@ -43,14 +44,19 @@
 //   counter that wraps to 0 each call), publishes its count, reads its
 //   predecessors' words back to the first inclusive one, and publishes
 //   its inclusive count; each word carries the call's epoch, so a stale
-//   word is never read and no memset runs between calls. The live
+//   word is never read and no memset runs between calls. The epoch is
+//   one past the descriptor's epoch word, read by every block before its
+//   cluster publishes and advanced by the call's last cluster, so no
+//   call takes it from the host and a CUDA graph of the launch replays
+//   with the epoch the device holds (the host restarts the epochs, the
+//   status words and the epoch word zeroed, before 2^30 - 1). The live
 //   entries of rank < cap are written densely in table order as (key,
 //   count, position + base), their counts and positions read only then,
 //   into the gathered layout (shard i at [i * cap, (i + 1) * cap)); the
 //   shard's last cluster fills ranks n_live .. cap - 1 with (EMPTY, 0,
 //   POS_MAX), stores its flag (n_live > cap) and takes a ticket; the last
-//   of the D writes the OR of the flags and resets the ticket to 0 (calls
-//   on one descriptor run in stream order).
+//   of the D writes the OR of the flags, advances the epoch word and
+//   resets the ticket to 0 (calls on one descriptor run in stream order).
 // - certificate_kernel, one block: the check launcher of the top-K tier's
 //   certificate (certificate.cuh). The training step runs the same device
 //   functions inside K2's last block (select_unify.cu), so no training
@@ -170,7 +176,7 @@ __global__ void __launch_bounds__(kLookupThreads)
 
 __global__ void __cluster_dims__(kCluster, 1, 1)
     __launch_bounds__(kCThreads, 1)
-    compact_tables_kernel(Shard* shards, int D, int64_t cap, unsigned epoch,
+    compact_tables_kernel(Shard* shards, int D, int64_t cap,
                           int64_t* __restrict__ out_keys,
                           int64_t* __restrict__ out_cnt,
                           int32_t* __restrict__ out_pos,
@@ -186,7 +192,7 @@ __global__ void __cluster_dims__(kCluster, 1, 1)
   const int warp = threadIdx.x >> 5;
   const unsigned lt = (1u << lane) - 1u;
   // After the D rows: the ticket, a counter a shard, a status word a
-  // cluster (C a shard).
+  // cluster (C a shard), then the epoch word.
   const int C = gridDim.x / kCluster;
   unsigned* ticket = reinterpret_cast<unsigned*>(shards + D);
   unsigned* counter =
@@ -194,6 +200,19 @@ __global__ void __cluster_dims__(kCluster, 1, 1)
       2 * blockIdx.y;
   unsigned long long* status =
       reinterpret_cast<unsigned long long*>(ticket) + 1 + D + blockIdx.y * C;
+  unsigned long long* epoch_word =
+      reinterpret_cast<unsigned long long*>(ticket) + 1 + D + D * C;
+  // This call's epoch, one past the last call's. Only thread 0 publishes
+  // and looks back; it reads the word before the cluster barrier below,
+  // so before its cluster publishes, and the last cluster of the call,
+  // which advances the word, runs after every cluster of every shard has
+  // published (its shard's by the look-back, the others' by the ticket).
+  unsigned epoch = 0;
+  if (threadIdx.x == 0)
+    epoch = (static_cast<unsigned>(
+                 *reinterpret_cast<volatile unsigned long long*>(epoch_word)) +
+             1u) &
+            kEpochMask;
   // The cluster's index among its shard's, in the order the clusters
   // start (atomicInc wraps at C, so the counter is 0 again after a call).
   if (rank == 0 && threadIdx.x == 0) s_c = atomicInc(counter, C - 1);
@@ -311,6 +330,7 @@ __global__ void __cluster_dims__(kCluster, 1, 1)
           any |= static_cast<int>(
               *reinterpret_cast<volatile int64_t*>(&shards[s].flag));
         *ovf = any;
+        *reinterpret_cast<volatile unsigned long long*>(epoch_word) = epoch;
         atomicExch(ticket, 0u);
       }
     }
@@ -389,16 +409,16 @@ int swt_lookup_reduce(const void* cand, int64_t M, const void* shards, int D,
 }
 
 // shards: the descriptor of D tables (keys 16-byte aligned, T < 2^31),
-// clusters a shard C = ceil(max T / 131,072); epoch in [1, 2^30), not
-// that of the descriptor's previous call; cap >= 1 -> out_keys/out_cnt
-// i64[D * cap], out_pos i32[D * cap], ovf i32[1] (the OR of the shards'
-// flags). Returns the cudaError_t.
-int swt_compact_tables(void* shards, int D, int C, int64_t cap, int epoch,
+// clusters a shard C = ceil(max T / 131,072), its epoch word below
+// 2^30 - 1 (advanced); cap >= 1 -> out_keys/out_cnt i64[D * cap],
+// out_pos i32[D * cap], ovf i32[1] (the OR of the shards' flags).
+// Returns the cudaError_t.
+int swt_compact_tables(void* shards, int D, int C, int64_t cap,
                        void* out_keys, void* out_cnt, void* out_pos,
                        void* ovf, void* stream) {
   compact_tables_kernel<<<dim3(kCluster * C, D), kCThreads, 0,
                           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<Shard*>(shards), D, cap, static_cast<unsigned>(epoch),
+      static_cast<Shard*>(shards), D, cap,
       static_cast<int64_t*>(out_keys), static_cast<int64_t*>(out_cnt),
       static_cast<int32_t*>(out_pos), static_cast<int32_t*>(ovf));
   return static_cast<int>(cudaGetLastError());

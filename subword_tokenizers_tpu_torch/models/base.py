@@ -116,9 +116,11 @@ class SubwordTokenizer:
         ``join(sa, sb)``, K3p on every shard. ``resume`` is the merges to
         replay first, ``save()`` writes a checkpoint, ``log`` gets each
         merge's pair; ``sym_cap`` (WordPiece) selects by exact score.
-        Sets ``vocab``, ``corpus_as_symbols``, ``_sel_stats`` and
-        ``_topk_fallbacks``; ``_force_tier`` ('compact' or 'full') pins
-        the selection to one exact tier."""
+        Sets ``vocab``, ``corpus_as_symbols``, ``_sel_stats``,
+        ``_topk_fallbacks`` and ``_graph_stats`` (the run's captures,
+        replays and steps queued step by step: ShardedTrainer);
+        ``_force_tier`` ('compact' or 'full') pins the selection to one
+        exact tier. The trainer's graphs are released when the run ends."""
         from ..parallel.train import ShardedTrainer
         dev = self.device
         with profiling.phase("train.corpus", dev):
@@ -128,6 +130,7 @@ class SubwordTokenizer:
                 force_tier=getattr(self, "_force_tier", None))
         self._sel_stats = trainer.sel_stats
         self._topk_fallbacks = 0
+        self._graph_stats = trainer.graph_stats
 
         def merge(a_id, b_id, sa, sb):
             merged = join(sa, sb)
@@ -135,31 +138,34 @@ class SubwordTokenizer:
             log.append((sa, sb))
             trainer.merge(a_id, b_id, table.intern(merged))
 
-        for sa, sb in resume:
-            a_id, b_id = table.get(sa), table.get(sb)
-            if a_id is None or b_id is None:
-                raise ValueError(
-                    "checkpoint does not match this corpus: "
-                    f"unknown symbol in merge ({sa!r}, {sb!r})")
-            merge(a_id, b_id, sa, sb)
-        pbar = None
-        if self._progress:
-            pbar = utils.Progress(total=max_vocab - len(self.vocab),
-                                  desc=desc)
-        steps = 0
-        with profiling.phase("train.sharded", dev):
-            while len(self.vocab) < max_vocab:
-                got = trainer.select()
-                self._topk_fallbacks = trainer.topk_fallbacks
-                if got is None:
-                    break
-                merge(*got, table.string(got[0]), table.string(got[1]))
-                steps += 1
-                if pbar is not None:
-                    pbar.update(1)
-                if (self._checkpoint_dir is not None
-                        and steps % self._checkpoint_every == 0):
-                    save()
+        try:
+            for sa, sb in resume:
+                a_id, b_id = table.get(sa), table.get(sb)
+                if a_id is None or b_id is None:
+                    raise ValueError(
+                        "checkpoint does not match this corpus: "
+                        f"unknown symbol in merge ({sa!r}, {sb!r})")
+                merge(a_id, b_id, sa, sb)
+            pbar = None
+            if self._progress:
+                pbar = utils.Progress(total=max_vocab - len(self.vocab),
+                                      desc=desc)
+            steps = 0
+            with profiling.phase("train.sharded", dev):
+                while len(self.vocab) < max_vocab:
+                    got = trainer.select()
+                    self._topk_fallbacks = trainer.topk_fallbacks
+                    if got is None:
+                        break
+                    merge(*got, table.string(got[0]), table.string(got[1]))
+                    steps += 1
+                    if pbar is not None:
+                        pbar.update(1)
+                    if (self._checkpoint_dir is not None
+                            and steps % self._checkpoint_every == 0):
+                        save()
+        finally:
+            trainer.close()
         if pbar is not None:
             pbar.close()
         if self._checkpoint_dir is not None:

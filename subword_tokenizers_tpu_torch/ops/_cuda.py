@@ -55,7 +55,7 @@ SIGNATURES = {
     "swt_pair_stats_runs": [_P, _P, _P, _I64, *_TABLE_ARGS, _P],
     "swt_pair_rows": [_P, _P, _I64, _I64, _I64, _P, _P, _I64, _I64, _P],
     "swt_lookup_reduce": [_P, _I64, _P, _I, _P, _P, _P],
-    "swt_compact_tables": [_P, _I, _I, _I64, _I, _P, _P, _P, _P, _P],
+    "swt_compact_tables": [_P, _I, _I, _I64, _P, _P, _P, _P, _P],
     "swt_launch_floor": [_I, _P],
     "swt_nominate": [_P, _I, _I64, _P, _P, _P, _P],
     "swt_certificate": [_P, _I, _P, _P, _I64, _P, _P, _I, _I, _P],

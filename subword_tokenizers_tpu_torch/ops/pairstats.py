@@ -395,8 +395,11 @@ def pair_rows(sym, wgt, rows: int, tset=None, clear=None):
     TableSet of other tables that the same launch empties, the other half
     of a double buffer (parallel/train.ShardBlock); the caller's readers
     of them must be queued before. For CPU tensors, runs the PyTorch
-    version and returns each shard's sorted (keys, counts, first). Raises
-    for any other device.
+    version and returns each shard's sorted (keys, counts, first); given
+    ``tset`` (CPU tables), it writes them at the front of the set's
+    tables, every other entry empty, empties ``clear``'s tables, and
+    returns the set's tables, as the card does. Raises for any other
+    device.
     """
     dev = sym.device
     check_tensor("sym", sym, (torch.int32,), 2, dev)
@@ -408,9 +411,9 @@ def pair_rows(sym, wgt, rows: int, tset=None, clear=None):
         raise ValueError(f"pair_rows: {R} x {L} rows in shards of {rows} "
                          f"(a positive multiple, fewer than 2**31 slots)")
     D = R // rows
-    if dev.type == "cpu":
+    if dev.type == "cpu" and tset is None:
         return pair_rows_ref(sym, wgt, rows)
-    if dev.type != "cuda":
+    if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"pair_rows: no kernel for device {dev}")
     if tset is None:
         raise ValueError("pair_rows: CUDA tensors need the TableSet of "
@@ -432,6 +435,9 @@ def pair_rows(sym, wgt, rows: int, tset=None, clear=None):
                 clear.rows[6 * i] for i in range(clear.D)):
             raise ValueError("pair_rows: a table to empty is one to fill")
         T_max = max(clear.rows[6 * i + 3] for i in range(clear.D))
+    if dev.type == "cpu":
+        _fill_plain(pair_rows_ref(sym, wgt, rows), tset, clear)
+        return list(tset.tables)
     from . import _cuda
     with torch.cuda.device(dev):
         _cuda.launch("swt_pair_rows", sym.data_ptr(), wgt.data_ptr(), R, L,
@@ -443,6 +449,22 @@ def pair_rows(sym, wgt, rows: int, tset=None, clear=None):
 
 
 pair_rows.launches = 0
+
+
+def _fill_plain(got, tset, clear) -> None:
+    """The plain version's tables ``got`` written as CPU K1 tables: each
+    shard's pairs at the front of its table of ``tset``, in key order,
+    every other entry empty; ``clear``'s tables emptied."""
+    for (keys, counts, pos), (k, c, p) in zip(tset.tables, got):
+        n = k.shape[0]
+        keys.fill_(EMPTY_KEY)
+        counts.zero_()
+        pos.fill_(-1)
+        keys[:n], counts[:n], pos[:n] = k, c, p
+    for keys, counts, pos in () if clear is None else clear.tables:
+        keys.fill_(EMPTY_KEY)
+        counts.zero_()
+        pos.fill_(-1)
 
 
 def symbol_freqs_ref(fs, wgt, sym_cap: int):

@@ -22,7 +22,8 @@ so positions order pairs across shards as one device's do. On that table:
 - :func:`compact_tables`: each shard's live entries as at most ``cap``
   dense runs, in the gathered layout, and the OR of their overflow flags
   (kernel ``swt_compact_tables``, one launch for all of the device's
-  shards; the JAX package's ``compact_cands``,
+  shards, its epoch read from the :class:`TableSet`'s epoch word on the
+  device; the JAX package's ``compact_cands``,
   ``ops/pairstats.py:162``, as its compact tier uses it);
   :func:`compact_table` is its one-table case;
 - :func:`certificate_ref`: the Σ-threshold certificate of the top-K tier
@@ -210,14 +211,25 @@ class TableSet:
     once for a set of tables (``parallel/train.ShardBlock`` keeps two a
     group of the mesh, whose K1 tables are allocated once) so that a step
     copies nothing to the device. ``desc`` is int64[6 * D + 1 + D + C *
-    D] on the tables' device: per table its keys, counts and pos
+    D + 1] on the tables' device: per table its keys, counts and pos
     pointers, T, base and a slot for the compaction's overflow flag; then
-    the compaction's ticket, a cluster counter a table, and C look-back
+    the compaction's ticket, a cluster counter a table, C look-back
     status words a table (C = ceil(max T / ROUND_SPAN), the compaction's
-    clusters a table), all 0 between calls but the status words, which
-    :meth:`next_epoch` makes stale without a memset. ``tables`` keeps the
-    tables themselves (so the pointers stay valid), and ``k1_checked``
-    records that ops/pairstats.pair_rows has checked them."""
+    clusters a table) and the epoch word (:attr:`EPOCH`: the last
+    compaction's epoch). The ticket and the counters are 0 between calls.
+
+    No compaction takes its epoch from the host: each call's epoch is one
+    past the epoch word, which every cluster reads before it publishes
+    and the call's last cluster advances, and each status word carries
+    it, so a word of an earlier call is never read as this call's and no
+    memset runs between calls. So a CUDA graph of a compaction
+    (parallel/train.ShardedTrainer) replays with the epoch the device
+    holds. ``calls`` counts on the host the compactions queued since the
+    epochs last restarted, at least the epoch word: :meth:`advance`
+    restarts them before they would pass ``EPOCH_MAX``. ``tables`` keeps
+    the tables themselves (so the pointers stay valid), and
+    ``k1_checked`` records that ops/pairstats.pair_rows has checked
+    them."""
 
     def __init__(self, tables, bases):
         self.tables = tuple(tables)
@@ -226,9 +238,26 @@ class TableSet:
         self.D = len(tables)
         self.clusters = max(-(-t[0].shape[0] // ROUND_SPAN) for t in tables)
         self.desc = torch.tensor(
-            list(self.rows) + [0] * (1 + self.D + self.D * self.clusters),
+            list(self.rows) + [0] * (1 + self.D + self.D * self.clusters + 1),
             dtype=torch.int64).to(tables[0][0].device)
-        self.epoch = 0
+        self.calls = 0
+
+    @property
+    def EPOCH(self) -> int:
+        """The index of the epoch word in ``desc`` (its last word)."""
+        return self.desc.shape[0] - 1
+
+    @property
+    def status(self) -> torch.Tensor:
+        """The look-back status words, C a table (a view of ``desc``)."""
+        start = 6 * self.D + 1 + self.D
+        return self.desc[start:start + self.D * self.clusters]
+
+    @property
+    def epoch(self) -> int:
+        """The epoch word: the last compaction's epoch (a read of the
+        device)."""
+        return int(self.desc[self.EPOCH])
 
     @staticmethod
     def rows_of(tables, bases) -> tuple:
@@ -253,15 +282,27 @@ class TableSet:
             keys.data_ptr(), counts.data_ptr(), pos.data_ptr(),
             keys.shape[0]) for i, (keys, counts, pos) in enumerate(tables))
 
-    def next_epoch(self) -> int:
-        """The epoch of the next compaction, 1 .. EPOCH_MAX in turn; on
-        the wrap the status words are zeroed, so a word of an earlier
-        call never carries the new epoch."""
-        self.epoch += 1
-        if self.epoch > EPOCH_MAX:
-            self.desc[6 * self.D + 1 + self.D:].zero_()
-            self.epoch = 1
-        return self.epoch
+    def room(self, n: int) -> None:
+        """Make room for ``n`` more compactions: when they could take the
+        epoch word past ``EPOCH_MAX``, restart the epochs now (the status
+        words and the epoch word zeroed on the device, queued before the
+        calls), so no word of an earlier call carries a new epoch. A
+        restart inside a CUDA graph's capture would be replayed with it,
+        so it raises there: make room before one."""
+        if self.calls + n <= EPOCH_MAX:
+            return
+        if (self.desc.device.type == "cuda"
+                and torch.cuda.is_current_stream_capturing()):
+            raise RuntimeError("TableSet: the epochs would restart inside a "
+                               "capture")
+        self.desc[6 * self.D + 1 + self.D:].zero_()
+        self.calls = 0
+
+    def advance(self, n: int = 1) -> None:
+        """Count ``n`` compactions about to be queued (one call, or a
+        replayed graph's), after :meth:`room` for them."""
+        self.room(n)
+        self.calls += n
 
 
 def _check_table_set(tset, tables, name: str) -> None:
@@ -280,13 +321,14 @@ def lookup_reduce_ref(cand, tables, bases):
             torch.stack([p for _, p in looked]).amin(0))
 
 
-def lookup_reduce(cand, tables, bases, tset=None):
+def lookup_reduce(cand, tables, bases, tset=None, out=None):
     """Each candidate key's count summed over the pair tables of one
     device's shards and its least position + base over them, or (0,
     POS_MAX) when the key is absent from every table or EMPTY_KEY.
     ``cand`` int64[M]; ``tables`` K1's (keys, counts, pos) of each shard,
     ``bases`` their position bases; ``tset``, if given, their
-    :class:`TableSet` (else one is built for the call). Returns (count
+    :class:`TableSet` (else one is built for the call); ``out``, if
+    given, the two outputs to write (reused across calls). Returns (count
     int64[M], position int32[M]; int64 on the CPU).
 
     Launches ``swt_lookup_reduce`` once for CUDA tensors, whatever the
@@ -296,13 +338,27 @@ def lookup_reduce(cand, tables, bases, tset=None):
     check_tensor("cand", cand, (torch.int64,), 1, dev)
     _check_tables(tables, bases, dev, "lookup_reduce")
     _check_table_set(tset, tables, "lookup_reduce")
+    M = cand.shape[0]
+    if out is not None:
+        pos_dtype = torch.int64 if dev.type == "cpu" else torch.int32
+        for name, t, dt in (("count", out[0], torch.int64),
+                            ("pos", out[1], pos_dtype)):
+            check_tensor(f"out {name}", t, (dt,), 1, dev)
+            if t.shape[0] != M:
+                raise ValueError(f"lookup_reduce: out {name} has "
+                                 f"{t.shape[0]} entries, expected {M}")
     if dev.type == "cpu":
-        return lookup_reduce_ref(cand, tables, bases)
+        got = lookup_reduce_ref(cand, tables, bases)
+        if out is None:
+            return got
+        for o, g in zip(out, got):
+            o.copy_(g)
+        return tuple(out)
     if dev.type != "cuda":
         raise ValueError(f"lookup_reduce: no kernel for device {dev}")
-    M = cand.shape[0]
-    cnt = torch.empty(M, dtype=torch.int64, device=dev)
-    pos = torch.empty(M, dtype=torch.int32, device=dev)
+    cnt, pos = out if out is not None else (
+        torch.empty(M, dtype=torch.int64, device=dev),
+        torch.empty(M, dtype=torch.int32, device=dev))
     if M == 0:
         return cnt, pos
     tset = tset or TableSet(tables, bases)
@@ -344,12 +400,41 @@ def compact_table_ref(table, cap: int, base: int):
                                              dtype=torch.int32, device=dev)
 
 
-def compact_tables_ref(tables, bases, cap: int):
+def compact_tables_ref(tables, bases, cap: int, tset=None):
     """Plain PyTorch version of :func:`compact_tables`: the one-table
-    compactions concatenated and their flags' OR (int64 positions)."""
+    compactions concatenated and their flags' OR (int64 positions). With
+    ``tset`` it writes the descriptor's words as the kernel leaves them
+    (:func:`publish_ref`)."""
     runs = [compact_table_ref(t, cap, b) for t, b in zip(tables, bases)]
+    if tset is not None:
+        publish_ref(tset, cap)
     return tuple(torch.cat([r[j] for r in runs]) for j in range(3)) + (
         torch.stack([r[3] for r in runs]).amax(0),)
+
+
+K_INCLUSIVE = 2 << 62  # a look-back status word's state (csrc/lookback.cuh)
+
+
+def publish_ref(tset, cap: int) -> None:
+    """The descriptor's words as one compaction over ``tset`` leaves
+    them: this call's epoch, one past the epoch word (``EPOCH_MAX`` wraps
+    to 0, which the host's restart precedes), in the epoch word; each
+    table's overflow flag (live entries > ``cap``); each of its clusters'
+    status words inclusive, with the epoch and the live entries of the
+    table up to the cluster's end; the ticket and the counters 0."""
+    epoch = (tset.epoch + 1) & EPOCH_MAX
+    desc = tset.desc
+    status = tset.status.view(tset.D, tset.clusters)
+    for i, (keys, _, _) in enumerate(tset.tables):
+        live = keys != EMPTY_KEY
+        desc[6 * i + 5] = int(int(live.sum()) > cap)
+        T = keys.shape[0]
+        for c in range(-(-T // ROUND_SPAN)):
+            n = int(live[:min((c + 1) * ROUND_SPAN, T)].sum())
+            w = K_INCLUSIVE | epoch << 32 | n
+            status[i, c] = w - (1 << 64) if w >= 1 << 63 else w
+    desc[6 * tset.D:6 * tset.D + 1 + tset.D] = 0
+    desc[tset.EPOCH] = epoch
 
 
 def compact_tables(tables, bases, cap: int, out=None, tset=None):
@@ -362,7 +447,11 @@ def compact_tables(tables, bases, cap: int, out=None, tset=None):
     are then incomplete). ``tables`` are K1's tables of the shards,
     ``bases`` their position bases; ``out``, if given, the four outputs
     to write (reused across calls); ``tset``, if given, the tables'
-    :class:`TableSet` (else one is built for the call).
+    :class:`TableSet` (else one is built for the call), whose words the
+    call advances (its epoch word, the flags, the status words): on the
+    card the kernel reads its epoch there, so the call takes none from
+    the host, and for CPU tensors the plain version writes them as the
+    kernel does.
 
     Launches ``swt_compact_tables`` once for CUDA tensors, whatever the
     number of tables, runs the PyTorch version for CPU tensors, and raises
@@ -370,6 +459,9 @@ def compact_tables(tables, bases, cap: int, out=None, tset=None):
     dev = tables[0][0].device if tables else None
     _check_tables(tables, bases, dev, "compact_tables")
     _check_table_set(tset, tables, "compact_tables")
+    if tset is not None and not tset.covers(tables):
+        raise ValueError("compact_tables: the TableSet is not that of "
+                         "these tables")
     if cap < 1:
         raise ValueError(f"compact_tables: cap {cap} < 1")
     D = len(tables)
@@ -384,7 +476,9 @@ def compact_tables(tables, bases, cap: int, out=None, tset=None):
                 raise ValueError(f"compact_tables: out {name} has "
                                  f"{t.shape[0]} entries, expected {n}")
     if dev.type == "cpu":
-        runs = compact_tables_ref(tables, bases, cap)
+        if tset is not None:
+            tset.advance()
+        runs = compact_tables_ref(tables, bases, cap, tset)
         if out is None:
             return runs
         for o, r in zip(out, runs):
@@ -399,11 +493,11 @@ def compact_tables(tables, bases, cap: int, out=None, tset=None):
                torch.empty(D * cap, dtype=torch.int32, device=dev),
                torch.empty(1, dtype=torch.int32, device=dev))
     tset = tset or TableSet(tables, bases)
+    tset.advance()
     from . import _cuda
     with torch.cuda.device(dev):
         _cuda.launch("swt_compact_tables", tset.desc.data_ptr(), D,
-                     tset.clusters, cap, tset.next_epoch(),
-                     *(t.data_ptr() for t in out))
+                     tset.clusters, cap, *(t.data_ptr() for t in out))
     compact_tables.launches += 1
     return tuple(out)
 

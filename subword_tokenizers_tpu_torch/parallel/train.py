@@ -44,17 +44,20 @@ WordPiece, the merges do not.
 """
 from __future__ import annotations
 
+import time
 from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from ..benchmarks import profiling
 from ..ops.merge import apply_merge
 from ..ops.pairstats import (TablePair, clean_table, pair_rows,
-                             pair_stats_runs)
+                             pair_stats_runs, symbol_rows)
 from ..ops.shard_select import (TableSet, compact_tables, lookup_reduce,
                                 nominate_tables)
-from ..ops.train_loop import PaddedState, select_host_ids, select_scratch
+from ..ops.train_loop import (PaddedState, select_host_ids, select_scratch,
+                              select_unify)
 from .mesh import DataMesh
 
 # Candidates nominated per shard per step, as in the JAX package.
@@ -80,13 +83,15 @@ class ShardBlock:
     its two outputs alternating as the tables do) and K3p merges the
     whole block in one launch.
 
-    On CUDA each shard has two tables, used on alternate steps: the launch
-    that fills one set empties the other, whose readers (the tiers'
+    Each shard has two tables, used on alternate steps: the launch that
+    fills one set empties the other, whose readers (the tiers'
     nomination, lookup and compaction) ran before it in stream order.
     A step thus issues one K1 stream operation a device and no memset.
     ``sets`` are the two sets' TableSets, built once with the shards'
-    position bases, and ``filled`` the one the last :meth:`pairs` filled
-    (None on the CPU, whose plain versions need no descriptor)."""
+    position bases, ``filled`` the one the last :meth:`pairs` filled and
+    ``_parity`` the one the next fills. On the CPU the plain version
+    writes into them (ops/pairstats.pair_rows), so the tiers take the
+    same sets as on the card."""
 
     def __init__(self, sym: np.ndarray, freq: np.ndarray, device,
                  n_shards: int, bases: List[int]) -> None:
@@ -96,19 +101,14 @@ class ShardBlock:
         self.wgt = self.state.wgt
         self.shards = [self.state.rows(i * self.rows, (i + 1) * self.rows)
                        for i in range(n_shards)]
-        self.sets: List[TableSet] = []
-        if self.state.device.type == "cuda":
-            self.sets = [TableSet([clean_table(self.rows * L,
-                                               self.state.device)
-                                   for _ in range(n_shards)], bases)
-                         for _ in range(2)]
+        self.sets = [TableSet([clean_table(self.rows * L, self.state.device)
+                               for _ in range(n_shards)], bases)
+                     for _ in range(2)]
         self.filled: Optional[TableSet] = None
         self._parity = 0
 
     def pairs(self) -> list:
         """K1 over the block: each shard's table, this step's set."""
-        if not self.sets:
-            return pair_rows(self.state.sym, self.wgt, self.rows)
         p, self._parity = self._parity, 1 - self._parity
         self.filled = self.sets[p]
         return pair_rows(self.state.sym, self.wgt, self.rows, self.filled,
@@ -195,24 +195,29 @@ class ShardedCorpus:
         return None if self._runs_tables is None else \
             self._runs_tables.claims()
 
+    def runs_tables(self, M: int) -> Optional[TablePair]:
+        """K1's two tables for the M runs of the compact tier on
+        ``mesh.home``, made once (None on the CPU, whose plain version
+        needs none)."""
+        if self._runs_tables is None and self.mesh.home.type == "cuda":
+            self._runs_tables = TablePair(M + 1, self.mesh.home)
+        return self._runs_tables
+
     def aggregate_runs(self, rk, rc, rp):
         """K1's runs mode over the M runs the compact tier gathers (always
         as many) on ``mesh.home``: on CUDA into one of two tables, the
         launch emptying the other."""
-        if self._runs_tables is None and self.mesh.home.type == "cuda":
-            self._runs_tables = TablePair(rk.shape[0] + 1, self.mesh.home)
-        if self._runs_tables is None:
+        pair = self.runs_tables(rk.shape[0])
+        if pair is None:
             return pair_stats_runs(rk, rc, rp)
-        return self._runs_tables.runs(rk, rc, rp)
+        return pair.runs(rk, rc, rp)
 
     def _outputs(self, group: int, key, sizes):
         """Output tensors of a grouped kernel for group ``group`` of the
         mesh, one for each (entries, dtype) of ``sizes``, allocated once
-        under ``key`` and written every step (on CUDA; None on the CPU,
-        whose plain versions allocate)."""
+        under ``key`` and written every step (the plain versions copy
+        into them)."""
         dev = self.mesh.groups[group][0]
-        if dev.type != "cuda":
-            return None
         out = self._buffers.get((group, key))
         if out is None:
             out = self._buffers[(group, key)] = tuple(
@@ -227,6 +232,18 @@ class ShardedCorpus:
         return self._outputs(group, ("nominate", k),
                              ((n * k, torch.int64), (3 * n, torch.int64)))
 
+    def lookup_buffers(self, group: int, m: int):
+        """The lookup's outputs (count, position) for group ``group`` of
+        the mesh over ``m`` gathered candidates."""
+        return self._outputs(group, ("lookup", m),
+                             ((m, torch.int64), (m, self._pos_dtype(group))))
+
+    def _pos_dtype(self, group: int) -> torch.dtype:
+        """Positions as the kernels write them (int32), or as the plain
+        versions do on the CPU (int64)."""
+        return torch.int32 if self.mesh.groups[group][0].type == "cuda" \
+            else torch.int64
+
     def run_buffers(self, group: int, cap: int):
         """The compaction's outputs for group ``group`` of the mesh at
         ``cap`` runs a shard."""
@@ -234,7 +251,8 @@ class ShardedCorpus:
         n = (stop - start) * cap
         return self._outputs(group, ("runs", cap),
                              ((n, torch.int64), (n, torch.int64),
-                              (n, torch.int32), (1, torch.int32)))
+                              (n, self._pos_dtype(group)),
+                              (1, torch.int32)))
 
     def host(self) -> np.ndarray:
         """Every shard's rows on the host, without the padding rows (the
@@ -280,7 +298,8 @@ def sharded_select_topk(corpus: ShardedCorpus, tables, rec,
     cand = mesh.gather([c for c, _ in picks])
     kth = mesh.gather([t for _, t in picks])
     looked = [lookup_reduce(cand.to(dev), tables[a:b], corpus.bases[a:b],
-                            corpus.blocks[g].table_set(tables[a:b]))
+                            corpus.blocks[g].table_set(tables[a:b]),
+                            corpus.lookup_buffers(g, cand.shape[0]))
               for g, (dev, a, b) in enumerate(mesh.groups)]
     g_cnt = mesh.sum([c for c, _ in looked])
     g_pos = mesh.amin([p for _, p in looked])
@@ -292,8 +311,9 @@ def sharded_select_compact(corpus: ShardedCorpus, tables, rec, cap: int,
                            sym_freq=None) -> None:
     """The compact tier: ``rec`` gets K2's winner over the aggregated
     runs of every shard and, in ``rec[5]``, 1 when no shard had more than
-    ``cap`` runs (the answer is then exact). Replaces the JAX package's
-    ``sharded_bpe_select_compact`` and ``sharded_wp_select_compact``."""
+    ``cap`` runs (the answer is then exact), written in place. Replaces
+    the JAX package's ``sharded_bpe_select_compact`` and
+    ``sharded_wp_select_compact``."""
     mesh = corpus.mesh
     cap = min(cap, corpus.n_local_pairs)
     runs = [compact_tables(tables[a:b], corpus.bases[a:b], cap,
@@ -304,7 +324,7 @@ def sharded_select_compact(corpus: ShardedCorpus, tables, rec, cap: int,
     agg = corpus.aggregate_runs(gk, gc, gp)
     select_host_ids(*agg, rec, sym_freq, claims=corpus.runs_claims(),
                     scratch=corpus.k2_scratch)
-    rec[FLAG:].copy_(1 - mesh.amax([r[3] for r in runs]))
+    rec[FLAG:].fill_(1).sub_(mesh.amax([r[3] for r in runs]))
 
 
 def sharded_select_full(corpus: ShardedCorpus, rec, sym_freq=None) -> None:
@@ -328,12 +348,63 @@ def sharded_apply_merge(corpus: ShardedCorpus, a: int, b: int,
         blk.merge(a, b, new_id)
 
 
+# The wrappers a step's tiers call; every counter of theirs whose name
+# ends in "launches" counts a captured tier's launches at each replay.
+_STEP_WRAPPERS = (pair_rows, nominate_tables, lookup_reduce, select_unify,
+                  compact_tables, pair_stats_runs, symbol_rows)
+
+
+def _launch_counters():
+    return [(fn, name) for fn in _STEP_WRAPPERS for name in vars(fn)
+            if name.endswith("launches")]
+
+
+class _TierGraph:
+    """A captured tier of a step: its CUDA graph, the host values the
+    capture moved (``moved``: (object, attribute, value after); ``fills``:
+    (PairTable, fills added)), the launches it holds by counter, and the
+    compactions it holds by TableSet (their epochs)."""
+
+    def __init__(self, graph, moved, fills, launches, compactions) -> None:
+        self.graph = graph
+        self.moved = moved
+        self.fills = fills
+        self.launches = launches
+        self.compactions = compactions
+
+
 class ShardedTrainer:
     """The per-step loop of training under a mesh, for the models: a
     tiered selection and the merge on every shard, counting which tier
     settled each step in ``sel_stats`` and the steps the certificate did
     not settle in ``topk_fallbacks``. ``force_tier`` ('compact' or
-    'full') pins the selection to that exact tier."""
+    'full') pins the selection to that exact tier.
+
+    As in the JAX package, each tier a step tries is one dispatch and one
+    read-back (its record's flag decides whether the next tier runs), and
+    the merge is one more dispatch with the host's ids. The first tier
+    holds the step's K4 (WordPiece) and K1 too. On a mesh with no process
+    group whose shards all lie on one CUDA device (``graphed``), the run's
+    first step is queued step by step (it builds the buffers, checks the
+    tables and warms every launcher); every later top-K or compact tier
+    is one replay of a ``torch.cuda.CUDAGraph`` of its launches and of
+    the copy of its record into a pinned host buffer, captured once for
+    each key (:meth:`_key`: the tier, whether it holds K1, and the host
+    values its launches read: the block's table set, K4's output and the
+    runs tables' parities), and the host reads the record after an event.
+    The full tier is queued step by step, and so is every step of the
+    other meshes and of the CPU, which run the plain versions.
+
+    After a replay the host values move as the capture moved them, every
+    launch counter gains the launches the graph holds (so each stays the
+    true number of kernels run), and each TableSet counts the graph's
+    compactions (their epochs are device words). A capture that
+    allocates, or fails, raises; nothing falls back to queuing the tier.
+    :meth:`close` releases the graphs. ``graph_stats`` counts the run's
+    ``captures``, ``replays``, ``eager_steps`` (steps queued step by
+    step) and ``capture_s``, its ``graphs`` by tier, its ``tiers`` (the
+    top-K and compact tiers run) and ``eager_tiers`` (those of them
+    queued step by step)."""
 
     def __init__(self, mesh: DataMesh, sym: np.ndarray, freq: np.ndarray,
                  sym_cap: Optional[int] = None, wide_score: bool = False,
@@ -352,36 +423,221 @@ class ShardedTrainer:
         self.force_tier = force_tier
         self.sel_stats = {"proven": 0, "compact": 0, "full": 0}
         self.topk_fallbacks = 0
-        self.rec = torch.zeros(6, dtype=torch.int32, device=mesh.home)
+        self.dev = mesh.home
+        cuda = self.dev.type == "cuda"
+        self.rec = torch.zeros(6, dtype=torch.int32, device=self.dev)
+        self.host_rec = torch.zeros(6, dtype=torch.int32, pin_memory=cuda)
+        self.event = torch.cuda.Event() if cuda else None
+        self.graphed = cuda and not mesh.group and len(mesh.groups) == 1
+        self.graphs = {}  # key -> _TierGraph
+        self.graph_stats = {"captures": 0, "replays": 0, "eager_steps": 0,
+                            "capture_s": 0.0, "graphs": {}, "tiers": 0,
+                            "eager_tiers": 0}
+        self.steps = 0
+        self._tables = None  # this step's K1 tables
+        self._sym_freq = None  # this step's symbol weights (WordPiece)
+        self._stream = None
 
     def select(self) -> Optional[Tuple[int, int]]:
         """The next merge's (a, b), or None when no pair is left."""
-        corpus, rec = self.corpus, self.rec
-        tables = corpus.pairs() if self.force_tier != "full" else None
-        sym_freq = None if self.sym_cap is None else \
-            sharded_sym_freq(corpus, self.sym_cap)
-        if self.force_tier is None:
-            sharded_select_topk(corpus, tables, rec, sym_freq,
-                                self.wide_score)
-            a, b, _, _, active, proven = rec.tolist()
-            if proven:
-                self.sel_stats["proven"] += 1
+        eager = not self.graphed or self.steps == 0
+        self.steps += 1
+        head = True
+        tiers = () if self.force_tier == "full" else \
+            ("compact",) if self.force_tier == "compact" else \
+            ("topk", "compact")
+        for tier in tiers:
+            a, b, _, _, active, flag = self._tier(tier, head, eager)
+            head = False
+            if flag:
+                self.sel_stats["proven" if tier == "topk" else tier] += 1
                 return (a, b) if active else None
-            self.topk_fallbacks += 1
-        if self.force_tier != "full":
-            sharded_select_compact(corpus, tables, rec, self.run_cap,
-                                   sym_freq)
-            a, b, _, _, active, exact = rec.tolist()
-            if exact:
-                self.sel_stats["compact"] += 1
-                return (a, b) if active else None
+            if tier == "topk":
+                self.topk_fallbacks += 1
         self.sel_stats["full"] += 1
-        sharded_select_full(corpus, rec, sym_freq)
-        a, b, _, _, active, _ = rec.tolist()
+        if head:  # the forced full tier: the whole step step by step
+            self.graph_stats["eager_steps"] += 1
+        with profiling.phase("train.device_step", self.dev):
+            self._queue("full", head)
+        a, b, _, _, active, _ = self._fetch()
         return (a, b) if active else None
+
+    def _queue(self, tier: str, head: bool) -> None:
+        """A tier's launches: with ``head`` the step's K4 and K1 first;
+        then the tier's, which write its record; then the record's copy
+        into the host buffer."""
+        corpus, rec = self.corpus, self.rec
+        if head:
+            self._sym_freq = None if self.sym_cap is None else \
+                sharded_sym_freq(corpus, self.sym_cap)
+            self._tables = corpus.pairs() if tier != "full" else None
+        if tier == "topk":
+            sharded_select_topk(corpus, self._tables, rec, self._sym_freq,
+                                self.wide_score)
+        elif tier == "compact":
+            sharded_select_compact(corpus, self._tables, rec, self.run_cap,
+                                   self._sym_freq)
+        else:
+            sharded_select_full(corpus, rec, self._sym_freq)
+        self.host_rec.copy_(rec, non_blocking=self.event is not None)
+
+    def _tier(self, tier: str, head: bool, eager: bool):
+        """Run one tier: queued step by step, or replayed; its record."""
+        self.graph_stats["tiers"] += 1
+        if eager:
+            self.graph_stats["eager_tiers"] += 1
+            self.graph_stats["eager_steps"] += int(head)
+            with profiling.phase("train.device_step", self.dev):
+                self._queue(tier, head)
+        else:
+            self._replay(tier, head)
+        return self._fetch()
+
+    def _fetch(self) -> list:
+        """The last tier's record, once its copy is on the host (an event
+        after the work queued so far, waited for)."""
+        with profiling.phase("train.fetch_records"):
+            if self.event is not None:
+                self.event.record()
+                self.event.synchronize()
+            return self.host_rec.tolist()
+
+    def _key(self, tier: str, head: bool) -> tuple:
+        """The host values a tier's launches read: the table set K1 fills
+        (``head``) or filled, K4's output (its address), and for the
+        compact tier the runs tables' next table, last fill and parities
+        (ops/pairstats.TablePair.host_key)."""
+        blk = self.corpus.blocks[0]
+        freqs = blk.state._freqs
+        runs = self.corpus._runs_tables if tier == "compact" else None
+        return (tier, head, blk._parity,
+                None if freqs is None else freqs[0].data_ptr(),
+                None if runs is None else runs.host_key())
+
+    def _host_values(self):
+        """(object, attribute) of every host value a tier may move, and
+        the PairTables whose fill counts it may advance."""
+        blk = self.corpus.blocks[0]
+        slots = [(self, "_tables"), (self, "_sym_freq"), (blk, "_parity"),
+                 (blk, "filled"), (blk.state, "_freqs"),
+                 (blk.state, "sym_freq")]
+        runs = self.corpus._runs_tables
+        tables = () if runs is None else runs.tables
+        slots += [(runs, "_next"), (runs, "filled")] if runs else []
+        slots += [(t, "dirty") for t in tables]
+        return slots, tables
+
+    def _prepare(self, tier: str) -> None:
+        """Make, before a tier's key is read, what its wrappers would make
+        on their first call (nothing may allocate inside a capture): the
+        compact tier's output buffers and runs tables."""
+        if tier == "compact":
+            cap = min(self.run_cap, self.corpus.n_local_pairs)
+            n = self.corpus.run_buffers(0, cap)[0].shape[0]
+            self.corpus.runs_tables(n)
+
+    def _replay(self, tier: str, head: bool) -> None:
+        self._prepare(tier)
+        key = self._key(tier, head)
+        g = self.graphs.get(key)
+        with torch.cuda.device(self.dev):
+            if g is None:
+                g = self._capture(key, tier, head)
+            else:
+                for tset, n in g.compactions:
+                    tset.advance(n)
+            with profiling.phase("train.step_replay", self.dev):
+                g.graph.replay()
+        for obj, attr, value in g.moved:
+            setattr(obj, attr, value)
+        for table, n in g.fills:
+            table.fills += n
+        for (fn, name), n in g.launches:
+            setattr(fn, name, getattr(fn, name) + n)
+        self.graph_stats["replays"] += 1
+
+    def _capture(self, key, tier: str, head: bool) -> _TierGraph:
+        """Capture the tier's launches on a side stream. The capture
+        queues nothing to run, but the wrappers it calls count their
+        launches and move the host values as the tier moves them: noted,
+        then put back, for the replay that follows to move them (the
+        TableSets keep the compactions counted, which that replay runs)."""
+        t0 = time.perf_counter()
+        with profiling.phase("train.capture"):
+            slots, tables = self._host_values()
+            before = [getattr(o, a) for o, a in slots]
+            fills = [t.fills for t in tables]
+            counters = _launch_counters()
+            launched = [getattr(fn, name) for fn, name in counters]
+            sets = self.corpus.blocks[0].sets
+            for tset in sets:  # no restart of the epochs inside
+                tset.room(1)
+            calls = [tset.calls for tset in sets]
+            if self._stream is None:
+                self._stream = torch.cuda.Stream(self.dev)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.stream(self._stream):
+                graph.capture_begin(capture_error_mode="thread_local")
+                try:
+                    allocated = _allocations(self.dev)
+                    self._queue(tier, head)
+                    allocated = _allocations(self.dev) - allocated
+                finally:
+                    graph.capture_end()
+            if allocated:
+                raise RuntimeError(f"ShardedTrainer: the capture of the "
+                                   f"{tier} tier allocated device memory "
+                                   f"{allocated} times")
+            moved = [(o, a, getattr(o, a)) for (o, a), v in
+                     zip(slots, before) if _changed(getattr(o, a), v)]
+            g = _TierGraph(
+                graph, moved,
+                [(t, t.fills - n) for t, n in zip(tables, fills)
+                 if t.fills != n],
+                [((fn, name), getattr(fn, name) - n)
+                 for (fn, name), n in zip(counters, launched)
+                 if getattr(fn, name) != n],
+                [(tset, tset.calls - n) for tset, n in zip(sets, calls)
+                 if tset.calls != n])
+            # put back what the capture moved and counted: the replay
+            # moves and counts it
+            for (o, a), v in zip(slots, before):
+                setattr(o, a, v)
+            for t, n in zip(tables, fills):
+                t.fills = n
+            for (fn, name), n in zip(counters, launched):
+                setattr(fn, name, n)
+            self.graphs[key] = g
+        self.graph_stats["captures"] += 1
+        self.graph_stats["capture_s"] += time.perf_counter() - t0
+        by_tier = self.graph_stats["graphs"]
+        by_tier[tier] = by_tier.get(tier, 0) + 1
+        return g
+
+    def close(self) -> None:
+        """Release the graphs (after the steps that replay them)."""
+        if self.graphs:
+            torch.cuda.current_stream(self.dev).synchronize()
+            for g in self.graphs.values():
+                g.graph.reset()
+            self.graphs.clear()
 
     def merge(self, a: int, b: int, new_id: int) -> None:
         sharded_apply_merge(self.corpus, a, b, new_id)
 
     def host(self) -> np.ndarray:
         return self.corpus.host()
+
+
+def _changed(now, was) -> bool:
+    """Whether a host value moved: by value for a number, else by
+    identity (a list of tables, a tensor, an object)."""
+    if isinstance(now, int) and isinstance(was, int):
+        return now != was
+    return now is not was
+
+
+def _allocations(dev) -> int:
+    """Device allocations made so far on ``dev`` (the caching
+    allocator's count)."""
+    return torch.cuda.memory_stats(dev).get("allocation.all.allocated", 0)

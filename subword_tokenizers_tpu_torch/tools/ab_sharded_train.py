@@ -3,12 +3,19 @@ in a process of its own in the order parent, change, change, parent.
 
     python3 -m subword_tokenizers_tpu_torch.tools.ab_sharded_train \\
         PARENT_DIR CHANGE_DIR [compact] [kernels] [topk] [encode] [fastwp] \
-        [match] [single] [skip] [block] [NaiveBPE] [NaiveWP]
+        [match] [single] [skip] [block] [sharded] [NaiveBPE] [NaiveWP]
 
 - ``NaiveBPE`` / ``NaiveWP``: the model under the one-card mesh
   ``make_data_mesh(8, devices=["cuda:0"] * 8)``, trained on all of
   ``data/train-85k.json`` to 8,000 and checked against the JAX goldens
   (a warm-up train to 300, then the timed train; about 65 s a run).
+- ``sharded``: ``NaiveBPE`` and then ``NaiveWP`` under that mesh in one
+  process, each after a warm-up train to 300, trained to 8,000 and
+  checked against the JAX goldens: each wall, its wall a step (steps
+  being the tiers' count), and where the checkout graphs the sharded
+  step (parallel/train.ShardedTrainer's ``graph_stats``) its captures,
+  replays, capture time and steps queued step by step (20-40 s a run).
+  Give the mode three times for six pairs.
 - ``compact``: one step's table compaction, as the checkout's compact
   tier calls it (one ``compact_tables`` a device with the device's
   ``TableSet`` and output buffers, or ``compact_table`` a shard), at
@@ -121,7 +128,12 @@ torch.cuda.synchronize()
 wall = time.perf_counter() - t0
 got = tok.merges_list if MODEL == "NaiveBPE" else tok._merge_log
 assert got == golden
-print(json.dumps({"wall": wall, "tiers": tok._sel_stats}))
+out = {"wall": wall, "tiers": tok._sel_stats}
+g = getattr(tok, "_graph_stats", None)
+if g is not None:
+    out.update(captures=g["captures"], replays=g["replays"],
+               capture_s=g["capture_s"], eager_steps=g["eager_steps"])
+print(json.dumps(out))
 '''
 
 COMPACT = r'''
@@ -661,6 +673,44 @@ print(json.dumps(out))
 '''
 
 
+SHARDED = r'''
+import json, os, sys, time
+import torch
+sys.path.insert(0, os.getcwd())
+from subword_tokenizers_tpu_torch import NaiveBPE, NaiveWP
+from subword_tokenizers_tpu_torch.ops import _cuda
+from subword_tokenizers_tpu_torch.parallel.mesh import make_data_mesh
+corpus = json.load(open("data/train-85k.json", encoding="utf-8"))
+bpe = [tuple(p) for p in json.load(open(
+    "tests/golden/port_t85k_v8000_bpe_merges.json", encoding="utf-8"))]
+wp = [tuple(p) for p in json.load(open(
+    "tests/golden/port_t85k_v8000_wp_vocab.json",
+    encoding="utf-8"))["merges"]]
+dev = torch.device("cuda:0")
+_cuda.lib()
+mesh = make_data_mesh(8, devices=[dev] * 8)
+out = {}
+for name, cls, golden in (("NaiveBPE", NaiveBPE, bpe),
+                          ("NaiveWP", NaiveWP, wp)):
+    cls(mesh=mesh, device=dev).train(corpus, 300)  # warm-up
+    tok = cls(mesh=mesh, device=dev)
+    t0 = time.perf_counter()
+    tok.train(corpus, 8000)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = tok.merges_list if name == "NaiveBPE" else tok._merge_log
+    assert got == golden, name
+    out[name] = wall
+    out[f"{name}_step_ms"] = wall * 1e3 / sum(tok._sel_stats.values())
+    out[f"{name}_tiers"] = tok._sel_stats
+    g = getattr(tok, "_graph_stats", None)
+    if g is not None:
+        for k in ("captures", "replays", "capture_s", "eager_steps"):
+            out[f"{name}_{k}"] = g[k]
+print(json.dumps(out))
+'''
+
+
 def summary(res):
     """{mode: {side: {key: [median, min, max, n]}}} of every time a run
     printed (numbers only)."""
@@ -698,7 +748,8 @@ def main(argv) -> int:
                 [MATCH] if mode == "match" else
                 [SINGLE] if mode == "single" else
                 [SKIP] if mode == "skip" else
-                [BLOCK] if mode == "block" else [TRAIN, mode])
+                [BLOCK] if mode == "block" else
+                [SHARDED] if mode == "sharded" else [TRAIN, mode])
         for name, d in (("parent", parent), ("change", change),
                         ("change", change), ("parent", parent)):
             t0 = time.perf_counter()

@@ -145,9 +145,10 @@ def test_grouped_wrappers_reject_bad_input():
 def test_table_set_layout_and_epochs(monkeypatch):
     """A TableSet is the grouped kernels' descriptor: per table its
     pointers, T, base and a flag slot, then the ticket, a cluster counter
-    a table and C look-back words a table; its epochs run 1 ..
-    EPOCH_MAX and the wrap zeroes the look-back words. A block of the
-    mesh lends its set only for the tables its K1 filled."""
+    a table, C look-back words a table and the epoch word; the host
+    counts its compactions and, before they would take the epoch word
+    past EPOCH_MAX, zeroes the look-back words and the epoch word. A block
+    of the mesh lends its set only for the tables its K1 filled."""
     def table(T):
         return (torch.full((T,), EMPTY_KEY, dtype=torch.int64),
                 torch.zeros(T, dtype=torch.int64),
@@ -157,26 +158,35 @@ def test_table_set_layout_and_epochs(monkeypatch):
     ts = TableSet([small, big], [0, 40])
     assert ts.D == 2 and ts.clusters == 3
     d = ts.desc.tolist()
-    assert len(d) == 6 * 2 + 1 + 2 + 2 * 3
+    assert len(d) == 6 * 2 + 1 + 2 + 2 * 3 + 1 and ts.EPOCH == len(d) - 1
     assert d[:12] == [*(x.data_ptr() for x in small), 8, 0, 0,
                       *(x.data_ptr() for x in big), 2 * ROUND_SPAN + 1, 40, 0]
-    assert not any(d[12:])
+    assert not any(d[12:]) and ts.epoch == 0 and ts.calls == 0
+    assert ts.status.data_ptr() == ts.desc[15].data_ptr()
+    assert ts.status.shape == (6,)
     assert ts.holds([small, big], [0, 40])
     assert not ts.holds([small, big], [0, 41])
     assert not ts.holds([big, small], [40, 0])
     monkeypatch.setattr(shard_select, "EPOCH_MAX", 3)
-    ts.desc[15:] = 7  # look-back words as a call leaves them
-    assert [ts.next_epoch() for _ in range(3)] == [1, 2, 3]
-    assert ts.desc[15:].tolist() == [7] * 6
-    assert ts.next_epoch() == 1
+    ts.desc[15:] = 7  # look-back words and epoch word as calls leave them
+    for n in (1, 2, 3):
+        ts.advance()
+        assert ts.calls == n and ts.desc[15:].tolist() == [7] * 7
+    ts.advance()
+    assert ts.calls == 1
     assert not any(ts.desc[15:].tolist()) and ts.desc[:15].tolist() == d[:15]
+    ts.room(2)
+    assert ts.calls == 1
+    ts.desc[15:] = 7
+    ts.room(3)  # 1 + 3 calls would pass EPOCH_MAX
+    assert ts.calls == 0 and not any(ts.desc[15:].tolist())
 
     sym, freq = random_rows(33, n=48)
     corpus, tables, _ = shards(sym, freq, 4)
     one = TableSet(tables, corpus.bases)
     assert one.D == 4 and one.holds(tables, corpus.bases)
     blk = corpus.blocks[0]
-    assert blk.table_set(tables) is None  # the CPU fills no set
+    assert blk.table_set(tables) is None  # not the tables of a block's set
     blk.filled = one
     assert blk.table_set(tables) is one
     moved = [tuple(x.clone() for x in t) for t in tables]

@@ -25,7 +25,7 @@ from subword_tokenizers_tpu.parallel.mesh import DATA_AXIS
 from subword_tokenizers_tpu.parallel.mesh import make_data_mesh as jax_mesh
 from subword_tokenizers_tpu_torch import NaiveBPE, NaiveWP
 from subword_tokenizers_tpu_torch.ops import merge, pairstats, train_loop
-from subword_tokenizers_tpu_torch.ops.pairstats import pair_rows
+from subword_tokenizers_tpu_torch.ops.pairstats import canonical, pair_rows
 from subword_tokenizers_tpu_torch.parallel import train as ptrain
 from subword_tokenizers_tpu_torch.parallel.mesh import make_data_mesh
 from test_torch_padded_train import random_rows as rows_with_pads
@@ -74,9 +74,12 @@ def test_grouped_pair_counts_match_jax(D, L):
     blk = corpus.blocks[0]
     tables = pair_rows(blk.state.sym, blk.wgt, blk.rows)
     assert len(tables) == D and len(corpus.blocks) == 1
+    # the block's K1 fills a table set, on the CPU with the plain
+    # version's entries: the same pairs in K1's table form
     grouped = corpus.pairs()
+    assert blk.table_set(grouped) is blk.filled is blk.sets[0]
     for t, g in zip(tables, grouped):
-        assert all(torch.equal(x, y) for x, y in zip(t, g))
+        assert all(torch.equal(x, y) for x, y in zip(t, canonical(*g)))
     if L == 1:  # no pair slots: JAX's _local_pairs yields no key
         assert all(t[0].numel() == 0 for t in tables)
         return
@@ -98,7 +101,8 @@ def test_grouped_pair_counts_equal_per_shard_counts():
     corpus = ptrain.shard_corpus(make_data_mesh(8, devices=["cpu"] * 8),
                                  sym, freq << 40)
     for t, s in zip(corpus.pairs(), corpus.shards):
-        assert all(torch.equal(x, y) for x, y in zip(t, s.pairs()))
+        assert all(torch.equal(x, y) for x, y in zip(canonical(*t),
+                                                     s.pairs()))
 
 
 def _merges(sym):
