@@ -23,7 +23,9 @@ WordPiece vocab ``tests/golden/port_t85k_fastwp_vocab.json``:
 3. encodes the whole corpus five times through ``FastWP(device="cuda")
    .tokenize_batch``; the output's sha256 must equal the one the JAX
    package gave (``tests/golden/port_t85k_fastwp_expect.json``) and each
-   call must make one fused launch and no other; then ``tokenize_stream``
+   call must make one fused launch and no other; the front end it ran is
+   the library built from the port's own ``_native/`` sources (its path
+   printed, under ``subword_tokenizers_tpu_torch/_native/build/``); then ``tokenize_stream``
    and small batches against the host ``tokenize``; (3c) one traced call
    shows one kernel and no memset; (3d) the whole-sentence route (a
    vocab token with a space) through the rows form and kernel 2 equals
@@ -182,22 +184,32 @@ WordPiece vocab ``tests/golden/port_t85k_fastwp_vocab.json``:
    BPE step and 6 a WordPiece step, the per-shard K1 only in the full
    tier, no scorer and no certificate launch); the forced tiers and
    a mesh of 1 to 1,000, each equal to the golden's prefix, with their K1
-   and K3p launches; FastWP's sharded encode (one fused launch a shard)
+   and K3p launches (the forced full tier too a graph replay every step
+   after the first); FastWP's sharded encode (one fused launch a shard)
    and the other three encoders under the mesh against the JAX digests;
    and (14d) the idle share of
    one warm sharded train traced after an untraced one, with the grouped
    kernels by name, their spans equal to the launch counters and its
    graph launches to its replays, no memset, no ``torch.topk`` kernel
-   and no ``certificate_kernel``. On the one-card mesh each top-K or
-   compact tier of a step after a run's first is one CUDA graph replay
-   (parallel/train.ShardedTrainer; phase 14 asserts the counts and the
-   tiers); (14e) a captured top-K and compact tier replayed 50 times
-   from copies of one state, each equal to the tiers queued step by
-   step;
+   and no ``certificate_kernel``. On the one-card mesh each tier of a
+   step after a run's first, top-K, compact or full, is one CUDA graph
+   replay (parallel/train.ShardedTrainer; phase 14 asserts the counts
+   and the tiers); (14e) a captured top-K and compact tier replayed 50
+   times from copies of one state, each equal to the tiers queued step
+   by step;
 15. the process-group route: ``torch.distributed`` with NCCL at world
-   size 1 (NCCL takes one rank per GPU), a TCP store on localhost, an
-   8-shard process-group mesh on the card, NaiveBPE to 578 equal to the
-   golden, the coordinator and ``fetch_global``;
+   size 1 (NCCL takes one rank per GPU; its version printed), a TCP
+   store on localhost, an 8-shard process-group mesh on the card:
+   NaiveBPE and NaiveWP on the whole corpus to 8,000, cold and warm,
+   each equal to its golden (BPE's first 500 merges the reference
+   anchor), every tier after a run's first step one graph replay that
+   holds the tier's collectives, the tiers, launches and collectives
+   counted as phase 14 counts them; the coordinator and
+   ``fetch_global``; (15c) a traced warm BPE train to 2,000 after an
+   untraced one, each kernel's spans equal to its counter, the graph
+   launches to the replays and the device work of the collectives to
+   the collectives counted (the graphs' included); (15d) phase 14e on
+   the NCCL mesh;
 16. the gather probe (``subword_tokenizers_tpu_torch.tools.gather_probe``,
    the port of the TPU probe ``tools/pallas_probe.py``): its ``main`` on
    the card, then its three kernels (a 2-D gather, a chain of 128
@@ -2907,24 +2919,86 @@ def phase13c(dev, rng, flat_bpe, table, arrays, arrays_wp, table_wp,
     return errs, timing, bounds, library, notes
 
 
-def sharded_graph_check(tok, what, forced_full=False):
-    """The graph counts of one sharded train on the one-card mesh
+def sharded_graph_check(tok, what):
+    """The graph counts of one sharded train on a one-card mesh
     (``tok._graph_stats``, parallel/train.ShardedTrainer): raises unless
-    its first step was queued step by step and every top-K or compact
-    tier of a later step was one graph replay (every step of the forced
-    full tier step by step, no replay), with at most two top-K graphs
-    (one a table set). Returns a line of the counts."""
+    its first step was queued step by step (at most its three tiers) and
+    every tier of a later step, top-K, compact or full, was one graph
+    replay, with at most two top-K graphs (one a table set). Returns a
+    line of the counts."""
     g = tok._graph_stats
     steps = sum(tok._sel_stats.values())
-    eager = steps if forced_full else 1
-    if (g["eager_steps"] != eager or g["replays"] + g["eager_tiers"]
-            != g["tiers"] or g["eager_tiers"] > 2
+    if (g["eager_steps"] != 1 or g["replays"] + g["eager_tiers"]
+            != g["tiers"] or not 1 <= g["eager_tiers"] <= 3
             or g["graphs"].get("topk", 0) > 2
-            or (forced_full and (g["replays"] or g["captures"]))):
+            or (steps > 1 and not g["replays"])):
         raise AssertionError(f"{what}: {steps} steps, graph counts {g}")
     return (f"{g['replays']} replays of {g['captures']} graphs "
             f"{g['graphs']} ({g['capture_s'] * 1e3:.1f} ms capturing), "
-            f"{g['eager_steps']} step(s) queued step by step")
+            f"{g['eager_steps']} step queued step by step")
+
+
+def sharded_tiers_check(name, tok, what):
+    """Raises unless a sharded train to 8,000 on the whole corpus settled
+    its steps in the tiers the step-by-step route counts: BPE's
+    ``SHARDED_BPE_TIERS``, every WordPiece step proven."""
+    n_merges = len(tok.merges_list if name == "NaiveBPE" else tok._merge_log)
+    tiers = SHARDED_BPE_TIERS if name == "NaiveBPE" else {
+        "proven": n_merges, "compact": 0, "full": 0}
+    if tok._sel_stats != tiers or tok._topk_fallbacks != tiers[
+            "compact"] + tiers["full"]:
+        raise AssertionError(f"{what}: tiers {tok._sel_stats}, expected "
+                             f"{tiers}")
+
+
+def sharded_launch_check(name, tok, counts, what):
+    """Raises unless a sharded train's launches (``counts``, read_counts
+    of the run) are one grouped launch a step on a one-card mesh: K1, the
+    nomination and a lookup every step, the certificate inside K2's
+    launch every step, a compaction every step the certificate did not
+    settle, K3p every merge; the per-shard K1 only in the full tier; no
+    torch.topk, no scorer and no certificate launch. Returns the
+    kernel-wrapper calls."""
+    steps = sum(tok._sel_stats.values())
+    merges = len(tok.merges_list if name == "NaiveBPE" else tok._merge_log)
+    want = {"pair_rows": steps, "nominate_tables": steps,
+            "lookup_reduce": steps, "certificate": steps,
+            "certificate_launcher": 0,
+            "compact_tables": tok._topk_fallbacks, "merge_rows": merges,
+            "pair_stats": tok._sel_stats["full"],
+            "symbol_rows": steps if name == "NaiveWP" else 0,
+            "symbol_freqs": 0, "wp_score": 0}
+    # every wrapper's calls: a step the certificate settles makes 5
+    # (K1, the nomination, the lookup, K2 with the certificate, K3p)
+    # and a WordPiece step 6 (K4 too), the last step no K3p; a
+    # fallback step 3 more (the compaction, K1's runs mode, K2), a
+    # full-tier step 2 more (K1, K2)
+    want["calls"] = ((6 if name == "NaiveWP" else 5) * steps
+                     - (steps - merges) + 3 * tok._topk_fallbacks
+                     + 2 * tok._sel_stats["full"])
+    got = dict(counts, calls=wrapper_calls(counts))
+    if any(got[k] != v for k, v in want.items()):
+        raise AssertionError(f"{what}: {steps} steps, {merges} merges and "
+                             f"{tok._topk_fallbacks} fallbacks, but "
+                             f"launches {got}")
+    return got["calls"]
+
+
+def step_collectives(tok, wordpiece):
+    """The collectives a train on a process-group mesh issues: a step's
+    top-K tier gathers the candidates and the K-th rows and reduces the
+    counts and positions, a compact tier gathers the runs' keys, counts
+    and positions and reduces the overflow flag, a full tier gathers the
+    rows, a WordPiece step reduces K4's weights in its first tier, and
+    the end of the train gathers the final rows once."""
+    steps = sum(tok._sel_stats.values())
+    full = tok._sel_stats["full"]
+    forced = getattr(tok, "_force_tier", None)
+    compact = tok._topk_fallbacks if forced is None else \
+        steps if forced == "compact" else 0
+    topk = 0 if forced else steps
+    return {"all_gather": 2 * topk + 3 * compact + full + 1,
+            "all_reduce": 2 * topk + compact + (steps if wordpiece else 0)}
 
 
 def phase14(dev, corpus, check_train, check_wp_train, lists, wp_merges,
@@ -2965,51 +3039,16 @@ def phase14(dev, corpus, check_train, check_wp_train, lists, wp_merges,
             walls.append(time.perf_counter() - t0)
             counts = read_counts(kernels)
             checks[name](tok, f"{name} mesh of 8 run {run}")
-            n_merges = len(tok.merges_list if name == "NaiveBPE"
-                           else tok._merge_log)
-            tiers = SHARDED_BPE_TIERS if name == "NaiveBPE" else {
-                "proven": n_merges, "compact": 0, "full": 0}
-            if max_vocab == 8000 and (tok._sel_stats != tiers
-                                      or tok._topk_fallbacks != tiers[
-                                          "compact"] + tiers["full"]):
-                raise AssertionError(f"{name} run {run}: tiers "
-                                     f"{tok._sel_stats}, expected {tiers}")
+            if max_vocab == 8000:
+                sharded_tiers_check(name, tok, f"{name} run {run}")
             graph_lines.append(sharded_graph_check(
                 tok, f"{name} mesh of 8 run {run}"))
         missing = [k for k in must[name] if not counts[k]]
         if missing:
             raise AssertionError(f"{name} under the mesh launched no "
                                  f"{missing}: {counts}")
-        # one grouped launch a step on the one-card mesh: K1, the
-        # nomination and a lookup every step, the certificate inside K2's
-        # launch every step, a compaction every step the certificate did
-        # not settle, K3p every merge; the per-shard K1 only in the full
-        # tier; no torch.topk, no scorer and no certificate launch
         steps = sum(tok._sel_stats.values())
-        merges = len(tok.merges_list if name == "NaiveBPE"
-                     else tok._merge_log)
-        want = {"pair_rows": steps, "nominate_tables": steps,
-                "lookup_reduce": steps, "certificate": steps,
-                "certificate_launcher": 0,
-                "compact_tables": tok._topk_fallbacks, "merge_rows": merges,
-                "pair_stats": tok._sel_stats["full"],
-                "symbol_rows": steps if name == "NaiveWP" else 0,
-                "symbol_freqs": 0, "wp_score": 0}
-        # every wrapper's calls: a step the certificate settles makes 5
-        # (K1, the nomination, the lookup, K2 with the certificate, K3p)
-        # and a WordPiece step 6 (K4 too), the last step no K3p; a
-        # fallback step 3 more (the compaction, K1's runs mode, K2), a
-        # full-tier step 2 more (K1, K2)
-        calls = wrapper_calls(counts)
-        want["calls"] = ((6 if name == "NaiveWP" else 5) * steps
-                         - (steps - merges) + 3 * tok._topk_fallbacks
-                         + 2 * tok._sel_stats["full"])
-        counts["calls"] = calls
-        if any(counts[k] != v for k, v in want.items()):
-            raise AssertionError(f"{name}: {steps} steps, {merges} merges "
-                                 f"and {tok._topk_fallbacks} fallbacks, but "
-                                 f"launches {counts}")
-        counts.pop("calls", None)
+        calls = sharded_launch_check(name, tok, counts, name)
         by_path[f"{name}_mesh8"] = {k: v for k, v in counts.items() if v}
         lines.append(f"{name} cold {walls[0]:.3f} s, warm {walls[1]:.3f} s, "
                      f"graphs cold {graph_lines[0]}, warm {graph_lines[1]}, "
@@ -3047,19 +3086,25 @@ def phase14(dev, corpus, check_train, check_wp_train, lists, wp_merges,
                 raise AssertionError(f"{name} tier {tier}: the merges differ "
                                      "from the golden's prefix")
             st = tok._sel_stats
+            steps = sum(st.values())
             if tier and (st["proven"] or not st[tier]
                          or (tier == "full" and st["compact"])):
                 raise AssertionError(f"{name} tier {tier}: {st}")
+            # the forced full tier: one step queued step by step, then one
+            # replay a step
+            if tier == "full" and (tok._graph_stats["replays"] != steps - 1
+                                   or tok._graph_stats["graphs"].keys()
+                                   != {"full"}):
+                raise AssertionError(f"{name} tier full: {steps} steps, "
+                                     f"graph counts {tok._graph_stats}")
             # the forced full tier counts the gathered rows only
-            steps = sum(st.values())
             if (counts["pair_rows"], counts["pair_stats"],
                     counts["merge_rows"], counts["nominate_tables"]) != (
                     0 if tier == "full" else steps, st["full"],
                     len(got), 0 if tier else steps):
                 raise AssertionError(f"{name} tier {tier}: {st}, "
                                      f"launches {counts}")
-            graphs = sharded_graph_check(tok, f"{name} tier {tier}",
-                                         forced_full=tier == "full")
+            graphs = sharded_graph_check(tok, f"{name} tier {tier}")
             tier_lines.append(f"{name} {tier or 'mesh of 1'} {wall:.3f} s "
                               f"{st}, {graphs}")
     print(f"phase 14b: to {small_vocab}, each equal to the golden's "
@@ -3216,11 +3261,13 @@ def held_tensors(obj, seen=None, out=None):
     return out
 
 
-def phase14e(dev, arrays, table, golden, smi, reps=50):
+def phase14e(dev, arrays, table, golden, smi, reps=50, meshes=None,
+             what="phase 14e"):
     """Phase 14e: a captured top-K tier and a captured compact tier of
-    the sharded step (parallel/train.ShardedTrainer), on the mesh of 8
-    and the mesh of 1 at the corpus's BPE state after the golden's first
-    1,000 merges, each replayed ``reps`` times from copies of that state
+    the sharded step (parallel/train.ShardedTrainer), on each of
+    ``meshes`` ((label, mesh); by default the one-card meshes of 8 and 1)
+    at the corpus's BPE state after the golden's first 1,000 merges,
+    each replayed ``reps`` times from copies of that state
     (every tensor the trainer holds and its host values restored, but
     the TableSets' descriptors, whose epoch and look-back words go on as
     a run's do): every replay's records, its K1 tables, its runs and its
@@ -3228,15 +3275,20 @@ def phase14e(dev, arrays, table, golden, smi, reps=50):
     that state, and every compact replay advances the compaction's epoch
     word by one (a replay that took a stale epoch, parity or buffer of its
     capture would differ). Also a replayed tier's host and device time.
-    Returns {mesh: notes}."""
+    Returns {label: notes}."""
     import torch
     from subword_tokenizers_tpu_torch.ops.pairstats import canonical
     from subword_tokenizers_tpu_torch.parallel import train as ptrain
     from subword_tokenizers_tpu_torch.parallel.mesh import make_data_mesh
+    if meshes is None:
+        meshes = [(f"mesh of {n}", make_data_mesh(n, devices=[dev] * n))
+                  for n in (8, 1)]
     out, lines = {}, []
-    for n in (8, 1):
-        tr = ptrain.ShardedTrainer(make_data_mesh(n, devices=[dev] * n),
-                                   arrays.sym, arrays.freq)
+    for label, mesh in meshes:
+        tr = ptrain.ShardedTrainer(mesh, arrays.sym, arrays.freq)
+        if not tr.graphed:
+            raise AssertionError(f"{what}, {label}: the trainer does not "
+                                 f"graph its tiers")
         t = type(table)(table.strings())
         for sa, sb in golden[:1000]:
             tr.merge(t.get(sa), t.get(sb), t.intern(sa + sb))
@@ -3325,14 +3377,14 @@ def phase14e(dev, arrays, table, golden, smi, reps=50):
         graphs = len(tr.graphs)
         tr.close()
         if bad or graphs != 2 or not want_recs[0][4]:
-            raise AssertionError(f"phase 14e, mesh of {n}: replays {bad} "
-                                 f"differ from the tiers queued step by "
-                                 f"step ({want_recs}), or {graphs} graphs")
+            raise AssertionError(f"{what}, {label}: replays {bad} differ "
+                                 f"from the tiers queued step by step "
+                                 f"({want_recs}), or {graphs} graphs")
         med = {k: sorted(v)[len(v) // 2] for k, v in host_ms.items()}
         dmed = {k: sorted(v)[len(v) // 2] for k, v in dev_ms.items()}
-        out[n] = {"host_ms": med, "device_ms": dmed,
-                  "proven": want_recs[0][5], "exact": want_recs[1][5]}
-        lines.append(f"mesh of {n}: records {want_recs} (top-K, compact), "
+        out[label] = {"host_ms": med, "device_ms": dmed,
+                      "proven": want_recs[0][5], "exact": want_recs[1][5]}
+        lines.append(f"{label}: records {want_recs} (top-K, compact), "
                      f"a replay's host time median top-K "
                      f"{med['topk']:.3f} ms, compact {med['compact']:.3f} "
                      f"ms (max {max(host_ms['topk']):.3f}, "
@@ -3340,7 +3392,7 @@ def phase14e(dev, arrays, table, golden, smi, reps=50):
                      f"include their captures), device time (CUDA events "
                      f"around the replay) median top-K {dmed['topk']:.4f} "
                      f"ms, compact {dmed['compact']:.4f} ms")
-    print(f"phase 14e: a top-K and a compact tier captured once each and "
+    print(f"{what}: a top-K and a compact tier captured once each and "
           f"replayed {reps} times from copies of one state (the BPE state "
           f"after 1,000 golden merges): every replay's records, K1 tables, "
           f"runs and runs tables equal the tiers queued step by step, each "
@@ -3349,18 +3401,37 @@ def phase14e(dev, arrays, table, golden, smi, reps=50):
     return out
 
 
-def phase15(dev, corpus, golden, anchor, smi, max_vocab=578,
+def collective_spans(by_name) -> int:
+    """The device work of ``torch.distributed`` collectives in a trace
+    (``by_name`` of :func:`device_trace`): NCCL's kernels and the
+    device-to-device copies (NCCL's one-rank path copies a gather's input
+    into its output and runs nothing for an in-place reduction)."""
+    return sum(c for n, (c, _) in by_name.items()
+               if "nccl" in n.lower() or "DtoD" in n)
+
+
+def phase15(dev, corpus, anchor, checks, arrays, table, golden, smi,
+            trace_dir, max_vocab=8000, trace_vocab=2000, reps=50,
             kind="cuda"):
     """Phase 15: the process-group route with NCCL at world size 1 (NCCL
     takes one rank per GPU): a TCP store on localhost, an 8-shard
-    process-group mesh on the card, NaiveBPE to 578 equal to the golden's
-    first merges (its first 500 the reference anchor), the coordinator
-    and ``fetch_global``. Returns the launches of the run. (``kind``
-    "cpu" takes gloo, for a rehearsal on the CPU.)"""
+    process-group mesh on the card. NaiveBPE and NaiveWP on all of
+    ``corpus`` to ``max_vocab``, cold and warm, each equal to its golden
+    (``checks``: the models' golden checks; BPE's first merges the
+    reference ``anchor``), each tier after a run's first step one graph
+    replay holding the tier's collectives (``sharded_graph_check``), the
+    tiers, the launches and the collectives counted as phase 14 counts
+    them; the coordinator and ``fetch_global``; (15c) a warm BPE train to
+    ``trace_vocab`` traced after an untraced one: each kernel's spans
+    equal to its counter, the graph launches to the replays, and the
+    collectives' device work (:func:`collective_spans`, a gather's and a
+    reduction's measured first) to the collectives counted, the graphs'
+    included; (15d) phase 14e on this mesh. Returns the launches of the
+    warm runs. (``kind`` "cpu" takes gloo, for a rehearsal on the CPU.)"""
     import socket
     import torch
     import torch.distributed as dist
-    from subword_tokenizers_tpu_torch import NaiveBPE
+    from subword_tokenizers_tpu_torch import NaiveBPE, NaiveWP
     from subword_tokenizers_tpu_torch.parallel import distributed
     from subword_tokenizers_tpu_torch.parallel.mesh import make_data_mesh
     s = socket.socket()
@@ -3370,49 +3441,112 @@ def phase15(dev, corpus, golden, anchor, smi, max_vocab=578,
     kernels = shard_kernels()
     distributed.initialize(f"localhost:{port}", num_processes=1,
                            process_id=0, device=kind)
+    models = {"NaiveBPE": NaiveBPE, "NaiveWP": NaiveWP}
     try:
         assert dist.get_backend() == ("nccl" if kind == "cuda" else "gloo")
         assert distributed.is_coordinator()
         assert distributed.process_count() == 1
+        nccl = ".".join(map(str, torch.cuda.nccl.version())) \
+            if kind == "cuda" else "none (gloo)"
         mesh = make_data_mesh(8, devices=[dev] * 8)
         assert mesh.group and mesh.size == 8
-        zero_counts(kernels)
-        tok = NaiveBPE(mesh=mesh, device=dev)
-        t0 = time.perf_counter()
-        tok.train(corpus, max_vocab)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        counts = {k: v for k, v in read_counts(kernels).items() if v}
-        if tok.merges_list != golden[:len(tok.merges_list)] or \
-                tok.merges_list[:len(anchor)] != anchor:
-            raise AssertionError("the process-group run differs from the "
-                                 "golden")
+        by_path, lines = {}, []
+        for name, cls in models.items():
+            walls, graph_lines = [], []
+            for run in range(2):  # cold, warm
+                what = f"phase 15 {name} run {run}"
+                zero_counts(kernels)
+                issued = dict(mesh.collectives)
+                tok = cls(mesh=mesh, device=dev)
+                t0 = time.perf_counter()
+                tok.train(corpus, max_vocab)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+                counts = read_counts(kernels)
+                checks[name](tok, what)
+                if name == "NaiveBPE" and tok.merges_list[:len(
+                        anchor)] != anchor:
+                    raise AssertionError(f"{what}: the first merges differ "
+                                         f"from the reference anchor")
+                if max_vocab == 8000:
+                    sharded_tiers_check(name, tok, what)
+                graph_lines.append(sharded_graph_check(tok, what))
+                calls = sharded_launch_check(name, tok, counts, what)
+                got = {k: mesh.collectives[k] - n for k, n in issued.items()}
+                want = step_collectives(tok, name == "NaiveWP")
+                if got != want:
+                    raise AssertionError(f"{what}: collectives {got}, "
+                                         f"expected {want}")
+            steps = sum(tok._sel_stats.values())
+            by_path[f"{name}_nccl8"] = {k: v for k, v in counts.items() if v}
+            lines.append(f"{name} cold {walls[0]:.3f} s, warm {walls[1]:.3f} "
+                         f"s ({walls[1] / steps * 1e3:.3f} ms a step), graphs "
+                         f"cold {graph_lines[0]}, warm {graph_lines[1]}, "
+                         f"tiers {tok._sel_stats}, collectives {got}, "
+                         f"{calls} kernel-wrapper calls, warm launches "
+                         f"{by_path[name + '_nccl8']}")
         rows = [torch.full((2, 3), i, device=dev) for i in range(8)]
-        got = distributed.fetch_global(rows, mesh)
-        assert got[:, 0].tolist() == [i for i in range(8) for _ in range(2)]
-        for k in ("nominate_tables", "lookup_reduce", "certificate",
-                  "pair_rows", "merge_rows"):
-            if not counts.get(k):
-                raise AssertionError(f"phase 15 launched no {k}: {counts}")
-        # a process group's mesh is not graphed: every step queued
-        g = tok._graph_stats
-        steps = sum(tok._sel_stats.values())
-        if g["replays"] or g["captures"] or g["eager_steps"] != steps:
-            raise AssertionError(f"phase 15: {steps} steps, graph counts "
-                                 f"{g}")
+        fetched = distributed.fetch_global(rows, mesh)
+        assert fetched[:, 0].tolist() == [i for i in range(8)
+                                          for _ in range(2)]
+        print(f"phase 15: torch.distributed NCCL {nccl} at world size 1 "
+              f"(TCP store on localhost), a process-group mesh of 8 shards "
+              f"on the card, each tier after a run's first step one graph "
+              f"replay with its collectives: NaiveBPE and NaiveWP to "
+              f"{max_vocab} equal the goldens (BPE's first {len(anchor)} "
+              f"merges the reference anchor): " + "; ".join(lines)
+              + f"; is_coordinator, process_count 1 and fetch_global "
+              f"checked; {smi}")
+
+        # 15c: the collectives' device work, a gather's and a reduction's
+        # measured alone, then a traced train
+        part = torch.arange(2048, dtype=torch.int64, device=dev)
+        out = torch.empty_like(part)
+        per = {}
+        for k, fn in (("all_gather", lambda: mesh.gather([part], out=out)),
+                      ("all_reduce", lambda: mesh.sum([part]))):
+            n0 = mesh.collectives[k]
+            _, _, by_name = device_trace(
+                lambda: [fn() for _ in range(4)],
+                os.path.join(trace_dir, f"nccl_{k}.json"), warmup=True)
+            # the warm-up call's and the traced call's
+            per[k] = collective_spans(by_name) / (
+                (mesh.collectives[k] - n0) / 2)
+        traced, marks = [], []
+
+        def traced_train():
+            marks.append((read_counts(kernels), dict(mesh.collectives)))
+            traced.append(NaiveBPE(mesh=mesh, device=dev))
+            traced[-1].train(corpus, trace_vocab)
+
+        wall, busy, by_name = device_trace(
+            traced_train, os.path.join(trace_dir, "nccl_train_trace.json"),
+            warmup=True)
+        spans = shard_spans(by_name, marks[-1][0], traced[-1], kernels,
+                            "phase 15c")
+        issued = {k: mesh.collectives[k] - n for k, n in marks[-1][1].items()}
+        want = sum(per[k] * n for k, n in issued.items())
+        got = collective_spans(by_name)
+        if got != want:
+            raise AssertionError(f"phase 15c: the collectives' device work "
+                                 f"{got} spans, expected {want} for "
+                                 f"{issued} at {per} a collective")
+        print(f"phase 15c: one warm NaiveBPE train to {trace_vocab} on the "
+              f"NCCL mesh under torch.profiler (after an untraced one): "
+              f"device busy {busy:.3f} ms of {wall:.1f} ms (idle share "
+              f"{1 - busy / wall:.4f}); kernel spans equal to the launch "
+              f"counters {spans}; " + trace_graph_line(by_name) + "; "
+              + sharded_graph_check(traced[-1], "phase 15c")
+              + f"; collectives {issued}, their device work {got} spans "
+              f"(measured alone: {per['all_gather']:g} a gather, "
+              f"{per['all_reduce']:g} a reduction at world size 1); {smi}")
+
+        # 15d: captured tiers replayed from copies of one state
+        phase14e(dev, arrays, table, golden, smi, reps=reps,
+                 meshes=[("the NCCL mesh of 8", mesh)], what="phase 15d")
     finally:
         dist.destroy_process_group()
-    print(f"phase 15: torch.distributed NCCL at world size 1 (TCP store on "
-          f"localhost), a process-group mesh of 8 shards on the card: "
-          f"NaiveBPE to {max_vocab} gives {len(tok.merges_list)} merges equal "
-          f"to the "
-          f"golden (the first {len(anchor)} the reference anchor) in "
-          f"{wall:.3f} s, tiers {tok._sel_stats}, the per-step route (a "
-          f"process group's mesh is not graphed: {g['eager_steps']} steps "
-          f"queued step by step, 0 replays); is_coordinator, "
-          f"process_count 1 and fetch_global checked; launches {counts}; "
-          f"{smi}")
-    return counts
+    return by_path
 
 
 def phase16(dev, scan_args, scan_params, smi, seed=SEED):
@@ -4002,8 +4136,14 @@ def main() -> int:
     launches = read_counts(scan_kernels)
     n_tokens = sum(map(len, out))
     assert n_tokens == expect["full_tokens"], n_tokens
+    # the front end these calls ran: built from the port's own sources
+    so_path = binding.load()._name
+    if os.path.dirname(so_path) != os.path.join(
+            ROOT, "subword_tokenizers_tpu_torch", "_native", "build"):
+        raise AssertionError(f"phase 3: the front end came from {so_path}")
     print(f"phase 3: tokenize_batch of {len(corpus)} sentences "
           f"({n_bytes} bytes, {n_tokens} tokens) equals the JAX sha256; "
+          f"front end {so_path}; "
           f"launches {launches} ({per_call} a call); cold "
           f"{walls[0]*1e3:.3f} ms, warm "
           f"{[round(w * 1e3, 3) for w in walls[1:4]]} ms, median "
@@ -5283,7 +5423,11 @@ def main() -> int:
     phase14e(dev, arrays, table, golden, smi)
 
     # ---- phase 15: torch.distributed, NCCL at world size 1
-    by_group = phase15(dev, corpus, golden, anchor, smi)
+    with tempfile.TemporaryDirectory() as d:
+        by_group = phase15(dev, corpus, anchor,
+                           {"NaiveBPE": check_train,
+                            "NaiveWP": check_wp_train},
+                           arrays, table, golden, smi, d)
 
     # ---- phase 16: the gather probe (the TPU probe's port)
     (errs16, timing16, bounds16, library16, probe_launches,
@@ -5574,8 +5718,8 @@ def main() -> int:
             {"name": k, "route": "cuda",
              "source": f"subword_tokenizers_tpu_torch/csrc/{src}",
              "replaces": replaces, "launches": sum(paths.values()),
-             "launches_by_path": {**paths,
-                                  "NaiveBPE_nccl_world1": by_group.get(k, 0)},
+             "launches_by_path": {**paths, **{
+                 p: c.get(k, 0) for p, c in by_group.items()}},
              "max_abs_err": errs[k], "ms": timing[k][0],
              "plain_ms": timing[k][1]})
     by_name = {k["name"]: k for k in record["kernels"]}

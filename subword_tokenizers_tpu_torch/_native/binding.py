@@ -4,11 +4,11 @@ It serves FastWP's encode (``encode_prep``, ``pack_u16_rows``,
 ``chunk_unique``, the stitches) and the trainers' front end
 (``split_bounds``, ``split_corpus``, ``unique_spans``).
 
-The C++ sources are the JAX package's ``subword_tokenizers_tpu/_native/
-{pretok,chunker,stitch,encode_prep}.cpp``, read by path (that package is
-never imported). They are compiled with g++ once per source change into
-this package's ``_native/build/``. Without g++ the first call raises:
-the port has no slower host path to fall back to.
+The C++ sources are this package's own ``_native/{pretok,chunker,stitch,
+encode_prep}.cpp`` (copies of the JAX package's, held to it by the
+front-end and stitch parity tests, not by bytes). They are compiled with
+g++ once per source change into ``_native/build/``. Without g++ the
+first call raises: the port has no slower host path to fall back to.
 """
 from __future__ import annotations
 
@@ -23,12 +23,10 @@ from typing import Optional, Tuple
 
 import numpy as np
 
-_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
-    __file__))))
-SRC_DIR = os.path.join(_ROOT, "subword_tokenizers_tpu", "_native")
+SRC_DIR = os.path.dirname(os.path.abspath(__file__))
 _SRCS = [os.path.join(SRC_DIR, name) for name in
          ("pretok.cpp", "chunker.cpp", "stitch.cpp", "encode_prep.cpp")]
-BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+BUILD_DIR = os.path.join(SRC_DIR, "build")
 _FLAGS = ["-O3", "-march=native", "-pthread", "-shared", "-fPIC",
           "-std=c++17"]
 

@@ -1,8 +1,7 @@
 """Unicode character classes of the front end and the FastWP scanner.
 
-The tables are read by path from the JAX package's data file
-``subword_tokenizers_tpu/frontend/unicode_tables.npz`` (made by
-``tools/gen_unicode_tables.py``); nothing of that package is imported.
+The tables are this package's ``frontend/unicode_tables.npz``, a copy of
+the JAX package's (made by ``tools/gen_unicode_tables.py``).
 Each is a flat array indexed by codepoint:
 
 - ``WS_HF``         — Rust ``char::is_whitespace`` (Unicode White_Space),
@@ -22,10 +21,8 @@ import os
 
 import numpy as np
 
-TABLE_PATH = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
-        __file__)))),
-    "subword_tokenizers_tpu", "frontend", "unicode_tables.npz")
+TABLE_PATH = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "unicode_tables.npz")
 
 _N = 0x110000
 

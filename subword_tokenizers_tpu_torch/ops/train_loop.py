@@ -524,11 +524,12 @@ class PaddedState:
 
     def host_key(self) -> tuple:
         """The host values a block's launches read: the order of K4's two
-        outputs, the weights K2 reads, and K1's tables'."""
+        outputs, the weights K2 reads, and K1's tables' (none on the CPU,
+        whose plain version keeps no tables)."""
         return (None if self._freqs is None else
                 tuple(x.data_ptr() for x in self._freqs),
                 None if self.sym_freq is None else self.sym_freq.data_ptr()
-                ) + self._tables.host_key()
+                ) + (() if self._tables is None else self._tables.host_key())
 
     def padded(self) -> np.ndarray:
         return self.sym.cpu().numpy()

@@ -26,6 +26,12 @@ in one launch (ops/shard_select.py) gives one partial result for each
 of ``groups``, the runs of the process's consecutive shards on one
 device; the collectives take those partials in place of the shards'
 tensors and finish the reduction across devices and processes.
+
+A gather writes into the caller's ``out`` when it is given, and a
+process that holds one partial reduces it in place, so the collectives
+of a step allocate nothing and can be captured in a CUDA graph
+(parallel/train.ShardedTrainer). ``collectives`` counts the
+``torch.distributed`` calls made, by kind.
 """
 from __future__ import annotations
 
@@ -56,11 +62,13 @@ class DataMesh:
             raise ValueError("make_data_mesh: the shards' devices must all "
                              "be CUDA or all be the CPU")
         self.group = group
-        world, rank = 1, 0
+        world, rank, self.backend = 1, 0, None
         if group:
             import torch.distributed as dist
             world, rank = dist.get_world_size(), dist.get_rank()
+            self.backend = dist.get_backend()
         self.world = world
+        self.collectives = {"all_gather": 0, "all_reduce": 0}
         self.size = len(self.devices) * world
         self.first = rank * len(self.devices)
         self.home = self.devices[0]
@@ -84,39 +92,55 @@ class DataMesh:
                              f"{len(parts)}")
         return [p.to(self.home) for p in parts]
 
-    def gather(self, parts) -> torch.Tensor:
+    def gather(self, parts, out: Optional[torch.Tensor] = None
+               ) -> torch.Tensor:
         """The shards' tensors (one per shard of this process, each of the
         same shape; or one per group, each its shards' concatenation)
         concatenated along dim 0 in shard order, over every shard of the
-        mesh, on ``home``. A single part on one process is returned as it
-        is."""
+        mesh, on ``home``: into ``out`` when it is given (of
+        :meth:`gathered_shape`). A single part on one process is returned
+        as it is."""
         local = self._local(parts)
-        local = local[0] if len(local) == 1 else torch.cat(local)
         if not self.group:
-            return local
+            if len(local) == 1:
+                return local[0]
+            return torch.cat(local) if out is None else \
+                torch.cat(local, out=out)
         import torch.distributed as dist
-        out = torch.empty((self.world * local.shape[0],) + local.shape[1:],
-                          dtype=local.dtype, device=local.device)
+        local = local[0] if len(local) == 1 else torch.cat(local)
+        if out is None:
+            out = torch.empty(self.gathered_shape(parts), dtype=local.dtype,
+                              device=local.device)
         dist.all_gather_into_tensor(out, local)
+        self.collectives["all_gather"] += 1
         return out
+
+    def gathered_shape(self, parts) -> tuple:
+        """The shape :meth:`gather` gives ``parts``."""
+        rows = sum(p.shape[0] for p in parts)
+        return (self.world * rows,) + tuple(parts[0].shape[1:])
 
     def _reduce(self, parts, op: str) -> torch.Tensor:
         local = self._local(parts)
-        if len(local) == 1 and not self.group:
-            return local[0]  # nothing to reduce: the part as it is
-        stacked = torch.stack(local)
-        local = stacked.sum(0) if op == "sum" else \
-            stacked.amin(0) if op == "min" else stacked.amax(0)
+        if len(local) == 1:
+            local = local[0]  # one partial: reduced in place
+        else:
+            stacked = torch.stack(local)
+            local = stacked.sum(0) if op == "sum" else \
+                stacked.amin(0) if op == "min" else stacked.amax(0)
         if self.group:
             import torch.distributed as dist
             dist.all_reduce(local, {"sum": dist.ReduceOp.SUM,
                                     "min": dist.ReduceOp.MIN,
                                     "max": dist.ReduceOp.MAX}[op])
+            self.collectives["all_reduce"] += 1
         return local
 
     def sum(self, parts) -> torch.Tensor:
         """Elementwise sum of the shards' tensors (or of the groups'
-        partial sums) over the mesh."""
+        partial sums) over the mesh. A single part is the result: under a
+        process group it is reduced in place (as are :meth:`amin`'s and
+        :meth:`amax`'s)."""
         return self._reduce(parts, "sum")
 
     def amin(self, parts) -> torch.Tensor:

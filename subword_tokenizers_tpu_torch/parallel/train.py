@@ -33,6 +33,12 @@ A step picks its merge through three exact tiers, as in the JAX package:
 3. **full** (:func:`sharded_select_full`): every shard's rows are
    gathered and K1 and K2 run over them.
 
+Each gather writes into an output the corpus makes once
+(:meth:`ShardedCorpus.gather_out`), and each reduction of one partial a
+process is in place (parallel/mesh.py), so no tier allocates after a
+run's first step and each can be captured in a CUDA graph
+(:class:`ShardedTrainer`), its collectives included.
+
 WordPiece's symbol weights are K4, one launch a device over its block
 of shards (their sum), then the mesh's sum over the devices
 (:func:`sharded_sym_freq`). The merge is K3p, one launch a device over
@@ -53,7 +59,7 @@ import torch
 from ..benchmarks import profiling
 from ..ops.merge import apply_merge
 from ..ops.pairstats import (TablePair, clean_table, pair_rows,
-                             pair_stats_runs, symbol_rows)
+                             pair_stats, pair_stats_runs, symbol_rows)
 from ..ops.shard_select import (TableSet, compact_tables, lookup_reduce,
                                 nominate_tables)
 from ..ops.train_loop import (PaddedState, select_host_ids, select_scratch,
@@ -64,6 +70,8 @@ from .mesh import DataMesh
 TOPK = 256
 
 FLAG = 5  # the record column of a tier's flag: proven / exact / 1
+
+RUN_GATHERS = ("keys", "counts", "pos")  # the compact tier's gathers
 
 
 def run_gather_cap(n_local_pairs: int) -> int:
@@ -179,15 +187,40 @@ class ShardedCorpus:
         """Pair slots of one shard, as the JAX package counts them."""
         return self.rows * (self.L - 1)
 
-    def full_state(self, sym: torch.Tensor) -> PaddedState:
-        """A PaddedState over every row of the mesh, holding ``sym``
-        (the gathered rows, on ``mesh.home``)."""
+    def full_state(self) -> PaddedState:
+        """The full tier's PaddedState over every row of the mesh on
+        ``mesh.home``, made once with K1's two tables (on CUDA): its
+        ``sym`` is where the tier gathers the rows (:meth:`gather`; on one
+        device with no process group, the block's own rows)."""
         if self._full is None:
-            self._full = PaddedState(
+            full = PaddedState(
                 np.full((self.freq.shape[0], self.L), -1, dtype=np.int32),
                 self.freq, self.mesh.home)
-        self._full.sym = sym
+            parts = [blk.state.sym for blk in self.blocks]
+            out = self.gather_out("sym", parts)
+            full.sym = parts[0] if out is None else out
+            if full.device.type == "cuda":
+                full._tables = TablePair(full.sym.numel(), full.device)
+            self._full = full
         return self._full
+
+    def gather_out(self, name: str, parts) -> Optional[torch.Tensor]:
+        """The output of the tiers' gather ``name`` of ``parts``
+        (``mesh.gathered_shape``), made by the first call; None where the
+        gather copies nothing (one part, no process group)."""
+        mesh = self.mesh
+        if not mesh.group and len(parts) == 1:
+            return None
+        shape = mesh.gathered_shape(parts)
+        out = self._buffers.get(("gather", name))
+        if out is None or tuple(out.shape) != shape:
+            out = self._buffers[("gather", name)] = torch.empty(
+                shape, dtype=parts[0].dtype, device=mesh.home)
+        return out
+
+    def gather(self, name: str, parts) -> torch.Tensor:
+        """``mesh.gather`` of ``parts`` into :meth:`gather_out`."""
+        return self.mesh.gather(parts, out=self.gather_out(name, parts))
 
     def runs_claims(self):
         """The table the last :meth:`aggregate_runs` filled, for K2's
@@ -295,8 +328,8 @@ def sharded_select_topk(corpus: ShardedCorpus, tables, rec,
                              corpus.blocks[g].table_set(tables[a:b]),
                              corpus.nominate_buffers(g, k))
              for g, (dev, a, b) in enumerate(mesh.groups)]
-    cand = mesh.gather([c for c, _ in picks])
-    kth = mesh.gather([t for _, t in picks])
+    cand = corpus.gather("cand", [c for c, _ in picks])
+    kth = corpus.gather("kth", [t for _, t in picks])
     looked = [lookup_reduce(cand.to(dev), tables[a:b], corpus.bases[a:b],
                             corpus.blocks[g].table_set(tables[a:b]),
                             corpus.lookup_buffers(g, cand.shape[0]))
@@ -320,7 +353,8 @@ def sharded_select_compact(corpus: ShardedCorpus, tables, rec, cap: int,
                            out=corpus.run_buffers(g, cap),
                            tset=corpus.blocks[g].table_set(tables[a:b]))
             for g, (_, a, b) in enumerate(mesh.groups)]
-    gk, gc, gp = (mesh.gather([r[j] for r in runs]) for j in range(3))
+    gk, gc, gp = (corpus.gather(name, [r[j] for r in runs])
+                  for j, name in enumerate(RUN_GATHERS))
     agg = corpus.aggregate_runs(gk, gc, gp)
     select_host_ids(*agg, rec, sym_freq, claims=corpus.runs_claims(),
                     scratch=corpus.k2_scratch)
@@ -331,12 +365,11 @@ def sharded_select_full(corpus: ShardedCorpus, rec, sym_freq=None) -> None:
     """The full tier: every shard's rows gathered, then K1 and K2 over
     them. ``rec[5]`` = 1. Replaces the JAX package's
     ``sharded_bpe_select`` and ``sharded_wp_select``."""
-    mesh = corpus.mesh
-    state = corpus.full_state(mesh.gather([blk.state.sym
-                                           for blk in corpus.blocks]))
+    state = corpus.full_state()
+    state.sym = corpus.gather("sym", [blk.state.sym for blk in corpus.blocks])
     select_host_ids(*state.pairs(), rec, sym_freq, claims=state.claims(),
                     scratch=corpus.k2_scratch)
-    rec[FLAG] = 1
+    rec[FLAG:].fill_(1)
 
 
 def sharded_apply_merge(corpus: ShardedCorpus, a: int, b: int,
@@ -351,7 +384,7 @@ def sharded_apply_merge(corpus: ShardedCorpus, a: int, b: int,
 # The wrappers a step's tiers call; every counter of theirs whose name
 # ends in "launches" counts a captured tier's launches at each replay.
 _STEP_WRAPPERS = (pair_rows, nominate_tables, lookup_reduce, select_unify,
-                  compact_tables, pair_stats_runs, symbol_rows)
+                  compact_tables, pair_stats_runs, symbol_rows, pair_stats)
 
 
 def _launch_counters():
@@ -362,15 +395,18 @@ def _launch_counters():
 class _TierGraph:
     """A captured tier of a step: its CUDA graph, the host values the
     capture moved (``moved``: (object, attribute, value after); ``fills``:
-    (PairTable, fills added)), the launches it holds by counter, and the
-    compactions it holds by TableSet (their epochs)."""
+    (PairTable, fills added)), the launches it holds by counter, the
+    compactions it holds by TableSet (their epochs) and the mesh's
+    collectives it holds by kind."""
 
-    def __init__(self, graph, moved, fills, launches, compactions) -> None:
+    def __init__(self, graph, moved, fills, launches, compactions,
+                 collectives) -> None:
         self.graph = graph
         self.moved = moved
         self.fills = fills
         self.launches = launches
         self.compactions = compactions
+        self.collectives = collectives
 
 
 class ShardedTrainer:
@@ -383,28 +419,42 @@ class ShardedTrainer:
     As in the JAX package, each tier a step tries is one dispatch and one
     read-back (its record's flag decides whether the next tier runs), and
     the merge is one more dispatch with the host's ids. The first tier
-    holds the step's K4 (WordPiece) and K1 too. On a mesh with no process
-    group whose shards all lie on one CUDA device (``graphed``), the run's
-    first step is queued step by step (it builds the buffers, checks the
-    tables and warms every launcher); every later top-K or compact tier
-    is one replay of a ``torch.cuda.CUDAGraph`` of its launches and of
-    the copy of its record into a pinned host buffer, captured once for
-    each key (:meth:`_key`: the tier, whether it holds K1, and the host
-    values its launches read: the block's table set, K4's output and the
-    runs tables' parities), and the host reads the record after an event.
-    The full tier is queued step by step, and so is every step of the
-    other meshes and of the CPU, which run the plain versions.
+    holds the step's K4 (WordPiece) and K1 too. Where this process's
+    shards all lie on one CUDA device, on a mesh with no process group or
+    on one under NCCL (``graphed``), the run's first step is queued step
+    by step (it builds the buffers and the NCCL communicator, checks the
+    tables and warms every launcher); every later tier, top-K, compact or
+    full, is one replay of a ``torch.cuda.CUDAGraph`` of its launches, its
+    collectives and the copy of its record into a pinned host buffer,
+    captured once for each key (:meth:`_key`: the tier, whether it holds
+    K1, and the host values its launches read: the block's table set,
+    K4's output, and the runs tables' or the full state's table
+    parities), and the host reads the record after an event. Every step
+    of the other meshes (gloo, several devices a process) and of the CPU,
+    which runs the plain versions, is queued step by step.
+
+    Under a process group the ranks need not capture together: a key
+    holds host values of this process (table parities, an address), so
+    one rank may capture a tier while another replays its graph of it. A
+    capture runs no collective, and each capture is replayed at once, so
+    every rank runs the same collectives in the same order as long as
+    every rank replays or queues the same tiers in the same order: the
+    globally reduced record decides the tiers, so they do. Nothing may
+    issue a collective between tiers outside the graphs unless every
+    rank issues it. (A card checks one rank; two gloo processes check
+    the route's logic step by step.)
 
     After a replay the host values move as the capture moved them, every
     launch counter gains the launches the graph holds (so each stays the
-    true number of kernels run), and each TableSet counts the graph's
+    true number of kernels run), the mesh's ``collectives`` the
+    collectives it holds, and each TableSet counts the graph's
     compactions (their epochs are device words). A capture that
     allocates, or fails, raises; nothing falls back to queuing the tier.
     :meth:`close` releases the graphs. ``graph_stats`` counts the run's
     ``captures``, ``replays``, ``eager_steps`` (steps queued step by
     step) and ``capture_s``, its ``graphs`` by tier, its ``tiers`` (the
-    top-K and compact tiers run) and ``eager_tiers`` (those of them
-    queued step by step)."""
+    tiers run) and ``eager_tiers`` (those of them queued step by
+    step)."""
 
     def __init__(self, mesh: DataMesh, sym: np.ndarray, freq: np.ndarray,
                  sym_cap: Optional[int] = None, wide_score: bool = False,
@@ -428,7 +478,8 @@ class ShardedTrainer:
         self.rec = torch.zeros(6, dtype=torch.int32, device=self.dev)
         self.host_rec = torch.zeros(6, dtype=torch.int32, pin_memory=cuda)
         self.event = torch.cuda.Event() if cuda else None
-        self.graphed = cuda and not mesh.group and len(mesh.groups) == 1
+        self.graphed = cuda and len(mesh.groups) == 1 and (
+            not mesh.group or mesh.backend == "nccl")
         self.graphs = {}  # key -> _TierGraph
         self.graph_stats = {"captures": 0, "replays": 0, "eager_steps": 0,
                             "capture_s": 0.0, "graphs": {}, "tiers": 0,
@@ -455,11 +506,7 @@ class ShardedTrainer:
             if tier == "topk":
                 self.topk_fallbacks += 1
         self.sel_stats["full"] += 1
-        if head:  # the forced full tier: the whole step step by step
-            self.graph_stats["eager_steps"] += 1
-        with profiling.phase("train.device_step", self.dev):
-            self._queue("full", head)
-        a, b, _, _, active, _ = self._fetch()
+        a, b, _, _, active, _ = self._tier("full", head, eager)
         return (a, b) if active else None
 
     def _queue(self, tier: str, head: bool) -> None:
@@ -506,13 +553,16 @@ class ShardedTrainer:
         """The host values a tier's launches read: the table set K1 fills
         (``head``) or filled, K4's output (its address), and for the
         compact tier the runs tables' next table, last fill and parities
-        (ops/pairstats.TablePair.host_key)."""
+        (ops/pairstats.TablePair.host_key), for the full tier the full
+        state's (ops/train_loop.PaddedState.host_key)."""
         blk = self.corpus.blocks[0]
         freqs = blk.state._freqs
         runs = self.corpus._runs_tables if tier == "compact" else None
+        full = self.corpus._full if tier == "full" else None
         return (tier, head, blk._parity,
                 None if freqs is None else freqs[0].data_ptr(),
-                None if runs is None else runs.host_key())
+                None if runs is None else runs.host_key(),
+                None if full is None else full.host_key())
 
     def _host_values(self):
         """(object, attribute) of every host value a tier may move, and
@@ -521,20 +571,32 @@ class ShardedTrainer:
         slots = [(self, "_tables"), (self, "_sym_freq"), (blk, "_parity"),
                  (blk, "filled"), (blk.state, "_freqs"),
                  (blk.state, "sym_freq")]
-        runs = self.corpus._runs_tables
-        tables = () if runs is None else runs.tables
-        slots += [(runs, "_next"), (runs, "filled")] if runs else []
-        slots += [(t, "dirty") for t in tables]
+        full = self.corpus._full
+        tables = []
+        for pair in (self.corpus._runs_tables,
+                     None if full is None else full._tables):
+            if pair is not None:
+                slots += [(pair, "_next"), (pair, "filled")]
+                slots += [(t, "dirty") for t in pair.tables]
+                tables += pair.tables
         return slots, tables
 
     def _prepare(self, tier: str) -> None:
         """Make, before a tier's key is read, what its wrappers would make
         on their first call (nothing may allocate inside a capture): the
-        compact tier's output buffers and runs tables."""
+        compact tier's output buffers, gathers' outputs and runs tables,
+        and the full tier's state and gather's output."""
+        corpus = self.corpus
         if tier == "compact":
-            cap = min(self.run_cap, self.corpus.n_local_pairs)
-            n = self.corpus.run_buffers(0, cap)[0].shape[0]
-            self.corpus.runs_tables(n)
+            cap = min(self.run_cap, corpus.n_local_pairs)
+            runs = [corpus.run_buffers(g, cap)
+                    for g in range(len(corpus.blocks))]
+            for j, name in enumerate(RUN_GATHERS):
+                corpus.gather_out(name, [r[j] for r in runs])
+            corpus.runs_tables(
+                corpus.mesh.gathered_shape([r[0] for r in runs])[0])
+        elif tier == "full":
+            corpus.full_state()
 
     def _replay(self, tier: str, head: bool) -> None:
         self._prepare(tier)
@@ -554,6 +616,8 @@ class ShardedTrainer:
             table.fills += n
         for (fn, name), n in g.launches:
             setattr(fn, name, getattr(fn, name) + n)
+        for kind, n in g.collectives:
+            self.corpus.mesh.collectives[kind] += n
         self.graph_stats["replays"] += 1
 
     def _capture(self, key, tier: str, head: bool) -> _TierGraph:
@@ -569,6 +633,7 @@ class ShardedTrainer:
             fills = [t.fills for t in tables]
             counters = _launch_counters()
             launched = [getattr(fn, name) for fn, name in counters]
+            issued = dict(self.corpus.mesh.collectives)
             sets = self.corpus.blocks[0].sets
             for tset in sets:  # no restart of the epochs inside
                 tset.room(1)
@@ -598,7 +663,10 @@ class ShardedTrainer:
                  for (fn, name), n in zip(counters, launched)
                  if getattr(fn, name) != n],
                 [(tset, tset.calls - n) for tset, n in zip(sets, calls)
-                 if tset.calls != n])
+                 if tset.calls != n],
+                [(kind, self.corpus.mesh.collectives[kind] - n)
+                 for kind, n in issued.items()
+                 if self.corpus.mesh.collectives[kind] != n])
             # put back what the capture moved and counted: the replay
             # moves and counts it
             for (o, a), v in zip(slots, before):
@@ -607,6 +675,7 @@ class ShardedTrainer:
                 t.fills = n
             for (fn, name), n in zip(counters, launched):
                 setattr(fn, name, n)
+            self.corpus.mesh.collectives.update(issued)
             self.graphs[key] = g
         self.graph_stats["captures"] += 1
         self.graph_stats["capture_s"] += time.perf_counter() - t0

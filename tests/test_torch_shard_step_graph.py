@@ -3,16 +3,17 @@
 sharded train on slices of ``data/train-85k.json``.
 
 On the card each tier a step tries after the run's first step is one
-replay of a CUDA graph, captured once for each key of host values; only
-the card runs graphs. Here the trainer runs two ways: step by step, as
+replay of a CUDA graph, captured once for each key of host values, on a
+mesh with no process group and on one under NCCL; only the card runs
+graphs. The process-group route runs here under gloo at world size 1. Here the trainer runs two ways: step by step, as
 every CPU run does, and with ``graphed`` set and a stand-in for
 ``torch.cuda.CUDAGraph`` whose capture runs the tier once and whose
 every later replay runs it again from the host values of its key, so
 the trainer's bookkeeping (keys, the host values a replay moves, the
-compactions a graph holds, the release at the end) runs here. A spy on
-the launch wrappers shows that every step of one key passes the same
-scalars and the same buffers as that key's first step, so a graph of
-the first replays the others. The compaction's epoch is a word of its
+compactions and collectives a graph holds, the release at the end) runs
+here. A spy on the launch wrappers and the mesh's collectives shows that
+every step of one key passes the same scalars and the same buffers as
+that key's first step, so a graph of the first replays the others. The compaction's epoch is a word of its
 TableSet on the device; its plain version writes the words as the
 kernel does, across the restart of the epochs.
 
@@ -22,10 +23,12 @@ import contextlib
 import functools
 import json
 import os
+import socket
 
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 from subword_tokenizers_tpu import NaiveBPE as JaxNaiveBPE
 from subword_tokenizers_tpu import NaiveWP as JaxNaiveWP
@@ -37,8 +40,9 @@ from subword_tokenizers_tpu_torch.ops.pairstats import EMPTY_KEY
 from subword_tokenizers_tpu_torch.ops.shard_select import (
     EPOCH_MAX, K_INCLUSIVE, ROUND_SPAN, TableSet, compact_tables,
     compact_tables_ref)
+from subword_tokenizers_tpu_torch.parallel import distributed
 from subword_tokenizers_tpu_torch.parallel import train as ptrain
-from subword_tokenizers_tpu_torch.parallel.mesh import make_data_mesh
+from subword_tokenizers_tpu_torch.parallel.mesh import DataMesh, make_data_mesh
 
 torch.set_num_threads(1)
 
@@ -56,6 +60,29 @@ def corpus():
 @pytest.fixture(scope="module")
 def mesh8():
     return make_data_mesh(8, devices=["cpu"] * 8)
+
+
+@pytest.fixture
+def gloo():
+    """A gloo process group of this process alone (world size 1), for
+    the test; its mesh of 8 CPU shards is a process-group mesh."""
+    s = socket.socket()
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+    s.close()
+    distributed.initialize(f"localhost:{port}", num_processes=1,
+                           process_id=0, device="cpu")
+    try:
+        mesh = make_data_mesh(8, devices=["cpu"] * 8)
+        assert mesh.group and mesh.backend == "gloo" and mesh.world == 1
+        yield mesh
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_for(route, request):
+    """The mesh of 8 CPU shards of a route: no process group, or gloo."""
+    return request.getfixturevalue("gloo" if route == "gloo" else "mesh8")
 
 
 def merges(tok):
@@ -83,8 +110,9 @@ class StandInGraph:
     versions run at once: the capture runs the tier once (as the real
     capture's replay right after it would), and each later replay runs it
     again from the host values the key holds, then puts back the host
-    values, fill counts and compaction counts, which the trainer moves
-    itself after a replay, as after a real one."""
+    values, fill counts, compaction counts and the mesh's collective
+    counts, which the trainer moves itself after a replay, as after a
+    real one."""
 
     capturing = None
     made = []
@@ -111,7 +139,9 @@ class StandInGraph:
         fills = [t.fills for t in tables]
         sets = trainer.corpus.blocks[0].sets
         calls = [s.calls for s in sets]
+        issued = dict(trainer.corpus.mesh.collectives)
         trainer._queue(tier, head)
+        trainer.corpus.mesh.collectives.update(issued)
         for (o, a), v in zip(slots, saved):
             setattr(o, a, v)
         for t, n in zip(tables, fills):
@@ -143,6 +173,7 @@ def tiers(monkeypatch):
 
 
 GRAPHED = [True]  # whether the graphs fixture graphs the next trainers
+GATES = []  # the trainers' own graphed gates, before the fixture's
 
 
 @pytest.fixture
@@ -151,10 +182,12 @@ def graphs(monkeypatch, tiers):
     (while ``GRAPHED[0]``)."""
     StandInGraph.made = []
     GRAPHED[0] = True
+    GATES.clear()
     real_init = ptrain.ShardedTrainer.__init__
 
     def init(self, *args, **kwargs):
         real_init(self, *args, **kwargs)
+        GATES.append(self.graphed)
         self.graphed = GRAPHED[0]
 
     real_queue = ptrain.ShardedTrainer._queue
@@ -178,69 +211,92 @@ def graphs(monkeypatch, tiers):
     return tiers
 
 
-def check_graphs(tok, tiers, forced_full=False):
-    """One step queued step by step, then one replay for each top-K or
-    compact tier a later step tried, at most two graphs for each tier
-    and first-tier flag (the table set's parity on the CPU, whose
-    trainer has no runs tables), all released at the end."""
+def check_graphs(tok, tiers):
+    """One step queued step by step, then one replay for each tier a
+    later step tried (top-K, compact or full), at most two graphs for
+    each tier and first-tier flag (the table set's parity on the CPU,
+    whose trainer has no runs tables), all released at the end. The
+    CPU's own gate graphs nothing."""
     st = tok._graph_stats
     first = [t for t in tiers if t[0] == 1]
     later = [t for t in tiers if t[0] > 1]
     assert all(eager for _, _, eager in first)
     assert not any(eager for _, _, eager in later)
     assert st["replays"] == len(later)
-    steps = sum(tok._sel_stats.values())
-    assert st["eager_steps"] == (steps if forced_full else 1)
+    assert st["tiers"] == len(tiers) and st["eager_tiers"] == len(first)
+    assert st["eager_steps"] == 1
+    assert GATES and not any(GATES)
     assert st["captures"] == sum(st["graphs"].values()) == len(
         StandInGraph.made)
     assert all(n <= 4 for n in st["graphs"].values())
     assert all(g.released for g in StandInGraph.made)
 
 
-@pytest.mark.parametrize("graphed", [False, True])
+def expected_collectives(tiers, wordpiece):
+    """The collectives a process-group run issues for the tiers it ran:
+    the top-K tier gathers the candidates and the K-th rows and reduces
+    the counts and positions, the compact tier gathers the runs' keys,
+    counts and positions and reduces the overflow flag, the full tier
+    gathers the rows, and a WordPiece step reduces K4's weights in its
+    first tier; the end of the train gathers the final rows once
+    (``fetch_global``)."""
+    n = {t: sum(1 for _, name, _ in tiers if name == t)
+         for t in ("topk", "compact", "full")}
+    steps = len({s for s, _, _ in tiers})
+    return {"all_gather": 2 * n["topk"] + 3 * n["compact"] + n["full"] + 1,
+            "all_reduce": 2 * n["topk"] + n["compact"]
+            + (steps if wordpiece else 0)}
+
+
+@pytest.mark.parametrize("route", ["steps", "graphed", "gloo"])
 @pytest.mark.parametrize("cls,vocab", [(NaiveBPE, 600), (NaiveWP, 700)])
-def test_trainer_equals_jax(cls, vocab, graphed, corpus, mesh8, request):
-    """Train-85k[:300] on 8 shards, step by step and graphed, against
-    the JAX package's sharded train: the same merges, vocab, final
-    symbols and tier counts (BPE falls back to the compact tier on most
-    steps past the first few hundred)."""
-    seen = request.getfixturevalue("graphs" if graphed else "tiers")
-    port = cls(mesh=mesh8, device="cpu")
+def test_trainer_equals_jax(cls, vocab, route, corpus, request):
+    """Train-85k[:300] on 8 shards, step by step, graphed, and graphed on
+    a gloo process-group mesh at world size 1 (its collectives counted,
+    replays included), against the JAX package's sharded train: the same
+    merges, vocab, final symbols and tier counts (BPE falls back to the
+    compact tier on most steps past the first few hundred)."""
+    mesh = mesh_for(route, request)
+    seen = request.getfixturevalue("tiers" if route == "steps"
+                                   else "graphs")
+    port = cls(mesh=mesh, device="cpu")
     port.train(corpus[:300], vocab)
     assert_same(port, jax_train(cls, corpus[:300], vocab))
     assert len(merges(port)) > 400
     if cls is NaiveBPE:
         assert port._sel_stats["compact"] > 100
-    if graphed:
-        check_graphs(port, seen)
-        assert port._graph_stats["replays"] >= len(merges(port)) - 1
-    else:
+    if route == "steps":
         assert port._graph_stats["replays"] == 0
         assert port._graph_stats["eager_steps"] == len(
             {s for s, _, _ in seen})
+    else:
+        check_graphs(port, seen)
+        assert port._graph_stats["replays"] >= len(merges(port)) - 1
+    want = expected_collectives(seen, cls is NaiveWP) if mesh.group else {
+        "all_gather": 0, "all_reduce": 0}
+    assert mesh.collectives == want
 
 
 @pytest.mark.parametrize("cls", [NaiveBPE, NaiveWP])
 @pytest.mark.parametrize("tier", ["compact", "full"])
 def test_forced_tiers_graphed(cls, tier, corpus, mesh8, graphs):
-    """The forced compact tier is the step's one graph (K4, K1 and the
-    compaction); the forced full tier is queued step by step."""
+    """The forced tier is the step's one graph: K4, K1 and the compaction,
+    or K4, the gathered rows' K1 and K2; the JAX package's train forced
+    to the same tier is the reference."""
     port = cls(mesh=mesh8, device="cpu")
     port._force_tier = tier
     port.train(corpus[:40], 140)
     assert_same(port, jax_train(cls, corpus[:40], 140, tier))
     assert port._sel_stats[tier] == sum(port._sel_stats.values()) > 30
-    check_graphs(port, graphs, forced_full=tier == "full")
-    if tier == "full":
-        assert port._graph_stats["captures"] == 0 and not graphs
-    else:
-        assert set(port._graph_stats["graphs"]) == {"compact"}
+    check_graphs(port, graphs)
+    assert set(port._graph_stats["graphs"]) == {tier}
+    assert {name for _, name, _ in graphs} == {tier}
 
 
 def test_overflowing_cap_takes_the_full_tier(corpus, mesh8, graphs,
                                              monkeypatch):
     """A distinct-run cap of 4 overflows the compact tier on most steps:
-    the full tier is queued after the compact tier's replay, with the
+    the full tier is replayed after the compact tier's replay, with the
     step's tables and weights as the replays left them."""
     monkeypatch.setattr(ptrain, "run_gather_cap", lambda n: 4)
     monkeypatch.setattr(jtrain, "run_gather_cap", lambda n: 4)
@@ -250,6 +306,7 @@ def test_overflowing_cap_takes_the_full_tier(corpus, mesh8, graphs,
     assert_same(port, jax_tok)
     assert port._sel_stats["full"] > 100 and port._sel_stats["proven"] > 100
     check_graphs(port, graphs)
+    assert set(port._graph_stats["graphs"]) == {"topk", "compact", "full"}
 
 
 @pytest.mark.parametrize("cls", [NaiveBPE, NaiveWP])
@@ -431,14 +488,15 @@ class _Spy:
     """Each spied call's arguments: a Python scalar as it is, a tuple or
     list item by item, any other object by type and identity, a tensor
     by its address; once the run is over a tensor the trainer held at
-    every tier is kept by its address and any other is "made" (a plain
-    version's output, which on the card is one of the trainer's
-    buffers). Every tensor seen is kept alive, so no address is reused
-    during the run."""
+    the start of every tier from a given one on (``holdings[since:]``:
+    a key's buffers are made by its first tier) is kept by its address
+    and any other is "made" (a plain version's output, which on the card
+    is one of the trainer's buffers). Every tensor seen is kept alive, so
+    no address is reused during the run."""
 
     def __init__(self):
         self.held = []
-        self.persistent = None
+        self.holdings = []
 
     def arg(self, v):
         if isinstance(v, torch.Tensor):
@@ -459,38 +517,42 @@ class _Spy:
         ts = []
         _held(trainer, set(), ts)
         self.held += ts
-        now = {t.untyped_storage().data_ptr() for t in ts}
-        self.persistent = now if self.persistent is None else \
-            self.persistent & now
+        self.holdings.append({t.untyped_storage().data_ptr() for t in ts})
 
-    def final(self, rec):
+    def final(self, rec, since):
         if isinstance(rec, tuple) and rec and rec[0] == "tensor":
-            return ("at", rec[2], rec[3]) if rec[1] in self.persistent \
-                else "made"
+            later = self.holdings[since:]
+            return ("at", rec[2], rec[3]) if later and all(
+                rec[1] in h for h in later) else "made"
         if isinstance(rec, tuple):
-            return tuple(self.final(x) for x in rec)
+            return tuple(self.final(x, since) for x in rec)
         return rec
 
 
 SPIED = {ptrain: ("pair_rows", "nominate_tables", "lookup_reduce",
                   "compact_tables", "select_host_ids", "pair_stats_runs"),
-         train_loop: ("symbol_rows", "pair_stats")}
+         train_loop: ("symbol_rows", "pair_stats"),
+         DataMesh: ("gather", "_reduce")}
 
 
-@pytest.mark.parametrize("model,tier", [("bpe", None), ("wp", None),
-                                        ("wp", "compact")])
+@pytest.mark.parametrize("model,tier,route", [
+    ("bpe", None, "local"), ("wp", None, "local"), ("wp", "compact", "local"),
+    ("bpe", None, "gloo"), ("wp", "full", "gloo")])
 def test_every_step_of_one_key_passes_the_same_arguments(
-        monkeypatch, corpus, mesh8, model, tier):
-    """Every launch wrapper a tier calls, spied, on a run step by step:
-    each tier of one key (:meth:`ShardedTrainer._key`) passes identical
-    scalars and tensors at identical addresses as that key's first tier
-    (no host epoch, parity or counter that a replayed graph would repeat
-    stale, and no buffer made or picked anew)."""
+        monkeypatch, corpus, model, tier, route, request):
+    """Every launch wrapper a tier calls and the mesh's collectives,
+    spied, on a run step by step: each tier of one key
+    (:meth:`ShardedTrainer._key`) passes identical scalars and tensors at
+    identical addresses as that key's first tier (no host epoch, parity
+    or counter that a replayed graph would repeat stale, and no buffer
+    made or picked anew). On the gloo process-group mesh every gather
+    writes into an output the corpus keeps (a reduction is in place on
+    its part: on the CPU a plain version's output)."""
     spy = _Spy()
-    calls = []
+    calls, reals = [], {}
     for module, names in SPIED.items():
         for name in names:
-            real = getattr(module, name)
+            real = reals[name] = getattr(module, name)
 
             @functools.wraps(real)
             def wrapped(*args, _name=name, _real=real, **kwargs):
@@ -502,22 +564,21 @@ def test_every_step_of_one_key_passes_the_same_arguments(
     real_tier = ptrain.ShardedTrainer._tier
 
     def tier_spy(self, name, head, eager):
-        if self.steps > 1:  # the buffers made by the first step on
-            spy.holding(self)
+        spy.holding(self)
         key = self._key(name, head)
         start = len(calls)
         got = real_tier(self, name, head, eager)
-        by_tier.append((self.steps, key, calls[start:]))
+        by_tier.append((self.steps, key, calls[start:], len(spy.holdings)))
         return got
 
     monkeypatch.setattr(ptrain.ShardedTrainer, "_tier", tier_spy)
     cls = NaiveBPE if model == "bpe" else NaiveWP
-    port = cls(mesh=mesh8, device="cpu")
+    port = cls(mesh=mesh_for(route, request), device="cpu")
     port._force_tier = tier
     port.train(corpus[:200], 420 if model == "bpe" else 480)
-    first, compared = {}, 0
-    for step, key, c in by_tier:
-        c = spy.final(tuple(c))
+    first, compared, since = {}, 0, {}
+    for step, key, c, n in by_tier:
+        c = spy.final(tuple(c), since.setdefault(key, n))
         names = {n for n, _ in c}
         assert "select_host_ids" in names
         if key in first:
@@ -535,3 +596,14 @@ def test_every_step_of_one_key_passes_the_same_arguments(
         assert heads == {True}
     if model == "bpe":
         assert {k[0] for k in first} == {"topk", "compact"}
+    names = [n for c in first.values() for n, _ in c]
+    assert "gather" in names and "_reduce" in names
+    # every launch wrapper a tier calls counts its captured launches at
+    # each replay
+    launched = {train_loop.select_unify if n == "select_host_ids" else
+                reals[n] for n in names if n not in ("gather", "_reduce")}
+    assert launched <= set(ptrain._STEP_WRAPPERS)
+    if route == "gloo":
+        outs = [dict(args)["out"] for c in first.values() for n, args in c
+                if n == "gather"]
+        assert outs and all(o[0] == "at" for o in outs), outs
