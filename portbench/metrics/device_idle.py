@@ -1,0 +1,9 @@
+"""device_idle: the share of the traced train's wall in which nothing
+ran on the device, in %: 1 - (union of kernel, memcpy and memset spans)
+/ the train's span on the host."""
+
+
+def read(r):
+    if r.trace is None or r.trace.window_s <= 0:
+        return None
+    return 100.0 * (1.0 - r.trace.busy_s / r.trace.window_s)
