@@ -402,17 +402,55 @@ TRACE_API = {}
 TRACE_KERNELS = []
 
 
+def counter(name: str) -> int:
+    """Counter ``name`` of the port's profiler (benchmarks/profiling.py)
+    so far."""
+    from subword_tokenizers_tpu_torch.benchmarks import profiling
+    return profiling.counter(name)
+
+
+def launches_total() -> int:
+    """Every kernel launch the port's wrappers counted so far: the
+    profiler's ``launch.<wrapper>`` counters (their modes' parts left
+    out), replays included."""
+    from subword_tokenizers_tpu_torch.benchmarks import profiling
+    return sum(n for k, n in profiling.counters("launch.").items()
+               if k.count(".") == 1)
+
+
+def reset_spans() -> None:
+    """The profiler's spans zeroed and its counters kept (a phase reads
+    the counts of several calls, the spans of one)."""
+    from subword_tokenizers_tpu_torch.benchmarks import profiling
+    kept = profiling.counters()
+    profiling.reset()
+    for k, n in kept.items():
+        profiling.count(k, n)
+
+
+def span_ms(report) -> dict:
+    """{span: total ms} of a ``profiling.report()``, its counters left
+    out."""
+    return {k: round(v["total_s"] * 1e3, 3) for k, v in report.items()
+            if "total_s" in v}
+
+
 def graph_counts():
-    """The training driver's graph counts so far (ops/train_loop.py
-    BlockRunner's class attributes), copied."""
+    """The training loop's graph counts so far (the profiler's
+    ``train.*`` counters of ops/train_loop.BlockRunner), by width where
+    they are kept by width."""
     from collections import Counter
 
-    from subword_tokenizers_tpu_torch.ops.train_loop import BlockRunner
-    return dict(captures=BlockRunner.captures, replays=BlockRunner.replays,
-                eager_blocks=BlockRunner.eager_blocks,
-                capture_s=BlockRunner.capture_s,
-                blocks=Counter(BlockRunner.blocks_by_width),
-                replayed=Counter(BlockRunner.replays_by_width))
+    from subword_tokenizers_tpu_torch.benchmarks import profiling
+
+    def by_width(prefix):
+        return Counter({int(k[len(prefix):]): n for k, n in
+                        profiling.counters(prefix).items()})
+    return dict(captures=counter("train.graph_captures"),
+                replays=counter("train.graph_replays"),
+                eager_blocks=counter("train.eager_blocks"),
+                blocks=by_width("train.blocks."),
+                replayed=by_width("train.graph_replays."))
 
 
 def graph_check(before, runs: int, what: str, K: int = 256):
@@ -422,7 +460,7 @@ def graph_check(before, runs: int, what: str, K: int = 256):
     width a call ran at had a replay. Returns (blocks, a line)."""
     now = graph_counts()
     d = {k: now[k] - before[k] for k in ("captures", "replays",
-                                         "eager_blocks", "capture_s")}
+                                         "eager_blocks")}
     blocks = now["blocks"] - before["blocks"]
     replayed = now["replayed"] - before["replayed"]
     n_blocks = sum(blocks.values())
@@ -434,8 +472,8 @@ def graph_check(before, runs: int, what: str, K: int = 256):
     return n_blocks, (
         f"{n_blocks} blocks of {K} steps in {runs} runs: {runs} queued "
         f"step by step (each run's first), {d['replays']} graph replays of "
-        f"{d['captures']} captures ({d['capture_s'] * 1e3:.1f} ms "
-        f"capturing), replays by width {dict(sorted(replayed.items()))}")
+        f"{d['captures']} captures, replays by width "
+        f"{dict(sorted(replayed.items()))}")
 
 
 def trace_graph_line(by_name):
@@ -465,7 +503,7 @@ def block_counters():
     """{name: launches so far} of the kernels of ``BLOCK_KERNELS``, by
     their wrappers' counters."""
     counters = route_counters()
-    return {k: getattr(*counters[k]) for k, _ in BLOCK_KERNELS}
+    return {k: counter(counters[k]) for k, _ in BLOCK_KERNELS}
 
 
 def traced_launches(by_name, before, per_block, blocks, what):
@@ -1286,29 +1324,21 @@ ROUTES = (
 
 
 def route_counters():
-    """{name: (object, attribute)} of every launch and event count the
+    """{name: the profiler's counter} of every launch and event count the
     routes of phase 12 read."""
-    from subword_tokenizers_tpu_torch.ops.flat import (merge_apply,
-                                                       merge_skip,
-                                                       skip_guard)
-    from subword_tokenizers_tpu_torch.ops.merge import apply_merge
-    from subword_tokenizers_tpu_torch.ops.pairstats import (pair_stats,
-                                                            symbol_freqs,
-                                                            symbol_rows)
-    from subword_tokenizers_tpu_torch.ops.train_loop import select_unify
-    return {"pair_stats": (pair_stats, "launches"),
-            "pair_stats_skip": (pair_stats, "skip_launches"),
-            "select_unify": (select_unify, "launches"),
-            "select_unify_tournament": (select_unify, "tournament_launches"),
-            "merge_apply": (merge_apply, "launches"),
-            "merge_skip": (merge_skip, "launches"),
-            "skip_guard": (skip_guard, "launches"),
-            "skip_close": (skip_guard, "close_launches"),
-            "merge_rows": (apply_merge, "launches"),
-            "symbol_freqs": (symbol_freqs, "launches"),
-            "symbol_rows": (symbol_rows, "launches"),
-            "overflow_compactions": (skip_guard, "overflow_compactions"),
-            "risky_redos": (select_unify, "risky_redos")}
+    return {"pair_stats": "launch.pair_stats",
+            "pair_stats_skip": "launch.pair_stats.skip",
+            "select_unify": "launch.select_unify",
+            "select_unify_tournament": "launch.select_unify.tournament",
+            "merge_apply": "launch.merge_apply",
+            "merge_skip": "launch.merge_skip",
+            "skip_guard": "launch.skip_guard",
+            "skip_close": "launch.skip_guard.close",
+            "merge_rows": "launch.apply_merge",
+            "symbol_freqs": "launch.symbol_freqs",
+            "symbol_rows": "launch.symbol_rows",
+            "overflow_compactions": "train.overflow_compactions",
+            "risky_redos": "train.redos"}
 
 
 # The kernels each route must launch (phase 12).
@@ -1342,8 +1372,7 @@ def phase12(dev, corpus, check_bpe, check_wp, smi, trace_dir,
     import torch
     from subword_tokenizers_tpu_torch import NaiveBPE, NaiveWP
     from subword_tokenizers_tpu_torch.benchmarks import profiling
-    from subword_tokenizers_tpu_torch.ops import flat as flat_ops
-    from subword_tokenizers_tpu_torch.ops import pairstats, train_loop
+    from subword_tokenizers_tpu_torch.ops import train_loop
     models = {"NaiveBPE": NaiveBPE, "NaiveWP": NaiveWP}
     counters = route_counters()
     real_run = train_loop.run_fused
@@ -1357,15 +1386,14 @@ def phase12(dev, corpus, check_bpe, check_wp, smi, trace_dir,
             os.environ.update(env)
             train_loop.run_fused = real_run if flat else functools.partial(
                 real_run, flat=False)
-            for obj, attr in counters.values():
-                setattr(obj, attr, 0)
+            base = {k: counter(n) for k, n in counters.items()}
             g = graph_counts()
             walls = []
             # run 0 is cold (the route's first), run 1 warm, run 2 warm
             # with the phase profiler on
             for run in range(3):
                 profiling.enable(run == 2)
-                profiling.reset()
+                reset_spans()
                 tok = models[model](device=dev)
                 t0 = time.perf_counter()
                 tok.train(corpus, max_vocab)
@@ -1373,11 +1401,9 @@ def phase12(dev, corpus, check_bpe, check_wp, smi, trace_dir,
                 walls.append(time.perf_counter() - t0)
                 (check_bpe if model == "NaiveBPE" else check_wp)(
                     tok, f"{name} run {run}")
-            phases = {k: round(v["total_s"] * 1e3, 3)
-                      for k, v in profiling.report().items()}
+            phases = span_ms(profiling.report())
             profiling.enable(False)
-            counts = {k: getattr(obj, attr)
-                      for k, (obj, attr) in counters.items()}
+            counts = {k: counter(n) - base[k] for k, n in counters.items()}
             missing = [k for k in ROUTE_KERNELS[name] if not counts[k]]
             if missing:
                 raise AssertionError(f"{name}: nothing counted for "
@@ -1416,9 +1442,6 @@ def phase12(dev, corpus, check_bpe, check_wp, smi, trace_dir,
         # steps: capture_begin may allocate PyTorch's RNG state for
         # graphs, which is counted apart), and the kernel launches (the
         # wrappers' counts, replays included)
-        wrappers = (pairstats.pair_stats, train_loop.select_unify,
-                    flat_ops.merge_skip, flat_ops.skip_guard,
-                    flat_ops.merge_apply)
         inside, captured = [], []
         real_phase = profiling.phase
 
@@ -1448,7 +1471,7 @@ def phase12(dev, corpus, check_bpe, check_wp, smi, trace_dir,
             profiling.phase = real_phase
         before, g = marks[-1]
         blocks, graphs = graph_check(g, 1, "phase 12c")
-        launched = sum(w.launches for w in wrappers) - sum(before.values())
+        launched = sum(block_counters().values()) - sum(before.values())
         traced = traced_launches(
             by_name, before, {"pair_stats": 256, "select_unify": 256,
                               "merge_skip": 256, "skip_guard": 257},
@@ -1582,54 +1605,25 @@ def ptxas_lines(kernel: str) -> str:
     return "; ".join(out) or "not in this process's build log"
 
 
-class ModeLaunches:
-    """The launches of one mode of a wrapper's kernel, as ``launches``:
-    the count ``attr`` the wrapper keeps beside its own (K2's launches
-    that ran the top-K tier's certificate, ``cert_launches``)."""
-
-    def __init__(self, fn, attr: str) -> None:
-        self.fn, self.attr = fn, attr
-
-    @property
-    def launches(self) -> int:
-        return getattr(self.fn, self.attr)
-
-    @launches.setter
-    def launches(self, n: int) -> None:
-        setattr(self.fn, self.attr, n)
-
-
 def shard_kernels():
-    """{name: wrapper} of every kernel the sharded path launches; each
-    wrapper's ``launches`` counts its kernel's launches. "certificate"
-    counts K2's launches that ran the certificate (not calls of their
-    own: :func:`wrapper_calls` leaves it out), "certificate_launcher"
-    the check launcher's, which no training path makes."""
-    from subword_tokenizers_tpu_torch.ops.bitmath import score_bits
-    from subword_tokenizers_tpu_torch.ops.fetch import compact_ids
-    from subword_tokenizers_tpu_torch.ops.merge import apply_merge
-    from subword_tokenizers_tpu_torch.ops.pairstats import (pair_rows,
-                                                            pair_stats,
-                                                            pair_stats_runs,
-                                                            symbol_freqs,
-                                                            symbol_rows)
-    from subword_tokenizers_tpu_torch.ops.shard_select import (
-        certificate, compact_tables, lookup_reduce, nominate_tables)
-    from subword_tokenizers_tpu_torch.ops.train_loop import select_unify
-    from subword_tokenizers_tpu_torch.ops.wp_encode_e2e import (
-        wp_e2e_scan, wp_e2e_scan_compact)
-    return {"nominate_tables": nominate_tables,
-            "lookup_reduce": lookup_reduce, "compact_tables": compact_tables,
-            "pair_stats_runs": pair_stats_runs,
-            "certificate": ModeLaunches(select_unify, "cert_launches"),
-            "certificate_launcher": certificate,
-            "pair_rows": pair_rows, "pair_stats": pair_stats,
-            "select_unify": select_unify,
-            "merge_rows": apply_merge, "symbol_freqs": symbol_freqs,
-            "symbol_rows": symbol_rows,
-            "wp_score": score_bits, "wp_e2e_scan": wp_e2e_scan,
-            "compact_ids": compact_ids,
-            "wp_e2e_scan_compact": wp_e2e_scan_compact}
+    """{name: its launch counter's name in the port's profiler} of every
+    kernel the sharded path launches. "certificate" counts K2's launches
+    that ran the certificate (not calls of their own:
+    :func:`wrapper_calls` leaves it out), "certificate_launcher" the
+    check launcher's, which no training path makes."""
+    return {name: "launch." + wrapper for name, wrapper in (
+        ("nominate_tables", "nominate_tables"),
+        ("lookup_reduce", "lookup_reduce"),
+        ("compact_tables", "compact_tables"),
+        ("pair_stats_runs", "pair_stats_runs"),
+        ("certificate", "select_unify.cert"),
+        ("certificate_launcher", "certificate"),
+        ("pair_rows", "pair_rows"), ("pair_stats", "pair_stats"),
+        ("select_unify", "select_unify"), ("merge_rows", "apply_merge"),
+        ("symbol_freqs", "symbol_freqs"), ("symbol_rows", "symbol_rows"),
+        ("wp_score", "score_bits"), ("wp_e2e_scan", "wp_e2e_scan"),
+        ("compact_ids", "compact_ids"),
+        ("wp_e2e_scan_compact", "wp_e2e_scan_compact"))}
 
 
 def wrapper_calls(counts) -> int:
@@ -1638,13 +1632,16 @@ def wrapper_calls(counts) -> int:
     return sum(n for k, n in counts.items() if k != "certificate")
 
 
-def zero_counts(kernels):
-    for k in kernels.values():
-        k.launches = 0
-
-
 def read_counts(kernels):
-    return {name: k.launches for name, k in kernels.items()}
+    """{name: its counter so far} of ``kernels`` ({name: counter name})."""
+    return {name: counter(c) for name, c in kernels.items()}
+
+
+def counts_since(kernels, before):
+    """{name: how far its counter moved} since ``before`` (read_counts of
+    ``kernels``)."""
+    return {name: n - before[name]
+            for name, n in read_counts(kernels).items()}
 
 
 def phase13(dev, rng, arrays, table, arrays_wp, table_wp, golden,
@@ -2536,13 +2533,8 @@ def trace_blocks(dev, flat_bpe, table, arrays_wp, table_wp, max_len,
     unless a flat block is one graph launch of 3 kernels a step with no
     other launch and no allocation. Returns {route: numbers}."""
     import torch
-    from subword_tokenizers_tpu_torch.ops import flat as flat_ops
-    from subword_tokenizers_tpu_torch.ops import merge, pairstats, train_loop
+    from subword_tokenizers_tpu_torch.ops import train_loop
     from subword_tokenizers_tpu_torch.ops.flat import build_flat
-    wrappers = (pairstats.pair_stats, pairstats.pair_stats_runs,
-                pairstats.symbol_freqs, pairstats.symbol_rows,
-                train_loop.select_unify, flat_ops.merge_apply,
-                flat_ops.merge_skip, flat_ops.skip_guard, merge.apply_merge)
 
     def runner(flat, wordpiece):
         arr, tab = (flat_bpe, table) if not wordpiece else (
@@ -2566,8 +2558,8 @@ def trace_blocks(dev, flat_bpe, table, arrays_wp, table_wp, max_len,
         captures = len(run.graphs)
         torch.cuda.synchronize()
         allocated = torch.cuda.memory_stats(dev)["allocation.all.allocated"]
-        launched = sum(w.launches for w in wrappers)
-        replays = train_loop.BlockRunner.replays
+        launched = launches_total()
+        replays = counter("train.graph_replays")
 
         def block():
             run.dispatch(0)
@@ -2582,12 +2574,12 @@ def trace_blocks(dev, flat_bpe, table, arrays_wp, table_wp, max_len,
                         and "memset" not in n.lower() and c >= steps // 2}
         allocations = torch.cuda.memory_stats(dev)[
             "allocation.all.allocated"] - allocated
-        per_step = (sum(w.launches for w in wrappers) - launched) / steps
+        per_step = (launches_total() - launched) / steps
         traced[name] = dict(
             launches_a_step=per_step, allocations=allocations,
             graph_launches=api.get("graph_launches"),
             host_kernel_launches=api.get("kernel_launches"),
-            replays=train_loop.BlockRunner.replays - replays,
+            replays=counter("train.graph_replays") - replays,
             captures=captures,
             memsets=memsets(by_name) if by_name else None,
             traced_step_kernels=step_kernels if by_name else None,
@@ -2697,11 +2689,12 @@ def phase13c(dev, rng, flat_bpe, table, arrays, arrays_wp, table_wp,
                     for s in wp8.shards)
     prev = None
     for _ in range(3):
-        before = symbol_rows.launches
+        before = counter("launch.symbol_rows")
         got = ptrain.sharded_sym_freq(wp8, sym_cap)
-        if symbol_rows.launches != before + 1:
-            raise AssertionError(f"sharded_sym_freq launched K4 "
-                                 f"{symbol_rows.launches - before} times")
+        if counter("launch.symbol_rows") != before + 1:
+            raise AssertionError(
+                f"sharded_sym_freq launched K4 "
+                f"{counter('launch.symbol_rows') - before} times")
         err("symbol_rows", max_err(got, per_shard))
         if prev is not None:
             err("symbol_rows", int((prev != 0).sum()))  # emptied
@@ -2934,8 +2927,7 @@ def sharded_graph_check(tok, what):
             or (steps > 1 and not g["replays"])):
         raise AssertionError(f"{what}: {steps} steps, graph counts {g}")
     return (f"{g['replays']} replays of {g['captures']} graphs "
-            f"{g['graphs']} ({g['capture_s'] * 1e3:.1f} ms capturing), "
-            f"{g['eager_steps']} step queued step by step")
+            f"{g['graphs']}, {g['eager_steps']} step queued step by step")
 
 
 def sharded_tiers_check(name, tok, what):
@@ -3031,13 +3023,13 @@ def phase14(dev, corpus, check_train, check_wp_train, lists, wp_merges,
     for name, cls in models.items():
         walls, graph_lines = [], []
         for run in range(2):  # cold, warm
-            zero_counts(kernels)
+            before = read_counts(kernels)
             tok = cls(mesh=mesh, device=dev)
             t0 = time.perf_counter()
             tok.train(corpus, max_vocab)
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
-            counts = read_counts(kernels)
+            counts = counts_since(kernels, before)
             checks[name](tok, f"{name} mesh of 8 run {run}")
             if max_vocab == 8000:
                 sharded_tiers_check(name, tok, f"{name} run {run}")
@@ -3073,12 +3065,12 @@ def phase14(dev, corpus, check_train, check_wp_train, lists, wp_merges,
             m = mesh if tier else make_data_mesh(1, devices=[dev])
             tok = cls(mesh=m, device=dev)
             tok._force_tier = tier
-            zero_counts(kernels)
+            before = read_counts(kernels)
             t0 = time.perf_counter()
             tok.train(corpus, small_vocab)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            counts = read_counts(kernels)
+            counts = counts_since(kernels, before)
             got = tok.merges_list if name == "NaiveBPE" else tok._merge_log
             want = (lists["golden"] if name == "NaiveBPE"
                     else wp_merges)[:len(got)]
@@ -3127,7 +3119,7 @@ def phase14(dev, corpus, check_train, check_wp_train, lists, wp_merges,
     for name, (tok, want) in enc.items():
         walls = []
         for run in range(2):
-            zero_counts(kernels)
+            before = read_counts(kernels)
             t0 = time.perf_counter()
             out = tok.tokenize_batch(corpus)
             torch.cuda.synchronize()
@@ -3135,7 +3127,8 @@ def phase14(dev, corpus, check_train, check_wp_train, lists, wp_merges,
             if digest(out) != want["full_sha256"]:
                 raise AssertionError(f"{name} under the mesh: the output "
                                      "differs from the JAX package's")
-        counts = {k: v for k, v in read_counts(kernels).items() if v}
+        counts = {k: v for k, v in counts_since(kernels, before).items()
+                  if v}
         # FastWP: one fused launch a shard, nothing else
         if name == "FastWP" and counts != {"wp_e2e_scan_compact": 8}:
             raise AssertionError(f"FastWP under the mesh: {counts}")
@@ -3222,8 +3215,8 @@ def shard_spans(by_name, before, tok, kernels, what):
     if not by_name:
         raise AssertionError(f"{what}: the trace holds no device events, "
                              f"so the launches are not measured")
-    now = read_counts(kernels)
-    counted = {k: now[k] - before[k] for k, _ in SHARD_TRACE_KERNELS}
+    now = counts_since(kernels, before)
+    counted = {k: now[k] for k, _ in SHARD_TRACE_KERNELS}
     spans = {k: sum(c for n, (c, _) in by_name.items() if part in n)
              for k, part in SHARD_TRACE_KERNELS}
     replays = tok._graph_stats["replays"]
@@ -3455,14 +3448,14 @@ def phase15(dev, corpus, anchor, checks, arrays, table, golden, smi,
             walls, graph_lines = [], []
             for run in range(2):  # cold, warm
                 what = f"phase 15 {name} run {run}"
-                zero_counts(kernels)
+                before = read_counts(kernels)
                 issued = dict(mesh.collectives)
                 tok = cls(mesh=mesh, device=dev)
                 t0 = time.perf_counter()
                 tok.train(corpus, max_vocab)
                 torch.cuda.synchronize()
                 walls.append(time.perf_counter() - t0)
-                counts = read_counts(kernels)
+                counts = counts_since(kernels, before)
                 checks[name](tok, what)
                 if name == "NaiveBPE" and tok.merges_list[:len(
                         anchor)] != anchor:
@@ -3505,10 +3498,20 @@ def phase15(dev, corpus, anchor, checks, arrays, table, golden, smi,
         per = {}
         for k, fn in (("all_gather", lambda: mesh.gather([part], out=out)),
                       ("all_reduce", lambda: mesh.sum([part]))):
+
+            def calls(fn=fn):
+                # device_trace counts the device events from the host's
+                # start of the call on: a copy queued in its first
+                # microseconds can be stamped before it, so the host
+                # pauses before it queues the collectives
+                time.sleep(0.01)
+                for _ in range(16):
+                    fn()
+
             n0 = mesh.collectives[k]
             _, _, by_name = device_trace(
-                lambda: [fn() for _ in range(4)],
-                os.path.join(trace_dir, f"nccl_{k}.json"), warmup=True)
+                calls, os.path.join(trace_dir, f"nccl_{k}.json"),
+                warmup=True)
             # the warm-up call's and the traced call's
             per[k] = collective_spans(by_name) / (
                 (mesh.collectives[k] - n0) / 2)
@@ -3570,14 +3573,15 @@ def phase16(dev, scan_args, scan_params, smi, seed=SEED):
         wp_e2e_scan_ref
     from subword_tokenizers_tpu_torch.tools import gather_probe as gp
     names = ("gather_take2d", "gather_loop", "gather_loop_shared")
-    gp.gather_take2d.launches = 0
-    gp.gather_loop.launches = gp.gather_loop.shared_launches = 0
+    before = {k: counter("launch." + k) for k in (
+        "gather_take2d", "gather_loop", "gather_loop.shared")}
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         res = gp.main(["--seed", str(seed)], device=dev)
-    launches = {"gather_take2d": gp.gather_take2d.launches,
-                "gather_loop": gp.gather_loop.launches,
-                "gather_loop_shared": gp.gather_loop.shared_launches}
+    got = {k: counter("launch." + k) - n for k, n in before.items()}
+    launches = {"gather_take2d": got["gather_take2d"],
+                "gather_loop": got["gather_loop"] - got["gather_loop.shared"],
+                "gather_loop_shared": got["gather_loop.shared"]}
     if not all(launches.values()):
         raise AssertionError(f"the probe launched no kernel: {launches}")
     if not all(res[k]["correct"] for k in ("take2d", "loop_global",
@@ -3692,24 +3696,12 @@ def phase16(dev, scan_args, scan_params, smi, seed=SEED):
 
 
 def cli_kernels():
-    """{name: wrapper} of the encode and training kernels of slices 1-4,
-    which the CLI's steps launch: FastWP's fused scan, kernel 2, K1-K5
-    and K6's fused form.
-    Each wrapper's ``launches`` counts its kernel's launches."""
-    from subword_tokenizers_tpu_torch.ops.bpe_encode import bpe_encode
-    from subword_tokenizers_tpu_torch.ops.fetch import compact_ids
-    from subword_tokenizers_tpu_torch.ops.flat import merge_apply
-    from subword_tokenizers_tpu_torch.ops.pairstats import (pair_stats,
-                                                            symbol_freqs)
-    from subword_tokenizers_tpu_torch.ops.train_loop import select_unify
-    from subword_tokenizers_tpu_torch.ops.wp_encode import wp_match_compact
-    from subword_tokenizers_tpu_torch.ops.wp_encode_e2e import \
-        wp_e2e_scan_compact
-    return {"wp_e2e_scan_compact": wp_e2e_scan_compact,
-            "compact_ids": compact_ids,
-            "pair_stats": pair_stats, "select_unify": select_unify,
-            "merge_apply": merge_apply, "symbol_freqs": symbol_freqs,
-            "bpe_encode": bpe_encode, "wp_match_compact": wp_match_compact}
+    """{name: its launch counter's name in the port's profiler} of the
+    encode and training kernels of slices 1-4, which the CLI's steps
+    launch: FastWP's fused scan, kernel 2, K1-K5 and K6's fused form."""
+    return {k: "launch." + k for k in (
+        "wp_e2e_scan_compact", "compact_ids", "pair_stats", "select_unify",
+        "merge_apply", "symbol_freqs", "bpe_encode", "wp_match_compact")}
 
 
 CLI_MODELS = ("NaiveBPE", "FastBPE", "NaiveWordPiece", "FastWordPiece")
@@ -3746,7 +3738,7 @@ def phase17(dev, corpus, golden, wp_golden, want_sha, fast_vocab, smi,
     cwd = os.getcwd()
 
     def step(name, argv, device=dev):
-        zero_counts(kernels)
+        before = read_counts(kernels)
         buf = io.StringIO()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(buf):
@@ -3754,7 +3746,8 @@ def phase17(dev, corpus, golden, wp_golden, want_sha, fast_vocab, smi,
         if torch.device(device).type == "cuda":
             torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        counts = {k: v for k, v in read_counts(kernels).items() if v}
+        counts = {k: v for k, v in counts_since(kernels, before).items()
+                  if v}
         if device is dev:
             missing = [k for k in CLI_MUST.get(name, ())
                        if not counts.get(k)]
@@ -3891,8 +3884,8 @@ def main() -> int:
           f"{t_cuda:.2f} s (sm_90a); ptxas: {' | '.join(ptxas)}")
 
     # ---- phase 2: each kernel against its plain version, on the card
-    scan_kernels = {"wp_e2e_scan": wp_e2e_scan, "compact_ids": compact_ids,
-                    "wp_e2e_scan_compact": wp_e2e_scan_compact}
+    scan_kernels = {k: "launch." + k for k in (
+        "wp_e2e_scan", "compact_ids", "wp_e2e_scan_compact")}
     errs = dict.fromkeys(scan_kernels, 0)
     n_cases = 0
     flag_rows = np.zeros(4, dtype=np.int64)
@@ -4108,32 +4101,29 @@ def main() -> int:
     # each call: one fused launch, no rows form, no kernel 2
     per_call = {"wp_e2e_scan_compact": 1, "wp_e2e_scan": 0,
                 "compact_ids": 0}
-    zero_counts(scan_kernels)
+    first = read_counts(scan_kernels)
     # run 0 is cold, runs 1-3 warm, run 4 warm with the phase profiler on
-    # (it synchronises after each device phase)
     walls = []
     for run in range(5):
         profiling.enable(run == 4)
-        profiling.reset()
+        reset_spans()
         out = None
         before = read_counts(scan_kernels)
         t0 = time.perf_counter()
         out = tok.tokenize_batch(corpus)
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
-        counts = {k: n - before[k]
-                  for k, n in read_counts(scan_kernels).items()}
+        counts = counts_since(scan_kernels, before)
         if counts != per_call:
             raise AssertionError(f"run {run} launched {counts}, not "
                                  f"{per_call}")
         if digest(out) != expect["full_sha256"]:
             raise AssertionError(f"run {run}: output differs from the JAX "
                                  "package's")
-    phase_ms = {name: round(v["total_s"] * 1e3, 3)
-                for name, v in profiling.report().items()}
+    phase_ms = span_ms(profiling.report())
     profiling.enable(False)
     warm = sorted(walls[1:4])[1]
-    launches = read_counts(scan_kernels)
+    launches = counts_since(scan_kernels, first)
     n_tokens = sum(map(len, out))
     assert n_tokens == expect["full_tokens"], n_tokens
     # the front end these calls ran: built from the port's own sources
@@ -4191,11 +4181,11 @@ def main() -> int:
     ws_batch = ["".join(rng.choice(list("ab c"), size=rng.integers(0, 30)))
                 + "!" for _ in range(3000)]
     ws_want = ws_tok["cpu"].tokenize_batch(ws_batch)
-    zero_counts(scan_kernels)
+    before = read_counts(scan_kernels)
     if ws_tok[dev].tokenize_batch(ws_batch) != ws_want:
         raise AssertionError("the whole-sentence route differs from the "
                              "CPU path")
-    ws_launches = read_counts(scan_kernels)
+    ws_launches = counts_since(scan_kernels, before)
     if ws_launches != {"wp_e2e_scan": 1, "compact_ids": 1,
                        "wp_e2e_scan_compact": 0}:
         raise AssertionError(f"the whole-sentence route launched "
@@ -4229,7 +4219,6 @@ def main() -> int:
                                                        merge_apply_ref)
     from subword_tokenizers_tpu_torch.ops.pairstats import (TablePair,
                                                             canonical,
-                                                            pair_stats,
                                                             pair_stats_ref)
     from subword_tokenizers_tpu_torch.ops.train_loop import (
         init_tables, select_scratch, select_unify, select_unify_ref,
@@ -4465,27 +4454,24 @@ def main() -> int:
                 freq.tolist():
             raise AssertionError(f"{what}: corpus_as_symbols is wrong")
 
-    pair_stats.launches = select_unify.launches = merge_apply.launches = 0
+    base6 = {k: counter("launch." + k) for k in bpe_kernels}
     g6 = graph_counts()
     # run 0 is cold (the process's first training), runs 1-2 warm, run 3
-    # warm with the phase profiler on (it synchronises after each device
-    # phase)
+    # warm with the phase profiler on
     train_walls = []
     for run in range(4):
         profiling.enable(run == 3)
-        profiling.reset()
+        reset_spans()
         tok = NaiveBPE(device=dev)
         t0 = time.perf_counter()
         tok.train(corpus, 8000)
         torch.cuda.synchronize()
         train_walls.append(time.perf_counter() - t0)
         check_train(tok, f"run {run}")
-    train_phase_ms = {name: round(v["total_s"] * 1e3, 3)
-                      for name, v in profiling.report().items()}
+    train_phase_ms = span_ms(profiling.report())
     profiling.enable(False)
-    launches.update(pair_stats=pair_stats.launches,
-                    select_unify=select_unify.launches,
-                    merge_apply=merge_apply.launches)
+    launches.update({k: counter("launch." + k) - n
+                     for k, n in base6.items()})
     if not all(launches[k] for k in bpe_kernels):
         raise AssertionError(f"a BPE kernel was not launched: {launches}")
     # each block, queued or replayed, runs 256 steps of K1, K2 and K3:
@@ -4839,9 +4825,12 @@ def main() -> int:
             super().__init__(*args, **kwargs)
             states.append(self)
 
-    pair_stats.launches = select_unify.launches = merge_apply.launches = 0
-    select_unify.wp_launches = merge_apply.wp_launches = 0
-    symbol_freqs.launches = 0
+    wp_counters = {"pair_stats": "launch.pair_stats",
+                   "select_unify": "launch.select_unify.wp",
+                   "merge_apply": "launch.merge_apply.wp",
+                   "symbol_freqs": "launch.symbol_freqs",
+                   "select_unify_all": "launch.select_unify"}
+    base8 = {k: counter(n) for k, n in wp_counters.items()}
     g8 = graph_counts()
     # run 0 is cold (the process's first WordPiece training), runs 1-2
     # warm, run 3 warm with the phase profiler on
@@ -4850,7 +4839,7 @@ def main() -> int:
         train_loop.FlatState = KeptState
         for run in range(4):
             profiling.enable(run == 3)
-            profiling.reset()
+            reset_spans()
             tok = NaiveWP(device=dev)
             t0 = time.perf_counter()
             tok.train(corpus, 8000)
@@ -4859,15 +4848,12 @@ def main() -> int:
             check_wp_train(tok, f"WordPiece run {run}")
     finally:
         train_loop.FlatState = real_state
-    wp_phase_ms = {name: round(v["total_s"] * 1e3, 3)
-                   for name, v in profiling.report().items()}
+    wp_phase_ms = span_ms(profiling.report())
     profiling.enable(False)
-    wp_launches = {"pair_stats": pair_stats.launches,
-                   "select_unify": select_unify.wp_launches,
-                   "merge_apply": merge_apply.wp_launches,
-                   "symbol_freqs": symbol_freqs.launches}
+    wp_launches = {k: counter(n) - base8[k] for k, n in wp_counters.items()}
+    all_k2 = wp_launches.pop("select_unify_all")
     if not all(wp_launches.values()) or \
-            select_unify.launches != select_unify.wp_launches:
+            all_k2 != wp_launches["select_unify"]:
         raise AssertionError(f"a WordPiece kernel was not launched: "
                              f"{wp_launches}")
     blocks8, graphs8 = graph_check(g8, 4, "phase 8")
@@ -5258,12 +5244,11 @@ def main() -> int:
                          lists["golden"]),
         "NaiveWP": load(NaiveWP(device=dev), "vocab.json", wp_vocab)}
     enc_lines = []
-    enc_kernels = (bpe_encode, wp_match_encode, wp_match_compact,
-                   compact_ids)
+    enc_kernels = {k: "launch." + k for k in (
+        "bpe_encode", "wp_match_encode", "wp_match_compact", "compact_ids")}
     # each call's launches: the BPE encoders' K5 and kernel 2, NaiveWP's
     # fused kernel 6, once each (ENCODE_KERNELS)
-    per_call = {name: {k.__name__: int(k.__name__ in own[0])
-                       for k in enc_kernels}
+    per_call = {name: {k: int(k in own[0]) for k in enc_kernels}
                 for name, own in ENCODE_KERNELS.items()}
     enc_launches = {name: dict.fromkeys(per_call[name], 0)
                     for name in encoders}
@@ -5274,15 +5259,14 @@ def main() -> int:
         # warm with the phase profiler on
         for run in range(5):
             profiling.enable(run == 4)
-            profiling.reset()
+            reset_spans()
             out = None
-            for k in enc_kernels:
-                k.launches = 0
+            before = read_counts(enc_kernels)
             t0 = time.perf_counter()
             out = tok.tokenize_batch(corpus)
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
-            counts = {k.__name__: k.launches for k in enc_kernels}
+            counts = counts_since(enc_kernels, before)
             if counts != per_call[name]:
                 raise AssertionError(f"{name} run {run} launched {counts}, "
                                      f"not {per_call[name]}")
@@ -5291,8 +5275,7 @@ def main() -> int:
             if digest(out) != want["full_sha256"]:
                 raise AssertionError(f"{name} run {run}: output differs "
                                      "from the JAX package's")
-        phases = {k: round(v["total_s"] * 1e3, 3)
-                  for k, v in profiling.report().items()}
+        phases = span_ms(profiling.report())
         profiling.enable(False)
         n_tok = sum(map(len, out))
         assert n_tok == want["full_tokens"], (name, n_tok)
@@ -5342,9 +5325,9 @@ def main() -> int:
                                  "from the JAX package's")
     n_small = expect_enc["small_n"]
     dup = load(NaiveBPE(device=dev), "merges.json", lists["duplicated"])
-    bpe_encode.launches = 0
+    k5 = counter("launch.bpe_encode")
     out = dup.tokenize_batch(corpus[:n_small])
-    assert bpe_encode.launches == 0, "the host route launched K5"
+    assert counter("launch.bpe_encode") == k5, "the host route launched K5"
     if digest(out) != expect_enc["NaiveBPE_duplicated"]["small_sha256"]:
         raise AssertionError("NaiveBPE with a duplicated merge differs")
     small = rng.integers(0, len(corpus), size=64)

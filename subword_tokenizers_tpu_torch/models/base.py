@@ -159,22 +159,27 @@ class SubwordTokenizer:
                         break
                     merge(*got, table.string(got[0]), table.string(got[1]))
                     steps += 1
+                    profiling.count("train.merges")
                     if pbar is not None:
                         pbar.update(1)
                     if (self._checkpoint_dir is not None
                             and steps % self._checkpoint_every == 0):
                         save()
         finally:
-            trainer.close()
+            with profiling.phase("train.close"):
+                trainer.close()
         if pbar is not None:
             pbar.close()
         if self._checkpoint_dir is not None:
             save()
         with profiling.phase("train.final_fetch"):
-            self.corpus_as_symbols = [
-                ([table.string(int(s)) for s in row if s >= 0], int(f))
-                for row, f in zip(trainer.host(), arrays.freq)
-            ]
+            with profiling.phase("train.final_copy"):
+                sym_host = trainer.host()
+            with profiling.phase("train.symbols"):
+                self.corpus_as_symbols = [
+                    ([table.string(int(s)) for s in row if s >= 0], int(f))
+                    for row, f in zip(sym_host, arrays.freq)
+                ]
 
     def vocab_length(self, corpus: List[str]) -> int:
         """Number of distinct characters in the corpus."""

@@ -6,16 +6,21 @@ resources.
 FastBPE's ``_bpe_ranks``) and raises its errors. The path:
 
 1. the C++ front end lowers and pre-splits the corpus, and word types
-   are counted in first-occurrence order (``train.frontend``);
+   are counted in first-occurrence order (``train.frontend``), and the
+   initial symbols gathered (``train.alphabet``);
 2. the word types become the flat state (ops/flat.py), interned
    character by character (``train.corpus``), and go to ``device``;
 3. ops/train_loop.run_fused runs blocks of K merge steps, each step
    kernel K1 (pair counts), K2 (selection and hash unification) and K3
    (merge and compaction), then checks the block's records on the host
-   (``train.device_block``, ``train.fetch_records``, ``train.verify``);
+   (``train.loop_setup``, ``train.device_block``, ``train.capture``,
+   ``train.fetch_records``, ``train.verify``, ``train.close``);
 4. on a hash collision the run is redone on the exact per-step path
    (K1, K2 selection only, host interning, K3);
-5. the final state comes back in one copy (``train.final_fetch``).
+5. the final state comes back in one copy (``train.final_fetch``,
+   holding ``train.final_copy``), and becomes ``corpus_as_symbols``
+   (``train.symbols``, inside ``train.final_fetch``); FastBPE then
+   ranks the merges (``train.ranks``).
 
 ``SWT_SKIP_COMPACT`` (and, for WordPiece, ``SWT_WP_TOURNAMENT``) choose
 the other routes of step 3, with the same merges, as in the JAX package
@@ -169,13 +174,13 @@ class NaiveBPE(SubwordTokenizer):
 
         with profiling.phase("train.frontend"):
             words, freq, _ = unique_words(self.preprocessing_batch(corpus))
-        for w in words:
-            self.vocab.update(w)
+        with profiling.phase("train.alphabet"):
+            for w in words:
+                self.vocab.update(w)
+            total_tokens = int((np.array([len(w) for w in words],
+                                         dtype=np.int64) * freq).sum())
         if not words:
             return
-
-        total_tokens = int((np.array([len(w) for w in words],
-                                     dtype=np.int64) * freq).sum())
         if total_tokens >= MAX_TOKENS_BPE:
             raise ValueError(
                 "corpus exceeds the exact-selection domain "
@@ -268,6 +273,7 @@ class NaiveBPE(SubwordTokenizer):
                     self.vocab.add(merged)
                     self.merges_list.append((sa, sb))
                     steps += 1
+                    profiling.count("train.merges")
                     if pbar is not None:
                         pbar.update(1)
                     if (self._checkpoint_dir is not None
@@ -280,11 +286,13 @@ class NaiveBPE(SubwordTokenizer):
 
         with profiling.phase("train.final_fetch"):
             if sym_host is None:
-                sym_host = state.padded()
-            self.corpus_as_symbols = [
-                ([table.string(int(s)) for s in row if s >= 0], int(f))
-                for row, f in zip(sym_host, arrays.freq)
-            ]
+                with profiling.phase("train.final_copy"):
+                    sym_host = state.padded()
+            with profiling.phase("train.symbols"):
+                self.corpus_as_symbols = [
+                    ([table.string(int(s)) for s in row if s >= 0], int(f))
+                    for row, f in zip(sym_host, arrays.freq)
+                ]
 
     # ------------------------------------------------------------ encoding
 
@@ -478,8 +486,9 @@ class FastBPE(NaiveBPE):
     def train(self, corpus: List[str], max_vocab: int = 30_000,
               **kwargs) -> None:
         super().train(corpus, max_vocab, **kwargs)
-        self._bpe_ranks = {pair: i for i, pair in
-                           enumerate(self.merges_list)}
+        with profiling.phase("train.ranks"):
+            self._bpe_ranks = {pair: i for i, pair in
+                               enumerate(self.merges_list)}
 
     def _rank_map(self) -> Dict[Tuple[str, str], int]:
         """The ranks of ``merges_list`` (a later duplicate overwrites the

@@ -60,10 +60,8 @@ tables on its device (parallel/encode.py), and restores their order
 after the fetch. NaiveWP's match keeps its kernels on the mesh's first
 device.
 
-The profiling phases of ``train`` are BPE's: ``train.frontend``,
-``train.corpus``, ``train.resume``, ``train.device_block``,
-``train.fetch_records``, ``train.verify``, ``train.per_step`` and
-``train.final_fetch``.
+The profiling spans of ``train`` are BPE's (models/bpe.py), but
+FastBPE's ``train.ranks``; FastWP's trie is built in ``train.trie``.
 """
 from __future__ import annotations
 
@@ -181,9 +179,9 @@ class NaiveWP(SubwordTokenizer):
             words, freq, _ = unique_words(self.preprocessing_batch(corpus))
         if not words:
             return
-
-        total_tokens = int((np.array([len(w) for w in words],
-                                     dtype=np.int64) * freq).sum())
+        with profiling.phase("train.alphabet"):
+            total_tokens = int((np.array([len(w) for w in words],
+                                         dtype=np.int64) * freq).sum())
         if total_tokens >= MAX_TOKENS_WP:
             raise ValueError(
                 "corpus exceeds the exact-score domain "
@@ -282,6 +280,7 @@ class NaiveWP(SubwordTokenizer):
                     self.vocab.add(merged)
                     self._merge_log.append((sa, sb))
                     steps += 1
+                    profiling.count("train.merges")
                     if pbar is not None:
                         pbar.update(1)
                     if (self._checkpoint_dir is not None
@@ -294,11 +293,13 @@ class NaiveWP(SubwordTokenizer):
 
         with profiling.phase("train.final_fetch"):
             if sym_host is None:
-                sym_host = state.padded()
-            self.corpus_as_symbols = [
-                ([table.string(int(s)) for s in row if s >= 0], int(f))
-                for row, f in zip(sym_host, arrays.freq)
-            ]
+                with profiling.phase("train.final_copy"):
+                    sym_host = state.padded()
+            with profiling.phase("train.symbols"):
+                self.corpus_as_symbols = [
+                    ([table.string(int(s)) for s in row if s >= 0], int(f))
+                    for row, f in zip(sym_host, arrays.freq)
+                ]
 
     # ------------------------------------------------------------ encoding
 
@@ -444,7 +445,8 @@ class FastWP(NaiveWP):
               **kwargs) -> None:
         """NaiveWP's training, then the end-to-end trie of the new vocab."""
         super().train(corpus, max_vocab, **kwargs)
-        self._build_e2e()
+        with profiling.phase("train.trie"):
+            self._build_e2e()
 
     def _build_e2e(self):
         out = SymbolTable()

@@ -1,6 +1,7 @@
 """Device ops of the port: each wrapper launches a hand-written CUDA
-kernel for CUDA tensors and runs its plain PyTorch version for CPU
-tensors."""
+kernel for CUDA tensors, counted in the profiler's ``launch.<wrapper>``
+counter (benchmarks/profiling.py), and runs its plain PyTorch version
+for CPU tensors."""
 
 
 def check_tensor(name, t, dtypes, ndim, device):

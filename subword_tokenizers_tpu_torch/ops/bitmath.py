@@ -35,6 +35,7 @@ import struct
 
 import torch
 
+from ..benchmarks import profiling
 from . import check_tensor
 
 NARROW = 1 << 53
@@ -88,11 +89,8 @@ def score_bits(c, fa, fb):
     with torch.cuda.device(dev):
         _cuda.launch("swt_score_bits", c.data_ptr(), fa.data_ptr(),
                      fb.data_ptr(), n, out.data_ptr())
-    score_bits.launches += 1
+    profiling.count("launch.score_bits")
     return out
-
-
-score_bits.launches = 0
 
 
 def mul_53x53(a, b):

@@ -37,6 +37,7 @@ from typing import Iterable, Tuple
 import numpy as np
 import torch
 
+from ..benchmarks import profiling
 from . import check_tensor as _check
 
 SYM_BITS = 21  # symbol ids per packed pair key, as in the JAX package
@@ -214,13 +215,10 @@ def bpe_encode(sym, hkeys, hrank, hout, monotone: bool, max_probe: int):
                      hkeys.data_ptr(), hrank.data_ptr(), hout.data_ptr(), H,
                      int(bool(monotone)), int(max_probe), merged.data_ptr(),
                      out_n.data_ptr(), flag.data_ptr(), epoch)
-    bpe_encode.launches += 1
+    profiling.count("launch.bpe_encode")
     if int(flag.item()) == epoch:
         raise ValueError(_BAD_LAYOUT)
     return merged, out_n
-
-
-bpe_encode.launches = 0
 
 _BAD_LAYOUT = "bpe_encode: a row holds an id < -1 or a PAD before an id"
 _FLAGS = {}  # device -> [the kernel's layout flag word, the last epoch]

@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import torch
 
+from ..benchmarks import profiling
 from . import check_tensor
 
 TILE_ROWS = 256  # rows of a tile of kernel 2 (csrc/compact.cu)
@@ -126,8 +127,5 @@ def compact_ids(out2d, out_n, ovf=None, stuck=None, crash=None):
                      *(0 if t is None else t.data_ptr() for _, t in flags),
                      ids.data_ptr(), head.data_ptr(), words.data_ptr(),
                      epoch)
-    compact_ids.launches += 1
+    profiling.count("launch.compact_ids")
     return ids, head
-
-
-compact_ids.launches = 0

@@ -31,6 +31,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ..benchmarks import profiling
 from . import check_tensor
 
 WID_PAD = 2 ** 30
@@ -286,14 +287,10 @@ def merge_apply(fs, wid, wgt, rec, out: Optional[tuple] = None,
                      out[1].data_ptr(), out[2].data_ptr(),
                      scratch.words.data_ptr(),
                      None if sym_freq is None else sym_freq.data_ptr())
-    merge_apply.launches += 1
+    profiling.count("launch.merge_apply")
     if sym_freq is not None:
-        merge_apply.wp_launches += 1
+        profiling.count("launch.merge_apply.wp")
     return (*out, scratch.n_rep)
-
-
-merge_apply.launches = 0
-merge_apply.wp_launches = 0  # launches that carried WordPiece's sym_freq
 
 
 def _shift(x, k: int, fill):
@@ -430,11 +427,8 @@ def merge_skip(fs, wid, wgt, rec, S: int, sym_freq=None,
                      wgt.data_ptr(), F, S, rec.data_ptr(),
                      scratch.words.data_ptr(),
                      None if sym_freq is None else sym_freq.data_ptr())
-    merge_skip.launches += 1
+    profiling.count("launch.merge_skip")
     return scratch.n_rep
-
-
-merge_skip.launches = 0
 
 
 def skip_guard_ref(fs, wid, wgt, count, words, close=None) -> None:
@@ -502,10 +496,5 @@ def skip_guard(fs, wid, wgt, count, scratch: MergeScratch,
             _cuda.launch("swt_skip_close", fs.data_ptr(), wid.data_ptr(),
                          wgt.data_ptr(), F, scratch.words.data_ptr(),
                          close.data_ptr())
-            skip_guard.close_launches += 1
-    skip_guard.launches += 1
-
-
-skip_guard.launches = 0
-skip_guard.close_launches = 0  # launches that closed a block
-skip_guard.overflow_compactions = 0  # compactions that fired, from run_fused
+            profiling.count("launch.skip_guard.close")
+    profiling.count("launch.skip_guard")

@@ -15,6 +15,7 @@ import operator
 
 import torch
 
+from ..benchmarks import profiling
 from . import check_tensor
 from .flat import N_LIVE
 
@@ -84,8 +85,5 @@ def apply_merge(sym, rec=None, *, merge=None):
     from . import _cuda
     with torch.cuda.device(dev):
         _cuda.launch("swt_merge_rows", sym.data_ptr(), n, L, *args)
-    apply_merge.launches += 1
+    profiling.count("launch.apply_merge")
     return sym
-
-
-apply_merge.launches = 0

@@ -49,6 +49,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..benchmarks import profiling
 from . import check_tensor
 from .flat import WID_PAD, skip_next
 
@@ -269,14 +270,10 @@ def pair_stats(fs, wid, wgt, table: Optional[PairTable] = None,
         _cuda.launch("swt_pair_stats", fs.data_ptr(), wid.data_ptr(),
                      wgt.data_ptr(), F, *args, skip)
     _mark(table, clear)
-    pair_stats.launches += 1
+    profiling.count("launch.pair_stats")
     if skip:
-        pair_stats.skip_launches += 1
+        profiling.count("launch.pair_stats.skip")
     return table.view(T)
-
-
-pair_stats.launches = 0
-pair_stats.skip_launches = 0  # launches with a window
 
 
 def pair_stats_runs_ref(rk, rc, rp):
@@ -324,11 +321,8 @@ def pair_stats_runs(rk, rc, rp, table: Optional[PairTable] = None,
         _cuda.launch("swt_pair_stats_runs", rk.data_ptr(), rc.data_ptr(),
                      rp.data_ptr(), M, *args)
     _mark(table, clear)
-    pair_stats_runs.launches += 1
+    profiling.count("launch.pair_stats_runs")
     return table.view(T)
-
-
-pair_stats_runs.launches = 0
 
 
 def pair_rows_ref(sym, wgt, rows: int):
@@ -444,11 +438,8 @@ def pair_rows(sym, wgt, rows: int, tset=None, clear=None):
                      rows, tset.desc.data_ptr(),
                      None if clear is None else clear.desc.data_ptr(),
                      0 if clear is None else clear.D, T_max)
-    pair_rows.launches += 1
+    profiling.count("launch.pair_rows")
     return list(tset.tables)
-
-
-pair_rows.launches = 0
 
 
 def _fill_plain(got, tset, clear) -> None:
@@ -539,11 +530,8 @@ def symbol_freqs(fs, wgt, sym_cap: int, out=None):
     if dev.type != "cuda":
         raise ValueError(f"symbol_freqs: no kernel for device {dev}")
     out = _k4("symbol_freqs", fs, wgt, F, 1, sym_cap, out, None)
-    symbol_freqs.launches += 1
+    profiling.count("launch.symbol_freqs")
     return out
-
-
-symbol_freqs.launches = 0
 
 
 def symbol_rows(sym, wgt, sym_cap: int, out=None, clear=None):
@@ -578,8 +566,5 @@ def symbol_rows(sym, wgt, sym_cap: int, out=None, clear=None):
     if dev.type != "cuda":
         raise ValueError(f"symbol_rows: no kernel for device {dev}")
     out = _k4("symbol_rows", sym, wgt, R, L, sym_cap, out, clear)
-    symbol_rows.launches += 1
+    profiling.count("launch.symbol_rows")
     return out
-
-
-symbol_rows.launches = 0

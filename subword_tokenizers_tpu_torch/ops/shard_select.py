@@ -43,6 +43,7 @@ from __future__ import annotations
 
 import torch
 
+from ..benchmarks import profiling
 from . import check_tensor
 from .bitmath import score_bits_ref
 from .flat import EPOCH_MAX
@@ -156,11 +157,8 @@ def nominate_tables(tables, k: int, sym_freq=None, tset=None, out=None):
         _cuda.launch("swt_nominate", tset.desc.data_ptr(), D, k,
                      None if sym_freq is None else sym_freq.data_ptr(),
                      out[0].data_ptr(), out[1].data_ptr())
-    nominate_tables.launches += 1
+    profiling.count("launch.nominate_tables")
     return tuple(out)
-
-
-nominate_tables.launches = 0
 
 
 def nominate(table, k: int, sym_freq=None):
@@ -367,11 +365,8 @@ def lookup_reduce(cand, tables, bases, tset=None, out=None):
         _cuda.launch("swt_lookup_reduce", cand.data_ptr(), M,
                      tset.desc.data_ptr(), len(tables), cnt.data_ptr(),
                      pos.data_ptr())
-    lookup_reduce.launches += 1
+    profiling.count("launch.lookup_reduce")
     return cnt, pos
-
-
-lookup_reduce.launches = 0
 
 
 def lookup_runs(cand, table, base: int):
@@ -498,11 +493,8 @@ def compact_tables(tables, bases, cap: int, out=None, tset=None):
     with torch.cuda.device(dev):
         _cuda.launch("swt_compact_tables", tset.desc.data_ptr(), D,
                      tset.clusters, cap, *(t.data_ptr() for t in out))
-    compact_tables.launches += 1
+    profiling.count("launch.compact_tables")
     return tuple(out)
-
-
-compact_tables.launches = 0
 
 
 def compact_table(table, cap: int, base: int):
@@ -607,7 +599,4 @@ def certificate(kth, cand, g_cnt, rec, sym_freq=None,
                      rec.data_ptr(),
                      sym_freq.data_ptr() if sym_freq is not None else None,
                      int(sym_freq is not None), int(wide_score))
-    certificate.launches += 1
-
-
-certificate.launches = 0
+    profiling.count("launch.certificate")

@@ -35,8 +35,6 @@ K3 in skip mode behind an overflow guard), the padded layout
 from __future__ import annotations
 
 import os
-import time
-from collections import Counter
 from typing import Optional, Tuple
 
 import numpy as np
@@ -291,20 +289,13 @@ def select_unify(keys, counts, pos, h1, h2, slen, ctrl, pw1, pw2,
                      None if kth is None else kth.data_ptr(),
                      0 if kth is None else kth.shape[0] // 3,
                      int(wide_score))
-    select_unify.launches += 1
+    profiling.count("launch.select_unify")
     if kth is not None:
-        select_unify.cert_launches += 1
+        profiling.count("launch.select_unify.cert")
     if wordpiece:
-        select_unify.wp_launches += 1
+        profiling.count("launch.select_unify.wp")
     if tournament:
-        select_unify.tournament_launches += 1
-
-
-select_unify.launches = 0
-select_unify.wp_launches = 0  # launches in WordPiece mode
-select_unify.tournament_launches = 0  # launches in tournament mode
-select_unify.cert_launches = 0  # launches that ran the certificate
-select_unify.risky_redos = 0  # steps redone exactly, added by run_fused
+        profiling.count("launch.select_unify.tournament")
 
 
 def _check_claims(claims, keys, counts, pos, dev) -> None:
@@ -594,22 +585,11 @@ def use_tournament(wordpiece: bool, wide_score: bool) -> bool:
     return t == "1" and wordpiece
 
 
-# The wrappers a block calls; every counter of theirs whose name ends in
-# "launches" counts a captured block's launches at each replay.
-_BLOCK_WRAPPERS = (pair_stats, select_unify, merge_apply, merge_skip,
-                   skip_guard, symbol_rows, apply_merge)
-
-
-def _launch_counters():
-    return [(fn, name) for fn in _BLOCK_WRAPPERS for name in vars(fn)
-            if name.endswith("launches")]
-
-
 class _BlockGraph:
     """A captured block: its CUDA graph, the host values its launches
     read (``state.host_key()``, the same before and after the block), the
-    launches it holds by counter, and its calls of K3's family (their
-    epochs)."""
+    launches it holds by ``launch.*`` counter, and its calls of K3's
+    family (their epochs)."""
 
     def __init__(self, graph, host_key, launches, k3_calls: int) -> None:
         self.graph = graph
@@ -640,24 +620,18 @@ class BlockRunner:
     and flips K4's outputs K times, so every block of one width launches
     with the same host values (``state.host_key()``, checked at each
     capture and replay). K3's epochs and the skip route's gate are
-    device words (ops/flat.MergeScratch). After a replay every launch
-    counter gains the launches the graph holds, so each stays the true
-    number of kernels run. A capture that allocates, or fails, raises;
-    nothing falls back to queuing steps. :meth:`close` releases the
-    graphs.
+    device words (ops/flat.MergeScratch). After a replay every
+    ``launch.*`` counter gains the launches the graph holds, so each stays
+    the true number of kernels run. A capture that allocates, or fails,
+    raises; nothing falls back to queuing steps. :meth:`close` releases
+    the graphs.
 
-    ``BlockRunner.captures``, ``replays``, ``eager_blocks`` and
-    ``capture_s`` count over every run (class attributes), and
-    ``blocks_by_width`` and ``replays_by_width`` count the blocks and the
-    replays at each width (``F``; 0 for the padded layout).
+    The blocks, replays and captures are counted in the profiler
+    (benchmarks/profiling.py): ``train.blocks``, ``train.eager_blocks``,
+    ``train.graph_replays``, ``train.graph_captures``, and by width
+    (``F``; 0 for the padded layout) ``train.blocks.<F>`` and
+    ``train.graph_replays.<F>``.
     """
-
-    captures = 0
-    replays = 0
-    eager_blocks = 0
-    capture_s = 0.0
-    blocks_by_width: Counter = Counter()
-    replays_by_width: Counter = Counter()
 
     def __init__(self, state, table, max_vocab: int, max_len: int, K: int,
                  wordpiece: bool, flat: bool, skip: int,
@@ -710,23 +684,25 @@ class BlockRunner:
     def dispatch(self, slot: int) -> None:
         """Queue the next block, then the copy of its records into host
         buffer ``slot`` (0 or 1), which :meth:`fetch` waits for."""
+        width = self._width()
         if self.graphs is None:
             with profiling.phase("train.device_block"):
                 self.queue_steps()
-            BlockRunner.eager_blocks += 1
+            profiling.count("train.eager_blocks")
             self.host[slot].copy_(self.recs)
         else:
             with torch.cuda.device(self.dev):
                 if self.blocks == 0:
                     with profiling.phase("train.device_block", self.dev):
                         self.queue_steps()
-                    BlockRunner.eager_blocks += 1
+                    profiling.count("train.eager_blocks")
                 else:
                     self._replay()
-                    BlockRunner.replays_by_width[self._width()] += 1
+                    profiling.count(f"train.graph_replays.{width}")
                 self.host[slot].copy_(self.recs, non_blocking=True)
                 self.events[slot].record()
-        BlockRunner.blocks_by_width[self._width()] += 1
+        profiling.count("train.blocks")
+        profiling.count(f"train.blocks.{width}")
         self.blocks += 1
 
     def _width(self) -> int:
@@ -769,19 +745,17 @@ class BlockRunner:
                 scratch.advance(g.k3_calls)
             with profiling.phase("train.device_block", self.dev):
                 g.graph.replay()
-            for (fn, name), n in g.launches:
-                setattr(fn, name, getattr(fn, name) + n)
-        BlockRunner.replays += 1
+            for name, n in g.launches.items():
+                profiling.count(name, n)
+        profiling.count("train.graph_replays")
 
     def _capture(self, key) -> None:
         """Capture :meth:`queue_steps` on a side stream and replay it
         once. The capture queues nothing to run, but the wrappers it calls
         count their launches and move the host values as the block moves
         them, back to ``key``."""
-        t0 = time.perf_counter()
         with profiling.phase("train.capture"):
-            counters = _launch_counters()
-            launched = [getattr(fn, name) for fn, name in counters]
+            launched = profiling.counters("launch.")
             scratch = getattr(self.state, "scratch", None)
             if scratch is not None:  # no restart of the epochs inside
                 scratch.room(2 * self.K + 1)
@@ -807,16 +781,12 @@ class BlockRunner:
                 raise RuntimeError(f"BlockRunner: a block began at host "
                                    f"values {key} and ended at "
                                    f"{self.state.host_key()}")
-            launches = [((fn, name), getattr(fn, name) - n)
-                        for (fn, name), n in zip(counters, launched)
-                        if getattr(fn, name) != n]
             self.graphs[self._width()] = _BlockGraph(
-                graph, key, launches,
+                graph, key, profiling.counted_since(launched, "launch."),
                 0 if scratch is None else scratch.calls - calls)
         with profiling.phase("train.device_block", self.dev):
             graph.replay()
-        BlockRunner.captures += 1
-        BlockRunner.capture_s += time.perf_counter() - t0
+        profiling.count("train.graph_captures")
 
 
 def _allocations(dev) -> int:
@@ -873,8 +843,9 @@ def run_fused(state: FlatState, table, max_vocab: int, max_len: int,
         skip = min(skip, 64, max(min(state.F, _FLAT_MIN) - 2, 0))
     else:
         state, skip = PaddedState.from_flat(state), 0
-    run = BlockRunner(state, table, max_vocab, max_len, K, wordpiece, flat,
-                      skip, tournament)
+    with profiling.phase("train.loop_setup"):
+        run = BlockRunner(state, table, max_vocab, max_len, K, wordpiece,
+                          flat, skip, tournament)
     try:
         run.dispatch(0)
         pending = [0]  # host buffers of the blocks in flight, oldest first
@@ -906,6 +877,7 @@ def run_fused(state: FlatState, table, max_vocab: int, max_len: int,
                             f"host id {nid} for {merged!r}")
                     on_merge(sa, sb, merged)
                     steps += 1
+            profiling.count("train.merges", steps)
             stats = tuple(int(x) for x in recs_np[K + 1, :2])
             if progress_cb is not None and steps:
                 progress_cb(steps)
@@ -921,12 +893,14 @@ def run_fused(state: FlatState, table, max_vocab: int, max_len: int,
                 run.drain()
                 pending.clear()
         redos, overflows = stats
-        select_unify.risky_redos += redos
-        skip_guard.overflow_compactions += overflows
-        with profiling.phase("train.final_fetch"):
+        profiling.count("train.redos", redos)
+        profiling.count("train.overflow_compactions", overflows)
+        with profiling.phase("train.final_fetch"), \
+                profiling.phase("train.final_copy"):
             return state.padded()
     finally:
-        run.close()
+        with profiling.phase("train.close"):
+            run.close()
 
 
 # device -> (empty, ctrl) for select_host_ids: host_ids mode never writes

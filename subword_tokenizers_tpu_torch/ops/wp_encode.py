@@ -33,6 +33,7 @@ from __future__ import annotations
 
 import torch
 
+from ..benchmarks import profiling
 from . import check_tensor as _check
 from .fetch import compact_ids_ref, stream_scratch
 from .wp_encode_e2e import (MAX_TILE_ROWS, route_params, tile_layout,
@@ -233,11 +234,8 @@ def wp_match_encode(words, wlen, goto, accept, hash_aid: int, rec=None,
     with torch.cuda.device(dev):
         _cuda.launch("swt_wp_match", *args, out.data_ptr(),
                      out_n.data_ptr(), unk.data_ptr(), ovf.data_ptr())
-    wp_match_encode.launches += 1
+    profiling.count("launch.wp_match_encode")
     return out, out_n, unk, ovf
-
-
-wp_match_encode.launches = 0
 
 
 def wp_match_compact_ref(words, wlen, goto, accept, hash_aid: int):
@@ -285,11 +283,8 @@ def wp_match_compact(words, wlen, goto, accept, hash_aid: int, rec=None,
                      0 if gstage is None else gstage.data_ptr(),
                      ids.data_ptr(), head.data_ptr(), scratch.data_ptr(),
                      epoch)
-    wp_match_compact.launches += 1
+    profiling.count("launch.wp_match_compact")
     return ids, head
-
-
-wp_match_compact.launches = 0
 
 
 def pack_words(acp, is_space, is_punc):

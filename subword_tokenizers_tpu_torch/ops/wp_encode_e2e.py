@@ -27,6 +27,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..benchmarks import profiling
 from . import check_tensor as _check
 from .fetch import compact_ids_ref, stream_scratch
 
@@ -295,11 +296,8 @@ def wp_e2e_scan(chars, slen, goto, fail, pops_off, pops_flat, root_p,
     with torch.cuda.device(dev):
         _cuda.launch(name, *args, out.data_ptr(), out_n.data_ptr(),
                      ovf.data_ptr(), stuck.data_ptr(), crash.data_ptr())
-    wp_e2e_scan.launches += 1
+    profiling.count("launch.wp_e2e_scan")
     return out, out_n, ovf, stuck, crash
-
-
-wp_e2e_scan.launches = 0
 
 
 def wp_e2e_scan_compact_ref(chars, slen, goto, fail, pops_off, pops_flat,
@@ -356,8 +354,5 @@ def wp_e2e_scan_compact(chars, slen, goto, fail, pops_off, pops_flat,
                      0 if gstage is None else gstage.data_ptr(),
                      ids.data_ptr(), head.data_ptr(), words.data_ptr(),
                      epoch)
-    wp_e2e_scan_compact.launches += 1
+    profiling.count("launch.wp_e2e_scan_compact")
     return ids, head
-
-
-wp_e2e_scan_compact.launches = 0

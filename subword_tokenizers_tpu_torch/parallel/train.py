@@ -50,7 +50,6 @@ WordPiece, the merges do not.
 """
 from __future__ import annotations
 
-import time
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -59,11 +58,10 @@ import torch
 from ..benchmarks import profiling
 from ..ops.merge import apply_merge
 from ..ops.pairstats import (TablePair, clean_table, pair_rows,
-                             pair_stats, pair_stats_runs, symbol_rows)
+                             pair_stats_runs)
 from ..ops.shard_select import (TableSet, compact_tables, lookup_reduce,
                                 nominate_tables)
-from ..ops.train_loop import (PaddedState, select_host_ids, select_scratch,
-                              select_unify)
+from ..ops.train_loop import PaddedState, select_host_ids, select_scratch
 from .mesh import DataMesh
 
 # Candidates nominated per shard per step, as in the JAX package.
@@ -381,23 +379,12 @@ def sharded_apply_merge(corpus: ShardedCorpus, a: int, b: int,
         blk.merge(a, b, new_id)
 
 
-# The wrappers a step's tiers call; every counter of theirs whose name
-# ends in "launches" counts a captured tier's launches at each replay.
-_STEP_WRAPPERS = (pair_rows, nominate_tables, lookup_reduce, select_unify,
-                  compact_tables, pair_stats_runs, symbol_rows, pair_stats)
-
-
-def _launch_counters():
-    return [(fn, name) for fn in _STEP_WRAPPERS for name in vars(fn)
-            if name.endswith("launches")]
-
-
 class _TierGraph:
     """A captured tier of a step: its CUDA graph, the host values the
     capture moved (``moved``: (object, attribute, value after); ``fills``:
-    (PairTable, fills added)), the launches it holds by counter, the
-    compactions it holds by TableSet (their epochs) and the mesh's
-    collectives it holds by kind."""
+    (PairTable, fills added)), the launches it holds by ``launch.*``
+    counter, the compactions it holds by TableSet (their epochs) and the
+    mesh's collectives it holds by kind."""
 
     def __init__(self, graph, moved, fills, launches, compactions,
                  collectives) -> None:
@@ -445,16 +432,17 @@ class ShardedTrainer:
     the route's logic step by step.)
 
     After a replay the host values move as the capture moved them, every
-    launch counter gains the launches the graph holds (so each stays the
-    true number of kernels run), the mesh's ``collectives`` the
-    collectives it holds, and each TableSet counts the graph's
-    compactions (their epochs are device words). A capture that
+    ``launch.*`` counter of the profiler (benchmarks/profiling.py) gains
+    the launches the graph holds (so each stays the true number of
+    kernels run), the mesh's ``collectives`` the collectives it holds,
+    and each TableSet counts the graph's compactions (their epochs are
+    device words). A capture that
     allocates, or fails, raises; nothing falls back to queuing the tier.
     :meth:`close` releases the graphs. ``graph_stats`` counts the run's
-    ``captures``, ``replays``, ``eager_steps`` (steps queued step by
-    step) and ``capture_s``, its ``graphs`` by tier, its ``tiers`` (the
-    tiers run) and ``eager_tiers`` (those of them queued step by
-    step)."""
+    ``captures``, ``replays`` and ``eager_steps`` (steps queued step by
+    step), its ``graphs`` by tier, its ``tiers`` (the tiers run) and
+    ``eager_tiers`` (those of them queued step by step); the captures'
+    time is the ``train.capture`` span's."""
 
     def __init__(self, mesh: DataMesh, sym: np.ndarray, freq: np.ndarray,
                  sym_cap: Optional[int] = None, wide_score: bool = False,
@@ -482,8 +470,7 @@ class ShardedTrainer:
             not mesh.group or mesh.backend == "nccl")
         self.graphs = {}  # key -> _TierGraph
         self.graph_stats = {"captures": 0, "replays": 0, "eager_steps": 0,
-                            "capture_s": 0.0, "graphs": {}, "tiers": 0,
-                            "eager_tiers": 0}
+                            "graphs": {}, "tiers": 0, "eager_tiers": 0}
         self.steps = 0
         self._tables = None  # this step's K1 tables
         self._sym_freq = None  # this step's symbol weights (WordPiece)
@@ -614,8 +601,8 @@ class ShardedTrainer:
             setattr(obj, attr, value)
         for table, n in g.fills:
             table.fills += n
-        for (fn, name), n in g.launches:
-            setattr(fn, name, getattr(fn, name) + n)
+        for name, n in g.launches.items():
+            profiling.count(name, n)
         for kind, n in g.collectives:
             self.corpus.mesh.collectives[kind] += n
         self.graph_stats["replays"] += 1
@@ -626,13 +613,11 @@ class ShardedTrainer:
         launches and move the host values as the tier moves them: noted,
         then put back, for the replay that follows to move them (the
         TableSets keep the compactions counted, which that replay runs)."""
-        t0 = time.perf_counter()
         with profiling.phase("train.capture"):
             slots, tables = self._host_values()
             before = [getattr(o, a) for o, a in slots]
             fills = [t.fills for t in tables]
-            counters = _launch_counters()
-            launched = [getattr(fn, name) for fn, name in counters]
+            launched = profiling.counters("launch.")
             issued = dict(self.corpus.mesh.collectives)
             sets = self.corpus.blocks[0].sets
             for tset in sets:  # no restart of the epochs inside
@@ -655,13 +640,12 @@ class ShardedTrainer:
                                    f"{allocated} times")
             moved = [(o, a, getattr(o, a)) for (o, a), v in
                      zip(slots, before) if _changed(getattr(o, a), v)]
+            launches = profiling.counted_since(launched, "launch.")
             g = _TierGraph(
                 graph, moved,
                 [(t, t.fills - n) for t, n in zip(tables, fills)
                  if t.fills != n],
-                [((fn, name), getattr(fn, name) - n)
-                 for (fn, name), n in zip(counters, launched)
-                 if getattr(fn, name) != n],
+                launches,
                 [(tset, tset.calls - n) for tset, n in zip(sets, calls)
                  if tset.calls != n],
                 [(kind, self.corpus.mesh.collectives[kind] - n)
@@ -673,12 +657,11 @@ class ShardedTrainer:
                 setattr(o, a, v)
             for t, n in zip(tables, fills):
                 t.fills = n
-            for (fn, name), n in zip(counters, launched):
-                setattr(fn, name, n)
+            for name, n in launches.items():
+                profiling.count(name, -n)
             self.corpus.mesh.collectives.update(issued)
             self.graphs[key] = g
         self.graph_stats["captures"] += 1
-        self.graph_stats["capture_s"] += time.perf_counter() - t0
         by_tier = self.graph_stats["graphs"]
         by_tier[tier] = by_tier.get(tier, 0) + 1
         return g

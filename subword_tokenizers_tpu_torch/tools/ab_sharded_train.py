@@ -14,7 +14,7 @@ in a process of its own in the order parent, change, change, parent.
   checked against the JAX goldens: each wall, its wall a step (steps
   being the tiers' count), and where the checkout graphs the sharded
   step (parallel/train.ShardedTrainer's ``graph_stats``) its captures,
-  replays, capture time and steps queued step by step (20-40 s a run).
+  replays and steps queued step by step (20-40 s a run).
   Give the mode three times for six pairs.
 - ``compact``: one step's table compaction, as the checkout's compact
   tier calls it (one ``compact_tables`` a device with the device's
@@ -84,12 +84,14 @@ in a process of its own in the order parent, change, change, parent.
 - ``block``: single-device ``NaiveBPE`` and ``NaiveWP`` trained on all
   of ``data/train-85k.json`` to 8,000 on the default flat route, then
   both with ``SWT_SKIP_COMPACT=12``, each after a warm-up train to 300
-  and checked against the JAX goldens; where the checkout runs its
-  blocks as CUDA graph replays (ops/train_loop.BlockRunner), also the
-  captures, replays and capture time of the timed trains (about 25 s a
-  run). Give the mode three times for six pairs.
+  and checked against the JAX goldens, with the CUDA graph captures and
+  replays of each timed train (ops/train_loop.BlockRunner) from the
+  profiler's counters (about 25 s a run). Give the mode three times for
+  six pairs.
 
-Each checkout builds its own kernels. Prints one JSON line a run, a line
+Each checkout builds its own kernels and keeps the launch and graph
+counters in benchmarks/profiling.py, which the ``block`` mode reads.
+Prints one JSON line a run, a line
 with all of them and the card's name and power limit, then for each mode
 the median and the range of each time over each side's runs.
 """
@@ -132,7 +134,7 @@ out = {"wall": wall, "tiers": tok._sel_stats}
 g = getattr(tok, "_graph_stats", None)
 if g is not None:
     out.update(captures=g["captures"], replays=g["replays"],
-               capture_s=g["capture_s"], eager_steps=g["eager_steps"])
+               eager_steps=g["eager_steps"])
 print(json.dumps(out))
 '''
 
@@ -637,7 +639,8 @@ import json, os, sys, time
 import torch
 sys.path.insert(0, os.getcwd())
 from subword_tokenizers_tpu_torch import NaiveBPE, NaiveWP
-from subword_tokenizers_tpu_torch.ops import _cuda, train_loop
+from subword_tokenizers_tpu_torch.benchmarks import profiling
+from subword_tokenizers_tpu_torch.ops import _cuda
 corpus = json.load(open("data/train-85k.json", encoding="utf-8"))
 bpe = [tuple(p) for p in json.load(open(
     "tests/golden/port_t85k_v8000_bpe_merges.json", encoding="utf-8"))]
@@ -646,7 +649,6 @@ wp = [tuple(p) for p in json.load(open(
     encoding="utf-8"))["merges"]]
 dev = torch.device("cuda:0")
 _cuda.lib()
-runner = getattr(train_loop, "BlockRunner", None)
 out = {}
 for route, skip in (("flat", None), ("skip12", "12")):
     if skip is None:
@@ -656,8 +658,7 @@ for route, skip in (("flat", None), ("skip12", "12")):
     for name, cls, golden in (("NaiveBPE", NaiveBPE, bpe),
                               ("NaiveWP", NaiveWP, wp)):
         cls(device=dev).train(corpus, 300)  # warm-up
-        before = None if runner is None else (
-            runner.captures, runner.replays, runner.capture_s)
+        profiling.reset()
         tok = cls(device=dev)
         t0 = time.perf_counter()
         tok.train(corpus, 8000)
@@ -665,10 +666,9 @@ for route, skip in (("flat", None), ("skip12", "12")):
         out[f"{name}_{route}"] = time.perf_counter() - t0
         got = tok.merges_list if name == "NaiveBPE" else tok._merge_log
         assert got == golden, (name, route)
-        if runner is not None:
-            out[f"{name}_{route}_graphs"] = [
-                runner.captures - before[0], runner.replays - before[1],
-                runner.capture_s - before[2]]
+        out[f"{name}_{route}_graphs"] = [
+            profiling.counter("train.graph_captures"),
+            profiling.counter("train.graph_replays")]
 print(json.dumps(out))
 '''
 
@@ -705,7 +705,7 @@ for name, cls, golden in (("NaiveBPE", NaiveBPE, bpe),
     out[f"{name}_tiers"] = tok._sel_stats
     g = getattr(tok, "_graph_stats", None)
     if g is not None:
-        for k in ("captures", "replays", "capture_s", "eager_steps"):
+        for k in ("captures", "replays", "eager_steps"):
             out[f"{name}_{k}"] = g[k]
 print(json.dumps(out))
 '''

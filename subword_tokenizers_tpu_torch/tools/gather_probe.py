@@ -31,6 +31,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from ..benchmarks import profiling
 from ..ops import check_tensor
 
 TAKE_SHAPE = (4096, 128)    # the TPU probe's N_TAB x 128 table
@@ -93,11 +94,8 @@ def gather_take2d(tab, idx, col):
         _cuda.launch("swt_gather_take2d", tab.data_ptr(), tab.shape[0],
                      tab.shape[1], idx.data_ptr(), col.data_ptr(), n,
                      out.data_ptr())
-    gather_take2d.launches += 1
+    profiling.count("launch.gather_take2d")
     return out
-
-
-gather_take2d.launches = 0
 
 
 def gather_loop_ref(tab, idx, iters: int = LOOP_ITERS):
@@ -117,7 +115,8 @@ def gather_loop(tab, idx, iters: int = LOOP_ITERS, shared: bool = False):
     bytes, at most 232,448).
 
     Launches ``swt_gather_loop`` for CUDA tensors (counted in
-    ``launches`` or ``shared_launches``), runs the plain version for CPU
+    ``launch.gather_loop``, and in shared mode also in
+    ``launch.gather_loop.shared``), runs the plain version for CPU
     tensors, and raises for any other device."""
     dev = tab.device
     check_tensor("tab", tab, (torch.int32,), 1, dev)
@@ -139,15 +138,10 @@ def gather_loop(tab, idx, iters: int = LOOP_ITERS, shared: bool = False):
     with torch.cuda.device(dev):
         _cuda.launch("swt_gather_loop", tab.data_ptr(), N, idx.data_ptr(), n,
                      int(iters), int(bool(shared)), out.data_ptr())
+    profiling.count("launch.gather_loop")
     if shared:
-        gather_loop.shared_launches += 1
-    else:
-        gather_loop.launches += 1
+        profiling.count("launch.gather_loop.shared")
     return out
-
-
-gather_loop.launches = 0         # global mode
-gather_loop.shared_launches = 0  # shared mode
 
 
 def call_ms(fn, reps: int, device: torch.device) -> float:

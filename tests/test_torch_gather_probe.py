@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from subword_tokenizers_tpu_torch.benchmarks import profiling
 from subword_tokenizers_tpu_torch.tools import gather_probe as gp
 
 N_TAB, ITERS = gp.LOOP_N_TAB, gp.LOOP_ITERS
@@ -100,14 +101,14 @@ def test_take2d_outside_gives_minus_one():
 
 
 def test_cpu_launches_nothing():
-    before = (gp.gather_take2d.launches, gp.gather_loop.launches,
-              gp.gather_loop.shared_launches)
+    names = ("launch.gather_take2d", "launch.gather_loop",
+             "launch.gather_loop.shared")
+    before = [profiling.counter(n) for n in names]
     tab, idx = (torch.from_numpy(a) for a in gp.loop_inputs(3))
     gp.gather_loop(tab, idx, 4, shared=True)
     gp.gather_loop(tab, idx, 4)
     gp.gather_take2d(*(torch.from_numpy(a) for a in gp.take_inputs(3)))
-    assert (gp.gather_take2d.launches, gp.gather_loop.launches,
-            gp.gather_loop.shared_launches) == before
+    assert [profiling.counter(n) for n in names] == before
 
 
 @pytest.mark.parametrize("call,error", [

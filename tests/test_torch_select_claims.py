@@ -294,8 +294,6 @@ def test_trainers_select_over_their_claims(cls, jcls, tour, monkeypatch,
         return real_select(keys, *args, claims=claims, scratch=scratch,
                            **kwargs)
 
-    spy.risky_redos = 0  # run_fused adds the run's redos here
-
     monkeypatch.setattr(train_loop, "FlatState", Tabled)
     monkeypatch.setattr(train_loop, "select_unify", spy)
     tok = cls(device="cpu")
@@ -321,8 +319,6 @@ def test_padded_and_per_step_routes_pass_claims(monkeypatch, launches):  # noqa:
     def spy(*args, claims=None, **kwargs):
         seen.append(claims)
         return real_select(*args, claims=claims, **kwargs)
-
-    spy.risky_redos = 0
 
     class Tabled(train_loop.PaddedState):
         def __init__(self, *args, **kwargs):

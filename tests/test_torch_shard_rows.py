@@ -24,6 +24,7 @@ from subword_tokenizers_tpu.parallel import train as jtrain
 from subword_tokenizers_tpu.parallel.mesh import DATA_AXIS
 from subword_tokenizers_tpu.parallel.mesh import make_data_mesh as jax_mesh
 from subword_tokenizers_tpu_torch import NaiveBPE, NaiveWP
+from subword_tokenizers_tpu_torch.benchmarks import profiling
 from subword_tokenizers_tpu_torch.ops import merge, pairstats, train_loop
 from subword_tokenizers_tpu_torch.ops.pairstats import canonical, pair_rows
 from subword_tokenizers_tpu_torch.parallel import train as ptrain
@@ -180,10 +181,11 @@ def test_wrappers_reject_bad_input():
     with pytest.raises(ValueError, match="no kernel for device meta"):
         merge.apply_merge(sym.to(meta), merge=(1, 2, 3))
     # the plain versions count no launch
-    before = (pair_rows.launches, merge.apply_merge.launches)
+    names = ("launch.pair_rows", "launch.apply_merge")
+    before = [profiling.counter(n) for n in names]
     pair_rows(sym, wgt, 4)
     merge.apply_merge(sym, merge=(1, 2, 3))
-    assert (pair_rows.launches, merge.apply_merge.launches) == before
+    assert [profiling.counter(n) for n in names] == before
 
 
 @pytest.fixture

@@ -21,6 +21,7 @@ Every comparison is exact: merges, vocab, ``corpus_as_symbols``, the
 tier counts, the checkpoints, the descriptor's words."""
 import contextlib
 import functools
+import inspect
 import json
 import os
 import socket
@@ -598,11 +599,13 @@ def test_every_step_of_one_key_passes_the_same_arguments(
         assert {k[0] for k in first} == {"topk", "compact"}
     names = [n for c in first.values() for n, _ in c]
     assert "gather" in names and "_reduce" in names
-    # every launch wrapper a tier calls counts its captured launches at
-    # each replay
+    # every launch wrapper a tier calls counts its launches in a
+    # ``launch.*`` counter, which a capture notes and each replay adds
     launched = {train_loop.select_unify if n == "select_host_ids" else
                 reals[n] for n in names if n not in ("gather", "_reduce")}
-    assert launched <= set(ptrain._STEP_WRAPPERS)
+    assert launched and all(
+        f'profiling.count("launch.{fn.__name__}")' in inspect.getsource(fn)
+        for fn in launched), launched
     if route == "gloo":
         outs = [dict(args)["out"] for c in first.values() for n, args in c
                 if n == "gather"]

@@ -17,6 +17,7 @@ from subword_tokenizers_tpu import NaiveBPE as JaxNaiveBPE
 from subword_tokenizers_tpu import NaiveWP as JaxNaiveWP
 from subword_tokenizers_tpu.ops import flat as jflat
 from subword_tokenizers_tpu_torch import NaiveBPE, NaiveWP
+from subword_tokenizers_tpu_torch.benchmarks import profiling
 from subword_tokenizers_tpu_torch.ops import flat, train_loop
 from subword_tokenizers_tpu_torch.ops.pairstats import pair_stats
 
@@ -203,11 +204,11 @@ TIE_HEAVY = ["ab ba ab ba abab baba aaaa bbbb"] * 3
                                               (NaiveWP, JaxNaiveWP)])
 def test_pathological_training_matches_jax(monkeypatch, port_cls, jax_cls,
                                            skip):
-    counts = flat.skip_guard.overflow_compactions
+    counts = profiling.counter("train.overflow_compactions")
     port = _train(port_cls, PATHOLOGICAL, 40, skip, monkeypatch)
     _same(port, _train(jax_cls, PATHOLOGICAL, 40, skip, monkeypatch))
     if skip == 2:
-        assert flat.skip_guard.overflow_compactions > counts
+        assert profiling.counter("train.overflow_compactions") > counts
 
 
 @pytest.mark.parametrize("port_cls,jax_cls", [(NaiveBPE, JaxNaiveBPE),

@@ -26,6 +26,7 @@ from subword_tokenizers_tpu.parallel import train as jtrain
 from subword_tokenizers_tpu.parallel.mesh import DATA_AXIS
 from subword_tokenizers_tpu.parallel.mesh import make_data_mesh as jax_mesh
 from subword_tokenizers_tpu_torch import NaiveWP
+from subword_tokenizers_tpu_torch.benchmarks import profiling
 from subword_tokenizers_tpu_torch.ops import pairstats, train_loop
 from subword_tokenizers_tpu_torch.ops.pairstats import (symbol_freqs,
                                                         symbol_freqs_ref,
@@ -228,10 +229,11 @@ def test_wrapper_checks():
     meta = torch.device("meta")
     with pytest.raises(ValueError, match="no kernel for device meta"):
         symbol_rows(sym.to(meta), freq.to(meta), 8)
-    before = (symbol_rows.launches, symbol_freqs.launches)
+    names = ("launch.symbol_rows", "launch.symbol_freqs")
+    before = [profiling.counter(n) for n in names]
     symbol_rows(sym, freq, 8)
     symbol_freqs(sym.reshape(-1), torch.repeat_interleave(freq, 9), 8)
-    assert (symbol_rows.launches, symbol_freqs.launches) == before
+    assert [profiling.counter(n) for n in names] == before
 
 
 @pytest.fixture(scope="module")

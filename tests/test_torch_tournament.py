@@ -21,6 +21,7 @@ from subword_tokenizers_tpu.ops import pairstats as jpairstats
 from subword_tokenizers_tpu.ops.wp_tournament import \
     wp_tournament_select as jax_tournament
 from subword_tokenizers_tpu_torch import NaiveBPE, NaiveWP
+from subword_tokenizers_tpu_torch.benchmarks import profiling
 from subword_tokenizers_tpu_torch.models import wordpiece as wp_mod
 from subword_tokenizers_tpu_torch.ops import bitmath, train_loop
 from subword_tokenizers_tpu_torch.ops.pairstats import EMPTY_KEY
@@ -175,12 +176,12 @@ TIES = ["zy xw vu ts rq po nm lk ji hg fe dc ba"]
 
 @pytest.mark.parametrize("corpus", [PATHOLOGICAL, TIES])
 def test_pathological_training_matches_jax(monkeypatch, corpus):
-    launches = train_loop.select_unify.tournament_launches
+    launches = profiling.counter("launch.select_unify.tournament")
     port = _train(NaiveWP, corpus, 40, "1", monkeypatch)
     _same(port, _train(JaxNaiveWP, corpus, 40, "1", monkeypatch))
     assert port._merge_log
     # the CPU runs the plain version: no kernel launch is counted
-    assert train_loop.select_unify.tournament_launches == launches
+    assert profiling.counter("launch.select_unify.tournament") == launches
 
 
 def test_train_85k_slice_matches_jax(monkeypatch):

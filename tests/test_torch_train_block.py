@@ -30,6 +30,7 @@ from subword_tokenizers_tpu.core.symbols import SymbolTable as JTable
 from subword_tokenizers_tpu.ops import flat as jflat
 from subword_tokenizers_tpu.ops import train_loop as jtl
 from subword_tokenizers_tpu_torch import NaiveBPE
+from subword_tokenizers_tpu_torch.benchmarks import profiling
 from subword_tokenizers_tpu_torch.core.corpus import (build_bpe_corpus,
                                                       build_wp_corpus,
                                                       unique_words)
@@ -187,8 +188,8 @@ def test_block_records_and_stats_rows():
     arrays = build_bpe_corpus(words, freq, table)
     state = train_loop.FlatState(*build_flat(arrays.sym, arrays.freq),
                                  "cpu")
-    eager = train_loop.BlockRunner.eager_blocks
-    captures = train_loop.BlockRunner.captures
+    eager = profiling.counter("train.eager_blocks")
+    captures = profiling.counter("train.graph_captures")
     run = train_loop.BlockRunner(state, table, len(table) + 100,
                                  arrays.sym.shape[1], 4, False, True, 2,
                                  False)
@@ -200,8 +201,8 @@ def test_block_records_and_stats_rows():
     assert first[:4, 4].all() and second[:4, 4].all()
     live = int((state.arrays()[0] >= 0).sum())
     assert second[4, N_LIVE] == live and second[4, 4] == 0
-    assert train_loop.BlockRunner.eager_blocks == eager + 2
-    assert train_loop.BlockRunner.captures == captures
+    assert profiling.counter("train.eager_blocks") == eager + 2
+    assert profiling.counter("train.graph_captures") == captures
     run.close()
 
 
