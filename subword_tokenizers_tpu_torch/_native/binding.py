@@ -1,12 +1,14 @@
 """ctypes binding for the native host front end and stitch.
 
 It serves FastWP's encode (``encode_prep``, ``pack_u16_rows``,
-``chunk_unique``, the stitches) and the trainers' front end
-(``split_bounds``, ``split_corpus``, ``unique_spans``).
+``chunk_unique``, the stitches), the encoders' front end
+(``split_bounds``, ``split_corpus``, ``unique_spans``) and the trainers'
+(``count_words``).
 
 The C++ sources are this package's own ``_native/{pretok,chunker,stitch,
 encode_prep}.cpp`` (copies of the JAX package's, held to it by the
-front-end and stitch parity tests, not by bytes). They are compiled with
+front-end and stitch parity tests, not by bytes) and
+``_native/count_words.cpp``, the port's own. They are compiled with
 g++ once per source change into ``_native/build/``. Without g++ the
 first call raises: the port has no slower host path to fall back to.
 """
@@ -25,7 +27,8 @@ import numpy as np
 
 SRC_DIR = os.path.dirname(os.path.abspath(__file__))
 _SRCS = [os.path.join(SRC_DIR, name) for name in
-         ("pretok.cpp", "chunker.cpp", "stitch.cpp", "encode_prep.cpp")]
+         ("pretok.cpp", "chunker.cpp", "stitch.cpp", "encode_prep.cpp",
+          "count_words.cpp")]
 BUILD_DIR = os.path.join(SRC_DIR, "build")
 _FLAGS = ["-O3", "-march=native", "-pthread", "-shared", "-fPIC",
           "-std=c++17"]
@@ -35,6 +38,7 @@ _tables = {}
 _stitch_fn = None
 _stitch_flat_fn = None
 _prep_fn = None
+_count_fn = None
 
 
 def _so_path() -> str:
@@ -73,7 +77,7 @@ def _build(so_path: str) -> None:
 
 def load() -> ctypes.CDLL:
     """Build (once) and load the native library; raises if it cannot."""
-    global _lib, _stitch_fn, _stitch_flat_fn, _prep_fn
+    global _lib, _stitch_fn, _stitch_flat_fn, _prep_fn, _count_fn
     if _lib is not None:
         return _lib
     so_path = _so_path()
@@ -108,6 +112,11 @@ def load() -> ctypes.CDLL:
     _prep_fn = ctypes.PYFUNCTYPE(
         i64, ctypes.py_object, u32p, u8p, u8p, i64, i32p, i64p, u32p,
         i32p, i64p)(("swt_encode_prep_mt", lib))
+    _count_fn = ctypes.PYFUNCTYPE(
+        i64, ctypes.py_object, u32p, u8p, u8p, u8p, i64, i64,
+        ctypes.POINTER(ctypes.c_void_p), i64p)(("swt_count_words_mt", lib))
+    lib.swt_count_words_take.restype = None
+    lib.swt_count_words_take.argtypes = [ctypes.c_void_p, u32p, i64p, i64p]
     from ..frontend.charclass import (LOWER, LOWER_SPECIAL, PUNC_PY,
                                       PUNCT_HF, WS_HF, WS_PY)
     _tables.update(
@@ -287,6 +296,52 @@ def encode_prep(sents: list):
     uniq_off = np.zeros(u + 1, dtype=np.int64)
     np.cumsum(uniq_len, out=uniq_off[1:])
     return inverse[:c], bounds, uniq_buf, uniq_off, uniq_len
+
+
+def count_words(sents: list, *, _threads: Optional[int] = None):
+    """Training's front end in one threaded native pass: the word types
+    of ``sents`` (lowered, split as :func:`split_corpus` splits) in
+    first-occurrence order, with their counts.
+
+    Returns (words, freq i64[U]), equal to ``unique_words(
+    pretokenize_batch(sents))``'s first two, or None when a
+    LOWER_SPECIAL codepoint (U+0130 / U+03A3) needs Python's own
+    ``str.lower()``. Raises TypeError unless ``sents`` is a list of str.
+    Threads: as many as the process may use, at most 8, and one for a
+    small corpus; ``_threads`` (tests) sets the count exactly.
+    """
+    lib = load()
+    if _threads is None:
+        n_threads, exact = min(len(os.sched_getaffinity(0)), 8), 0
+    else:
+        n_threads, exact = _threads, 1
+    result = ctypes.c_void_p()
+    n_cps = ctypes.c_int64()
+    u = _count_fn(sents, _ptr(_tables["lower"], ctypes.c_uint32),
+                  _ptr(_tables["lower_special"], ctypes.c_uint8),
+                  _ptr(_tables["ws_hf"], ctypes.c_uint8),
+                  _ptr(_tables["punct_hf"], ctypes.c_uint8),
+                  n_threads, exact, ctypes.byref(result),
+                  ctypes.byref(n_cps))
+    if u == -1:
+        return None
+    if u == -2:
+        raise TypeError("count_words expects a list of str")
+    cps = off = freq = None
+    try:
+        cps = np.empty(n_cps.value, dtype=np.uint32)
+        off = np.empty(u + 1, dtype=np.int64)
+        freq = np.empty(u, dtype=np.int64)
+    finally:
+        # Copies the result out, or with a buffer missing only frees it.
+        lib.swt_count_words_take(
+            result, None if cps is None else _ptr(cps, ctypes.c_uint32),
+            None if off is None else _ptr(off, ctypes.c_int64),
+            None if freq is None else _ptr(freq, ctypes.c_int64))
+    text = cps.tobytes().decode("utf-32-le")
+    bounds = off.tolist()
+    words = [text[a:b] for a, b in zip(bounds, bounds[1:])]
+    return words, freq
 
 
 def pack_u16_rows(uniq_buf: np.ndarray, uniq_off: np.ndarray,

@@ -52,8 +52,12 @@ reads one. The program's:
   ``train.eager_blocks`` (blocks queued step by step),
   ``train.graph_captures``, ``train.graph_replays``,
   ``train.blocks.<F>`` and ``train.graph_replays.<F>`` (at width F, 0
-  for the padded layout), ``train.redos`` (K2's tournament redos) and
-  ``train.overflow_compactions`` (the skip route's guard).
+  for the padded layout), ``train.redos`` (K2's tournament redos),
+  ``train.overflow_compactions`` (the skip route's guard), and
+  ``train.frontend.fused`` / ``train.frontend.fallback`` (trains whose
+  word types came from the native pass of core/corpus.train_words, or
+  from the route it falls back to: an injected tokenizer, or U+0130 or
+  U+03A3 in the corpus).
 
 :func:`reset` zeroes the spans and the counters; :func:`report` lists
 each span as ``{"total_s", "count", "mean_s"}`` and each counter as

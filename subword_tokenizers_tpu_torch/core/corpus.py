@@ -4,6 +4,14 @@ The reference trains over ``corpus_as_symbols``: one (symbols, frequency)
 entry per word type, in first-occurrence order. That order decides
 ties between equally frequent pairs, so word types are enumerated in
 exactly that order here, as in the JAX package's ``core/corpus.py``.
+
+Two routes give those word types. Training takes :func:`train_words`:
+one threaded native pass from the sentence list to the types and their
+counts (``_native/count_words.cpp``), with no corpus-wide arrays.
+Encode needs every word occurrence mapped to its type, so it keeps
+:func:`unique_words` over ``pretokenize_batch``'s spans, with its
+``inverse``; so does training with an injected tokenizer, or with a
+codepoint the lowering table cannot lower.
 """
 from __future__ import annotations
 
@@ -13,6 +21,7 @@ from typing import List, Sequence, Tuple
 import numpy as np
 
 from .._native import binding
+from ..benchmarks import profiling
 from ..frontend.charclass import to_text
 from ..frontend.pretokenize import WordBatch
 from .symbols import SymbolTable
@@ -30,6 +39,27 @@ def unique_words(wb: WordBatch) -> Tuple[List[str], np.ndarray, np.ndarray]:
     words = [to_text(cps[ws[i]:we[i]]) for i in uniq_idx]
     freq = np.bincount(inverse, minlength=len(words)).astype(np.int64)
     return words, freq, inverse
+
+
+def train_words(tokenizer, corpus: List[str]
+                ) -> Tuple[List[str], np.ndarray]:
+    """The trainers' word types in first-occurrence order with their
+    frequencies (i64), for ``tokenizer`` (models/base.SubwordTokenizer)
+    over ``corpus``.
+
+    The native pass (counted as ``train.frontend.fused``) unless an HF
+    tokenizer is injected or the corpus holds U+0130 or U+03A3; those
+    take ``unique_words(tokenizer.preprocessing_batch(corpus))``
+    (``train.frontend.fallback``). Both give the same words and counts.
+    """
+    if tokenizer.tokenizer is None:
+        got = binding.count_words(corpus)
+        if got is not None:
+            profiling.count("train.frontend.fused")
+            return got
+    profiling.count("train.frontend.fallback")
+    words, freq, _ = unique_words(tokenizer.preprocessing_batch(corpus))
+    return words, freq
 
 
 @dataclass

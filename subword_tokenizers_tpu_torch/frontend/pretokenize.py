@@ -13,6 +13,14 @@ Same output as the JAX package's ``frontend/pretokenize.py``:
 
 The split runs in the C++ front end (``_native/binding``); the port has
 no slower NumPy route, so without g++ the first call raises.
+
+Encode takes :func:`pretokenize_batch` (every word occurrence as a span,
+which ``core/corpus.unique_words`` maps to its type). Training does not:
+it needs only the word types and their counts, which
+``core/corpus.train_words`` takes from one threaded native pass over the
+sentence list (``_native/count_words.cpp``, the same lowering and
+split), and falls back to this module's route for an injected tokenizer
+or for U+0130 or U+03A3.
 """
 from __future__ import annotations
 

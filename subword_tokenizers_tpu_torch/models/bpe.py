@@ -5,9 +5,10 @@ resources.
 (``merges_list``, ``vocab``, ``corpus_as_symbols``, ``merges.json``,
 FastBPE's ``_bpe_ranks``) and raises its errors. The path:
 
-1. the C++ front end lowers and pre-splits the corpus, and word types
-   are counted in first-occurrence order (``train.frontend``), and the
-   initial symbols gathered (``train.alphabet``);
+1. one threaded C++ pass over the sentences lowers and pre-splits them
+   and counts the word types in first-occurrence order
+   (``train.frontend``, core/corpus.train_words), and the initial
+   symbols are gathered (``train.alphabet``);
 2. the word types become the flat state (ops/flat.py), interned
    character by character (``train.corpus``), and go to ``device``;
 3. ops/train_loop.run_fused runs blocks of K merge steps, each step
@@ -70,7 +71,7 @@ import torch
 from .. import utils
 from .._native import binding
 from ..benchmarks import profiling
-from ..core.corpus import build_bpe_corpus, unique_words
+from ..core.corpus import build_bpe_corpus, train_words, unique_words
 from ..core.symbols import SymbolTable
 from ..frontend.charclass import codepoints
 from ..ops import train_loop
@@ -173,7 +174,7 @@ class NaiveBPE(SubwordTokenizer):
         self._progress = progress
 
         with profiling.phase("train.frontend"):
-            words, freq, _ = unique_words(self.preprocessing_batch(corpus))
+            words, freq = train_words(self, corpus)
         with profiling.phase("train.alphabet"):
             for w in words:
                 self.vocab.update(w)

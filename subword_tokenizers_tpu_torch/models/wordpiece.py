@@ -75,7 +75,7 @@ import torch
 from .. import utils
 from .._native import binding
 from ..benchmarks import profiling
-from ..core.corpus import build_wp_corpus, unique_words
+from ..core.corpus import build_wp_corpus, train_words, unique_words
 from ..core.symbols import SymbolTable
 from ..frontend.charclass import PUNC_PY, WS_PY, codepoints, \
     lower_codepoints
@@ -176,7 +176,7 @@ class NaiveWP(SubwordTokenizer):
         self._merge_log = []
 
         with profiling.phase("train.frontend"):
-            words, freq, _ = unique_words(self.preprocessing_batch(corpus))
+            words, freq = train_words(self, corpus)
         if not words:
             return
         with profiling.phase("train.alphabet"):

@@ -9,9 +9,11 @@ import numpy as np
 import pytest
 import torch
 
+from ref_oracle import REFERENCE_PATH
 from subword_tokenizers_tpu import NaiveBPE as JaxNaiveBPE
 from subword_tokenizers_tpu.models import bpe as jax_bpe_mod
 from subword_tokenizers_tpu_torch import FastBPE, NaiveBPE
+from subword_tokenizers_tpu_torch._native import binding
 from subword_tokenizers_tpu_torch.models import bpe as bpe_mod
 
 torch.set_num_threads(1)
@@ -63,7 +65,8 @@ def _inject(monkeypatch, words, freqs):
     def fake_unique_words(wb):
         return (list(words), np.asarray(freqs, dtype=np.int64),
                 np.zeros(1, dtype=np.int32))
-    monkeypatch.setattr(bpe_mod, "unique_words", fake_unique_words)
+    monkeypatch.setattr(bpe_mod, "train_words",
+                        lambda tok, corpus: fake_unique_words(None)[:2])
     monkeypatch.setattr(jax_bpe_mod, "unique_words", fake_unique_words)
 
 
@@ -128,6 +131,37 @@ def test_whole_85k_reproduces_the_reference_anchor(t85k):
     port.train(t85k, 578)
     assert port.merges_list == anchor
     assert len(port.vocab) == 578
+
+
+def _sub200(t85k, source):
+    """The golden tests' 200 sentences of the reference's train-5K, or
+    train-85k's first 200."""
+    if source == "t85k200":
+        return t85k[:200]
+    path = os.path.join(REFERENCE_PATH, "data", "train-5K.json")
+    if not os.path.exists(path):
+        pytest.skip(f"{path}: the reference's corpus is not present")
+    with open(path, encoding="utf-8") as f:
+        return json.load(f)[:200]
+
+
+@pytest.mark.parametrize("source", ["sub200", "t85k200"])
+def test_fused_front_end_trains_as_before(t85k, monkeypatch, source):
+    """FastBPE to 600 with training's fused front end and with the route
+    it replaced (unique_words over pretokenize_batch): the same
+    merges, and on sub200 the reference's golden."""
+    corpus = _sub200(t85k, source)
+    fused = FastBPE(device="cpu")
+    fused.train(corpus, 600)
+    monkeypatch.setattr(binding, "count_words", lambda sents: None)
+    old = FastBPE(device="cpu")
+    old.train(corpus, 600)
+    assert fused.merges_list == old.merges_list
+    assert fused.vocab == old.vocab
+    if source == "sub200":
+        with open(os.path.join(GOLDEN, "sub200_v600_merges.json"),
+                  encoding="utf-8") as f:
+            assert fused.merges_list == [tuple(p) for p in json.load(f)]
 
 
 def test_device_argument():

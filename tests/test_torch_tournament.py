@@ -231,7 +231,8 @@ def test_forced_on_wide_scores_raises(monkeypatch):
     def fake_unique_words(wb):
         return list(words), freq, np.zeros(1, dtype=np.int32)
 
-    monkeypatch.setattr(wp_mod, "unique_words", fake_unique_words)
+    monkeypatch.setattr(wp_mod, "train_words",
+                        lambda tok, corpus: fake_unique_words(None)[:2])
     monkeypatch.setattr(jax_wp_mod, "unique_words", fake_unique_words)
     with pytest.raises(ValueError, match="narrow score domain"):
         _train(NaiveWP, [""], 20, "1", monkeypatch)

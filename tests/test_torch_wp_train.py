@@ -13,10 +13,12 @@ import numpy as np
 import pytest
 import torch
 
+from ref_oracle import REFERENCE_PATH
 from subword_tokenizers_tpu import FastWP as JaxFastWP
 from subword_tokenizers_tpu import NaiveWP as JaxNaiveWP
 from subword_tokenizers_tpu.models import wordpiece as jax_wp_mod
 from subword_tokenizers_tpu_torch import FastWP, NaiveWP, utils
+from subword_tokenizers_tpu_torch._native import binding
 from subword_tokenizers_tpu_torch.models import wordpiece as wp_mod
 from subword_tokenizers_tpu_torch.ops import train_loop
 
@@ -101,7 +103,8 @@ def _inject(monkeypatch, words, freqs):
     def fake_unique_words(wb):
         return (list(words), np.asarray(freqs, dtype=np.int64),
                 np.zeros(1, dtype=np.int32))
-    monkeypatch.setattr(wp_mod, "unique_words", fake_unique_words)
+    monkeypatch.setattr(wp_mod, "train_words",
+                        lambda tok, corpus: fake_unique_words(None)[:2])
     monkeypatch.setattr(jax_wp_mod, "unique_words", fake_unique_words)
 
 
@@ -294,6 +297,37 @@ def test_golden_is_whole(t85k):
     assert len(merges) == 7879
     assert {a + b[2:] for a, b in merges} <= set(vocab)
     assert all(b.startswith("##") for _, b in merges)
+
+
+def _sub200(t85k, source):
+    """The golden tests' 200 sentences of the reference's train-5K, or
+    train-85k's first 200."""
+    if source == "t85k200":
+        return t85k[:200]
+    path = os.path.join(REFERENCE_PATH, "data", "train-5K.json")
+    if not os.path.exists(path):
+        pytest.skip(f"{path}: the reference's corpus is not present")
+    with open(path, encoding="utf-8") as f:
+        return json.load(f)[:200]
+
+
+@pytest.mark.parametrize("source", ["sub200", "t85k200"])
+def test_fused_front_end_trains_as_before(t85k, monkeypatch, source):
+    """FastWP to 600 with training's fused front end and with the route
+    it replaced (unique_words over pretokenize_batch): the same
+    merges and vocabulary, and on sub200 the reference's golden."""
+    corpus = _sub200(t85k, source)
+    fused = FastWP(device="cpu")
+    fused.train(corpus, 600)
+    monkeypatch.setattr(binding, "count_words", lambda sents: None)
+    old = FastWP(device="cpu")
+    old.train(corpus, 600)
+    assert fused._merge_log == old._merge_log
+    assert fused.vocab == old.vocab
+    if source == "sub200":
+        with open(os.path.join(GOLDEN, "sub200_v600_wp_vocab.json"),
+                  encoding="utf-8") as f:
+            assert fused.vocab == set(json.load(f))
 
 
 def test_device_argument():
