@@ -10,15 +10,16 @@ runs traced inside a ``record_function`` mark. From the Chrome trace:
   of those spans inside the window (``busy_s``);
 - each kernel's count and device seconds, by name;
 - the idle gaps: the stretches of the window in which nothing runs on
-  the device, each named by the host annotation (one of the program's
-  phases, when :func:`annotate_phases` is on) that covers most of it,
-  the innermost at a tie, or ``"host"`` where none does.
+  the device, each named by a host annotation (the program's spans
+  annotate a recording profiler themselves): the innermost (shortest)
+  one that covers more than half of the gap; where none does, the one
+  that covers most of it, the innermost at a tie; ``"host"`` where none
+  overlaps it.
 
 The trace file goes to the temporary directory and is deleted once read.
 """
 from __future__ import annotations
 
-import contextlib
 import json
 import os
 import tempfile
@@ -57,27 +58,6 @@ def short_name(name: str) -> str:
     if name.startswith("void "):
         name = name[5:]
     return name.strip()[:100]
-
-
-@contextlib.contextmanager
-def annotate_phases(profiling_module):
-    """While open, the program's phases (``profiling.phase``) become
-    profiler annotations of the same name, with no synchronisation and
-    no timing, so a traced call shows them on the host's timeline."""
-    from torch.profiler import record_function
-
-    original = profiling_module.phase
-
-    @contextlib.contextmanager
-    def phase(name, device=None):
-        with record_function(name):
-            yield
-
-    profiling_module.phase = phase
-    try:
-        yield
-    finally:
-        profiling_module.phase = original
 
 
 def trace_call(fn: Callable[[], object], cuda: bool = True
@@ -169,6 +149,11 @@ def reduce(events: List[dict]) -> Trace:
     for a, b in gaps[:TOP]:
         over = [(min(b, n[1]) - max(a, n[0]), n[0] - n[1], n[2])
                 for n in notes if n[0] < b and n[1] > a]
-        named.append((max(over)[2] if over else "host", (b - a) / 1e6))
+        most = [o for o in over if 2 * o[0] > b - a]
+        if most:  # the innermost: the largest start - end
+            name = max(most, key=lambda o: o[1])[2]
+        else:
+            name = max(over)[2] if over else "host"
+        named.append((name, (b - a) / 1e6))
     return Trace(window_s=(t1 - t0) / 1e6, busy_s=busy / 1e6,
                  kernels=kernels, device_ops=ops, idle_gaps=named)

@@ -6,31 +6,42 @@ card and prints one JSON line as the last line of its standard output.
 
 Everything of one cell is found by name (``BENCHMARK.json`` at the
 root, and the files under ``portbench/``), so adding a cell, a
-configuration, a traffic mix or a metric adds files and edits none:
+configuration, a task, a traffic mix or a metric adds files and edits
+none:
 
 - ``workloads/<cell>.json``: the cell's ``config``, ``traffic`` and
   ``chips`` (as ``BENCHMARK.json`` names them);
-- ``configs/<config>.json``: the parameters of the one task,
-  ``tasks/train.py``, which makes one call of the program and checks it;
+- ``configs/<config>.json``: the parameters of its ``task`` (default
+  ``train``);
+- ``tasks/<task>.py``: the task's ``Task(config, corpus, mix, device)``,
+  which makes the calls of the program and checks them: ``warm()``, the
+  set-up's calls (every shape the window will use); ``once()``, one
+  call; ``keep(output)``, what the check needs of a call's output;
+  ``route_error(phases)``, why the phase-timed call took a route the
+  cell does not measure (None where it did not); ``reference()``,
+  ``wrong(kept, reference)``, the calls whose output differs from the
+  plain reference's; and ``control(task)``, the task turned into the
+  control of that comparison (``control.py``);
 - ``traffic/<mix>.json``: the parameters of the one generator,
-  ``corpus.py``;
+  ``corpus.py``, and of the task (a batch's size);
 - ``metrics/<metric>.py``: each metric's reader, ``read(reading)``,
   returning the number or None where it finds nothing to read; every
   metric but ``setup_s``, which this module takes.
 
-A run: the corpus is drawn from the seed; the task's first call, which
+A run: the corpus is drawn from the seed; the task's warm-up, which
 builds and loads the kernels (from the program's fixed build directories
-in the checkout) and captures its graphs, is the warm-up; ``setup_s`` is
-the time from the process's start to the warm-up's end. With ``--trace
-0`` calls then run back to back until ``--seconds`` have passed (the
-last call started in time finishes); with ``--trace 1`` one call runs
-under ``torch.profiler`` with the program's phases as host annotations
-(after an untraced one), then one with the program's phase timer on,
-whose synchronisations so never reach the trace. Once the calls are
-done the peak device memory is read, the program's state is freed, and
-every call's output is compared with the plain reference's, and the
-metrics are read. Then no module of JAX, jaxlib, flax or the JAX package
-may have been loaded, or the run gives no result.
+in the checkout), is set-up; ``setup_s`` is the time from the process's
+start to the warm-up's end. With ``--trace 0`` calls then run back to
+back until ``--seconds`` have passed (the last call started in time
+finishes); each call is timed alone, from its start to its return, and
+what ``keep`` keeps of it is taken between calls, outside that time.
+With ``--trace 1`` one call runs under ``torch.profiler``, where the
+program's phases annotate the trace themselves (after an untraced one),
+then one with the program's phase timer on. Once the calls are done the
+peak device memory is read, the program's state is freed, every kept
+call is compared with the plain reference's, and the metrics are read.
+Then no module of JAX, jaxlib, flax or the JAX package may have been
+loaded, or the run gives no result.
 """
 from __future__ import annotations
 
@@ -45,7 +56,6 @@ from dataclasses import dataclass
 from typing import List, Optional
 
 from . import corpus as corpus_mod
-from .tasks.train import Task
 
 BENCH = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(BENCH)
@@ -68,7 +78,8 @@ class Reading:
     phases: Optional[dict] = None  # the phase timer's report of one call
     trace: Optional[object] = None  # devtrace.Trace of one traced call
     call_s: Optional[List[float]] = None  # each window call's seconds
-    traced_work: int = 0       # the traced call's work
+    kept: Optional[list] = None  # what keep kept of each window call
+    traced: Optional[object] = None  # what keep kept of the traced call
     reference: Optional[object] = None  # the reference's result
 
     def phase_ms(self, *names: str) -> Optional[float]:
@@ -125,15 +136,33 @@ def cell_metrics(bench: dict, name: str, trace: bool) -> List[dict]:
     return [m for m in group if name in m.get("workloads", [name])]
 
 
+def load_file(kind: str, name: str):
+    """The module ``<kind>/<name>.py`` under the benchmark's directory,
+    loaded by its path as ``portbench.<kind>.<name>`` (one module a
+    path in a process)."""
+    path = os.path.join(BENCH, kind, name + ".py")
+    if not os.path.isfile(path):
+        raise RunError(f"no file {kind}/{name}.py")
+    mod_name = f"portbench.{kind}." + name.replace(".", "_").replace(
+        "-", "_")
+    mod = sys.modules.get(mod_name)
+    if mod is not None and getattr(mod, "__file__", None) == path:
+        return mod
+    spec = importlib.util.spec_from_file_location(mod_name, path)
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[mod_name] = mod
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def task_module(config: dict):
+    """The module of ``config``'s task, ``tasks/<task>.py``."""
+    return load_file("tasks", config.get("task", "train"))
+
+
 def reader(metric: str):
     """The ``read`` function of ``metrics/<metric>.py``."""
-    path = os.path.join(BENCH, "metrics", metric + ".py")
-    spec = importlib.util.spec_from_file_location(
-        "portbench.metrics." + metric.replace(".", "_").replace("-", "_"),
-        path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.read
+    return load_file("metrics", metric).read
 
 
 def run(name: str, seed: int, seconds: float, trace: bool, t_start: float,
@@ -152,47 +181,56 @@ def run(name: str, seed: int, seconds: float, trace: bool, t_start: float,
                            f"cell wants {entry['chips']}")
     cuda = device.startswith("cuda")
     data = corpus_mod.draw(mix, seed)
-    task = Task(config, data, device)
+    task = task_module(config).Task(config, data, mix, device)
 
     def sync():
         if cuda:
             torch.cuda.synchronize()
 
-    task.once()
+    task.warm()
     sync()
     r = Reading(task=task, setup_s=time.perf_counter() - t_start)
-    outputs = []
+    kept = []
     if not trace:
-        ends = [time.perf_counter()]
-        deadline = ends[0] + seconds
-        while ends[-1] < deadline:
-            outputs.append(task.once())
+        r.call_s = []
+        start = end = time.perf_counter()
+        deadline = start + seconds
+        while end < deadline:
+            t0 = time.perf_counter()
+            out = task.once()
             sync()
-            ends.append(time.perf_counter())
-        r.calls, r.window_s = len(outputs), ends[-1] - ends[0]
-        r.call_s = [b - a for a, b in zip(ends, ends[1:])]
+            end = time.perf_counter()
+            r.call_s.append(end - t0)
+            kept.append(task.keep(out))
+            del out
+        r.calls, r.window_s, r.kept = len(kept), end - start, kept
     else:
         from subword_tokenizers_tpu_torch.benchmarks import profiling
         from . import devtrace
-        with devtrace.annotate_phases(profiling):
-            out, r.trace = devtrace.trace_call(task.once, cuda)
-        outputs.append(out)
-        r.traced_work = task.work(out)
+        out, r.trace = devtrace.trace_call(task.once, cuda)
+        r.traced = task.keep(out)
+        kept.append(r.traced)
+        del out
         profiling.reset()
         profiling.enable(True)
         try:
-            outputs.append(task.once())
+            out = task.once()
             sync()
         finally:
             profiling.enable(False)
+        kept.append(task.keep(out))
+        del out
         r.phases = profiling.report()
         profiling.reset()
+        why = task.route_error(r.phases)
+        if why:
+            raise RunError(f"the phase-timed call: {why}")
     peak = torch.cuda.max_memory_allocated() if cuda else 0
     gc.collect()
     if cuda:
         torch.cuda.empty_cache()
     r.reference = task.reference(record_states=trace)
-    wrong = task.wrong(outputs, r.reference)
+    wrong = task.wrong(kept, r.reference)
 
     metrics = {}
     for m in cell_metrics(bench, name, trace):
@@ -202,7 +240,7 @@ def run(name: str, seed: int, seconds: float, trace: bool, t_start: float,
     dev = {"platform": "gpu" if cuda else device,
            "kind": torch.cuda.get_device_name(0) if cuda else device,
            "count": entry["chips"], "memory_peak_bytes": peak}
-    result = {"correct": wrong == 0, "attempted": len(outputs),
+    result = {"correct": wrong == 0, "attempted": len(kept),
               "failed": wrong, "metrics": metrics, "device": dev}
     if r.call_s:
         result["call_s"] = r.call_s
@@ -214,7 +252,7 @@ def run(name: str, seed: int, seconds: float, trace: bool, t_start: float,
             "device_ops": [[k, v[1]] for k, v in ops[:10]],
             "idle_gaps": [[k, v] for k, v in t.idle_gaps[:10]]}
     result["checks"] = {"calls_wrong": {"value": wrong, "limit": 0,
-                                        "of": len(outputs)}}
+                                        "of": len(kept)}}
     # last: the reference and every reader have run by now
     found = forbidden_modules()
     if found:

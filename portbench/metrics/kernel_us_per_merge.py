@@ -4,6 +4,8 @@ learned."""
 
 
 def read(r):
-    if r.trace is None or not r.traced_work or not r.trace.kernels:
+    if r.trace is None or not r.traced or not r.traced[0] or \
+            not r.trace.kernels:
         return None
-    return sum(s for _, s in r.trace.kernels.values()) / r.traced_work * 1e6
+    return sum(s for _, s in r.trace.kernels.values()) / len(r.traced[0]) \
+        * 1e6

@@ -1,4 +1,5 @@
-"""The card's peaks, and the least time of each training step's kernels.
+"""The card's peaks, the least time of each training step's kernels, and
+that of FastWP's fused scan.
 
 A step of the flat training route is three kernels: K1 counts the pairs
 of the live slots into a hash table, K2 selects the best pair over the
@@ -23,6 +24,19 @@ memory's bandwidth and its operations over the scalar rate. These are
 the counts ``chip_smoke.py`` evaluates once, at the initial state (its
 rows 11a, 12a and 11b), evaluated here at each step's own state, which
 the benchmark's plain trainer walks.
+
+FastWP's batched encode scans each distinct chunk of a batch once in one
+launch (``scan_compact_kernel``: the LinMaxMatch walk, then the
+compaction of the tokens into one stream). As the function needs them,
+over ``rows`` distinct chunks of ``chars`` characters (each chunk's
+trailing space included), whose walk takes ``steps`` look-ups at
+``nodes`` distinct trie nodes over ``edges`` distinct (node, character)
+pairs and emits ``tokens``: each packed character read (2 bytes), each
+row's length read (4), each node's 32-byte record and each edge's 4-byte
+goto entry read once, 4 bytes a token written, and the head (an offset
+a row, the total, a flags word a row: 4 bytes each) written; about 30
+integer operations a step. The plain encoder (``reference/fastwp.py``,
+``scan_rows``) walks the same rows and counts them.
 """
 from __future__ import annotations
 
@@ -63,3 +77,11 @@ def steps_least_s(states: Iterable[Tuple[int, int, int]], n_final: int,
         total += sum(least_s(b, o)
                      for b, o in step_work(n, n_next, p, s, wordpiece))
     return total
+
+
+def scan_work(rows: int, chars: int, steps: int, tokens: int, nodes: int,
+              edges: int) -> Tuple[int, int]:
+    """(bytes, operations) of one fused FastWP scan (see above)."""
+    n_bytes = (2 * chars + 4 * rows + 32 * nodes + 4 * edges + 4 * tokens
+               + 4 * (2 * rows + 1))
+    return n_bytes, 30 * steps

@@ -11,6 +11,14 @@ BPE classes, the merge log of the WordPiece classes) and, for WordPiece,
 its vocabulary. Each is compared whole with what the plain trainer
 (``portbench/reference/trainer.py``) learns on the same corpus; the
 number compared is how many calls differ from it, whose limit is 0.
+
+The control (:func:`control`): the plain trainer put in the program's
+place in the form a tempting shortcut would give it: WordPiece (whose
+configuration states a float64 score) scoring in float32, the precision
+below; BPE (whose counts are exact integers and state no precision) with
+the stated tie-break broken, ties going to the smaller symbol ids (the
+order a selection over a hash table of pairs gives) instead of the pair
+met first in scan order.
 """
 from __future__ import annotations
 
@@ -19,13 +27,16 @@ from typing import List, Optional, Tuple
 from ..reference import pretok, trainer
 
 TOKENIZERS = ("FastBPE", "FastWP")
+VARIANT = {False: "pair_order", True: "float32"}  # the control's, by
+# wordpiece
 
 
 class Task:
     """Calls of ``config``'s tokenizer on ``corpus`` (portbench/corpus.py)
-    on ``device``."""
+    on ``device``; ``mix``, the traffic mix, sets nothing more."""
 
-    def __init__(self, config: dict, corpus, device: str) -> None:
+    def __init__(self, config: dict, corpus, mix: dict, device: str
+                 ) -> None:
         name = config["tokenizer"]
         if name not in TOKENIZERS:
             raise ValueError(f"tokenizer must be one of {TOKENIZERS}")
@@ -36,6 +47,10 @@ class Task:
         self.corpus = corpus
         self.device = device
 
+    def warm(self) -> None:
+        """Set-up's one train, which captures the loop's graphs."""
+        self.once()
+
     def once(self) -> Tuple[List[Tuple[str, str]], Optional[set]]:
         """One train on a fresh tokenizer; (merges, vocabulary or None)."""
         tok = self.cls(device=self.device)
@@ -44,9 +59,13 @@ class Task:
             return tok._merge_log, tok.vocab
         return tok.merges_list, None
 
-    def work(self, output) -> int:
-        """The merges one call learned."""
-        return len(output[0])
+    def keep(self, output):
+        """All of it: a train's merges are what is compared."""
+        return output
+
+    def route_error(self, phases: dict) -> Optional[str]:
+        """Every route of ``train`` is measured."""
+        return None
 
     def reference(self, record_states: bool = False) -> trainer.Trained:
         """What the plain trainer learns on the corpus."""
@@ -59,3 +78,14 @@ class Task:
         vocab = expected.vocab if self.wordpiece else None
         return sum(1 for merges, v in outputs
                    if merges != expected.merges or v != vocab)
+
+
+def control(task: Task) -> None:
+    """Turn ``task`` into the control: its calls the plain trainer in
+    the control's form (:data:`VARIANT`) on its corpus."""
+    def once():
+        got = trainer.train(
+            pretok.count_drawn(task.corpus.source, task.corpus.draw),
+            task.max_vocab, task.wordpiece, variant=VARIANT[task.wordpiece])
+        return got.merges, (got.vocab if task.wordpiece else None)
+    task.once = once

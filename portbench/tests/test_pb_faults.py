@@ -12,7 +12,7 @@ import time
 
 import pytest
 
-from portbench import control, harness
+from portbench import harness
 from portbench.tasks import train as train_task
 
 CELLS = ("bpe-v20000.t85k", "wp-v20000.t85k")
@@ -56,12 +56,13 @@ def test_a_step_that_leaves_its_state_unchanged(name, monkeypatch):
 
 @pytest.mark.parametrize("name", CELLS)
 def test_half_the_corpus_left_out(name, monkeypatch):
-    from subword_tokenizers_tpu_torch.models import base
-    prep = base.SubwordTokenizer.preprocessing_batch
-
-    def half(self, corpus):
-        return prep(self, corpus[: len(corpus) // 2])
-    monkeypatch.setattr(base.SubwordTokenizer, "preprocessing_batch", half)
+    """The trainers' word types counted over half of the corpus (both
+    trainers call ``train_words`` by the name their module imports)."""
+    from subword_tokenizers_tpu_torch.models import bpe, wordpiece
+    for mod in (bpe, wordpiece):
+        def half(tok, corpus, words=mod.train_words):
+            return words(tok, corpus[: len(corpus) // 2])
+        monkeypatch.setattr(mod, "train_words", half)
     res = run(name)
     assert not res["correct"] and res["failed"] == res["attempted"]
 
@@ -92,8 +93,14 @@ def test_a_merge_altered_where_it_is_produced(name, monkeypatch):
     ("wp-v20000.t85k", "float32", 85000, 3000)])
 def test_the_control_is_not_correct(name, variant, sentences, vocab,
                                     monkeypatch):
-    """The plain trainer in the control's form, in the program's place."""
-    assert control.VARIANT[name.startswith("wp")] == variant
-    monkeypatch.setattr(train_task.Task, "once", control.once)
+    """The plain trainer in the control's form, in the program's place
+    (as ``portbench/control.py`` puts it there)."""
+    assert train_task.VARIANT[name.startswith("wp")] == variant
+    init = train_task.Task.__init__
+
+    def controlled(self, *a, **kw):
+        init(self, *a, **kw)
+        train_task.control(self)
+    monkeypatch.setattr(train_task.Task, "__init__", controlled)
     res = run(name, vocab=vocab, sentences=sentences)
     assert not res["correct"] and res["failed"] == res["attempted"]

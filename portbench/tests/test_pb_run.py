@@ -68,8 +68,8 @@ def test_a_reader_that_loads_jax_gives_no_result(tmp_path):
     stubs.mkdir(parents=True)
     (stubs / "__init__.py").write_text("")
     bench = tmp_path / "bench"
-    shutil.copytree(os.path.join(ROOT, "portbench", "metrics"),
-                    bench / "metrics")
+    for d in ("metrics", "tasks"):
+        shutil.copytree(os.path.join(ROOT, "portbench", d), bench / d)
     (bench / "metrics" / "leak.py").write_text(
         "import flax  # noqa: F401\n\n\ndef read(r):\n    return 1.0\n")
     out = subprocess.run(
@@ -124,7 +124,7 @@ def test_benchmark_files_alone_give_no_result(tmp_path):
 
 @pytest.mark.chip
 @pytest.mark.parametrize("name", ["bpe-v20000.t85k", "wp-v20000.t85k",
-                                  "bpe-v20000.t340k"])
+                                  "bpe-v20000.t340k", "wp-v20000.t340k"])
 def test_cell_runs_correct_on_the_card(name):
     need_card()
     out = subprocess.run(
@@ -164,3 +164,27 @@ def test_trace_reduction():
                                  "Memcpy DtoH (Device -> Pinned)"}
     assert [g[0] for g in t.idle_gaps] == ["train.frontend", "host", "host"]
     assert [round(g[1] * 1e6) for g in t.idle_gaps] == [40, 25, 15]
+
+
+def test_a_gap_is_named_by_the_innermost_span_over_half_of_it():
+    """A gap inside ``train.symbols``, which lies inside
+    ``train.final_fetch``: the outer span overlaps it most (as much as the
+    inner, and more where the inner stops short), yet the gap bears the
+    inner one's name. A gap that no span covers by half takes the one
+    that covers most of it."""
+    def note(name, ts, dur):
+        return {"ph": "X", "cat": "user_annotation", "name": name,
+                "ts": ts, "dur": dur}
+    ev = [note(devtrace.MARK, 0, 1000),
+          note("train.final_fetch", 100, 800),
+          note("train.final_copy", 100, 20),
+          note("train.symbols", 130, 760),
+          note("train.close", 905, 20),
+          {"ph": "X", "cat": "gpu_memcpy", "name": "Memcpy DtoH", "ts": 110,
+           "dur": 15},
+          {"ph": "X", "cat": "kernel", "name": "k()", "ts": 900, "dur": 100}]
+    t = devtrace.reduce(ev)
+    # gaps: 125-900 (775: symbols 760, final_fetch 775), 0-110 (110:
+    # final_fetch and final_copy cover 10 of it each)
+    assert [(g[0], round(g[1] * 1e6)) for g in t.idle_gaps] == [
+        ("train.symbols", 775), ("train.final_copy", 110)]
