@@ -53,7 +53,11 @@ reads one. The program's:
   ``train.graph_captures``, ``train.graph_replays``,
   ``train.blocks.<F>`` and ``train.graph_replays.<F>`` (at width F, 0
   for the padded layout), ``train.redos`` (K2's tournament redos),
-  ``train.overflow_compactions`` (the skip route's guard), and
+  ``train.overflow_compactions`` (the skip route's guard), the size of
+  the state of ``ops/train_loop.run_fused``: ``train.word_types``,
+  ``train.slots`` (the live slots it starts from) and
+  ``train.live_slots`` (the live slots its steps read, summed over the
+  merges learned; on the flat route that compacts every step), and
   ``train.frontend.fused`` / ``train.frontend.fallback`` (trains whose
   word types came from the native pass of core/corpus.train_words, or
   from the route it falls back to: an injected tokenizer, or U+0130 or

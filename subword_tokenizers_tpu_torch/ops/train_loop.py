@@ -332,7 +332,9 @@ class FlatState:
     dead tail off (merges only consume slots, and K3 compacts to the
     front). ``sym_freq`` is WordPiece's per-symbol weight table, None
     until :meth:`count_symbols`; K3 then carries it with every merge.
-    ``n_words`` is the number of word types (rows of :meth:`padded`).
+    ``n_words`` is the number of word types (rows of :meth:`padded`);
+    ``n_live`` the live slots while the host knows them: at the build,
+    None once a merge has run.
     """
 
     def __init__(self, fs: np.ndarray, wid: np.ndarray, wgt: np.ndarray,
@@ -341,6 +343,7 @@ class FlatState:
         self.F = int(fs.shape[0])
         live = fs >= 0
         self.n_words = int(wid[live].max()) + 1 if live.any() else 0
+        self.n_live: Optional[int] = int(live.sum())
         cur = tuple(torch.from_numpy(np.ascontiguousarray(x)).to(
             self.device) for x in (fs, wid, wgt))
         self._bufs = [cur, tuple(torch.empty_like(x) for x in cur)]
@@ -383,6 +386,7 @@ class FlatState:
         ``skip`` the merge is in place, nothing is compacted, and the
         scratch's gate tells the next :meth:`guard` whether the state
         overflows; a compacting merge closes that gate."""
+        self.n_live = None
         if skip:
             merge_skip(*self.arrays(), rec, skip, self.sym_freq,
                        scratch=self.scratch)
@@ -820,6 +824,14 @@ def run_fused(state: FlatState, table, max_vocab: int, max_len: int,
     (a block later than the JAX package's host would see them, as there:
     the shrink only cuts a dead tail, and positions are unchanged).
 
+    The profiler counts the size of the state (benchmarks/profiling.py):
+    ``train.word_types``, ``train.slots`` (the live slots the run starts
+    from) and, on the flat route that compacts every step, whose records
+    carry each step's live slots, ``train.live_slots``: the sum over the
+    merges learned of the live slots each step read. They come from the
+    host's state and the records it reads anyway, with no wait of their
+    own.
+
     With ``wordpiece`` the run first counts ``state.sym_freq`` with K4,
     selects by score, and merges into ``a + b[2:]``; the tournament
     (:func:`use_tournament`, narrow scores only: ``wide_score`` False)
@@ -839,10 +851,17 @@ def run_fused(state: FlatState, table, max_vocab: int, max_len: int,
     tournament = use_tournament(wordpiece, wide_score)
     if len(table) >= max_vocab:
         return state.padded()
+    live = state.n_live
+    if live is None:  # merged before the run (a resumed train)
+        live = int((state.arrays()[0] >= 0).sum())
+    profiling.count("train.word_types", state.n_words)
+    profiling.count("train.slots", live)
     if flat:
         skip = min(skip, 64, max(min(state.F, _FLAT_MIN) - 2, 0))
     else:
         state, skip = PaddedState.from_flat(state), 0
+    count_live = flat and not skip
+    read_live = 0  # live slots read by the merges learned
     with profiling.phase("train.loop_setup"):
         run = BlockRunner(state, table, max_vocab, max_len, K, wordpiece,
                           flat, skip, tournament)
@@ -863,7 +882,8 @@ def run_fused(state: FlatState, table, max_vocab: int, max_len: int,
             recs_np = run.fetch(pending.pop(0))
             with profiling.phase("train.verify"):
                 steps = 0
-                for a, b, new_id, _, active, _ in recs_np[:K].tolist():
+                for a, b, new_id, _, active, n_live in \
+                        recs_np[:K].tolist():
                     if not active:
                         done = True
                         break
@@ -877,6 +897,8 @@ def run_fused(state: FlatState, table, max_vocab: int, max_len: int,
                             f"host id {nid} for {merged!r}")
                     on_merge(sa, sb, merged)
                     steps += 1
+                    read_live += live
+                    live = n_live
             profiling.count("train.merges", steps)
             stats = tuple(int(x) for x in recs_np[K + 1, :2])
             if progress_cb is not None and steps:
@@ -895,6 +917,8 @@ def run_fused(state: FlatState, table, max_vocab: int, max_len: int,
         redos, overflows = stats
         profiling.count("train.redos", redos)
         profiling.count("train.overflow_compactions", overflows)
+        if count_live:
+            profiling.count("train.live_slots", read_live)
         with profiling.phase("train.final_fetch"), \
                 profiling.phase("train.final_copy"):
             return state.padded()

@@ -117,8 +117,8 @@ def test_report_keeps_span_entries_beside_counters(clean):
 
 def test_every_caller_calls_phase_through_the_module():
     """No module of the port imports ``phase`` (or ``count``) by name, so
-    a caller that swaps ``profiling.phase`` (portbench/devtrace.py's
-    ``annotate_phases``) sees every span."""
+    a caller that swaps the module's ``profiling.phase`` attribute (a
+    test's or a tool's patch) sees every span."""
     found = []
     for path in glob.glob(os.path.join(PACKAGE, "**", "*.py"),
                           recursive=True):

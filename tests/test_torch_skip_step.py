@@ -191,7 +191,9 @@ def test_gate_closed_after_block_close():
         if close:
             rec = torch.zeros(6, dtype=torch.int32)
             bufs = st._cur
-            want = jflat.compact_flat(*(jnp.asarray(x.numpy())
+            # a copy: JAX on the CPU may alias the array and read it
+            # after the close has changed it in place
+            want = jflat.compact_flat(*(jnp.asarray(x.numpy().copy())
                                         for x in st.arrays()))
             st.close(rec)
             assert int(st.scratch.words[GATE]) == 0 and st._cur == bufs

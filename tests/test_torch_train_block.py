@@ -386,7 +386,9 @@ def test_device_epochs_across_the_restart_match_jax(start):
     restarted = False
     for step in range(6):
         a, b = int(cur[0][cur[0] >= 0][0]), int(cur[0][cur[0] >= 0][1])
-        j = [jnp.asarray(x.numpy()) for x in cur]
+        # copies: JAX on the CPU may alias a NumPy array's memory and read
+        # it later, and the plain versions change these tensors in place
+        j = [jnp.asarray(x.numpy().copy()) for x in cur]
         nsym, nwid = jflat.skip_next(j[0], j[1], 2)
         cpos = jnp.cumsum((j[0] >= 0).astype(jnp.int32)) - 1
         want = jflat.flat_skip_apply(*j, nsym, nwid, cpos, a, b, new_id, 2)
@@ -397,12 +399,13 @@ def test_device_epochs_across_the_restart_match_jax(start):
         epoch = 1 if sc.calls < before else epoch + 1
         for g, w in zip(cur, want[:3]):
             assert np.array_equal(g.numpy(), np.asarray(w))
-        ovf = bool(jflat.skip_overflow(*(jnp.asarray(x.numpy())
+        ovf = bool(jflat.skip_overflow(*(jnp.asarray(x.numpy().copy())
                                          for x in cur[:2]), 2))
         assert sc.epoch == epoch and int(sc.words[0]) == int(want[3])
         assert int(sc.words[GATE]) == epoch << 1 | int(ovf)
         count = torch.zeros(1, dtype=torch.int32)
-        comp = jflat.compact_flat(*(jnp.asarray(x.numpy()) for x in cur))
+        comp = jflat.compact_flat(*(jnp.asarray(x.numpy().copy())
+                                    for x in cur))
         before = sc.calls
         flat.skip_guard(*cur, count, sc)
         restarted |= sc.calls < before
@@ -415,8 +418,8 @@ def test_device_epochs_across_the_restart_match_jax(start):
                 assert np.array_equal(g.numpy(), np.asarray(w))
             assert int(sc.words[GATE]) == 0
         a, b = int(cur[0][cur[0] >= 0][0]), int(cur[0][cur[0] >= 0][1])
-        want = jflat.flat_apply(*(jnp.asarray(x.numpy()) for x in cur), a, b,
-                                new_id + 1)
+        want = jflat.flat_apply(*(jnp.asarray(x.numpy().copy())
+                                  for x in cur), a, b, new_id + 1)
         rec = torch.tensor([a, b, new_id + 1, 0, 1, 0], dtype=torch.int32)
         before = sc.calls
         got = flat.merge_apply(*cur, rec, scratch=sc)
