@@ -1,16 +1,17 @@
 """ctypes binding for the native host front end and stitch.
 
 It serves FastWP's encode (``encode_prep``, ``pack_u16_rows``,
-``chunk_unique``, the stitches), the encoders' front end
-(``split_bounds``, ``split_corpus``, ``unique_spans``) and the trainers'
-(``count_words``).
+``chunk_unique``, the stitches) and its end-to-end trie (``e2e_trie``),
+the encoders' front end (``split_bounds``, ``split_corpus``,
+``unique_spans``) and the trainers' (``count_words``).
 
 The C++ sources are this package's own ``_native/{pretok,chunker,stitch,
 encode_prep}.cpp`` (copies of the JAX package's, held to it by the
 front-end and stitch parity tests, not by bytes) and
-``_native/count_words.cpp``, the port's own. They are compiled with
-g++ once per source change into ``_native/build/``. Without g++ the
-first call raises: the port has no slower host path to fall back to.
+``_native/{count_words,e2e_trie}.cpp``, the port's own. They are
+compiled with g++ once per source change into ``_native/build/``.
+Without g++ the first call raises: the port has no slower host path to
+fall back to.
 """
 from __future__ import annotations
 
@@ -28,7 +29,7 @@ import numpy as np
 SRC_DIR = os.path.dirname(os.path.abspath(__file__))
 _SRCS = [os.path.join(SRC_DIR, name) for name in
          ("pretok.cpp", "chunker.cpp", "stitch.cpp", "encode_prep.cpp",
-          "count_words.cpp")]
+          "count_words.cpp", "e2e_trie.cpp")]
 BUILD_DIR = os.path.join(SRC_DIR, "build")
 _FLAGS = ["-O3", "-march=native", "-pthread", "-shared", "-fPIC",
           "-std=c++17"]
@@ -39,6 +40,7 @@ _stitch_fn = None
 _stitch_flat_fn = None
 _prep_fn = None
 _count_fn = None
+_trie_fn = None
 
 
 def _so_path() -> str:
@@ -77,7 +79,7 @@ def _build(so_path: str) -> None:
 
 def load() -> ctypes.CDLL:
     """Build (once) and load the native library; raises if it cannot."""
-    global _lib, _stitch_fn, _stitch_flat_fn, _prep_fn, _count_fn
+    global _lib, _stitch_fn, _stitch_flat_fn, _prep_fn, _count_fn, _trie_fn
     if _lib is not None:
         return _lib
     so_path = _so_path()
@@ -117,13 +119,20 @@ def load() -> ctypes.CDLL:
         ctypes.POINTER(ctypes.c_void_p), i64p)(("swt_count_words_mt", lib))
     lib.swt_count_words_take.restype = None
     lib.swt_count_words_take.argtypes = [ctypes.c_void_p, u32p, i64p, i64p]
-    from ..frontend.charclass import (LOWER, LOWER_SPECIAL, PUNC_PY,
-                                      PUNCT_HF, WS_HF, WS_PY)
+    _trie_fn = ctypes.PYFUNCTYPE(
+        i64, ctypes.py_object, u8p, u8p, ctypes.POINTER(ctypes.c_void_p),
+        i64p)(("swt_e2e_trie_build", lib))
+    lib.swt_e2e_trie_take.restype = None
+    lib.swt_e2e_trie_take.argtypes = [ctypes.c_void_p, i64p, i32p, i32p,
+                                      i32p, i32p, i32p, i32p, i64p]
+    from ..frontend.charclass import (ALNUM_PY, LOWER, LOWER_SPECIAL,
+                                      PUNC_PY, PUNCT_HF, WS_HF, WS_PY)
     _tables.update(
         ws_hf=np.ascontiguousarray(np.packbits(WS_HF)),
         punct_hf=np.ascontiguousarray(np.packbits(PUNCT_HF)),
         ws_py=np.ascontiguousarray(np.packbits(WS_PY)),
         punc_py=np.ascontiguousarray(np.packbits(PUNC_PY)),
+        alnum_py=np.ascontiguousarray(np.packbits(ALNUM_PY)),
         lower_special=np.ascontiguousarray(np.packbits(LOWER_SPECIAL)),
         lower=np.ascontiguousarray(LOWER, dtype=np.uint32))
     _lib = lib
@@ -342,6 +351,48 @@ def count_words(sents: list, *, _threads: Optional[int] = None):
     bounds = off.tolist()
     words = [text[a:b] for a, b in zip(bounds, bounds[1:])]
     return words, freq
+
+
+def e2e_trie(vocab: list) -> dict:
+    """FastWP's end-to-end trie of ``vocab`` (a list of str, inserted in
+    its order after "##") in one native pass (``e2e_trie.cpp``).
+
+    Returns the tables of :class:`models.trie.E2ETrie` under its field
+    names, with the pops as ranks (``pops_rank`` i32[n_pops] in place of
+    ``pops_flat``): rank k is the k-th ``is_end`` node the level-order
+    pass meets, and ``end_token`` i64[n_ends] gives, by rank, the index
+    in ``vocab`` of a token that ends there. Raises TypeError unless
+    ``vocab`` is a list of str.
+    """
+    lib = load()
+    result = ctypes.c_void_p()
+    sizes = np.zeros(8, dtype=np.int64)
+    if _trie_fn(vocab, _ptr(_tables["alnum_py"], ctypes.c_uint8),
+                _ptr(_tables["ws_py"], ctypes.c_uint8), ctypes.byref(result),
+                _ptr(sizes, ctypes.c_int64)) == -2:
+        raise TypeError("e2e_trie expects a list of str")
+    n, n_edges, n_alpha, n_pops, n_ends, root_sharp, root_p, has_ws = (
+        sizes.tolist())
+    out = None
+    try:
+        out = dict(edge_keys=np.empty(n_edges, dtype=np.int64),
+                   edge_vals=np.empty(n_edges, dtype=np.int32),
+                   fail=np.empty(n, dtype=np.int32),
+                   pops_off=np.empty(n + 1, dtype=np.int32),
+                   pops_rank=np.empty(n_pops, dtype=np.int32),
+                   goto=np.empty((n, n_alpha + 1), dtype=np.int32),
+                   alpha=np.empty(0x110000, dtype=np.int32),
+                   end_token=np.empty(n_ends, dtype=np.int64))
+    finally:
+        # Copies the result out (the buffers in the take's order), or with
+        # them missing only frees it.
+        lib.swt_e2e_trie_take(result, *(
+            [None] * 8 if out is None else
+            [_ptr(a, ctypes.c_int64 if a.dtype == np.int64 else
+                  ctypes.c_int32) for a in out.values()]))
+    out.update(n_nodes=n, n_alpha=n_alpha, root_sharp=root_sharp,
+               root_p=root_p, has_ws_token=bool(has_ws))
+    return out
 
 
 def pack_u16_rows(uniq_buf: np.ndarray, uniq_off: np.ndarray,

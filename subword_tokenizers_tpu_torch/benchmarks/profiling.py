@@ -61,7 +61,10 @@ reads one. The program's:
   ``train.frontend.fused`` / ``train.frontend.fallback`` (trains whose
   word types came from the native pass of core/corpus.train_words, or
   from the route it falls back to: an injected tokenizer, or U+0130 or
-  U+03A3 in the corpus).
+  U+03A3 in the corpus);
+- ``trie.native`` (FastWP's end-to-end tries built, each in one native
+  pass of ``models/trie.E2ETrie.build``: one a FastWP train) and
+  ``trie.nodes`` (their nodes, summed).
 
 :func:`reset` zeroes the spans and the counters; :func:`report` lists
 each span as ``{"total_s", "count", "mean_s"}`` and each counter as

@@ -4,13 +4,14 @@
 longest-match kernel: a dense ``goto`` table and each node's output
 token id (``accept``, -1 where no vocab token ends).
 
-:class:`E2ETrie` is FastWP's LinMaxMatch end-to-end trie. Both are built
-on the host exactly as the JAX package builds them
-(``subword_tokenizers_tpu/models/trie.py``); for ``E2ETrie.build``:
-level-order processing; is_end nodes fail to the "##" node with a single
-pop; other nodes accumulate pops along the parent's failure chain; and
-any node whose character is not Python-alphanumeric has its failure
-link overridden to a dedicated punctuation root ``root_p``.
+:class:`E2ETrie` is FastWP's LinMaxMatch end-to-end trie. Both hold the
+tables the JAX package builds (``subword_tokenizers_tpu/models/trie.py``);
+``MatchTrie`` is built in Python, ``E2ETrie`` in one native pass
+(``_native/e2e_trie.cpp``). For ``E2ETrie``: level-order processing;
+is_end nodes fail to the "##" node with a single pop; other nodes
+accumulate pops along the parent's failure chain; and any node whose
+character is not Python-alphanumeric has its failure link overridden to
+a dedicated punctuation root ``root_p``.
 
 Transitions are kept twice: as a dense ``goto[node, alpha[cp]]`` table
 (the device scan's one gather per step; column ``A`` is the all -1 OOV
@@ -25,7 +26,8 @@ from typing import Dict, Iterable, List, Tuple
 
 import numpy as np
 
-from ..frontend.charclass import ALNUM_PY, WS_PY
+from .._native import binding
+from ..benchmarks import profiling
 
 CP_BITS = 21
 NO_NODE = -1
@@ -118,82 +120,17 @@ class E2ETrie:
 
     @classmethod
     def build(cls, vocab: Iterable[str], out_table) -> "E2ETrie":
-        """``out_table``: SymbolTable interning the output tokens."""
-        # Node 0 = root. root_p is a standalone node with no edges.
-        children: List[Dict[int, int]] = [{}]
-        char: List[int] = [NO_NODE]
-        is_end: List[bool] = [False]
-        strings: List[str] = [""]
-
-        def insert(word: str) -> int:
-            node = 0
-            for c in word:
-                cp = ord(c)
-                nxt = children[node].get(cp)
-                if nxt is None:
-                    nxt = len(children)
-                    children[node][cp] = nxt
-                    children.append({})
-                    char.append(cp)
-                    is_end.append(False)
-                    strings.append(strings[node] + c)
-                node = nxt
-            is_end[node] = True
-            return node
-
-        root_sharp = insert("##")
-        for tok in vocab:
-            insert(tok)
-        root_p = len(children)
-        children.append({})
-        char.append(NO_NODE)
-        is_end.append(False)
-        strings.append("")
-
-        n = len(children)
-        fail = np.full(n, NO_NODE, dtype=np.int32)
-        pops: List[List[int]] = [[] for _ in range(n)]
-
-        # Level order: parents strictly before children.
-        queue = [0, root_sharp]
-        head = 0
-        while head < len(queue):
-            cur = queue[head]
-            head += 1
-            for cp, child in children[cur].items():
-                if child == root_sharp:
-                    continue
-                if is_end[child]:
-                    fail[child] = root_sharp
-                    pops[child] = [out_table.intern(strings[child])]
-                else:
-                    f = fail[cur]
-                    acc: List[int] = []
-                    while f != NO_NODE and cp not in children[f]:
-                        acc.extend(pops[f])
-                        f = fail[f]
-                    if f != NO_NODE:
-                        fail[child] = children[f][cp]
-                        pops[child] = list(pops[cur]) + acc
-                # Punctuation-char nodes fail to root_p; pops are kept.
-                if not ALNUM_PY[char[child]]:
-                    fail[child] = root_p
-                queue.append(child)
-
-        keys, vals = _pack_edges(children)
-        goto, alpha, n_alpha = _dense_tables(children)
-        pops_off = np.zeros(n + 1, dtype=np.int32)
-        flat: List[int] = []
-        for i in range(n):
-            flat.extend(pops[i])
-            pops_off[i + 1] = len(flat)
-        has_ws = any(WS_PY[cp] for ch in children for cp in ch)
-        return cls(edge_keys=keys, edge_vals=vals, fail=fail,
-                   pops_off=pops_off,
-                   pops_flat=np.asarray(flat, dtype=np.int32),
-                   root=0, root_p=root_p, root_sharp=root_sharp, n_nodes=n,
-                   goto=goto, alpha=alpha, n_alpha=n_alpha,
-                   has_ws_token=has_ws)
+        """``out_table``: SymbolTable interning the output tokens, in the
+        order the level-order pass meets their nodes."""
+        vocab = vocab if isinstance(vocab, list) else list(vocab)
+        t = binding.e2e_trie(vocab)
+        ids = np.fromiter(
+            map(out_table.intern, map(vocab.__getitem__,
+                                      t.pop("end_token").tolist())),
+            dtype=np.int32)
+        profiling.count("trie.native")
+        profiling.count("trie.nodes", t["n_nodes"])
+        return cls(pops_flat=ids[t.pop("pops_rank")], root=0, **t)
 
     @property
     def max_pops(self) -> int:
