@@ -8,23 +8,30 @@ Spans. FastWP's batched encode wraps each stage in :func:`phase`:
 ids), ``encode.h2d``, ``encode.bpe_merge`` or ``encode.wp_match``,
 ``encode.compact``, ``encode.d2h`` and ``encode.stitch``; NaiveBPE's
 host route for a merge list with a pair listed twice is
-``encode.host``. BPE and WordPiece training: ``train.frontend``,
+``encode.host``. BPE and WordPiece training, opened by
+models/training.py unless named otherwise: ``train.frontend``,
 ``train.alphabet`` (the initial symbols and the corpus's size),
-``train.corpus`` (symbol interning, flat state, host-to-device copy),
-``train.resume``, ``train.loop_setup`` (a run's tables, host buffers
-and events, and WordPiece's first K4), ``train.device_block`` (a block
-of K steps queued step by step or replayed as one CUDA graph),
-``train.capture`` (a block's graph captured), ``train.fetch_records``
-(the host's wait for a block's records), ``train.verify``,
-``train.per_step``, ``train.final_fetch`` (the final state and the
-symbol lists built from it, holding ``train.final_copy``, the state's
-copy to the host, and ``train.symbols``, the lists), ``train.close``
-(the block in flight drained and the graphs released), FastBPE's
-``train.ranks`` and FastWP's ``train.trie``; under a mesh
-``train.sharded`` (the step loop) holds ``train.device_step`` (a tier
-queued step by step), ``train.capture`` (a tier's graph captured),
-``train.step_replay`` (a tier's graph replayed) and
-``train.fetch_records`` (the wait for a tier's record).
+``train.corpus`` (symbol interning, flat state, host-to-device copy;
+under a mesh a second one builds the sharded trainer),
+``train.resume``, ``train.per_step`` (the exact per-step loop), and
+``train.final_fetch`` (the final state and the symbol lists built from
+it, holding ``train.final_copy``, the state's copy to the host, and
+``train.symbols``, the lists); ops/train_loop.run_fused opens
+``train.loop_setup`` (a run's tables, host buffers and events, and
+WordPiece's first K4), ``train.verify``, its own ``train.final_fetch``
+holding ``train.final_copy`` (models/training.py's then holds only
+``train.symbols``) and ``train.close`` (the block in flight drained and
+the graphs released), and its ``BlockRunner`` ``train.device_block`` (a
+block of K steps queued step by step or replayed as one CUDA graph),
+``train.capture`` (a block's graph captured) and
+``train.fetch_records`` (the host's wait for a block's records);
+models/bpe.FastBPE opens ``train.ranks`` and models/wordpiece.FastWP
+``train.trie``. Under a mesh models/training.py's ``train.sharded`` (the step
+loop) holds parallel/train.ShardedTrainer's ``train.device_step`` (a
+tier queued step by step), ``train.capture`` (a tier's graph
+captured), ``train.step_replay`` (a tier's graph replayed) and
+``train.fetch_records`` (the wait for a tier's record), and
+models/training.py closes the trainer in ``train.close``.
 
 A span times the host's wall alone (``time.perf_counter``) and never
 waits on the device: kernels launch asynchronously, so a span that

@@ -72,6 +72,15 @@ class SymbolCorpus:
     words: List[str]         # word types, first-occurrence order
 
 
+def symbol_lists(sym: np.ndarray, freq: np.ndarray, table: SymbolTable
+                 ) -> List[Tuple[List[str], int]]:
+    """``corpus_as_symbols`` of a trained state: for each word type, the
+    strings of the symbol ids of its row of ``sym`` (PAD left out) and
+    its frequency."""
+    return [([table.string(int(s)) for s in row if s >= 0], int(f))
+            for row, f in zip(sym, freq)]
+
+
 def build_bpe_corpus(words: Sequence[str], freq: np.ndarray,
                      table: SymbolTable) -> SymbolCorpus:
     """BPE's initial state: each word split into its characters, interned

@@ -5,17 +5,17 @@ pre-tokenization (any object exposing
 ``backend_tokenizer.pre_tokenizer.pre_tokenize_str``)."""
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from .. import utils
 from ..benchmarks import profiling
 from ..frontend.charclass import codepoints
 from ..frontend.pretokenize import (Token, WordBatch, pre_tokenize_str,
                                     pretokenize_batch)
 from ..ops.fetch import compact_ids
+from . import training
 
 
 def resolve_device(owner: object, device) -> torch.device:
@@ -72,10 +72,47 @@ def resolve_mesh(owner: object, mesh, device: torch.device) -> torch.device:
 class SubwordTokenizer:
     """Parent class for the port's tokenizers."""
 
-    def __init__(self, tokenizer: Optional[object] = None) -> None:
+    def __init__(self, tokenizer: Optional[object] = None,
+                 mesh: Optional[object] = None, *, device="cuda") -> None:
         """``tokenizer``: an HF-style tokenizer used only for
-        pre-tokenization; None takes the built-in front end."""
+        pre-tokenization; None takes the built-in front end. ``mesh``: a
+        data mesh on ``device``'s type (parallel/mesh.py), which shards
+        training; ``device``: "cuda" or "cpu"."""
         self.tokenizer = tokenizer
+        self.mesh = mesh
+        self.device = resolve_mesh(self, mesh, resolve_device(self, device))
+        self.vocab: set = set()
+        self.corpus_as_symbols: List[Tuple[List[str], int]] = []
+        self._checkpoint_dir: Optional[str] = None
+        self._checkpoint_every = 1000
+        self._resume_dir: Optional[str] = None
+        self._progress = False
+        self._force_per_step = False
+
+    def train(self, corpus: List[str], max_vocab: int = 30_000, *,
+              checkpoint_dir: Optional[str] = None,
+              checkpoint_every: int = 1000, resume: bool = False,
+              progress: bool = False) -> None:
+        """Learn merges until the vocabulary holds ``max_vocab`` tokens
+        or no pair is left (models/training.py, for every model and
+        route).
+
+        ``checkpoint_dir`` writes a checkpoint there (BPE's
+        ``merges.json``, WordPiece's ``wp_state.json`` and
+        ``vocab.json``) every ``checkpoint_every`` merges (after the
+        block that passes it) and at the end; ``resume=True`` replays
+        the merges found there over the rebuilt corpus first and trains
+        on from that state. ``progress`` writes the count of merges to
+        stderr (``utils.Progress``).
+
+        Under a mesh it also sets ``_sel_stats`` (the steps each tier
+        settled), ``_topk_fallbacks`` and ``_graph_stats`` (the run's
+        captures, replays and steps queued step by step:
+        parallel/train.ShardedTrainer); ``_force_tier`` ('compact' or
+        'full') pins the selection to one exact tier.
+        """
+        training.train(self, corpus, max_vocab, checkpoint_dir,
+                       checkpoint_every, resume, progress)
 
     def preprocessing(self, corpus: List[str]) -> List[List[Token]]:
         """Lower and pre-split each sentence: per sentence,
@@ -107,79 +144,6 @@ class SubwordTokenizer:
                          word_end=np.asarray(we, dtype=np.int64),
                          sent_id=np.asarray(sid, dtype=np.int32),
                          sent_cp_off=sent_off)
-
-    def _train_on_mesh(self, arrays, table, max_vocab: int, log: list,
-                       join, resume, save, desc: str, sym_cap=None,
-                       wide_score: bool = False) -> None:
-        """Training under ``self.mesh`` (parallel/train.py), the JAX
-        package's per-step loop: the tiered selection, host interning of
-        ``join(sa, sb)``, K3p on every shard. ``resume`` is the merges to
-        replay first, ``save()`` writes a checkpoint, ``log`` gets each
-        merge's pair; ``sym_cap`` (WordPiece) selects by exact score.
-        Sets ``vocab``, ``corpus_as_symbols``, ``_sel_stats``,
-        ``_topk_fallbacks`` and ``_graph_stats`` (the run's captures,
-        replays and steps queued step by step: ShardedTrainer);
-        ``_force_tier`` ('compact' or 'full') pins the selection to one
-        exact tier. The trainer's graphs are released when the run ends."""
-        from ..parallel.train import ShardedTrainer
-        dev = self.device
-        with profiling.phase("train.corpus", dev):
-            trainer = ShardedTrainer(
-                self.mesh, arrays.sym, arrays.freq, sym_cap=sym_cap,
-                wide_score=wide_score,
-                force_tier=getattr(self, "_force_tier", None))
-        self._sel_stats = trainer.sel_stats
-        self._topk_fallbacks = 0
-        self._graph_stats = trainer.graph_stats
-
-        def merge(a_id, b_id, sa, sb):
-            merged = join(sa, sb)
-            self.vocab.add(merged)
-            log.append((sa, sb))
-            trainer.merge(a_id, b_id, table.intern(merged))
-
-        try:
-            for sa, sb in resume:
-                a_id, b_id = table.get(sa), table.get(sb)
-                if a_id is None or b_id is None:
-                    raise ValueError(
-                        "checkpoint does not match this corpus: "
-                        f"unknown symbol in merge ({sa!r}, {sb!r})")
-                merge(a_id, b_id, sa, sb)
-            pbar = None
-            if self._progress:
-                pbar = utils.Progress(total=max_vocab - len(self.vocab),
-                                      desc=desc)
-            steps = 0
-            with profiling.phase("train.sharded", dev):
-                while len(self.vocab) < max_vocab:
-                    got = trainer.select()
-                    self._topk_fallbacks = trainer.topk_fallbacks
-                    if got is None:
-                        break
-                    merge(*got, table.string(got[0]), table.string(got[1]))
-                    steps += 1
-                    profiling.count("train.merges")
-                    if pbar is not None:
-                        pbar.update(1)
-                    if (self._checkpoint_dir is not None
-                            and steps % self._checkpoint_every == 0):
-                        save()
-        finally:
-            with profiling.phase("train.close"):
-                trainer.close()
-        if pbar is not None:
-            pbar.close()
-        if self._checkpoint_dir is not None:
-            save()
-        with profiling.phase("train.final_fetch"):
-            with profiling.phase("train.final_copy"):
-                sym_host = trainer.host()
-            with profiling.phase("train.symbols"):
-                self.corpus_as_symbols = [
-                    ([table.string(int(s)) for s in row if s >= 0], int(f))
-                    for row, f in zip(sym_host, arrays.freq)
-                ]
 
     def vocab_length(self, corpus: List[str]) -> int:
         """Number of distinct characters in the corpus."""

@@ -1,31 +1,11 @@
 """BPE tokenizers of the port: NaiveBPE and FastBPE, training and
 resources.
 
-``train`` gives the JAX package's ``models/bpe.py`` results exactly
-(``merges_list``, ``vocab``, ``corpus_as_symbols``, ``merges.json``,
-FastBPE's ``_bpe_ranks``) and raises its errors. The path:
-
-1. one threaded C++ pass over the sentences lowers and pre-splits them
-   and counts the word types in first-occurrence order
-   (``train.frontend``, core/corpus.train_words), and the initial
-   symbols are gathered (``train.alphabet``);
-2. the word types become the flat state (ops/flat.py), interned
-   character by character (``train.corpus``), and go to ``device``;
-3. ops/train_loop.run_fused runs blocks of K merge steps, each step
-   kernel K1 (pair counts), K2 (selection and hash unification) and K3
-   (merge and compaction), then checks the block's records on the host
-   (``train.loop_setup``, ``train.device_block``, ``train.capture``,
-   ``train.fetch_records``, ``train.verify``, ``train.close``);
-4. on a hash collision the run is redone on the exact per-step path
-   (K1, K2 selection only, host interning, K3);
-5. the final state comes back in one copy (``train.final_fetch``,
-   holding ``train.final_copy``), and becomes ``corpus_as_symbols``
-   (``train.symbols``, inside ``train.final_fetch``); FastBPE then
-   ranks the merges (``train.ranks``).
-
-``SWT_SKIP_COMPACT`` (and, for WordPiece, ``SWT_WP_TOURNAMENT``) choose
-the other routes of step 3, with the same merges, as in the JAX package
-(ops/train_loop.run_fused); unset, every step compacts.
+``train`` (models/training.py, written once for both models) gives the
+JAX package's ``models/bpe.py`` results exactly (``merges_list``,
+``vocab``, ``corpus_as_symbols``, ``merges.json``, FastBPE's
+``_bpe_ranks``) and raises its errors; FastBPE then ranks the merges
+(``train.ranks``).
 
 Encoding gives the JAX package's token lists. ``tokenize`` and
 ``encode_word`` run on the host (NaiveBPE: the cursor-monotone greedy
@@ -54,10 +34,8 @@ the host as ``[""]``.
 ``device="cpu"`` runs the kernels' plain PyTorch versions.
 
 With ``mesh`` (parallel/mesh.py) training shards the word types across
-the mesh and picks each merge through the tiered selection of
-parallel/train.py, with the same merges as one device (there is no
-fused block loop under a mesh, as in the JAX package); encoding keeps
-its kernels on the mesh's first device.
+the mesh (models/training.py), with the same merges as one device;
+encoding keeps its kernels on the mesh's first device.
 """
 from __future__ import annotations
 
@@ -68,17 +46,13 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from .. import utils
 from .._native import binding
 from ..benchmarks import profiling
 from ..core.corpus import build_bpe_corpus, train_words, unique_words
 from ..core.symbols import SymbolTable
 from ..frontend.charclass import codepoints
-from ..ops import train_loop
 from ..ops.bpe_encode import SYM_BITS, bpe_encode, build_rank_hash
-from ..ops.flat import build_flat
-from .base import (SubwordTokenizer, fetch_stream, resolve_device,
-                   resolve_mesh)
+from .base import SubwordTokenizer, fetch_stream
 from .state import BPEState
 
 # Training domain ceiling: per-pair counts, and every sum of them the
@@ -133,167 +107,32 @@ class NaiveBPE(SubwordTokenizer):
 
     def __init__(self, tokenizer: Optional[object] = None,
                  mesh: Optional[object] = None, *, device="cuda") -> None:
-        super().__init__(tokenizer)
-        self.mesh = mesh
-        self.device = resolve_mesh(self, mesh, resolve_device(self, device))
+        super().__init__(tokenizer, mesh, device=device)
         self.merges_list: List[Tuple[str, str]] = []
-        self.vocab: set = set()
-        self.corpus_as_symbols: List[Tuple[List[str], int]] = []
         self._drop_encode_state()
-        self._checkpoint_dir: Optional[str] = None
-        self._checkpoint_every = 1000
-        self._resume_dir: Optional[str] = None
-        self._progress = False
-        self._force_per_step = False
 
     # ------------------------------------------------------------ training
+    # What models/training.py takes from BPE to train it.
 
-    def train(self, corpus: List[str], max_vocab: int = 30_000, *,
-              checkpoint_dir: Optional[str] = None,
-              checkpoint_every: int = 1000, resume: bool = False,
-              progress: bool = False) -> None:
-        """Learn merges until the vocabulary reaches ``max_vocab``.
+    _WORDPIECE = False
+    _DOMAIN = (MAX_TOKENS_BPE, "exact-selection")
+    _TYPE_ERRORS = ("Corpus must be a list of strings.",
+                    "Maximum vocabulary size must be an integer.")
+    _LABEL = "Training BPE"
+    _LOG = "merges_list"
+    _build_corpus = staticmethod(build_bpe_corpus)
 
-        ``checkpoint_dir`` writes ``merges.json`` there every
-        ``checkpoint_every`` merges (after the block that passes it) and
-        at the end; ``resume=True`` replays the merges found there over
-        the rebuilt corpus first and trains on from that state.
-        ``progress`` writes the count of merges to stderr
-        (``utils.Progress``).
-        """
-        if not isinstance(corpus, list) or not all(
-                isinstance(example, str) for example in corpus):
-            raise TypeError("Corpus must be a list of strings.")
-        if not isinstance(max_vocab, int):
-            raise TypeError("Maximum vocabulary size must be an integer.")
+    def _train_words(self, corpus: List[str]):
+        """core/corpus.train_words, by this module's name for it."""
+        return train_words(self, corpus)
 
-        self.reset()
-        self._checkpoint_dir = checkpoint_dir
-        self._checkpoint_every = max(int(checkpoint_every), 1)
-        self._resume_dir = checkpoint_dir if resume else None
-        self._progress = progress
+    def _save_checkpoint(self) -> None:
+        """The training checkpoint: ``merges.json``."""
+        self.save_resources(self._checkpoint_dir)
 
-        with profiling.phase("train.frontend"):
-            words, freq = train_words(self, corpus)
-        with profiling.phase("train.alphabet"):
-            for w in words:
-                self.vocab.update(w)
-            total_tokens = int((np.array([len(w) for w in words],
-                                         dtype=np.int64) * freq).sum())
-        if not words:
-            return
-        if total_tokens >= MAX_TOKENS_BPE:
-            raise ValueError(
-                "corpus exceeds the exact-selection domain "
-                f"({total_tokens} symbol occurrences >= 2**52)")
-
-        dev = self.device
-        table = SymbolTable()
-        if self.mesh is not None:
-            with profiling.phase("train.corpus", dev):
-                arrays = build_bpe_corpus(words, freq, table)
-            self._train_on_mesh(
-                arrays, table, max_vocab, self.merges_list,
-                lambda sa, sb: sa + sb,
-                _read_merges(self._resume_dir, strict=True)
-                if self._resume_dir is not None else [],
-                lambda: self.save_resources(self._checkpoint_dir),
-                "Training BPE")
-            return
-        with profiling.phase("train.corpus", dev):
-            arrays = build_bpe_corpus(words, freq, table)
-            state = train_loop.FlatState(*build_flat(arrays.sym,
-                                                     arrays.freq), dev)
-        max_len = arrays.sym.shape[1]
-        rec = torch.zeros(6, dtype=torch.int32, device=dev)
-
-        if self._resume_dir is not None:
-            # Training is deterministic: replaying the checkpointed
-            # merges rebuilds the interrupted state exactly.
-            with profiling.phase("train.resume", dev):
-                for sa, sb in _read_merges(self._resume_dir, strict=True):
-                    a_id, b_id = table.get(sa), table.get(sb)
-                    if a_id is None or b_id is None:
-                        raise ValueError(
-                            "checkpoint does not match this corpus: "
-                            f"unknown symbol in merge ({sa!r}, {sb!r})")
-                    merged = sa + sb
-                    self.vocab.add(merged)
-                    self.merges_list.append((sa, sb))
-                    train_loop.merge_host_ids(state, a_id, b_id,
-                                              table.intern(merged), rec)
-
-        sym_host = None  # the final state, when run_fused returns it
-        pbar = None
-        if self._progress:
-            pbar = utils.Progress(total=max_vocab - len(self.vocab),
-                                  desc="Training BPE")
-
-        if not self._force_per_step:
-            def on_merge(sa, sb, merged):
-                self.vocab.add(merged)
-                self.merges_list.append((sa, sb))
-
-            since_ckpt = [0]
-
-            def ckpt_cb(steps):
-                since_ckpt[0] += steps
-                if since_ckpt[0] >= self._checkpoint_every:
-                    since_ckpt[0] = 0
-                    self.save_resources(self._checkpoint_dir)
-
-            try:
-                sym_host = train_loop.run_fused(
-                    state, table, max_vocab, max_len, on_merge,
-                    checkpoint_cb=(ckpt_cb if self._checkpoint_dir
-                                   is not None else None),
-                    progress_cb=pbar.update if pbar is not None else None)
-            except train_loop.HashCollision:
-                # A double-hash collision: redo the whole run on the
-                # exact per-step path.
-                if pbar is not None:
-                    pbar.close()
-                self._force_per_step = True
-                try:
-                    return self.train(
-                        corpus, max_vocab,
-                        checkpoint_dir=self._checkpoint_dir,
-                        checkpoint_every=self._checkpoint_every,
-                        resume=self._resume_dir is not None,
-                        progress=self._progress)
-                finally:
-                    self._force_per_step = False
-        else:
-            steps = 0
-            with profiling.phase("train.per_step", dev):
-                while len(self.vocab) < max_vocab:
-                    got = train_loop.step_host_ids(state, table, rec)
-                    if got is None:
-                        break
-                    sa, sb, merged = got
-                    self.vocab.add(merged)
-                    self.merges_list.append((sa, sb))
-                    steps += 1
-                    profiling.count("train.merges")
-                    if pbar is not None:
-                        pbar.update(1)
-                    if (self._checkpoint_dir is not None
-                            and steps % self._checkpoint_every == 0):
-                        self.save_resources(self._checkpoint_dir)
-        if pbar is not None:
-            pbar.close()
-        if self._checkpoint_dir is not None:
-            self.save_resources(self._checkpoint_dir)
-
-        with profiling.phase("train.final_fetch"):
-            if sym_host is None:
-                with profiling.phase("train.final_copy"):
-                    sym_host = state.padded()
-            with profiling.phase("train.symbols"):
-                self.corpus_as_symbols = [
-                    ([table.string(int(s)) for s in row if s >= 0], int(f))
-                    for row, f in zip(sym_host, arrays.freq)
-                ]
+    def _saved_merges(self) -> List[Tuple[str, str]]:
+        """The merges of the checkpoint to resume from."""
+        return _read_merges(self._resume_dir, strict=True)
 
     # ------------------------------------------------------------ encoding
 

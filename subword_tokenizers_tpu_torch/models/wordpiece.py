@@ -6,13 +6,13 @@ Outputs equal the JAX package's ``subword_tokenizers_tpu/models/
 wordpiece.py`` token for token and merge for merge, and its errors are
 raised with the same type, order and text.
 
-``train`` runs BPE's path (models/bpe.py) with WordPiece's three
-differences: words are interned as their first character and ``"##" +
-ch`` for every later one; the winner is the pair of largest score
-``count / (freq_a * freq_b)``, compared as the exact double CPython
-computes (ops/bitmath.py), over per-symbol weights that kernel K4
-counts once and K3 carries; the merged token is ``a + b[2:]``. Only the
-vocabulary is a resource; the merge log is kept for checkpoints
+``train`` is BPE's, written once (models/training.py), with WordPiece's
+three differences: words are interned as their first character and
+``"##" + ch`` for every later one; the winner is the pair of largest
+score ``count / (freq_a * freq_b)``, compared as the exact double
+CPython computes (ops/bitmath.py), over per-symbol weights that kernel
+K4 counts once and K3 carries; the merged token is ``a + b[2:]``. Only
+the vocabulary is a resource; the merge log is kept for checkpoints
 (``wp_state.json``), which resume replays.
 
 NaiveWP's batched encode (``tokenize_batch``):
@@ -54,14 +54,14 @@ Every batch goes to the kernels, whatever its size. ``device="cpu"``
 runs the kernels' plain PyTorch versions.
 
 With ``mesh`` (parallel/mesh.py) training shards the word types as
-BPE's does (parallel/train.py), and FastWP's scan sorts the unique rows
+BPE's does (models/training.py), and FastWP's scan sorts the unique rows
 by length (stably), gives each shard a block of them with the trie's
 tables on its device (parallel/encode.py), and restores their order
 after the fetch. NaiveWP's match keeps its kernels on the mesh's first
 device.
 
-The profiling spans of ``train`` are BPE's (models/bpe.py), but
-FastBPE's ``train.ranks``; FastWP's trie is built in ``train.trie``.
+The profiling spans of ``train`` are models/training.py's;
+FastWP's trie is built in ``train.trie``.
 """
 from __future__ import annotations
 
@@ -72,29 +72,26 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from .. import utils
 from .._native import binding
 from ..benchmarks import profiling
 from ..core.corpus import build_wp_corpus, train_words, unique_words
 from ..core.symbols import SymbolTable
 from ..frontend.charclass import PUNC_PY, WS_PY, codepoints, \
     lower_codepoints
-from ..ops import train_loop
-from ..ops.flat import build_flat
 from ..ops.wp_encode import wp_e2e_encode, wp_match_compact
 from ..ops.wp_encode_e2e import (pack_chars, route_params,
                                  wp_e2e_scan_compact)
-from .base import (SubwordTokenizer, fetch_head, fetch_stream,
-                   resolve_device, resolve_mesh)
+from .base import SubwordTokenizer, fetch_head, fetch_stream
 from .state import E2EState, MatchState, e2e_state_from_numpy
+from .training import WIDE_SCORE_MIN  # noqa: F401
 from .trie import E2ETrie, MatchTrie
 
 # Exact-score domain ceiling: the scorer needs pair counts < 2**53 and
 # fa, fb < 2**52, so total symbol occurrences < 2**52, as in the JAX
-# package. Below 2**26 occurrences every fa * fb < 2**53 (narrow scores,
-# the only ones the tournament takes).
+# package. Below WIDE_SCORE_MIN (2**26, models/training.py) occurrences
+# every fa * fb < 2**53 (narrow scores, the only ones the tournament
+# takes).
 MAX_TOKENS_WP = 1 << 52
-WIDE_SCORE_MIN = 1 << 26
 
 UNK = "[UNK]"
 UNK_E2E = "['UNK']"  # FastWP's literal quirk, unlike NaiveWP's "[UNK]"
@@ -112,24 +109,27 @@ class NaiveWP(SubwordTokenizer):
 
     def __init__(self, tokenizer: Optional[object] = None,
                  mesh: Optional[object] = None, *, device="cuda") -> None:
-        super().__init__(tokenizer)
-        self.mesh = mesh
-        self.device = resolve_mesh(self, mesh, resolve_device(self, device))
-        self.vocab: set = set()
-        self.corpus_as_symbols: List[Tuple[List[str], int]] = []
-        self._checkpoint_dir: Optional[str] = None
-        self._checkpoint_every = 1000
-        self._resume_dir: Optional[str] = None
-        self._progress = False
-        self._force_per_step = False
+        super().__init__(tokenizer, mesh, device=device)
         self._merge_log: List[Tuple[str, str]] = []
         self._drop_encode_state()
 
+    # ------------------------------------------------------------ training
+    # What models/training.py takes from WordPiece to train it.
+
+    _WORDPIECE = True
+    _DOMAIN = (MAX_TOKENS_WP, "exact-score")
+    _TYPE_ERRORS = ("corpus must be a list of strings.",
+                    "max_vocab must be an int.")
+    _LABEL = "Training WordPiece"
+    _LOG = "_merge_log"
+    _build_corpus = staticmethod(build_wp_corpus)
+
+    def _train_words(self, corpus: List[str]):
+        """core/corpus.train_words, by this module's name for it."""
+        return train_words(self, corpus)
+
     def _saved_merges(self) -> List[Tuple[str, str]]:
-        """The merge log of the checkpoint to resume from (none when not
-        resuming)."""
-        if self._resume_dir is None:
-            return []
+        """The merge log of the checkpoint to resume from."""
         state_file = os.path.join(self._resume_dir, "wp_state.json")
         with open(state_file, "r", encoding="utf-8") as f:
             return [tuple(p) for p in json.load(f)["merges"]]
@@ -145,161 +145,6 @@ class NaiveWP(SubwordTokenizer):
                        "merges": self._merge_log}, f, ensure_ascii=False)
         os.replace(tmp, target)
         self.save_resources(self._checkpoint_dir)
-
-    # ------------------------------------------------------------ training
-
-    def train(self, corpus: List[str], max_vocab: int = 30_000, *,
-              checkpoint_dir: Optional[str] = None,
-              checkpoint_every: int = 1000, resume: bool = False,
-              progress: bool = False) -> None:
-        """Learn the vocabulary by score-ranked merges until it holds
-        ``max_vocab`` tokens or no pair is left.
-
-        ``checkpoint_dir`` writes ``wp_state.json`` and ``vocab.json``
-        there every ``checkpoint_every`` merges (after the block that
-        passes it) and at the end; ``resume=True`` replays the merge log
-        found there over the rebuilt corpus first and trains on from
-        that state. ``progress`` writes the count of merges to stderr
-        (``utils.Progress``).
-        """
-        if not isinstance(corpus, list) or not all(
-                isinstance(example, str) for example in corpus):
-            raise TypeError("corpus must be a list of strings.")
-        if not isinstance(max_vocab, int):
-            raise TypeError("max_vocab must be an int.")
-
-        self.reset()
-        self._checkpoint_dir = checkpoint_dir
-        self._checkpoint_every = max(int(checkpoint_every), 1)
-        self._resume_dir = checkpoint_dir if resume else None
-        self._progress = progress
-        self._merge_log = []
-
-        with profiling.phase("train.frontend"):
-            words, freq = train_words(self, corpus)
-        if not words:
-            return
-        with profiling.phase("train.alphabet"):
-            total_tokens = int((np.array([len(w) for w in words],
-                                         dtype=np.int64) * freq).sum())
-        if total_tokens >= MAX_TOKENS_WP:
-            raise ValueError(
-                "corpus exceeds the exact-score domain "
-                f"({total_tokens} symbol occurrences >= 2**52)")
-
-        dev = self.device
-        table = SymbolTable()
-        if self.mesh is not None:
-            with profiling.phase("train.corpus", dev):
-                arrays = build_wp_corpus(words, freq, table)
-            self.vocab |= set(table.strings())
-            self._train_on_mesh(
-                arrays, table, max_vocab, self._merge_log,
-                lambda sa, sb: sa + sb[2:], self._saved_merges(),
-                self._save_checkpoint, "Training WordPiece",
-                sym_cap=train_loop.sym_capacity(table, max_vocab),
-                wide_score=total_tokens >= WIDE_SCORE_MIN)
-            return
-        with profiling.phase("train.corpus", dev):
-            arrays = build_wp_corpus(words, freq, table)
-            state = train_loop.FlatState(*build_flat(arrays.sym,
-                                                     arrays.freq), dev)
-        self.vocab |= set(table.strings())
-        max_len = arrays.sym.shape[1]
-        rec = torch.zeros(6, dtype=torch.int32, device=dev)
-
-        if self._resume_dir is not None:
-            # Training is deterministic: replaying the checkpointed
-            # merges rebuilds the interrupted state exactly.
-            with profiling.phase("train.resume", dev):
-                for sa, sb in self._saved_merges():
-                    a_id, b_id = table.get(sa), table.get(sb)
-                    if a_id is None or b_id is None:
-                        raise ValueError(
-                            "checkpoint does not match this corpus: "
-                            f"unknown symbol in merge ({sa!r}, {sb!r})")
-                    merged = sa + sb[2:]
-                    self.vocab.add(merged)
-                    self._merge_log.append((sa, sb))
-                    train_loop.merge_host_ids(state, a_id, b_id,
-                                              table.intern(merged), rec)
-
-        sym_host = None  # the final state, when run_fused returns it
-        pbar = None
-        if self._progress:
-            pbar = utils.Progress(total=max_vocab - len(self.vocab),
-                                  desc="Training WordPiece")
-
-        if not self._force_per_step:
-            def on_merge(sa, sb, merged):
-                self.vocab.add(merged)
-                self._merge_log.append((sa, sb))
-
-            since_ckpt = [0]
-
-            def ckpt_cb(steps):
-                since_ckpt[0] += steps
-                if since_ckpt[0] >= self._checkpoint_every:
-                    since_ckpt[0] = 0
-                    self._save_checkpoint()
-
-            try:
-                sym_host = train_loop.run_fused(
-                    state, table, max_vocab, max_len, on_merge,
-                    checkpoint_cb=(ckpt_cb if self._checkpoint_dir
-                                   is not None else None),
-                    progress_cb=pbar.update if pbar is not None else None,
-                    wordpiece=True,
-                    wide_score=total_tokens >= WIDE_SCORE_MIN)
-            except train_loop.HashCollision:
-                # A double-hash collision: redo the whole run on the
-                # exact per-step path.
-                if pbar is not None:
-                    pbar.close()
-                self._force_per_step = True
-                try:
-                    return self.train(
-                        corpus, max_vocab,
-                        checkpoint_dir=self._checkpoint_dir,
-                        checkpoint_every=self._checkpoint_every,
-                        resume=self._resume_dir is not None,
-                        progress=self._progress)
-                finally:
-                    self._force_per_step = False
-        else:
-            steps = 0
-            with profiling.phase("train.per_step", dev):
-                state.count_symbols(train_loop.sym_capacity(table,
-                                                            max_vocab))
-                while len(self.vocab) < max_vocab:
-                    got = train_loop.step_host_ids(state, table, rec,
-                                                   wordpiece=True)
-                    if got is None:
-                        break
-                    sa, sb, merged = got
-                    self.vocab.add(merged)
-                    self._merge_log.append((sa, sb))
-                    steps += 1
-                    profiling.count("train.merges")
-                    if pbar is not None:
-                        pbar.update(1)
-                    if (self._checkpoint_dir is not None
-                            and steps % self._checkpoint_every == 0):
-                        self._save_checkpoint()
-        if pbar is not None:
-            pbar.close()
-        if self._checkpoint_dir is not None:
-            self._save_checkpoint()
-
-        with profiling.phase("train.final_fetch"):
-            if sym_host is None:
-                with profiling.phase("train.final_copy"):
-                    sym_host = state.padded()
-            with profiling.phase("train.symbols"):
-                self.corpus_as_symbols = [
-                    ([table.string(int(s)) for s in row if s >= 0], int(f))
-                    for row, f in zip(sym_host, arrays.freq)
-                ]
 
     # ------------------------------------------------------------ encoding
 

@@ -888,7 +888,7 @@ def run_fused(state: FlatState, table, max_vocab: int, max_len: int,
                         done = True
                         break
                     sa, sb = table.string(a), table.string(b)
-                    merged = sa + (sb[2:] if wordpiece else sb)
+                    merged = join(sa, sb, wordpiece)
                     nid = table.intern(merged)
                     if nid != new_id:
                         run.drain()
@@ -956,20 +956,34 @@ def select_host_ids(keys, counts, pos, rec, sym_freq=None,
                  wide_score=wide_score)
 
 
-def step_host_ids(state: FlatState, table, rec,
-                  wordpiece: bool = False) -> Optional[Tuple[str, str, str]]:
-    """One exact per-step merge: K1, K2 selection only, interning on the
-    host, K3 with the host's id. Returns (sa, sb, merged), or None when
-    no pair is left (nothing is merged then). With ``wordpiece`` the
-    caller has counted ``state.sym_freq`` (:meth:`FlatState.count_symbols`)
-    and K3 carries it."""
+def join(sa: str, sb: str, wordpiece: bool) -> str:
+    """The symbol that merging ``sa`` with ``sb`` makes: ``sa + sb``, or
+    with ``wordpiece`` ``sa + sb[2:]`` (``sb`` without its "##")."""
+    return sa + (sb[2:] if wordpiece else sb)
+
+
+def select_ids(state: FlatState, rec,
+               wordpiece: bool = False) -> Optional[Tuple[int, int]]:
+    """The exact per-step selection: K1, then K2's selection only. The
+    (a, b) of the next merge, or None when no pair is left. With
+    ``wordpiece`` the caller has counted ``state.sym_freq``
+    (:meth:`FlatState.count_symbols`) and K3 carries it."""
     select_host_ids(*state.pairs(), rec, state.sym_freq if wordpiece
                     else None, claims=state.claims())
     a, b, _, _, active = rec[:ACTIVE + 1].tolist()
-    if not active:
+    return (a, b) if active else None
+
+
+def step_host_ids(state: FlatState, table, rec,
+                  wordpiece: bool = False) -> Optional[Tuple[str, str, str]]:
+    """One exact per-step merge: :func:`select_ids`, interning on the
+    host, K3 with the host's id. Returns (sa, sb, merged), or None when
+    no pair is left (nothing is merged then)."""
+    got = select_ids(state, rec, wordpiece)
+    if got is None:
         return None
-    sa, sb = table.string(a), table.string(b)
-    merged = sa + (sb[2:] if wordpiece else sb)
+    sa, sb = table.string(got[0]), table.string(got[1])
+    merged = join(sa, sb, wordpiece)
     rec[NEW_ID] = table.intern(merged)
     state.merge(rec)
     return sa, sb, merged
