@@ -3,7 +3,8 @@
 It serves FastWP's encode (``encode_prep``, ``pack_u16_rows``,
 ``chunk_unique``, the stitches) and its end-to-end trie (``e2e_trie``),
 the encoders' front end (``split_bounds``, ``split_corpus``,
-``unique_spans``) and the trainers' (``count_words``).
+``unique_spans``), and the trainers' front end (``count_words``) and
+symbol lists (``symbol_lists``).
 
 The C++ sources are this package's own ``_native/{pretok,chunker,stitch,
 encode_prep}.cpp`` (copies of the JAX package's, held to it by the
@@ -38,6 +39,7 @@ _lib: Optional[ctypes.CDLL] = None
 _tables = {}
 _stitch_fn = None
 _stitch_flat_fn = None
+_symbols_fn = None
 _prep_fn = None
 _count_fn = None
 _trie_fn = None
@@ -79,7 +81,8 @@ def _build(so_path: str) -> None:
 
 def load() -> ctypes.CDLL:
     """Build (once) and load the native library; raises if it cannot."""
-    global _lib, _stitch_fn, _stitch_flat_fn, _prep_fn, _count_fn, _trie_fn
+    global _lib, _stitch_fn, _stitch_flat_fn, _symbols_fn, _prep_fn, \
+        _count_fn, _trie_fn
     if _lib is not None:
         return _lib
     so_path = _so_path()
@@ -111,6 +114,9 @@ def load() -> ctypes.CDLL:
     _stitch_flat_fn = ctypes.PYFUNCTYPE(
         ctypes.py_object, ctypes.py_object, ctypes.py_object, i32p, i64p,
         i32p, i64, i32p, i64p, i64)(("swt_stitch_flat", lib))
+    _symbols_fn = ctypes.PYFUNCTYPE(
+        ctypes.py_object, ctypes.py_object, i32p, i64, i64, i64p, i64,
+        i64p)(("swt_symbol_lists", lib))
     _prep_fn = ctypes.PYFUNCTYPE(
         i64, ctypes.py_object, u32p, u8p, u8p, i64, i32p, i64p, u32p,
         i32p, i64p)(("swt_encode_prep_mt", lib))
@@ -268,6 +274,29 @@ def stitch_flat(strings: list, ids: np.ndarray, starts: np.ndarray,
                            _ptr(inverse, ctypes.c_int32),
                            _ptr(bounds, ctypes.c_int64),
                            bounds.shape[0] - 1)
+
+
+def symbol_lists(strings: list, sym: np.ndarray,
+                 freq: np.ndarray) -> Tuple[list, int]:
+    """The trainers' ``corpus_as_symbols`` in one native pass
+    (``stitch.cpp`` ``swt_symbol_lists``).
+
+    ``strings``: id -> symbol string; ``sym`` i32[n, L], PAD (-1)
+    anywhere in a row; ``freq`` i64. Returns (lists, items): for each of
+    the first ``min(n, len(freq))`` rows the tuple (the strings of its
+    ids >= 0 in column order, each the object ``strings`` holds; its
+    frequency), and the number of symbols written. Raises ValueError on
+    an id at or past ``len(strings)``.
+    """
+    load()
+    sym = np.ascontiguousarray(sym, dtype=np.int32)
+    freq = np.ascontiguousarray(freq, dtype=np.int64)
+    n, L = sym.shape
+    items = ctypes.c_int64()
+    lists = _symbols_fn(strings, _ptr(sym, ctypes.c_int32), n, L,
+                        _ptr(freq, ctypes.c_int64), freq.shape[0],
+                        ctypes.byref(items))
+    return lists, items.value
 
 
 def encode_prep(sents: list):

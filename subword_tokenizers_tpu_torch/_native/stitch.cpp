@@ -1,5 +1,6 @@
 // Native stitch for the batched encode path: token-id matrix -> Python
-// list-of-list-of-str output, in one C pass.
+// list-of-list-of-str output, in one C pass. Also the trainers' symbol
+// lists (swt_symbol_lists), built the same way from the final state.
 //
 // The Python/NumPy stitch (object fancy-indexing + per-row tolist + per-
 // sentence chain) measures as the single largest cost of the whole encode
@@ -149,6 +150,69 @@ PyObject* swt_stitch_flat(PyObject* strs, PyObject* alt_strs,
     }
     PyList_SET_ITEM(result, s, row);                // steals
   }
+  return result;
+}
+
+// The trainers' corpus_as_symbols from the final padded state: for each
+// of the first min(n, n_freq) rows of sym[n, L] (int32, PAD = -1, which
+// may sit anywhere in a row), the tuple (list of str, int): the strings
+// of the row's ids >= 0 in column order, each the object strs holds
+// (incref'd, no new string), and the row's freq as a Python int. The
+// whole list is built here with no Python between rows, so the cyclic
+// collector, which 3.12 runs only at the interpreter's next check, sees
+// the new containers once afterwards. *n_items receives the symbols
+// written. Returns a new list, or NULL with an exception set (ValueError
+// for an id past strs, everything built so far released).
+PyObject* swt_symbol_lists(PyObject* strs, const int32_t* sym, int64_t n,
+                           int64_t L, const int64_t* freq, int64_t n_freq,
+                           int64_t* n_items) {
+  if (!PyList_Check(strs)) {
+    PyErr_SetString(PyExc_TypeError, "strs must be a list");
+    return nullptr;
+  }
+  const Py_ssize_t n_strs = PyList_GET_SIZE(strs);
+  const int64_t m = n < n_freq ? n : n_freq;
+  PyObject* result = PyList_New(m);
+  if (result == nullptr) return nullptr;
+
+  int64_t items = 0;
+  for (int64_t r = 0; r < m; ++r) {
+    const int32_t* ids = sym + r * L;
+    Py_ssize_t live = 0;
+    for (int64_t j = 0; j < L; ++j) {
+      const int32_t id = ids[j];
+      if (id < 0) continue;
+      if (id >= n_strs) {
+        Py_DECREF(result);
+        PyErr_Format(PyExc_ValueError,
+                     "symbol id %d out of range [0, %zd)", id, n_strs);
+        return nullptr;
+      }
+      ++live;
+    }
+    PyObject* row = PyList_New(live);
+    PyObject* count = row == nullptr ? nullptr : PyLong_FromLongLong(freq[r]);
+    PyObject* pair = count == nullptr ? nullptr : PyTuple_New(2);
+    if (pair == nullptr) {
+      Py_XDECREF(row);
+      Py_XDECREF(count);
+      Py_DECREF(result);
+      return nullptr;
+    }
+    Py_ssize_t k = 0;
+    for (int64_t j = 0; j < L; ++j) {
+      const int32_t id = ids[j];
+      if (id < 0) continue;
+      PyObject* tok = PyList_GET_ITEM(strs, id);    // borrowed
+      Py_INCREF(tok);
+      PyList_SET_ITEM(row, k++, tok);               // steals
+    }
+    PyTuple_SET_ITEM(pair, 0, row);                 // steals
+    PyTuple_SET_ITEM(pair, 1, count);               // steals
+    PyList_SET_ITEM(result, r, pair);               // steals
+    items += live;
+  }
+  *n_items = items;
   return result;
 }
 

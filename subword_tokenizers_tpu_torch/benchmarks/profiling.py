@@ -71,7 +71,10 @@ reads one. The program's:
   U+03A3 in the corpus);
 - ``trie.native`` (FastWP's end-to-end tries built, each in one native
   pass of ``models/trie.E2ETrie.build``: one a FastWP train) and
-  ``trie.nodes`` (their nodes, summed).
+  ``trie.nodes`` (their nodes, summed);
+- ``train.symbols.native`` (symbol lists built, each in one native pass
+  of ``core/corpus.symbol_lists``: one a train) and
+  ``train.symbols.items`` (the symbols they hold, summed).
 
 :func:`reset` zeroes the spans and the counters; :func:`report` lists
 each span as ``{"total_s", "count", "mean_s"}`` and each counter as

@@ -76,9 +76,14 @@ def symbol_lists(sym: np.ndarray, freq: np.ndarray, table: SymbolTable
                  ) -> List[Tuple[List[str], int]]:
     """``corpus_as_symbols`` of a trained state: for each word type, the
     strings of the symbol ids of its row of ``sym`` (PAD left out) and
-    its frequency."""
-    return [([table.string(int(s)) for s in row if s >= 0], int(f))
-            for row, f in zip(sym, freq)]
+    its frequency.
+
+    One native pass (``_native/binding.symbol_lists``), counted as
+    ``train.symbols.native``, its symbols as ``train.symbols.items``."""
+    lists, items = binding.symbol_lists(table.strings(), sym, freq)
+    profiling.count("train.symbols.native")
+    profiling.count("train.symbols.items", items)
+    return lists
 
 
 def build_bpe_corpus(words: Sequence[str], freq: np.ndarray,

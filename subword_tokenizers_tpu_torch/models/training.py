@@ -23,7 +23,7 @@ files), and it raises their errors. The path, with its profiling spans
    (``train.per_step``: K1, K2's selection only, host interning, K3);
 5. the final state comes back in one copy (``train.final_fetch``,
    holding ``train.final_copy``), and becomes ``corpus_as_symbols``
-   (``train.symbols``, inside ``train.final_fetch``,
+   (``train.symbols``, inside ``train.final_fetch``: one native pass,
    core/corpus.symbol_lists); FastBPE then ranks the merges
    (``train.ranks``), FastWP builds its trie (``train.trie``).
 
