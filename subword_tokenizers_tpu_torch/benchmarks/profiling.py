@@ -10,7 +10,7 @@ ids), ``encode.h2d``, ``encode.bpe_merge`` or ``encode.wp_match``,
 host route for a merge list with a pair listed twice is
 ``encode.host``. BPE and WordPiece training, opened by
 models/training.py unless named otherwise: ``train.frontend``,
-``train.alphabet`` (the initial symbols and the corpus's size),
+``train.alphabet`` (the corpus's size),
 ``train.corpus`` (symbol interning, flat state, host-to-device copy;
 under a mesh a second one builds the sharded trainer),
 ``train.resume``, ``train.per_step`` (the exact per-step loop), and
@@ -64,7 +64,13 @@ reads one. The program's:
   the state of ``ops/train_loop.run_fused``: ``train.word_types``,
   ``train.slots`` (the live slots it starts from) and
   ``train.live_slots`` (the live slots its steps read, summed over the
-  merges learned; on the flat route that compacts every step), and
+  merges learned; on the flat route that compacts every step), BPE's
+  with an end-of-word suffix (models/bpe.py), once a train and never
+  without one: ``train.eow.symbols`` (the initial symbols that carry
+  the suffix, counted in ``train.corpus`` by
+  core/corpus.build_bpe_corpus) and ``train.eow.merges`` (the merges
+  whose right symbol carries it, counted at the end of
+  models/training.py's train), and
   ``train.frontend.fused`` / ``train.frontend.fallback`` (trains whose
   word types came from the native pass of core/corpus.train_words, or
   from the route it falls back to: an injected tokenizer, or U+0130 or

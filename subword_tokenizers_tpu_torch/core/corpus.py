@@ -16,7 +16,7 @@ codepoint the lowering table cannot lower.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -86,15 +86,28 @@ def symbol_lists(sym: np.ndarray, freq: np.ndarray, table: SymbolTable
     return lists
 
 
+def bpe_symbols(word: str, suffix: Optional[str] = None) -> List[str]:
+    """BPE's initial symbols of ``word``: its characters, the last one
+    followed by ``suffix`` where one is given (GPT-1's ``"</w>"``)."""
+    if suffix is None or not word:
+        return list(word)
+    return list(word[:-1]) + [word[-1] + suffix]
+
+
 def build_bpe_corpus(words: Sequence[str], freq: np.ndarray,
-                     table: SymbolTable) -> SymbolCorpus:
-    """BPE's initial state: each word split into its characters, interned
-    in scan order."""
+                     table: SymbolTable, suffix: Optional[str] = None
+                     ) -> SymbolCorpus:
+    """BPE's initial state: each word split into its initial symbols
+    (:func:`bpe_symbols`), interned in scan order. With ``suffix`` the
+    distinct suffixed symbols are counted as ``train.eow.symbols``."""
     max_len = max((len(w) for w in words), default=1)
     sym = np.full((max(len(words), 1), max_len), PAD, dtype=np.int32)
     for i, w in enumerate(words):
-        for j, ch in enumerate(w):
-            sym[i, j] = table.intern(ch)
+        for j, s in enumerate(bpe_symbols(w, suffix)):
+            sym[i, j] = table.intern(s)
+    if suffix is not None:
+        profiling.count("train.eow.symbols",
+                        len({w[-1] for w in words if w}))
     return SymbolCorpus(sym=sym, freq=np.asarray(freq, dtype=np.int64),
                         table=table, words=list(words))
 

@@ -25,6 +25,16 @@ lowest rank). ``tokenize_batch``:
 5. the C++ stitch builds the token lists, rendering positions > 0 as
    ``"##" + s`` (``encode.stitch``).
 
+With ``end_of_word_suffix`` (GPT-1's ``"</w>"``, the subword-nmt form)
+a word starts as its characters with the suffix on the last one, in
+training and in encoding alike (core/corpus.bpe_symbols), and its
+tokens are the merged symbols as they are, suffix included, with no
+``"##"``: GPT-1's ``TextEncoder.bpe`` and HuggingFace's
+``OpenAIGPTTokenizer`` give these. ``merges.json`` keeps its form; its
+strings carry the suffix, which the constructor gives. The suffix must
+hold a character the BERT pre-tokenizer isolates (punctuation), so no
+symbol made of a word's inner characters spells it.
+
 Every batch goes to the kernels, whatever its size. Two routes are the
 JAX package's: NaiveBPE with a merge pair listed twice encodes on the
 host (``encode.host``), since applying every merge in order is then not
@@ -48,9 +58,10 @@ import torch
 
 from .._native import binding
 from ..benchmarks import profiling
-from ..core.corpus import build_bpe_corpus, train_words, unique_words
+from ..core.corpus import (bpe_symbols, build_bpe_corpus, train_words,
+                           unique_words)
 from ..core.symbols import SymbolTable
-from ..frontend.charclass import codepoints
+from ..frontend.charclass import PUNCT_HF, codepoints
 from ..ops.bpe_encode import SYM_BITS, bpe_encode, build_rank_hash
 from .base import SubwordTokenizer, fetch_stream
 from .state import BPEState
@@ -97,17 +108,34 @@ def _read_merges(path: str, strict: bool) -> Optional[List[Tuple[str, str]]]:
         return [tuple(pair) for pair in json.load(f)]
 
 
+def check_suffix(suffix: Optional[str]) -> Optional[str]:
+    """``suffix``, an end-of-word suffix or None; raises ValueError for a
+    string that holds no character the BERT pre-tokenizer isolates."""
+    if suffix is None:
+        return None
+    if not isinstance(suffix, str):
+        raise TypeError("end_of_word_suffix must be a string or None")
+    if not any(PUNCT_HF[ord(c)] for c in suffix):
+        raise ValueError(f"end_of_word_suffix {suffix!r} holds no "
+                         f"punctuation character")
+    return suffix
+
+
 class NaiveBPE(SubwordTokenizer):
     """BPE trained on ``device`` ("cuda" or "cpu"), whose encoder applies
     every merge once, in order. ``tokenizer``: an HF-style pre-tokenizer
     (models/base.py); ``mesh``: a data mesh on ``device``'s type, which
-    shards training (parallel/train.py)."""
+    shards training (parallel/train.py); ``end_of_word_suffix``: None
+    (the upstream's form) or the suffix of each word's last symbol
+    (GPT-1's ``"</w>"``)."""
 
     _MONOTONE = True
 
     def __init__(self, tokenizer: Optional[object] = None,
-                 mesh: Optional[object] = None, *, device="cuda") -> None:
+                 mesh: Optional[object] = None, *, device="cuda",
+                 end_of_word_suffix: Optional[str] = None) -> None:
         super().__init__(tokenizer, mesh, device=device)
+        self.end_of_word_suffix = check_suffix(end_of_word_suffix)
         self.merges_list: List[Tuple[str, str]] = []
         self._drop_encode_state()
 
@@ -120,7 +148,10 @@ class NaiveBPE(SubwordTokenizer):
                     "Maximum vocabulary size must be an integer.")
     _LABEL = "Training BPE"
     _LOG = "merges_list"
-    _build_corpus = staticmethod(build_bpe_corpus)
+
+    def _build_corpus(self, words, freq, table):
+        """core/corpus.build_bpe_corpus, with this model's suffix."""
+        return build_bpe_corpus(words, freq, table, self.end_of_word_suffix)
 
     def _train_words(self, corpus: List[str]):
         """core/corpus.train_words, by this module's name for it."""
@@ -167,7 +198,7 @@ class NaiveBPE(SubwordTokenizer):
         """The cursor-monotone greedy loop: the lowest-ranked pair whose
         rank is at least the cursor, which then moves past it. With a
         pair listed twice, every merge pass in order instead."""
-        symbols = list(word)
+        symbols = bpe_symbols(word, self.end_of_word_suffix)
         if self._has_duplicate_merges():
             for pair in self.merges_list:
                 symbols = _merge_pass(pair, symbols)
@@ -188,12 +219,17 @@ class NaiveBPE(SubwordTokenizer):
             cursor = best_rank + 1
         return symbols
 
-    def encode_word(self, word: str) -> List[str]:
-        """Encode one word; tokens after the first get a '##' prefix."""
-        symbols = self._encode_symbols(word)
-        if len(symbols) > 1:
+    def _rendered(self, symbols: List[str]) -> List[str]:
+        """A word's tokens from its symbols: every one after the first
+        with a '##' prefix, or with an end-of-word suffix the symbols as
+        they are."""
+        if len(symbols) > 1 and self.end_of_word_suffix is None:
             symbols[1:] = ["##" + s for s in symbols[1:]]
         return symbols
+
+    def encode_word(self, word: str) -> List[str]:
+        """Encode one word (see :meth:`_rendered`)."""
+        return self._rendered(self._encode_symbols(word))
 
     def _device_tables(self) -> BPEState:
         """The rank hash on ``self.device``, built once per merge list:
@@ -210,30 +246,43 @@ class NaiveBPE(SubwordTokenizer):
         return self._bpe_state
 
     @staticmethod
-    def _encode_inputs(words: List[str], table: SymbolTable) -> np.ndarray:
-        """int32[W, L] symbol ids of the words' characters, PAD-filled, L
-        the longest word rounded up to a multiple of 8 (at least 8).
-        Characters the table lacks are interned in order of first
-        occurrence: they take part in no merge."""
+    def _encode_inputs(words: List[str], table: SymbolTable,
+                       suffix: Optional[str] = None) -> np.ndarray:
+        """int32[W, L] symbol ids of the words' initial symbols
+        (core/corpus.bpe_symbols with ``suffix``), PAD-filled, L the
+        longest word rounded up to a multiple of 8 (at least 8). Symbols
+        the table lacks are interned in order of first occurrence (the
+        characters, then the suffixed ones): they take part in no
+        merge."""
         W = len(words)
         wlen = np.fromiter(map(len, words), dtype=np.int64, count=W)
         L = -(-max(int(wlen.max()), 2) // 8) * 8
         cps = codepoints("".join(words))
-        uniq, first = np.unique(cps, return_index=True)
-        ids = np.empty(uniq.shape[0], dtype=np.int32)
-        for k in np.argsort(first, kind="stable").tolist():
-            ids[k] = table.intern(chr(int(uniq[k])))
+
+        def interned(cps, spell):
+            """The ids of ``spell(c)`` for each codepoint of ``cps``."""
+            uniq, first = np.unique(cps, return_index=True)
+            ids = np.empty(uniq.shape[0], dtype=np.int32)
+            for k in np.argsort(first, kind="stable").tolist():
+                ids[k] = table.intern(spell(chr(int(uniq[k]))))
+            return ids[np.searchsorted(uniq, cps)]
+
+        sym = np.full((W, L), -1, dtype=np.int32)
+        sym[np.arange(L)[None, :] < wlen[:, None]] = interned(cps, str)
+        if suffix is not None:
+            sym[np.arange(W), wlen - 1] = interned(
+                cps[np.cumsum(wlen) - 1], lambda c: c + suffix)
         if len(table) > 1 << SYM_BITS:
             raise ValueError(f"{len(table)} symbols do not fit the "
                              f"{SYM_BITS}-bit pair keys")
-        sym = np.full((W, L), -1, dtype=np.int32)
-        sym[np.arange(L)[None, :] < wlen[:, None]] = \
-            ids[np.searchsorted(uniq, cps)]
         return sym
 
-    def _alt_strings(self, table: SymbolTable) -> List[str]:
+    def _alt_strings(self, table: SymbolTable) -> Optional[List[str]]:
         """``"##" + s`` per id (the rendering of positions > 0), cached
-        per table state."""
+        per table state; None with an end-of-word suffix, whose tokens
+        are the symbols as they are."""
+        if self.end_of_word_suffix is not None:
+            return None
         key = (id(table), len(table))
         if self._alt_cache is None or self._alt_cache[0] != key:
             self._alt_cache = (key, ["##" + s for s in table.strings()])
@@ -250,7 +299,8 @@ class NaiveBPE(SubwordTokenizer):
             host_route = self._has_duplicate_merges()
             if words and not host_route:
                 st = self._device_tables()
-                sym = self._encode_inputs(words, st.table)
+                sym = self._encode_inputs(words, st.table,
+                                          self.end_of_word_suffix)
         if not words:
             return [[] for _ in range(S)]
         if host_route:
@@ -270,8 +320,8 @@ class NaiveBPE(SubwordTokenizer):
             # FastBPE renders a word that merges to nothing as [""].
             encoded = []
             for b, n in zip(starts.tolist(), counts.tolist()):
-                toks = [strings[t] for t in ids[b:b + n].tolist()] or [""]
-                encoded.append(toks[:1] + ["##" + t for t in toks[1:]])
+                encoded.append(self._rendered(
+                    [strings[t] for t in ids[b:b + n].tolist()] or [""]))
             return _assemble(encoded, wb.sent_id, inverse, S)
         bounds = np.searchsorted(wb.sent_id, np.arange(S + 1))
         with profiling.phase("encode.stitch"):
@@ -319,8 +369,10 @@ class FastBPE(NaiveBPE):
     _MONOTONE = False
 
     def __init__(self, tokenizer: Optional[object] = None,
-                 mesh: Optional[object] = None, *, device="cuda") -> None:
-        super().__init__(tokenizer, mesh, device=device)
+                 mesh: Optional[object] = None, *, device="cuda",
+                 end_of_word_suffix: Optional[str] = None) -> None:
+        super().__init__(tokenizer, mesh, device=device,
+                         end_of_word_suffix=end_of_word_suffix)
         self._bpe_ranks: Dict[Tuple[str, str], int] = {}
 
     def train(self, corpus: List[str], max_vocab: int = 30_000,
@@ -342,7 +394,7 @@ class FastBPE(NaiveBPE):
     def _encode_symbols(self, word: str) -> List[str]:
         """Greedy loop: merge the present pair of lowest rank until none
         is left."""
-        symbols = list(word)
+        symbols = bpe_symbols(word, self.end_of_word_suffix)
         if len(symbols) < 2:
             return symbols
         if self._host_ranks is None:
@@ -362,12 +414,7 @@ class FastBPE(NaiveBPE):
 
     def encode_word(self, word: str) -> List[str]:
         """As NaiveBPE's, but the empty word encodes as ``[""]``."""
-        symbols = self._encode_symbols(word)
-        if not symbols:
-            return [""]
-        if len(symbols) > 1:
-            symbols[1:] = ["##" + s for s in symbols[1:]]
-        return symbols
+        return super().encode_word(word) or [""]
 
     def load_resources(self, path: str, strict: bool = False) -> None:
         super().load_resources(path, strict=strict)

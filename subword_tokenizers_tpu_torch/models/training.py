@@ -8,12 +8,12 @@ files), and it raises their errors. The path, with its profiling spans
 
 1. one threaded C++ pass over the sentences lowers and pre-splits them
    and counts the word types in first-occurrence order
-   (``train.frontend``, core/corpus.train_words), and the initial
-   symbols are gathered (``train.alphabet``);
+   (``train.frontend``, core/corpus.train_words), and the corpus's
+   symbol occurrences are counted (``train.alphabet``);
 2. the word types become the flat state (ops/flat.py), interned
-   character by character (``train.corpus``), and go to ``device``; a
-   resumed train replays the checkpoint's merges over it
-   (``train.resume``);
+   symbol by symbol in scan order (``train.corpus``), and go to
+   ``device``; the vocabulary starts as the symbols interned; a resumed
+   train replays the checkpoint's merges over it (``train.resume``);
 3. ops/train_loop.run_fused runs blocks of K merge steps, each step
    kernel K1 (pair counts), K2 (selection and hash unification) and K3
    (merge and compaction), then checks the block's records on the host
@@ -34,9 +34,12 @@ interning and K3p on every shard (``train.sharded``; the trainer's
 graphs released in ``train.close``). There is no fused block loop under
 a mesh, as in the JAX package.
 
-WordPiece (the model's ``_WORDPIECE``) interns a word as its first
-character and ``"##" + ch`` for every later one, starts its vocabulary
-from those symbols, selects the pair of largest exact score
+BPE interns a word as its characters; with an end-of-word suffix
+(the model's ``end_of_word_suffix``, GPT-1's ``"</w>"``) the last one
+carries it, and the merges whose right symbol carries it are counted as
+``train.eow.merges`` at the end. WordPiece (the model's ``_WORDPIECE``)
+interns a word as its first character and ``"##" + ch`` for every later
+one, selects the pair of largest exact score
 ``count / (freq_a * freq_b)`` over per-symbol weights that kernel K4
 counts, and merges into ``a + b[2:]`` (ops/train_loop.join).
 ``SWT_SKIP_COMPACT`` (and, for WordPiece, ``SWT_WP_TOURNAMENT``) choose
@@ -46,8 +49,9 @@ the other routes of step 3, with the same merges, as in the JAX package
 What a model gives ``train``: ``_WORDPIECE``; ``_DOMAIN``, its ceiling
 of symbol occurrences and the name of the domain in its error;
 ``_TYPE_ERRORS``, the texts of its two TypeErrors; ``_LABEL``, the
-progress bar's; ``_LOG``, the name of its merge log; ``_build_corpus``
-(core/corpus.py); ``_train_words(corpus)``, core/corpus.train_words by
+progress bar's; ``_LOG``, the name of its merge log;
+``_build_corpus(words, freq, table)`` (core/corpus.py);
+``_train_words(corpus)``, core/corpus.train_words by
 the name its module imports; ``_save_checkpoint()``; and
 ``_saved_merges()``, the merges of the checkpoint in ``_resume_dir``.
 """
@@ -93,9 +97,6 @@ def train(tok, corpus, max_vocab: int, checkpoint_dir, checkpoint_every: int,
     if wp and not words:
         return
     with profiling.phase("train.alphabet"):
-        if not wp:  # BPE's vocabulary starts as the alphabet
-            for w in words:
-                tok.vocab.update(w)
         total_tokens = int((np.array([len(w) for w in words],
                                      dtype=np.int64) * freq).sum())
     if not words:
@@ -114,8 +115,7 @@ def train(tok, corpus, max_vocab: int, checkpoint_dir, checkpoint_every: int,
         if tok.mesh is None:
             state = train_loop.FlatState(*build_flat(arrays.sym,
                                                      arrays.freq), dev)
-    if wp:  # WordPiece's starts as the corpus's symbols
-        tok.vocab |= set(table.strings())
+    tok.vocab |= set(table.strings())  # the initial symbols
     trainer = None
     if tok.mesh is not None:
         from ..parallel.train import ShardedTrainer
@@ -234,3 +234,7 @@ def train(tok, corpus, max_vocab: int, checkpoint_dir, checkpoint_every: int,
         with profiling.phase("train.symbols"):
             tok.corpus_as_symbols = symbol_lists(sym_host, arrays.freq,
                                                  table)
+    suffix = None if wp else tok.end_of_word_suffix
+    if suffix is not None:
+        profiling.count("train.eow.merges",
+                        sum(1 for _, sb in log if sb.endswith(suffix)))

@@ -544,7 +544,13 @@ def sym_capacity(table, max_vocab: int) -> int:
 def init_tables(table, max_vocab: int, max_len: int, device):
     """(h1, h2, slen, ctrl, pw1, pw2) on ``device`` for a run from the
     symbols of ``table`` to ``max_vocab``, and the host hashes of "##";
-    words are at most ``max_len`` symbols long."""
+    words are at most ``max_len`` symbols long.
+
+    The powers reach the longest symbol the run can make: a word's
+    characters and what its initial symbols add to them (WordPiece's
+    ``"##"``, BPE's end-of-word suffix), so ``max_len`` plus the longest
+    symbol of ``table`` less one character, and at least ``max_len +
+    4``."""
     n0 = len(table)
     sym_cap = sym_capacity(table, max_vocab)
     h1 = np.zeros(sym_cap, dtype=np.int64)
@@ -553,7 +559,7 @@ def init_tables(table, max_vocab: int, max_len: int, device):
     for i, s in enumerate(table.strings()):
         h1[i], h2[i] = str_hashes(s)
         sl[i] = len(s)
-    pw1, pw2 = pow_tables(max_len + 4)
+    pw1, pw2 = pow_tables(max_len + max(4, int(sl[:n0].max(initial=1)) - 1))
     ctrl = np.array([n0, n0, 1], dtype=np.int32)
     return tuple(torch.from_numpy(x).to(device)
                  for x in (h1, h2, sl, ctrl, pw1, pw2)) + (str_hashes("##"),)
